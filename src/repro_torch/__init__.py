@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the model substrate of :mod:`repro`.
+
+The JAX package ``repro`` stays the reference; this package computes the
+same functions with PyTorch tensors, and its attention runs in a CUDA
+C++ kernel written for Hopper (``kernels/csrc/flash_attention.cu``).
+It imports neither ``jax`` nor anything of ``repro``: where it needs
+code from there (configs, ``ModelConfig``), it keeps its own copy.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(see :func:`resolve_device`); on CPU tensors every kernel wrapper takes
+its plain PyTorch version.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,191 @@
+"""Static serving driver: ``python -m repro_torch.launch.serve --static``.
+
+Ports ``repro.launch.serve._run_static``: batched greedy decoding over
+synthetic prompts with a KV cache, reporting prefill time and decode
+throughput.  Weights (seed 0) and prompts (seed 1) are random, drawn on
+the device.
+
+The prefill is ONE ``Model.forward(collect_kv=True)`` pass whose (k, v)
+are written into the cache, as the JAX package's own prefill does
+(``repro.launch.dryrun``); its tests hold that equal to feeding the
+prompt token by token.  Greedy decode then calls ``decode_step``
+``gen_len - 1`` times.  Attention runs in the hand-written CUDA kernel
+on the card (``repro_torch.kernels``).
+
+    python -m repro_torch.launch.serve --static --arch stablelm_3b --full
+
+Runs on ``cuda`` unless ``--device cpu`` is given.  The elastic serving
+plane (the JAX package's default mode) is not ported yet: without
+``--static`` the driver exits non-zero and says so.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.configs import arch_config, smoke_config
+from repro_torch.device import DeviceLike, card_label, resolve_device
+from repro_torch.models import Model
+
+ELASTIC_TODO = ("elastic mode not yet ported: the elastic serving plane is "
+                "ROADMAP.md A15; use --static")
+
+
+@dataclass
+class ServeResult:
+    generated: torch.Tensor        # (B, G) greedy ids, on the host
+    prefill_logits: torch.Tensor   # (B, V) logits at the last prompt position
+    prefill_s: float
+    decode_s: float
+    finite: bool                   # every logit of every step was finite
+
+    @property
+    def decode_tok_s(self) -> float:
+        B, G = self.generated.shape
+        return B * (G - 1) / max(self.decode_s, 1e-9)
+
+
+def build_model(arch: str, *, full: bool = False, device: DeviceLike = None,
+                seed: int = 0) -> tuple[Model, dict]:
+    """The arch's config (``full``: published widths and depth; else the
+    smoke config) with params drawn from ``seed`` on the device and cast
+    once to the compute dtype."""
+    cfg = (arch_config if full else smoke_config)(arch).replace(embed_inputs=False)
+    model = Model(cfg, device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    params, _ = model.init(gen)
+    return model, model.serving_params(params)
+
+
+def make_prompts(model: Model, batch: int, prompt_len: int, seed: int = 1) -> torch.Tensor:
+    """(batch, prompt_len) token ids drawn from ``seed`` on the model's device."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return torch.randint(0, model.cfg.vocab, (batch, prompt_len), generator=gen,
+                         device=model.device)
+
+
+def _positions(model: Model, pos: torch.Tensor) -> torch.Tensor:
+    return torch.stack([pos, pos, pos]) if model.cfg.mrope_sections else pos
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def generate(model: Model, params: dict, prompts: torch.Tensor, gen_len: int) -> ServeResult:
+    """Prefill ``prompts`` in one pass, then greedy-decode ``gen_len`` ids
+    (the first from the prefill's last logits)."""
+    B, P = prompts.shape
+    dev = model.device
+    cache = model.init_cache(B, P + gen_len)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    pos = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
+    logits = model.prefill(params, cache, {"tokens": prompts,
+                                            "positions": _positions(model, pos)})
+    last = logits[:, -1]
+    finite = torch.isfinite(logits).all()
+    nxt = last.argmax(dim=-1, keepdim=True)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    generated = [nxt]
+    t0 = time.perf_counter()
+    for t in range(P, P + gen_len - 1):
+        pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
+        lg, cache = model.decode_step(params, cache, {
+            "tokens": nxt, "positions": _positions(model, pos), "cache_pos": t})
+        finite &= torch.isfinite(lg).all()
+        nxt = lg[:, -1].argmax(dim=-1, keepdim=True)
+        generated.append(nxt)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    return ServeResult(
+        generated=torch.cat(generated, dim=1).cpu(),
+        prefill_logits=last,
+        prefill_s=t_prefill,
+        decode_s=t_decode,
+        finite=bool(finite),
+    )
+
+
+def run_static(args: argparse.Namespace) -> int:
+    dev = resolve_device(args.device)
+    model, params = build_model(args.arch, full=args.full, device=dev)
+    prompts = make_prompts(model, args.batch, args.prompt_len)
+    res = generate(model, params, prompts, args.gen_len)
+    B, P, G = args.batch, args.prompt_len, args.gen_len
+    print(f"arch={model.cfg.name} batch={B} on {card_label(dev)}")
+    print(f"prefill: {P} tokens x {B} in one pass, {res.prefill_s:.3f}s")
+    print(f"decode:  {res.decode_tok_s:.1f} tok/s ({G - 1} steps in {res.decode_s:.2f}s)")
+    print(f"sample output ids: {res.generated[0, :12].tolist()}")
+    if not res.finite:
+        print("non-finite logits", file=sys.stderr)
+        return 1
+    if args.profile:
+        print_profile(model, params, prompts, args.gen_len)
+    return 0
+
+
+def print_profile(model: Model, params: dict, prompts: torch.Tensor, gen_len: int):
+    """Where a warm serve run's time goes: the device's busy share and the
+    kernels that take it (``torch.profiler``).  The busy share is the
+    profiled run's device time over that same run's wall clock; an
+    unprofiled run's wall clock is printed beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    warm = generate(model, params, prompts, gen_len)       # unprofiled wall clock
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _sync(model.device)
+        t0 = time.perf_counter()
+        generate(model, params, prompts, gen_len)
+        _sync(model.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profile: unprofiled run {(warm.prefill_s + warm.decode_s) * 1e3:.1f} ms "
+          f"(prefill {warm.prefill_s * 1e3:.1f} ms, decode {warm.decode_s * 1e3:.1f} ms); "
+          f"profiled run {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}; "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:10.2f} ms {e.count:7d}x  {e.key[:100]}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--static", action="store_true",
+                    help="single-shot batched greedy decode (needs --arch)")
+    ap.add_argument("--arch", default="", help="model config")
+    ap.add_argument("--full", action="store_true",
+                    help="the arch's full config (default: its smoke config)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--profile", action="store_true",
+                    help="then profile a warm run: device busy share, top kernels")
+    args = ap.parse_args(argv)
+    if not args.static:
+        print(ELASTIC_TODO, file=sys.stderr)
+        return 2
+    if not args.arch:
+        ap.error("--static requires --arch")
+    if args.profile and args.device not in (None, "cuda"):
+        ap.error("--profile measures the card: it runs on cuda only")
+    return run_static(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

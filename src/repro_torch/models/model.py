@@ -1,0 +1,102 @@
+"""Model facade: init / prefill / decode (ports :mod:`repro.models.model`).
+
+Params are a flat dict of tensors under the JAX package's keys, so
+:mod:`repro_torch.bridge` passes them 1:1 between the two packages.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+from .common import ModelConfig, ParamBuilder, torch_dtype
+from .layers import init_rmsnorm, rmsnorm
+from .transformer import decode_blocks, forward_blocks, init_blocks, init_cache_shapes
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # ---------------------------------------------------------------- init --
+    def init(self, generator: torch.Generator) -> tuple[dict, dict]:
+        """Params drawn from ``generator`` (which must live on the model's
+        device), in ``cfg.param_dtype``, and their logical axes."""
+        cfg = self.cfg
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on {self.device}")
+        b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
+        if not cfg.embed_inputs:
+            b.add("embed/table", (cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                  init="embed", scale=0.02)
+        init_rmsnorm(b, "final_norm", cfg.d_model)
+        if not cfg.tie_embeddings:
+            b.add("head/w", (cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                  init="normal")
+        params, specs = b.build()
+        bp, bs = init_blocks(generator, cfg)
+        params.update(bp)
+        specs.update(bs)
+        return params, specs
+
+    def serving_params(self, params: dict) -> dict:
+        """Floating params cast once to the compute dtype: serving keeps no
+        fp32 master copy (``repro.train.steps.serving_param_shapes``)."""
+        dt = self.cfg.compute_dtype
+        return {k: (v.to(dt) if v.is_floating_point() else v) for k, v in params.items()}
+
+    # -------------------------------------------------------------- forward --
+    def embed(self, params: dict, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.embed_inputs:
+            return batch["embeds"].to(cfg.compute_dtype)
+        return params["embed/table"][batch["tokens"]].to(cfg.compute_dtype)
+
+    def logits(self, params: dict, y: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        y = rmsnorm(params, "final_norm", y, cfg.norm_eps)
+        w = params["embed/table"].T if cfg.tie_embeddings else params["head/w"]
+        logits = (y @ w.to(cfg.compute_dtype)).to(torch_dtype(cfg.logit_dtype))
+        if cfg.final_softcap > 0:
+            logits = (cfg.final_softcap * torch.tanh(
+                logits.float() / cfg.final_softcap)).to(logits.dtype)
+        return logits
+
+    def forward(self, params: dict, batch: dict, collect_kv: bool = False):
+        """Logits (B,S,V) and, with ``collect_kv``, the per-layer (k, v)
+        stacked as (L,B,S,KV,hd) — the prefill's cache contents."""
+        x = self.embed(params, batch)
+        positions = batch.get("positions")
+        if positions is None:
+            B, S = x.shape[:2]
+            positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        y, caches = forward_blocks(params, self.cfg, x, positions, collect_kv)
+        return self.logits(params, y), caches
+
+    # ---------------------------------------------------------------- decode --
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        shapes = init_cache_shapes(self.cfg, batch, max_len)
+        return {
+            name: torch.full(shape, fill, dtype=torch_dtype(dt), device=self.device)
+            for name, (shape, dt, _axes, fill) in shapes.items()
+        }
+
+    def decode_step(self, params: dict, cache: dict, batch: dict):
+        """One token for every sequence.  batch: tokens/embeds (B,1),
+        positions (B,1) or (3,B,1), cache_pos: a host int.  The cache is
+        written in place and returned."""
+        x = self.embed(params, batch)
+        y, cache = decode_blocks(
+            params, self.cfg, x, batch["positions"], cache, int(batch["cache_pos"])
+        )
+        return self.logits(params, y), cache
+
+    def prefill(self, params: dict, cache: dict, batch: dict) -> torch.Tensor:
+        """One forward pass over the prompt whose (k, v) are written into
+        ``cache`` at positions 0..S-1; returns the logits (B,S,V)."""
+        logits, (k, v) = self.forward(params, batch, collect_kv=True)
+        S = k.shape[2]
+        cache["k"][:, :, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :, :S] = v.to(cache["v"].dtype)
+        return logits

@@ -1,0 +1,125 @@
+"""The port's flash attention on the CPU against the JAX package.
+
+The port's ``ops.flash_attention`` on CPU tensors is its plain version;
+it is held against JAX ``attention_ref`` and against the Pallas kernel
+run in interpret mode, as ``tests/test_kernels.py`` runs it, on the same
+numpy inputs.  The CUDA kernel itself is held against the same plain
+version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import flash_attention as jax_flash_attention  # noqa: E402
+from repro.kernels.ref import attention_ref as jax_attention_ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def inputs(seed, B, H, KV, Sq, Sk, D, scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, Sq, D), dtype=np.float32) * scale
+    k = rng.standard_normal((B, KV, Sk, D), dtype=np.float32) * scale
+    v = rng.standard_normal((B, KV, Sk, D), dtype=np.float32)
+    return q, k, v
+
+
+def both(q, k, v, dtype):
+    """The same values as JAX arrays and as CPU tensors of ``dtype``."""
+    j = [jnp.asarray(a).astype(jnp.dtype(dtype)) for a in (q, k, v)]
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)]
+    return j, t
+
+
+def f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+def check(out, ref, tol):
+    np.testing.assert_allclose(f32(out), f32(ref), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,D,bq,bk,causal",
+    [
+        (1, 2, 2, 128, 128, 64, 64, 64, True),    # MHA square
+        (2, 8, 2, 128, 128, 64, 32, 64, True),    # GQA group=4
+        (1, 4, 1, 64, 256, 32, 64, 64, False),    # MQA, cross lengths
+        (2, 3, 3, 96, 96, 16, 32, 32, True),      # head dim 16, odd blocks
+        (1, 4, 4, 64, 64, 80, 32, 32, True),      # stablelm's head dim 80
+        (2, 4, 4, 1, 37, 80, 1, 37, False),       # decode: Sq 1, ragged Sk
+    ],
+)
+def test_matches_jax_ref_and_pallas(B, H, KV, Sq, Sk, D, bq, bk, causal, dtype):
+    fa.launches = 0
+    (jq, jk, jv), (tq, tk, tv) = both(*inputs(0, B, H, KV, Sq, Sk, D), dtype)
+    out = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert out.dtype == tq.dtype and out.shape == (B, H, Sq, D)
+    check(out, jax_attention_ref(jq, jk, jv, causal=causal), TOL[dtype])
+    pallas = jax_flash_attention(jq, jk, jv, causal=causal, block_q=bq, block_k=bk)
+    check(out, pallas, TOL[dtype])
+    assert fa.launches == 0   # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("window", [16, 64, 128])
+def test_window(window):
+    (jq, jk, jv), (tq, tk, tv) = both(*inputs(1, 1, 2, 2, 128, 128, 32), "float32")
+    out = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    check(out, jax_attention_ref(jq, jk, jv, causal=True, window=window), TOL["float32"])
+    pallas = jax_flash_attention(jq, jk, jv, causal=True, window=window,
+                                 block_q=32, block_k=32)
+    check(out, pallas, TOL["float32"])
+
+
+def test_softcap():
+    (jq, jk, jv), (tq, tk, tv) = both(*inputs(2, 1, 2, 2, 64, 64, 32, scale=4.0), "float32")
+    out = ops.flash_attention(tq, tk, tv, causal=True, softcap=20.0)
+    check(out, jax_attention_ref(jq, jk, jv, causal=True, softcap=20.0),
+          dict(rtol=3e-5, atol=3e-5))
+    pallas = jax_flash_attention(jq, jk, jv, causal=True, softcap=20.0,
+                                 block_q=32, block_k=32)
+    check(out, pallas, dict(rtol=3e-5, atol=3e-5))
+
+
+def test_fully_masked_rows_are_zero():
+    """Non-causal with a window and Sk < Sq: rows whose window holds no
+    key output 0, not NaN, in both packages."""
+    (jq, jk, jv), (tq, tk, tv) = both(*inputs(3, 1, 2, 2, 64, 16, 32), "float32")
+    out = ops.flash_attention(tq, tk, tv, causal=False, window=8)
+    ref = jax_attention_ref(jq, jk, jv, causal=False, window=8)
+    assert torch.isfinite(out).all()
+    assert float(out[:, :, 30:].abs().max()) == 0.0
+    check(out, ref, TOL["float32"])
+
+
+@pytest.mark.parametrize("seed,logsq,group", [(0, 5, 1), (7, 6, 2), (42, 7, 4), (99, 8, 2)])
+def test_convex_combination(seed, logsq, group):
+    """Each output row is a convex combination of V rows (|out| <= max |v|)."""
+    S, KV, D = 2 ** logsq, 2, 32
+    (jq, jk, jv), (tq, tk, tv) = both(*inputs(seed, 1, KV * group, KV, S, S, D), "float32")
+    out = ops.flash_attention(tq, tk, tv, causal=True)
+    check(out, jax_attention_ref(jq, jk, jv, causal=True), TOL["float32"])
+    assert float(out.abs().max()) <= float(tv.abs().max()) + 1e-4
+
+
+def test_strided_views_match_contiguous():
+    """The model hands (B,S,H,D) activations transposed, without a copy."""
+    q, k, v = inputs(4, 2, 4, 2, 32, 32, 16)
+    tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3))).transpose(1, 2)
+                  for a in (q, k, v))
+    assert not tq.is_contiguous()
+    out = ops.flash_attention(tq, tk, tv, causal=True)
+    ref = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    tq, tk, tv = (torch.from_numpy(a) for a in inputs(5, 1, 2, 2, 16, 16, 16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(tq, tk, tv)
