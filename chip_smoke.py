@@ -6,19 +6,28 @@
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the kernels
 from the checkout's sources itself.  Phases, each of which fails the run:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/flash_attention.cu``
-             for sm_90a;
+1. build   — compile ``src/repro_torch/kernels/csrc/{flash_attention,ssd}.cu``
+             for sm_90a, one ``nvcc`` per source, all started together;
 2. kernels — every kernel against its plain PyTorch version on the card
-             (the cases of ``tests/test_kernels.py`` and the serve path's
-             shapes), then timed at the serve path's shapes beside the
-             plain version, one library call and the card's bound;
-3. serve   — ``stablelm_3b`` at full size, seed-initialised on the card:
+             (the cases of ``tests/test_kernels.py`` and the serve paths'
+             shapes), then timed at the serve paths' shapes beside the
+             plain version, one library call where there is one, and the
+             card's bound;
+3. serve stablelm_3b — at full size, seed-initialised on the card:
              batch 8, prompt 512, 64 greedy tokens in bf16 through
              ``repro_torch.launch.serve``; the attention kernel must have
              run on every layer of the prefill and of every decode step,
              every logit must be finite, and in fp32 the prefill's last
              logits must match the same prefill with the plain attention
-             (the bf16 gap is printed beside it).
+             (the bf16 gap is printed beside it);
+4. serve zamba2_1p2b — the hybrid Mamba2 model at full size, the same
+             batch, prompt and tokens: the SSD kernel must have run once
+             per Mamba2 layer (the prefill; decode steps are plain
+             PyTorch) and the attention kernel once per shared-block
+             application in the prefill and every decode step; in fp32
+             the prefill's last logits, and 4 decode steps after it (which
+             read the prefill's final SSM states), must match the same
+             with both kernels swapped for their plain versions.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -26,10 +35,12 @@ result, on any failure, without a card, or without the port's sources.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -38,8 +49,12 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+MODEL_TOL = dict(rtol=2e-3, atol=5e-4)   # tests/test_models.py, fp32
+KERNELS = ("flash_attention", "ssd")
 
 ARCH, BATCH, PROMPT, GEN = "stablelm_3b", 8, 512, 64
+HYBRID = "zamba2_1p2b"
 
 
 def fail(msg: str) -> int:
@@ -64,16 +79,28 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    t_start = time.perf_counter()
     failures: list[str] = []
+    build_phase()
     entry = kernel_phase(torch, dev, failures)
+    ssd_entry = ssd_kernel_phase(torch, dev, failures)
     if failures:
         return fail("; ".join(failures))
-    serve_phase(torch, dev, entry, failures)
+    counts: dict[str, dict[str, int]] = {}   # serve path -> kernel -> launches
+    serve_phase(torch, dev, entry, failures, counts)
     if failures:
         return fail("; ".join(failures))
+    torch.cuda.empty_cache()
+    hybrid_phase(torch, dev, entry, ssd_entry, failures, counts)
+    if failures:
+        return fail("; ".join(failures))
+    for e in (entry, ssd_entry):
+        e["launches_by_path"] = {path: c[e["name"]] for path, c in counts.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
 
+    print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(f"card: {card}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, ssd_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -133,21 +160,36 @@ def bound_ms(torch, q, k, v, *, causal, window, dev) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def build_phase():
+    """One nvcc per kernel source, all started together; prints each
+    kernel's registers, spills and shared memory as ptxas reports them."""
+    from repro_torch.kernels import _build
+
+    def timed(name):
+        t0 = time.perf_counter()
+        log = _build.build(name)
+        return log, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        logs = dict(zip(KERNELS, pool.map(timed, KERNELS)))
+    print(f"[build] {', '.join(KERNELS)} in parallel: {time.perf_counter() - t0:.1f}s")
+    for name, (log, secs) in logs.items():
+        print(f"[build] {name}: {secs:.1f}s{'' if log else ' (library already built)'}")
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
+                print(f"[build] {name}: {line.strip()}")
+    from repro_torch.kernels import ssd
+
+    print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
+          f"N 64, P 64): {ssd.smem_bytes(128, 64, 64)} bytes")
+
+
 def kernel_phase(torch, dev, failures) -> dict:
-    import torch.nn.functional as F
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as fa
 
-    # 1. build
-    t0 = time.perf_counter()
-    log = _build.build("flash_attention")
-    print(f"[build] flash_attention: {time.perf_counter() - t0:.1f}s"
-          f"{'' if log else ' (library already built)'}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build] flash_attention: {line.strip()}")
-
-    # 2. kernel vs plain version on the card
+    # kernel vs plain version on the card
     def compare(label, q, k, v, dtype, tol=None, *, causal, window=0, softcap=0.0,
                 convex=False) -> float:
         out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
@@ -207,23 +249,11 @@ def kernel_phase(torch, dev, failures) -> dict:
               compare(f"serve decode (8,32,1,80) Sk {Sk_dec}", dq, dk, dv, "bfloat16",
                       causal=False))
 
-    # Times at those shapes (kernel, plain version, one library call).
-    def timings(q, k, v, causal):
-        t = {
-            "ms": time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=causal)),
-            "plain_ms": time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=causal)),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal)),
-        }
-        t["bound_ms"], t["bound_by"] = bound_ms(torch, q, k, v, causal=causal, window=0, dev=dev)
-        return t
-
-    pre, dec = timings(pq, pk, pv, True), timings(dq, dk, dv, False)
+    pre, dec = attention_timings(torch, pq, pk, pv, True, dev), \
+        attention_timings(torch, dq, dk, dv, False, dev)
     for label, t in (("prefill (8,32,512,80) causal bf16", pre),
                      (f"decode (8,32,1,80) Sk {Sk_dec} bf16", dec)):
-        print(f"[time] flash_attention {label}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        print_attention_time(label, t)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -237,11 +267,144 @@ def kernel_phase(torch, dev, failures) -> dict:
     }
 
 
+def attention_timings(torch, q, k, v, causal, dev) -> dict:
+    """Kernel, plain version and one library call at one shape, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    t = {
+        "ms": time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=causal)),
+        "plain_ms": time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=causal)),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)),
+    }
+    t["bound_ms"], t["bound_by"] = bound_ms(torch, q, k, v, causal=causal, window=0, dev=dev)
+    return t
+
+
+def print_attention_time(label, t):
+    print(f"[time] flash_attention {label}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+          f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+
+
+# --------------------------------------------------------------------- ssd --
+
+
+def ssd_inputs(torch, B, S, H, P, N, dtype, seed, dev, *, model_layout=False):
+    """x, dt, A, B, C on the card: x/B/C in ``dtype``, dt post-softplus and
+    A negative in fp32, as the model makes them.  ``model_layout``: x, B
+    and C are slices of one (B,S,H*P+2N) tensor, as ``mamba2_block``
+    passes them."""
+    import torch.nn.functional as F
+
+    if model_layout:
+        xbc = randn(torch, (B, S, H * P + 2 * N), dtype, seed, dev)
+        xs, Bm, Cm = torch.split(xbc, [H * P, N, N], dim=-1)
+        x = xs.reshape(B, S, H, P)
+    else:
+        x = randn(torch, (B, S, H, P), dtype, seed, dev)
+        Bm = randn(torch, (B, S, N), dtype, seed + 3, dev)
+        Cm = randn(torch, (B, S, N), dtype, seed + 4, dev)
+    dt = F.softplus(randn(torch, (B, S, H), "float32", seed + 1, dev))
+    A = -torch.exp(randn(torch, (H,), "float32", seed + 2, dev, 0.5))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_bound_ms(x, dt, A, Bm, Cm, chunk) -> tuple[float, str]:
+    """Larger of bytes / bandwidth (x, dt, A, B, C read once; y and the fp32
+    final state written once) and operations / peak: 2 Q (Q N + Q P + 2 N P)
+    per (b, h, chunk)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    e = x.element_size()
+    nbytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * e + 4 * (dt.numel() + A.numel()
+                                                                  + B * H * N * P)
+    flops = 2 * chunk * (chunk * N + chunk * P + 2 * N * P) * B * H * -(-S // chunk)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).removeprefix("torch.")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_kernel_phase(torch, dev, failures) -> dict:
+    from repro_torch.kernels import ref, ssd
+
+    def check(label, got, want, tol) -> float:
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(got.float(), want.float(), **tol)
+        print(f"[kernel] ssd {label:<50} max_abs_err={err:.3e} (rtol={tol['rtol']}, "
+              f"atol={tol['atol']:.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"ssd {label}: max_abs_err {err:.3e}")
+        return err
+
+    def compare(label, args, chunk, dtype, oracle=None) -> float:
+        """y and the final state against ssd_chunked (or ``oracle``)."""
+        y, st = ssd.ssd_scan_cuda(*args, chunk=chunk)
+        want_y, want_st = oracle(*args) if oracle else ref.ssd_chunked(*args, chunk)
+        torch.cuda.synchronize()
+        return max(check(f"{label} y", y, want_y, SSD_TOL[dtype]),
+                   check(f"{label} state", st, want_st, SSD_TOL[dtype]))
+
+    cases = [(1, 64, 2, 16, 8, 16), (2, 128, 3, 16, 8, 32), (1, 128, 1, 32, 16, 64),
+             (2, 96, 2, 8, 4, 32)]   # tests/test_kernels.py
+    for seed, (B, S, H, P, N, chunk) in enumerate(cases):
+        for dtype in ("float32", "bfloat16"):
+            compare(f"({B},{S},{H},{P}) N {N} chunk {chunk} {dtype}",
+                    ssd_inputs(torch, B, S, H, P, N, dtype, 300 + 10 * seed, dev), chunk, dtype)
+    compare("ragged S 100 chunk 32 vs ssd_ref float32",
+            ssd_inputs(torch, 1, 100, 2, 16, 8, "float32", 350, dev), 32, "float32",
+            oracle=ref.ssd_ref)
+    x, _, _, Bm, Cm = ssd_inputs(torch, 1, 32, 1, 8, 4, "float32", 360, dev)
+    dt = torch.full((1, 32, 1), 0.5, device=dev)
+    A = torch.full((1,), -50.0, device=dev)
+    y, _ = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=8)
+    local = torch.einsum("bsn,bsn->bs", Cm, Bm)[:, :, None, None] * 0.5 * x
+    check("decay A=-50: y ~ dt (C.B) x", y, local, dict(rtol=1e-3, atol=1e-3))
+
+    # The serve path's shape, in the model's strided layout.
+    shape = f"serve ({BATCH},{PROMPT},64,64) N 64 chunk 128 bf16"
+    sargs = ssd_inputs(torch, BATCH, PROMPT, 64, 64, 64, "bfloat16", 370, dev, model_layout=True)
+    err = compare(shape, sargs, 128, "bfloat16")
+
+    t = {"ms": time_ms(torch, lambda: ssd.ssd_scan_cuda(*sargs, chunk=128)),
+         "plain_ms": time_ms(torch, lambda: ref.ssd_chunked(*sargs, 128), iters=5, reps=3),
+         "library_ms": None}
+    t["bound_ms"], t["bound_by"] = ssd_bound_ms(*sargs, 128)
+    print(f"[time] ssd {shape}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"no single PyTorch call, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    return {
+        "name": "ssd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:24",
+        "launches": None,
+        "max_abs_err": err,
+        "shape": shape,
+        **t,
+    }
+
+
 # ------------------------------------------------------------------- serve --
 
 
-def serve_phase(torch, dev, entry, failures):
+def reset_counts():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+
+    fa.launches = 0
+    ssd.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+
+    return {"flash_attention": fa.launches, "ssd": ssd.launches}
+
+
+def serve_phase(torch, dev, entry, failures, counts):
     from repro_torch.launch import serve
     from repro_torch.models import Model
 
@@ -260,10 +423,10 @@ def serve_phase(torch, dev, entry, failures):
     print(f"[serve] warm-up (prompt 16, 4 tokens): prefill {cold.prefill_s * 1e3:.1f} ms, "
           f"decode {cold.decode_s * 1e3:.1f} ms")
 
-    fa.launches = 0
+    reset_counts()
     res = serve.generate(model, params, prompts, GEN)
-    launches = fa.launches
-    entry["launches"] = launches
+    counts[ARCH] = read_counts()
+    launches = counts[ARCH]["flash_attention"]
     step_ms = res.decode_s / (GEN - 1) * 1e3
     print(f"[serve] prefill {BATCH}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f} ms; decode "
           f"{res.decode_tok_s:.1f} tok/s ({GEN - 1} steps in {res.decode_s:.3f}s, "
@@ -289,12 +452,7 @@ def serve_phase(torch, dev, entry, failures):
     model32 = Model(cfg32, dev)
     lk = last_logits(torch, model32, params32, prompts, failures)
     lp = last_logits(torch, model32, params32, prompts, failures, plain=True)
-    err32 = float((lk - lp).abs().max())
-    ok32 = bool(torch.isfinite(lk).all()) and torch.allclose(lk, lp, rtol=2e-3, atol=5e-4)
-    print(f"[serve] fp32 prefill last logits, kernel vs plain attention: "
-          f"max_abs_err={err32:.3e} (rtol=2e-3, atol=5e-4) {'ok' if ok32 else 'FAIL'}")
-    if not ok32:
-        failures.append(f"fp32 prefill logits differ from the plain attention's: {err32:.3e}")
+    gate(torch, "[serve] fp32 prefill last logits, kernel vs plain attention", lk, lp, failures)
     del params32, lk, lp
 
     # Information only: the served bf16 prefill against the same prefill
@@ -303,35 +461,171 @@ def serve_phase(torch, dev, entry, failures):
     # stream carry that into every logit, so this gap is rounding, not a
     # tolerance: the fp32 gate above holds the kernel.
     last = last_logits(torch, model, params, prompts, failures, plain=True)
-    got = res.prefill_logits.float()
-    err = float((got - last).abs().max())
-    rel_rms = float((got - last).square().mean().sqrt() / last.square().mean().sqrt())
-    same = float((got.argmax(-1) == last.argmax(-1)).float().mean())
-    print(f"[serve] bf16 prefill last logits, kernel vs plain attention (information): "
-          f"max_abs_err={err:.3e} at max |logit| {float(last.abs().max()):.3f}, "
-          f"relative rms {rel_rms:.3e}, same greedy id in {same:.0%} of rows")
-    if not bool(torch.isfinite(last).all()):
-        failures.append("non-finite logits in the plain bf16 prefill")
+    bf16_gap(torch, "[serve] bf16 prefill last logits, kernel vs plain attention",
+             res.prefill_logits.float(), last, failures)
+
+
+def gate(torch, label, got, want, failures):
+    """The fp32 model-level check of tests/test_models.py."""
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, **MODEL_TOL)
+    print(f"{label}: max_abs_err={err:.3e} (rtol={MODEL_TOL['rtol']}, "
+          f"atol={MODEL_TOL['atol']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: max_abs_err {err:.3e}")
+
+
+def bf16_gap(torch, label, got, want, failures):
+    """Printed as information; only non-finite values fail."""
+    err = float((got - want).abs().max())
+    rel_rms = float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"{label} (information): max_abs_err={err:.3e} at max |logit| "
+          f"{float(want.abs().max()):.3f}, relative rms {rel_rms:.3e}, same greedy id in "
+          f"{same:.0%} of rows")
+    if not bool(torch.isfinite(want).all()):
+        failures.append(f"{label}: non-finite logits in the plain run")
+
+
+@contextlib.contextmanager
+def plain_versions(failures):
+    """Both kernels swapped for their plain versions, in this run only: the
+    port has no switch for it.  Fails the run if a kernel launches inside."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+
+    def ssd_plain(x, dt, A, Bmat, Cmat, *, chunk):
+        return ref.ssd_chunked(x, dt, A, Bmat, Cmat, chunk)
+
+    before = read_counts()
+    with mock.patch.object(ops, "flash_attention", ref.attention_ref), \
+            mock.patch.object(ops, "ssd_scan", ssd_plain):
+        yield
+    if read_counts() != before:
+        failures.append("a run with the plain versions launched a kernel")
 
 
 def last_logits(torch, model, params, prompts, failures, *, plain=False):
-    """The prefill's last-position logits (B, V) in fp32.  ``plain`` swaps
-    the plain attention in for the kernel, in this run only: the port has
-    no switch for it."""
-    import contextlib
-    from unittest import mock
+    """The prefill's last-position logits (B, V) in fp32, through the
+    kernels or (``plain``) their plain versions."""
+    with torch.inference_mode(), (plain_versions(failures) if plain
+                                  else contextlib.nullcontext()):
+        return model.forward(params, {"tokens": prompts})[0][:, -1].float()
 
+
+def prefill_then_decode(torch, model, params, prompts, tokens, failures, *, plain=False):
+    """One-pass prefill of ``prompts``, then one decode step per column of
+    ``tokens``: (the prefill's last logits (B, V), the steps' logits
+    (B, n, V)), in fp32, through the kernels or their plain versions."""
+    B, P = prompts.shape
+    n = tokens.shape[1]
+    dev = prompts.device
+    with torch.inference_mode(), (plain_versions(failures) if plain
+                                  else contextlib.nullcontext()):
+        cache = model.init_cache(B, P + n)
+        pos = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
+        last = model.prefill(params, cache, {"tokens": prompts, "positions": pos})[:, -1].float()
+        steps = []
+        for i in range(n):
+            lg, cache = model.decode_step(params, cache, {
+                "tokens": tokens[:, i:i + 1], "cache_pos": P + i,
+                "positions": torch.full((B, 1), P + i, dtype=torch.int32, device=dev)})
+            steps.append(lg[:, -1].float())
+    return last, torch.stack(steps, dim=1)
+
+
+def hybrid_phase(torch, dev, fa_entry, ssd_entry, failures, counts):
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
 
-    swap = (mock.patch.object(ops, "flash_attention", ref.attention_ref) if plain
-            else contextlib.nullcontext())
-    before = fa.launches
-    with torch.inference_mode(), swap:
-        out = model.forward(params, {"tokens": prompts})[0][:, -1].float()
-    if plain and fa.launches != before:
-        failures.append("the plain prefill launched the kernel")
-    return out
+    t0 = time.perf_counter()
+    model, params = serve.build_model(HYBRID, full=True, device=dev, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_attn = cfg.n_layers // cfg.attn_every
+    d_in = cfg.ssm_expand * cfg.d_model
+    n_params = sum(p.numel() for p in params.values())
+    print(f"[hybrid] {cfg.name}: {cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
+          f"{d_in // cfg.ssm_head_dim} SSM heads x {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}; one shared attention block "
+          f"({cfg.n_heads} heads x {cfg.hd}, d_ff {cfg.d_ff}) applied {n_attn} times; "
+          f"{n_params / 1e9:.3f} B params in {cfg.dtype}, initialised in "
+          f"{time.perf_counter() - t0:.1f}s")
+    prompts = serve.make_prompts(model, BATCH, PROMPT, seed=1)
+    cold = serve.generate(model, params, prompts[:, :16], 4)   # 16: ragged against chunk 128
+    print(f"[hybrid] warm-up (prompt 16, 4 tokens): prefill {cold.prefill_s * 1e3:.1f} ms, "
+          f"decode {cold.decode_s * 1e3:.1f} ms, finite {cold.finite}")
+    if not cold.finite:
+        failures.append("non-finite logits in the hybrid warm-up run (prompt 16)")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = serve.generate(model, params, prompts, GEN)
+    counts[HYBRID] = read_counts()
+    step_ms = res.decode_s / (GEN - 1) * 1e3
+    print(f"[hybrid] prefill {BATCH}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f} ms; decode "
+          f"{res.decode_tok_s:.1f} tok/s ({GEN - 1} steps in {res.decode_s:.3f}s, "
+          f"{step_ms:.2f} ms a step); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"[hybrid] sample output ids: {res.generated[0, :12].tolist()}")
+    for name, want in (("ssd", cfg.n_layers), ("flash_attention", n_attn * GEN)):
+        got = counts[HYBRID][name]
+        print(f"[hybrid] {name} launches: {got} (expected {want})")
+        if got != want:
+            failures.append(f"{HYBRID}: {name} launched {got} times, expected {want}")
+    if not res.finite:
+        failures.append("non-finite logits in the hybrid serve run")
+
+    # The attention kernel at this model's shapes (head dim 64), checked and
+    # timed; with the SSD kernel's time, the kernels' shares of the run.
+    H, D, Sk_dec = cfg.n_heads, cfg.hd, PROMPT + GEN - 1
+    att = {}
+    for label, S, Sk, causal, seed in (("prefill", PROMPT, PROMPT, True, 400),
+                                       ("decode", 1, Sk_dec, False, 410)):
+        q = model_layout(torch, BATCH, H, S, D, "bfloat16", seed, dev)
+        k = model_layout(torch, BATCH, H, Sk, D, "bfloat16", seed + 1, dev, PROMPT + GEN)
+        v = model_layout(torch, BATCH, H, Sk, D, "bfloat16", seed + 2, dev, PROMPT + GEN)
+        out = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = ref.attention_ref(q, k, v, causal=causal)
+        err = float((out.float() - want.float()).abs().max())
+        ok = torch.allclose(out.float(), want.float(), **TOL["bfloat16"])
+        shape = f"{label} ({BATCH},{H},{S},{D}) Sk {Sk}{' causal' if causal else ''} bf16"
+        print(f"[kernel] flash_attention {shape}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash_attention {shape}: max_abs_err {err:.3e}")
+        att[label] = {"shape": shape, **attention_timings(torch, q, k, v, causal, dev)}
+        print_attention_time(shape, att[label])
+    fa_entry[HYBRID] = att
+    pre_ms = res.prefill_s * 1e3
+    print(f"[hybrid] kernel shares of the prefill: ssd {cfg.n_layers} x "
+          f"{ssd_entry['ms']:.4f} ms = {cfg.n_layers * ssd_entry['ms'] / pre_ms:.1%}, "
+          f"attention {n_attn} x {att['prefill']['ms']:.4f} ms = "
+          f"{n_attn * att['prefill']['ms'] / pre_ms:.1%}; attention in decode at most "
+          f"{n_attn} x {att['decode']['ms']:.4f} ms = "
+          f"{n_attn * att['decode']['ms'] / step_ms:.1%} of a step")
+
+    # The gates, in fp32 on the same weights and prompts: the prefill's last
+    # logits, and 4 decode steps after it (they read the prefill's final SSM
+    # and conv states and its attention cache), through the kernels against
+    # the same through both plain versions.
+    cfg32 = cfg.replace(dtype="float32", logit_dtype="float32")
+    params32 = {k: v.float() for k, v in params.items()}
+    model32 = Model(cfg32, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, 4), generator=g, device=dev)
+    lk, sk = prefill_then_decode(torch, model32, params32, prompts, tokens, failures)
+    lp, sp = prefill_then_decode(torch, model32, params32, prompts, tokens, failures, plain=True)
+    gate(torch, "[hybrid] fp32 prefill last logits, kernels vs plain versions", lk, lp, failures)
+    gate(torch, "[hybrid] fp32 4 decode steps after the prefill, kernels vs plain versions",
+         sk, sp, failures)
+    del params32, lk, lp, sk, sp
+
+    last = last_logits(torch, model, params, prompts, failures, plain=True)
+    bf16_gap(torch, "[hybrid] bf16 prefill last logits, kernels vs plain versions",
+             res.prefill_logits.float(), last, failures)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,7 @@
 * ``ops.py`` — the public functions: CPU tensors take the plain version
   in ``ref.py``, CUDA tensors take the kernel or raise.
 
-Ported so far: flash attention (``repro/kernels/flash_attention.py``).
-The SSD and mLSTM scans are still to be ported (ROADMAP.md, section B).
+Ported so far: flash attention (``repro/kernels/flash_attention.py``)
+and the Mamba2 SSD chunked scan (``repro/kernels/ssd.py``).  The mLSTM
+scan is still to be ported (ROADMAP.md, section B).
 """

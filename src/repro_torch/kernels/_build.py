@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` beside this
 file, at first use, from the sources in the checkout only.  The hash
-covers the source and the flags, so an edited kernel is rebuilt and a
-stale library is never loaded.  A failed build raises with the
+covers the source, every header under ``csrc/`` it could include
+(``*.cuh``, ``*.h``) and the flags, so an edited kernel or header is
+rebuilt and a stale library is never loaded.  A failed build raises with the
 compiler's output.
 """
 from __future__ import annotations
@@ -41,9 +42,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(p for p in CSRC.rglob("*") if p.suffix in (".cuh", ".h"))
+    for src in (CSRC / f"{name}.cu", *headers):
+        h.update(f"\0{src.relative_to(CSRC)}\0".encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str:

@@ -5,14 +5,17 @@ synthetic prompts with a KV cache, reporting prefill time and decode
 throughput.  Weights (seed 0) and prompts (seed 1) are random, drawn on
 the device.
 
-The prefill is ONE ``Model.forward(collect_kv=True)`` pass whose (k, v)
-are written into the cache, as the JAX package's own prefill does
-(``repro.launch.dryrun``); its tests hold that equal to feeding the
-prompt token by token.  Greedy decode then calls ``decode_step``
-``gen_len - 1`` times.  Attention runs in the hand-written CUDA kernel
-on the card (``repro_torch.kernels``).
+The prefill is ONE ``Model.forward(collect_kv=True)`` pass whose cache
+contents (attention k/v; for the hybrid family also every Mamba2
+layer's final SSM state and conv tail) are written into the cache, as
+the JAX package's own prefill does (``repro.launch.dryrun``); its tests
+hold that equal to feeding the prompt token by token.  Greedy decode
+then calls ``decode_step`` ``gen_len - 1`` times.  Attention and the
+Mamba2 chunked scan run in the hand-written CUDA kernels on the card
+(``repro_torch.kernels``).
 
     python -m repro_torch.launch.serve --static --arch stablelm_3b --full
+    python -m repro_torch.launch.serve --static --arch zamba2_1p2b --full
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  The elastic serving
 plane (the JAX package's default mode) is not ported yet: without

@@ -64,8 +64,8 @@ class Model:
         return logits
 
     def forward(self, params: dict, batch: dict, collect_kv: bool = False):
-        """Logits (B,S,V) and, with ``collect_kv``, the per-layer (k, v)
-        stacked as (L,B,S,KV,hd) — the prefill's cache contents."""
+        """Logits (B,S,V) and, with ``collect_kv``, the prefill's cache
+        contents: a dict keyed like ``init_cache`` (``forward_blocks``)."""
         x = self.embed(params, batch)
         positions = batch.get("positions")
         if positions is None:
@@ -93,10 +93,13 @@ class Model:
         return self.logits(params, y), cache
 
     def prefill(self, params: dict, cache: dict, batch: dict) -> torch.Tensor:
-        """One forward pass over the prompt whose (k, v) are written into
-        ``cache`` at positions 0..S-1; returns the logits (B,S,V)."""
-        logits, (k, v) = self.forward(params, batch, collect_kv=True)
-        S = k.shape[2]
-        cache["k"][:, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :, :S] = v.to(cache["v"].dtype)
+        """One forward pass over the prompt that fills ``cache`` as S decode
+        steps would: attention (k, v) at positions 0..S-1, recurrent states
+        (hybrid ``ssm``, ``conv``) whole.  Returns the logits (B,S,V)."""
+        logits, caches = self.forward(params, batch, collect_kv=True)
+        for name, val in caches.items():
+            dst = cache[name]
+            # An attention entry is (n, B, S, KV, hd) against the cache's
+            # (n, B, max_len, KV, hd); a recurrent state has the cache's shape.
+            dst[:, :, :val.shape[2]] = val.to(dst.dtype)
         return logits

@@ -1,13 +1,16 @@
-"""Decoder assembly: the dense branches of :mod:`repro.models.transformer`.
+"""Decoder assembly: the dense and hybrid branches of
+:mod:`repro.models.transformer`.
 
 Training/prefill walk the stacked per-layer params with a Python loop
 (the JAX package's ``lax.scan``); decode walks the layers over per-layer
-cache slices.  Families other than the dense ones raise
-``NotImplementedError`` naming their ROADMAP.md item.
+cache slices.  Families not ported yet raise ``NotImplementedError``
+naming their ROADMAP.md item.
 
 Families ported:
   dense   — [attn, mlp] x L     (gemma2: alternating sliding window + softcap)
   audio / vlm — the dense stack over precomputed embeddings / M-RoPE
+  hybrid  — zamba2: Mamba2 backbone + ONE shared attn+mlp block applied
+            after every ``attn_every``-th layer (weights shared)
 """
 from __future__ import annotations
 
@@ -17,17 +20,17 @@ import torch
 
 from .common import ModelConfig, ParamBuilder, stack_params, torch_dtype
 from .layers import attention, init_attention, init_mlp, init_rmsnorm, mlp, rmsnorm
+from .ssm import init_mamba2, mamba2_block, mamba2_state_shapes
 
 DENSE_FAMILIES = ("dense", "audio", "vlm")
 _TODO = {
     "moe": "MoE layers are not ported yet: ROADMAP.md A12",
-    "hybrid": "the hybrid Mamba2 family is not ported yet: ROADMAP.md A13",
     "ssm": "the xLSTM family is not ported yet: ROADMAP.md A14",
 }
 
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family not in DENSE_FAMILIES:
+def _require_ported(cfg: ModelConfig):
+    if cfg.family not in DENSE_FAMILIES + ("hybrid",):
         raise NotImplementedError(_TODO.get(cfg.family, f"unknown family {cfg.family!r}"))
 
 
@@ -45,14 +48,26 @@ def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig):
     return b.build()
 
 
+def _init_mamba_layer(generator: torch.Generator, cfg: ModelConfig):
+    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
+    init_rmsnorm(b, "ln", cfg.d_model)
+    init_mamba2(b, "mamba", cfg)
+    return b.build()
+
+
 def init_blocks(generator: torch.Generator, cfg: ModelConfig) -> tuple[dict, dict]:
-    """Stacked block params (leading ``layers`` axis) + their logical axes."""
-    _require_dense(cfg)
-    stacked, st_specs = stack_params(
-        [_init_dense_layer(generator, cfg) for _ in range(cfg.n_layers)]
-    )
-    return ({f"blocks/{k}": v for k, v in stacked.items()},
-            {f"blocks/{k}": v for k, v in st_specs.items()})
+    """Stacked block params (leading ``layers`` axis) + their logical axes;
+    for the hybrid family also the shared block's (not stacked)."""
+    _require_ported(cfg)
+    init_layer = _init_mamba_layer if cfg.family == "hybrid" else _init_dense_layer
+    stacked, st_specs = stack_params([init_layer(generator, cfg) for _ in range(cfg.n_layers)])
+    params = {f"blocks/{k}": v for k, v in stacked.items()}
+    specs = {f"blocks/{k}": v for k, v in st_specs.items()}
+    if cfg.family == "hybrid":
+        shared, sh_specs = _init_dense_layer(generator, cfg)
+        params.update({f"shared_attn/{k}": v for k, v in shared.items()})
+        specs.update({f"shared_attn/{k}": v for k, v in sh_specs.items()})
+    return params, specs
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +107,16 @@ def _dense_block(layer_params, cfg, x, positions, window, collect_kv):
 
 
 def forward_blocks(params, cfg: ModelConfig, x, positions, collect_kv=False):
-    """x: (B,S,d) post-embedding.  Returns (y, caches-or-None); caches are
-    ``(k, v)``, each stacked over layers: (L, B, S, KV, hd)."""
-    _require_dense(cfg)
+    """x: (B,S,d) post-embedding.  Returns (y, caches-or-None).
+
+    With ``collect_kv``, caches holds every entry of ``init_cache_shapes``
+    that the prompt fills, stacked over layers: dense ``k``/``v``
+    (L, B, S, KV, hd); hybrid ``ssm`` (L, B, H, N, P) fp32 and ``conv``
+    (L, B, K-1, C), the states a decode step continues from, and the
+    shared block's ``attn_k``/``attn_v`` (n_attn, B, S, KV, hd)."""
+    _require_ported(cfg)
+    if cfg.family == "hybrid":
+        return _forward_hybrid(params, cfg, x, positions, collect_kv)
     stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
     windows = _layer_windows(cfg)
     ks, vs = [], []
@@ -106,7 +128,35 @@ def forward_blocks(params, cfg: ModelConfig, x, positions, collect_kv=False):
             ks.append(kv[0])
             vs.append(kv[1])
     if collect_kv:
-        return x, (torch.stack(ks), torch.stack(vs))
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return x, None
+
+
+def _applies_shared_attn(cfg: ModelConfig, i: int) -> bool:
+    """The shared block follows layer i when i % attn_every == attn_every - 1."""
+    every = max(cfg.attn_every, 1)
+    return i % every == every - 1
+
+
+def _forward_hybrid(params, cfg: ModelConfig, x, positions, collect_kv):
+    stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
+    shared = _split_stacked(params, "shared_attn/", cfg.compute_dtype)
+    collected = {n: [] for n in ("ssm", "conv", "attn_k", "attn_v")}
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in stacked.items()}
+        h = rmsnorm(lp, "ln", x, cfg.norm_eps)
+        out, st = mamba2_block(lp, "mamba", cfg, h, collect_state=collect_kv)
+        x = x + out
+        if collect_kv:
+            collected["ssm"].append(st["ssm"])
+            collected["conv"].append(st["conv"])
+        if _applies_shared_attn(cfg, i):
+            x, kv = _dense_block(shared, cfg, x, positions, None, collect_kv)
+            if collect_kv:
+                collected["attn_k"].append(kv[0])
+                collected["attn_v"].append(kv[1])
+    if collect_kv:
+        return x, {n: torch.stack(v) for n, v in collected.items() if v}
     return x, None
 
 
@@ -118,7 +168,9 @@ def forward_blocks(params, cfg: ModelConfig, x, positions, collect_kv=False):
 def decode_blocks(params, cfg: ModelConfig, x, positions, cache: dict, cache_pos: int):
     """One decode step.  x: (B,1,d).  cache: stacked per-layer dict, written
     in place (the JAX package returns a new one).  Returns (y, cache)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "hybrid":
+        return _decode_hybrid(params, cfg, x, positions, cache, cache_pos), cache
     stacked = _split_stacked(params, "blocks/")
     windows = _layer_windows(cfg)
     for i in range(cfg.n_layers):
@@ -136,6 +188,30 @@ def decode_blocks(params, cfg: ModelConfig, x, positions, cache: dict, cache_pos
     return x, cache
 
 
+def _decode_hybrid(params, cfg: ModelConfig, x, positions, cache: dict, cache_pos: int):
+    stacked = _split_stacked(params, "blocks/")
+    shared = _split_stacked(params, "shared_attn/")
+    slot = 0
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in stacked.items()}
+        h = rmsnorm(lp, "ln", x, cfg.norm_eps)
+        st = {"ssm": cache["ssm"][i], "conv": cache["conv"][i]}
+        out, new_st = mamba2_block(lp, "mamba", cfg, h, state=st)
+        cache["ssm"][i] = new_st["ssm"]
+        cache["conv"][i] = new_st["conv"].to(cache["conv"].dtype)
+        x = x + out
+        if _applies_shared_attn(cfg, i):
+            layer_cache = {"k": cache["attn_k"][slot], "v": cache["attn_v"][slot]}
+            h = rmsnorm(shared, "ln_attn", x, cfg.norm_eps)
+            attn_out, _ = attention(shared, "attn", cfg, h, positions,
+                                    cache=layer_cache, cache_pos=cache_pos)
+            x = x + attn_out
+            h = rmsnorm(shared, "ln_mlp", x, cfg.norm_eps)
+            x = x + mlp(shared, "mlp", h)
+            slot += 1
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Cache construction
 # ---------------------------------------------------------------------------
@@ -147,10 +223,22 @@ def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     Where the JAX package gives gemma2's local layers window-sized ring
     caches (a window shorter than ``max_len``), this raises: not ported.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
+    dt = cfg.dtype
+    kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    if cfg.family == "hybrid":
+        ssm = mamba2_state_shapes(cfg, batch)
+        L = cfg.n_layers
+        shape = (L // max(cfg.attn_every, 1), batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return {
+            "ssm": ((L,) + ssm["ssm"], "float32",
+                    ("layers", "batch", "ssm_heads", "ssm_state", None), 0.0),
+            "conv": ((L,) + ssm["conv"], dt, ("layers", "batch", None, "ssm_inner"), 0.0),
+            "attn_k": (shape, dt, kv_axes, 0.0),
+            "attn_v": (shape, dt, kv_axes, 0.0),
+        }
     if cfg.alt_local_global and 0 < cfg.sliding_window < max_len:
         raise NotImplementedError(
             "ring KV caches (gemma2 local layers) are not ported yet: ROADMAP.md A11")
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
-    return {"k": (shape, cfg.dtype, kv_axes, 0.0), "v": (shape, cfg.dtype, kv_axes, 0.0)}
+    return {"k": (shape, dt, kv_axes, 0.0), "v": (shape, dt, kv_axes, 0.0)}

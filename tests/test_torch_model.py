@@ -1,4 +1,5 @@
-"""The port's dense transformer against ``repro.models.Model`` on the CPU.
+"""The port's model against ``repro.models.Model`` on the CPU: the dense
+transformer and the hybrid Mamba2 family (zamba2).
 
 The JAX package's params are handed to the port through
 ``repro_torch.bridge``; inputs are numpy arrays made from a seed.  fp32,
@@ -90,16 +91,18 @@ def test_forward_and_prefill_caches_match(arch):
     batch = make_batch(tm.cfg, seed=3)
     jl, (jk, jv) = jax.jit(lambda p, b: jm.forward(p, b, collect_kv=True))(jp, jax_batch(batch))
     with torch.no_grad():
-        tl, (tk, tv) = tm.forward(tp, torch_batch(batch), collect_kv=True)
+        tl, caches = tm.forward(tp, torch_batch(batch), collect_kv=True)
+    assert set(caches) == {"k", "v"}
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
-    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+    np.testing.assert_allclose(caches["k"].numpy(), np.asarray(jk), **TOL)
+    np.testing.assert_allclose(caches["v"].numpy(), np.asarray(jv), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_34b"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_34b", "zamba2_1p2b"])
 def test_decode_steps_and_one_pass_prefill_match(arch):
     """Per-step decode logits equal JAX's; a one-pass prefill of the first
-    half followed by decode gives the logits of JAX's token-by-token loop."""
+    half followed by decode gives the logits of JAX's token-by-token loop
+    (for zamba2 the half, 4, is ragged against its chunk of 8)."""
     jm, jp, tm, tp = pair(arch)
     batch = make_batch(tm.cfg, seed=4)
     ref = jax_decode_all(jm, jp, batch)                      # (B, S, V)
@@ -141,6 +144,110 @@ def test_port_init_shapes_dtypes_scales():
     for k, fan_in in (("head/w", 256), ("blocks/attn/wq", 256), ("blocks/mlp/wi_up", 256),
                       ("blocks/mlp/wo", 512), ("blocks/attn/wo", cfg.n_heads)):
         assert float(params[k].std()) == pytest.approx(1 / math.sqrt(fan_in), rel=0.05), k
+
+
+def jax_cache_after(jm, jp, batch, P):
+    """JAX's cache after the token-by-token loop over the first P tokens."""
+    cache = jm.init_cache(B, S)
+    step = jax.jit(jm.decode_step)
+    for t in range(P):
+        tok = jax_batch(step_batch(jm.cfg, batch, t)) | {"cache_pos": jnp.int32(t)}
+        _, cache = step(jp, cache, tok)
+    return {k: np.asarray(v) for k, v in cache.items()}
+
+
+def test_hybrid_forward_matches_jax():
+    """zamba2 smoke: logits of one forward pass (S a whole number of
+    chunks: the JAX forward asserts it)."""
+    jm, jp, tm, tp = pair("zamba2_1p2b")
+    batch = make_batch(tm.cfg, seed=3)
+    jl, _ = jax.jit(jm.forward)(jp, jax_batch(batch))
+    with torch.no_grad():
+        tl, _ = tm.forward(tp, torch_batch(batch))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+
+
+@pytest.mark.parametrize("P", [8, 4, 2])
+def test_hybrid_prefill_cache_matches_jax_loop(P):
+    """zamba2 smoke: one prefill pass of P tokens fills the cache as JAX's
+    P decode steps do: every layer's SSM state and conv tail, and the
+    shared block's k/v at each of its applications.  P = 4 is ragged
+    against the chunk of 8; P = 2 is shorter than the conv's K - 1 = 3."""
+    jm, jp, tm, tp = pair("zamba2_1p2b")
+    batch = make_batch(tm.cfg, seed=6)
+    ref = jax_cache_after(jm, jp, batch, P)
+    with torch.no_grad():
+        cache = tm.init_cache(B, S)
+        tm.prefill(tp, cache, torch_batch({"tokens": batch["tokens"][:, :P]}))
+    assert set(cache) == set(ref) == {"ssm", "conv", "attn_k", "attn_v"}
+    for name, want in ref.items():
+        assert tuple(cache[name].shape) == want.shape, name
+        np.testing.assert_allclose(cache[name].numpy(), want, **TOL, err_msg=name)
+
+
+def test_hybrid_short_prefill_then_decode_matches_jax_loop():
+    """zamba2 smoke: a 2-token prefill (shorter than K - 1) and 6 decode
+    steps give the logits of JAX's token-by-token loop."""
+    jm, jp, tm, tp = pair("zamba2_1p2b")
+    batch = make_batch(tm.cfg, seed=7)
+    ref = jax_decode_all(jm, jp, batch)
+    with torch.no_grad():
+        cache = tm.init_cache(B, S)
+        logits = [tm.prefill(tp, cache, torch_batch({"tokens": batch["tokens"][:, :2]}))]
+        for t in range(2, S):
+            lg, cache = tm.decode_step(tp, cache, torch_batch(step_batch(tm.cfg, batch, t))
+                                       | {"cache_pos": t})
+            logits.append(lg)
+    np.testing.assert_allclose(torch.cat(logits, dim=1).numpy(), ref, **TOL)
+
+
+def test_hybrid_scan_goes_through_ops_in_prefill_only():
+    """Every Mamba2 layer's chunked scan calls ``ops.ssd_scan`` once in a
+    prefill; a decode step never does (it is plain PyTorch on every
+    device).  The shared block's attention goes through
+    ``ops.flash_attention`` once per application in both."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+
+    cfg = fp32(smoke_config("zamba2_1p2b"))
+    m = Model(cfg, device="cpu")
+    params, _ = m.init(torch.Generator().manual_seed(0))
+    batch = torch_batch(make_batch(cfg, seed=5))
+    n_attn = cfg.n_layers // cfg.attn_every
+    with torch.no_grad(), \
+            mock.patch.object(ops, "ssd_scan", wraps=ops.ssd_scan) as scan, \
+            mock.patch.object(ops, "flash_attention", wraps=ops.flash_attention) as attn:
+        cache = m.init_cache(B, S + 1)
+        m.prefill(params, cache, batch)
+        assert (scan.call_count, attn.call_count) == (cfg.n_layers, n_attn)
+        m.decode_step(params, cache, {"tokens": batch["tokens"][:, :1],
+                                      "positions": torch.full((B, 1), S), "cache_pos": S})
+        assert (scan.call_count, attn.call_count) == (cfg.n_layers, 2 * n_attn)
+
+
+def test_hybrid_init_matches_jax_abstract_params():
+    """The port's own zamba2 init: JAX's keys (stacked Mamba2 layers and the
+    shared_attn/ block), shapes, dtypes and logical axes."""
+    jshapes, jspecs = JaxModel(jax_smoke_config("zamba2_1p2b")).abstract_params()
+    params, specs = Model(smoke_config("zamba2_1p2b"), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    assert set(params) == set(jshapes)
+    assert any(k.startswith("shared_attn/") for k in params)
+    for k, p in params.items():
+        assert tuple(p.shape) == tuple(jshapes[k].shape), k
+        assert str(p.dtype).removeprefix("torch.") == str(jshapes[k].dtype), k
+        assert tuple(specs[k]) == tuple(jspecs[k]), k
+
+
+def test_hybrid_cache_shapes_match_jax():
+    cfg = smoke_config("zamba2_1p2b")
+    mine = Model(cfg, device="cpu").init_cache(B, 12)
+    want = JaxModel(jax_smoke_config("zamba2_1p2b")).init_cache(B, 12)
+    assert set(mine) == set(want)
+    for k, v in want.items():
+        assert tuple(mine[k].shape) == v.shape, k
+        assert str(mine[k].dtype).removeprefix("torch.") == str(v.dtype), k
 
 
 def test_bridge_round_trip():
