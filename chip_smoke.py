@@ -6,7 +6,7 @@
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the kernels
 from the checkout's sources itself.  Phases, each of which fails the run:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/{flash_attention,ssd}.cu``
+1. build   — compile ``src/repro_torch/kernels/csrc/{flash_attention,ssd,mlstm}.cu``
              for sm_90a, one ``nvcc`` per source, all started together;
 2. kernels — every kernel against its plain PyTorch version on the card
              (the cases of ``tests/test_kernels.py`` and the serve paths'
@@ -27,7 +27,14 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              application in the prefill and every decode step; in fp32
              the prefill's last logits, and 4 decode steps after it (which
              read the prefill's final SSM states), must match the same
-             with both kernels swapped for their plain versions.
+             with both kernels swapped for their plain versions;
+5. serve xlstm_125m — the xLSTM model (6 mLSTM + 6 sLSTM blocks) at full
+             size, the same batch, prompt and tokens: the mLSTM kernel must
+             have run once per mLSTM layer (the prefill; decode steps are
+             plain PyTorch) and no other kernel at all; in fp32 the
+             prefill's last logits and 4 decode steps after it (which read
+             the prefill's final mLSTM and sLSTM states) must match the
+             same with the kernels swapped for their plain versions.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -50,11 +57,14 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+MLSTM_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+MLSTM_EXTREME_TOL = dict(rtol=5e-4, atol=5e-4)   # tests/test_kernels.py, gates of +-20
 MODEL_TOL = dict(rtol=2e-3, atol=5e-4)   # tests/test_models.py, fp32
-KERNELS = ("flash_attention", "ssd")
+KERNELS = ("flash_attention", "ssd", "mlstm")
 
 ARCH, BATCH, PROMPT, GEN = "stablelm_3b", 8, 512, 64
 HYBRID = "zamba2_1p2b"
+XLSTM = "xlstm_125m"
 
 
 def fail(msg: str) -> int:
@@ -84,6 +94,7 @@ def main() -> int:
     build_phase()
     entry = kernel_phase(torch, dev, failures)
     ssd_entry = ssd_kernel_phase(torch, dev, failures)
+    mlstm_entry = mlstm_kernel_phase(torch, dev, failures)
     if failures:
         return fail("; ".join(failures))
     counts: dict[str, dict[str, int]] = {}   # serve path -> kernel -> launches
@@ -94,13 +105,18 @@ def main() -> int:
     hybrid_phase(torch, dev, entry, ssd_entry, failures, counts)
     if failures:
         return fail("; ".join(failures))
-    for e in (entry, ssd_entry):
+    torch.cuda.empty_cache()
+    xlstm_phase(torch, dev, mlstm_entry, failures, counts)
+    if failures:
+        return fail("; ".join(failures))
+    kernels = [entry, ssd_entry, mlstm_entry]
+    for e in kernels:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in counts.items()}
         e["launches"] = sum(e["launches_by_path"].values())
 
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(f"card: {card}")
-    print(json.dumps({"kernels": [entry, ssd_entry]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -179,10 +195,12 @@ def build_phase():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"[build] {name}: {line.strip()}")
-    from repro_torch.kernels import ssd
+    from repro_torch.kernels import mlstm, ssd
 
     print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
           f"N 64, P 64): {ssd.smem_bytes(128, 64, 64)} bytes")
+    print(f"[build] mlstm: dynamic shared memory a block at the serve shape (chunk 128, "
+          f"D 384): {mlstm.smem_bytes(128, 384)} bytes")
 
 
 def kernel_phase(torch, dev, failures) -> dict:
@@ -386,22 +404,137 @@ def ssd_kernel_phase(torch, dev, failures) -> dict:
     }
 
 
+# ------------------------------------------------------------------- mlstm --
+
+
+def mlstm_inputs(torch, B, S, H, D, dtype, seed, dev, *, gate_scale=None, model_layout=False):
+    """q, k, v, i_gate, f_gate on the card, all in ``dtype``: q/k/v unit
+    normal, i ~ N(0,1), f ~ N(1,1) (tests/test_kernels.py), or both gates
+    N(0, gate_scale^2).  ``model_layout``: the gates are the two halves of
+    one (B,S,2H) tensor, as ``mlstm_block`` passes them."""
+    q, k, v = (randn(torch, (B, S, H, D), dtype, seed + i, dev) for i in range(3))
+    if model_layout:
+        gates = randn(torch, (B, S, 2 * H), "float32", seed + 3, dev)
+        gates[..., H:] += 1.0
+        ig, fg = torch.split(gates.to(getattr(torch, dtype)), H, dim=-1)
+        return q, k, v, ig, fg
+    ig = randn(torch, (B, S, H), "float32", seed + 3, dev)
+    fg = randn(torch, (B, S, H), "float32", seed + 4, dev)
+    if gate_scale is None:
+        fg = fg + 1.0
+    else:
+        ig, fg = ig * gate_scale, fg * gate_scale
+    return q, k, v, ig.to(getattr(torch, dtype)), fg.to(getattr(torch, dtype))
+
+
+def mlstm_bound_ms(q, chunk) -> tuple[float, str]:
+    """Larger of bytes / bandwidth (q, k, v and both gates read once; h and
+    the fp32 final S, n, m written once) and operations / peak:
+    4 Q D (Q + D) per (b, h, chunk)."""
+    B, S, H, D = q.shape
+    e = q.element_size()
+    nbytes = (4 * q.numel() + 2 * B * S * H) * e + 4 * B * H * (D * D + D + 1)
+    flops = 4 * chunk * D * (chunk + D) * B * H * -(-S // chunk)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).removeprefix("torch.")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mlstm_work(chunk, D) -> str:
+    """The FMAs a block of the kernel does per chunk, and the share of them
+    that recomputes q k^T (every one of the D/32 blocks of a (b, h) does)."""
+    vb = min(D, 32)
+    t4 = chunk // 4
+    qk = t4 * (t4 + 1) // 2 * 16 * D          # lower-triangle 4x4 tiles of q k^T
+    wv = t4 * (t4 + 1) // 2 * 16 * vb         # W v on its own value columns
+    total = qk + 2 * chunk * D * vb + wv      # + q S and the state update
+    return (f"q k^T is {qk / 1e6:.2f} of the {total / 1e6:.2f} M FMAs a block does per "
+            f"chunk ({qk / total:.0%}), recomputed by each of the {D // vb} blocks of a (b, h)")
+
+
+def mlstm_kernel_phase(torch, dev, failures) -> dict:
+    from repro_torch.kernels import mlstm, ref
+
+    def check(label, got, want, tol) -> float:
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(got.float(), want.float(), **tol)
+        print(f"[kernel] mlstm {label:<52} max_abs_err={err:.3e} (rtol={tol['rtol']}, "
+              f"atol={tol['atol']:.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"mlstm {label}: max_abs_err {err:.3e}")
+        return err
+
+    def compare(label, args, chunk, tol, oracle=None) -> float:
+        """h and the final (S, n, m) against mlstm_chunked (or ``oracle``)."""
+        h, st = mlstm.mlstm_scan_cuda(*args, chunk=chunk)
+        want_h, want_st = oracle(*args) if oracle else ref.mlstm_chunked(*args, chunk)
+        torch.cuda.synchronize()
+        return max([check(f"{label} h", h, want_h, tol)]
+                   + [check(f"{label} {n}", got, want, tol)
+                      for n, got, want in zip("Snm", st, want_st)])
+
+    cases = [(1, 64, 2, 16, 16), (2, 128, 2, 16, 32), (1, 96, 1, 32, 32),
+             (2, 64, 2, 8, 16)]   # tests/test_kernels.py
+    for seed, (B, S, H, D, chunk) in enumerate(cases):
+        for dtype in ("float32", "bfloat16"):
+            compare(f"({B},{S},{H},{D}) chunk {chunk} {dtype}",
+                    mlstm_inputs(torch, B, S, H, D, dtype, 500 + 10 * seed, dev), chunk,
+                    MLSTM_TOL[dtype])
+    for seed in range(3):
+        compare(f"gates +-20 (1,32,1,8) chunk 8 #{seed} vs mlstm_ref",
+                mlstm_inputs(torch, 1, 32, 1, 8, "float32", 550 + 10 * seed, dev,
+                             gate_scale=20.0), 8, MLSTM_EXTREME_TOL, oracle=ref.mlstm_ref)
+    compare("ragged S 100 chunk 32 vs mlstm_ref float32",
+            mlstm_inputs(torch, 2, 100, 2, 16, "float32", 580, dev), 32,
+            MLSTM_TOL["float32"], oracle=ref.mlstm_ref)
+    compare("ragged S 200 D 384 chunk 128 vs mlstm_ref float32",
+            mlstm_inputs(torch, 1, 200, 2, 384, "float32", 585, dev), 128,
+            MLSTM_TOL["float32"], oracle=ref.mlstm_ref)
+    compare("strided gates (2,64,4,32) chunk 16 bfloat16",
+            mlstm_inputs(torch, 2, 64, 4, 32, "bfloat16", 590, dev, model_layout=True), 16,
+            MLSTM_TOL["bfloat16"])
+
+    # The serve path's shape, in the model's layout.
+    shape = f"serve ({BATCH},{PROMPT},4,384) chunk 128 bf16"
+    sargs = mlstm_inputs(torch, BATCH, PROMPT, 4, 384, "bfloat16", 600, dev, model_layout=True)
+    err = compare(shape, sargs, 128, MLSTM_TOL["bfloat16"])
+
+    t = {"ms": time_ms(torch, lambda: mlstm.mlstm_scan_cuda(*sargs, chunk=128)),
+         "plain_ms": time_ms(torch, lambda: ref.mlstm_chunked(*sargs, 128), iters=5, reps=3),
+         "library_ms": None}
+    t["bound_ms"], t["bound_by"] = mlstm_bound_ms(sargs[0], 128)
+    print(f"[time] mlstm {shape}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"no single PyTorch call, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    print(f"[time] mlstm: {mlstm_work(128, 384)}")
+    return {
+        "name": "mlstm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm.cu",
+        "replaces": "src/repro/kernels/mlstm.py:23",
+        "launches": None,
+        "max_abs_err": err,
+        "shape": shape,
+        **t,
+    }
+
+
 # ------------------------------------------------------------------- serve --
 
 
 def reset_counts():
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd
+    from repro_torch.kernels import mlstm, ssd
 
     fa.launches = 0
     ssd.launches = 0
+    mlstm.launches = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd
+    from repro_torch.kernels import mlstm, ssd
 
-    return {"flash_attention": fa.launches, "ssd": ssd.launches}
+    return {"flash_attention": fa.launches, "ssd": ssd.launches, "mlstm": mlstm.launches}
 
 
 def serve_phase(torch, dev, entry, failures, counts):
@@ -489,7 +622,7 @@ def bf16_gap(torch, label, got, want, failures):
 
 @contextlib.contextmanager
 def plain_versions(failures):
-    """Both kernels swapped for their plain versions, in this run only: the
+    """Every kernel swapped for its plain version, in this run only: the
     port has no switch for it.  Fails the run if a kernel launches inside."""
     from unittest import mock
 
@@ -498,9 +631,13 @@ def plain_versions(failures):
     def ssd_plain(x, dt, A, Bmat, Cmat, *, chunk):
         return ref.ssd_chunked(x, dt, A, Bmat, Cmat, chunk)
 
+    def mlstm_plain(q, k, v, i_gate, f_gate, *, chunk):
+        return ref.mlstm_chunked(q, k, v, i_gate, f_gate, chunk)
+
     before = read_counts()
     with mock.patch.object(ops, "flash_attention", ref.attention_ref), \
-            mock.patch.object(ops, "ssd_scan", ssd_plain):
+            mock.patch.object(ops, "ssd_scan", ssd_plain), \
+            mock.patch.object(ops, "mlstm_scan", mlstm_plain):
         yield
     if read_counts() != before:
         failures.append("a run with the plain versions launched a kernel")
@@ -625,6 +762,101 @@ def hybrid_phase(torch, dev, fa_entry, ssd_entry, failures, counts):
 
     last = last_logits(torch, model, params, prompts, failures, plain=True)
     bf16_gap(torch, "[hybrid] bf16 prefill last logits, kernels vs plain versions",
+             res.prefill_logits.float(), last, failures)
+
+
+def slstm_pass(torch, model, params, dev) -> tuple[float, int]:
+    """One sLSTM block's pass over a (BATCH, PROMPT) input, as the prefill
+    runs it (a Python loop of PROMPT steps): warm host-clock ms, and its
+    kernel launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.xlstm import slstm_block
+
+    lp = {k.removeprefix("blocks/"): v[0] for k, v in params.items() if k.startswith("blocks/")}
+    x = randn(torch, (BATCH, PROMPT, model.cfg.d_model), model.cfg.dtype, 700, dev)
+    with torch.inference_mode():
+        slstm_block(lp, "slstm", model.cfg, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slstm_block(lp, "slstm", model.cfg, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            slstm_block(lp, "slstm", model.cfg, x)
+            torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return ms, launches
+
+
+def xlstm_phase(torch, dev, mlstm_entry, failures, counts):
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    model, params = serve.build_model(XLSTM, full=True, device=dev, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    every = cfg.xlstm_slstm_every
+    n_mlstm = cfg.n_layers // every * (every - 1)
+    dp = int(cfg.xlstm_proj_factor * cfg.d_model)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"[xlstm] {cfg.name}: {cfg.n_layers} blocks ({n_mlstm} mLSTM, "
+          f"{cfg.n_layers - n_mlstm} sLSTM), d_model {cfg.d_model}, {cfg.n_heads} heads; "
+          f"mLSTM inner {dp}, head dim {dp // cfg.n_heads}, chunk {cfg.xlstm_chunk}; sLSTM "
+          f"head dim {cfg.d_model // cfg.n_heads}; vocab {cfg.vocab}; {n_params / 1e6:.1f} M "
+          f"params in {cfg.dtype}, initialised in {time.perf_counter() - t0:.1f}s")
+    prompts = serve.make_prompts(model, BATCH, PROMPT, seed=1)
+    cold = serve.generate(model, params, prompts[:, :16], 4)   # 16: ragged against chunk 128
+    print(f"[xlstm] warm-up (prompt 16, 4 tokens): prefill {cold.prefill_s * 1e3:.1f} ms, "
+          f"decode {cold.decode_s * 1e3:.1f} ms, finite {cold.finite}")
+    if not cold.finite:
+        failures.append("non-finite logits in the xlstm warm-up run (prompt 16)")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = serve.generate(model, params, prompts, GEN)
+    counts[XLSTM] = read_counts()
+    step_ms = res.decode_s / (GEN - 1) * 1e3
+    print(f"[xlstm] prefill {BATCH}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f} ms; decode "
+          f"{res.decode_tok_s:.1f} tok/s ({GEN - 1} steps in {res.decode_s:.3f}s, "
+          f"{step_ms:.2f} ms a step); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"[xlstm] sample output ids: {res.generated[0, :12].tolist()}")
+    for name, want in (("mlstm", n_mlstm), ("ssd", 0), ("flash_attention", 0)):
+        got = counts[XLSTM][name]
+        print(f"[xlstm] {name} launches: {got} (expected {want})")
+        if got != want:
+            failures.append(f"{XLSTM}: {name} launched {got} times, expected {want}")
+    if not res.finite:
+        failures.append("non-finite logits in the xlstm serve run")
+    pre_ms = res.prefill_s * 1e3
+    slstm_ms, slstm_launches = slstm_pass(torch, model, params, dev)
+    n_slstm = cfg.n_layers - n_mlstm
+    print(f"[xlstm] shares of the prefill: mLSTM kernel {n_mlstm} x {mlstm_entry['ms']:.4f} ms "
+          f"= {n_mlstm * mlstm_entry['ms'] / pre_ms:.1%}; sLSTM blocks {n_slstm} x "
+          f"{slstm_ms:.1f} ms = {n_slstm * slstm_ms / pre_ms:.1%} ({slstm_launches} kernel "
+          f"launches a block over the prompt, {slstm_launches / PROMPT:.1f} a step)")
+
+    # The gates, in fp32 on the same weights and prompts: the prefill's last
+    # logits, and 4 decode steps after it (they read the prefill's final
+    # mLSTM and sLSTM states), through the kernel against the same through
+    # the plain versions.
+    cfg32 = cfg.replace(dtype="float32", logit_dtype="float32")
+    params32 = {k: v.float() for k, v in params.items()}
+    model32 = Model(cfg32, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, 4), generator=g, device=dev)
+    lk, sk = prefill_then_decode(torch, model32, params32, prompts, tokens, failures)
+    lp, sp = prefill_then_decode(torch, model32, params32, prompts, tokens, failures, plain=True)
+    gate(torch, "[xlstm] fp32 prefill last logits, kernel vs plain versions", lk, lp, failures)
+    gate(torch, "[xlstm] fp32 4 decode steps after the prefill, kernel vs plain versions",
+         sk, sp, failures)
+    del params32, lk, lp, sk, sp
+
+    last = last_logits(torch, model, params, prompts, failures, plain=True)
+    bf16_gap(torch, "[xlstm] bf16 prefill last logits, kernel vs plain versions",
              res.prefill_logits.float(), last, failures)
 
 

@@ -1,9 +1,9 @@
 """PyTorch/CUDA port of the model substrate of :mod:`repro`.
 
 The JAX package ``repro`` stays the reference; this package computes the
-same functions with PyTorch tensors; its attention and its Mamba2 SSD
-scan run in CUDA C++ kernels written for Hopper
-(``kernels/csrc/flash_attention.cu``, ``kernels/csrc/ssd.cu``).
+same functions with PyTorch tensors; its attention, its Mamba2 SSD scan
+and its mLSTM scan run in CUDA C++ kernels written for Hopper
+(``kernels/csrc/flash_attention.cu``, ``ssd.cu``, ``mlstm.cu``).
 It imports neither ``jax`` nor anything of ``repro``: where it needs
 code from there (configs, ``ModelConfig``), it keeps its own copy.
 

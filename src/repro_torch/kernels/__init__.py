@@ -6,7 +6,8 @@
 * ``ops.py`` — the public functions: CPU tensors take the plain version
   in ``ref.py``, CUDA tensors take the kernel or raise.
 
-Ported so far: flash attention (``repro/kernels/flash_attention.py``)
-and the Mamba2 SSD chunked scan (``repro/kernels/ssd.py``).  The mLSTM
-scan is still to be ported (ROADMAP.md, section B).
+Every TPU kernel of the JAX package has its counterpart here: flash
+attention (``repro/kernels/flash_attention.py``), the Mamba2 SSD chunked
+scan (``repro/kernels/ssd.py``) and the chunked mLSTM scan
+(``repro/kernels/mlstm.py``).
 """

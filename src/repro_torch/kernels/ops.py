@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention_cuda
-from .ref import attention_ref, ssd_chunked
+from .mlstm import mlstm_scan_cuda
+from .ref import attention_ref, mlstm_chunked, ssd_chunked
 from .ssd import ssd_scan_cuda
 
 
@@ -31,3 +32,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Ten
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bmat, Cmat, chunk)
     return ssd_scan_cuda(x, dt, A, Bmat, Cmat, chunk=chunk)
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
+               f_gate: torch.Tensor, *, chunk: int = 128):
+    """Chunked stabilised mLSTM.  q/k/v (B,S,H,D), gates (B,S,H) ->
+    (h (B,S,H,D), final (S (B,H,D,D), n (B,H,D), m (B,H)) fp32)."""
+    if q.device.type == "cpu":
+        return mlstm_chunked(q, k, v, i_gate, f_gate, chunk)
+    return mlstm_scan_cuda(q, k, v, i_gate, f_gate, chunk=chunk)

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the kernels (the CPU path and the oracles).
 
 Each function computes what its JAX counterpart computes
-(:mod:`repro.kernels.ref`; ``ssd_chunked`` is ``repro.models.ssm``'s),
-in fp32, on any device; the CUDA kernels are held against them on the
-card.
+(:mod:`repro.kernels.ref`; ``ssd_chunked`` is ``repro.models.ssm``'s,
+``mlstm_chunked`` ``repro.models.xlstm``'s), in fp32, on any device;
+the CUDA kernels are held against them on the card.
 """
 from __future__ import annotations
 
@@ -118,3 +118,113 @@ def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int):
     y_inter = torch.einsum("bcin,bchnp->bcihp", Cq, prev_states) * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(B, nc * Q, H, P)[:, :S]
     return y.to(x.dtype), state
+
+
+def mlstm_ref(q, k, v, i_gate, f_gate):
+    """Sequential stabilised mLSTM (the definitional oracle).
+
+    q/k/v (B,S,H,D); gates (B,S,H).  Returns h (B,S,H,D) in q's dtype and
+    the final state (S (B,H,D,D), n (B,H,D), m (B,H)) in fp32 (the JAX
+    oracle returns h only).
+    """
+    B, S, H, D = q.shape
+    qf = q.float() / math.sqrt(D)
+    kf, vf, ig = k.float(), v.float(), i_gate.float()
+    logf = F.logsigmoid(f_gate.float())
+    S_p = torch.zeros((B, H, D, D), dtype=torch.float32, device=q.device)
+    n_p = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+    m_p = torch.full((B, H), float("-inf"), dtype=torch.float32, device=q.device)
+    hs = []
+    for t in range(S):
+        m_new = torch.maximum(logf[:, t] + m_p, ig[:, t])
+        scale_old = torch.exp(logf[:, t] + m_p - m_new)
+        wt = torch.exp(ig[:, t] - m_new)
+        S_p = S_p * scale_old[:, :, None, None] + wt[:, :, None, None] * torch.einsum(
+            "bhk,bhv->bhkv", kf[:, t], vf[:, t])
+        n_p = n_p * scale_old[:, :, None] + wt[:, :, None] * kf[:, t]
+        m_p = m_new
+        num = torch.einsum("bhk,bhkv->bhv", qf[:, t], S_p)
+        den = torch.einsum("bhk,bhk->bh", qf[:, t], n_p)
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None])
+    return torch.stack(hs, dim=1).to(q.dtype), (S_p, n_p, m_p)
+
+
+def mlstm_chunked(q, k, v, i_gate, f_gate, chunk: int):
+    """Chunk-parallel stabilised mLSTM (exp input gate, sigmoid forget gate).
+
+    The plain version of the mLSTM kernel (``repro.models.xlstm.mlstm_chunked``):
+    q/k/v (B,S,H,D); i_gate (B,S,H) raw input-gate preactivation; f_gate
+    (B,S,H) raw forget-gate preactivation.  Returns h (B,S,H,D) in q's
+    dtype and the final state (S (B,H,D,D), n (B,H,D), m (B,H)) in fp32.
+
+    Where S is not a multiple of ``chunk`` (the JAX function asserts), the
+    tail is padded with q = k = v = 0, log-forget exactly 0 and input gate
+    -inf, and h cut back: a padded step neither decays the state nor adds
+    to it, so this is exact.
+    """
+    B, S, H, D = q.shape
+    Q = chunk
+    pad = (-S) % Q
+    qf = q.float() / math.sqrt(D)
+    kf, vf, ig = k.float(), v.float(), i_gate.float()
+    logf = F.logsigmoid(f_gate.float())
+    if pad:
+        qf, kf, vf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (qf, kf, vf))
+        ig = F.pad(ig, (0, 0, 0, pad), value=float("-inf"))
+        logf = F.pad(logf, (0, 0, 0, pad))   # log-forget 0: no decay
+    nc = (S + pad) // Q
+    qq = qf.reshape(B, nc, Q, H, D)
+    kk = kf.reshape(B, nc, Q, H, D)
+    vv = vf.reshape(B, nc, Q, H, D)
+    ig = ig.reshape(B, nc, Q, H)
+    logf = logf.reshape(B, nc, Q, H)
+
+    b = torch.cumsum(logf, dim=2)                           # (B,nc,Q,H) incl. own f
+    total = b[:, :, -1, :]                                  # (B,nc,H)
+
+    # intra-chunk log weights: l_ij = b_i - b_j + i_j  (j <= i)
+    diff = b[:, :, :, None, :] - b[:, :, None, :, :] + ig[:, :, None, :, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
+    diff = diff.masked_fill(~mask[None, None, :, :, None], float("-inf"))
+    m_intra = diff.amax(dim=3)                              # (B,nc,Q,H)
+
+    # state contribution log weights to the chunk's end: w_j = total - b_j + i_j
+    w = total[:, :, None, :] - b + ig                       # (B,nc,Q,H)
+    m_chunk = w.amax(dim=2)                                 # (B,nc,H)
+
+    # inter-chunk scan: the state before each chunk
+    S_p = torch.zeros((B, H, D, D), dtype=torch.float32, device=q.device)
+    n_p = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+    m_p = torch.full((B, H), float("-inf"), dtype=torch.float32, device=q.device)
+    S_prev, n_prev, m_prev = [], [], []
+    for c in range(nc):
+        S_prev.append(S_p)
+        n_prev.append(n_p)
+        m_prev.append(m_p)
+        m_new = torch.maximum(m_p + total[:, c], m_chunk[:, c])
+        scale_old = torch.exp(m_p + total[:, c] - m_new)
+        wts = torch.exp(w[:, c] - m_new[:, None, :])        # (B,Q,H)
+        S_p = S_p * scale_old[:, :, None, None] + torch.einsum(
+            "bqh,bqhk,bqhv->bhkv", wts, kk[:, c], vv[:, c])
+        n_p = n_p * scale_old[:, :, None] + torch.einsum("bqh,bqhk->bhk", wts, kk[:, c])
+        m_p = m_new
+    S_prev = torch.stack(S_prev, dim=1)                     # (B,nc,H,D,D)
+    n_prev = torch.stack(n_prev, dim=1)                     # (B,nc,H,D)
+    m_prev = torch.stack(m_prev, dim=1)                     # (B,nc,H)
+
+    # per-position stabiliser: the inter weight is m_prev + b_i
+    m_i = torch.maximum(m_prev[:, :, None, :] + b, m_intra)     # (B,nc,Q,H)
+    inter_scale = torch.exp(m_prev[:, :, None, :] + b - m_i)    # (B,nc,Q,H)
+    num_inter = torch.einsum("bcqhk,bchkv->bcqhv", qq, S_prev) * inter_scale[..., None]
+    den_inter = torch.einsum("bcqhk,bchk->bcqh", qq, n_prev) * inter_scale
+
+    intra_w = torch.exp(diff - m_i[:, :, :, None, :])           # (B,nc,Q,Q,H)
+    qkw = torch.einsum("bcihk,bcjhk->bcijh", qq, kk) * intra_w
+    num_intra = torch.einsum("bcijh,bcjhv->bcihv", qkw, vv)
+    den_intra = qkw.sum(dim=3)
+
+    num = num_inter + num_intra
+    den = den_inter + den_intra
+    h = num / torch.maximum(den.abs(), torch.exp(-m_i))[..., None]
+    h = h.reshape(B, nc * Q, H, D)[:, :S]
+    return h.to(q.dtype), (S_p, n_p, m_p)

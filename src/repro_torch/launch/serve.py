@@ -7,15 +7,20 @@ the device.
 
 The prefill is ONE ``Model.forward(collect_kv=True)`` pass whose cache
 contents (attention k/v; for the hybrid family also every Mamba2
-layer's final SSM state and conv tail) are written into the cache, as
-the JAX package's own prefill does (``repro.launch.dryrun``); its tests
-hold that equal to feeding the prompt token by token.  Greedy decode
-then calls ``decode_step`` ``gen_len - 1`` times.  Attention and the
-Mamba2 chunked scan run in the hand-written CUDA kernels on the card
-(``repro_torch.kernels``).
+layer's final SSM state and conv tail; for xLSTM every mLSTM layer's
+final (S, n, m) and every sLSTM layer's (c, n, h, m)) are written into
+the cache, as the JAX package's own prefill does for attention
+(``repro.launch.dryrun``; for xLSTM it has none and feeds the prompt
+token by token); its tests hold that equal to feeding the prompt token
+by token.  Greedy decode then calls ``decode_step`` ``gen_len - 1``
+times.  Attention, the Mamba2 chunked scan and the mLSTM chunked scan
+run in the hand-written CUDA kernels on the card
+(``repro_torch.kernels``); the sLSTM recurrence is a Python loop over
+the prompt, as the JAX package's is a ``lax.scan``.
 
     python -m repro_torch.launch.serve --static --arch stablelm_3b --full
     python -m repro_torch.launch.serve --static --arch zamba2_1p2b --full
+    python -m repro_torch.launch.serve --static --arch xlstm_125m --full
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  The elastic serving
 plane (the JAX package's default mode) is not ported yet: without
@@ -139,14 +144,11 @@ def run_static(args: argparse.Namespace) -> int:
     return 0
 
 
-def print_profile(model: Model, params: dict, prompts: torch.Tensor, gen_len: int):
-    """Where a warm serve run's time goes: the device's busy share and the
-    kernels that take it (``torch.profiler``).  The busy share is the
-    profiled run's device time over that same run's wall clock; an
-    unprofiled run's wall clock is printed beside it."""
+def _profiled(model: Model, params: dict, prompts: torch.Tensor, gen_len: int):
+    """A serve run under ``torch.profiler``: (its kernels' key averages,
+    device busy ms, kernel launches, wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
-    warm = generate(model, params, prompts, gen_len)       # unprofiled wall clock
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _sync(model.device)
         t0 = time.perf_counter()
@@ -156,11 +158,27 @@ def print_profile(model: Model, params: dict, prompts: torch.Tensor, gen_len: in
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return kernels, busy_ms, sum(e.count for e in kernels), wall_ms
+
+
+def print_profile(model: Model, params: dict, prompts: torch.Tensor, gen_len: int):
+    """Where a warm serve run's time goes: the device's busy share and the
+    kernels that take it (``torch.profiler``), and the kernel launches of
+    the prefill and of a decode step (a profiled prefill alone, then the
+    whole run).  A busy share is a profiled run's device time over that
+    same run's wall clock; an unprofiled run's wall clock is printed beside
+    it."""
+    warm = generate(model, params, prompts, gen_len)       # unprofiled wall clock
+    _, pre_busy, pre_launches, pre_wall = _profiled(model, params, prompts, 1)
+    kernels, busy_ms, launches, wall_ms = _profiled(model, params, prompts, gen_len)
     print(f"profile: unprofiled run {(warm.prefill_s + warm.decode_s) * 1e3:.1f} ms "
           f"(prefill {warm.prefill_s * 1e3:.1f} ms, decode {warm.decode_s * 1e3:.1f} ms); "
           f"profiled run {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}; "
-          f"{sum(e.count for e in kernels)} kernel launches")
+          f"{launches} kernel launches")
+    print(f"profile: prefill alone {pre_wall:.1f} ms, device busy {pre_busy:.1f} ms "
+          f"({pre_busy / pre_wall:.1%}), {pre_launches} kernel launches; a decode step "
+          f"{(launches - pre_launches) / max(gen_len - 1, 1):.0f} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:10.2f} ms {e.count:7d}x  {e.key[:100]}")
 

@@ -1,5 +1,5 @@
-"""PyTorch model zoo: the dense transformer and the hybrid Mamba2 family
-(zamba2) of :mod:`repro.models`."""
+"""PyTorch model zoo: the dense transformer, the hybrid Mamba2 family
+(zamba2) and the xLSTM family of :mod:`repro.models`."""
 from .common import ModelConfig, ParamBuilder, stack_params
 from .model import Model
 

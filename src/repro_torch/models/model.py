@@ -95,11 +95,16 @@ class Model:
     def prefill(self, params: dict, cache: dict, batch: dict) -> torch.Tensor:
         """One forward pass over the prompt that fills ``cache`` as S decode
         steps would: attention (k, v) at positions 0..S-1, recurrent states
-        (hybrid ``ssm``, ``conv``) whole.  Returns the logits (B,S,V)."""
+        (hybrid ``ssm``, ``conv``; xLSTM ``mlstm_*``, ``slstm_*``) whole.
+        Returns the logits (B,S,V)."""
         logits, caches = self.forward(params, batch, collect_kv=True)
         for name, val in caches.items():
             dst = cache[name]
-            # An attention entry is (n, B, S, KV, hd) against the cache's
-            # (n, B, max_len, KV, hd); a recurrent state has the cache's shape.
-            dst[:, :, :val.shape[2]] = val.to(dst.dtype)
+            if val.shape == dst.shape:
+                # a recurrent state, of the cache's own shape: written whole
+                dst.copy_(val)
+            else:
+                # an attention entry: (n, B, S, KV, hd) into the cache's
+                # (n, B, max_len, KV, hd), positions 0..S-1
+                dst[:, :, :val.shape[2]] = val.to(dst.dtype)
         return logits

@@ -1,4 +1,4 @@
-"""Decoder assembly: the dense and hybrid branches of
+"""Decoder assembly: the dense, hybrid and xLSTM branches of
 :mod:`repro.models.transformer`.
 
 Training/prefill walk the stacked per-layer params with a Python loop
@@ -11,6 +11,8 @@ Families ported:
   audio / vlm — the dense stack over precomputed embeddings / M-RoPE
   hybrid  — zamba2: Mamba2 backbone + ONE shared attn+mlp block applied
             after every ``attn_every``-th layer (weights shared)
+  ssm     — xLSTM: units of ``xlstm_slstm_every - 1`` mLSTM blocks and one
+            sLSTM block, stacked over units
 """
 from __future__ import annotations
 
@@ -21,16 +23,25 @@ import torch
 from .common import ModelConfig, ParamBuilder, stack_params, torch_dtype
 from .layers import attention, init_attention, init_mlp, init_rmsnorm, mlp, rmsnorm
 from .ssm import init_mamba2, mamba2_block, mamba2_state_shapes
+from .xlstm import (
+    init_mlstm_block,
+    init_slstm_block,
+    mlstm_block,
+    mlstm_state_shapes,
+    slstm_block,
+    slstm_state_shapes,
+)
 
 DENSE_FAMILIES = ("dense", "audio", "vlm")
 _TODO = {
     "moe": "MoE layers are not ported yet: ROADMAP.md A12",
-    "ssm": "the xLSTM family is not ported yet: ROADMAP.md A14",
 }
+MLSTM_STATES = ("mlstm_S", "mlstm_n", "mlstm_m")
+SLSTM_STATES = ("slstm_c", "slstm_n", "slstm_h", "slstm_m")
 
 
 def _require_ported(cfg: ModelConfig):
-    if cfg.family not in DENSE_FAMILIES + ("hybrid",):
+    if cfg.family not in DENSE_FAMILIES + ("hybrid", "ssm"):
         raise NotImplementedError(_TODO.get(cfg.family, f"unknown family {cfg.family!r}"))
 
 
@@ -55,12 +66,32 @@ def _init_mamba_layer(generator: torch.Generator, cfg: ModelConfig):
     return b.build()
 
 
+def _init_xlstm_unit(generator: torch.Generator, cfg: ModelConfig):
+    """One unit: (xlstm_slstm_every - 1) mLSTM blocks + 1 sLSTM block."""
+    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
+    for i in range(cfg.xlstm_slstm_every - 1):
+        init_rmsnorm(b, f"ln_m{i}", cfg.d_model)
+        init_mlstm_block(b, f"mlstm{i}", cfg)
+    init_rmsnorm(b, "ln_s", cfg.d_model)
+    init_slstm_block(b, "slstm", cfg)
+    return b.build()
+
+
+def _n_units(cfg: ModelConfig) -> int:
+    return cfg.n_layers // max(cfg.xlstm_slstm_every, 1)
+
+
 def init_blocks(generator: torch.Generator, cfg: ModelConfig) -> tuple[dict, dict]:
-    """Stacked block params (leading ``layers`` axis) + their logical axes;
-    for the hybrid family also the shared block's (not stacked)."""
+    """Stacked block params (leading ``layers`` axis: layers, or xLSTM
+    units) + their logical axes; for the hybrid family also the shared
+    block's (not stacked)."""
     _require_ported(cfg)
-    init_layer = _init_mamba_layer if cfg.family == "hybrid" else _init_dense_layer
-    stacked, st_specs = stack_params([init_layer(generator, cfg) for _ in range(cfg.n_layers)])
+    if cfg.family == "ssm":
+        per_layer = [_init_xlstm_unit(generator, cfg) for _ in range(_n_units(cfg))]
+    else:
+        init_layer = _init_mamba_layer if cfg.family == "hybrid" else _init_dense_layer
+        per_layer = [init_layer(generator, cfg) for _ in range(cfg.n_layers)]
+    stacked, st_specs = stack_params(per_layer)
     params = {f"blocks/{k}": v for k, v in stacked.items()}
     specs = {f"blocks/{k}": v for k, v in st_specs.items()}
     if cfg.family == "hybrid":
@@ -113,10 +144,14 @@ def forward_blocks(params, cfg: ModelConfig, x, positions, collect_kv=False):
     that the prompt fills, stacked over layers: dense ``k``/``v``
     (L, B, S, KV, hd); hybrid ``ssm`` (L, B, H, N, P) fp32 and ``conv``
     (L, B, K-1, C), the states a decode step continues from, and the
-    shared block's ``attn_k``/``attn_v`` (n_attn, B, S, KV, hd)."""
+    shared block's ``attn_k``/``attn_v`` (n_attn, B, S, KV, hd); xLSTM
+    ``mlstm_S``/``mlstm_n``/``mlstm_m`` (n_units, every-1, B, H, ...) and
+    ``slstm_c/n/h/m`` (n_units, B, H, dh), all fp32."""
     _require_ported(cfg)
     if cfg.family == "hybrid":
         return _forward_hybrid(params, cfg, x, positions, collect_kv)
+    if cfg.family == "ssm":
+        return _forward_xlstm(params, cfg, x, collect_kv)
     stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
     windows = _layer_windows(cfg)
     ks, vs = [], []
@@ -160,6 +195,32 @@ def _forward_hybrid(params, cfg: ModelConfig, x, positions, collect_kv):
     return x, None
 
 
+def _forward_xlstm(params, cfg: ModelConfig, x, collect_kv):
+    stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
+    every = max(cfg.xlstm_slstm_every, 1)
+    mstates = {n: [] for n in MLSTM_STATES}
+    sstates = {n: [] for n in SLSTM_STATES}
+    for u in range(_n_units(cfg)):
+        lp = {k: v[u] for k, v in stacked.items()}
+        unit = []
+        for i in range(every - 1):
+            h = rmsnorm(lp, f"ln_m{i}", x, cfg.norm_eps)
+            out, st = mlstm_block(lp, f"mlstm{i}", cfg, h, collect_state=collect_kv)
+            x = x + out
+            unit.append(st)
+        h = rmsnorm(lp, "ln_s", x, cfg.norm_eps)
+        out, st = slstm_block(lp, "slstm", cfg, h, collect_state=collect_kv)
+        x = x + out
+        if collect_kv:
+            for j, name in enumerate(mstates):
+                mstates[name].append(torch.stack([s[j] for s in unit]))
+            for name, val in zip(SLSTM_STATES, st):
+                sstates[name].append(val)
+    if collect_kv:
+        return x, {n: torch.stack(v) for n, v in (mstates | sstates).items()}
+    return x, None
+
+
 # ---------------------------------------------------------------------------
 # Decode: layer loop over per-layer cache slices
 # ---------------------------------------------------------------------------
@@ -171,6 +232,8 @@ def decode_blocks(params, cfg: ModelConfig, x, positions, cache: dict, cache_pos
     _require_ported(cfg)
     if cfg.family == "hybrid":
         return _decode_hybrid(params, cfg, x, positions, cache, cache_pos), cache
+    if cfg.family == "ssm":
+        return _decode_xlstm(params, cfg, x, cache), cache
     stacked = _split_stacked(params, "blocks/")
     windows = _layer_windows(cfg)
     for i in range(cfg.n_layers):
@@ -212,6 +275,27 @@ def _decode_hybrid(params, cfg: ModelConfig, x, positions, cache: dict, cache_po
     return x
 
 
+def _decode_xlstm(params, cfg: ModelConfig, x, cache: dict):
+    stacked = _split_stacked(params, "blocks/")
+    every = max(cfg.xlstm_slstm_every, 1)
+    for u in range(_n_units(cfg)):
+        lp = {k: v[u] for k, v in stacked.items()}
+        for i in range(every - 1):
+            h = rmsnorm(lp, f"ln_m{i}", x, cfg.norm_eps)
+            st = tuple(cache[n][u, i] for n in MLSTM_STATES)
+            out, new_st = mlstm_block(lp, f"mlstm{i}", cfg, h, state=st)
+            for name, val in zip(MLSTM_STATES, new_st):
+                cache[name][u, i] = val
+            x = x + out
+        h = rmsnorm(lp, "ln_s", x, cfg.norm_eps)
+        out, new_st = slstm_block(lp, "slstm", cfg, h,
+                                  state=tuple(cache[n][u] for n in SLSTM_STATES))
+        for name, val in zip(SLSTM_STATES, new_st):
+            cache[name][u] = val
+        x = x + out
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Cache construction
 # ---------------------------------------------------------------------------
@@ -237,6 +321,24 @@ def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
             "attn_k": (shape, dt, kv_axes, 0.0),
             "attn_v": (shape, dt, kv_axes, 0.0),
         }
+    if cfg.family == "ssm":
+        every = max(cfg.xlstm_slstm_every, 1)
+        lead = (_n_units(cfg), every - 1)
+        m = mlstm_state_shapes(cfg, batch)
+        out = {
+            "mlstm_S": (lead + m["S"], "float32",
+                        ("layers", None, "batch", "xlstm_heads", None, None), 0.0),
+            "mlstm_n": (lead + m["n"], "float32",
+                        ("layers", None, "batch", "xlstm_heads", None), 0.0),
+            # the stabiliser starts at -inf, as the chunked scan's does
+            "mlstm_m": (lead + m["m"], "float32",
+                        ("layers", None, "batch", "xlstm_heads"), float("-inf")),
+        }
+        s = slstm_state_shapes(cfg, batch)[0]
+        for name in SLSTM_STATES:
+            out[name] = ((_n_units(cfg),) + s, "float32",
+                         ("layers", "batch", "xlstm_heads", None), 0.0)
+        return out
     if cfg.alt_local_global and 0 < cfg.sliding_window < max_len:
         raise NotImplementedError(
             "ring KV caches (gemma2 local layers) are not ported yet: ROADMAP.md A11")

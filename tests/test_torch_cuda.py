@@ -3,8 +3,8 @@
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Imports no JAX: each kernel is held against the port's plain version,
-which ``tests/test_torch_flash_attention.py`` and
-``tests/test_torch_ssd.py`` hold against the JAX package on the CPU.
+which ``tests/test_torch_flash_attention.py``, ``tests/test_torch_ssd.py``
+and ``tests/test_torch_mlstm.py`` hold against the JAX package on the CPU.
 """
 import pytest
 
@@ -12,9 +12,16 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mlstm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
-from repro_torch.kernels.ref import attention_ref, ssd_chunked, ssd_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    attention_ref,
+    mlstm_chunked,
+    mlstm_ref,
+    ssd_chunked,
+    ssd_ref,
+)
 from repro_torch.models import Model  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -207,5 +214,136 @@ def test_zamba2_on_card_matches_cpu(dev):
     assert ssd.launches == before_ssd + cfg.n_layers
     assert fa.launches == before_fa + n_attn
     torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=5e-4)
+    for name in want_cache:
+        torch.testing.assert_close(cache[name].cpu(), want_cache[name], rtol=2e-3, atol=5e-4)
+
+
+MLSTM_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def mlstm_inputs(B, S, H, D, dtype, dev, seed=0, gate_scale=None):
+    """q, k, v unit normal; i ~ N(0,1) and f ~ N(1,1) (tests/test_kernels.py),
+    or both N(0, gate_scale^2) for the extreme-gate case."""
+    q, k, v = (rand((B, S, H, D), dtype, seed + i, dev) for i in range(3))
+    ig = rand((B, S, H), torch.float32, seed + 3, dev)
+    fg = rand((B, S, H), torch.float32, seed + 4, dev)
+    if gate_scale is None:
+        fg = fg + 1.0
+    else:
+        ig, fg = ig * gate_scale, fg * gate_scale
+    return q, k, v, ig.to(dtype), fg.to(dtype)
+
+
+def check_mlstm(args, chunk, tol, oracle=None):
+    """One launch through ops.mlstm_scan: h and the final (S, n, m) against
+    mlstm_chunked (or ``oracle``); h in q's dtype, the state in fp32."""
+    B, S, H, D = args[0].shape
+    before = mlstm.launches
+    h, (S_f, n_f, m_f) = ops.mlstm_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mlstm.launches == before + 1
+    assert h.dtype == args[0].dtype and h.shape == (B, S, H, D)
+    assert (S_f.shape, n_f.shape, m_f.shape) == ((B, H, D, D), (B, H, D), (B, H))
+    assert S_f.dtype == n_f.dtype == m_f.dtype == torch.float32
+    assert all(bool(torch.isfinite(t).all()) for t in (h, S_f, n_f, m_f))
+    want_h, want_st = (oracle or (lambda *a: mlstm_chunked(*a, chunk)))(*args)
+    torch.testing.assert_close(h.float(), want_h.float(), **tol)
+    for got, want in zip((S_f, n_f, m_f), want_st):
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,D,chunk",
+    [
+        (1, 64, 2, 16, 16),     # tests/test_kernels.py cases
+        (2, 128, 2, 16, 32),
+        (1, 96, 1, 32, 32),
+        (2, 64, 2, 8, 16),
+        (2, 40, 4, 32, 8),      # the xlstm smoke config's widths
+        (1, 256, 2, 384, 128),  # xlstm_125m's head dim and chunk
+    ],
+)
+def test_mlstm_kernel_matches_plain_version(dev, B, S, H, D, chunk, dtype):
+    check_mlstm(mlstm_inputs(B, S, H, D, dtype, dev), chunk, MLSTM_TOL[dtype])
+
+
+@pytest.mark.parametrize("S,chunk,D", [(100, 32, 16), (37, 16, 8), (5, 8, 32), (200, 128, 384)])
+def test_mlstm_kernel_ragged_matches_sequential(dev, S, chunk, D):
+    """S not a multiple of the chunk: the sequential recurrence is the oracle."""
+    check_mlstm(mlstm_inputs(2, S, 2, D, torch.float32, dev, seed=5), chunk,
+                MLSTM_TOL[torch.float32], oracle=mlstm_ref)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 42])
+def test_mlstm_kernel_extreme_gates(dev, seed):
+    """Gate preactivations of +-20 (tests/test_kernels.py): finite, and
+    within 5e-4 of the sequential oracle."""
+    check_mlstm(mlstm_inputs(1, 32, 1, 8, torch.float32, dev, seed=seed, gate_scale=20.0), 8,
+                dict(rtol=5e-4, atol=5e-4), oracle=mlstm_ref)
+
+
+def test_mlstm_kernel_strided_model_layout(dev):
+    """The gates as the two halves of one (B,S,2H) tensor, as mlstm_block
+    passes them: the same result as contiguous copies."""
+    B, S, H, D = 2, 48, 4, 32
+    q, k, v, _, _ = mlstm_inputs(B, S, H, D, torch.bfloat16, dev, seed=9)
+    gates = rand((B, S, 2 * H), torch.bfloat16, 12, dev)
+    ig, fg = torch.split(gates, [H, H], dim=-1)
+    assert not ig.is_contiguous()
+    h, st = ops.mlstm_scan(q, k, v, ig, fg, chunk=16)
+    h2, st2 = ops.mlstm_scan(q, k, v, ig.contiguous(), fg.contiguous(), chunk=16)
+    torch.testing.assert_close(h, h2, rtol=0, atol=0)
+    for a, b in zip(st, st2):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    check_mlstm((q, k, v, ig, fg), 16, MLSTM_TOL[torch.bfloat16])
+
+
+def test_mlstm_kernel_refuses_what_it_does_not_take(dev):
+    args = mlstm_inputs(1, 32, 2, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.mlstm_scan(*args, chunk=256)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.mlstm_scan(*mlstm_inputs(1, 32, 2, 48, torch.float32, dev), chunk=16)   # D 48
+    with pytest.raises(TypeError, match="not supported"):
+        ops.mlstm_scan(*mlstm_inputs(1, 32, 2, 16, torch.float16, dev), chunk=16)
+    q, k, v, ig, fg = args
+    with pytest.raises(TypeError, match="expected q's"):
+        ops.mlstm_scan(q, k, v, ig.bfloat16(), fg, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mlstm_scan(q.transpose(1, 3).contiguous().transpose(1, 3), k, v, ig, fg, chunk=16)
+    before = mlstm.launches
+    with pytest.raises(ValueError, match="do not match"):
+        ops.mlstm_scan(q, k, v[:, :16], ig, fg, chunk=16)
+    assert mlstm.launches == before
+
+
+def test_xlstm_on_card_matches_cpu(dev):
+    """Smoke xlstm in fp32: the card (kernel) and the CPU (plain version)
+    give the same prefill logits and caches, and the same decode step after
+    it; the mLSTM kernel runs once per mLSTM layer in the prefill and not
+    in decode.  20 tokens are ragged against the smoke chunk of 8."""
+    cfg = smoke_config("xlstm_125m").replace(dtype="float32", logit_dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    params, _ = cpu.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 21), generator=torch.Generator().manual_seed(1))
+    n_mlstm = cfg.n_layers // cfg.xlstm_slstm_every * (cfg.xlstm_slstm_every - 1)
+    step = {"positions": torch.full((2, 1), 20), "cache_pos": 20}
+    with torch.no_grad():
+        want_cache = cpu.init_cache(2, 24)
+        want = cpu.prefill(params, want_cache, {"tokens": tokens[:, :20]})
+        want_step, _ = cpu.decode_step(params, want_cache, {"tokens": tokens[:, 20:]} | step)
+        gpu = Model(cfg, device=dev)
+        gparams = {k: p.to(dev) for k, p in params.items()}
+        cache = gpu.init_cache(2, 24)
+        before = mlstm.launches
+        got = gpu.prefill(gparams, cache, {"tokens": tokens[:, :20].to(dev)})
+        assert mlstm.launches == before + n_mlstm
+        got_step, _ = gpu.decode_step(gparams, cache, {
+            "tokens": tokens[:, 20:].to(dev), "positions": step["positions"].to(dev),
+            "cache_pos": 20})
+    assert mlstm.launches == before + n_mlstm
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=5e-4)
+    torch.testing.assert_close(got_step.cpu(), want_step, rtol=2e-3, atol=5e-4)
     for name in want_cache:
         torch.testing.assert_close(cache[name].cpu(), want_cache[name], rtol=2e-3, atol=5e-4)

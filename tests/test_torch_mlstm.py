@@ -1,0 +1,247 @@
+"""The port's mLSTM scan and xLSTM blocks on the CPU against the JAX package.
+
+The port's ``ops.mlstm_scan`` on CPU tensors is its plain version,
+``ref.mlstm_chunked``; it is held against JAX ``mlstm_chunked`` (h and
+the final S, n, m) and ``mlstm_ref`` and, on two small cases, against the
+Pallas kernel in interpret mode, as ``tests/test_kernels.py`` runs it.
+The mLSTM and sLSTM blocks are held against ``repro.models.xlstm`` with
+the same numpy inputs.  The CUDA kernel is held against the same plain
+version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+Tolerances are those of ``tests/test_kernels.py``: 2e-4 in fp32 (5e-4
+for the extreme gates), 2e-2 in bf16; the block-level checks use the
+model tolerance of ``tests/test_models.py`` (rtol 2e-3, atol 5e-4) in
+fp32.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
+from repro.kernels import mlstm_scan as jax_mlstm_scan  # noqa: E402
+from repro.kernels.ref import mlstm_ref as jax_mlstm_ref  # noqa: E402
+from repro.models import xlstm as jax_xlstm  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.kernels import mlstm as mlstm_kernel  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import xlstm  # noqa: E402
+
+TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+EXTREME_TOL = dict(rtol=5e-4, atol=5e-4)
+MODEL_TOL = dict(rtol=2e-3, atol=5e-4)
+CASES = [  # tests/test_kernels.py:152-165
+    (1, 64, 2, 16, 16),
+    (2, 128, 2, 16, 32),
+    (1, 96, 1, 32, 32),
+]
+
+
+def inputs(seed, B, S, H, D, gate_scale=None):
+    """q, k, v unit normal; i ~ N(0,1), f ~ N(1,1) (tests/test_kernels.py),
+    or both N(0, gate_scale^2); fp32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, S, H, D), dtype=np.float32) for _ in range(3))
+    ig = rng.standard_normal((B, S, H), dtype=np.float32)
+    fg = rng.standard_normal((B, S, H), dtype=np.float32)
+    if gate_scale is None:
+        fg = fg + 1.0
+    else:
+        ig, fg = ig * gate_scale, fg * gate_scale
+    return q, k, v, ig, fg
+
+
+def both(arrays, dtype):
+    """JAX arrays and CPU tensors of the same values, all in ``dtype``."""
+    j = [jnp.asarray(a).astype(dtype) for a in arrays]
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    return j, t
+
+
+def f32(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32)
+
+
+def check(got, want, tol):
+    np.testing.assert_allclose(f32(got), f32(want), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,D,chunk", CASES)
+def test_mlstm_chunked_matches_jax(B, S, H, D, chunk, dtype):
+    """The port's mlstm_chunked against JAX mlstm_chunked (h and the final
+    S, n, m) and JAX mlstm_ref (h)."""
+    j, t = both(inputs(0, B, S, H, D), dtype)
+    h, (S_f, n_f, m_f) = ref.mlstm_chunked(*t, chunk)
+    assert h.dtype == t[0].dtype and h.shape == (B, S, H, D)
+    assert (S_f.shape, n_f.shape, m_f.shape) == ((B, H, D, D), (B, H, D), (B, H))
+    assert S_f.dtype == n_f.dtype == m_f.dtype == torch.float32
+    jh, jst = jax_xlstm.mlstm_chunked(*j, chunk)
+    check(h, jh, TOL[dtype])
+    for got, want in zip((S_f, n_f, m_f), jst):
+        check(got, want, TOL[dtype])
+    check(h, jax_mlstm_ref(*j), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_ref_matches_jax(dtype):
+    """The port's sequential oracle: h against JAX mlstm_ref, and its final
+    state (which the JAX oracle does not return) against JAX mlstm_chunked's."""
+    j, t = both(inputs(1, 2, 32, 2, 8), dtype)
+    h, st = ref.mlstm_ref(*t)
+    check(h, jax_mlstm_ref(*j), TOL[dtype])
+    _, jst = jax_xlstm.mlstm_chunked(*j, 8)
+    for got, want in zip(st, jst):
+        check(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,D,chunk", [(1, 64, 2, 16, 16), (2, 64, 2, 8, 16)])
+def test_ops_mlstm_scan_matches_pallas_interpret(B, S, H, D, chunk):
+    """ops.mlstm_scan on CPU tensors against the Pallas kernel run in
+    interpret mode; the CPU path never reaches the CUDA kernel."""
+    j, t = both(inputs(2, B, S, H, D), "float32")
+    before = mlstm_kernel.launches
+    h, _ = ops.mlstm_scan(*t, chunk=chunk)
+    assert mlstm_kernel.launches == before
+    check(h, jax_mlstm_scan(*j, chunk=chunk), TOL["float32"])
+
+
+@pytest.mark.parametrize("seed", [0, 7, 42])
+def test_extreme_gates_stay_finite(seed):
+    """Gate preactivations of +-20 (tests/test_kernels.py::
+    test_mlstm_extreme_gates_stable): finite h and state, within 5e-4 of the
+    sequential oracle."""
+    j, t = both(inputs(seed, 1, 32, 1, 8, gate_scale=20.0), "float32")
+    h, st = ops.mlstm_scan(*t, chunk=8)
+    assert all(bool(torch.isfinite(a).all()) for a in (h, *st))
+    check(h, jax_mlstm_ref(*j), EXTREME_TOL)
+
+
+@pytest.mark.parametrize("S,chunk", [(100, 32), (5, 8), (3, 8), (37, 16), (16, 128)])
+def test_ragged_length_matches_jax_mlstm_ref(S, chunk):
+    """S not a multiple of the chunk (the JAX function asserts): the port
+    pads with log-forget 0 and input gate -inf, which is exact; h equals the
+    sequential recurrence, and so does the final state."""
+    j, t = both(inputs(3, 2, S, 2, 16), "float32")
+    h, st = ops.mlstm_scan(*t, chunk=chunk)
+    assert h.shape == (2, S, 2, 16)
+    check(h, jax_mlstm_ref(*j), TOL["float32"])
+    _, want = ref.mlstm_ref(*t)
+    for got, w in zip(st, want):
+        check(got, w, TOL["float32"])
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    _, t = both(inputs(5, 1, 16, 2, 8), "float32")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mlstm_kernel.mlstm_scan_cuda(*t, chunk=8)
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_mlstm_decode_step_matches_jax(fresh):
+    """From the cache's initial state (m = -inf) and from a random one."""
+    rng = np.random.default_rng(6)
+    B, H, D = 2, 3, 8
+    if fresh:
+        state = (np.zeros((B, H, D, D), np.float32), np.zeros((B, H, D), np.float32),
+                 np.full((B, H), -np.inf, np.float32))
+    else:
+        state = (rng.standard_normal((B, H, D, D), dtype=np.float32),
+                 rng.standard_normal((B, H, D), dtype=np.float32),
+                 rng.standard_normal((B, H), dtype=np.float32))
+    q, k, v = (rng.standard_normal((B, H, D), dtype=np.float32) for _ in range(3))
+    ig, fg = (rng.standard_normal((B, H), dtype=np.float32) for _ in range(2))
+    h, st = xlstm.mlstm_decode_step(tuple(torch.from_numpy(a) for a in state),
+                                    *(torch.from_numpy(a) for a in (q, k, v, ig, fg)))
+    jh, jst = jax_xlstm.mlstm_decode_step(tuple(jnp.asarray(a) for a in state),
+                                          *(jnp.asarray(a) for a in (q, k, v, ig, fg)))
+    check(h, jh, TOL["float32"])
+    for got, want in zip(st, jst):
+        check(got, want, TOL["float32"])
+
+
+def block_params(kind, seed):
+    """One mLSTM or sLSTM block's params for the xlstm smoke config, as
+    numpy, drawn at the JAX init's scales."""
+    cfg = jax_smoke_config("xlstm_125m")
+    d, H = cfg.d_model, cfg.n_heads
+    rng = np.random.default_rng(seed)
+    if kind == "mlstm":
+        dp = int(cfg.xlstm_proj_factor * d)
+        shapes = {"up": (d, 2 * dp), "wq": (dp, dp), "wk": (dp, dp), "wv": (dp, dp),
+                  "w_if": (dp, 2 * H), "out_scale": (dp,), "down": (dp, d)}
+    else:
+        dh, ff = d // H, max(int(4 * d / 3), 1)
+        shapes = {"w_in": (d, 4 * d), "r": (4, H, dh, dh), "bias": (4 * d,),
+                  "ff_gate": (d, ff), "ff_up": (d, ff), "ff_down": (ff, d)}
+    scale = {"r": 1 / np.sqrt(d // H), "bias": 0.1, "out_scale": 1.0}
+    return {f"x/{k}": (rng.standard_normal(s) * scale.get(k, 1 / np.sqrt(s[0]))
+                       ).astype(np.float32) for k, s in shapes.items()}
+
+
+def zero_state(kind, cfg, B):
+    if kind == "mlstm":
+        sh = jax_xlstm.mlstm_state_shapes(cfg, B)
+        return (np.zeros(sh["S"], np.float32), np.zeros(sh["n"], np.float32),
+                np.full(sh["m"], -np.inf, np.float32))
+    return tuple(np.zeros(s, np.float32) for s in jax_xlstm.slstm_state_shapes(cfg, B))
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+@pytest.mark.parametrize("S", [8, 13, 3])
+def test_block_matches_jax(kind, S):
+    """A prompt pass (S a multiple of the smoke chunk 8, ragged, shorter
+    than a chunk) against JAX's block fed token by token from a zero state;
+    the state the prompt pass collects; and the port's own decode steps."""
+    cfg32 = dict(dtype="float32", logit_dtype="float32")
+    jcfg = jax_smoke_config("xlstm_125m").replace(**cfg32)
+    tcfg = smoke_config("xlstm_125m").replace(**cfg32)
+    jblock = getattr(jax_xlstm, f"{kind}_block")
+    tblock = getattr(xlstm, f"{kind}_block")
+    params = block_params(kind, 8)
+    x = np.random.default_rng(9).standard_normal((2, S, jcfg.d_model), dtype=np.float32)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+
+    st = tuple(jnp.asarray(a) for a in zero_state(kind, jcfg, 2))
+    steps = []
+    for t in range(S):
+        o, st = jblock(jp, "x", jcfg, jnp.asarray(x[:, t:t + 1]), state=st)
+        steps.append(np.asarray(o))
+    ref_steps = np.concatenate(steps, axis=1)
+    with torch.no_grad():
+        out, got = tblock(tp, "x", tcfg, torch.from_numpy(x), collect_state=True)
+        if kind == "slstm" or S % jcfg.xlstm_chunk == 0:   # JAX's mlstm forward asserts
+            jout, _ = jblock(jp, "x", jcfg, jnp.asarray(x))
+            check(out, jout, MODEL_TOL)
+        check(out, ref_steps, MODEL_TOL)
+        for a, b in zip(got, st):
+            check(a, b, MODEL_TOL)
+
+        state = tuple(torch.from_numpy(a) for a in zero_state(kind, tcfg, 2))
+        for t in range(S):
+            o, state = tblock(tp, "x", tcfg, torch.from_numpy(x[:, t:t + 1]), state=state)
+            check(o, ref_steps[:, t:t + 1], MODEL_TOL)
+    for a, b in zip(state, st):
+        check(a, b, MODEL_TOL)
+
+
+def test_block_without_state_collects_none():
+    """Without a state or collect_state a prompt pass returns no state, as
+    the JAX blocks do."""
+    cfg = smoke_config("xlstm_125m").replace(dtype="float32")
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal((1, 8, cfg.d_model),
+                                                                  dtype=np.float32))
+    for kind in ("mlstm", "slstm"):
+        tp = {k: torch.from_numpy(v) for k, v in block_params(kind, 11).items()}
+        with torch.no_grad():
+            _, st = getattr(xlstm, f"{kind}_block")(tp, "x", cfg, x)
+        assert st is None
+
+
+def test_state_shapes_match_jax():
+    jcfg = jax_smoke_config("xlstm_125m")
+    tcfg = smoke_config("xlstm_125m")
+    assert xlstm.mlstm_state_shapes(tcfg, 3) == jax_xlstm.mlstm_state_shapes(jcfg, 3)
+    assert xlstm.slstm_state_shapes(tcfg, 3) == jax_xlstm.slstm_state_shapes(jcfg, 3)

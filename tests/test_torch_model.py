@@ -1,5 +1,5 @@
 """The port's model against ``repro.models.Model`` on the CPU: the dense
-transformer and the hybrid Mamba2 family (zamba2).
+transformer, the hybrid Mamba2 family (zamba2) and xLSTM.
 
 The JAX package's params are handed to the port through
 ``repro_torch.bridge``; inputs are numpy arrays made from a seed.  fp32,
@@ -98,11 +98,11 @@ def test_forward_and_prefill_caches_match(arch):
     np.testing.assert_allclose(caches["v"].numpy(), np.asarray(jv), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_34b", "zamba2_1p2b"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_34b", "zamba2_1p2b", "xlstm_125m"])
 def test_decode_steps_and_one_pass_prefill_match(arch):
     """Per-step decode logits equal JAX's; a one-pass prefill of the first
     half followed by decode gives the logits of JAX's token-by-token loop
-    (for zamba2 the half, 4, is ragged against its chunk of 8)."""
+    (for zamba2 and xlstm the half, 4, is ragged against their chunk of 8)."""
     jm, jp, tm, tp = pair(arch)
     batch = make_batch(tm.cfg, seed=4)
     ref = jax_decode_all(jm, jp, batch)                      # (B, S, V)
@@ -309,3 +309,109 @@ def test_serving_params_cast_once():
     sp = m.serving_params(params)
     assert set(sp) == set(params)
     assert all(v.dtype == torch.bfloat16 for v in sp.values())
+
+
+def test_xlstm_forward_matches_jax():
+    """xlstm smoke: logits of one forward pass (S a whole number of chunks:
+    the JAX mLSTM forward asserts it)."""
+    jm, jp, tm, tp = pair("xlstm_125m")
+    batch = make_batch(tm.cfg, seed=3)
+    jl, _ = jax.jit(jm.forward)(jp, jax_batch(batch))
+    with torch.no_grad():
+        tl, _ = tm.forward(tp, torch_batch(batch))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+
+
+XLSTM_CACHE = {"mlstm_S", "mlstm_n", "mlstm_m", "slstm_c", "slstm_n", "slstm_h", "slstm_m"}
+
+
+@pytest.mark.parametrize("P", [8, 5, 3])
+def test_xlstm_prefill_cache_matches_jax_loop(P):
+    """xlstm smoke: one prefill pass of P tokens fills the cache as JAX's P
+    decode steps do (JAX has no one-pass xLSTM prefill): every mLSTM
+    layer's final (S, n, m) and every sLSTM layer's (c, n, h, m).  P = 5 is
+    ragged against the chunk of 8; P = 3 is shorter than a chunk."""
+    jm, jp, tm, tp = pair("xlstm_125m")
+    batch = make_batch(tm.cfg, seed=6)
+    ref = jax_cache_after(jm, jp, batch, P)
+    with torch.no_grad():
+        cache = tm.init_cache(B, S)
+        tm.prefill(tp, cache, torch_batch({"tokens": batch["tokens"][:, :P]}))
+    assert set(cache) == set(ref) == XLSTM_CACHE
+    for name, want in ref.items():
+        assert tuple(cache[name].shape) == want.shape, name
+        np.testing.assert_allclose(cache[name].numpy(), want, **TOL, err_msg=name)
+
+
+def test_xlstm_short_prefill_then_decode_matches_jax_loop():
+    """xlstm smoke: a 3-token prefill and 5 decode steps give the logits of
+    JAX's token-by-token loop."""
+    jm, jp, tm, tp = pair("xlstm_125m")
+    batch = make_batch(tm.cfg, seed=7)
+    ref = jax_decode_all(jm, jp, batch)
+    with torch.no_grad():
+        cache = tm.init_cache(B, S)
+        logits = [tm.prefill(tp, cache, torch_batch({"tokens": batch["tokens"][:, :3]}))]
+        for t in range(3, S):
+            lg, cache = tm.decode_step(tp, cache, torch_batch(step_batch(tm.cfg, batch, t))
+                                       | {"cache_pos": t})
+            logits.append(lg)
+    np.testing.assert_allclose(torch.cat(logits, dim=1).numpy(), ref, **TOL)
+
+
+def test_xlstm_scan_goes_through_ops_in_prefill_only():
+    """Every mLSTM layer's chunked scan calls ``ops.mlstm_scan`` once in a
+    prefill; a decode step never does (it is plain PyTorch on every
+    device).  Nothing calls the other kernels."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+
+    cfg = fp32(smoke_config("xlstm_125m"))
+    m = Model(cfg, device="cpu")
+    params, _ = m.init(torch.Generator().manual_seed(0))
+    batch = torch_batch(make_batch(cfg, seed=5))
+    n_mlstm = cfg.n_layers // cfg.xlstm_slstm_every * (cfg.xlstm_slstm_every - 1)
+    with torch.no_grad(), \
+            mock.patch.object(ops, "mlstm_scan", wraps=ops.mlstm_scan) as scan, \
+            mock.patch.object(ops, "ssd_scan", wraps=ops.ssd_scan) as ssd, \
+            mock.patch.object(ops, "flash_attention", wraps=ops.flash_attention) as attn:
+        cache = m.init_cache(B, S + 1)
+        m.prefill(params, cache, batch)
+        assert scan.call_count == n_mlstm == 2
+        m.decode_step(params, cache, {"tokens": batch["tokens"][:, :1],
+                                      "positions": torch.full((B, 1), S), "cache_pos": S})
+        assert scan.call_count == n_mlstm
+    assert ssd.call_count == attn.call_count == 0
+
+
+def test_xlstm_init_matches_jax_abstract_params():
+    """The port's own xLSTM init: JAX's keys (units stacked, mLSTM and sLSTM
+    blocks in each), shapes, dtypes and logical axes; the sLSTM's R at scale
+    1/sqrt(dh) and its bias at zero."""
+    jshapes, jspecs = JaxModel(jax_smoke_config("xlstm_125m")).abstract_params()
+    cfg = smoke_config("xlstm_125m")
+    params, specs = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    assert set(params) == set(jshapes)
+    assert any("mlstm0/" in k for k in params) and any("slstm/" in k for k in params)
+    for k, p in params.items():
+        assert tuple(p.shape) == tuple(jshapes[k].shape), k
+        assert str(p.dtype).removeprefix("torch.") == str(jshapes[k].dtype), k
+        assert tuple(specs[k]) == tuple(jspecs[k]), k
+    dh = cfg.d_model // cfg.n_heads
+    assert float(params["blocks/slstm/r"].std()) == pytest.approx(1 / math.sqrt(dh), rel=0.1)
+    assert bool((params["blocks/slstm/bias"] == 0).all())
+
+
+def test_xlstm_cache_shapes_match_jax():
+    """Keys, shapes, dtypes and initial values: mlstm_m starts at -inf,
+    everything else at 0."""
+    cfg = smoke_config("xlstm_125m")
+    mine = Model(cfg, device="cpu").init_cache(B, 12)
+    want = JaxModel(jax_smoke_config("xlstm_125m")).init_cache(B, 12)
+    assert set(mine) == set(want) == XLSTM_CACHE
+    for k, v in want.items():
+        assert tuple(mine[k].shape) == v.shape, k
+        assert str(mine[k].dtype).removeprefix("torch.") == str(v.dtype), k
+        np.testing.assert_array_equal(mine[k].numpy(), np.asarray(v), err_msg=k)
+    assert bool(torch.isneginf(mine["mlstm_m"]).all())

@@ -18,7 +18,7 @@ from repro.models import Model as JaxModel  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import ssd  # noqa: E402
+from repro_torch.kernels import mlstm, ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 
@@ -46,10 +46,10 @@ def jax_greedy(cfg, params, prompts, G):
 
 
 @pytest.mark.parametrize("arch,P", [("stablelm_3b", 8), ("yi_34b", 8), ("zamba2_1p2b", 8),
-                                    ("zamba2_1p2b", 5)])
+                                    ("zamba2_1p2b", 5), ("xlstm_125m", 8), ("xlstm_125m", 5)])
 def test_greedy_ids_equal_jax_token_by_token(arch, P):
-    """zamba2 at P = 5 prefills a prompt that is not a whole number of its
-    chunks of 8."""
+    """zamba2 and xlstm at P = 5 prefill a prompt that is not a whole
+    number of their chunks of 8."""
     B, G = 2, 6
     jcfg = jax_smoke_config(arch).replace(dtype="float32", logit_dtype="float32")
     jparams, _ = JaxModel(jcfg).init(jax.random.key(0))
@@ -59,13 +59,13 @@ def test_greedy_ids_equal_jax_token_by_token(arch, P):
     model = Model(smoke_config(arch).replace(dtype="float32", logit_dtype="float32"),
                   device="cpu")
     params = bridge.to_torch({k: np.asarray(v) for k, v in jparams.items()}, device="cpu")
-    fa.launches = ssd.launches = 0
+    fa.launches = ssd.launches = mlstm.launches = 0
     res = serve.generate(model, params, torch.from_numpy(prompts).long(), G)
     assert res.generated.shape == (B, G)
     np.testing.assert_array_equal(res.generated.numpy(), ref)
     assert res.finite
     assert res.prefill_logits.shape == (B, jcfg.vocab)
-    assert fa.launches == ssd.launches == 0   # CPU tensors take the plain versions
+    assert fa.launches == ssd.launches == mlstm.launches == 0   # CPU: the plain versions
 
 
 def test_cli_runs_on_cpu_when_asked(capsys):
@@ -85,6 +85,16 @@ def test_cli_serves_zamba2_with_a_ragged_prompt(capsys):
                      "--batch", "2", "--prompt-len", "13", "--gen-len", "3"])
     assert rc == 0
     assert "arch=zamba2-smoke batch=2 on cpu" in capsys.readouterr().out
+
+
+def test_cli_serves_xlstm_with_a_ragged_prompt(capsys):
+    """xLSTM through the CLI, with a prompt shorter than its chunk of 8 and
+    one that is not a whole number of chunks."""
+    for prompt_len in ("3", "13"):
+        rc = serve.main(["--static", "--arch", "xlstm_125m", "--device", "cpu",
+                         "--batch", "2", "--prompt-len", prompt_len, "--gen-len", "3"])
+        assert rc == 0
+        assert "arch=xlstm-smoke batch=2 on cpu" in capsys.readouterr().out
 
 
 def test_profile_refuses_the_cpu():
