@@ -9,10 +9,11 @@ from the checkout's sources itself.  Phases, each of which fails the run:
 1. build   — compile ``src/repro_torch/kernels/csrc/{flash_attention,ssd,mlstm}.cu``
              for sm_90a, one ``nvcc`` per source, all started together;
 2. kernels — every kernel against its plain PyTorch version on the card
-             (the cases of ``tests/test_kernels.py`` and the serve paths'
-             shapes), then timed at the serve paths' shapes beside the
-             plain version, one library call where there is one, and the
-             card's bound;
+             (the cases of ``tests/test_kernels.py``, in fp32 (the scalar
+             kernels) and bf16 (the tensor-core kernels), and the serve
+             paths' shapes), then timed at the serve paths' shapes beside
+             the plain version, one library call where there is one, and
+             the card's bound; attention decode is timed with a cold L2;
 3. serve stablelm_3b — at full size, seed-initialised on the card:
              batch 8, prompt 512, 64 greedy tokens in bf16 through
              ``repro_torch.launch.serve``; the attention kernel must have
@@ -61,6 +62,10 @@ MLSTM_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=2e-2, 
 MLSTM_EXTREME_TOL = dict(rtol=5e-4, atol=5e-4)   # tests/test_kernels.py, gates of +-20
 MODEL_TOL = dict(rtol=2e-3, atol=5e-4)   # tests/test_models.py, fp32
 KERNELS = ("flash_attention", "ssd", "mlstm")
+L2_BYTES = 50 * 2**20   # H100 L2; decode timings rotate over more K/V than this
+# The bf16 prefill gaps to the plain twins that the scalar kernels gave
+# (chip_smoke.py on an H100 80GB HBM3 at 700 W), printed beside today's.
+EARLIER_BF16_GAP = {"stablelm_3b": "3.906e-02", "zamba2_1p2b": "8.6e-02"}
 
 ARCH, BATCH, PROMPT, GEN = "stablelm_3b", 8, 512, 64
 HYBRID = "zamba2_1p2b"
@@ -91,7 +96,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     failures: list[str] = []
-    build_phase()
+    build_phase(torch)
     entry = kernel_phase(torch, dev, failures)
     ssd_entry = ssd_kernel_phase(torch, dev, failures)
     mlstm_entry = mlstm_kernel_phase(torch, dev, failures)
@@ -176,7 +181,7 @@ def bound_ms(torch, q, k, v, *, causal, window, dev) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def build_phase():
+def build_phase(torch):
     """One nvcc per kernel source, all started together; prints each
     kernel's registers, spills and shared memory as ptxas reports them."""
     from repro_torch.kernels import _build
@@ -198,7 +203,8 @@ def build_phase():
     from repro_torch.kernels import mlstm, ssd
 
     print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
-          f"N 64, P 64): {ssd.smem_bytes(128, 64, 64)} bytes")
+          f"N 64, P 64): {ssd.smem_bytes(128, 64, 64)} bytes (bf16, tensor cores), "
+          f"{ssd.smem_bytes(128, 64, 64, torch.float32)} bytes (fp32, scalar)")
     print(f"[build] mlstm: dynamic shared memory a block at the serve shape (chunk 128, "
           f"D 384): {mlstm.smem_bytes(128, 384)} bytes")
 
@@ -240,19 +246,36 @@ def kernel_phase(torch, dev, failures) -> dict:
             k = randn(torch, (B, KV, Sk, D), dtype, 3 * seed + 1, dev)
             v = randn(torch, (B, KV, Sk, D), dtype, 3 * seed + 2, dev)
             compare(label, q, k, v, dtype, causal=causal, window=window)
-    for window in (16, 64, 128):
-        q, k, v = (randn(torch, (1, 2, 128, 32), "float32", 100 + i, dev) for i in range(3))
-        compare(f"window {window}", q, k, v, "float32", causal=True, window=window)
-    q, k, v = (randn(torch, (1, 2, 64, 32), "float32", 110 + i, dev, 4.0 if i < 2 else 1.0)
-               for i in range(3))
-    compare("softcap 20", q, k, v, "float32", dict(rtol=3e-5, atol=3e-5),
-            causal=True, softcap=20.0)
-    for seed, (log2s, group) in enumerate([(5, 1), (6, 2), (7, 4), (8, 2)]):
-        S = 2 ** log2s
-        q = randn(torch, (1, 2 * group, S, 32), "float32", 120 + 3 * seed, dev)
-        k = randn(torch, (1, 2, S, 32), "float32", 121 + 3 * seed, dev)
-        v = randn(torch, (1, 2, S, 32), "float32", 122 + 3 * seed, dev)
-        compare(f"convex S {S} group {group}", q, k, v, "float32", causal=True, convex=True)
+    for dtype in ("float32", "bfloat16"):
+        for window in (16, 64, 128):
+            q, k, v = (randn(torch, (1, 2, 128, 32), dtype, 100 + i, dev) for i in range(3))
+            compare(f"window {window}", q, k, v, dtype, causal=True, window=window)
+        q, k, v = (randn(torch, (1, 2, 64, 32), dtype, 110 + i, dev, 4.0 if i < 2 else 1.0)
+                   for i in range(3))
+        compare("softcap 20", q, k, v, dtype, dict(rtol=3e-5, atol=3e-5) if dtype == "float32"
+                else None, causal=True, softcap=20.0)
+        for seed, (log2s, group) in enumerate([(5, 1), (6, 2), (7, 4), (8, 2)]):
+            S = 2 ** log2s
+            q = randn(torch, (1, 2 * group, S, 32), dtype, 120 + 3 * seed, dev)
+            k = randn(torch, (1, 2, S, 32), dtype, 121 + 3 * seed, dev)
+            v = randn(torch, (1, 2, S, 32), dtype, 122 + 3 * seed, dev)
+            compare(f"convex S {S} group {group}", q, k, v, dtype, causal=True, convex=True)
+    # bf16 only: the tensor-core kernels' decode mode (Sq < 16) with GQA
+    # group 4, every Sq from 1 to 15; and every head dim with ragged Sq != Sk
+    # in prefill mode.
+    dims = (16, 32, 64, 80, 128)
+    for Sq in range(1, 16):
+        D, Sk, causal = dims[Sq % 5], 40 * Sq + 17, Sq % 2 == 0
+        q, k, v = (randn(torch, shape, "bfloat16", 130 + 3 * Sq + i, dev) for i, shape in
+                   enumerate([(2, 8, Sq, D), (2, 2, Sk, D), (2, 2, Sk, D)]))
+        compare(f"decode gqa 4 Sq {Sq} Sk {Sk} D {D}{' causal' if causal else ''}", q, k, v,
+                "bfloat16", causal=causal)
+    for i, D in enumerate(dims):
+        for Sq, Sk, causal in ((37 + 31 * i, 100 + 23 * i, True), (150 - 9 * i, 61 + 7 * i, False)):
+            q, k, v = (randn(torch, shape, "bfloat16", 180 + 10 * i + j, dev) for j, shape in
+                       enumerate([(2, 4, Sq, D), (2, 2, Sk, D), (2, 2, Sk, D)]))
+            compare(f"D {D} ragged Sq {Sq} Sk {Sk}{' causal' if causal else ''}", q, k, v,
+                    "bfloat16", causal=causal)
 
     # The serve path's two shapes, in the model's strided layout.
     H, D, Sk_dec = 32, 80, PROMPT + GEN - 1
@@ -260,15 +283,14 @@ def kernel_phase(torch, dev, failures) -> dict:
     pk = model_layout(torch, BATCH, H, PROMPT, D, "bfloat16", 201, dev)
     pv = model_layout(torch, BATCH, H, PROMPT, D, "bfloat16", 202, dev)
     dq = model_layout(torch, BATCH, H, 1, D, "bfloat16", 203, dev)
-    dk = model_layout(torch, BATCH, H, Sk_dec, D, "bfloat16", 204, dev, PROMPT + GEN)
-    dv = model_layout(torch, BATCH, H, Sk_dec, D, "bfloat16", 205, dev, PROMPT + GEN)
+    dkv = decode_sets(torch, BATCH, H, Sk_dec, D, 204, dev)
     err = max(compare("serve prefill (8,32,512,80) causal", pq, pk, pv, "bfloat16",
                       causal=True),
-              compare(f"serve decode (8,32,1,80) Sk {Sk_dec}", dq, dk, dv, "bfloat16",
+              compare(f"serve decode (8,32,1,80) Sk {Sk_dec}", dq, *dkv[0], "bfloat16",
                       causal=False))
 
-    pre, dec = attention_timings(torch, pq, pk, pv, True, dev), \
-        attention_timings(torch, dq, dk, dv, False, dev)
+    pre, dec = attention_timings(torch, pq, [(pk, pv)], True, dev), \
+        attention_timings(torch, dq, dkv, False, dev)
     for label, t in (("prefill (8,32,512,80) causal bf16", pre),
                      (f"decode (8,32,1,80) Sk {Sk_dec} bf16", dec)):
         print_attention_time(label, t)
@@ -285,23 +307,90 @@ def kernel_phase(torch, dev, failures) -> dict:
     }
 
 
-def attention_timings(torch, q, k, v, causal, dev) -> dict:
-    """Kernel, plain version and one library call at one shape, and the bound."""
+def decode_sets(torch, B, H, Sk, D, seed, dev) -> list:
+    """Distinct (k, v) caches in the model's layout, enough of them that
+    together they exceed the L2: a decode step reads each layer's cache
+    cold, and a timing on one set would read it from the L2."""
+    one = 2 * B * H * Sk * D * 2
+    n = L2_BYTES // one + 2
+    return [(model_layout(torch, B, H, Sk, D, "bfloat16", seed + 2 * i, dev, PROMPT + GEN),
+             model_layout(torch, B, H, Sk, D, "bfloat16", seed + 2 * i + 1, dev, PROMPT + GEN))
+            for i in range(n)]
+
+
+def graph_ms(torch, fns, reps=5) -> float:
+    """Device time per call: ``fns`` captured in order in one CUDA graph and
+    replayed, so no host time sits between the launches.  Median of
+    ``reps`` replays, by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / len(fns))
+    return statistics.median(samples)
+
+
+def attention_timings(torch, q, kv_sets, causal, dev) -> dict:
+    """Kernel, plain version and one library call at one shape, and the
+    bound.  With more than one (k, v) set (decode), each timed call reads
+    the next set, so every call finds its K/V outside the L2; the kernel
+    and SDPA are then timed as a CUDA graph of such calls (``ms``,
+    ``library_ms``), which leaves out the host's launch time: at ~20 us a
+    call that is as long as the kernel's.  The calls launched one by one
+    are kept as ``eager_ms`` and ``library_eager_ms``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
+    n = len(kv_sets)
+    kern = lambda i: fa.flash_attention_cuda(q, *kv_sets[i % n], causal=causal)   # noqa: E731
+    sdpa = lambda i: F.scaled_dot_product_attention(q, *kv_sets[i % n], is_causal=causal)  # noqa: E731
+
+    def rotating(fn):
+        it = iter(range(10**9))
+        return lambda: fn(next(it))
+
+    iters = 20 if n == 1 else 8 * n
     t = {
-        "ms": time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=causal)),
-        "plain_ms": time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=causal)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal)),
+        "ms": time_ms(torch, rotating(kern), iters=iters),
+        "plain_ms": time_ms(torch, rotating(lambda i: ref.attention_ref(
+            q, *kv_sets[i % n], causal=causal)), iters=iters),
+        "library_ms": time_ms(torch, rotating(sdpa), iters=iters),
     }
-    t["bound_ms"], t["bound_by"] = bound_ms(torch, q, k, v, causal=causal, window=0, dev=dev)
+    if n > 1:
+        t["eager_ms"], t["library_eager_ms"] = t["ms"], t["library_ms"]
+        t["ms"] = graph_ms(torch, [lambda i=i: kern(i) for i in range(iters)])
+        t["library_ms"] = graph_ms(torch, [lambda i=i: sdpa(i) for i in range(iters)])
+    t["bound_ms"], t["bound_by"] = bound_ms(torch, q, *kv_sets[0], causal=causal, window=0,
+                                            dev=dev)
     return t
 
 
 def print_attention_time(label, t):
+    if "eager_ms" in t:
+        print(f"[time] flash_attention {label}, cold L2 (each call reads the next of "
+              f"several K/V sets that together exceed the 50 MB L2): kernel "
+              f"{t['ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms as a CUDA graph of such calls "
+              f"(device time); launched one by one kernel {t['eager_ms']:.4f} ms, sdpa "
+              f"{t['library_eager_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        return
     print(f"[time] flash_attention {label}: kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
           f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
@@ -371,15 +460,24 @@ def ssd_kernel_phase(torch, dev, failures) -> dict:
         for dtype in ("float32", "bfloat16"):
             compare(f"({B},{S},{H},{P}) N {N} chunk {chunk} {dtype}",
                     ssd_inputs(torch, B, S, H, P, N, dtype, 300 + 10 * seed, dev), chunk, dtype)
-    compare("ragged S 100 chunk 32 vs ssd_ref float32",
-            ssd_inputs(torch, 1, 100, 2, 16, 8, "float32", 350, dev), 32, "float32",
-            oracle=ref.ssd_ref)
-    x, _, _, Bm, Cm = ssd_inputs(torch, 1, 32, 1, 8, 4, "float32", 360, dev)
-    dt = torch.full((1, 32, 1), 0.5, device=dev)
-    A = torch.full((1,), -50.0, device=dev)
-    y, _ = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=8)
-    local = torch.einsum("bsn,bsn->bs", Cm, Bm)[:, :, None, None] * 0.5 * x
-    check("decay A=-50: y ~ dt (C.B) x", y, local, dict(rtol=1e-3, atol=1e-3))
+    for dtype in ("float32", "bfloat16"):
+        compare(f"ragged S 100 chunk 32 vs ssd_ref {dtype}",
+                ssd_inputs(torch, 1, 100, 2, 16, 8, dtype, 350, dev), 32, dtype,
+                oracle=ref.ssd_ref)
+    # bf16: widths that the tensor-core kernel pads to its 16-wide tiles.
+    for seed, (B, S, H, P, N, chunk) in enumerate([(1, 40, 2, 4, 4, 4), (2, 64, 3, 4, 4, 16),
+                                                     (1, 48, 2, 8, 8, 4), (2, 64, 3, 8, 8, 16)]):
+        compare(f"({B},{S},{H},{P}) N {N} chunk {chunk} bfloat16",
+                ssd_inputs(torch, B, S, H, P, N, "bfloat16", 390 + 10 * seed, dev), chunk,
+                "bfloat16")
+    for dtype, tol in (("float32", dict(rtol=1e-3, atol=1e-3)), ("bfloat16", SSD_TOL["bfloat16"])):
+        x, _, _, Bm, Cm = ssd_inputs(torch, 1, 32, 1, 8, 4, dtype, 360, dev)
+        dt = torch.full((1, 32, 1), 0.5, device=dev)
+        A = torch.full((1,), -50.0, device=dev)
+        y, _ = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=8)
+        local = (torch.einsum("bsn,bsn->bs", Cm.float(), Bm.float())[:, :, None, None] * 0.5
+                 * x.float())
+        check(f"decay A=-50: y ~ dt (C.B) x {dtype}", y, local, tol)
 
     # The serve path's shape, in the model's strided layout.
     shape = f"serve ({BATCH},{PROMPT},64,64) N 64 chunk 128 bf16"
@@ -595,7 +693,7 @@ def serve_phase(torch, dev, entry, failures, counts):
     # tolerance: the fp32 gate above holds the kernel.
     last = last_logits(torch, model, params, prompts, failures, plain=True)
     bf16_gap(torch, "[serve] bf16 prefill last logits, kernel vs plain attention",
-             res.prefill_logits.float(), last, failures)
+             res.prefill_logits.float(), last, failures, EARLIER_BF16_GAP[ARCH])
 
 
 def gate(torch, label, got, want, failures):
@@ -608,12 +706,14 @@ def gate(torch, label, got, want, failures):
         failures.append(f"{label}: max_abs_err {err:.3e}")
 
 
-def bf16_gap(torch, label, got, want, failures):
-    """Printed as information; only non-finite values fail."""
+def bf16_gap(torch, label, got, want, failures, earlier=None):
+    """Printed as information; only non-finite values fail.  ``earlier``:
+    the same gap with the scalar kernels, for comparison."""
     err = float((got - want).abs().max())
     rel_rms = float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
     same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    print(f"{label} (information): max_abs_err={err:.3e} at max |logit| "
+    print(f"{label} (information): max_abs_err={err:.3e}"
+          f"{f' (scalar kernels: {earlier})' if earlier else ''} at max |logit| "
           f"{float(want.abs().max()):.3f}, relative rms {rel_rms:.3e}, same greedy id in "
           f"{same:.0%} of rows")
     if not bool(torch.isfinite(want).all()):
@@ -723,8 +823,14 @@ def hybrid_phase(torch, dev, fa_entry, ssd_entry, failures, counts):
     for label, S, Sk, causal, seed in (("prefill", PROMPT, PROMPT, True, 400),
                                        ("decode", 1, Sk_dec, False, 410)):
         q = model_layout(torch, BATCH, H, S, D, "bfloat16", seed, dev)
-        k = model_layout(torch, BATCH, H, Sk, D, "bfloat16", seed + 1, dev, PROMPT + GEN)
-        v = model_layout(torch, BATCH, H, Sk, D, "bfloat16", seed + 2, dev, PROMPT + GEN)
+        if label == "prefill":
+            kv_sets = [(model_layout(torch, BATCH, H, Sk, D, "bfloat16", seed + 1, dev,
+                                     PROMPT + GEN),
+                        model_layout(torch, BATCH, H, Sk, D, "bfloat16", seed + 2, dev,
+                                     PROMPT + GEN))]
+        else:
+            kv_sets = decode_sets(torch, BATCH, H, Sk, D, seed + 1, dev)
+        k, v = kv_sets[0]
         out = fa.flash_attention_cuda(q, k, v, causal=causal)
         want = ref.attention_ref(q, k, v, causal=causal)
         err = float((out.float() - want.float()).abs().max())
@@ -733,7 +839,7 @@ def hybrid_phase(torch, dev, fa_entry, ssd_entry, failures, counts):
         print(f"[kernel] flash_attention {shape}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"flash_attention {shape}: max_abs_err {err:.3e}")
-        att[label] = {"shape": shape, **attention_timings(torch, q, k, v, causal, dev)}
+        att[label] = {"shape": shape, **attention_timings(torch, q, kv_sets, causal, dev)}
         print_attention_time(shape, att[label])
     fa_entry[HYBRID] = att
     pre_ms = res.prefill_s * 1e3
@@ -762,7 +868,7 @@ def hybrid_phase(torch, dev, fa_entry, ssd_entry, failures, counts):
 
     last = last_logits(torch, model, params, prompts, failures, plain=True)
     bf16_gap(torch, "[hybrid] bf16 prefill last logits, kernels vs plain versions",
-             res.prefill_logits.float(), last, failures)
+             res.prefill_logits.float(), last, failures, EARLIER_BF16_GAP[HYBRID])
 
 
 def slstm_pass(torch, model, params, dev) -> tuple[float, int]:

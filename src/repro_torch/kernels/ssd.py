@@ -37,13 +37,13 @@ def _kernel():
     return _fn
 
 
-def smem_bytes(chunk: int, N: int, P: int) -> int:
-    """Dynamic shared memory a block of the kernel takes at these sizes
-    (the kernel's own plan; needs the built library)."""
+def smem_bytes(chunk: int, N: int, P: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory a block of the kernel for ``dtype`` takes at
+    these sizes (the kernel's own plan; needs the built library)."""
     fn = _build.load("ssd").ssd_scan_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    return fn(chunk, N, P)
+    return fn(chunk, N, P, _DTYPE_CODE[dtype])
 
 
 def _size_ok(v: int, hi: int) -> bool:

@@ -43,27 +43,61 @@ def rand(shape, dtype, seed, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "B,H,KV,Sq,Sk,D,causal,window",
+    "B,H,KV,Sq,Sk,D,causal,window,softcap",
     [
-        (1, 2, 2, 128, 128, 64, True, 0),
-        (2, 8, 2, 128, 128, 64, True, 0),
-        (1, 4, 1, 64, 256, 32, False, 0),
-        (2, 3, 3, 96, 96, 16, True, 0),
-        (2, 4, 4, 1, 37, 80, False, 0),
-        (2, 4, 2, 5, 37, 80, True, 0),
-        (1, 4, 4, 100, 77, 80, False, 20),
-        (1, 8, 2, 70, 70, 128, True, 0),
+        (1, 2, 2, 128, 128, 64, True, 0, 0.0),
+        (2, 8, 2, 128, 128, 64, True, 0, 0.0),
+        (1, 4, 1, 64, 256, 32, False, 0, 0.0),
+        (2, 3, 3, 96, 96, 16, True, 0, 0.0),
+        (2, 4, 4, 1, 37, 80, False, 0, 0.0),
+        (2, 4, 2, 5, 37, 80, True, 0, 0.0),
+        (1, 4, 4, 100, 77, 80, False, 20, 0.0),
+        (1, 8, 2, 70, 70, 128, True, 0, 0.0),
+        # softcap before the mask, in prefill and decode mode
+        (1, 2, 2, 64, 64, 32, True, 0, 20.0),
+        (1, 4, 2, 80, 80, 80, True, 0, 2.0),
+        (2, 4, 1, 3, 90, 64, False, 0, 2.0),
+        # sliding windows, prefill and decode mode
+        (1, 2, 2, 128, 128, 32, True, 16, 0.0),
+        (1, 2, 2, 128, 128, 32, True, 64, 0.0),
+        (1, 2, 2, 128, 128, 32, True, 128, 0.0),
+        (1, 4, 2, 200, 200, 80, True, 48, 0.0),
+        (1, 4, 4, 7, 40, 64, True, 3, 0.0),
+        # decode mode with GQA group 4: Sq from 1 to 15 query rows share K/V
+        (2, 8, 2, 1, 575, 80, False, 0, 0.0),
+        (2, 8, 2, 2, 100, 64, False, 0, 0.0),
+        (1, 8, 2, 3, 33, 128, True, 0, 0.0),
+        (2, 8, 2, 4, 70, 16, False, 0, 0.0),
+        (1, 8, 2, 5, 260, 64, True, 0, 0.0),
+        (2, 8, 2, 6, 31, 80, False, 0, 0.0),
+        (1, 8, 2, 7, 7, 32, True, 0, 0.0),
+        (1, 8, 2, 8, 200, 128, False, 0, 0.0),
+        (1, 8, 2, 9, 129, 80, False, 0, 0.0),
+        (2, 8, 2, 10, 96, 16, True, 0, 0.0),
+        (1, 8, 2, 11, 500, 80, False, 0, 0.0),
+        (1, 8, 2, 12, 12, 64, True, 0, 0.0),
+        (2, 8, 2, 13, 77, 32, False, 0, 0.0),
+        (1, 8, 2, 14, 41, 128, True, 0, 0.0),
+        (2, 8, 2, 15, 64, 64, True, 0, 0.0),
+        (1, 8, 2, 15, 300, 128, False, 0, 0.0),
+        (1, 4, 4, 1, 0, 64, False, 0, 0.0),
+        # every head dim with ragged Sq != Sk, in prefill mode
+        (2, 4, 2, 37, 53, 16, True, 0, 0.0),
+        (2, 4, 2, 53, 37, 32, False, 0, 0.0),
+        (2, 4, 2, 81, 130, 64, True, 0, 0.0),
+        (2, 4, 2, 130, 81, 80, False, 0, 0.0),
+        (2, 4, 2, 17, 200, 128, True, 0, 0.0),
     ],
 )
-def test_kernel_matches_plain_version(dev, B, H, KV, Sq, Sk, D, causal, window, dtype):
+def test_kernel_matches_plain_version(dev, B, H, KV, Sq, Sk, D, causal, window, softcap, dtype):
     q = rand((B, H, Sq, D), dtype, 0, dev)
     k = rand((B, KV, Sk, D), dtype, 1, dev)
     v = rand((B, KV, Sk, D), dtype, 2, dev)
     before = fa.launches
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
-    want = attention_ref(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
 
 
@@ -134,6 +168,13 @@ def check_ssd(args, chunk, dtype, tol):
         (2, 96, 2, 8, 4, 32),
         (2, 40, 8, 16, 16, 8),     # the zamba2 smoke config's widths
         (1, 100, 2, 16, 8, 32),    # ragged: S not a multiple of the chunk
+        (1, 40, 2, 4, 4, 4),       # N = P = 4, chunk 4: zero-padded to the tensor-core tile
+        (2, 64, 3, 8, 8, 16),      # N = P = 8, chunk 16
+        (1, 37, 2, 8, 4, 4),       # ragged, chunk 4
+        (2, 50, 2, 4, 8, 16),      # ragged, N 8, P 4
+        (1, 70, 2, 48, 24, 32),    # widths of 6 and 3 units (padded rows)
+        (1, 45, 2, 12, 20, 12),    # P and N not multiples of 8: no 16-byte copies
+        (2, 200, 2, 32, 16, 128),  # ragged against chunk 128
     ],
 )
 def test_ssd_kernel_matches_plain_version(dev, B, S, H, P, N, chunk, dtype):
@@ -158,28 +199,40 @@ def test_ssd_kernel_full_widths(dev, dtype):
     check_ssd(ssd_inputs(2, 256, 4, 64, N, dtype, dev), chunk, dtype, tol)
 
 
-def test_ssd_kernel_strided_model_layout(dev):
+@pytest.mark.parametrize(
+    "B,S,H,P,N,chunk",
+    [
+        (2, 64, 4, 16, 8, 16),
+        (2, 100, 4, 64, 64, 128),   # zamba2_1p2b's widths, ragged
+        (1, 48, 3, 8, 4, 16),       # B and C slices not 16-byte aligned
+    ],
+)
+def test_ssd_kernel_strided_model_layout(dev, B, S, H, P, N, chunk):
     """x, B and C as slices of one (B,S,d_in+2N) tensor, as mamba2_block
-    passes them: the same result as contiguous copies."""
-    B, S, H, P, N = 2, 64, 4, 16, 8
+    passes them: the same result as contiguous copies, and within the bf16
+    tolerance of the plain version."""
     conv_out = rand((B, S, H * P + 2 * N), torch.bfloat16, 7, dev)
     xs, Bm, Cm = torch.split(conv_out, [H * P, N, N], dim=-1)
     x = xs.reshape(B, S, H, P)
     assert not x.is_contiguous()
     _, dt, A, _, _ = ssd_inputs(B, S, H, P, N, torch.bfloat16, dev)
-    y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
-    y2, st2 = ops.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(), chunk=16)
+    y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y2, st2 = ops.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(), chunk=chunk)
     torch.testing.assert_close(y, y2, rtol=0, atol=0)
     torch.testing.assert_close(st, st2, rtol=0, atol=0)
+    check_ssd((x, dt, A, Bm, Cm), chunk, torch.bfloat16, lambda want: SSD_TOL[torch.bfloat16])
 
 
-def test_ssd_kernel_decay_property(dev):
-    """With A = -50 the state dies between steps: y ~ dt (C.B) x."""
-    x, _, A, Bm, Cm = ssd_inputs(1, 32, 1, 8, 4, torch.float32, dev, seed=11, A_value=-50.0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_decay_property(dev, dtype):
+    """With A = -50 the state dies between steps: y ~ dt (C.B) x (in bf16
+    against the same formula on the bf16 inputs, to the bf16 tolerance)."""
+    x, _, A, Bm, Cm = ssd_inputs(1, 32, 1, 8, 4, dtype, dev, seed=11, A_value=-50.0)
     dt = torch.full((1, 32, 1), 0.5, device=dev)
     y, _ = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=8)
-    local = torch.einsum("bsn,bsn->bs", Cm, Bm)[:, :, None, None] * 0.5 * x
-    torch.testing.assert_close(y, local, rtol=1e-3, atol=1e-3)
+    local = torch.einsum("bsn,bsn->bs", Cm.float(), Bm.float())[:, :, None, None] * 0.5 * x.float()
+    tol = dict(rtol=1e-3, atol=1e-3) if dtype == torch.float32 else SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), local, **tol)
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(dev):
