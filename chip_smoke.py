@@ -35,7 +35,9 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              plain PyTorch) and no other kernel at all; in fp32 the
              prefill's last logits and 4 decode steps after it (which read
              the prefill's final mLSTM and sLSTM states) must match the
-             same with the kernels swapped for their plain versions.
+             same with the kernels swapped for their plain versions; the
+             bf16 gap to the plain versions is printed after the first
+             mLSTM block and at the last logits.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -45,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import sys
 import time
@@ -181,6 +184,28 @@ def bound_ms(torch, q, k, v, *, causal, window, dev) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_summary(log: str) -> dict[str, str]:
+    """Registers and spills of each kernel in an ``nvcc -Xptxas=-v`` log,
+    by the kernel's own name (the mangled name's first component after its
+    anonymous namespace)."""
+    out, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+            ns = re.match(r"_ZN(\d+)", kernel)
+            if ns:
+                rest = kernel[ns.end() + int(ns.group(1)):]
+                n = re.match(r"\d+", rest)
+                if n:
+                    kernel = rest[n.end():n.end() + int(n.group())]
+            out[kernel] = ""
+        elif kernel and ("spill" in line or "registers" in line):
+            text = re.sub(r"^ptxas info\s*:\s*", "", line.strip())
+            out[kernel] = f"{out[kernel]}{'; ' if out[kernel] else ''}{text}"
+    return out
+
+
 def build_phase(torch):
     """One nvcc per kernel source, all started together; prints each
     kernel's registers, spills and shared memory as ptxas reports them."""
@@ -197,16 +222,18 @@ def build_phase(torch):
     print(f"[build] {', '.join(KERNELS)} in parallel: {time.perf_counter() - t0:.1f}s")
     for name, (log, secs) in logs.items():
         print(f"[build] {name}: {secs:.1f}s{'' if log else ' (library already built)'}")
-        for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
-                print(f"[build] {name}: {line.strip()}")
+        for kernel, props in ptxas_summary(log).items():
+            print(f"[build] {name}: {kernel}: {props}")
     from repro_torch.kernels import mlstm, ssd
 
     print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
           f"N 64, P 64): {ssd.smem_bytes(128, 64, 64)} bytes (bf16, tensor cores), "
           f"{ssd.smem_bytes(128, 64, 64, torch.float32)} bytes (fp32, scalar)")
     print(f"[build] mlstm: dynamic shared memory a block at the serve shape (chunk 128, "
-          f"D 384): {mlstm.smem_bytes(128, 384)} bytes")
+          f"D 384): bf16 {mlstm.w_smem_bytes(128, 384)} bytes (W, one block a (b, h, chunk)), "
+          f"{mlstm.smem_bytes(128, 384)} bytes (the rest, {mlstm.value_cols(128, 384)} value "
+          f"columns a block); fp32 {mlstm.smem_bytes(128, 384, torch.float32)} bytes (scalar, "
+          f"{mlstm.value_cols(128, 384, torch.float32)} value columns a block)")
 
 
 def kernel_phase(torch, dev, failures) -> dict:
@@ -538,16 +565,16 @@ def mlstm_bound_ms(q, chunk) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mlstm_work(chunk, D) -> str:
-    """The FMAs a block of the kernel does per chunk, and the share of them
-    that recomputes q k^T (every one of the D/32 blocks of a (b, h) does)."""
-    vb = min(D, 32)
-    t4 = chunk // 4
-    qk = t4 * (t4 + 1) // 2 * 16 * D          # lower-triangle 4x4 tiles of q k^T
-    wv = t4 * (t4 + 1) // 2 * 16 * vb         # W v on its own value columns
-    total = qk + 2 * chunk * D * vb + wv      # + q S and the state update
-    return (f"q k^T is {qk / 1e6:.2f} of the {total / 1e6:.2f} M FMAs a block does per "
-            f"chunk ({qk / total:.0%}), recomputed by each of the {D // vb} blocks of a (b, h)")
+def mlstm_tc_flops(B, S, H, D, chunk) -> dict:
+    """FLOP the bf16 kernels issue as mma at these sizes: q k^T on the
+    16 x 16 tiles on or below the diagonal, once per (b, h, chunk); q S,
+    the state update and W v, each twice (bf16 hi + lo of S, of cw k, of
+    W).  Padded rows and columns (chunk and D rounded up to 16) count."""
+    QP, DP = -(-chunk // 16) * 16, -(-D // 16) * 16
+    tiles = (QP // 16) * (QP // 16 + 1) // 2
+    n = B * H * -(-S // chunk)
+    return {"q k^T": n * tiles * 2 * 256 * DP, "q S": n * 2 * 2 * QP * DP * DP,
+            "update": n * 2 * 2 * QP * DP * DP, "W v": n * 2 * 2 * tiles * 256 * DP}
 
 
 def mlstm_kernel_phase(torch, dev, failures) -> dict:
@@ -591,6 +618,27 @@ def mlstm_kernel_phase(torch, dev, failures) -> dict:
     compare("strided gates (2,64,4,32) chunk 16 bfloat16",
             mlstm_inputs(torch, 2, 64, 4, 32, "bfloat16", 590, dev, model_layout=True), 16,
             MLSTM_TOL["bfloat16"])
+    # bf16 only, the tensor-core kernels (tests/test_torch_cuda.py): chunks
+    # and head dims that do not fill 16-wide tiles, every value-column
+    # width, ragged lengths (S 16 against chunk 128 is the serve warm-up's
+    # shape) and gates of +-20, all against mlstm_chunked.
+    for seed, (B, S, H, D, chunk) in enumerate([
+            (2, 40, 2, 16, 4), (1, 48, 2, 16, 12), (2, 80, 2, 32, 20), (2, 64, 2, 24, 8),
+            (2, 64, 2, 8, 8), (2, 48, 2, 12, 16), (1, 40, 2, 20, 8), (1, 96, 3, 64, 32),
+            (1, 128, 2, 96, 64), (1, 256, 1, 512, 128)]):
+        compare(f"({B},{S},{H},{D}) chunk {chunk} bfloat16",
+                mlstm_inputs(torch, B, S, H, D, "bfloat16", 620 + 10 * seed, dev), chunk,
+                MLSTM_TOL["bfloat16"])
+    for seed, (S, chunk, D) in enumerate([(37, 16, 8), (37, 16, 32), (200, 128, 384),
+                                          (16, 128, 384), (5, 8, 96)]):
+        compare(f"ragged S {S} D {D} chunk {chunk} bfloat16",
+                mlstm_inputs(torch, 2, S, 2, D, "bfloat16", 700 + 10 * seed, dev), chunk,
+                MLSTM_TOL["bfloat16"])
+    for seed in range(3):
+        for D, S, chunk in ((8, 32, 8), (384, 256, 128)):
+            compare(f"gates +-20 (1,{S},1,{D}) chunk {chunk} #{seed} bfloat16",
+                    mlstm_inputs(torch, 1, S, 1, D, "bfloat16", 750 + 10 * seed, dev,
+                                 gate_scale=20.0), chunk, MLSTM_TOL["bfloat16"])
 
     # The serve path's shape, in the model's layout.
     shape = f"serve ({BATCH},{PROMPT},4,384) chunk 128 bf16"
@@ -601,9 +649,18 @@ def mlstm_kernel_phase(torch, dev, failures) -> dict:
          "plain_ms": time_ms(torch, lambda: ref.mlstm_chunked(*sargs, 128), iters=5, reps=3),
          "library_ms": None}
     t["bound_ms"], t["bound_by"] = mlstm_bound_ms(sargs[0], 128)
-    print(f"[time] mlstm {shape}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-          f"no single PyTorch call, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
-    print(f"[time] mlstm: {mlstm_work(128, 384)}")
+    t["graph_ms"] = graph_ms(torch, [lambda: mlstm.mlstm_scan_cuda(*sargs, chunk=128)] * 10)
+    print(f"[time] mlstm {shape}: kernel {t['ms']:.4f} ms ({t['graph_ms']:.4f} ms a call in a "
+          f"CUDA graph of 10), plain {t['plain_ms']:.4f} ms, no single PyTorch call, bound "
+          f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    work = mlstm_tc_flops(BATCH, PROMPT, 4, 384, 128)
+    total = sum(work.values())
+    useful = 4 * 128 * 384 * (128 + 384) * BATCH * 4 * (PROMPT // 128)
+    print(f"[time] mlstm: the bf16 kernels issue {total / 1e9:.2f} GFLOP of mma ("
+          + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in work.items())
+          + f"; q k^T once per (b, h, chunk), the other three with hi + lo): "
+          f"{total / t['ms'] / 1e9:.1f} TFLOP/s issued; the function's own {useful / 1e9:.2f} "
+          f"GFLOP at {useful / t['ms'] / 1e9:.1f} TFLOP/s")
     return {
         "name": "mlstm",
         "route": "cuda",
@@ -706,16 +763,17 @@ def gate(torch, label, got, want, failures):
         failures.append(f"{label}: max_abs_err {err:.3e}")
 
 
-def bf16_gap(torch, label, got, want, failures, earlier=None):
+def bf16_gap(torch, label, got, want, failures, earlier=None, ids=True):
     """Printed as information; only non-finite values fail.  ``earlier``:
-    the same gap with the scalar kernels, for comparison."""
+    the same gap with the scalar kernels, for comparison; ``ids``: the
+    values are logits, so also the share of rows with the same greedy id."""
     err = float((got - want).abs().max())
     rel_rms = float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
     same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     print(f"{label} (information): max_abs_err={err:.3e}"
-          f"{f' (scalar kernels: {earlier})' if earlier else ''} at max |logit| "
-          f"{float(want.abs().max()):.3f}, relative rms {rel_rms:.3e}, same greedy id in "
-          f"{same:.0%} of rows")
+          f"{f' (scalar kernels: {earlier})' if earlier else ''} at max |value| "
+          f"{float(want.abs().max()):.3f}, relative rms {rel_rms:.3e}"
+          + (f", same greedy id in {same:.0%} of rows" if ids else ""))
     if not bool(torch.isfinite(want).all()):
         failures.append(f"{label}: non-finite logits in the plain run")
 
@@ -961,9 +1019,36 @@ def xlstm_phase(torch, dev, mlstm_entry, failures, counts):
          sk, sp, failures)
     del params32, lk, lp, sk, sp
 
-    last = last_logits(torch, model, params, prompts, failures, plain=True)
+    # The bf16 gap to the plain versions at two points of the same prefill:
+    # the first mLSTM block's output (the kernel's own error: both runs feed
+    # it the same input) and the last logits (after 11 more blocks).
+    first_k, last_k = first_mlstm_and_logits(torch, model, params, prompts, failures)
+    first_p, last_p = first_mlstm_and_logits(torch, model, params, prompts, failures, plain=True)
+    bf16_gap(torch, "[xlstm] bf16 first mLSTM block's output, kernel vs plain versions",
+             first_k, first_p, failures, ids=False)
     bf16_gap(torch, "[xlstm] bf16 prefill last logits, kernel vs plain versions",
-             res.prefill_logits.float(), last, failures)
+             last_k, last_p, failures)
+
+
+def first_mlstm_and_logits(torch, model, params, prompts, failures, *, plain=False):
+    """A prefill's first mLSTM block output (B, S, d) and last logits (B, V),
+    in fp32, through the kernels or (``plain``) their plain versions."""
+    from unittest import mock
+
+    from repro_torch.models import transformer
+
+    seen = []
+    block = transformer.mlstm_block
+
+    def recording(*args, **kwargs):
+        out = block(*args, **kwargs)
+        if not seen:
+            seen.append(out[0].float())
+        return out
+
+    with mock.patch.object(transformer, "mlstm_block", recording):
+        last = last_logits(torch, model, params, prompts, failures, plain=plain)
+    return seen[0], last
 
 
 if __name__ == "__main__":

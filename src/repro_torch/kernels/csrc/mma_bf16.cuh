@@ -1,14 +1,14 @@
 // Warp-level bf16 tensor-core helpers for NVIDIA Hopper (sm_90a), shared by
-// the bf16 paths of flash_attention.cu and ssd.cu (and meant for the bf16
-// path of mlstm.cu).  Header-only; a kernel source includes it, and the
-// build hashes it into every library's name, so an edit rebuilds them all.
+// the bf16 paths of flash_attention.cu, ssd.cu and mlstm.cu.  Header-only;
+// a kernel source includes it, and the build hashes it into every
+// library's name, so an edit rebuilds them all.
 //
 // What is here: the m16n8k16 bf16 `mma.sync` with fp32 accumulators (the
-// warp-synchronous product; `wgmma` is a later step), `ldmatrix` (x4,
+// warp-synchronous product; `wgmma` is a later step), `ldmatrix` (x4, x2,
 // x4.trans and x2.trans), 16-byte `cp.async` copies (with zero fill)
-// and their commit / wait groups, exp2 on the special-function unit, bf16
-// packing and the hi + lo split of an fp32 value, and the fragment index
-// maps.
+// and their commit / wait groups, mbarriers and 4-D TMA tile loads, exp2
+// on the special-function unit, bf16 packing and the hi + lo split of an
+// fp32 value, and the fragment index maps.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane = 4 g + t (g = lane >> 2 in 0..7, t = lane & 3):
@@ -59,6 +59,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -84,6 +89,52 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers and the Tensor Memory Accelerator (TMA).  A tile load by TMA
+// is one thread's cp.async.bulk.tensor; it signals its bytes to an
+// mbarrier in shared memory, which the readers wait on by phase parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// After mbar_init: the initialisation made visible to the async proxy.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Orders this thread's (and, after a barrier, the block's) earlier
+// shared-memory accesses before its later async-proxy (TMA) ones.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Arrive on the barrier and expect `bytes` more from TMA in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// One box of a 4-D tensor map (a CUtensorMap in parameter or global
+// memory) at coordinates c0..c3 (innermost first) into shared memory.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
 }
 
 // 2^x on the special-function unit (ex2.approx.ftz: relative error

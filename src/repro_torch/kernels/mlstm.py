@@ -9,7 +9,13 @@ views (the model passes the gates as the two halves of one (B,S,2H)
 tensor, without a copy); h is allocated as a contiguous (B,S,H,D) tensor,
 the state as S (B,H,D,D), n (B,H,D), m (B,H) in fp32.
 
-``launches`` counts the kernel's launches; nothing else changes it.
+Two kernels, chosen by dtype alone inside ``csrc/mlstm.cu``: fp32 runs the
+scalar FMA kernel; bf16 runs the tensor-core pair (one launch forms W =
+q k^T (.) weights once per (b, h, chunk) into a scratch tensor that this
+wrapper allocates with ``torch.empty``, one launch does the rest).
+
+``launches`` counts calls that launched the kernels (a bf16 call is two
+kernel launches, an fp32 call one); nothing else changes it.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 _fn = None
+_queries: dict = {}
 
 
 def _kernel():
@@ -33,19 +40,43 @@ def _kernel():
     if _fn is None:
         fn = _build.load("mlstm").mlstm_scan_fwd
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [P] * 9 + [I] * 6 + [L] * 18 + [P]
+        fn.argtypes = [P] * 10 + [I] * 6 + [L] * 18 + [P]
         fn.restype = I
         _fn = fn
     return _fn
 
 
-def smem_bytes(chunk: int, D: int) -> int:
-    """Dynamic shared memory a block of the kernel takes at these sizes
-    (the kernel's own plan; needs the built library)."""
-    fn = _build.load("mlstm").mlstm_scan_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 2
-    fn.restype = ctypes.c_int
-    return fn(chunk, D)
+def _query(name: str, *args: int, restype=ctypes.c_int) -> int:
+    """Call one of the library's size queries (all int arguments)."""
+    fn = _queries.get(name)
+    if fn is None:
+        fn = _queries[name] = getattr(_build.load("mlstm"), name)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = restype
+    return fn(*args)
+
+
+def smem_bytes(chunk: int, D: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory a block of the kernel for ``dtype`` takes at
+    these sizes (for bf16 the larger, second kernel; the kernel's own plan;
+    needs the built library)."""
+    return _query("mlstm_scan_smem_bytes", chunk, D, _DTYPE_CODE[dtype])
+
+
+def w_smem_bytes(chunk: int, D: int) -> int:
+    """Dynamic shared memory a block of the bf16 path's first kernel (W) takes."""
+    return _query("mlstm_scan_w_smem_bytes", chunk, D)
+
+
+def value_cols(chunk: int, D: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Value columns of S that one block of the kernel for ``dtype`` owns."""
+    return _query("mlstm_scan_value_cols", chunk, D, _DTYPE_CODE[dtype])
+
+
+def scratch_bytes(B: int, S: int, H: int, chunk: int, dtype: torch.dtype) -> int:
+    """Bytes of device scratch a call takes (0 for fp32)."""
+    return _query("mlstm_scan_scratch_bytes", B, S, H, chunk, _DTYPE_CODE[dtype],
+                  restype=ctypes.c_int64)
 
 
 def _head_dim_ok(D: int) -> bool:
@@ -91,11 +122,13 @@ def mlstm_scan_cuda(q, k, v, i_gate, f_gate, *, chunk: int):
     S_f = torch.empty((B, H, D, D), dtype=torch.float32, device=q.device)
     n_f = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     m_f = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((scratch_bytes(B, S, H, chunk, q.dtype) // 4,), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), i_gate.data_ptr(), f_gate.data_ptr(),
-            h.data_ptr(), S_f.data_ptr(), n_f.data_ptr(), m_f.data_ptr(),
+            h.data_ptr(), S_f.data_ptr(), n_f.data_ptr(), m_f.data_ptr(), scratch.data_ptr(),
             _DTYPE_CODE[q.dtype], B, S, H, D, chunk,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *i_gate.stride(), *f_gate.stride(), *h.stride()[:3], stream,

@@ -315,10 +315,39 @@ def check_mlstm(args, chunk, tol, oracle=None):
         (2, 64, 2, 8, 16),
         (2, 40, 4, 32, 8),      # the xlstm smoke config's widths
         (1, 256, 2, 384, 128),  # xlstm_125m's head dim and chunk
+        (2, 40, 2, 16, 4),      # chunks that do not fill a 16-row tile
+        (1, 48, 2, 16, 12),
+        (2, 80, 2, 32, 20),
+        (2, 64, 2, 24, 8),      # head dims that do not fill a 16-wide tile
+        (2, 48, 2, 12, 16),     # ... nor whole 16-byte rows (plain loads, no TMA)
+        (1, 40, 2, 20, 8),
+        (1, 96, 3, 64, 32),     # every value-column width: 64 ...
+        (1, 128, 2, 96, 64),    # ... 96 ...
+        (1, 256, 1, 512, 128),  # ... and 64 again at the widest head
     ],
 )
 def test_mlstm_kernel_matches_plain_version(dev, B, S, H, D, chunk, dtype):
     check_mlstm(mlstm_inputs(B, S, H, D, dtype, dev), chunk, MLSTM_TOL[dtype])
+
+
+@pytest.mark.parametrize(
+    "S,chunk,D",
+    [(37, 16, 8), (37, 16, 32), (200, 128, 384), (16, 128, 384), (5, 8, 96)],
+)
+def test_mlstm_kernel_bf16_ragged(dev, S, chunk, D):
+    """bf16, S not a multiple of the chunk (S 16 against chunk 128 is the
+    serve warm-up's shape): the tensor-core kernels against mlstm_chunked."""
+    check_mlstm(mlstm_inputs(2, S, 2, D, torch.bfloat16, dev, seed=6), chunk,
+                MLSTM_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("seed", [0, 7, 42])
+@pytest.mark.parametrize("D,S,chunk", [(8, 32, 8), (384, 256, 128)])
+def test_mlstm_kernel_bf16_extreme_gates(dev, seed, D, S, chunk):
+    """bf16 gate preactivations of +-20: finite, and within the bf16
+    tolerance of mlstm_chunked."""
+    check_mlstm(mlstm_inputs(1, S, 1, D, torch.bfloat16, dev, seed=seed, gate_scale=20.0), chunk,
+                MLSTM_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("S,chunk,D", [(100, 32, 16), (37, 16, 8), (5, 8, 32), (200, 128, 384)])
@@ -350,6 +379,21 @@ def test_mlstm_kernel_strided_model_layout(dev):
     for a, b in zip(st, st2):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     check_mlstm((q, k, v, ig, fg), 16, MLSTM_TOL[torch.bfloat16])
+
+
+def test_mlstm_kernel_bf16_head_major_layout(dev):
+    """q, k, v as (B,H,S,D) tensors viewed as (B,S,H,D): other strides for
+    the tile loads, the same result as contiguous copies, within the bf16
+    tolerance of mlstm_chunked; S ragged against the chunk."""
+    B, S, H, D = 2, 100, 3, 64
+    q, k, v = (rand((B, H, S, D), torch.bfloat16, 20 + i, dev).transpose(1, 2) for i in range(3))
+    _, _, _, ig, fg = mlstm_inputs(B, S, H, D, torch.bfloat16, dev, seed=23)
+    h, st = ops.mlstm_scan(q, k, v, ig, fg, chunk=32)
+    h2, st2 = ops.mlstm_scan(q.contiguous(), k.contiguous(), v.contiguous(), ig, fg, chunk=32)
+    torch.testing.assert_close(h, h2, rtol=0, atol=0)
+    for a, b in zip(st, st2):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    check_mlstm((q, k, v, ig, fg), 32, MLSTM_TOL[torch.bfloat16])
 
 
 def test_mlstm_kernel_refuses_what_it_does_not_take(dev):

@@ -12,6 +12,8 @@ for the extreme gates), 2e-2 in bf16; the block-level checks use the
 model tolerance of ``tests/test_models.py`` (rtol 2e-3, atol 5e-4) in
 fp32.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -130,6 +132,92 @@ def test_ragged_length_matches_jax_mlstm_ref(S, chunk):
     _, want = ref.mlstm_ref(*t)
     for got, w in zip(st, want):
         check(got, w, TOL["float32"])
+
+
+def split_bf16(x, lo=True):
+    """x as the kernel feeds it to a bf16 product: hi = bf16(x) and, with
+    ``lo``, plus lo = bf16(x - hi) (two mma into one accumulator)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float() if lo else hi
+
+
+def emulate_kernel(q, k, v, i_gate, f_gate, chunk, split_w=True):
+    """The bf16 CUDA kernels' arithmetic in plain PyTorch: fp32 everywhere
+    (q k^T, q S and the state update accumulate in fp32 from the bf16
+    inputs; 1/sqrt(D) on the fp32 products; den, the row sums of W and n
+    from fp32 values), except the three operands rounded for the tensor
+    cores, each split into bf16 hi + lo: W, the copy of S that feeds q S,
+    and cw (.) k.  ``split_w=False`` rounds W once.  h is rounded to bf16
+    as the kernel stores it; the state stays fp32."""
+    B, S, H, D = q.shape
+    Q = chunk
+    pad = (-S) % Q
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))   # (B,H,S,D)
+    ig, lf = i_gate.float().permute(0, 2, 1), torch.nn.functional.logsigmoid(
+        f_gate.float()).permute(0, 2, 1)
+    if pad:
+        qf, kf, vf = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (qf, kf, vf))
+        ig = torch.nn.functional.pad(ig, (0, pad), value=float("-inf"))
+        lf = torch.nn.functional.pad(lf, (0, pad))
+    St = torch.zeros(B, H, D, D)
+    n = torch.zeros(B, H, D)
+    m = torch.full((B, H), float("-inf"))
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    hs = []
+    for c in range(0, S + pad, Q):
+        qc, kc, vc = qf[:, :, c:c + Q], kf[:, :, c:c + Q], vf[:, :, c:c + Q]
+        b = torch.cumsum(lf[:, :, c:c + Q], -1)
+        total = b[..., -1]
+        igc = ig[:, :, c:c + Q]
+        logw = (b[..., :, None] - b[..., None, :] + igc[..., None, :]).masked_fill(
+            ~mask, float("-inf"))
+        mi = torch.maximum(m[..., None] + b, logw.amax(-1))
+        first = torch.isinf(m)[..., None]
+        e = torch.where(first, torch.zeros(()), torch.exp(m[..., None] + b - mi))
+        W = (qc @ kc.transpose(-1, -2)) / math.sqrt(D) * torch.exp(logw - mi[..., None])
+        qS = (qc @ split_bf16(St)) / math.sqrt(D)
+        qn = (qc @ n[..., None])[..., 0] / math.sqrt(D)
+        den = torch.maximum((e * qn + W.sum(-1)).abs(), torch.exp(-mi))
+        hs.append((e[..., None] * qS + split_bf16(W, split_w) @ vc) / den[..., None])
+        w = total[..., None] - b + igc
+        m_new = torch.maximum(m + total, w.amax(-1))
+        scale = torch.where(torch.isinf(m), torch.zeros(()), torch.exp(m + total - m_new))
+        cwk = torch.exp(w - m_new[..., None])[..., None] * kc
+        St = scale[..., None, None] * St + split_bf16(cwk).transpose(-1, -2) @ vc
+        n = scale[..., None] * n + cwk.sum(-2)
+        m = m_new
+    h = torch.cat(hs, 2)[:, :, :S].permute(0, 2, 1, 3).to(q.dtype)
+    return h, (St, n, m)
+
+
+def tol_ratio(got, want, tol):
+    """Largest |got - want| / (atol + rtol |want|): above 1 fails allclose."""
+    got, want = f32(got), f32(want)
+    return float((np.abs(got - want) / (tol["atol"] + tol["rtol"] * np.abs(want))).max())
+
+
+@pytest.mark.parametrize("gate_scale,S,chunk", [(None, 512, 128), (20.0, 256, 128)])
+def test_kernel_rounding_plan_holds_bf16_tolerance(gate_scale, S, chunk):
+    """The bf16 kernels' roundings (W, the S copy and cw (.) k each split
+    into bf16 hi + lo) keep h and the final S, n, m within the bf16
+    tolerance of mlstm_chunked: at the serve path's head dim and chunk
+    with model-like gates (i ~ N(0,1), f ~ N(1,1)), and with gates of
+    +-20."""
+    B, H, D = (2, 2, 384) if gate_scale is None else (1, 1, 384)
+    _, t = both(inputs(11, B, S, H, D, gate_scale), "bfloat16")
+    h, st = emulate_kernel(*t, chunk)
+    want_h, want_st = ref.mlstm_chunked(*t, chunk)
+    for got, want in zip((h, *st), (want_h, *want_st)):
+        assert tol_ratio(got, want, TOL["bfloat16"]) <= 1.0
+
+
+def test_single_rounding_of_w_misses_bf16_tolerance():
+    """Why W is split: rounded to bf16 once, the emulated kernel puts h past
+    the bf16 tolerance at the serve path's head dim and chunk."""
+    _, t = both(inputs(11, 2, 512, 2, 384), "bfloat16")
+    h, _ = emulate_kernel(*t, 128, split_w=False)
+    want_h, _ = ref.mlstm_chunked(*t, 128)
+    assert tol_ratio(h, want_h, TOL["bfloat16"]) > 1.0
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
