@@ -6,14 +6,19 @@
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the kernels
 from the checkout's sources itself.  Phases, each of which fails the run:
 
-1. build   — compile ``src/repro_torch/kernels/csrc/{flash_attention,ssd,mlstm}.cu``
-             for sm_90a, one ``nvcc`` per source, all started together;
+1. build   — compile ``src/repro_torch/kernels/csrc/{flash_attention,
+             flash_attention_bwd,ssd,mlstm}.cu`` for sm_90a, one ``nvcc`` per
+             source, all four started together;
 2. kernels — every kernel against its plain PyTorch version on the card
              (the cases of ``tests/test_kernels.py``, in fp32 (the scalar
              kernels) and bf16 (the tensor-core kernels), and the serve
              paths' shapes), then timed at the serve paths' shapes beside
              the plain version, one library call where there is one, and
              the card's bound; attention decode is timed with a cold L2;
+             the attention backward's dq, dk, dv against autograd of the
+             plain attention in fp32 (every head dim, both dtypes, causal,
+             window, softcap, GQA, ragged and Sq != Sk), then timed at
+             stablelm_3b's train shape beside SDPA's backward;
 3. serve stablelm_3b — at full size, seed-initialised on the card:
              batch 8, prompt 512, 64 greedy tokens in bf16 through
              ``repro_torch.launch.serve``; the attention kernel must have
@@ -37,7 +42,16 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              the prefill's final mLSTM and sLSTM states) must match the
              same with the kernels swapped for their plain versions; the
              bf16 gap to the plain versions is printed after the first
-             mLSTM block and at the last logits.
+             mLSTM block and at the last logits;
+6. train stablelm_3b — full size, seed-initialised on the card, through
+             ``repro_torch.launch.train``: fp32 master params, bf16
+             compute, remat, batch 8 x seq 512, 4 AdamW steps of
+             ``SyntheticTokens``; every loss and grad finite, 64 forward
+             and 32 backward attention calls a step, no SSD or mLSTM
+             launch; then, at full width and 4 layers in fp32, one step
+             through the kernels against the same step with the plain
+             attention: the loss, every grad leaf and the updated params
+             (the bf16 gap is printed).
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -47,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import statistics
 import sys
@@ -64,13 +79,17 @@ SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=3e-2, at
 MLSTM_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 MLSTM_EXTREME_TOL = dict(rtol=5e-4, atol=5e-4)   # tests/test_kernels.py, gates of +-20
 MODEL_TOL = dict(rtol=2e-3, atol=5e-4)   # tests/test_models.py, fp32
-KERNELS = ("flash_attention", "ssd", "mlstm")
+# A backward sums over S terms where the forward's 2e-5 sums over keys.
+GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+GRAD_REL_RMS = 1e-4     # a gradient leaf of the fp32 train gate, against the plain twin
+KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "mlstm")
 L2_BYTES = 50 * 2**20   # H100 L2; decode timings rotate over more K/V than this
 # The bf16 prefill gaps to the plain twins that the scalar kernels gave
 # (chip_smoke.py on an H100 80GB HBM3 at 700 W), printed beside today's.
 EARLIER_BF16_GAP = {"stablelm_3b": "3.906e-02", "zamba2_1p2b": "8.6e-02"}
 
 ARCH, BATCH, PROMPT, GEN = "stablelm_3b", 8, 512, 64
+TRAIN_STEPS, TRAIN_SEQ, GATE_LAYERS = 4, 512, 4
 HYBRID = "zamba2_1p2b"
 XLSTM = "xlstm_125m"
 
@@ -103,6 +122,7 @@ def main() -> int:
     entry = kernel_phase(torch, dev, failures)
     ssd_entry = ssd_kernel_phase(torch, dev, failures)
     mlstm_entry = mlstm_kernel_phase(torch, dev, failures)
+    bwd_entry = attention_bwd_phase(torch, dev, failures)
     if failures:
         return fail("; ".join(failures))
     counts: dict[str, dict[str, int]] = {}   # serve path -> kernel -> launches
@@ -117,7 +137,11 @@ def main() -> int:
     xlstm_phase(torch, dev, mlstm_entry, failures, counts)
     if failures:
         return fail("; ".join(failures))
-    kernels = [entry, ssd_entry, mlstm_entry]
+    torch.cuda.empty_cache()
+    train_phase(torch, dev, entry, bwd_entry, failures, counts)
+    if failures:
+        return fail("; ".join(failures))
+    kernels = [entry, bwd_entry, ssd_entry, mlstm_entry]
     for e in kernels:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in counts.items()}
         e["launches"] = sum(e["launches_by_path"].values())
@@ -165,12 +189,8 @@ def time_ms(torch, fn, iters=20, reps=5) -> float:
     return statistics.median(samples)
 
 
-def bound_ms(torch, q, k, v, *, causal, window, dev) -> tuple[float, str]:
-    """Larger of bytes / bandwidth (q, k, v read once, o written once) and
-    operations / peak: 4 D flops per (query, key) pair the mask admits."""
-    B, H, Sq, D = q.shape
-    Sk = k.shape[2]
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+def admitted_pairs(torch, Sq, Sk, *, causal, window, dev) -> int:
+    """(query, key) pairs of one head that the causal / window masks admit."""
     qp = torch.arange(Sq, device=dev)[:, None]
     kp = torch.arange(Sk, device=dev)[None, :]
     mask = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
@@ -178,7 +198,16 @@ def bound_ms(torch, q, k, v, *, causal, window, dev) -> tuple[float, str]:
         mask &= kp <= qp
     if window > 0:
         mask &= kp > qp - window
-    flops = 4 * D * B * H * int(mask.sum())
+    return int(mask.sum())
+
+
+def bound_ms(torch, q, k, v, *, causal, window, dev) -> tuple[float, str]:
+    """Larger of bytes / bandwidth (q, k, v read once, o written once) and
+    operations / peak: 4 D flops per (query, key) pair the mask admits."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * D * B * H * admitted_pairs(torch, Sq, Sk, causal=causal, window=window, dev=dev)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(q.dtype).removeprefix("torch.")] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -421,6 +450,116 @@ def print_attention_time(label, t):
     print(f"[time] flash_attention {label}: kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
           f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+
+
+# ------------------------------------------------------- attention backward --
+
+
+def attention_bwd_bound_ms(torch, q, k, *, causal, window, dev) -> tuple[float, str]:
+    """Larger of bytes / bandwidth (q, k, v, o, dO read once; dq, dk, dv
+    written once) and operations / peak: five products of 2 D flops each
+    (q k^T, dO v^T, P^T dO, dS^T q, dS k) per (query, key) pair the mask
+    admits."""
+    B, H, Sq, D = q.shape
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
+    flops = 10 * D * B * H * admitted_pairs(torch, Sq, k.shape[2], causal=causal, window=window,
+                                            dev=dev)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).removeprefix("torch.")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bwd_phase(torch, dev, failures) -> dict:
+    """The backward kernel's dq, dk, dv against autograd of attention_ref in
+    fp32 on the same inputs, then timed at stablelm_3b's train shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    def compare(label, q, k, v, dout, dtype, *, causal, window=0, softcap=0.0) -> float:
+        opts = dict(causal=causal, window=window, softcap=softcap)
+        out = fa.flash_attention_cuda(q, k, v, **opts)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **opts)
+        ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(ref.attention_ref(*ref_in, **opts), ref_in, dout.float())
+        torch.cuda.synchronize()
+        tol = GRAD_TOL[dtype]
+        errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
+        ok = all(bool(torch.isfinite(g).all()) and g.dtype == t.dtype and g.shape == t.shape
+                 and torch.allclose(g.float(), w, **tol) for g, w, t in zip(got, want, (q, k, v)))
+        print(f"[kernel] flash_attention_bwd {label:<42} {dtype:<8} max_abs_err dq {errs[0]:.3e} "
+              f"dk {errs[1]:.3e} dv {errs[2]:.3e} (rtol={tol['rtol']}, atol={tol['atol']}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash_attention_bwd {label} {dtype}: max_abs_err {max(errs):.3e}")
+        return max(errs)
+
+    cases = [  # label, B, H, KV, Sq, Sk, causal, window, softcap
+        ("causal", 2, 4, 4, 64, 64, True, 0, 0.0),
+        ("gqa 4 ragged S 100 window 16", 1, 8, 2, 100, 100, True, 16, 0.0),
+        ("mqa Sq 37 != Sk 70 softcap 50", 1, 4, 1, 37, 70, False, 0, 50.0),
+        ("non-causal gqa 2 S 100 window 32", 1, 4, 2, 100, 100, False, 32, 0.0),
+        ("causal window 32 softcap 50", 1, 4, 2, 100, 100, True, 32, 50.0),
+        ("window 20 masked rows Sq 100 Sk 77", 1, 4, 4, 100, 77, False, 20, 0.0),
+    ]
+    for i, D in enumerate((16, 32, 64, 80, 128)):
+        for j, (label, B, H, KV, Sq, Sk, causal, window, softcap) in enumerate(cases):
+            for dtype in ("float32", "bfloat16"):
+                seed = 800 + 40 * i + 4 * j
+                q = randn(torch, (B, H, Sq, D), dtype, seed, dev)
+                k, v = (randn(torch, (B, KV, Sk, D), dtype, seed + n, dev) for n in (1, 2))
+                dout = randn(torch, (B, H, Sq, D), dtype, seed + 3, dev)
+                compare(f"D {D} {label}", q, k, v, dout, dtype, causal=causal, window=window,
+                        softcap=softcap)
+
+    # The train path's shape, in the model's strided layout, in both dtypes.
+    H, D = 32, 80
+    shape = f"train ({BATCH},{H},{TRAIN_SEQ},{D}) causal"
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/models/layers.py:204 (no Pallas backward: the JAX package "
+                         "differentiates this jnp attention, src/repro/train/steps.py:75)",
+             "launches": None}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, dout = (model_layout(torch, BATCH, H, TRAIN_SEQ, D, dtype, 900 + n, dev)
+                         for n in range(4))
+        err = compare(shape, q, k, v, dout, dtype, causal=True)
+        t = attention_bwd_timings(torch, q, k, v, dout, dev)
+        print(f"[time] flash_attention_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms (3 launches), "
+              f"plain {t['plain_ms']:.4f} ms (autograd of attention_ref, backward only), sdpa "
+              f"backward {t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']})")
+        if dtype == "bfloat16":
+            entry.update(max_abs_err=err, shape=f"{shape} bf16", **t)
+        else:
+            entry["fp32"] = {"shape": f"{shape} fp32", "max_abs_err": err, **t}
+    return entry
+
+
+def attention_bwd_timings(torch, q, k, v, dout, dev) -> dict:
+    """The backward kernel, the plain version's backward (autograd of
+    attention_ref, its graph built once) and SDPA's backward, at one shape,
+    and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref_out = ref.attention_ref(*ref_in, causal=True)
+    sdpa_in = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_in, is_causal=True)
+    t = {
+        "ms": time_ms(torch, lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True),
+                      iters=10),
+        "plain_ms": time_ms(torch, lambda: torch.autograd.grad(ref_out, ref_in, dout,
+                                                               retain_graph=True),
+                            iters=5, reps=3),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(sdpa_out, sdpa_in, dout,
+                                                                 retain_graph=True), iters=10),
+    }
+    t["bound_ms"], t["bound_by"] = attention_bwd_bound_ms(torch, q, k, causal=True, window=0,
+                                                          dev=dev)
+    return t
 
 
 # --------------------------------------------------------------------- ssd --
@@ -681,6 +820,7 @@ def reset_counts():
     from repro_torch.kernels import mlstm, ssd
 
     fa.launches = 0
+    fa.bwd_launches = 0
     ssd.launches = 0
     mlstm.launches = 0
 
@@ -689,7 +829,8 @@ def read_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm, ssd
 
-    return {"flash_attention": fa.launches, "ssd": ssd.launches, "mlstm": mlstm.launches}
+    return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+            "ssd": ssd.launches, "mlstm": mlstm.launches}
 
 
 def serve_phase(torch, dev, entry, failures, counts):
@@ -729,6 +870,9 @@ def serve_phase(torch, dev, entry, failures, counts):
     print(f"[serve] flash_attention launches: {launches} (expected {want})")
     if launches != want:
         failures.append(f"flash_attention launched {launches} times, expected {want}")
+    others = {k: v for k, v in counts[ARCH].items() if k != "flash_attention" and v}
+    if others:
+        failures.append(f"{ARCH} serve launched other kernels: {others}")
     if not res.finite:
         failures.append("non-finite logits in the serve run")
 
@@ -866,7 +1010,8 @@ def hybrid_phase(torch, dev, fa_entry, ssd_entry, failures, counts):
           f"{step_ms:.2f} ms a step); peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     print(f"[hybrid] sample output ids: {res.generated[0, :12].tolist()}")
-    for name, want in (("ssd", cfg.n_layers), ("flash_attention", n_attn * GEN)):
+    for name, want in (("ssd", cfg.n_layers), ("flash_attention", n_attn * GEN),
+                       ("flash_attention_bwd", 0), ("mlstm", 0)):
         got = counts[HYBRID][name]
         print(f"[hybrid] {name} launches: {got} (expected {want})")
         if got != want:
@@ -988,7 +1133,8 @@ def xlstm_phase(torch, dev, mlstm_entry, failures, counts):
           f"{step_ms:.2f} ms a step); peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     print(f"[xlstm] sample output ids: {res.generated[0, :12].tolist()}")
-    for name, want in (("mlstm", n_mlstm), ("ssd", 0), ("flash_attention", 0)):
+    for name, want in (("mlstm", n_mlstm), ("ssd", 0), ("flash_attention", 0),
+                       ("flash_attention_bwd", 0)):
         got = counts[XLSTM][name]
         print(f"[xlstm] {name} launches: {got} (expected {want})")
         if got != want:
@@ -1049,6 +1195,188 @@ def first_mlstm_and_logits(torch, model, params, prompts, failures, *, plain=Fal
     with mock.patch.object(transformer, "mlstm_block", recording):
         last = last_logits(torch, model, params, prompts, failures, plain=plain)
     return seen[0], last
+
+
+# ------------------------------------------------------------------- train --
+
+
+def train_phase(torch, dev, fa_entry, bwd_entry, failures, counts):
+    """Full stablelm_3b trained 4 steps through ``repro_torch.launch.train``,
+    then the fp32 gate at full width and 4 layers against the plain twin."""
+    from repro_torch.configs import arch_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.device import card_label
+    from repro_torch.launch import train as train_cli
+
+    cfg = arch_config(ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, state, step_fn = train_cli.build(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"x {cfg.hd}, {n_params / 1e9:.3f} B params as fp32 masters (params, grads and AdamW "
+          f"mu / nu: {16 * n_params / 1e9:.1f} GB), compute {cfg.dtype}, remat {cfg.remat}; "
+          f"initialised in {time.perf_counter() - t0:.1f}s")
+    data = SyntheticTokens(cfg, BATCH, TRAIN_SEQ, seed=0)
+
+    reset_counts()
+    state, records = train_cli.train(model, state, step_fn, data.iter(), TRAIN_STEPS,
+                                     log=lambda line: print(f"[train] {line}"))
+    path = f"train {ARCH}"
+    counts[path] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in records:
+        print(f"[train] step {r.step}: loss {r.loss:.4f}, grad norm {r.grad_norm:.4f}, "
+              f"{r.seconds * 1e3:.1f} ms")
+    step_s = statistics.median(r.seconds for r in records[1:])
+    print(f"[train] step time {step_s * 1e3:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; step 0, "
+          f"cold, {records[0].seconds * 1e3:.1f} ms), {BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, "
+          f"peak memory {peak / 2**30:.1f} GiB ({peak / 1e9:.1f} GB), on {card_label(dev)}")
+    if not all(math.isfinite(r.loss) and math.isfinite(r.grad_norm) for r in records):
+        failures.append("non-finite loss or grads in the stablelm_3b train run")
+    print("[train] every loss and grad norm finite (the fp32 global norm is finite only if "
+          f"every grad element is): {all(math.isfinite(r.grad_norm) for r in records)}")
+    per_step = {"flash_attention": cfg.n_layers * (1 + int(cfg.remat)),
+                "flash_attention_bwd": cfg.n_layers, "ssd": 0, "mlstm": 0}
+    for name, want in per_step.items():
+        got = counts[path][name]
+        print(f"[train] {name} launches: {got} in {TRAIN_STEPS} steps (expected "
+              f"{TRAIN_STEPS} x {want} = {TRAIN_STEPS * want})")
+        if got != TRAIN_STEPS * want:
+            failures.append(f"{path}: {name} launched {got} times, expected {TRAIN_STEPS * want}")
+    fwd_ms = per_step["flash_attention"] * fa_entry["ms"]
+    bwd_ms = per_step["flash_attention_bwd"] * bwd_entry["ms"]
+    print(f"[train] attention kernel shares of a step: forward {per_step['flash_attention']} x "
+          f"{fa_entry['ms']:.4f} ms = {fwd_ms / (step_s * 1e3):.1%}, backward "
+          f"{per_step['flash_attention_bwd']} x {bwd_entry['ms']:.4f} ms = "
+          f"{bwd_ms / (step_s * 1e3):.1%}")
+    profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev))
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+
+    # Information: the same 4 steps from the same seed with the plain
+    # attention.  Both run bf16 compute, whose rounding differs between the
+    # two paths and grows over the steps, so the losses are printed beside
+    # each other, not gated (the fp32 gate below holds the kernels).
+    model, state, step_fn = train_cli.build(cfg, device=dev, seed=0)
+    with plain_versions(failures):
+        _, plain = train_cli.train(model, state, step_fn, data.iter(), TRAIN_STEPS,
+                                   log=lambda line: None)
+    print("[train] the same steps with the plain attention (information): losses "
+          + ", ".join(f"{r.loss:.4f}" for r in plain) + " against the kernels' "
+          + ", ".join(f"{r.loss:.4f}" for r in records) + "; grad norms "
+          + ", ".join(f"{r.grad_norm:.4f}" for r in plain) + " against "
+          + ", ".join(f"{r.grad_norm:.4f}" for r in records))
+    if not all(math.isfinite(r.loss) for r in plain):
+        failures.append("non-finite loss in the plain-attention train run")
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+
+    # The gate: full width, 4 layers, fp32 (TF32 off, as main() sets), one
+    # step through the kernels against the same step with the plain
+    # attention; then the same in bf16, printed.
+    batch = to_device(data.sample(0), dev)
+    for dtype in ("float32", "bfloat16"):
+        small = cfg.replace(n_layers=GATE_LAYERS, dtype=dtype, logit_dtype=dtype)
+        model, state, _ = train_cli.build(small, device=dev, seed=0)
+        got = one_step(torch, model, state.params, batch, failures)
+        want = one_step(torch, model, state.params, batch, failures, plain=True)
+        label = (f"[train] {dtype} step at full width, depth cut to {GATE_LAYERS} layers, "
+                 f"kernels vs plain attention")
+        loss_err = abs(got[0] - want[0])
+        worst = max(((rel_rms(torch, got[1][k], want[1][k]), k) for k in want[1]))
+        p_err = max(float((got[2][k] - want[2][k]).abs().max()) for k in want[2])
+        if dtype == "float32":
+            ok_loss = loss_err <= MODEL_TOL["atol"] + MODEL_TOL["rtol"] * abs(want[0])
+            ok_grads = worst[0] <= GRAD_REL_RMS and all(
+                torch.allclose(got[1][k], want[1][k], **MODEL_TOL) for k in want[1])
+            ok_params = all(torch.allclose(got[2][k], want[2][k], **MODEL_TOL) for k in want[2])
+            print(f"{label}: loss {got[0]:.6f} vs {want[0]:.6f} (|gap| {loss_err:.3e}, "
+                  f"rtol={MODEL_TOL['rtol']}, atol={MODEL_TOL['atol']}) "
+                  f"{'ok' if ok_loss else 'FAIL'}; grads: worst leaf relative rms {worst[0]:.3e} "
+                  f"({worst[1]}; at most {GRAD_REL_RMS}, and each leaf within rtol/atol) "
+                  f"{'ok' if ok_grads else 'FAIL'}; params after AdamW max_abs_err {p_err:.3e} "
+                  f"{'ok' if ok_params else 'FAIL'}")
+            for ok, what in ((ok_loss, "loss"), (ok_grads, "grads"), (ok_params, "params")):
+                if not ok:
+                    failures.append(f"fp32 train gate: {what}")
+        else:
+            print(f"{label} (information): loss {got[0]:.6f} vs {want[0]:.6f} (|gap| "
+                  f"{loss_err:.3e}); grads: worst leaf relative rms {worst[0]:.3e} ({worst[1]}); "
+                  f"params after AdamW max_abs_err {p_err:.3e}")
+            if not math.isfinite(got[0]) or not math.isfinite(want[0]):
+                failures.append("bf16 train gate: non-finite loss")
+        del model, state, got, want
+        torch.cuda.empty_cache()
+
+
+def rel_rms(torch, got, want) -> float:
+    return float((got.double() - want.double()).square().mean().sqrt()
+                 / want.double().square().mean().sqrt().clamp_min(1e-30))
+
+
+def one_step(torch, model, params, batch, failures, *, plain=False):
+    """One train step from a copy of ``params``, through the kernels or
+    (``plain``) the plain attention: (loss, grads, params after AdamW),
+    grads and params in fp32."""
+    from repro_torch.optim import adamw_init, adamw_update, global_norm
+    from repro_torch.train import loss_and_grads
+
+    params = {k: p.detach().clone().requires_grad_() for k, p in params.items()}
+    with plain_versions(failures) if plain else contextlib.nullcontext():
+        loss, grads = loss_and_grads(model, params, batch)
+    with torch.no_grad():
+        kept = {k: g.float().clone() for k, g in grads.items()}   # adamw_update consumes grads
+        adamw_update(grads, adamw_init(params), params, 3e-4, grad_norm=global_norm(grads))
+    return float(loss), kept, {k: p.detach().float() for k, p in params.items()}
+
+
+def profile_train_step(torch, model, state, step_fn, batch):
+    """Where a warm train step's time goes: one more step split in its two
+    phases by host clock (each ended by a device sync), then one under
+    torch.profiler: the device's busy share and its kernels by group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import adamw_update, global_norm
+    from repro_torch.train import loss_and_grads
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = loss_and_grads(model, state.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        adamw_update(grads, state.opt, state.params, 3e-4, grad_norm=global_norm(grads))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    print(f"[train] a step's phases (host clock, synced): loss and grads {(t1 - t0) * 1e3:.1f} ms, "
+          f"global norm and AdamW over {sum(p.numel() for p in state.params.values()) / 1e9:.3f} B "
+          f"fp32 params {(t2 - t1) * 1e3:.1f} ms")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups: dict[str, float] = {}
+    for e in kernels:
+        name = e.key.lower()
+        group = ("attention backward kernel" if "attn_bwd" in name else
+                 "attention forward kernel" if "attn_" in name else
+                 "matmul (cuBLAS)" if any(w in name for w in ("gemm", "xmma", "nvjet", "cutlass"))
+                 else "other (elementwise, reductions, copies, AdamW)")
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+    print(f"[train] profiled step: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms "
+          f"({busy / wall_ms:.1%}), {sum(e.count for e in kernels)} kernel launches; by group: "
+          + ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.1%})"
+                      for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[train]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,15 +1,25 @@
-"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the Hopper flash-attention kernels: the forward
+(``csrc/flash_attention.cu``) and the backward
+(``csrc/flash_attention_bwd.cu``), joined by :class:`FlashAttentionFunction`.
 
-The kernel replaces ``repro/kernels/flash_attention.py::_attn_kernel``
+The forward replaces ``repro/kernels/flash_attention.py::_attn_kernel``
 (the Pallas TPU kernel) and computes the same function as
-:func:`repro_torch.kernels.ref.attention_ref`.  Layouts are the JAX
-package's: q (B,H,Sq,D); k/v (B,KV,Sk,D); out (B,H,Sq,D).  Inputs may be
-strided views (the model passes its (B,S,H,D) activations and
-(B,S_max,KV,D) cache slices transposed, without a copy); the output is
-allocated as a (B,Sq,H,D) tensor and returned as its (B,H,Sq,D) view, the
-layout the model's output projection reads.
+:func:`repro_torch.kernels.ref.attention_ref`; the backward computes its
+dq, dk and dv (the Pallas kernel has none: the JAX package differentiates
+its jnp attention).  Layouts are the JAX package's: q (B,H,Sq,D); k/v
+(B,KV,Sk,D); out (B,H,Sq,D).  Inputs may be strided views (the model
+passes its (B,S,H,D) activations and (B,S_max,KV,D) cache slices
+transposed, without a copy); the output is allocated as a (B,Sq,H,D)
+tensor and returned as its (B,H,Sq,D) view, the layout the model's output
+projection reads.  dq, dk and dv take q's, k's and v's layouts and dtypes.
 
-``launches`` counts the kernel's launches; nothing else changes it.
+``flash_attention_cuda`` records no gradient, so it refuses inputs that
+require one while grad mode is on; :func:`repro_torch.kernels.ops.flash_attention`
+sends those through :class:`FlashAttentionFunction` instead.
+
+``launches`` counts the forward kernel's launches and ``bwd_launches``
+the backward's calls (three kernel launches each); nothing else changes
+them.
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -24,7 +35,9 @@ SUPPORTED_D = (16, 32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+bwd_launches = 0
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -46,16 +59,33 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device)
         raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {dtype}")
     if t.stride(-1) != 1:
         raise ValueError(f"flash_attention: {name}'s last axis must be contiguous")
-    vec = 16 // t.element_size()
-    if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
+    if not _aligned(t):
         raise ValueError(f"flash_attention: {name} must be 16-byte aligned "
                          f"(pointer and strides), got strides {t.stride()}")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; raises on what it does not take."""
-    global launches
+def _aligned(t: torch.Tensor) -> bool:
+    """The last axis contiguous, the pointer and the other strides 16-byte
+    aligned: what the kernels' 16-byte loads need."""
+    vec = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:-1]))
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = _build.load("flash_attention_bwd").flash_attention_bwd
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 10 + [I] * 7 + [ctypes.POINTER(ctypes.c_int64), I, I,
+                                             ctypes.c_float, ctypes.c_float, P]
+        fn.restype = I
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def _check_inputs(q, k, v) -> tuple[int, int, int, int, int, int]:
+    """Raises on q/k/v the kernels do not take; returns (B, H, KV, Sq, Sk, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:
@@ -72,6 +102,21 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: head dim {D} not in {SUPPORTED_D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q.dtype, q.device)
+    return B, H, KV, Sq, Sk, D
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """Launch the forward kernel on CUDA tensors; raises on what it does not
+    take, and on inputs that require a gradient while grad mode is on (its
+    output would carry none: :func:`ops.flash_attention` is the
+    differentiable entry)."""
+    global launches
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention_cuda records no gradient; call "
+                           "repro_torch.kernels.ops.flash_attention, whose autograd Function "
+                           "runs the backward kernel")
+    B, H, KV, Sq, Sk, D = _check_inputs(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
@@ -87,3 +132,64 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True, window: int = 0,
+                             softcap: float = 0.0):
+    """dq, dk, dv of :func:`flash_attention_cuda`'s function at (q, k, v),
+    given its output ``out`` and the output's gradient ``dout``, by the
+    backward kernel (three launches); raises on what it does not take.
+    ``dout`` may have any strides: it is made contiguous where the kernel
+    could not read it in place.  Returns (dq, dk, dv) in q's, k's and v's
+    dtypes and layouts."""
+    global bwd_launches
+    B, H, KV, Sq, Sk, D = _check_inputs(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != (B, H, Sq, D):
+            raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)}, "
+                             f"expected {(B, H, Sq, D)}")
+    _check("out", out, q.dtype, q.device)
+    if dout.device != q.device or dout.dtype != q.dtype:
+        raise TypeError(f"flash_attention_bwd: dout is {dout.dtype} on {dout.device}, "
+                        f"q is {q.dtype} on {q.device}")
+    if not _aligned(dout):
+        dout = dout.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, out, dout, dq, dk, dv)
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bwd_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, D, strides,
+            int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(D), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with the hand-written forward and backward kernels: the
+    forward saves q, k, v and its output; the backward recomputes the rows'
+    log-sum-exp from them (``csrc/flash_attention_bwd.cu``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None

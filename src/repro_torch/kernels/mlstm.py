@@ -14,8 +14,10 @@ scalar FMA kernel; bf16 runs the tensor-core pair (one launch forms W =
 q k^T (.) weights once per (b, h, chunk) into a scratch tensor that this
 wrapper allocates with ``torch.empty``, one launch does the rest).
 
-``launches`` counts calls that launched the kernels (a bf16 call is two
-kernel launches, an fp32 call one); nothing else changes it.
+Under grad mode, inputs that require a gradient are refused (no backward
+yet, ROADMAP.md A18).  ``launches`` counts calls that launched the kernels
+(a bf16 call is two kernel launches, an fp32 call one); nothing else
+changes it.
 """
 from __future__ import annotations
 
@@ -29,6 +31,10 @@ COLS = 32         # D: a multiple of 4 up to 32, or a multiple of 32 ...
 MAX_D = 512       # ... up to 512
 MAX_CHUNK = 128   # chunk: a multiple of 4 in [4, 128]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+NO_BACKWARD = ("mlstm_scan: the mLSTM kernel has no backward yet (ROADMAP.md A18, B3c), so "
+               "its output would carry no gradient; on the card it runs under "
+               "torch.no_grad() or torch.inference_mode() only")
 
 launches = 0
 _fn = None
@@ -91,6 +97,8 @@ def mlstm_scan_cuda(q, k, v, i_gate, f_gate, *, chunk: int):
     """Launch the kernel on CUDA tensors; raises on what it does not take.
     Returns (h (B,S,H,D) in q's dtype, (S (B,H,D,D), n (B,H,D), m (B,H)) fp32)."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, i_gate, f_gate)):
+        raise RuntimeError(NO_BACKWARD)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan_cuda takes CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:

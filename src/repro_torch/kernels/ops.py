@@ -4,13 +4,17 @@ on CPU tensors.
 Where a tensor lies decides the path, and nothing else: a CPU tensor
 goes to :mod:`.ref`; a CUDA tensor goes to the hand-written kernel, which
 raises on what it does not take.  There is no fallback from one to the
-other.
+other.  On the card, attention whose inputs need a gradient goes through
+:class:`~.flash_attention.FlashAttentionFunction` (the forward kernel,
+then the backward kernel); without one it launches the forward directly,
+with no autograd bookkeeping.  The SSD and mLSTM kernels have no backward
+yet and raise under grad (ROADMAP.md A18).
 """
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention_cuda
+from .flash_attention import FlashAttentionFunction, flash_attention_cuda
 from .mlstm import mlstm_scan_cuda
 from .ref import attention_ref, mlstm_chunked, ssd_chunked
 from .ssd import ssd_scan_cuda
@@ -22,6 +26,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention.  q (B,H,Sq,D); k/v (B,KV,Sk,D) -> (B,H,Sq,D)."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, window, softcap)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
 
 

@@ -8,7 +8,9 @@ Bmat/Cmat (B,S,N).  x, Bmat and Cmat may be strided views (the model
 passes slices of one (B,S,d_in+2N) tensor, without a copy); y is
 allocated as a contiguous (B,S,H,P) tensor, the state as (B,H,N,P) fp32.
 
-``launches`` counts the kernel's launches; nothing else changes it.
+Under grad mode, inputs that require a gradient are refused (no backward
+yet, ROADMAP.md A18).  ``launches`` counts the kernel's launches; nothing
+else changes it.
 """
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ from . import _build
 MAX_NP = 64      # N and P: multiples of 4 in [4, 64]
 MAX_CHUNK = 128  # chunk: a multiple of 4 in [4, 128]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+NO_BACKWARD = ("ssd_scan: the SSD kernel has no backward yet (ROADMAP.md A18, B2c), so "
+               "its output would carry no gradient; on the card it runs under "
+               "torch.no_grad() or torch.inference_mode() only")
 
 launches = 0
 _fn = None
@@ -54,6 +60,8 @@ def ssd_scan_cuda(x, dt, A, Bmat, Cmat, *, chunk: int) -> tuple[torch.Tensor, to
     """Launch the kernel on CUDA tensors; raises on what it does not take.
     Returns (y (B,S,H,P) in x's dtype, final state (B,H,N,P) fp32)."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bmat, Cmat)):
+        raise RuntimeError(NO_BACKWARD)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda takes CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODE:

@@ -1,4 +1,4 @@
-"""Model facade: init / prefill / decode (ports :mod:`repro.models.model`).
+"""Model facade: init / loss / prefill / decode (ports :mod:`repro.models.model`).
 
 Params are a flat dict of tensors under the JAX package's keys, so
 :mod:`repro_torch.bridge` passes them 1:1 between the two packages.
@@ -73,6 +73,35 @@ class Model:
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
         y, caches = forward_blocks(params, self.cfg, x, positions, collect_kv)
         return self.logits(params, y), caches
+
+    # ------------------------------------------------------------------ loss --
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token cross entropy; labels < 0 are masked.  The logits
+        are cast to fp32 for it; with ``cfg.loss_chunk`` dividing S, the sum
+        runs over sequence chunks of that length, in order, as the JAX
+        package's scan does (else over the whole sequence)."""
+        cfg = self.cfg
+        logits, _ = self.forward(params, batch)
+        labels = batch["labels"].long()
+        mask = (labels >= 0).float()
+        labels = labels.clamp_min(0)
+
+        def xent(lg, lb, mk):
+            lg = lg.float()
+            lse = torch.logsumexp(lg, dim=-1)
+            picked = torch.gather(lg, -1, lb[..., None])[..., 0]
+            return torch.sum((lse - picked) * mk), torch.sum(mk)
+
+        S = logits.shape[1]
+        if cfg.loss_chunk and S % cfg.loss_chunk == 0:
+            tot = cnt = torch.zeros((), dtype=torch.float32, device=logits.device)
+            for lo in range(0, S, cfg.loss_chunk):
+                sl = slice(lo, lo + cfg.loss_chunk)
+                ls, c = xent(logits[:, sl], labels[:, sl], mask[:, sl])
+                tot, cnt = tot + ls, cnt + c
+        else:
+            tot, cnt = xent(logits, labels, mask)
+        return tot / torch.clamp(cnt, min=1.0)
 
     # ---------------------------------------------------------------- decode --
     def init_cache(self, batch: int, max_len: int) -> dict:

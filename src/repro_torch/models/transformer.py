@@ -3,8 +3,11 @@
 
 Training/prefill walk the stacked per-layer params with a Python loop
 (the JAX package's ``lax.scan``); decode walks the layers over per-layer
-cache slices.  Families not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md item.
+cache slices.  With ``cfg.remat`` and grad enabled, each dense block runs
+under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` with
+``nothing_saveable``): its activations are recomputed in the backward.
+Families not ported yet raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 
 Families ported:
   dense   — [attn, mlp] x L     (gemma2: alternating sliding window + softcap)
@@ -19,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .common import ModelConfig, ParamBuilder, stack_params, torch_dtype
 from .layers import attention, init_attention, init_mlp, init_rmsnorm, mlp, rmsnorm
@@ -153,12 +157,20 @@ def forward_blocks(params, cfg: ModelConfig, x, positions, collect_kv=False):
     if cfg.family == "ssm":
         return _forward_xlstm(params, cfg, x, collect_kv)
     stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
+    # unbind, not v[i]: its backward stacks the layers' grads in one
+    # tensor, where L selects would each add a full-size zero tensor
+    layers = {k: v.unbind(0) for k, v in stacked.items()}
     windows = _layer_windows(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in stacked.items()}
+        lp = {k: v[i] for k, v in layers.items()}
         window = None if windows is None else windows[i]
-        x, kv = _dense_block(lp, cfg, x, positions, window, collect_kv)
+        if remat:
+            x, kv = checkpoint(_dense_block, lp, cfg, x, positions, window, collect_kv,
+                               use_reentrant=False)
+        else:
+            x, kv = _dense_block(lp, cfg, x, positions, window, collect_kv)
         if collect_kv:
             ks.append(kv[0])
             vs.append(kv[1])

@@ -63,7 +63,7 @@ for n in names:
     __import__(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -72,6 +72,10 @@ assert not bad, bad
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 20
+    walked = set(out.stdout.split("] ", 1)[1].split())
+    assert {"repro_torch.data.pipeline", "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.train.steps", "repro_torch.checkpoint.store",
+            "repro_torch.launch.train"} <= walked
 
 
 def test_port_sources_name_no_jax_or_repro_import():

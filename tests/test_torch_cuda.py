@@ -5,6 +5,9 @@
 Imports no JAX: each kernel is held against the port's plain version,
 which ``tests/test_torch_flash_attention.py``, ``tests/test_torch_ssd.py``
 and ``tests/test_torch_mlstm.py`` hold against the JAX package on the CPU.
+The attention backward is held against autograd of ``attention_ref``, and
+a train step on the card against the same step on the CPU, which
+``tests/test_torch_train.py`` holds against the JAX package.
 """
 import pytest
 
@@ -22,7 +25,9 @@ from repro_torch.kernels.ref import (  # noqa: E402
     ssd_chunked,
     ssd_ref,
 )
+from repro_torch.data import SyntheticTokens, to_device  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.train import build_init_fn, build_train_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -444,3 +449,127 @@ def test_xlstm_on_card_matches_cpu(dev):
     torch.testing.assert_close(got_step.cpu(), want_step, rtol=2e-3, atol=5e-4)
     for name in want_cache:
         torch.testing.assert_close(cache[name].cpu(), want_cache[name], rtol=2e-3, atol=5e-4)
+
+
+# ------------------------------------------------- training: autograd (C1) --
+
+GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,causal,window,softcap",
+    [
+        (2, 4, 4, 64, 64, True, 0, 0.0),
+        (1, 8, 2, 100, 100, True, 16, 0.0),    # GQA 4, ragged S, window
+        (1, 4, 1, 37, 70, False, 0, 50.0),     # Sq != Sk, MQA, gemma2's softcap
+        (1, 4, 2, 100, 100, True, 32, 50.0),
+        (1, 4, 4, 100, 77, False, 20, 0.0),    # rows 96.. see no key: fully masked
+    ],
+)
+def test_attention_grads_match_plain_version(dev, B, H, KV, Sq, Sk, D, causal, window,
+                                             softcap, dtype):
+    """Through ops.flash_attention on inputs that require grad: the output
+    carries a gradient, made by the backward kernel (one call), equal to
+    autograd of attention_ref in fp32 on the same inputs."""
+    q = rand((B, H, Sq, D), dtype, 0, dev).requires_grad_()
+    k = rand((B, KV, Sk, D), dtype, 1, dev).requires_grad_()
+    v = rand((B, KV, Sk, D), dtype, 2, dev).requires_grad_()
+    dout = rand((B, H, Sq, D), dtype, 3, dev)
+    before, before_bwd = fa.launches, fa.bwd_launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    assert out.requires_grad and out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before + 1, before_bwd + 1)
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want_out = attention_ref(*ref_in, causal=causal, window=window, softcap=softcap)
+    want = torch.autograd.grad(want_out, ref_in, dout.float())
+    for got, w, t in zip(grads, want, (q, k, v)):
+        assert got.dtype == t.dtype and got.shape == t.shape
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), w, **GRAD_TOL[dtype])
+
+
+def test_attention_grads_in_the_model_layout(dev):
+    """Strided q/k/v (transposed (B,S,H,D) activations) and a strided dout:
+    the grads keep q's layout and match the plain version."""
+    base = [rand((2, 48, 4, 32), torch.float32, i, dev).requires_grad_() for i in range(3)]
+    q, k, v = (t.transpose(1, 2) for t in base)
+    out = ops.flash_attention(q, k, v, causal=True)
+    dout = rand((2, 4, 32, 48), torch.float32, 5, dev).transpose(2, 3)   # not row-contiguous
+    grads = torch.autograd.grad(out, base, dout)
+    ref_in = [t.detach().clone().requires_grad_() for t in base]
+    want = torch.autograd.grad(
+        attention_ref(*(t.transpose(1, 2) for t in ref_in), causal=True), ref_in, dout)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got, w, **GRAD_TOL[torch.float32])
+
+
+def test_forward_kernel_alone_refuses_grad(dev):
+    q = rand((1, 2, 16, 32), torch.float32, 0, dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="ops.flash_attention"):
+        fa.flash_attention_cuda(q, q.detach(), q.detach())
+    with torch.no_grad():
+        assert not fa.flash_attention_cuda(q, q, q).requires_grad
+
+
+def test_ssd_and_mlstm_refuse_grad_and_serve_without(dev):
+    """No backward yet (ROADMAP.md A18): under grad mode an input that
+    requires grad is refused, naming the item; under inference_mode and
+    no_grad the kernels run as before."""
+    sargs = list(ssd_inputs(1, 32, 2, 16, 8, torch.float32, dev))
+    margs = list(mlstm_inputs(1, 32, 2, 16, torch.float32, dev))
+    for i in range(5):
+        for fn, args in ((lambda a: ops.ssd_scan(*a, chunk=16), sargs),
+                         (lambda a: ops.mlstm_scan(*a, chunk=16), margs)):
+            grad_args = [t.detach().requires_grad_() if j == i else t for j, t in enumerate(args)]
+            with pytest.raises(RuntimeError, match="A18"):
+                fn(grad_args)
+            with torch.inference_mode():
+                fn(grad_args)
+            with torch.no_grad():
+                fn(grad_args)
+    before = (ssd.launches, mlstm.launches)
+    with torch.inference_mode():
+        y, _ = ops.ssd_scan(*sargs, chunk=16)
+        h, _ = ops.mlstm_scan(*margs, chunk=16)
+    assert (ssd.launches, mlstm.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(y, ssd_chunked(*sargs, 16)[0], **SSD_TOL[torch.float32])
+    torch.testing.assert_close(h, mlstm_chunked(*margs, 16)[0], **MLSTM_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_card_matches_cpu(dev, remat):
+    """Smoke stablelm in fp32: two train steps on the card (both attention
+    kernels) and on the CPU (plain attention) from the same params and
+    batches give the same losses, grad norms and params; per step the
+    forward kernel runs once per layer (twice with remat, the recompute)
+    and the backward once per layer."""
+    cfg = smoke_config("stablelm_3b").replace(dtype="float32", logit_dtype="float32",
+                                              remat=remat)
+    cpu = Model(cfg, device="cpu")
+    state = build_init_fn(cpu)(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=dev)
+    gstate = state._replace(
+        params={k: p.detach().to(dev).requires_grad_() for k, p in state.params.items()},
+        opt=state.opt._replace(step=state.opt.step.to(dev),
+                               mu={k: m.to(dev) for k, m in state.opt.mu.items()},
+                               nu={k: m.to(dev) for k, m in state.opt.nu.items()}),
+        step=state.step.to(dev))
+    cpu_step, gpu_step = build_train_step(cpu, lr=1e-2), build_train_step(gpu, lr=1e-2)
+    data = SyntheticTokens(cfg, 2, 24)
+    for i in range(2):
+        batch = data.sample(i)
+        before, before_bwd = fa.launches, fa.bwd_launches
+        gstate, gm = gpu_step(gstate, to_device(batch, dev))
+        torch.cuda.synchronize()
+        assert fa.launches - before == cfg.n_layers * (2 if remat else 1)
+        assert fa.bwd_launches - before_bwd == cfg.n_layers
+        state, m = cpu_step(state, to_device(batch, "cpu"))
+        torch.testing.assert_close(gm["loss"].cpu(), m["loss"], rtol=2e-3, atol=5e-4)
+        torch.testing.assert_close(gm["grad_norm"].cpu(), m["grad_norm"], rtol=2e-3, atol=5e-4)
+    for k, p in state.params.items():
+        torch.testing.assert_close(gstate.params[k].detach().cpu(), p.detach(),
+                                   rtol=2e-3, atol=5e-4)

@@ -123,3 +123,98 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     tq, tk, tv = (torch.from_numpy(a) for a in inputs(5, 1, 2, 2, 16, 16, 16))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention_cuda(tq, tk, tv)
+
+
+# ------------------------------------------------------------- gradients --
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,window,softcap", [
+    (2, 4, 4, 24, 24, 16, True, 0, 0.0),
+    (1, 8, 2, 20, 20, 32, True, 6, 0.0),      # GQA 4, window
+    (1, 4, 1, 9, 17, 16, False, 0, 50.0),     # Sq != Sk, softcap 50
+    (1, 4, 2, 20, 20, 80, True, 4, 2.0),      # window so short some rows see 1 key
+    (1, 2, 2, 12, 5, 16, False, 3, 0.0),      # rows 7.. see no key: fully masked
+])
+def test_plain_version_grads_match_jax(B, H, KV, Sq, Sk, D, causal, window, softcap):
+    """Autograd of the plain version, which the backward kernel is held
+    against on the card, equals jax.grad of the JAX attention_ref."""
+    import jax
+
+    q, k, v = inputs(7, B, H, KV, Sq, Sk, D)
+    dout = np.random.default_rng(8).standard_normal((B, H, Sq, D), dtype=np.float32)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    _, vjp = jax.vjp(lambda *a: jax_attention_ref(*a, **opts), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    t = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*t, **opts), t, torch.from_numpy(dout))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(f32(g), np.asarray(w), **GRAD_TOL)
+
+
+def test_autograd_function_wires_forward_and_backward(monkeypatch):
+    """FlashAttentionFunction saves q, k, v and the forward's output and
+    hands them, with the output's gradient and the mask options, to the
+    backward kernel; its grads go back to q, k, v in order.  The two CUDA
+    wrappers are replaced by plain versions here (the kernels run on the
+    card only)."""
+    seen = {}
+
+    def fwd(q, k, v, **opts):
+        assert not torch.is_grad_enabled()
+        return ops.attention_ref(q, k, v, **opts)
+
+    def bwd(q, k, v, out, dout, **opts):
+        seen.update(opts, out=out, dout=dout)
+        t = [x.detach().requires_grad_() for x in (q, k, v)]
+        with torch.enable_grad():
+            return torch.autograd.grad(ops.attention_ref(*t, **opts), t, dout)
+
+    monkeypatch.setattr(fa, "flash_attention_cuda", fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd_cuda", bwd)
+    q, k, v = inputs(9, 1, 4, 2, 12, 12, 16)
+    t = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fa.FlashAttentionFunction.apply(*t, True, 5, 3.0)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    got = torch.autograd.grad(out, t, dout)
+    assert seen["causal"] is True and seen["window"] == 5 and seen["softcap"] == 3.0
+    torch.testing.assert_close(seen["out"], out.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(seen["dout"], dout, rtol=0, atol=0)
+    r = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    want = torch.autograd.grad(ops.attention_ref(*r, causal=True, window=5, softcap=3.0), r, dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_kernel_wrappers_refuse_grad():
+    """No CUDA wrapper returns an output cut from the autograd graph: under
+    grad mode the attention forward sends callers to ops.flash_attention,
+    and the SSD and mLSTM kernels, which have no backward yet, name
+    ROADMAP.md A18.  Without grad they reach their device check."""
+    from repro_torch.kernels import mlstm, ssd
+
+    q, k, v = (torch.from_numpy(a) for a in inputs(5, 1, 2, 2, 16, 16, 16))
+    x = torch.zeros(1, 8, 2, 4)
+    ssd_args = (x, torch.ones(1, 8, 2), -torch.ones(2), torch.zeros(1, 8, 4), torch.zeros(1, 8, 4))
+    m = torch.zeros(1, 8, 2, 4)
+    mlstm_args = (m, m, m, torch.zeros(1, 8, 2), torch.zeros(1, 8, 2))
+    calls = [
+        (lambda a: fa.flash_attention_cuda(*a), (q, k, v), "ops.flash_attention"),
+        (lambda a: ssd.ssd_scan_cuda(*a, chunk=4), ssd_args, "A18"),
+        (lambda a: mlstm.mlstm_scan_cuda(*a, chunk=4), mlstm_args, "A18"),
+    ]
+    for fn, args, match in calls:
+        for i in range(len(args)):
+            grad_args = [a.clone().requires_grad_(j == i) for j, a in enumerate(args)]
+            with pytest.raises(RuntimeError, match=match):
+                fn(grad_args)
+            with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+                fn(grad_args)
+
+
+def test_ops_keeps_cpu_grads_on_the_plain_version():
+    t = [torch.from_numpy(a).requires_grad_() for a in inputs(6, 1, 2, 2, 8, 8, 16)]
+    out = ops.flash_attention(*t)
+    assert "FlashAttentionFunction" not in type(out.grad_fn).__name__
