@@ -17,8 +17,10 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              the card's bound; attention decode is timed with a cold L2;
              the attention backward's dq, dk, dv against autograd of the
              plain attention in fp32 (every head dim, both dtypes, causal,
-             window, softcap, GQA, ragged and Sq != Sk), then timed at
-             stablelm_3b's train shape beside SDPA's backward;
+             window, softcap, GQA, ragged and Sq != Sk; then, at D 80 and
+             128, the edges of its tiles, GQA 8 and q, k scaled by 4), then
+             timed at stablelm_3b's train shape beside SDPA's backward, two
+             bf16 calls there bitwise equal;
 3. serve stablelm_3b — at full size, seed-initialised on the card:
              batch 8, prompt 512, 64 greedy tokens in bf16 through
              ``repro_torch.launch.serve``; the attention kernel must have
@@ -48,10 +50,11 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              compute, remat, batch 8 x seq 512, 4 AdamW steps of
              ``SyntheticTokens``; every loss and grad finite, 64 forward
              and 32 backward attention calls a step, no SSD or mLSTM
-             launch; then, at full width and 4 layers in fp32, one step
-             through the kernels against the same step with the plain
-             attention: the loss, every grad leaf and the updated params
-             (the bf16 gap is printed).
+             launch; a profiled step must run the bf16 backward kernels
+             and no scalar one; then, at full width and 4 layers in fp32,
+             one step through the kernels against the same step with the
+             plain attention: the loss, every grad leaf and the updated
+             params (the bf16 gap is printed).
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -83,6 +86,13 @@ MODEL_TOL = dict(rtol=2e-3, atol=5e-4)   # tests/test_models.py, fp32
 GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 GRAD_REL_RMS = 1e-4     # a gradient leaf of the fp32 train gate, against the plain twin
 KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "mlstm")
+# The attention backward's two paths, chosen by dtype alone.
+BWD_PATHS = {
+    "bfloat16": {"route": "tensor cores (mma.sync bf16)",
+                 "kernels": ["attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16"]},
+    "float32": {"route": "scalar fp32 FMA",
+                "kernels": ["attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq"]},
+}
 L2_BYTES = 50 * 2**20   # H100 L2; decode timings rotate over more K/V than this
 # The bf16 prefill gaps to the plain twins that the scalar kernels gave
 # (chip_smoke.py on an H100 80GB HBM3 at 700 W), printed beside today's.
@@ -213,21 +223,24 @@ def bound_ms(torch, q, k, v, *, causal, window, dev) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ptxas_summary(log: str) -> dict[str, str]:
-    """Registers and spills of each kernel in an ``nvcc -Xptxas=-v`` log,
-    by the kernel's own name (the mangled name's first component after its
-    anonymous namespace)."""
+def ptxas_summary(log: str) -> dict[tuple[str, tuple[int, ...]], str]:
+    """Registers and spills of each kernel in an ``nvcc -Xptxas=-v`` log, by
+    the kernel's own name (the mangled name's first component after its
+    anonymous namespace) and its integer template arguments, in the log's
+    order."""
     out, kernel = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kernel = m.group(1)
-            ns = re.match(r"_ZN(\d+)", kernel)
+            name, args = m.group(1), ""
+            ns = re.match(r"_ZN(\d+)", name)
             if ns:
-                rest = kernel[ns.end() + int(ns.group(1)):]
+                rest = name[ns.end() + int(ns.group(1)):]
                 n = re.match(r"\d+", rest)
                 if n:
-                    kernel = rest[n.end():n.end() + int(n.group())]
+                    name = rest[n.end():n.end() + int(n.group())]
+                    args = rest[n.end() + int(n.group()):]
+            kernel = (name, tuple(int(a) for a in re.findall(r"Li(\d+)E", args)))
             out[kernel] = ""
         elif kernel and ("spill" in line or "registers" in line):
             text = re.sub(r"^ptxas info\s*:\s*", "", line.strip())
@@ -251,8 +264,14 @@ def build_phase(torch):
     print(f"[build] {', '.join(KERNELS)} in parallel: {time.perf_counter() - t0:.1f}s")
     for name, (log, secs) in logs.items():
         print(f"[build] {name}: {secs:.1f}s{'' if log else ' (library already built)'}")
-        for kernel, props in ptxas_summary(log).items():
+        summary = ptxas_summary(log)
+        last = {kernel: props for (kernel, _), props in summary.items()}
+        for kernel, props in last.items():
             print(f"[build] {name}: {kernel}: {props}")
+        if name == "flash_attention_bwd":   # the train shape's head dim
+            for (kernel, args), props in summary.items():
+                if args[-1:] == (80,):
+                    print(f"[build] {name}: {kernel} at D 80: {props}")
     from repro_torch.kernels import mlstm, ssd
 
     print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
@@ -475,10 +494,18 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    def compare(label, q, k, v, dout, dtype, *, causal, window=0, softcap=0.0) -> float:
+    def compare(label, q, k, v, dout, dtype, *, causal, window=0, softcap=0.0,
+                deterministic=False) -> float:
         opts = dict(causal=causal, window=window, softcap=softcap)
         out = fa.flash_attention_cuda(q, k, v, **opts)
         got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **opts)
+        if deterministic:   # no atomics: a second call gives the same bits
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **opts)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            print(f"[kernel] flash_attention_bwd {label} {dtype}: two calls bitwise equal "
+                  f"(dq, dk, dv): {same}")
+            if not same:
+                failures.append(f"flash_attention_bwd {label} {dtype}: two calls differ")
         ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(ref.attention_ref(*ref_in, **opts), ref_in, dout.float())
         torch.cuda.synchronize()
@@ -510,6 +537,32 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
                 dout = randn(torch, (B, H, Sq, D), dtype, seed + 3, dev)
                 compare(f"D {D} {label}", q, k, v, dout, dtype, causal=causal, window=window,
                         softcap=softcap)
+    # The edges of the bf16 kernels' 64-row / 64-key tiles (32 query rows at
+    # D 128 in the dK / dV launch) and of the scalar kernels' 32; GQA 8; and
+    # q, k scaled by 4 (a peaked softmax, where dS cancels most).
+    edges = [  # label, B, H, KV, Sq, Sk, causal, q / k scale
+        ("edge S 63", 1, 4, 4, 63, 63, True, 1.0),
+        ("edge S 65", 1, 4, 4, 65, 65, True, 1.0),
+        ("edge gqa 2 S 127", 1, 4, 2, 127, 127, True, 1.0),
+        ("edge gqa 2 S 129", 1, 4, 2, 129, 129, True, 1.0),
+        ("edge non-causal Sq 1 Sk 300", 1, 4, 4, 1, 300, False, 1.0),
+        ("edge non-causal Sq 17 Sk 300", 1, 4, 4, 17, 300, False, 1.0),
+        ("gqa 8 S 129", 1, 8, 1, 129, 129, True, 1.0),
+        ("large logits (q, k x 4) gqa 4 S 129", 1, 8, 2, 129, 129, True, 4.0),
+    ]
+    for i, D in enumerate((80, 128)):
+        for j, (label, B, H, KV, Sq, Sk, causal, scale) in enumerate(edges):
+            for dtype in ("float32", "bfloat16"):
+                seed = 1100 + 40 * i + 4 * j
+                q = randn(torch, (B, H, Sq, D), "float32", seed, dev, scale).to(
+                    getattr(torch, dtype))
+                k = randn(torch, (B, KV, Sk, D), "float32", seed + 1, dev, scale).to(q.dtype)
+                v = randn(torch, (B, KV, Sk, D), dtype, seed + 2, dev)
+                dout = randn(torch, (B, H, Sq, D), dtype, seed + 3, dev)
+                compare(f"D {D} {label}", q, k, v, dout, dtype, causal=causal)
+                if scale != 1.0:
+                    exact_error_ratios(torch, f"D {D} {label}", q, k, v, dout, dtype,
+                                       causal=causal)
 
     # The train path's shape, in the model's strided layout, in both dtypes.
     H, D = 32, 80
@@ -518,21 +571,59 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
              "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              "replaces": "src/repro/models/layers.py:204 (no Pallas backward: the JAX package "
                          "differentiates this jnp attention, src/repro/train/steps.py:75)",
-             "launches": None}
+             "launches": None, "paths": []}
     for dtype in ("bfloat16", "float32"):
         q, k, v, dout = (model_layout(torch, BATCH, H, TRAIN_SEQ, D, dtype, 900 + n, dev)
                          for n in range(4))
-        err = compare(shape, q, k, v, dout, dtype, causal=True)
+        err = compare(shape, q, k, v, dout, dtype, causal=True,
+                      deterministic=dtype == "bfloat16")
         t = attention_bwd_timings(torch, q, k, v, dout, dev)
-        print(f"[time] flash_attention_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms (3 launches), "
-              f"plain {t['plain_ms']:.4f} ms (autograd of attention_ref, backward only), sdpa "
-              f"backward {t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.2f} us "
-              f"({t['bound_by']})")
+        path = BWD_PATHS[dtype]
+        print(f"[time] flash_attention_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms "
+              f"({path['route']}: {' + '.join(path['kernels'])}), plain {t['plain_ms']:.4f} ms "
+              f"(autograd of attention_ref, backward only), sdpa backward {t['library_ms']:.4f} "
+              f"ms, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        entry["paths"].append({"dtype": dtype, **path, "shape": f"{shape} {dtype}",
+                               "max_abs_err": err, **t})
         if dtype == "bfloat16":
             entry.update(max_abs_err=err, shape=f"{shape} bf16", **t)
-        else:
-            entry["fp32"] = {"shape": f"{shape} fp32", "max_abs_err": err, **t}
     return entry
+
+
+def exact_error_ratios(torch, label, q, k, v, dout, dtype, *, causal):
+    """Information: the kernel's dq, dk, dv and autograd of attention_ref in
+    fp32, each against the gradient in fp64 (the same function written in
+    float64), as err / (atol + rtol |exact|) at GRAD_TOL: where the fp32
+    reference's own error is a visible share of the tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    def attention_fp64(q, k, v):
+        group = q.shape[1] // k.shape[1]
+        kf, vf = (t.repeat_interleave(group, dim=1) for t in (k, v))
+        s = torch.einsum("bhqd,bhkd->bhqk", q, kf) / math.sqrt(q.shape[-1])
+        if causal:
+            qp = torch.arange(q.shape[2], device=q.device)[:, None]
+            s = s.masked_fill(torch.arange(k.shape[2], device=q.device)[None, :] > qp,
+                              float("-inf"))
+        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vf)
+
+    tol = GRAD_TOL[dtype]
+    out = fa.flash_attention_cuda(q, k, v, causal=causal)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal)
+    x64 = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    exact = torch.autograd.grad(attention_fp64(*x64), x64, dout.double())
+    x32 = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    fp32 = torch.autograd.grad(ref.attention_ref(*x32, causal=causal), x32, dout.float())
+
+    def ratios(grads):
+        return " ".join(
+            f"{float(((g.double() - e).abs() / (tol['atol'] + tol['rtol'] * e.abs())).max()):.3f}"
+            for g, e in zip(grads, exact))
+
+    print(f"[kernel] flash_attention_bwd {label:<42} {dtype:<8} against the fp64 gradient, err / "
+          f"tol (dq dk dv): kernel {ratios(got)}, fp32 autograd of attention_ref "
+          f"{ratios(fp32)} (information)")
 
 
 def attention_bwd_timings(torch, q, k, v, dout, dev) -> dict:
@@ -1251,7 +1342,8 @@ def train_phase(torch, dev, fa_entry, bwd_entry, failures, counts):
           f"{fa_entry['ms']:.4f} ms = {fwd_ms / (step_s * 1e3):.1%}, backward "
           f"{per_step['flash_attention_bwd']} x {bwd_entry['ms']:.4f} ms = "
           f"{bwd_ms / (step_s * 1e3):.1%}")
-    profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev))
+    profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev),
+                       cfg.dtype, failures)
     del model, state, step_fn
     torch.cuda.empty_cache()
 
@@ -1332,10 +1424,12 @@ def one_step(torch, model, params, batch, failures, *, plain=False):
     return float(loss), kept, {k: p.detach().float() for k, p in params.items()}
 
 
-def profile_train_step(torch, model, state, step_fn, batch):
+def profile_train_step(torch, model, state, step_fn, batch, dtype, failures):
     """Where a warm train step's time goes: one more step split in its two
     phases by host clock (each ended by a device sync), then one under
-    torch.profiler: the device's busy share and its kernels by group."""
+    torch.profiler: the device's busy share, its kernels by group, and the
+    attention backward's kernels by name, which must be those of the
+    compute dtype's path (``BWD_PATHS``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.optim import adamw_update, global_norm
@@ -1377,6 +1471,18 @@ def profile_train_step(torch, model, state, step_fn, batch):
                       for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[train]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+    bwd = {}
+    for e in kernels:
+        m = re.search(r"(attn_bwd_\w+)", e.key)
+        if m:
+            ms, n = bwd.get(m.group(1), (0.0, 0))
+            bwd[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    print("[train] attention backward kernels in the profiled step: " + ", ".join(
+        f"{name} {ms:.2f} ms in {n} launches" for name, (ms, n) in sorted(bwd.items())))
+    want = BWD_PATHS[dtype]["kernels"]
+    if sorted(bwd) != sorted(want):
+        failures.append(f"profiled {dtype} train step ran the attention backward kernels "
+                        f"{sorted(bwd)}, expected {want}")
 
 
 if __name__ == "__main__":

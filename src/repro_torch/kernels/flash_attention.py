@@ -18,8 +18,8 @@ require one while grad mode is on; :func:`repro_torch.kernels.ops.flash_attentio
 sends those through :class:`FlashAttentionFunction` instead.
 
 ``launches`` counts the forward kernel's launches and ``bwd_launches``
-the backward's calls (three kernel launches each); nothing else changes
-them.
+the backward's calls (two kernel launches each in bf16, on the tensor
+cores; three in fp32, scalar); nothing else changes them.
 """
 from __future__ import annotations
 
@@ -138,7 +138,8 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True, window:
                              softcap: float = 0.0):
     """dq, dk, dv of :func:`flash_attention_cuda`'s function at (q, k, v),
     given its output ``out`` and the output's gradient ``dout``, by the
-    backward kernel (three launches); raises on what it does not take.
+    backward kernels (bf16: two tensor-core launches; fp32: three scalar
+    ones); raises on what it does not take.
     ``dout`` may have any strides: it is made contiguous where the kernel
     could not read it in place.  Returns (dq, dk, dv) in q's, k's and v's
     dtypes and layouts."""

@@ -492,6 +492,72 @@ def test_attention_grads_match_plain_version(dev, B, H, KV, Sq, Sk, D, causal, w
         torch.testing.assert_close(got.float(), w, **GRAD_TOL[dtype])
 
 
+def attention_grads(q, k, v, dout, **opts):
+    """(dq, dk, dv) through ops.flash_attention (one backward call, counted)
+    and autograd of attention_ref in fp32 on the same inputs."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    before = fa.bwd_launches
+    grads = torch.autograd.grad(ops.flash_attention(q, k, v, **opts), (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    return grads, torch.autograd.grad(attention_ref(*ref_in, **opts), ref_in, dout.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [80, 128])
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,causal",
+    [
+        (1, 4, 4, 63, 63, True),     # one row / key short of a 64-row tile
+        (1, 4, 4, 65, 65, True),     # one past it
+        (1, 4, 2, 127, 127, True),
+        (1, 4, 2, 129, 129, True),
+        (1, 4, 4, 1, 300, False),    # one query row against a ragged 300 keys
+        (1, 4, 4, 17, 300, False),
+        (1, 8, 1, 129, 129, True),   # GQA 8: dk / dv sum over 8 query heads
+    ],
+)
+def test_attention_grads_on_tile_edges(dev, B, H, KV, Sq, Sk, D, causal, dtype):
+    """Shapes on the edges of the bf16 kernels' 64-row / 64-key tiles (32
+    query rows at D 128 in the dK / dV launch) and of the scalar kernels'
+    32-row tiles, against autograd of attention_ref in fp32."""
+    q = rand((B, H, Sq, D), dtype, 10, dev)
+    k, v = rand((B, KV, Sk, D), dtype, 11, dev), rand((B, KV, Sk, D), dtype, 12, dev)
+    grads, want = attention_grads(q, k, v, rand((B, H, Sq, D), dtype, 13, dev), causal=causal)
+    for got, w, t in zip(grads, want, (q, k, v)):
+        assert got.dtype == t.dtype and got.shape == t.shape
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), w, **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [80, 128])
+def test_attention_grads_with_large_logits(dev, D, dtype):
+    """q and k scaled by 4 (scores of std ~16: a peaked softmax, where dS
+    cancels most and the bf16 path's delta and dS roundings would show),
+    GQA 4, causal, against autograd of attention_ref in fp32."""
+    q = rand((1, 8, 129, D), torch.float32, 20, dev).mul(4).to(dtype)
+    k = rand((1, 2, 129, D), torch.float32, 21, dev).mul(4).to(dtype)
+    v = rand((1, 2, 129, D), dtype, 22, dev)
+    grads, want = attention_grads(q, k, v, rand((1, 8, 129, D), dtype, 23, dev), causal=True)
+    for got, w in zip(grads, want):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), w, **GRAD_TOL[dtype])
+
+
+def test_attention_bwd_bf16_is_deterministic(dev):
+    """No atomics: two backward calls on the same bf16 inputs give bitwise
+    equal dq, dk and dv."""
+    q, k, v, out_grad = (rand((2, 8, 256, 80), torch.bfloat16, 30 + i, dev) for i in range(4))
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, out_grad, causal=True)
+    second = fa.flash_attention_bwd_cuda(q, k, v, out, out_grad, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_attention_grads_in_the_model_layout(dev):
     """Strided q/k/v (transposed (B,S,H,D) activations) and a strided dout:
     the grads keep q's layout and match the plain version."""
