@@ -54,7 +54,25 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              and no scalar one; then, at full width and 4 layers in fp32,
              one step through the kernels against the same step with the
              plain attention: the loss, every grad leaf and the updated
-             params (the bf16 gap is printed).
+             params (the bf16 gap is printed);
+7. elastic stablelm_3b — the live elastic loop
+             (``repro_torch.elastic.ElasticTrainer``) at full size on the
+             ``steady-cycle`` trace, 25 steps over a pool of 4 slots, the
+             engine carrying a ``PytreeBytesModel`` of the full model:
+             expand 1->4 (hypercube), TS-shrink 4->1, twice; node counts
+             per step, finite losses, 4 records equal to the port's
+             simulator with the same engine, each stage 3's logged bytes
+             equal to the charged ones and its total to the pytree's, 64
+             forward and 32 backward attention calls a step, and a peak
+             memory no higher than the train phase's.  The slots are
+             logical and all lie on this one card: stage 3 records the
+             params' new placement and moves no byte, and each record's
+             ``est``/``downtime`` is the cost model's modelled cluster
+             time, not a card time.  Then ``restart-vs-shrink``'s first 6
+             steps at full width and 4 layers with a checkpoint
+             directory: right after the RESTART (step 5) the params equal
+             the step-4 snapshot on disk and the params held when it was
+             saved, bitwise.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -100,6 +118,8 @@ EARLIER_BF16_GAP = {"stablelm_3b": "3.906e-02", "zamba2_1p2b": "8.6e-02"}
 
 ARCH, BATCH, PROMPT, GEN = "stablelm_3b", 8, 512, 64
 TRAIN_STEPS, TRAIN_SEQ, GATE_LAYERS = 4, 512, 4
+ELASTIC_SCENARIO, ELASTIC_STEPS = "steady-cycle", 25
+RESTART_STEP = 5        # restart-vs-shrink's RESTART, read back from step 4's snapshot
 HYBRID = "zamba2_1p2b"
 XLSTM = "xlstm_125m"
 
@@ -148,7 +168,11 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     torch.cuda.empty_cache()
-    train_phase(torch, dev, entry, bwd_entry, failures, counts)
+    train_peak = train_phase(torch, dev, entry, bwd_entry, failures, counts)
+    if failures:
+        return fail("; ".join(failures))
+    torch.cuda.empty_cache()
+    elastic_phase(torch, dev, train_peak, failures, counts)
     if failures:
         return fail("; ".join(failures))
     kernels = [entry, bwd_entry, ssd_entry, mlstm_entry]
@@ -1291,9 +1315,10 @@ def first_mlstm_and_logits(torch, model, params, prompts, failures, *, plain=Fal
 # ------------------------------------------------------------------- train --
 
 
-def train_phase(torch, dev, fa_entry, bwd_entry, failures, counts):
+def train_phase(torch, dev, fa_entry, bwd_entry, failures, counts) -> int:
     """Full stablelm_3b trained 4 steps through ``repro_torch.launch.train``,
-    then the fp32 gate at full width and 4 layers against the plain twin."""
+    then the fp32 gate at full width and 4 layers against the plain twin.
+    Returns the peak memory of the 4 steps (bytes)."""
     from repro_torch.configs import arch_config
     from repro_torch.data import SyntheticTokens, to_device
     from repro_torch.device import card_label
@@ -1401,6 +1426,153 @@ def train_phase(torch, dev, fa_entry, bwd_entry, failures, counts):
                 failures.append("bf16 train gate: non-finite loss")
         del model, state, got, want
         torch.cuda.empty_cache()
+    return peak
+
+
+def elastic_phase(torch, dev, train_peak, failures, counts):
+    """Full stablelm_3b through the elastic loop on ``steady-cycle``, then
+    the RESTART gate of ``restart-vs-shrink`` at full width, 4 layers."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import restore_tree
+    from repro_torch.configs import arch_config
+    from repro_torch.device import card_label
+    from repro_torch.elastic import ElasticTrainer, PytreeBytesModel
+    from repro_torch.malleability import get_scenario, record_parity_key, run_scenario_sim
+    from repro_torch.malleability.scenarios import RuntimeAdapter, param_bytes_for_arch
+    from repro_torch.models import Model
+
+    label = card_label(dev)
+    cfg = arch_config(ARCH)
+    sc = get_scenario(ELASTIC_SCENARIO)
+    model = Model(cfg, dev)
+    engine = dataclasses.replace(sc.default_engine(), bytes_model=PytreeBytesModel(model))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = ElasticTrainer.from_scenario(model, sc, engine=engine, lr=3e-4, batch=BATCH,
+                                           seq=TRAIN_SEQ)
+    trainer._init_state()
+    torch.cuda.synchronize()
+    print(f"[elastic] {cfg.name} on {sc.name!r}: {sc.pool_nodes()} logical slots, all on this "
+          f"card ({label}); stage 3 records placements and moves no byte, and est/downtime are "
+          f"the {sc.profile} cost model's modelled cluster times, not card times; initialised "
+          f"in {time.perf_counter() - t0:.1f}s")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = trainer.run(ELASTIC_STEPS)
+    path = f"elastic {ARCH}"
+    counts[path] = read_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[elastic] {ELASTIC_STEPS} steps in {wall:.1f}s; losses "
+          + ", ".join(f"{r.loss:.4f}" for r in hist))
+    print("[elastic] step times (ms, host clock ended by the loss's sync): "
+          + ", ".join(f"{r.seconds * 1e3:.1f}" for r in hist))
+    nodes = [r.n_nodes for r in hist]
+    want_nodes = [1] * 5 + [4] * 5 + [1] * 5 + [4] * 5 + [1] * 5
+    print(f"[elastic] nodes per step: {nodes}")
+    if nodes != want_nodes:
+        failures.append(f"{path}: nodes per step {nodes}, expected {want_nodes}")
+    if not all(math.isfinite(r.loss) for r in hist):
+        failures.append(f"{path}: non-finite loss")
+    for n in sorted(set(nodes)):
+        times = [r.seconds for r in hist[1:] if r.n_nodes == n]
+        print(f"[elastic] step time at {n} node(s): {statistics.median(times) * 1e3:.1f} ms "
+              f"(median of {len(times)}; min {min(times) * 1e3:.1f}, max "
+              f"{max(times) * 1e3:.1f}) on {label}")
+
+    # records against the simulator with the same engine
+    sim = run_scenario_sim(sc, engine=engine)
+    sim = [r for r in sim if r.step < ELASTIC_STEPS]
+    got = [record_parity_key(RuntimeAdapter._convert(r))[1:] for r in trainer.runtime.history]
+    want = [record_parity_key(r)[1:] for r in sim]
+    if len(got) != 4 or got != want:
+        failures.append(f"{path}: records {got} differ from the simulator's {want}")
+    total = param_bytes_for_arch(ARCH)
+    for rec, w, t in zip(trainer.runtime.history, trainer.wall_log, trainer.transfer_log):
+        print(f"[elastic] step {w['step']} {rec.kind} {rec.mechanism} {rec.nodes_before}->"
+              f"{rec.nodes_after}: host wall on the card {w['host_s'] * 1e3:.2f} ms ({label}); "
+              f"modelled cluster est {rec.est_wall_s * 1e3:.2f} ms, downtime "
+              f"{rec.downtime_s * 1e3:.2f} ms; stage 3 bytes moved {t['bytes_moved']} "
+              f"(charged {t['charged_bytes_moved']}), stayed {t['bytes_stayed']}, total "
+              f"{t['bytes_total']} (the pytree: {total})")
+        if t["bytes_moved"] != t["charged_bytes_moved"] or t["bytes_total"] != total:
+            failures.append(f"{path}: stage 3 at step {t['step']} logged {t}")
+    if len(trainer.transfer_log) != 4:
+        failures.append(f"{path}: {len(trainer.transfer_log)} stage-3 entries, expected 4")
+    per_step = {"flash_attention": cfg.n_layers * (1 + int(cfg.remat)),
+                "flash_attention_bwd": cfg.n_layers, "ssd": 0, "mlstm": 0}
+    for name, n in per_step.items():
+        print(f"[elastic] {name} launches: {counts[path][name]} (expected "
+              f"{ELASTIC_STEPS} x {n} = {ELASTIC_STEPS * n})")
+        if counts[path][name] != ELASTIC_STEPS * n:
+            failures.append(f"{path}: {name} launched {counts[path][name]} times")
+    print(f"[elastic] peak memory {peak / 2**30:.2f} GiB against the train phase's "
+          f"{train_peak / 2**30:.2f} GiB on {label}")
+    if peak > train_peak:
+        failures.append(f"{path}: peak memory {peak} above the train phase's {train_peak}")
+    del trainer, model, engine
+    torch.cuda.empty_cache()
+
+    # RESTART at full width, 4 layers: the params right after it (step 5)
+    # are the step-4 snapshot on disk, and the params the trainer held when
+    # it saved that snapshot.  Six steps reach it.
+    small = cfg.replace(n_layers=GATE_LAYERS)
+    rsc = get_scenario("restart-vs-shrink")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = ElasticTrainer.from_scenario(Model(small, dev), rsc, lr=3e-4, batch=BATCH,
+                                               seq=TRAIN_SEQ, checkpoint_dir=ckpt_dir,
+                                               checkpoint_every=2)
+        t0 = time.perf_counter()
+        trainer.run(RESTART_STEP - 1)   # saves step 4's snapshot after step 3
+        at_save = {k: p.detach().to("cpu", copy=True) for k, p in trainer.state.params.items()}
+        # The params the first step after the RESTART starts from, as the
+        # step function is handed them (read only; the step runs as it would).
+        after_restart = {}
+        step_fn = trainer._step_fn
+
+        def observed_step(state, batch):
+            if len(trainer.history) == RESTART_STEP:
+                after_restart.update({k: p.detach().to("cpu", copy=True)
+                                      for k, p in state.params.items()})
+            return step_fn(state, batch)
+
+        trainer._step_fn = observed_step
+        hist = trainer.run(2)
+        print(f"[elastic] {rsc.name!r} at full width, {GATE_LAYERS} layers: {len(hist)} steps "
+              f"in {time.perf_counter() - t0:.1f}s, nodes {[r.n_nodes for r in hist]}")
+        for rec, w in zip(trainer.runtime.history, trainer.wall_log):
+            extra = ""
+            if w["bytes_read"]:
+                extra = (f"; of it {w['wait_s'] * 1e3:.2f} ms waiting for the last "
+                         f"snapshot's write to land, then {w['bytes_read']} bytes read back "
+                         f"from the store in {w['read_s'] * 1e3:.2f} ms, "
+                         f"{w['bytes_read'] / w['read_s'] / 1e9:.2f} GB/s (disk, then host "
+                         "to card; host clock)")
+            print(f"[elastic]   step {w['step']} {rec.kind} {rec.mechanism} "
+                  f"{rec.nodes_before}->{rec.nodes_after}: host wall on the card "
+                  f"{w['host_s'] * 1e3:.2f} ms{extra} ({label}); modelled cluster est "
+                  f"{rec.est_wall_s * 1e3:.2f} ms, downtime {rec.downtime_s * 1e3:.2f} ms")
+        restored = {t["step"]: t["restored_from_step"] for t in trainer.transfer_log
+                    if "restored_from_step" in t}
+        snap = restore_tree({"params": trainer.state.params}, ckpt_dir,
+                            RESTART_STEP - 1)["params"]
+        same_disk = bool(after_restart) and all(
+            torch.equal(after_restart[k], v) for k, v in snap.items())
+        same_held = bool(after_restart) and all(
+            torch.equal(after_restart[k], v) for k, v in at_save.items())
+        print(f"[elastic] restores (step: snapshot step) {restored}; params right after the "
+              f"RESTART bitwise equal to the snapshot on disk: {same_disk}, to the params "
+              f"held when it was saved: {same_held}")
+        if restored != {RESTART_STEP: RESTART_STEP - 1} or not (same_disk and same_held):
+            failures.append(f"restart-vs-shrink: restores {restored}, equal to the snapshot "
+                            f"on disk {same_disk}, to the params saved {same_held}")
+        if not all(math.isfinite(r.loss) for r in hist):
+            failures.append("restart-vs-shrink: non-finite loss")
+        del trainer, at_save, after_restart, snap
+    torch.cuda.empty_cache()
 
 
 def rel_rms(torch, got, want) -> float:

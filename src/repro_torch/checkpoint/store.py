@@ -116,10 +116,9 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_tree(template: Any, directory: str, step: int, device=None) -> Any:
-    """Restore into ``template``'s structure (its leaf values are ignored),
-    as tensors on ``device`` (default: the CPU).  The snapshot's leaf count
-    and keys must be the template's."""
+def _checked_manifest(template: Any, directory: str, step: int) -> tuple[str, list]:
+    """(snapshot path, leaf metadata), once the snapshot's leaf count and
+    keys are found to be the template's."""
     path = os.path.join(directory, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -131,9 +130,35 @@ def restore_tree(template: Any, directory: str, step: int, device=None) -> Any:
     if keys != [m["key"] for m in meta]:
         bad = next(i for i, (k, m) in enumerate(zip(keys, meta)) if k != m["key"])
         raise ValueError(f"checkpoint leaf {bad} is {meta[bad]['key']!r}, template {keys[bad]!r}")
+    return path, meta
+
+
+def restore_tree(template: Any, directory: str, step: int, device=None) -> Any:
+    """Restore into ``template``'s structure (its leaf values are ignored),
+    as tensors on ``device`` (default: the CPU).  The snapshot's leaf count
+    and keys must be the template's."""
+    path, meta = _checked_manifest(template, directory, step)
     leaves = [torch.from_numpy(np.load(os.path.join(path, m["file"]))).to(device or "cpu")
               for m in meta]
     return _unflatten(template, leaves)
+
+
+def restore_into(tree: Any, directory: str, step: int) -> int:
+    """Copy a snapshot into ``tree``'s own tensors, one leaf at a time, so
+    no second copy of the tree is ever held on its device; returns the
+    bytes read.  Each snapshot leaf must have its tensor's shape and dtype
+    (a copy would cast silently)."""
+    path, meta = _checked_manifest(tree, directory, step)
+    nbytes = 0
+    with torch.no_grad():
+        for (p, dst), m in zip(_flatten(tree), meta):
+            src = torch.from_numpy(np.load(os.path.join(path, m["file"])))
+            if (tuple(src.shape), src.dtype) != (tuple(dst.shape), dst.dtype):
+                raise ValueError(f"checkpoint leaf {_key(p)!r} is {tuple(src.shape)} "
+                                 f"{src.dtype}, tensor {tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(src)
+            nbytes += src.numel() * src.element_size()
+    return nbytes
 
 
 class CheckpointManager:
@@ -173,6 +198,15 @@ class CheckpointManager:
         if step is None:
             return None, None
         return restore_tree(template, self.directory, step, device), step
+
+    def restore_latest_into(self, tree: Any) -> tuple[Optional[int], int]:
+        """(step, bytes read) of the latest snapshot copied into ``tree``'s
+        tensors (:func:`restore_into`); (None, 0) without a snapshot."""
+        self.wait()
+        step = latest_step(self.directory)
+        if step is None:
+            return None, 0
+        return step, restore_into(tree, self.directory, step)
 
     def _gc(self) -> None:
         for s in sorted(_steps(self.directory))[: -self.keep]:

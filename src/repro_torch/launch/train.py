@@ -1,21 +1,27 @@
 """Training entry point: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-Ports the non-elastic path of ``repro.launch.train``: ``SyntheticTokens``
-(seed 0) through ``build_train_step`` (loss and grads by autograd, then
-AdamW), params from seed 0, with ``CheckpointManager`` when
-``--checkpoint-dir`` is given.  Attention runs forward and backward in the
-hand-written CUDA kernels on the card (``repro_torch.kernels``).
+Ports ``repro.launch.train``: ``SyntheticTokens`` (seed 0) through
+``build_train_step`` (loss and grads by autograd, then AdamW), params
+from seed 0, with ``CheckpointManager`` when ``--checkpoint-dir`` is
+given.  ``--scenario <name>`` runs the elastic loop
+(:class:`repro_torch.elastic.ElasticTrainer`) against a registered
+scenario and prints the JAX driver's ``reconfig`` and ``scenario`` lines;
+their ``est`` and ``downtime`` are the cost model's modelled cluster
+times, not card times (the slots of the pool are logical, all on one
+card).  Attention runs forward and backward in the hand-written CUDA
+kernels on the card (``repro_torch.kernels``).
 
     python -m repro_torch.launch.train --arch stablelm_3b --full-config \\
         --steps 4 --batch 8 --seq 512
+    python -m repro_torch.launch.train --arch stablelm_3b --full-config \\
+        --scenario steady-cycle --batch 8 --seq 512
     python -m repro_torch.launch.train --device cpu --arch stablelm_3b \\
-        --steps 3 --batch 2 --seq 16
+        --scenario steady-cycle --batch 8 --seq 32
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  What is not ported
-yet exits 2 and names its ROADMAP.md item: ``--scenario`` (the elastic
-loop, A5-A9 and A10), ``--model-parallel`` above 1 (A16), the ``moe``
-family (A12), and the ``hybrid`` and ``ssm`` families, whose kernels have
-no backward yet (A18).
+yet exits 2 and names its ROADMAP.md item: ``--model-parallel`` above 1
+(A16), the ``moe`` family (A12), and the ``hybrid`` and ``ssm`` families,
+whose kernels have no backward yet (A18).
 """
 from __future__ import annotations
 
@@ -38,8 +44,6 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.train import TrainState, build_init_fn, build_train_step
 
 NOT_PORTED = {
-    "scenario": "--scenario (the elastic training loop) is not ported yet: "
-                "ROADMAP.md A5-A9 and A10",
     "model_parallel": "--model-parallel > 1 is not ported yet: ROADMAP.md A16",
     "moe": "the moe family is not ported yet: ROADMAP.md A12",
     "hybrid": "training the hybrid family needs an SSD backward kernel, not written "
@@ -59,8 +63,6 @@ class StepRecord:
 
 def refusal(cfg: ModelConfig, args: argparse.Namespace) -> Optional[str]:
     """Why this run is not ported yet, or None."""
-    if args.scenario:
-        return NOT_PORTED["scenario"]
     if args.model_parallel > 1:
         return NOT_PORTED["model_parallel"]
     return NOT_PORTED.get(cfg.family)
@@ -119,7 +121,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--scenario", default=None,
-                    help="the elastic loop against a registered scenario (not ported yet)")
+                    help="run the elastic loop against a registered scenario "
+                         "(see repro_torch.malleability.registered_scenarios)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -129,6 +132,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(why, file=sys.stderr)
         return 2
     dev = resolve_device(args.device)
+    if args.scenario:
+        return run_scenario(Model(cfg, dev), args)
     model, state, step_fn = build(cfg, device=dev, lr=args.lr)
     n_params = sum(p.numel() for p in state.params.values())
     print(f"arch={cfg.name} params={n_params / 1e9:.3f}B batch={args.batch} seq={args.seq} "
@@ -145,6 +150,50 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB on {card_label(dev)}")
     if not all(math.isfinite(r.loss) and math.isfinite(r.grad_norm) for r in records):
         print("non-finite loss or grads", file=sys.stderr)
+        return 1
+    return 0
+
+
+def run_scenario(model: Model, args: argparse.Namespace) -> int:
+    """Malleable training: the declarative trace drives the live runtime
+    (``repro.launch.train.run_scenario``'s lines, the modelled costs
+    labelled as such; on the card also its step and reconfiguration
+    times)."""
+    from repro_torch.elastic import ElasticTrainer
+    from repro_torch.malleability import get_scenario
+
+    dev = model.device
+    scenario = get_scenario(args.scenario)
+    trainer = ElasticTrainer.from_scenario(
+        model, scenario, lr=args.lr, batch=args.batch, seq=args.seq,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+    )
+    steps = max(args.steps, scenario.steps)
+    t0 = time.perf_counter()
+    hist = trainer.run(steps)
+    for rec in trainer.runtime.history:
+        print(f"reconfig {rec.kind:<10} {rec.mechanism:<22} "
+              f"{rec.nodes_before}->{rec.nodes_after} nodes  "
+              f"est {rec.est_wall_s*1e3:.2f} ms  downtime {rec.downtime_s*1e3:.2f} ms "
+              f"(modelled, {scenario.profile} cluster)", flush=True)
+    print(f"scenario {scenario.name!r}: {len(hist)} steps, "
+          f"loss {hist[0].loss:.4f} -> {hist[-1].loss:.4f} "
+          f"({time.perf_counter()-t0:.1f}s, {len(trainer.runtime.history)} reconfigs)",
+          flush=True)
+    if dev.type == "cuda":
+        label = card_label(dev)
+        for nodes in sorted({r.n_nodes for r in hist}):
+            times = [r.seconds for r in hist[1:] if r.n_nodes == nodes]
+            if times:
+                print(f"step time at {nodes} nodes {statistics.median(times) * 1e3:.1f} ms "
+                      f"(median of {len(times)}) on {label}")
+        for w in trainer.wall_log:
+            print(f"reconfig at step {w['step']} ({'+'.join(w['kinds'])}): host wall "
+                  f"{w['host_s'] * 1e3:.2f} ms, {w['bytes_read']} bytes read back on {label}")
+        print(f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB on {label}")
+    if not all(math.isfinite(r.loss) for r in hist):
+        print("non-finite loss", file=sys.stderr)
         return 1
     return 0
 

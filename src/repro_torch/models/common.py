@@ -5,14 +5,17 @@ A copy of :mod:`repro.models.common` for PyTorch: the same
 draws the same init scales from an explicit ``torch.Generator``.  Params
 are a flat dict of ``"scope/name"`` tensors, so the JAX package's params
 pass 1:1 through :mod:`repro_torch.bridge`.  The logical axis names are
-kept beside them for the sharding layer still to be ported.
+kept beside them for :mod:`repro_torch.parallel.sharding`.  Without a
+generator the builder records only each param's :class:`ParamShape`
+(the JAX package's ``abstract_params``), which sizes any config without
+allocating it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -146,17 +149,30 @@ def torch_dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+class ParamShape(NamedTuple):
+    """One param without its values: what ``jax.eval_shape`` gives."""
+
+    shape: tuple
+    dtype: torch.dtype
+    axes: tuple
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+
 class ParamBuilder:
     """Collects (param, logical_axes) pairs under ``"scope/name"`` keys.
 
     Draws from ``generator`` on the generator's device; the scales are
     those of the JAX builder (``normal``: 1/sqrt(shape[0]); ``embed``:
-    ``scale``), but the bits are PyTorch's, not ``jax.random``'s.
+    ``scale``), but the bits are PyTorch's, not ``jax.random``'s.  With
+    ``generator=None`` it records a :class:`ParamShape` per param instead.
     """
 
-    def __init__(self, generator: torch.Generator, param_dtype=torch.float32):
+    def __init__(self, generator: Optional[torch.Generator], param_dtype=torch.float32):
         self.generator = generator
-        self.device = generator.device
+        self.device = None if generator is None else generator.device
         self.params: dict[str, Any] = {}
         self.specs: dict[str, Any] = {}
         self.param_dtype = param_dtype
@@ -168,7 +184,11 @@ class ParamBuilder:
     def add(self, name: str, shape, axes: tuple, init: str = "normal", scale: float | None = None):
         assert len(shape) == len(axes), (name, shape, axes)
         dtype, dev = self.param_dtype, self.device
-        if init == "zeros":
+        if init not in ("zeros", "ones", "normal", "embed"):
+            raise ValueError(init)
+        if self.generator is None:
+            arr = ParamShape(tuple(shape), dtype, tuple(axes))
+        elif init == "zeros":
             arr = torch.zeros(shape, dtype=dtype, device=dev)
         elif init == "ones":
             arr = torch.ones(shape, dtype=dtype, device=dev)
@@ -178,8 +198,6 @@ class ParamBuilder:
             arr = self._normal(shape) * s
         elif init == "embed":
             arr = self._normal(shape) * (scale or 1.0)
-        else:
-            raise ValueError(init)
         self.params[name] = arr
         self.specs[name] = axes
         return arr
@@ -189,12 +207,18 @@ class ParamBuilder:
 
 
 def stack_params(per_layer: list[tuple[dict, dict]]) -> tuple[dict, dict]:
-    """Stack L per-layer param dicts along a leading 'layers' axis."""
+    """Stack L per-layer param dicts (or :class:`ParamShape` dicts) along
+    a leading 'layers' axis."""
     if not per_layer:
         return {}, {}
     keys = per_layer[0][0].keys()
-    params = {
-        k: torch.stack([pl[0][k] for pl in per_layer], dim=0) for k in keys
-    }
+
+    def stack(leaves):
+        if isinstance(leaves[0], ParamShape):
+            s = leaves[0]
+            return ParamShape((len(leaves),) + s.shape, s.dtype, ("layers",) + s.axes)
+        return torch.stack(leaves, dim=0)
+
+    params = {k: stack([pl[0][k] for pl in per_layer]) for k in keys}
     specs = {k: ("layers",) + tuple(per_layer[0][1][k]) for k in keys}
     return params, specs

@@ -165,3 +165,15 @@ def mlp(params, name: str, x):
     up = x @ params[f"{name}/wi_up"].to(dt)
     h = F.silu(gate) * up
     return h @ params[f"{name}/wo"].to(dt)
+
+
+def init_moe(b: ParamBuilder, name: str, cfg: ModelConfig):
+    """The MoE layer's params (``repro.models.layers.init_moe``).  Only its
+    shapes are used yet, to size the moe configs; its forward is A12."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    b.add(f"{name}/router", (d, E), ("embed", "experts"))
+    b.add(f"{name}/wi_gate", (E, d, ff), ("experts", "embed", "mlp"))
+    b.add(f"{name}/wi_up", (E, d, ff), ("experts", "embed", "mlp"))
+    b.add(f"{name}/wo", (E, ff, d), ("experts", "mlp", "embed"))
+    if cfg.n_shared_experts:
+        init_mlp(b, f"{name}/shared", d, cfg.d_ff * cfg.n_shared_experts)

@@ -5,6 +5,8 @@ Params are a flat dict of tensors under the JAX package's keys, so
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
@@ -12,6 +14,29 @@ from repro_torch.device import DeviceLike, resolve_device
 from .common import ModelConfig, ParamBuilder, torch_dtype
 from .layers import init_rmsnorm, rmsnorm
 from .transformer import decode_blocks, forward_blocks, init_blocks, init_cache_shapes
+
+
+def _build_params(cfg: ModelConfig, generator: Optional[torch.Generator]) -> tuple[dict, dict]:
+    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
+    if not cfg.embed_inputs:
+        b.add("embed/table", (cfg.vocab, cfg.d_model), ("vocab", "embed"),
+              init="embed", scale=0.02)
+    init_rmsnorm(b, "final_norm", cfg.d_model)
+    if not cfg.tie_embeddings:
+        b.add("head/w", (cfg.d_model, cfg.vocab), ("embed", "vocab"),
+              init="normal")
+    params, specs = b.build()
+    bp, bs = init_blocks(generator, cfg)
+    params.update(bp)
+    specs.update(bs)
+    return params, specs
+
+
+def abstract_params(cfg: ModelConfig) -> tuple[dict, dict]:
+    """Shape-only params (:class:`~repro_torch.models.common.ParamShape`,
+    nothing allocated, no device needed) + logical specs, for every
+    family: the JAX package's ``Model.abstract_params``."""
+    return _build_params(cfg, None)
 
 
 class Model:
@@ -23,22 +48,13 @@ class Model:
     def init(self, generator: torch.Generator) -> tuple[dict, dict]:
         """Params drawn from ``generator`` (which must live on the model's
         device), in ``cfg.param_dtype``, and their logical axes."""
-        cfg = self.cfg
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
-        b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
-        if not cfg.embed_inputs:
-            b.add("embed/table", (cfg.vocab, cfg.d_model), ("vocab", "embed"),
-                  init="embed", scale=0.02)
-        init_rmsnorm(b, "final_norm", cfg.d_model)
-        if not cfg.tie_embeddings:
-            b.add("head/w", (cfg.d_model, cfg.vocab), ("embed", "vocab"),
-                  init="normal")
-        params, specs = b.build()
-        bp, bs = init_blocks(generator, cfg)
-        params.update(bp)
-        specs.update(bs)
-        return params, specs
+        return _build_params(self.cfg, generator)
+
+    def abstract_params(self) -> tuple[dict, dict]:
+        """Shape-only params + logical specs (:func:`abstract_params`)."""
+        return abstract_params(self.cfg)
 
     def serving_params(self, params: dict) -> dict:
         """Floating params cast once to the compute dtype: serving keeps no

@@ -25,7 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .common import ModelConfig, ParamBuilder, stack_params, torch_dtype
-from .layers import attention, init_attention, init_mlp, init_rmsnorm, mlp, rmsnorm
+from .layers import attention, init_attention, init_mlp, init_moe, init_rmsnorm, mlp, rmsnorm
 from .ssm import init_mamba2, mamba2_block, mamba2_state_shapes
 from .xlstm import (
     init_mlstm_block,
@@ -54,23 +54,26 @@ def _require_ported(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig):
+def _init_dense_layer(generator: Optional[torch.Generator], cfg: ModelConfig):
     b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
     init_rmsnorm(b, "ln_attn", cfg.d_model)
     init_attention(b, "attn", cfg)
     init_rmsnorm(b, "ln_mlp", cfg.d_model)
-    init_mlp(b, "mlp", cfg.d_model, cfg.d_ff)
+    if cfg.family == "moe":
+        init_moe(b, "moe", cfg)
+    else:
+        init_mlp(b, "mlp", cfg.d_model, cfg.d_ff)
     return b.build()
 
 
-def _init_mamba_layer(generator: torch.Generator, cfg: ModelConfig):
+def _init_mamba_layer(generator: Optional[torch.Generator], cfg: ModelConfig):
     b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
     init_rmsnorm(b, "ln", cfg.d_model)
     init_mamba2(b, "mamba", cfg)
     return b.build()
 
 
-def _init_xlstm_unit(generator: torch.Generator, cfg: ModelConfig):
+def _init_xlstm_unit(generator: Optional[torch.Generator], cfg: ModelConfig):
     """One unit: (xlstm_slstm_every - 1) mLSTM blocks + 1 sLSTM block."""
     b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
     for i in range(cfg.xlstm_slstm_every - 1):
@@ -85,11 +88,13 @@ def _n_units(cfg: ModelConfig) -> int:
     return cfg.n_layers // max(cfg.xlstm_slstm_every, 1)
 
 
-def init_blocks(generator: torch.Generator, cfg: ModelConfig) -> tuple[dict, dict]:
+def init_blocks(generator: Optional[torch.Generator], cfg: ModelConfig) -> tuple[dict, dict]:
     """Stacked block params (leading ``layers`` axis: layers, or xLSTM
     units) + their logical axes; for the hybrid family also the shared
-    block's (not stacked)."""
-    _require_ported(cfg)
+    block's (not stacked).  ``generator=None`` gives :class:`ParamShape`
+    records for every family, moe included."""
+    if generator is not None:
+        _require_ported(cfg)
     if cfg.family == "ssm":
         per_layer = [_init_xlstm_unit(generator, cfg) for _ in range(_n_units(cfg))]
     else:

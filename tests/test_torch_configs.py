@@ -75,7 +75,9 @@ assert not bad, bad
     walked = set(out.stdout.split("] ", 1)[1].split())
     assert {"repro_torch.data.pipeline", "repro_torch.optim.adamw", "repro_torch.optim.schedule",
             "repro_torch.train.steps", "repro_torch.checkpoint.store",
-            "repro_torch.launch.train"} <= walked
+            "repro_torch.launch.train", "repro_torch.core.engine",
+            "repro_torch.malleability.scenarios", "repro_torch.elastic.trainer",
+            "repro_torch.parallel.sharding"} <= walked
 
 
 def test_port_sources_name_no_jax_or_repro_import():

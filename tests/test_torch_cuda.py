@@ -639,3 +639,63 @@ def test_train_step_on_card_matches_cpu(dev, remat):
     for k, p in state.params.items():
         torch.testing.assert_close(gstate.params[k].detach().cpu(), p.detach(),
                                    rtol=2e-3, atol=5e-4)
+
+
+# ------------------------------------------------------------- elastic loop --
+
+
+def test_slots_resolve_to_the_card(dev):
+    from repro_torch.elastic import DevicePool, ElasticTrainer, device_slots
+    from repro_torch.malleability import get_scenario
+
+    assert all(s.device.type == "cuda" for s in device_slots(3))
+    assert all(s.device.type == "cuda" for devs in DevicePool().nodes.values() for s in devs)
+    tr = ElasticTrainer.from_scenario(Model(smoke_config("stablelm_3b"), device=dev),
+                                      get_scenario("steady-cycle"), batch=2, seq=8)
+    assert all(s.device.type == "cuda" for s in tr.runtime.devices)
+
+
+def test_elastic_trainer_on_card_matches_cpu(dev):
+    """Smoke stablelm in fp32 on the scripted trace of
+    ``tests/test_elastic_trainer.py`` (expand 1->4, TS-shrink to 2, a
+    failure to 1): the card's run (both attention kernels) and the CPU's
+    (plain attention) from the same params give the same records, node
+    counts and logged bytes, and losses within the model tolerance."""
+    from repro_torch.elastic import DevicePool, ElasticRuntime, ElasticTrainer, SimulatedRMS
+    from repro_torch.elastic import device_slots
+    from repro_torch.elastic.rms import EventKind
+
+    cfg = smoke_config("stablelm_3b").replace(dtype="float32", logit_dtype="float32")
+    events = [(5, EventKind.GROW, 4), (10, EventKind.SHRINK, (2, 3)), (15, EventKind.FAIL, 1)]
+    state = build_init_fn(Model(cfg, device="cpu"))(torch.Generator().manual_seed(0))
+
+    def trainer(device):
+        tr = ElasticTrainer(
+            model=Model(cfg, device=device),
+            runtime=ElasticRuntime(pool=DevicePool(devices=device_slots(8, device)),
+                                   initial_nodes=1),
+            rms=SimulatedRMS.scripted(events), batch=8, seq=32)
+        # copies: a run updates its state in place
+        params = {k: p.detach().clone().to(device).requires_grad_()
+                  for k, p in state.params.items()}
+        tr._state = state._replace(
+            params=params,
+            opt=state.opt._replace(step=state.opt.step.clone().to(device),
+                                   mu={k: m.clone().to(device) for k, m in state.opt.mu.items()},
+                                   nu={k: m.clone().to(device) for k, m in state.opt.nu.items()}),
+            step=state.step.clone().to(device))
+        return tr
+
+    gpu = trainer(dev)
+    before, before_bwd = fa.launches, fa.bwd_launches
+    gpu.run(20)
+    torch.cuda.synchronize()
+    assert fa.launches - before == 20 * cfg.n_layers * (1 + int(cfg.remat))
+    assert fa.bwd_launches - before_bwd == 20 * cfg.n_layers
+    cpu = trainer("cpu")
+    cpu.run(20)
+    assert [r.n_nodes for r in gpu.history] == [r.n_nodes for r in cpu.history]
+    assert gpu.runtime.history == cpu.runtime.history
+    assert gpu.transfer_log == cpu.transfer_log
+    torch.testing.assert_close(torch.tensor(gpu.losses()), torch.tensor(cpu.losses()),
+                               rtol=2e-3, atol=5e-4)

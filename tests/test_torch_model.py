@@ -98,11 +98,25 @@ def test_forward_and_prefill_caches_match(arch):
     np.testing.assert_allclose(caches["v"].numpy(), np.asarray(jv), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_34b", "zamba2_1p2b", "xlstm_125m"])
+def prompt_batch(cfg, batch, P):
+    """The first P positions of ``batch`` (tokens or embeddings, and the
+    (3, B, P) M-RoPE positions where the config has them)."""
+    key = "embeds" if cfg.embed_inputs else "tokens"
+    out = {key: batch[key][:, :P]}
+    if cfg.mrope_sections:
+        out["positions"] = batch["positions"][..., :P]
+    return out
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_34b", "zamba2_1p2b", "xlstm_125m",
+                                  "qwen2_vl_7b", "musicgen_medium", "gemma2_9b"])
 def test_decode_steps_and_one_pass_prefill_match(arch):
     """Per-step decode logits equal JAX's; a one-pass prefill of the first
     half followed by decode gives the logits of JAX's token-by-token loop
-    (for zamba2 and xlstm the half, 4, is ragged against their chunk of 8)."""
+    (for zamba2 and xlstm the half, 4, is ragged against their chunk of 8).
+    qwen2-vl decodes with (3, B, 1) M-RoPE positions, musicgen from
+    embeddings, gemma2 with softcaps at a cache of S = 8, its smoke
+    window (no ring cache, ROADMAP.md A11)."""
     jm, jp, tm, tp = pair(arch)
     batch = make_batch(tm.cfg, seed=4)
     ref = jax_decode_all(jm, jp, batch)                      # (B, S, V)
@@ -116,7 +130,7 @@ def test_decode_steps_and_one_pass_prefill_match(arch):
 
         P = S // 2
         cache = tm.init_cache(B, S)
-        prompt = torch_batch({"tokens": batch["tokens"][:, :P]})
+        prompt = torch_batch(prompt_batch(tm.cfg, batch, P))
         logits = [tm.prefill(tp, cache, prompt)]
         for t in range(P, S):
             lg, cache = tm.decode_step(tp, cache, torch_batch(step_batch(tm.cfg, batch, t))

@@ -31,8 +31,9 @@ def jax_greedy(cfg, params, prompts, G):
     decode = jax.jit(m.decode_step)
 
     def tok(tokens, t):
+        pos = jnp.full((B, 1), t, jnp.int32)
         return {"tokens": tokens, "cache_pos": jnp.int32(t),
-                "positions": jnp.full((B, 1), t, jnp.int32)}
+                "positions": jnp.stack([pos, pos, pos]) if cfg.mrope_sections else pos}
 
     for t in range(P):
         logits, cache = decode(params, cache, tok(prompts[:, t:t + 1], t))
@@ -46,18 +47,23 @@ def jax_greedy(cfg, params, prompts, G):
 
 
 @pytest.mark.parametrize("arch,P", [("stablelm_3b", 8), ("yi_34b", 8), ("zamba2_1p2b", 8),
-                                    ("zamba2_1p2b", 5), ("xlstm_125m", 8), ("xlstm_125m", 5)])
+                                    ("zamba2_1p2b", 5), ("xlstm_125m", 8), ("xlstm_125m", 5),
+                                    ("qwen2_vl_7b", 8), ("musicgen_medium", 8),
+                                    ("gemma2_9b", 2)])
 def test_greedy_ids_equal_jax_token_by_token(arch, P):
     """zamba2 and xlstm at P = 5 prefill a prompt that is not a whole
-    number of their chunks of 8."""
+    number of their chunks of 8.  qwen2-vl decodes with (3, B, 1) M-RoPE
+    positions; musicgen is served from token ids (``_run_static`` sets
+    ``embed_inputs=False``); gemma2, with its softcaps, at a cache of
+    P + G = 8, its smoke window (no ring cache, ROADMAP.md A11)."""
     B, G = 2, 6
-    jcfg = jax_smoke_config(arch).replace(dtype="float32", logit_dtype="float32")
+    fp32 = dict(dtype="float32", logit_dtype="float32", embed_inputs=False)
+    jcfg = jax_smoke_config(arch).replace(**fp32)
     jparams, _ = JaxModel(jcfg).init(jax.random.key(0))
     prompts = np.random.default_rng(1).integers(0, jcfg.vocab, (B, P), dtype=np.int32)
     ref = jax_greedy(jcfg, jparams, jnp.asarray(prompts), G)
 
-    model = Model(smoke_config(arch).replace(dtype="float32", logit_dtype="float32"),
-                  device="cpu")
+    model = Model(smoke_config(arch).replace(**fp32), device="cpu")
     params = bridge.to_torch({k: np.asarray(v) for k, v in jparams.items()}, device="cpu")
     fa.launches = ssd.launches = mlstm.launches = 0
     res = serve.generate(model, params, torch.from_numpy(prompts).long(), G)
