@@ -7,8 +7,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); builds the kernels
 from the checkout's sources itself.  Phases, each of which fails the run:
 
 1. build   — compile ``src/repro_torch/kernels/csrc/{flash_attention,
-             flash_attention_bwd,ssd,mlstm}.cu`` for sm_90a, one ``nvcc`` per
-             source, all four started together;
+             flash_attention_bwd,ssd,mlstm,ssd_bwd,mlstm_bwd}.cu`` for
+             sm_90a, one ``nvcc`` per source, all six started together;
 2. kernels — every kernel against its plain PyTorch version on the card
              (the cases of ``tests/test_kernels.py``, in fp32 (the scalar
              kernels) and bf16 (the tensor-core kernels), and the serve
@@ -20,7 +20,14 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              window, softcap, GQA, ragged and Sq != Sk; then, at D 80 and
              128, the edges of its tiles, GQA 8 and q, k scaled by 4), then
              timed at stablelm_3b's train shape beside SDPA's backward, two
-             bf16 calls there bitwise equal;
+             bf16 calls there bitwise equal; the SSD and mLSTM backwards'
+             gradients against autograd of their plain versions in fp32
+             (ragged S, S shorter than a chunk, strided model-layout
+             inputs, the forward tests' widths, SSD with the final state's
+             cotangent and at a log-decay span past fp32's exp range,
+             mLSTM with gates of +-20 and with the e^{-m} floor winning),
+             then timed at zamba2_1p2b's and xlstm_125m's train shapes,
+             two bf16 calls there bitwise equal;
 3. serve stablelm_3b — at full size, seed-initialised on the card:
              batch 8, prompt 512, 64 greedy tokens in bf16 through
              ``repro_torch.launch.serve``; the attention kernel must have
@@ -72,7 +79,18 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              steps at full width and 4 layers with a checkpoint
              directory: right after the RESTART (step 5) the params equal
              the step-4 snapshot on disk and the params held when it was
-             saved, bitwise.
+             saved, bitwise;
+8. train zamba2_1p2b and train xlstm_125m — each full model through
+             ``repro_torch.launch.train`` as in 6 (fp32 masters, bf16, remat,
+             8 x 512, 4 steps, seed 0): finite losses and grad norms, the
+             kernels' calls a step (zamba2: 76 SSD, 38 SSD backward, 12
+             attention, 6 attention backward; xlstm: 12 mLSTM, 6 mLSTM
+             backward, no attention), a profiled step, the same steps with
+             the plain versions (printed), and one fp32 step at full width
+             and 6 layers (zamba2: its shared block follows layer 5) or 2
+             units (xlstm) against the plain twin: the loss, every grad leaf
+             and the params after AdamW; zamba2 also prints the largest
+             per-chunk log-decay span at init.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -103,7 +121,7 @@ MODEL_TOL = dict(rtol=2e-3, atol=5e-4)   # tests/test_models.py, fp32
 # A backward sums over S terms where the forward's 2e-5 sums over keys.
 GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 GRAD_REL_RMS = 1e-4     # a gradient leaf of the fp32 train gate, against the plain twin
-KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "mlstm")
+KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "mlstm", "ssd_bwd", "mlstm_bwd")
 # The attention backward's two paths, chosen by dtype alone.
 BWD_PATHS = {
     "bfloat16": {"route": "tensor cores (mma.sync bf16)",
@@ -122,6 +140,9 @@ ELASTIC_SCENARIO, ELASTIC_STEPS = "steady-cycle", 25
 RESTART_STEP = 5        # restart-vs-shrink's RESTART, read back from step 4's snapshot
 HYBRID = "zamba2_1p2b"
 XLSTM = "xlstm_125m"
+# Depth of the recurrent families' fp32 train gate: zamba2's shared block
+# follows layer 5, so 6 layers reach it; xlstm's 4 layers are 2 units.
+RECURRENT_GATE_LAYERS = {HYBRID: 6, XLSTM: 4}
 
 
 def fail(msg: str) -> int:
@@ -153,6 +174,8 @@ def main() -> int:
     ssd_entry = ssd_kernel_phase(torch, dev, failures)
     mlstm_entry = mlstm_kernel_phase(torch, dev, failures)
     bwd_entry = attention_bwd_phase(torch, dev, failures)
+    ssd_bwd_entry = ssd_bwd_phase(torch, dev, failures)
+    mlstm_bwd_entry = mlstm_bwd_phase(torch, dev, failures)
     if failures:
         return fail("; ".join(failures))
     counts: dict[str, dict[str, int]] = {}   # serve path -> kernel -> launches
@@ -175,7 +198,12 @@ def main() -> int:
     elastic_phase(torch, dev, train_peak, failures, counts)
     if failures:
         return fail("; ".join(failures))
-    kernels = [entry, bwd_entry, ssd_entry, mlstm_entry]
+    for arch in (HYBRID, XLSTM):
+        torch.cuda.empty_cache()
+        recurrent_train_phase(torch, dev, arch, failures, counts)
+        if failures:
+            return fail("; ".join(failures))
+    kernels = [entry, bwd_entry, ssd_entry, mlstm_entry, ssd_bwd_entry, mlstm_bwd_entry]
     for e in kernels:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in counts.items()}
         e["launches"] = sum(e["launches_by_path"].values())
@@ -306,6 +334,14 @@ def build_phase(torch):
           f"{mlstm.smem_bytes(128, 384)} bytes (the rest, {mlstm.value_cols(128, 384)} value "
           f"columns a block); fp32 {mlstm.smem_bytes(128, 384, torch.float32)} bytes (scalar, "
           f"{mlstm.value_cols(128, 384, torch.float32)} value columns a block)")
+    print(f"[build] ssd_bwd: dynamic shared memory a block at the train shape (chunk 128, N 64, "
+          f"P 64): {ssd.bwd_smem_bytes(128, 64, 64)} bytes; fp32 scratch a call at "
+          f"({BATCH},{TRAIN_SEQ},64,64): {ssd.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 64, 64, 64, 128)}"
+          f" bytes")
+    print(f"[build] mlstm_bwd: dynamic shared memory a block of the main kernel at the train "
+          f"shape (chunk 128, D 384): {mlstm.bwd_smem_bytes(128, 384)} bytes; fp32 scratch a "
+          f"call at ({BATCH},{TRAIN_SEQ},4,384): "
+          f"{mlstm.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 4, 384, 128)} bytes")
 
 
 def kernel_phase(torch, dev, failures) -> dict:
@@ -677,6 +713,285 @@ def attention_bwd_timings(torch, q, k, v, dout, dev) -> dict:
     return t
 
 
+# ----------------------------------------------- SSD and mLSTM backwards --
+
+BF16_GRAD_REL_RMS = 2e-2   # a backward's gradient in bf16, against autograd of the plain version
+
+
+def grad_check(torch, label, got, want, inputs, dtype, failures, exact=None) -> float:
+    """A backward kernel's gradients against autograd of the plain version
+    in fp32 on the same inputs.  fp32: each gradient within a relative rms
+    of GRAD_REL_RMS and a max abs error of GRAD_REL_RMS times its largest
+    entry.  Elementwise rtol/atol 1e-4 is not the gate: where an entry is
+    small because its terms cancel, two fp32 summation orders differ by
+    more, and the fp32 plain version itself misses it against the fp64
+    gradient at the train shapes (``exact``: that gradient; each
+    implementation's largest err / (1e-4 + 1e-4 |exact|) is printed).
+    bf16: a relative rms of BF16_GRAD_REL_RMS.  Every gradient finite, in
+    its input's dtype and shape.  Returns the largest max abs error."""
+    errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
+    rms = [rel_rms(torch, g.float(), w) for g, w in zip(got, want)]
+    ok = all(bool(torch.isfinite(g).all()) and g.dtype == t.dtype and g.shape == t.shape
+             for g, t in zip(got, inputs))
+    if dtype == "float32":
+        rel_max = [e / max(float(w.abs().max()), 1e-30) for e, w in zip(errs, want)]
+        ok = ok and max(rms) <= GRAD_REL_RMS and max(rel_max) <= GRAD_REL_RMS
+        limit = f"rel rms and max abs / max |want| <= {GRAD_REL_RMS}"
+    else:
+        ok = ok and max(rms) <= BF16_GRAD_REL_RMS
+        limit = f"rel rms <= {BF16_GRAD_REL_RMS}"
+    print(f"[kernel] {label:<58} {dtype:<8} max_abs_err "
+          + " ".join(f"{e:.2e}" for e in errs) + " rel rms " + " ".join(f"{r:.1e}" for r in rms)
+          + f" ({limit}) {'ok' if ok else 'FAIL'}")
+    if exact is not None:
+        def ratios(grads):
+            return " ".join(f"{float(((g.double() - e).abs() / (1e-4 + 1e-4 * e.abs())).max()):.2f}"
+                            for g, e in zip(grads, exact))
+
+        print(f"[kernel] {label:<58} {dtype:<8} against the fp64 gradient, err / (1e-4 + 1e-4 "
+              f"|exact|) at worst: kernel {ratios(got)}; fp32 plain {ratios(want)} (information)")
+    if not ok:
+        failures.append(f"{label} {dtype}: max_abs_err {max(errs):.3e}, rel rms {max(rms):.3e}")
+    return max(errs)
+
+
+def ssd_bwd_bound_ms(x, N, chunk) -> tuple[float, str]:
+    """Larger of bytes / bandwidth (x, dy, dt, A, B, C read once; dx, ddt,
+    dA, dB, dC written once) and operations / peak: Q^2 (3N + 2P) on the
+    lower triangle (C B^T, dy x^T, W^T dy, E B, E^T C) and 10 Q N P (the
+    states, dS^T B, dS x, S_p dy, the dS update) per (b, h, chunk)."""
+    B, S, H, P = x.shape
+    e = x.element_size()
+    nbytes = (3 * x.numel() + 4 * B * S * N) * e + 4 * (2 * B * S * H + 2 * H)
+    flops = (chunk * chunk * (3 * N + 2 * P) + 10 * chunk * N * P) * B * H * -(-S // chunk)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).removeprefix("torch.")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bwd_phase(torch, dev, failures) -> dict:
+    """The SSD backward's dx, ddt, dA, dB, dC against autograd of
+    ssd_chunked in fp32 on the same inputs (ssd_ref where S is ragged or
+    the unmasked exp would overflow), then timed at zamba2_1p2b's train
+    shape, two bf16 calls there bitwise equal."""
+    from repro_torch.kernels import ref, ssd
+
+    def plain(args, dy, dfinal, chunk, oracle, wide):
+        t = [(a.detach().double() if wide else a.detach().float()).requires_grad_()
+             for a in args]
+        y, st = oracle(*t) if oracle else ref.ssd_chunked(*t, chunk)
+        outs, cots = [y], [dy.to(y.dtype)]
+        if dfinal is not None:
+            outs.append(st)
+            cots.append(dfinal.to(st.dtype))
+        return torch.autograd.grad(outs, t, cots)
+
+    def compare(label, args, dy, dfinal, chunk, dtype, oracle=None) -> float:
+        got = ssd.ssd_scan_bwd_cuda(*args, dy, dfinal, chunk=chunk)
+        want = plain(args, dy, dfinal, chunk, oracle, False)
+        exact = plain(args, dy, dfinal, chunk, oracle, True) if dtype == "float32" else None
+        torch.cuda.synchronize()
+        return grad_check(torch, f"ssd_bwd {label}", got, want, args, dtype, failures, exact)
+
+    cases = [  # label, B, S, H, P, N, chunk, final-state cotangent, model layout, oracle
+        ("(1,64,2,16) N 8 chunk 16", 1, 64, 2, 16, 8, 16, False, False, None),
+        ("(2,128,3,16) N 8 chunk 32 +dfinal", 2, 128, 3, 16, 8, 32, True, False, None),
+        ("(1,128,1,32) N 16 chunk 64", 1, 128, 1, 32, 16, 64, False, False, None),
+        ("(2,96,2,8) N 4 chunk 32", 2, 96, 2, 8, 4, 32, False, False, None),
+        ("(1,40,2,4) N 4 chunk 4", 1, 40, 2, 4, 4, 4, False, False, None),
+        ("(2,64,3,8) N 8 chunk 16 +dfinal", 2, 64, 3, 8, 8, 16, True, False, None),
+        ("ragged S 100 chunk 32 vs ssd_ref +dfinal", 1, 100, 2, 16, 8, 32, True, False, "ref"),
+        ("S 5 < chunk 8 vs ssd_ref", 2, 5, 2, 16, 8, 8, False, False, "ref"),
+        ("(1,37,3,12) N 20 chunk 12 vs ssd_ref", 1, 37, 3, 12, 20, 12, False, False, "ref"),
+        ("strided model layout (2,96,2,64) N 64 chunk 32", 2, 96, 2, 64, 64, 32, False, True,
+         None),
+        ("zamba2 widths ragged S 200 chunk 128 +dfinal", 2, 200, 4, 64, 64, 128, True, True,
+         "ref"),
+    ]
+    for n, (label, B, S, H, P, N, chunk, with_final, ml, oracle) in enumerate(cases):
+        for dtype in ("float32", "bfloat16"):
+            seed = 1300 + 10 * n
+            args = ssd_inputs(torch, B, S, H, P, N, dtype, seed, dev, model_layout=ml)
+            dy = randn(torch, (B, S, H, P), dtype, seed + 5, dev)
+            dfinal = randn(torch, (B, H, N, P), "float32", seed + 6, dev) if with_final else None
+            compare(label, args, dy, dfinal, chunk, dtype, ref.ssd_ref if oracle else None)
+    # dt 0.8, A -1: a chunk of 128 spans a log-decay of ~100, past fp32's exp
+    # range above the diagonal; autograd of the unmasked where(mask, exp, 0)
+    # would be NaN there.  The gradient is finite and equals ssd_ref's.
+    x, _, _, Bm, Cm = ssd_inputs(torch, 1, 256, 2, 8, 4, "float32", 1450, dev)
+    dt = torch.full((1, 256, 2), 0.8, device=dev)
+    A = torch.tensor([-1.0, -0.5], device=dev)
+    dy = randn(torch, (1, 256, 2, 8), "float32", 1451, dev)
+    compare("chunk 128, log-decay span ~100 vs ssd_ref", (x, dt, A, Bm, Cm), dy, None, 128,
+            "float32", ref.ssd_ref)
+
+    shape = f"train ({BATCH},{TRAIN_SEQ},64,64) N 64 chunk 128"
+    entry = {"name": "ssd_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+             "replaces": "src/repro/models/ssm.py:170 (no Pallas backward: the JAX package "
+                         "differentiates this jnp ssd_chunked, src/repro/train/steps.py:75)",
+             "launches": None, "paths": []}
+    for dtype in ("bfloat16", "float32"):
+        args = ssd_inputs(torch, BATCH, TRAIN_SEQ, 64, 64, 64, dtype, 1460, dev,
+                          model_layout=True)
+        dy = randn(torch, (BATCH, TRAIN_SEQ, 64, 64), dtype, 1465, dev)
+        err = compare(shape, args, dy, None, 128, dtype)
+        if dtype == "bfloat16":
+            a, b = (ssd.ssd_scan_bwd_cuda(*args, dy, chunk=128) for _ in range(2))
+            same = all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+            print(f"[kernel] ssd_bwd {shape} bf16: two calls bitwise equal: {same}")
+            if not same:
+                failures.append("ssd_bwd: two bf16 calls at the train shape differ")
+            del a, b
+        t_in = [a.detach().float().requires_grad_() for a in args]
+        y_plain = ref.ssd_chunked(*t_in, 128)[0]
+        t = {"ms": time_ms(torch, lambda: ssd.ssd_scan_bwd_cuda(*args, dy, chunk=128), iters=5,
+                           reps=3),
+             "plain_ms": time_ms(torch, lambda: torch.autograd.grad(y_plain, t_in, dy.float(),
+                                                                    retain_graph=True),
+                                 iters=2, reps=3),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = ssd_bwd_bound_ms(args[0], 64, 128)
+        print(f"[time] ssd_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms (scalar fp32 FMA: "
+              f"ssd_bwd + ssd_bwd_reduce), plain {t['plain_ms']:.4f} ms (autograd of "
+              f"ssd_chunked, backward only), no single PyTorch call, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        entry["paths"].append({"dtype": dtype, "shape": f"{shape} {dtype}", "max_abs_err": err,
+                               **t})
+        if dtype == "bfloat16":
+            entry.update(max_abs_err=err, shape=f"{shape} bf16", **t)
+        del y_plain, t_in, args, dy
+        torch.cuda.empty_cache()
+    return entry
+
+
+def mlstm_bwd_bound_ms(q, chunk) -> tuple[float, str]:
+    """Larger of bytes / bandwidth (q, k, v, dh and both gates read once;
+    dq, dk, dv and the gates' gradients written once) and operations / peak:
+    5 Q^2 D on the lower triangle (q k^T, dnum v^T, P^T dnum, dqk k,
+    dqk^T q) and 12 Q D^2 (the states, S_p dnum, q S_p, dS v, dS^T k, the
+    dS update) per (b, h, chunk)."""
+    B, S, H, D = q.shape
+    nbytes = (7 * q.numel() + 4 * B * S * H) * q.element_size()
+    flops = (5 * chunk * chunk * D + 12 * chunk * D * D) * B * H * -(-S // chunk)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).removeprefix("torch.")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def floor_share(torch, q, k, ig, fg) -> float:
+    """Share of rows whose normaliser max(|den|, e^{-m}) takes the floor
+    e^{-m}, for one chunk (S <= chunk), from the forward's formulas."""
+    import torch.nn.functional as F
+
+    D = q.shape[-1]
+    qq, kk = q.float() / math.sqrt(D), k.float()
+    b = torch.cumsum(F.logsigmoid(fg.float()), dim=1)                  # (B,S,H)
+    diff = b[:, :, None, :] - b[:, None, :, :] + ig.float()[:, None, :, :]
+    S = q.shape[1]
+    mask = torch.tril(torch.ones(S, S, dtype=torch.bool, device=q.device))
+    diff = diff.masked_fill(~mask[None, :, :, None], float("-inf"))
+    m = diff.amax(dim=2)
+    den = (torch.einsum("bihd,bjhd->bijh", qq, kk) * torch.exp(diff - m[:, :, None, :])).sum(2)
+    return float((den.abs() < torch.exp(-m)).float().mean())
+
+
+def mlstm_bwd_phase(torch, dev, failures) -> dict:
+    """The mLSTM backward's dq, dk, dv, d i_gate, d f_gate against autograd
+    of mlstm_chunked in fp32 on the same inputs (mlstm_ref where S is
+    ragged), then timed at xlstm_125m's train shape, two bf16 calls there
+    bitwise equal."""
+    from repro_torch.kernels import mlstm, ref
+
+    def plain(args, dh, chunk, oracle, wide):
+        t = [(a.detach().double() if wide else a.detach().float()).requires_grad_()
+             for a in args]
+        out = oracle(*t)[0] if oracle else ref.mlstm_chunked(*t, chunk)[0]
+        return torch.autograd.grad(out, t, dh.to(out.dtype))
+
+    def compare(label, args, dh, chunk, dtype, oracle=None) -> float:
+        got = mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=chunk)
+        want = plain(args, dh, chunk, oracle, False)
+        exact = plain(args, dh, chunk, oracle, True) if dtype == "float32" else None
+        torch.cuda.synchronize()
+        return grad_check(torch, f"mlstm_bwd {label}", got, want, args, dtype, failures, exact)
+
+    cases = [  # label, B, S, H, D, chunk, gate scale, model layout, oracle
+        ("(1,64,2,16) chunk 16", 1, 64, 2, 16, 16, None, False, None),
+        ("(2,128,2,16) chunk 32", 2, 128, 2, 16, 32, None, False, None),
+        ("(1,96,1,32) chunk 32", 1, 96, 1, 32, 32, None, False, None),
+        ("(2,64,2,8) chunk 16", 2, 64, 2, 8, 16, None, False, None),
+        ("(2,48,2,12) chunk 16", 2, 48, 2, 12, 16, None, False, None),
+        ("(1,40,2,20) chunk 8", 1, 40, 2, 20, 8, None, False, None),
+        ("(1,96,3,64) chunk 32", 1, 96, 3, 64, 32, None, False, None),
+        ("(1,128,2,96) chunk 64", 1, 128, 2, 96, 64, None, False, None),
+        ("ragged S 100 chunk 32 vs mlstm_ref", 2, 100, 2, 16, 32, None, False, "ref"),
+        ("S 5 < chunk 8 vs mlstm_ref", 2, 5, 2, 32, 8, None, False, "ref"),
+        ("strided gates (2,64,4,32) chunk 16", 2, 64, 4, 32, 16, None, True, None),
+        ("ragged S 200 D 384 chunk 128 vs mlstm_ref", 1, 200, 2, 384, 128, None, False, "ref"),
+        ("(1,256,1,512) chunk 128", 1, 256, 1, 512, 128, None, False, None),
+    ] + [(f"gates +-20 (1,32,1,8) chunk 8 #{i}", 1, 32, 1, 8, 8, 20.0, False, None)
+         for i in range(3)]
+    for n, (label, B, S, H, D, chunk, gs, ml, oracle) in enumerate(cases):
+        for dtype in ("float32", "bfloat16"):
+            seed = 1500 + 10 * n
+            args = mlstm_inputs(torch, B, S, H, D, dtype, seed, dev, gate_scale=gs,
+                                model_layout=ml)
+            dh = randn(torch, (B, S, H, D), dtype, seed + 5, dev)
+            compare(label, args, dh, chunk, dtype, ref.mlstm_ref if oracle else None)
+    # The e^{-m} floor of the normaliser winning: small q, k and an input
+    # gate near -6 keep |den| below e^{-m} on most rows, where den takes no
+    # gradient.
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, ig, fg = mlstm_inputs(torch, 1, 32, 2, 16, "float32", 1700, dev)
+        q, k, ig = q * 0.1, k * 0.1, ig - 6.0
+        args = tuple(t.to(getattr(torch, dtype)) for t in (q, k, v, ig, fg))
+        share = floor_share(torch, *args[:2], *args[3:])
+        dh = randn(torch, (1, 32, 2, 16), dtype, 1705, dev)
+        compare(f"floor e^-m wins on {share:.0%} of rows (1,32,2,16) chunk 32", args, dh, 32,
+                dtype)
+        if share == 0.0:
+            failures.append("mlstm_bwd: the floor case never reached the e^{-m} branch")
+
+    shape = f"train ({BATCH},{TRAIN_SEQ},4,384) chunk 128"
+    entry = {"name": "mlstm_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/mlstm_bwd.cu",
+             "replaces": "src/repro/models/xlstm.py:159 (no Pallas backward: the JAX package "
+                         "differentiates this jnp mlstm_chunked, src/repro/train/steps.py:75)",
+             "launches": None, "paths": []}
+    for dtype in ("bfloat16", "float32"):
+        args = mlstm_inputs(torch, BATCH, TRAIN_SEQ, 4, 384, dtype, 1710, dev, model_layout=True)
+        dh = randn(torch, (BATCH, TRAIN_SEQ, 4, 384), dtype, 1715, dev)
+        err = compare(shape, args, dh, 128, dtype)
+        if dtype == "bfloat16":
+            a, b = (mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=128) for _ in range(2))
+            same = all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+            print(f"[kernel] mlstm_bwd {shape} bf16: two calls bitwise equal: {same}")
+            if not same:
+                failures.append("mlstm_bwd: two bf16 calls at the train shape differ")
+            del a, b
+        t_in = [a.detach().float().requires_grad_() for a in args]
+        h_plain = ref.mlstm_chunked(*t_in, 128)[0]
+        t = {"ms": time_ms(torch, lambda: mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=128),
+                           iters=3, reps=3),
+             "plain_ms": time_ms(torch, lambda: torch.autograd.grad(h_plain, t_in, dh.float(),
+                                                                    retain_graph=True),
+                                 iters=2, reps=3),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = mlstm_bwd_bound_ms(args[0], 128)
+        print(f"[time] mlstm_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms (scalar fp32 FMA: "
+              f"mlstm_bwd_states + mlstm_bwd_main + two reductions), plain {t['plain_ms']:.4f} "
+              f"ms (autograd of mlstm_chunked, backward only), no single PyTorch call, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        entry["paths"].append({"dtype": dtype, "shape": f"{shape} {dtype}", "max_abs_err": err,
+                               **t})
+        if dtype == "bfloat16":
+            entry.update(max_abs_err=err, shape=f"{shape} bf16", **t)
+        del h_plain, t_in, args, dh
+        torch.cuda.empty_cache()
+    return entry
+
+
 # --------------------------------------------------------------------- ssd --
 
 
@@ -937,7 +1252,9 @@ def reset_counts():
     fa.launches = 0
     fa.bwd_launches = 0
     ssd.launches = 0
+    ssd.bwd_launches = 0
     mlstm.launches = 0
+    mlstm.bwd_launches = 0
 
 
 def read_counts() -> dict:
@@ -945,7 +1262,8 @@ def read_counts() -> dict:
     from repro_torch.kernels import mlstm, ssd
 
     return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
-            "ssd": ssd.launches, "mlstm": mlstm.launches}
+            "ssd": ssd.launches, "mlstm": mlstm.launches, "ssd_bwd": ssd.bwd_launches,
+            "mlstm_bwd": mlstm.bwd_launches}
 
 
 def serve_phase(torch, dev, entry, failures, counts):
@@ -1353,8 +1671,7 @@ def train_phase(torch, dev, fa_entry, bwd_entry, failures, counts) -> int:
         failures.append("non-finite loss or grads in the stablelm_3b train run")
     print("[train] every loss and grad norm finite (the fp32 global norm is finite only if "
           f"every grad element is): {all(math.isfinite(r.grad_norm) for r in records)}")
-    per_step = {"flash_attention": cfg.n_layers * (1 + int(cfg.remat)),
-                "flash_attention_bwd": cfg.n_layers, "ssd": 0, "mlstm": 0}
+    per_step = train_launches(cfg)
     for name, want in per_step.items():
         got = counts[path][name]
         print(f"[train] {name} launches: {got} in {TRAIN_STEPS} steps (expected "
@@ -1393,14 +1710,26 @@ def train_phase(torch, dev, fa_entry, bwd_entry, failures, counts) -> int:
     # The gate: full width, 4 layers, fp32 (TF32 off, as main() sets), one
     # step through the kernels against the same step with the plain
     # attention; then the same in bf16, printed.
-    batch = to_device(data.sample(0), dev)
+    step_gate(torch, dev, cfg, GATE_LAYERS, to_device(data.sample(0), dev), "[train]",
+              "plain attention", failures)
+    return peak
+
+
+def step_gate(torch, dev, cfg, layers, batch, tag, plain_name, failures):
+    """At full width and ``layers`` layers, one fp32 step through the
+    kernels against the same step with the plain versions (``plain_name``):
+    the loss, every grad leaf (MODEL_TOL, and a relative rms of at most
+    GRAD_REL_RMS) and the params after AdamW; then the same in bf16,
+    printed."""
+    from repro_torch.launch import train as train_cli
+
     for dtype in ("float32", "bfloat16"):
-        small = cfg.replace(n_layers=GATE_LAYERS, dtype=dtype, logit_dtype=dtype)
+        small = cfg.replace(n_layers=layers, dtype=dtype, logit_dtype=dtype)
         model, state, _ = train_cli.build(small, device=dev, seed=0)
         got = one_step(torch, model, state.params, batch, failures)
         want = one_step(torch, model, state.params, batch, failures, plain=True)
-        label = (f"[train] {dtype} step at full width, depth cut to {GATE_LAYERS} layers, "
-                 f"kernels vs plain attention")
+        label = (f"{tag} {dtype} step at full width, depth cut to {layers} layers, "
+                 f"kernels vs {plain_name}")
         loss_err = abs(got[0] - want[0])
         worst = max(((rel_rms(torch, got[1][k], want[1][k]), k) for k in want[1]))
         p_err = max(float((got[2][k] - want[2][k]).abs().max()) for k in want[2])
@@ -1417,16 +1746,130 @@ def train_phase(torch, dev, fa_entry, bwd_entry, failures, counts) -> int:
                   f"{'ok' if ok_params else 'FAIL'}")
             for ok, what in ((ok_loss, "loss"), (ok_grads, "grads"), (ok_params, "params")):
                 if not ok:
-                    failures.append(f"fp32 train gate: {what}")
+                    failures.append(f"{tag} fp32 train gate: {what}")
         else:
             print(f"{label} (information): loss {got[0]:.6f} vs {want[0]:.6f} (|gap| "
                   f"{loss_err:.3e}); grads: worst leaf relative rms {worst[0]:.3e} ({worst[1]}); "
                   f"params after AdamW max_abs_err {p_err:.3e}")
             if not math.isfinite(got[0]) or not math.isfinite(want[0]):
-                failures.append("bf16 train gate: non-finite loss")
+                failures.append(f"{tag} bf16 train gate: non-finite loss")
         del model, state, got, want
         torch.cuda.empty_cache()
-    return peak
+
+
+def train_launches(cfg) -> dict:
+    """Kernel calls a train step makes: each layer's forward kernel once,
+    twice under remat (the backward recomputes the layer), and its backward
+    kernel once."""
+    fwd = 1 + int(cfg.remat)
+    attn = ssd = mlstm = 0
+    if cfg.family == "hybrid":
+        every = max(cfg.attn_every, 1)
+        ssd = cfg.n_layers
+        attn = sum(1 for i in range(cfg.n_layers) if i % every == every - 1)
+    elif cfg.family == "ssm":
+        mlstm = cfg.n_layers // cfg.xlstm_slstm_every * (cfg.xlstm_slstm_every - 1)
+    else:
+        attn = cfg.n_layers
+    return {"flash_attention": fwd * attn, "flash_attention_bwd": attn, "ssd": fwd * ssd,
+            "ssd_bwd": ssd, "mlstm": fwd * mlstm, "mlstm_bwd": mlstm}
+
+
+def ssd_log_decay_span(torch, model, params, batch) -> float:
+    """The largest |sum of dt A| over one chunk of any Mamba2 layer in a
+    forward of ``batch`` at ``params``: the span past which exp of the
+    upper triangle, unmasked, overflows fp32 (~88.7)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+
+    spans = []
+    real = ops.ssd_scan
+
+    def recording(x, dt, A, Bmat, Cmat, *, chunk):
+        a = torch.nn.functional.pad(dt * A, (0, 0, 0, (-dt.shape[1]) % chunk))
+        spans.append(float(a.reshape(a.shape[0], -1, chunk, a.shape[-1]).sum(2).abs().max()))
+        return real(x, dt, A, Bmat, Cmat, chunk=chunk)
+
+    with torch.no_grad(), mock.patch.object(ops, "ssd_scan", recording):
+        model.loss(params, batch)
+    return max(spans)
+
+
+def recurrent_train_phase(torch, dev, arch, failures, counts):
+    """Full zamba2_1p2b or xlstm_125m trained 4 steps through
+    ``repro_torch.launch.train`` (fp32 masters, bf16 compute, remat, 8 x
+    512, seed 0): finite losses and grad norms and the kernels' calls a
+    step; a profiled step; the same steps with the plain versions (printed);
+    then the fp32 gate at full width and reduced depth against the plain
+    twin."""
+    from repro_torch.configs import arch_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.device import card_label
+    from repro_torch.launch import train as train_cli
+
+    tag = f"[train {arch}]"
+    cfg = arch_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, state, step_fn = train_cli.build(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    print(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B params as "
+          f"fp32 masters, compute {cfg.dtype}, remat {cfg.remat}; initialised in "
+          f"{time.perf_counter() - t0:.1f}s")
+    data = SyntheticTokens(cfg, BATCH, TRAIN_SEQ, seed=0)
+    if cfg.family == "hybrid":
+        span = ssd_log_decay_span(torch, model, state.params, to_device(data.sample(0), dev))
+        print(f"{tag} largest per-chunk log-decay span |sum dt A| over every Mamba2 layer at "
+              f"init, first batch: {span:.2f} (exp overflows fp32 past ~88.7: the vjp of an "
+              f"exp masked after it would be NaN {'here' if span > 88.7 else 'only past it'})")
+
+    reset_counts()
+    state, records = train_cli.train(model, state, step_fn, data.iter(), TRAIN_STEPS,
+                                     log=lambda line: print(f"{tag} {line}"))
+    path = f"train {arch}"
+    counts[path] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in records:
+        print(f"{tag} step {r.step}: loss {r.loss:.4f}, grad norm {r.grad_norm:.4f}, "
+              f"{r.seconds * 1e3:.1f} ms")
+    step_s = statistics.median(r.seconds for r in records[1:])
+    print(f"{tag} step time {step_s * 1e3:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; step 0, "
+          f"cold, {records[0].seconds * 1e3:.1f} ms), {BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, "
+          f"peak memory {peak / 2**30:.1f} GiB ({peak / 1e9:.1f} GB), on {card_label(dev)}")
+    finite = all(math.isfinite(r.loss) and math.isfinite(r.grad_norm) for r in records)
+    print(f"{tag} every loss and grad norm finite: {finite}")
+    if not finite:
+        failures.append(f"non-finite loss or grads in the {arch} train run")
+    for name, want in train_launches(cfg).items():
+        got = counts[path][name]
+        print(f"{tag} {name} launches: {got} in {TRAIN_STEPS} steps (expected "
+              f"{TRAIN_STEPS} x {want} = {TRAIN_STEPS * want})")
+        if got != TRAIN_STEPS * want:
+            failures.append(f"{path}: {name} launched {got} times, expected {TRAIN_STEPS * want}")
+    profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev),
+                       cfg.dtype, failures, tag=tag, attention=cfg.family == "hybrid")
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+
+    # Information: the same 4 steps with the plain versions (bf16 rounding
+    # differs between the two paths and grows over the steps).
+    model, state, step_fn = train_cli.build(cfg, device=dev, seed=0)
+    with plain_versions(failures):
+        _, plain = train_cli.train(model, state, step_fn, data.iter(), TRAIN_STEPS,
+                                   log=lambda line: None)
+    print(f"{tag} the same steps with the plain versions (information): losses "
+          + ", ".join(f"{r.loss:.4f}" for r in plain) + " against the kernels' "
+          + ", ".join(f"{r.loss:.4f}" for r in records) + "; grad norms "
+          + ", ".join(f"{r.grad_norm:.4f}" for r in plain) + " against "
+          + ", ".join(f"{r.grad_norm:.4f}" for r in records))
+    if not all(math.isfinite(r.loss) for r in plain):
+        failures.append(f"non-finite loss in the plain {arch} train run")
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    step_gate(torch, dev, cfg, RECURRENT_GATE_LAYERS[arch], to_device(data.sample(0), dev), tag,
+              "plain versions", failures)
 
 
 def elastic_phase(torch, dev, train_peak, failures, counts):
@@ -1502,8 +1945,7 @@ def elastic_phase(torch, dev, train_peak, failures, counts):
             failures.append(f"{path}: stage 3 at step {t['step']} logged {t}")
     if len(trainer.transfer_log) != 4:
         failures.append(f"{path}: {len(trainer.transfer_log)} stage-3 entries, expected 4")
-    per_step = {"flash_attention": cfg.n_layers * (1 + int(cfg.remat)),
-                "flash_attention_bwd": cfg.n_layers, "ssd": 0, "mlstm": 0}
+    per_step = train_launches(cfg)
     for name, n in per_step.items():
         print(f"[elastic] {name} launches: {counts[path][name]} (expected "
               f"{ELASTIC_STEPS} x {n} = {ELASTIC_STEPS * n})")
@@ -1596,12 +2038,14 @@ def one_step(torch, model, params, batch, failures, *, plain=False):
     return float(loss), kept, {k: p.detach().float() for k, p in params.items()}
 
 
-def profile_train_step(torch, model, state, step_fn, batch, dtype, failures):
+def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
+                       tag="[train]", attention=True):
     """Where a warm train step's time goes: one more step split in its two
     phases by host clock (each ended by a device sync), then one under
     torch.profiler: the device's busy share, its kernels by group, and the
     attention backward's kernels by name, which must be those of the
-    compute dtype's path (``BWD_PATHS``)."""
+    compute dtype's path (``BWD_PATHS``), or none for a model without
+    attention."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.optim import adamw_update, global_norm
@@ -1617,7 +2061,7 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     del grads
-    print(f"[train] a step's phases (host clock, synced): loss and grads {(t1 - t0) * 1e3:.1f} ms, "
+    print(f"{tag} a step's phases (host clock, synced): loss and grads {(t1 - t0) * 1e3:.1f} ms, "
           f"global norm and AdamW over {sum(p.numel() for p in state.params.values()) / 1e9:.3f} B "
           f"fp32 params {(t2 - t1) * 1e3:.1f} ms")
 
@@ -1634,24 +2078,28 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures):
         name = e.key.lower()
         group = ("attention backward kernel" if "attn_bwd" in name else
                  "attention forward kernel" if "attn_" in name else
+                 "SSD backward kernel" if "ssd_bwd" in name else
+                 "SSD forward kernel" if "ssd_fwd" in name else
+                 "mLSTM backward kernel" if "mlstm_bwd" in name else
+                 "mLSTM forward kernel" if "mlstm_" in name else
                  "matmul (cuBLAS)" if any(w in name for w in ("gemm", "xmma", "nvjet", "cutlass"))
                  else "other (elementwise, reductions, copies, AdamW)")
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
-    print(f"[train] profiled step: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms "
+    print(f"{tag} profiled step: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms "
           f"({busy / wall_ms:.1%}), {sum(e.count for e in kernels)} kernel launches; by group: "
           + ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.1%})"
                       for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[train]   {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+        print(f"{tag}   {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
     bwd = {}
     for e in kernels:
         m = re.search(r"(attn_bwd_\w+)", e.key)
         if m:
             ms, n = bwd.get(m.group(1), (0.0, 0))
             bwd[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    print("[train] attention backward kernels in the profiled step: " + ", ".join(
+    print(f"{tag} attention backward kernels in the profiled step: " + ", ".join(
         f"{name} {ms:.2f} ms in {n} launches" for name, (ms, n) in sorted(bwd.items())))
-    want = BWD_PATHS[dtype]["kernels"]
+    want = BWD_PATHS[dtype]["kernels"] if attention else []
     if sorted(bwd) != sorted(want):
         failures.append(f"profiled {dtype} train step ran the attention backward kernels "
                         f"{sorted(bwd)}, expected {want}")

@@ -2,8 +2,9 @@
 
 Each function computes what its JAX counterpart computes
 (:mod:`repro.kernels.ref`; ``ssd_chunked`` is ``repro.models.ssm``'s,
-``mlstm_chunked`` ``repro.models.xlstm``'s), in fp32, on any device;
-the CUDA kernels are held against them on the card.
+``mlstm_chunked`` ``repro.models.xlstm``'s), in fp32 (in fp64 when given
+fp64 inputs, so that a check can measure fp32's own rounding against
+it), on any device; the CUDA kernels are held against them on the card.
 """
 from __future__ import annotations
 
@@ -11,6 +12,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+
+def _wide(t):
+    """The working precision: fp32, or fp64 for fp64 inputs."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
@@ -49,8 +55,8 @@ def ssd_ref(x, dt, A, Bmat, Cmat):
     """
     B, S, H, P = x.shape
     N = Bmat.shape[-1]
-    xf, dtf, Bf, Cf, Af = x.float(), dt.float(), Bmat.float(), Cmat.float(), A.float()
-    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    xf, dtf, Bf, Cf, Af = (_wide(t) for t in (x, dt, Bmat, Cmat, A))
+    state = torch.zeros((B, H, N, P), dtype=xf.dtype, device=x.device)
     ys = []
     for t in range(S):
         decay = torch.exp(dtf[:, t] * Af)                                  # (B,H)
@@ -76,7 +82,7 @@ def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int):
     N = Bmat.shape[-1]
     Q = chunk
     pad = (-S) % Q
-    xf, dtf, Bf, Cf = x.float(), dt.float(), Bmat.float(), Cmat.float()
+    xf, dtf, Bf, Cf = (_wide(t) for t in (x, dt, Bmat, Cmat))
     if pad:
         xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
         dtf = F.pad(dtf, (0, 0, 0, pad))
@@ -88,15 +94,16 @@ def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int):
     Bq = Bf.reshape(B, nc, Q, N)
     Cq = Cf.reshape(B, nc, Q, N)
 
-    dA = dtq * A.float()                                  # (B,nc,Q,H), negative
+    dA = dtq * _wide(A)                                   # (B,nc,Q,H), negative
     cum = torch.cumsum(dA, dim=2)                         # within-chunk log decay
 
-    # intra-chunk: decay(i,j) = exp(cum_i - cum_j) for j <= i.  Masked with
-    # where(): above the diagonal cum_i - cum_j > 0 and exp can overflow.
+    # intra-chunk: decay(i,j) = exp(cum_i - cum_j) for j <= i.  Masked before
+    # the exp: above the diagonal cum_i - cum_j > 0 and exp can overflow to
+    # inf, which where() after the exp (JAX's ssd_chunked) hides from the
+    # forward but not from the gradient (0 x inf = NaN); exp(-inf) = 0.
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros((), device=x.device))
+    decay = torch.exp(diff.masked_fill(~mask[None, None, :, :, None], float("-inf")))
     cb = torch.einsum("bcin,bcjn->bcij", Cq, Bq)
     w = cb[..., None] * decay * dtq[:, :, None, :, :]     # (B,nc,Q,Q,H)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xq)
@@ -108,7 +115,7 @@ def ssd_chunked(x, dt, A, Bmat, Cmat, chunk: int):
 
     # inter-chunk scan: the state before each chunk
     chunk_decay = torch.exp(total[:, :, 0, :])            # (B,nc,H)
-    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    state = torch.zeros((B, H, N, P), dtype=xf.dtype, device=x.device)
     prev = []
     for c in range(nc):
         prev.append(state)
@@ -128,12 +135,12 @@ def mlstm_ref(q, k, v, i_gate, f_gate):
     oracle returns h only).
     """
     B, S, H, D = q.shape
-    qf = q.float() / math.sqrt(D)
-    kf, vf, ig = k.float(), v.float(), i_gate.float()
-    logf = F.logsigmoid(f_gate.float())
-    S_p = torch.zeros((B, H, D, D), dtype=torch.float32, device=q.device)
-    n_p = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
-    m_p = torch.full((B, H), float("-inf"), dtype=torch.float32, device=q.device)
+    qf = _wide(q) / math.sqrt(D)
+    kf, vf, ig = _wide(k), _wide(v), _wide(i_gate)
+    logf = F.logsigmoid(_wide(f_gate))
+    S_p = torch.zeros((B, H, D, D), dtype=qf.dtype, device=q.device)
+    n_p = torch.zeros((B, H, D), dtype=qf.dtype, device=q.device)
+    m_p = torch.full((B, H), float("-inf"), dtype=qf.dtype, device=q.device)
     hs = []
     for t in range(S):
         m_new = torch.maximum(logf[:, t] + m_p, ig[:, t])
@@ -165,9 +172,9 @@ def mlstm_chunked(q, k, v, i_gate, f_gate, chunk: int):
     B, S, H, D = q.shape
     Q = chunk
     pad = (-S) % Q
-    qf = q.float() / math.sqrt(D)
-    kf, vf, ig = k.float(), v.float(), i_gate.float()
-    logf = F.logsigmoid(f_gate.float())
+    qf = _wide(q) / math.sqrt(D)
+    kf, vf, ig = _wide(k), _wide(v), _wide(i_gate)
+    logf = F.logsigmoid(_wide(f_gate))
     if pad:
         qf, kf, vf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (qf, kf, vf))
         ig = F.pad(ig, (0, 0, 0, pad), value=float("-inf"))
@@ -193,9 +200,9 @@ def mlstm_chunked(q, k, v, i_gate, f_gate, chunk: int):
     m_chunk = w.amax(dim=2)                                 # (B,nc,H)
 
     # inter-chunk scan: the state before each chunk
-    S_p = torch.zeros((B, H, D, D), dtype=torch.float32, device=q.device)
-    n_p = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
-    m_p = torch.full((B, H), float("-inf"), dtype=torch.float32, device=q.device)
+    S_p = torch.zeros((B, H, D, D), dtype=qf.dtype, device=q.device)
+    n_p = torch.zeros((B, H, D), dtype=qf.dtype, device=q.device)
+    m_p = torch.full((B, H), float("-inf"), dtype=qf.dtype, device=q.device)
     S_prev, n_prev, m_prev = [], [], []
     for c in range(nc):
         S_prev.append(S_p)

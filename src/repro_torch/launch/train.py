@@ -8,20 +8,23 @@ given.  ``--scenario <name>`` runs the elastic loop
 scenario and prints the JAX driver's ``reconfig`` and ``scenario`` lines;
 their ``est`` and ``downtime`` are the cost model's modelled cluster
 times, not card times (the slots of the pool are logical, all on one
-card).  Attention runs forward and backward in the hand-written CUDA
-kernels on the card (``repro_torch.kernels``).
+card).  On the card, attention, the SSD scan and the mLSTM scan run
+forward and backward in the hand-written CUDA kernels
+(``repro_torch.kernels``), so the dense, hybrid (zamba2) and xLSTM
+families train there.
 
     python -m repro_torch.launch.train --arch stablelm_3b --full-config \\
         --steps 4 --batch 8 --seq 512
     python -m repro_torch.launch.train --arch stablelm_3b --full-config \\
         --scenario steady-cycle --batch 8 --seq 512
-    python -m repro_torch.launch.train --device cpu --arch stablelm_3b \\
+    python -m repro_torch.launch.train --arch zamba2_1p2b --full-config \\
+        --steps 4 --batch 8 --seq 512
+    python -m repro_torch.launch.train --device cpu --arch xlstm_125m \\
         --scenario steady-cycle --batch 8 --seq 32
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  What is not ported
 yet exits 2 and names its ROADMAP.md item: ``--model-parallel`` above 1
-(A16), the ``moe`` family (A12), and the ``hybrid`` and ``ssm`` families,
-whose kernels have no backward yet (A18).
+(A16) and the ``moe`` family (A12).
 """
 from __future__ import annotations
 
@@ -46,10 +49,6 @@ from repro_torch.train import TrainState, build_init_fn, build_train_step
 NOT_PORTED = {
     "model_parallel": "--model-parallel > 1 is not ported yet: ROADMAP.md A16",
     "moe": "the moe family is not ported yet: ROADMAP.md A12",
-    "hybrid": "training the hybrid family needs an SSD backward kernel, not written "
-              "yet: ROADMAP.md A18",
-    "ssm": "training the xLSTM family needs an mLSTM backward kernel, not written "
-           "yet: ROADMAP.md A18",
 }
 
 

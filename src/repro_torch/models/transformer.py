@@ -3,9 +3,11 @@
 
 Training/prefill walk the stacked per-layer params with a Python loop
 (the JAX package's ``lax.scan``); decode walks the layers over per-layer
-cache slices.  With ``cfg.remat`` and grad enabled, each dense block runs
-under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` with
-``nothing_saveable``): its activations are recomputed in the backward.
+cache slices.  With ``cfg.remat`` and grad enabled, each step of the
+layer loop runs under ``torch.utils.checkpoint`` (the JAX package's
+``jax.checkpoint`` of its scan body, with ``nothing_saveable``): a dense
+block; a Mamba2 layer with the shared block when it follows; an xLSTM
+unit.  Its activations are recomputed in the backward.
 Families not ported yet raise ``NotImplementedError`` naming their
 ROADMAP.md item.
 
@@ -190,21 +192,36 @@ def _applies_shared_attn(cfg: ModelConfig, i: int) -> bool:
     return i % every == every - 1
 
 
+def _hybrid_layer(lp, shared, cfg, x, positions, with_attn, collect_kv):
+    """One Mamba2 layer, then the shared block when it follows this layer:
+    (x, the layer's {ssm, conv} state or None, the shared block's (k, v) or
+    None)."""
+    h = rmsnorm(lp, "ln", x, cfg.norm_eps)
+    out, st = mamba2_block(lp, "mamba", cfg, h, collect_state=collect_kv)
+    x = x + out
+    kv = None
+    if with_attn:
+        x, kv = _dense_block(shared, cfg, x, positions, None, collect_kv)
+    return x, st, kv
+
+
 def _forward_hybrid(params, cfg: ModelConfig, x, positions, collect_kv):
     stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
     shared = _split_stacked(params, "shared_attn/", cfg.compute_dtype)
+    layers = {k: v.unbind(0) for k, v in stacked.items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     collected = {n: [] for n in ("ssm", "conv", "attn_k", "attn_v")}
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in stacked.items()}
-        h = rmsnorm(lp, "ln", x, cfg.norm_eps)
-        out, st = mamba2_block(lp, "mamba", cfg, h, collect_state=collect_kv)
-        x = x + out
+        lp = {k: v[i] for k, v in layers.items()}
+        args = (lp, shared, cfg, x, positions, _applies_shared_attn(cfg, i), collect_kv)
+        if remat:
+            x, st, kv = checkpoint(_hybrid_layer, *args, use_reentrant=False)
+        else:
+            x, st, kv = _hybrid_layer(*args)
         if collect_kv:
             collected["ssm"].append(st["ssm"])
             collected["conv"].append(st["conv"])
-        if _applies_shared_attn(cfg, i):
-            x, kv = _dense_block(shared, cfg, x, positions, None, collect_kv)
-            if collect_kv:
+            if kv is not None:
                 collected["attn_k"].append(kv[0])
                 collected["attn_v"].append(kv[1])
     if collect_kv:
@@ -212,22 +229,32 @@ def _forward_hybrid(params, cfg: ModelConfig, x, positions, collect_kv):
     return x, None
 
 
+def _xlstm_unit(lp, cfg, x, collect_kv):
+    """One unit: (every - 1) mLSTM blocks, then the sLSTM block: (x, the
+    mLSTM blocks' final states, the sLSTM's final state)."""
+    unit = []
+    for i in range(max(cfg.xlstm_slstm_every, 1) - 1):
+        h = rmsnorm(lp, f"ln_m{i}", x, cfg.norm_eps)
+        out, st = mlstm_block(lp, f"mlstm{i}", cfg, h, collect_state=collect_kv)
+        x = x + out
+        unit.append(st)
+    h = rmsnorm(lp, "ln_s", x, cfg.norm_eps)
+    out, st = slstm_block(lp, "slstm", cfg, h, collect_state=collect_kv)
+    return x + out, unit, st
+
+
 def _forward_xlstm(params, cfg: ModelConfig, x, collect_kv):
     stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
-    every = max(cfg.xlstm_slstm_every, 1)
+    units = {k: v.unbind(0) for k, v in stacked.items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     mstates = {n: [] for n in MLSTM_STATES}
     sstates = {n: [] for n in SLSTM_STATES}
     for u in range(_n_units(cfg)):
-        lp = {k: v[u] for k, v in stacked.items()}
-        unit = []
-        for i in range(every - 1):
-            h = rmsnorm(lp, f"ln_m{i}", x, cfg.norm_eps)
-            out, st = mlstm_block(lp, f"mlstm{i}", cfg, h, collect_state=collect_kv)
-            x = x + out
-            unit.append(st)
-        h = rmsnorm(lp, "ln_s", x, cfg.norm_eps)
-        out, st = slstm_block(lp, "slstm", cfg, h, collect_state=collect_kv)
-        x = x + out
+        lp = {k: v[u] for k, v in units.items()}
+        if remat:
+            x, unit, st = checkpoint(_xlstm_unit, lp, cfg, x, collect_kv, use_reentrant=False)
+        else:
+            x, unit, st = _xlstm_unit(lp, cfg, x, collect_kv)
         if collect_kv:
             for j, name in enumerate(mstates):
                 mstates[name].append(torch.stack([s[j] for s in unit]))

@@ -582,21 +582,31 @@ def test_forward_kernel_alone_refuses_grad(dev):
 
 
 def test_ssd_and_mlstm_refuse_grad_and_serve_without(dev):
-    """No backward yet (ROADMAP.md A18): under grad mode an input that
-    requires grad is refused, naming the item; under inference_mode and
-    no_grad the kernels run as before."""
+    """The raw forward wrappers record no gradient: under grad mode an input
+    that requires grad is refused, naming the differentiable entry in ops.
+    ops trains: its output carries a gradient, through one backward call.
+    Under inference_mode and no_grad the kernels run as before."""
     sargs = list(ssd_inputs(1, 32, 2, 16, 8, torch.float32, dev))
     margs = list(mlstm_inputs(1, 32, 2, 16, torch.float32, dev))
     for i in range(5):
-        for fn, args in ((lambda a: ops.ssd_scan(*a, chunk=16), sargs),
-                         (lambda a: ops.mlstm_scan(*a, chunk=16), margs)):
+        for raw, name, args in ((lambda a: ssd.ssd_scan_cuda(*a, chunk=16), "ops.ssd_scan", sargs),
+                                (lambda a: mlstm.mlstm_scan_cuda(*a, chunk=16), "ops.mlstm_scan",
+                                 margs)):
             grad_args = [t.detach().requires_grad_() if j == i else t for j, t in enumerate(args)]
-            with pytest.raises(RuntimeError, match="A18"):
-                fn(grad_args)
+            with pytest.raises(RuntimeError, match=name):
+                raw(grad_args)
             with torch.inference_mode():
-                fn(grad_args)
+                raw(grad_args)
             with torch.no_grad():
-                fn(grad_args)
+                raw(grad_args)
+        for fn, args, kernel in ((lambda a: ops.ssd_scan(*a, chunk=16), sargs, ssd),
+                                 (lambda a: ops.mlstm_scan(*a, chunk=16), margs, mlstm)):
+            grad_args = [t.detach().requires_grad_() if j == i else t for j, t in enumerate(args)]
+            before = kernel.bwd_launches
+            out = fn(grad_args)[0]
+            (g,) = torch.autograd.grad(out.square().sum(), grad_args[i])
+            torch.cuda.synchronize()
+            assert kernel.bwd_launches == before + 1 and bool(torch.isfinite(g).all())
     before = (ssd.launches, mlstm.launches)
     with torch.inference_mode():
         y, _ = ops.ssd_scan(*sargs, chunk=16)
@@ -604,6 +614,145 @@ def test_ssd_and_mlstm_refuse_grad_and_serve_without(dev):
     assert (ssd.launches, mlstm.launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(y, ssd_chunked(*sargs, 16)[0], **SSD_TOL[torch.float32])
     torch.testing.assert_close(h, mlstm_chunked(*margs, 16)[0], **MLSTM_TOL[torch.float32])
+
+
+# ------------------------------------------ SSD and mLSTM backward kernels --
+#
+# Each backward against autograd of its plain version in fp32 on the same
+# inputs, as chip_smoke.py holds them: fp32 a relative rms of 1e-4 and a
+# max abs error of 1e-4 times the gradient's largest entry (an entry that
+# is small because its terms cancel differs by more between two fp32
+# summation orders); bf16 (the same scalar fp32 arithmetic, inputs and
+# gradients rounded to bf16) a relative rms of 2e-2.
+
+BWD_REL_RMS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def rel_rms(got, want) -> float:
+    return float((got.double() - want.double()).square().mean().sqrt()
+                 / want.double().square().mean().sqrt().clamp_min(1e-30))
+
+
+def assert_bwd_close(got, want, inputs, dtype):
+    for g, w, t in zip(got, want, inputs):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert bool(torch.isfinite(g).all())
+        assert rel_rms(g.float(), w) <= BWD_REL_RMS[dtype]
+        if dtype == torch.float32:
+            assert float((g - w).abs().max()) <= BWD_REL_RMS[dtype] * float(w.abs().max())
+
+
+def ssd_plain_grads(args, chunk, dy, dfinal):
+    t = [a.detach().float().requires_grad_() for a in args]
+    y, st = ssd_chunked(*t, chunk)
+    outs, cots = [y], [dy.float()]
+    if dfinal is not None:
+        outs.append(st)
+        cots.append(dfinal)
+    return torch.autograd.grad(outs, t, cots)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,with_final", [
+    (1, 64, 2, 16, 8, 16, False),
+    (2, 100, 3, 8, 4, 32, True),      # ragged S
+    (1, 5, 2, 4, 4, 8, False),        # S shorter than a chunk
+    (2, 96, 2, 64, 64, 32, True),     # the widest N and P
+    (1, 37, 3, 12, 20, 12, False),    # widths that are not powers of two
+    (2, 200, 4, 64, 64, 128, True),   # zamba2's widths and chunk, ragged
+])
+def test_ssd_grads_match_plain_version(dev, B, S, H, P, N, chunk, with_final, dtype):
+    args = ssd_inputs(B, S, H, P, N, dtype, dev, seed=S + N)
+    dy = rand((B, S, H, P), dtype, S + 7, dev)
+    dfinal = rand((B, H, N, P), torch.float32, S + 8, dev) if with_final else None
+    before = ssd.bwd_launches
+    got = ssd.ssd_scan_bwd_cuda(*args, dy, dfinal, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.bwd_launches == before + 1
+    assert_bwd_close(got, ssd_plain_grads(args, chunk, dy, dfinal), args, dtype)
+
+
+def test_ssd_grads_in_the_model_layout(dev):
+    """x, B and C as views of one (B,S,H*P+2N) tensor, as mamba2_block
+    passes them, through ops.ssd_scan and autograd: the gradients land in
+    the split."""
+    B, S, H, P, N = 2, 48, 2, 16, 8
+    xbc = rand((B, S, H * P + 2 * N), torch.float32, 3, dev).requires_grad_()
+    dt = torch.nn.functional.softplus(rand((B, S, H), torch.float32, 4, dev))
+    A = -torch.exp(rand((H,), torch.float32, 5, dev) * 0.5)
+    dy = rand((B, S, H, P), torch.float32, 6, dev)
+
+    def run(fn):
+        xs, Bm, Cm = torch.split(xbc, [H * P, N, N], dim=-1)
+        y, _ = fn(xs.reshape(B, S, H, P), dt, A, Bm, Cm)
+        return torch.autograd.grad(y, xbc, dy)[0]
+
+    got = run(lambda *a: ops.ssd_scan(*a, chunk=16))
+    want = run(lambda *a: ssd_chunked(*a, 16))
+    torch.testing.assert_close(got, want, **GRAD_TOL[torch.float32])
+
+
+def test_ssd_grads_finite_where_the_unmasked_exp_overflows(dev):
+    """Chunk 128 with dt 0.8 and A -1: a chunk's log-decay spans ~100, past
+    fp32's exp range; the gradient is finite and equals the sequential
+    oracle's."""
+    x, _, _, Bm, Cm = ssd_inputs(1, 256, 2, 8, 4, torch.float32, dev, seed=9)
+    dt = torch.full((1, 256, 2), 0.8, device=dev)
+    A = torch.tensor([-1.0, -0.5], device=dev)
+    dy = rand((1, 256, 2, 8), torch.float32, 10, dev)
+    got = ssd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=128)
+    t = [a.detach().requires_grad_() for a in (x, dt, A, Bm, Cm)]
+    want = torch.autograd.grad(ssd_ref(*t)[0], t, dy)
+    assert_bwd_close(got, want, (x, dt, A, Bm, Cm), torch.float32)
+
+
+def mlstm_plain_grads(args, chunk, dh):
+    t = [a.detach().float().requires_grad_() for a in args]
+    return torch.autograd.grad(mlstm_chunked(*t, chunk)[0], t, dh.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,D,chunk,gate_scale", [
+    (1, 64, 2, 16, 16, None),
+    (2, 100, 2, 16, 32, None),        # ragged S
+    (1, 5, 2, 8, 8, None),            # S shorter than a chunk
+    (2, 64, 2, 12, 16, None),         # D not a multiple of 8
+    (1, 96, 1, 64, 32, None),         # two value-column blocks
+    (1, 200, 2, 384, 128, None),      # xlstm's head dim and chunk, ragged
+    (1, 32, 1, 8, 8, 20.0),           # gates of +-20: the e^{-m} floor wins on some rows
+])
+def test_mlstm_grads_match_plain_version(dev, B, S, H, D, chunk, gate_scale, dtype):
+    args = mlstm_inputs(B, S, H, D, dtype, dev, seed=S + D, gate_scale=gate_scale)
+    dh = rand((B, S, H, D), dtype, S + 9, dev)
+    before = mlstm.bwd_launches
+    got = mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mlstm.bwd_launches == before + 1
+    assert_bwd_close(got, mlstm_plain_grads(args, chunk, dh), args, dtype)
+
+
+def test_mlstm_function_final_state_is_not_differentiable(dev):
+    args = [a.requires_grad_() for a in mlstm_inputs(1, 32, 2, 16, torch.float32, dev)]
+    h, (S_f, n_f, m_f) = ops.mlstm_scan(*args, chunk=16)
+    assert h.requires_grad
+    assert not any(t.requires_grad for t in (S_f, n_f, m_f))
+    dh = rand(h.shape, torch.float32, 11, dev)
+    got = torch.autograd.grad(h, args, dh)
+    assert_bwd_close(got, mlstm_plain_grads(args, 16, dh), args, torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["ssd", "mlstm"])
+def test_recurrent_backward_bf16_is_deterministic(dev, kind):
+    """No atomics: two calls at the train shape give the same bits."""
+    if kind == "ssd":
+        args = ssd_inputs(8, 512, 64, 64, 64, torch.bfloat16, dev)
+        dy = rand((8, 512, 64, 64), torch.bfloat16, 12, dev)
+        a, b = (ssd.ssd_scan_bwd_cuda(*args, dy, chunk=128) for _ in range(2))
+    else:
+        args = mlstm_inputs(8, 512, 4, 384, torch.bfloat16, dev)
+        dh = rand((8, 512, 4, 384), torch.bfloat16, 13, dev)
+        a, b = (mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=128) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -699,3 +848,38 @@ def test_elastic_trainer_on_card_matches_cpu(dev):
     assert gpu.transfer_log == cpu.transfer_log
     torch.testing.assert_close(torch.tensor(gpu.losses()), torch.tensor(cpu.losses()),
                                rtol=2e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_125m"])
+def test_recurrent_train_step_on_card_matches_cpu(dev, arch):
+    """Smoke zamba2 and xlstm in fp32 with remat: a train step on the card
+    (the SSD or mLSTM kernels forward and backward, and attention's for
+    zamba2's shared block) and on the CPU (plain versions) from the same
+    params and batch give the same loss, grad norm and params; per step the
+    forward kernel runs twice a layer (the recompute) and the backward
+    once."""
+    cfg = smoke_config(arch).replace(dtype="float32", logit_dtype="float32", remat=True)
+    cpu = Model(cfg, device="cpu")
+    state = build_init_fn(cpu)(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=dev)
+    gstate = state._replace(
+        params={k: p.detach().clone().to(dev).requires_grad_() for k, p in state.params.items()},
+        opt=state.opt._replace(step=state.opt.step.clone().to(dev),
+                               mu={k: m.clone().to(dev) for k, m in state.opt.mu.items()},
+                               nu={k: m.clone().to(dev) for k, m in state.opt.nu.items()}),
+        step=state.step.clone().to(dev))
+    kernel = ssd if arch == "zamba2_1p2b" else mlstm
+    n = (cfg.n_layers if arch == "zamba2_1p2b"
+         else cfg.n_layers // cfg.xlstm_slstm_every * (cfg.xlstm_slstm_every - 1))
+    batch = SyntheticTokens(cfg, 2, 24).sample(0)
+    before, before_bwd = kernel.launches, kernel.bwd_launches
+    gstate, gm = build_train_step(gpu, lr=1e-2)(gstate, to_device(batch, dev))
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 2 * n
+    assert kernel.bwd_launches - before_bwd == n
+    state, m = build_train_step(cpu, lr=1e-2)(state, to_device(batch, "cpu"))
+    torch.testing.assert_close(gm["loss"].cpu(), m["loss"], rtol=2e-3, atol=5e-4)
+    torch.testing.assert_close(gm["grad_norm"].cpu(), m["grad_norm"], rtol=2e-3, atol=5e-4)
+    for k, p in state.params.items():
+        torch.testing.assert_close(gstate.params[k].detach().cpu(), p.detach(),
+                                   rtol=2e-3, atol=5e-4)

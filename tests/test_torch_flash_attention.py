@@ -190,9 +190,10 @@ def test_autograd_function_wires_forward_and_backward(monkeypatch):
 
 def test_kernel_wrappers_refuse_grad():
     """No CUDA wrapper returns an output cut from the autograd graph: under
-    grad mode the attention forward sends callers to ops.flash_attention,
-    and the SSD and mLSTM kernels, which have no backward yet, name
-    ROADMAP.md A18.  Without grad they reach their device check."""
+    grad mode each forward wrapper sends callers to its differentiable entry
+    in ops (ops.flash_attention, ops.ssd_scan, ops.mlstm_scan), whose
+    autograd Function runs the backward kernel.  Without grad they reach
+    their device check."""
     from repro_torch.kernels import mlstm, ssd
 
     q, k, v = (torch.from_numpy(a) for a in inputs(5, 1, 2, 2, 16, 16, 16))
@@ -202,8 +203,8 @@ def test_kernel_wrappers_refuse_grad():
     mlstm_args = (m, m, m, torch.zeros(1, 8, 2), torch.zeros(1, 8, 2))
     calls = [
         (lambda a: fa.flash_attention_cuda(*a), (q, k, v), "ops.flash_attention"),
-        (lambda a: ssd.ssd_scan_cuda(*a, chunk=4), ssd_args, "A18"),
-        (lambda a: mlstm.mlstm_scan_cuda(*a, chunk=4), mlstm_args, "A18"),
+        (lambda a: ssd.ssd_scan_cuda(*a, chunk=4), ssd_args, "ops.ssd_scan"),
+        (lambda a: mlstm.mlstm_scan_cuda(*a, chunk=4), mlstm_args, "ops.mlstm_scan"),
     ]
     for fn, args, match in calls:
         for i in range(len(args)):

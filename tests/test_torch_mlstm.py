@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -333,3 +334,188 @@ def test_state_shapes_match_jax():
     tcfg = smoke_config("xlstm_125m")
     assert xlstm.mlstm_state_shapes(tcfg, 3) == jax_xlstm.mlstm_state_shapes(jcfg, 3)
     assert xlstm.slstm_state_shapes(tcfg, 3) == jax_xlstm.slstm_state_shapes(jcfg, 3)
+
+
+# ------------------------------------------------------------- gradients --
+#
+# Autograd of the port's plain version, which the backward kernel is held
+# against on the card, against jax.vjp of the JAX functions.  The port's
+# plain version sends no gradient through the stabilisers' max, where
+# jax.grad does; those contributions cancel only up to rounding (h does not
+# depend on m), ~3e-5 relative at most in fp32.  fp32: every gradient within
+# rtol/atol 1e-4 and a relative rms of 1e-4; bf16: a relative rms of 2e-2.
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+GRAD_REL_RMS = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def rel_rms(got, want) -> float:
+    want = np.asarray(want, np.float64)
+    err = np.asarray(got, np.float64) - want
+    return float(np.sqrt(np.mean(err ** 2)) / max(np.sqrt(np.mean(want ** 2)), 1e-30))
+
+
+def assert_grads_close(got, want, dtype, tol=GRAD_TOL):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = f32(g), f32(w)
+        assert np.isfinite(g).all(), i
+        assert rel_rms(g, w) <= GRAD_REL_RMS[dtype], (i, rel_rms(g, w))
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, err_msg=str(i), **tol)
+
+
+def port_grads(t, chunk, dh):
+    """Autograd of h = ops.mlstm_scan(...)[0] (the plain version on CPU
+    tensors) at ``t``."""
+    ins = [a.clone().requires_grad_() for a in t]
+    h, _ = ops.mlstm_scan(*ins, chunk=chunk)
+    return torch.autograd.grad(h, ins, torch.from_numpy(dh).to(h.dtype))
+
+
+def cotangent(seed, B, S, H, D):
+    return np.random.default_rng(seed).standard_normal((B, S, H, D), dtype=np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,D,chunk", CASES)
+def test_mlstm_chunked_grads_match_jax(B, S, H, D, chunk, dtype):
+    """dq, dk, dv, d i_gate, d f_gate of h against jax.vjp of JAX
+    mlstm_chunked."""
+    j, t = both(inputs(20, B, S, H, D), dtype)
+    dh = cotangent(21, B, S, H, D)
+    _, vjp = jax.vjp(lambda *a: jax_xlstm.mlstm_chunked(*a, chunk)[0], *j)
+    want = vjp(jnp.asarray(dh).astype(dtype))
+    got = port_grads(t, chunk, dh)
+    for g, a in zip(got, t):
+        assert g.dtype == a.dtype and g.shape == a.shape
+    assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("S,chunk", [(100, 32), (5, 8), (37, 16)])
+def test_ragged_grads_match_jax_mlstm_ref(S, chunk):
+    """S not a multiple of the chunk: the padded tail (input gate -inf,
+    log-forget 0) takes no gradient and makes no NaN; the gradients equal
+    jax.vjp of the sequential mlstm_ref."""
+    j, t = both(inputs(22, 2, S, 2, 16), "float32")
+    dh = cotangent(23, 2, S, 2, 16)
+    _, vjp = jax.vjp(jax_mlstm_ref, *j)
+    assert_grads_close(port_grads(t, chunk, dh), vjp(jnp.asarray(dh)), "float32")
+
+
+@pytest.mark.parametrize("seed", [0, 7, 42])
+def test_extreme_gate_grads_stay_finite(seed):
+    """Gate preactivations of +-20 (stabilisers far from 0, the e^{-m}
+    floor of the normaliser winning on some rows): finite gradients, equal
+    to jax.vjp of the sequential oracle within the extreme-gate tolerance of
+    tests/test_kernels.py, and no farther from it in relative rms than
+    jax.vjp of JAX's own mlstm_chunked is (nor than 1e-4).  At seed 0 the
+    two JAX gradients are 1.4e-3 apart in dq: the chunked and sequential
+    forms round differently where these gates make dq span 13 decades."""
+    j, t = both(inputs(seed, 1, 32, 1, 8, gate_scale=20.0), "float32")
+    dh = jnp.asarray(cotangent(seed + 1, 1, 32, 1, 8))
+    want = jax.vjp(jax_mlstm_ref, *j)[1](dh)
+    jax_chunked = jax.vjp(lambda *a: jax_xlstm.mlstm_chunked(*a, 8)[0], *j)[1](dh)
+    for g, w, c in zip(port_grads(t, 8, np.array(dh)), want, jax_chunked):
+        g, w = f32(g), f32(w)
+        assert np.isfinite(g).all()
+        assert rel_rms(g, w) <= max(GRAD_REL_RMS["float32"], rel_rms(f32(c), w))
+        np.testing.assert_allclose(g, w, **EXTREME_TOL)
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_block_grads_match_jax(kind):
+    """The whole mLSTM block (up-projection, q/k/v, gates, the scan, output
+    gate, down-projection) and the sLSTM block (its recurrence and FFN) at S
+    a multiple of the smoke chunk: the gradients of every param and of x
+    against jax.vjp of JAX's block, at the model tolerance and a relative
+    rms of 1e-4."""
+    cfg32 = dict(dtype="float32", logit_dtype="float32")
+    jcfg = jax_smoke_config("xlstm_125m").replace(**cfg32)
+    tcfg = smoke_config("xlstm_125m").replace(**cfg32)
+    jblock = getattr(jax_xlstm, f"{kind}_block")
+    tblock = getattr(xlstm, f"{kind}_block")
+    params = block_params(kind, 24)
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((2, 2 * jcfg.xlstm_chunk, jcfg.d_model), dtype=np.float32)
+    dout = rng.standard_normal(x.shape, dtype=np.float32)
+    _, vjp = jax.vjp(lambda p, a: jblock(p, "x", jcfg, a)[0],
+                     {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x))
+    want_p, want_x = vjp(jnp.asarray(dout))
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    out, _ = tblock(tp, "x", tcfg, tx)
+    got = torch.autograd.grad(out, [*tp.values(), tx], torch.from_numpy(dout))
+    assert_grads_close(got, [want_p[k] for k in tp] + [want_x], "float32", MODEL_TOL)
+
+
+def test_mlstm_function_wires_forward_and_backward(monkeypatch):
+    """MlstmScanFunction saves q, k, v and the gates and hands them, with
+    h's cotangent and the chunk, to the backward kernel; its grads go back
+    to the five inputs in order, and chunk takes none.  The final (S, n, m)
+    carries no grad_fn and takes no gradient.  The two CUDA wrappers are
+    replaced by plain versions here (the kernels run on the card only)."""
+    seen = []
+
+    def fwd(q, k, v, i_gate, f_gate, *, chunk):
+        assert not torch.is_grad_enabled()
+        return ref.mlstm_chunked(q, k, v, i_gate, f_gate, chunk)
+
+    def bwd(q, k, v, i_gate, f_gate, dh, *, chunk):
+        seen.append(dict(inputs=(q, k, v, i_gate, f_gate), dh=dh, chunk=chunk))
+        t = [a.detach().requires_grad_() for a in (q, k, v, i_gate, f_gate)]
+        with torch.enable_grad():
+            return torch.autograd.grad(ref.mlstm_chunked(*t, chunk)[0], t, dh)
+
+    monkeypatch.setattr(mlstm_kernel, "mlstm_scan_cuda", fwd)
+    monkeypatch.setattr(mlstm_kernel, "mlstm_scan_bwd_cuda", bwd)
+    _, t = both(inputs(26, 2, 24, 2, 8), "float32")
+    t = [a.requires_grad_() for a in t]
+    h, S_f, n_f, m_f = mlstm_kernel.MlstmScanFunction.apply(*t, 8)
+    assert h.grad_fn is not None
+    for a in (S_f, n_f, m_f):
+        assert a.grad_fn is None and not a.requires_grad
+    want_st = ref.mlstm_chunked(*[a.detach() for a in t], 8)[1]
+    for a, b in zip((S_f, n_f, m_f), want_st):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    dh = torch.from_numpy(cotangent(27, 2, 24, 2, 8))
+    got = torch.autograd.grad(h, t, dh)
+    (call,) = seen
+    assert call["chunk"] == 8
+    assert all(a is b for a, b in zip(call["inputs"], t))
+    torch.testing.assert_close(call["dh"], dh, rtol=0, atol=0)
+    want = port_grads([a.detach() for a in t], 8, dh.numpy())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_ops_routes_to_the_function_only_off_the_cpu_under_grad(monkeypatch):
+    """ops.mlstm_scan: CPU tensors take the plain version whatever the grad
+    mode; any other device takes the Function when grad mode is on and an
+    input requires grad (returning h and the final state as (S, n, m)), and
+    the forward kernels directly otherwise.  Meta tensors stand in for CUDA
+    ones here."""
+    calls = []
+    monkeypatch.setattr(ops, "mlstm_scan_cuda", lambda *a, chunk: calls.append("kernel"))
+
+    class Recorder:
+        @staticmethod
+        def apply(*a):
+            calls.append("function")
+            return "h", "S", "n", "m"
+
+    monkeypatch.setattr(ops, "MlstmScanFunction", Recorder)
+    _, t = both(inputs(28, 1, 16, 2, 8), "float32")
+    h, _ = ops.mlstm_scan(*[a.clone().requires_grad_(i == 3) for i, a in enumerate(t)], chunk=8)
+    assert h.grad_fn is not None and calls == []
+    meta = [a.to("meta") for a in t]
+    for i in range(5):
+        out = ops.mlstm_scan(*[a.clone().requires_grad_(j == i) for j, a in enumerate(meta)],
+                             chunk=8)
+        assert out == ("h", ("S", "n", "m"))
+    assert calls == ["function"] * 5
+    calls.clear()
+    ops.mlstm_scan(*meta, chunk=8)
+    with torch.no_grad():
+        ops.mlstm_scan(*[a.clone().requires_grad_() for a in meta], chunk=8)
+    assert calls == ["kernel", "kernel"]

@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -258,3 +259,192 @@ def test_build_hash_covers_headers(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "a.cu").write_text('#include "common.cuh"\n// edited\n')
     assert _build.library_path("a") not in (first, second)
+
+
+# ------------------------------------------------------------- gradients --
+#
+# Autograd of the port's plain version, which the backward kernel is held
+# against on the card, against jax.vjp of the JAX functions (which
+# jax.value_and_grad differentiates in training).  fp32: every gradient
+# within rtol/atol 1e-4 and a relative rms of 1e-4; bf16 (both sides round
+# the gradients to bf16): a relative rms of 2e-2.
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+GRAD_REL_RMS = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def rel_rms(got, want) -> float:
+    want = np.asarray(want, np.float64)
+    err = np.asarray(got, np.float64) - want
+    return float(np.sqrt(np.mean(err ** 2)) / max(np.sqrt(np.mean(want ** 2)), 1e-30))
+
+
+def assert_grads_close(got, want, dtype, tol=GRAD_TOL):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = f32(g), f32(w)
+        assert np.isfinite(g).all(), i
+        assert rel_rms(g, w) <= GRAD_REL_RMS[dtype], (i, rel_rms(g, w))
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, err_msg=str(i), **tol)
+
+
+def cotangents(seed, B, S, H, P, N):
+    """dy (B,S,H,P) and the final state's cotangent (B,H,N,P), fp32 numpy."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, P), dtype=np.float32),
+            rng.standard_normal((B, H, N, P), dtype=np.float32))
+
+
+def port_grads(t, chunk, dy, dfinal=None):
+    """Autograd of ops.ssd_scan (the plain version on CPU tensors) at ``t``."""
+    ins = [a.clone().requires_grad_() for a in t]
+    y, st = ops.ssd_scan(*ins, chunk=chunk)
+    outs, cots = [y], [torch.from_numpy(dy).to(y.dtype)]
+    if dfinal is not None:
+        outs.append(st)
+        cots.append(torch.from_numpy(dfinal))
+    return torch.autograd.grad(outs, ins, cots)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", CASES)
+def test_ssd_chunked_grads_match_jax(B, S, H, P, N, chunk, dtype):
+    """dx, ddt, dA, dB, dC of y and the final state against jax.vjp of JAX
+    ssd_chunked, with a cotangent on both outputs."""
+    j, t = both(inputs(10, B, S, H, P, N), dtype)
+    dy, dfinal = cotangents(11, B, S, H, P, N)
+    _, vjp = jax.vjp(lambda *a: jax_ssm.ssd_chunked(*a, chunk), *j)
+    want = vjp((jnp.asarray(dy).astype(dtype), jnp.asarray(dfinal)))
+    got = port_grads(t, chunk, dy, dfinal)
+    for g, a in zip(got, t):
+        assert g.dtype == a.dtype and g.shape == a.shape
+    assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("S,chunk", [(100, 32), (5, 8), (17, 16)])
+def test_ragged_grads_match_jax_ssd_ref(S, chunk):
+    """S not a multiple of the chunk: the padded tail takes no gradient, and
+    the gradients equal jax.vjp of the sequential ssd_ref."""
+    j, t = both(inputs(12, 2, S, 2, 16, 8), "float32")
+    dy, dfinal = cotangents(13, 2, S, 2, 16, 8)
+    _, vjp = jax.vjp(jax_ssd_ref, *j)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dfinal)))
+    assert_grads_close(port_grads(t, chunk, dy, dfinal), want, "float32")
+
+
+def test_masked_exp_gradient_is_finite_where_jax_chunked_is_nan():
+    """A chunk of 128 whose log-decay spans more than ~88.7 (dt 0.8, A -1
+    and -0.5): exp(cum_i - cum_j) above the diagonal overflows to inf, which
+    JAX's where() after the exp hides from the forward but not from the vjp
+    (0 x inf): its ddt and dA are NaN.  The port masks before the exp, so
+    its gradient is finite, and equals the sequential ssd_ref's."""
+    x, _, _, Bm, Cm = inputs(14, 1, 256, 2, 8, 4)
+    dt = np.full((1, 256, 2), 0.8, np.float32)
+    A = np.array([-1.0, -0.5], np.float32)
+    dy, _ = cotangents(15, 1, 256, 2, 8, 4)
+    j = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    _, vjp = jax.vjp(lambda *a: jax_ssm.ssd_chunked(*a, 128)[0], *j)
+    jax_grads = vjp(jnp.asarray(dy))
+    assert np.isnan(np.asarray(jax_grads[1])).any() and np.isnan(np.asarray(jax_grads[2])).any()
+    _, vjp_ref = jax.vjp(lambda *a: jax_ssd_ref(*a)[0], *j)
+    want = vjp_ref(jnp.asarray(dy))
+    got = port_grads([torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)], 128, dy)
+    assert_grads_close(got, want, "float32")
+
+
+def test_mamba2_block_grads_match_jax():
+    """The whole Mamba2 block (in_proj, conv, the scan, gated norm, out_proj)
+    at S a multiple of the smoke chunk: the gradients of every param and of
+    x against jax.vjp of JAX's block, at the model tolerance and a relative
+    rms of 1e-4."""
+    cfg32 = dict(dtype="float32", logit_dtype="float32")
+    jcfg = jax_smoke_config("zamba2_1p2b").replace(**cfg32)
+    tcfg = smoke_config("zamba2_1p2b").replace(**cfg32)
+    params = mamba_params(16)
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((2, 2 * jcfg.ssm_chunk, jcfg.d_model), dtype=np.float32)
+    dout = rng.standard_normal(x.shape, dtype=np.float32)
+    _, vjp = jax.vjp(lambda p, a: jax_ssm.mamba2_block(p, "m", jcfg, a)[0],
+                     {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x))
+    want_p, want_x = vjp(jnp.asarray(dout))
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    out, _ = ssm.mamba2_block(tp, "m", tcfg, tx)
+    got = torch.autograd.grad(out, [*tp.values(), tx], torch.from_numpy(dout))
+    assert_grads_close(got, [want_p[k] for k in tp] + [want_x], "float32", MODEL_TOL)
+
+
+def test_ssd_function_wires_forward_and_backward(monkeypatch):
+    """SsdScanFunction saves x, dt, A, B, C and hands them, with y's and the
+    final state's cotangents and the chunk, to the backward kernel; its
+    grads go back to the five inputs in order, and chunk takes none.  An
+    unused final state arrives as None.  The two CUDA wrappers are replaced
+    by plain versions here (the kernels run on the card only)."""
+    seen = []
+
+    def fwd(x, dt, A, Bm, Cm, *, chunk):
+        assert not torch.is_grad_enabled()
+        return ref.ssd_chunked(x, dt, A, Bm, Cm, chunk)
+
+    def bwd(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk):
+        seen.append(dict(inputs=(x, dt, A, Bm, Cm), dy=dy, dfinal=dfinal, chunk=chunk))
+        t = [a.detach().requires_grad_() for a in (x, dt, A, Bm, Cm)]
+        with torch.enable_grad():
+            y, st = ref.ssd_chunked(*t, chunk)
+            outs, cots = [y], [dy]
+            if dfinal is not None:
+                outs.append(st)
+                cots.append(dfinal)
+            return torch.autograd.grad(outs, t, cots)
+
+    monkeypatch.setattr(ssd_kernel, "ssd_scan_cuda", fwd)
+    monkeypatch.setattr(ssd_kernel, "ssd_scan_bwd_cuda", bwd)
+    _, t = both(inputs(18, 2, 24, 2, 8, 4), "float32")
+    t = [a.requires_grad_() for a in t]
+    dy, dfinal = (torch.from_numpy(a) for a in cotangents(19, 2, 24, 2, 8, 4))
+    for use_final in (True, False):
+        y, st = ssd_kernel.SsdScanFunction.apply(*t, 8)
+        outs, cots = ([y, st], [dy, dfinal]) if use_final else ([y], [dy])
+        got = torch.autograd.grad(outs, t, cots)
+        call = seen[-1]
+        assert call["chunk"] == 8
+        assert all(a is b for a, b in zip(call["inputs"], t))
+        torch.testing.assert_close(call["dy"], dy, rtol=0, atol=0)
+        if use_final:
+            torch.testing.assert_close(call["dfinal"], dfinal, rtol=0, atol=0)
+        else:
+            assert call["dfinal"] is None
+        want = port_grads([a.detach() for a in t], 8, dy.numpy(),
+                          dfinal.numpy() if use_final else None)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert len(seen) == 2
+
+
+def test_ops_routes_to_the_function_only_off_the_cpu_under_grad(monkeypatch):
+    """ops.ssd_scan: CPU tensors take the plain version (differentiated by
+    autograd) whatever the grad mode; any other device takes the Function
+    when grad mode is on and an input requires grad, and the forward kernel
+    directly otherwise.  Meta tensors stand in for CUDA ones here."""
+    calls = []
+    monkeypatch.setattr(ops, "ssd_scan_cuda", lambda *a, chunk: calls.append("kernel"))
+
+    class Recorder:
+        @staticmethod
+        def apply(*a):
+            calls.append("function")
+
+    monkeypatch.setattr(ops, "SsdScanFunction", Recorder)
+    _, t = both(inputs(20, 1, 16, 2, 8, 4), "float32")
+    y, _ = ops.ssd_scan(*[a.clone().requires_grad_(i == 1) for i, a in enumerate(t)], chunk=8)
+    assert y.grad_fn is not None and calls == []
+    meta = [a.to("meta") for a in t]
+    for i in range(5):
+        ops.ssd_scan(*[a.clone().requires_grad_(j == i) for j, a in enumerate(meta)], chunk=8)
+    assert calls == ["function"] * 5
+    calls.clear()
+    ops.ssd_scan(*meta, chunk=8)
+    with torch.no_grad():
+        ops.ssd_scan(*[a.clone().requires_grad_() for a in meta], chunk=8)
+    assert calls == ["kernel", "kernel"]

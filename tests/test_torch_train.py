@@ -75,6 +75,8 @@ def assert_grads_close(got: dict, want: dict):
     ("stablelm_3b", {"loss_chunk": 4}),      # divides S: the chunked sum
     ("stablelm_3b", {"loss_chunk": 5}),      # does not: unchunked, as in JAX
     ("gemma2_9b", {"loss_chunk": 8}),
+    ("zamba2_1p2b", {}),                     # Mamba2 layers + the shared block
+    ("xlstm_125m", {}),                      # mLSTM + sLSTM units
 ])
 def test_loss_and_grads_match_jax(arch, kw):
     jm, jp, tm, tp = pair(arch, **kw)
@@ -88,8 +90,11 @@ def test_loss_and_grads_match_jax(arch, kw):
     assert_grads_close(grads, want_grads)
 
 
-def test_remat_changes_nothing():
-    _, _, tm, tp = pair("stablelm_3b")
+@pytest.mark.parametrize("arch", ["stablelm_3b", "zamba2_1p2b", "xlstm_125m"])
+def test_remat_changes_nothing(arch):
+    """Recomputing each layer (a dense block; a Mamba2 layer with the shared
+    block after it; an xLSTM unit) in the backward gives the same bits."""
+    _, _, tm, tp = pair(arch)
     remat = Model(tm.cfg.replace(remat=True), device="cpu")
     batch = to_device(SyntheticTokens(tm.cfg, B, S).sample(0), "cpu")
     l0, g0 = loss_and_grads(tm, tp, batch)
@@ -138,9 +143,11 @@ def test_schedules_match_jax(step):
         np.testing.assert_allclose(float(mine(torch.tensor(step))), float(ref(step)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("n_steps", [1, 10])
-def test_train_steps_match_jax(n_steps):
-    jm, jp, tm, tp = pair("stablelm_3b")
+@pytest.mark.parametrize("arch,n_steps", [("stablelm_3b", 1), ("stablelm_3b", 10),
+                                           ("zamba2_1p2b", 1), ("xlstm_125m", 1)],
+                         ids=["1", "10", "zamba2_1p2b-1", "xlstm_125m-1"])
+def test_train_steps_match_jax(arch, n_steps):
+    jm, jp, tm, tp = pair(arch)
     ctx = ShardingContext(mesh=make_host_mesh(1), mode="train")
     jstep, _, _ = jax_steps.build_train_step(jm, ctx, lr=1e-2)
     jstep = jax.jit(jstep)
@@ -286,12 +293,27 @@ def test_cli_trains_on_cpu_when_asked(capsys, tmp_path):
     (["--arch", "phi35_moe_42b", "--scenario", "steady-cycle"], "A12"),
     (["--arch", "stablelm_3b", "--model-parallel", "2"], "A16"),
     (["--arch", "phi35_moe_42b"], "A12"),
-    (["--arch", "zamba2_1p2b"], "A18"),
-    (["--arch", "xlstm_125m"], "A18"),
 ])
 def test_cli_refuses_what_is_not_ported(capsys, argv, item):
     assert train_cli.main(["--device", "cpu", "--steps", "1", *argv]) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_125m"])
+@pytest.mark.parametrize("scenario", [None, "steady-cycle"])
+def test_cli_trains_the_recurrent_families_on_cpu(capsys, arch, scenario):
+    """The hybrid and xLSTM families train through the CLI at smoke size,
+    plain and through the elastic loop (steady-cycle's 30 steps, a floor
+    over --steps), with finite losses."""
+    argv = ["--device", "cpu", "--arch", arch, "--steps", "2", "--batch", "2", "--seq", "16"]
+    if scenario:
+        argv += ["--scenario", scenario]
+    assert train_cli.main(argv) == 0
+    out = capsys.readouterr().out
+    if scenario:
+        assert f"scenario {scenario!r}: 30 steps" in out and out.count("reconfig ") == 4
+    else:
+        assert "step     0 loss" in out and "step     1 loss" in out
 
 
 def test_cli_runs_on_cuda_unless_told():
