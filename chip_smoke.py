@@ -26,8 +26,11 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              inputs, the forward tests' widths, SSD with the final state's
              cotangent and at a log-decay span past fp32's exp range,
              mLSTM with gates of +-20 and with the e^{-m} floor winning),
-             then timed at zamba2_1p2b's and xlstm_125m's train shapes,
-             two bf16 calls there bitwise equal;
+             each fp32 kernel at three shapes (labels ending in "C2") also
+             entry by entry against the fp64 gradient, then timed at
+             zamba2_1p2b's and xlstm_125m's train shapes (the SSD's bf16
+             path on the tensor cores, its fp32 path scalar), two bf16
+             calls there bitwise equal;
 3. serve stablelm_3b — at full size, seed-initialised on the card:
              batch 8, prompt 512, 64 greedy tokens in bf16 through
              ``repro_torch.launch.serve``; the attention kernel must have
@@ -85,7 +88,9 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              8 x 512, 4 steps, seed 0): finite losses and grad norms, the
              kernels' calls a step (zamba2: 76 SSD, 38 SSD backward, 12
              attention, 6 attention backward; xlstm: 12 mLSTM, 6 mLSTM
-             backward, no attention), a profiled step, the same steps with
+             backward, no attention), a profiled step (zamba2: the SSD
+             backward's share, its bf16 kernels by name, which must be
+             ssd_bwd_bf16 and ssd_bwd_reduce), the same steps with
              the plain versions (printed), and one fp32 step at full width
              and 6 layers (zamba2: its shared block follows layer 5) or 2
              units (xlstm) against the plain twin: the loss, every grad leaf
@@ -335,7 +340,9 @@ def build_phase(torch):
           f"columns a block); fp32 {mlstm.smem_bytes(128, 384, torch.float32)} bytes (scalar, "
           f"{mlstm.value_cols(128, 384, torch.float32)} value columns a block)")
     print(f"[build] ssd_bwd: dynamic shared memory a block at the train shape (chunk 128, N 64, "
-          f"P 64): {ssd.bwd_smem_bytes(128, 64, 64)} bytes; fp32 scratch a call at "
+          f"P 64): {ssd.bwd_tc_smem_bytes(128, 64, 64)} bytes (bf16, ssd_bwd_bf16, tensor cores, "
+          f"16 warps), {ssd.bwd_smem_bytes(128, 64, 64)} bytes (fp32, ssd_bwd, scalar, 8 warps); "
+          f"fp32 scratch a call at "
           f"({BATCH},{TRAIN_SEQ},64,64): {ssd.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 64, 64, 64, 128)}"
           f" bytes")
     print(f"[build] mlstm_bwd: dynamic shared memory a block of the main kernel at the train "
@@ -716,9 +723,16 @@ def attention_bwd_timings(torch, q, k, v, dout, dev) -> dict:
 # ----------------------------------------------- SSD and mLSTM backwards --
 
 BF16_GRAD_REL_RMS = 2e-2   # a backward's gradient in bf16, against autograd of the plain version
+# The SSD backward's two paths, chosen by dtype alone.
+SSD_BWD_PATHS = {
+    "bfloat16": {"route": "tensor cores (mma.sync bf16)",
+                 "kernels": ["ssd_bwd_bf16", "ssd_bwd_reduce"]},
+    "float32": {"route": "scalar fp32 FMA", "kernels": ["ssd_bwd", "ssd_bwd_reduce"]},
+}
 
 
-def grad_check(torch, label, got, want, inputs, dtype, failures, exact=None) -> float:
+def grad_check(torch, label, got, want, inputs, dtype, failures, exact=None,
+               gate_exact=False) -> float:
     """A backward kernel's gradients against autograd of the plain version
     in fp32 on the same inputs.  fp32: each gradient within a relative rms
     of GRAD_REL_RMS and a max abs error of GRAD_REL_RMS times its largest
@@ -727,8 +741,10 @@ def grad_check(torch, label, got, want, inputs, dtype, failures, exact=None) -> 
     more, and the fp32 plain version itself misses it against the fp64
     gradient at the train shapes (``exact``: that gradient; each
     implementation's largest err / (1e-4 + 1e-4 |exact|) is printed).
-    bf16: a relative rms of BF16_GRAD_REL_RMS.  Every gradient finite, in
-    its input's dtype and shape.  Returns the largest max abs error."""
+    ``gate_exact``: at the shapes where the plain version meets that bound
+    (ROADMAP C2), the kernel must meet it too, elementwise.  bf16: a
+    relative rms of BF16_GRAD_REL_RMS.  Every gradient finite, in its
+    input's dtype and shape.  Returns the largest max abs error."""
     errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
     rms = [rel_rms(torch, g.float(), w) for g, w in zip(got, want)]
     ok = all(bool(torch.isfinite(g).all()) and g.dtype == t.dtype and g.shape == t.shape
@@ -745,11 +761,19 @@ def grad_check(torch, label, got, want, inputs, dtype, failures, exact=None) -> 
           + f" ({limit}) {'ok' if ok else 'FAIL'}")
     if exact is not None:
         def ratios(grads):
-            return " ".join(f"{float(((g.double() - e).abs() / (1e-4 + 1e-4 * e.abs())).max()):.2f}"
-                            for g, e in zip(grads, exact))
+            return [float(((g.double() - e).abs() / (1e-4 + 1e-4 * e.abs())).max())
+                    for g, e in zip(grads, exact)]
 
+        mine = ratios(got)
+        exact_ok = max(mine) <= 1.0
         print(f"[kernel] {label:<58} {dtype:<8} against the fp64 gradient, err / (1e-4 + 1e-4 "
-              f"|exact|) at worst: kernel {ratios(got)}; fp32 plain {ratios(want)} (information)")
+              f"|exact|) at worst: kernel " + " ".join(f"{r:.2f}" for r in mine) + "; fp32 plain "
+              + " ".join(f"{r:.2f}" for r in ratios(want))
+              + (f" (C2 gate: kernel <= 1) {'ok' if exact_ok else 'FAIL'}" if gate_exact
+                 else " (information)"))
+        if gate_exact and not exact_ok:
+            failures.append(f"{label} {dtype}: err / (1e-4 + 1e-4 |exact|) {max(mine):.2f} > 1 "
+                            f"against the fp64 gradient")
     if not ok:
         failures.append(f"{label} {dtype}: max_abs_err {max(errs):.3e}, rel rms {max(rms):.3e}")
     return max(errs)
@@ -786,17 +810,21 @@ def ssd_bwd_phase(torch, dev, failures) -> dict:
             cots.append(dfinal.to(st.dtype))
         return torch.autograd.grad(outs, t, cots)
 
-    def compare(label, args, dy, dfinal, chunk, dtype, oracle=None) -> float:
+    def compare(label, args, dy, dfinal, chunk, dtype, oracle=None, c2=False) -> float:
         got = ssd.ssd_scan_bwd_cuda(*args, dy, dfinal, chunk=chunk)
         want = plain(args, dy, dfinal, chunk, oracle, False)
         exact = plain(args, dy, dfinal, chunk, oracle, True) if dtype == "float32" else None
         torch.cuda.synchronize()
-        return grad_check(torch, f"ssd_bwd {label}", got, want, args, dtype, failures, exact)
+        return grad_check(torch, f"ssd_bwd {label}", got, want, args, dtype, failures, exact,
+                          gate_exact=c2)
 
-    cases = [  # label, B, S, H, P, N, chunk, final-state cotangent, model layout, oracle
+    # label, B, S, H, P, N, chunk, final-state cotangent, model layout, oracle;
+    # C2 marks the shapes where the fp32 kernel is held elementwise to the fp64
+    # gradient (ROADMAP C2).
+    cases = [
         ("(1,64,2,16) N 8 chunk 16", 1, 64, 2, 16, 8, 16, False, False, None),
         ("(2,128,3,16) N 8 chunk 32 +dfinal", 2, 128, 3, 16, 8, 32, True, False, None),
-        ("(1,128,1,32) N 16 chunk 64", 1, 128, 1, 32, 16, 64, False, False, None),
+        ("(1,128,1,32) N 16 chunk 64 C2", 1, 128, 1, 32, 16, 64, False, False, None),
         ("(2,96,2,8) N 4 chunk 32", 2, 96, 2, 8, 4, 32, False, False, None),
         ("(1,40,2,4) N 4 chunk 4", 1, 40, 2, 4, 4, 4, False, False, None),
         ("(2,64,3,8) N 8 chunk 16 +dfinal", 2, 64, 3, 8, 8, 16, True, False, None),
@@ -805,7 +833,7 @@ def ssd_bwd_phase(torch, dev, failures) -> dict:
         ("(1,37,3,12) N 20 chunk 12 vs ssd_ref", 1, 37, 3, 12, 20, 12, False, False, "ref"),
         ("strided model layout (2,96,2,64) N 64 chunk 32", 2, 96, 2, 64, 64, 32, False, True,
          None),
-        ("zamba2 widths ragged S 200 chunk 128 +dfinal", 2, 200, 4, 64, 64, 128, True, True,
+        ("zamba2 widths ragged S 200 chunk 128 +dfinal C2", 2, 200, 4, 64, 64, 128, True, True,
          "ref"),
     ]
     for n, (label, B, S, H, P, N, chunk, with_final, ml, oracle) in enumerate(cases):
@@ -814,16 +842,18 @@ def ssd_bwd_phase(torch, dev, failures) -> dict:
             args = ssd_inputs(torch, B, S, H, P, N, dtype, seed, dev, model_layout=ml)
             dy = randn(torch, (B, S, H, P), dtype, seed + 5, dev)
             dfinal = randn(torch, (B, H, N, P), "float32", seed + 6, dev) if with_final else None
-            compare(label, args, dy, dfinal, chunk, dtype, ref.ssd_ref if oracle else None)
+            compare(label, args, dy, dfinal, chunk, dtype, ref.ssd_ref if oracle else None,
+                    c2=label.endswith(" C2"))
     # dt 0.8, A -1: a chunk of 128 spans a log-decay of ~100, past fp32's exp
     # range above the diagonal; autograd of the unmasked where(mask, exp, 0)
     # would be NaN there.  The gradient is finite and equals ssd_ref's.
-    x, _, _, Bm, Cm = ssd_inputs(torch, 1, 256, 2, 8, 4, "float32", 1450, dev)
-    dt = torch.full((1, 256, 2), 0.8, device=dev)
-    A = torch.tensor([-1.0, -0.5], device=dev)
-    dy = randn(torch, (1, 256, 2, 8), "float32", 1451, dev)
-    compare("chunk 128, log-decay span ~100 vs ssd_ref", (x, dt, A, Bm, Cm), dy, None, 128,
-            "float32", ref.ssd_ref)
+    for dtype in ("float32", "bfloat16"):
+        x, _, _, Bm, Cm = ssd_inputs(torch, 1, 256, 2, 8, 4, dtype, 1450, dev)
+        dt = torch.full((1, 256, 2), 0.8, device=dev)
+        A = torch.tensor([-1.0, -0.5], device=dev)
+        dy = randn(torch, (1, 256, 2, 8), dtype, 1451, dev)
+        compare("chunk 128, log-decay span ~100 vs ssd_ref", (x, dt, A, Bm, Cm), dy, None, 128,
+                dtype, ref.ssd_ref)
 
     shape = f"train ({BATCH},{TRAIN_SEQ},64,64) N 64 chunk 128"
     entry = {"name": "ssd_bwd", "route": "cuda",
@@ -852,12 +882,13 @@ def ssd_bwd_phase(torch, dev, failures) -> dict:
                                  iters=2, reps=3),
              "library_ms": None}
         t["bound_ms"], t["bound_by"] = ssd_bwd_bound_ms(args[0], 64, 128)
-        print(f"[time] ssd_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms (scalar fp32 FMA: "
-              f"ssd_bwd + ssd_bwd_reduce), plain {t['plain_ms']:.4f} ms (autograd of "
+        path = SSD_BWD_PATHS[dtype]
+        print(f"[time] ssd_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms ({path['route']}: "
+              f"{' + '.join(path['kernels'])}), plain {t['plain_ms']:.4f} ms (autograd of "
               f"ssd_chunked, backward only), no single PyTorch call, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
-        entry["paths"].append({"dtype": dtype, "shape": f"{shape} {dtype}", "max_abs_err": err,
-                               **t})
+        entry["paths"].append({"dtype": dtype, **path, "shape": f"{shape} {dtype}",
+                               "max_abs_err": err, **t})
         if dtype == "bfloat16":
             entry.update(max_abs_err=err, shape=f"{shape} bf16", **t)
         del y_plain, t_in, args, dy
@@ -914,7 +945,8 @@ def mlstm_bwd_phase(torch, dev, failures) -> dict:
         want = plain(args, dh, chunk, oracle, False)
         exact = plain(args, dh, chunk, oracle, True) if dtype == "float32" else None
         torch.cuda.synchronize()
-        return grad_check(torch, f"mlstm_bwd {label}", got, want, args, dtype, failures, exact)
+        return grad_check(torch, f"mlstm_bwd {label}", got, want, args, dtype, failures, exact,
+                          gate_exact=label.endswith(" C2"))
 
     cases = [  # label, B, S, H, D, chunk, gate scale, model layout, oracle
         ("(1,64,2,16) chunk 16", 1, 64, 2, 16, 16, None, False, None),
@@ -928,7 +960,8 @@ def mlstm_bwd_phase(torch, dev, failures) -> dict:
         ("ragged S 100 chunk 32 vs mlstm_ref", 2, 100, 2, 16, 32, None, False, "ref"),
         ("S 5 < chunk 8 vs mlstm_ref", 2, 5, 2, 32, 8, None, False, "ref"),
         ("strided gates (2,64,4,32) chunk 16", 2, 64, 4, 32, 16, None, True, None),
-        ("ragged S 200 D 384 chunk 128 vs mlstm_ref", 1, 200, 2, 384, 128, None, False, "ref"),
+        ("ragged S 200 D 384 chunk 128 vs mlstm_ref C2", 1, 200, 2, 384, 128, None, False,
+         "ref"),
         ("(1,256,1,512) chunk 128", 1, 256, 1, 512, 128, None, False, None),
     ] + [(f"gates +-20 (1,32,1,8) chunk 8 #{i}", 1, 32, 1, 8, 8, 20.0, False, None)
          for i in range(3)]
@@ -1849,7 +1882,8 @@ def recurrent_train_phase(torch, dev, arch, failures, counts):
         if got != TRAIN_STEPS * want:
             failures.append(f"{path}: {name} launched {got} times, expected {TRAIN_STEPS * want}")
     profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev),
-                       cfg.dtype, failures, tag=tag, attention=cfg.family == "hybrid")
+                       cfg.dtype, failures, tag=tag, attention=cfg.family == "hybrid",
+                       ssd=cfg.family == "hybrid")
     del model, state, step_fn
     torch.cuda.empty_cache()
 
@@ -2039,13 +2073,14 @@ def one_step(torch, model, params, batch, failures, *, plain=False):
 
 
 def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
-                       tag="[train]", attention=True):
+                       tag="[train]", attention=True, ssd=False):
     """Where a warm train step's time goes: one more step split in its two
     phases by host clock (each ended by a device sync), then one under
     torch.profiler: the device's busy share, its kernels by group, and the
-    attention backward's kernels by name, which must be those of the
-    compute dtype's path (``BWD_PATHS``), or none for a model without
-    attention."""
+    attention and SSD backwards' kernels by name, which must be those of
+    the compute dtype's path (``BWD_PATHS``, ``SSD_BWD_PATHS``), or none
+    for a model without attention or Mamba2 layers; the SSD backward's
+    share of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.optim import adamw_update, global_norm
@@ -2103,6 +2138,21 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
     if sorted(bwd) != sorted(want):
         failures.append(f"profiled {dtype} train step ran the attention backward kernels "
                         f"{sorted(bwd)}, expected {want}")
+    ssd_bwd = {}
+    for e in kernels:
+        m = re.search(r"(ssd_bwd\w*)", e.key)
+        if m:
+            ms, n = ssd_bwd.get(m.group(1), (0.0, 0))
+            ssd_bwd[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if ssd_bwd:
+        ms = sum(v[0] for v in ssd_bwd.values())
+        print(f"{tag} SSD backward share of the profiled step: {ms:.1f} ms of {busy:.1f} ms device "
+              f"time ({ms / busy:.1%}), {ms / wall_ms:.1%} of the wall; kernels: " + ", ".join(
+                  f"{name} {t:.2f} ms in {n} launches" for name, (t, n) in sorted(ssd_bwd.items())))
+    want = SSD_BWD_PATHS[dtype]["kernels"] if ssd else []
+    if sorted(ssd_bwd) != want:
+        failures.append(f"profiled {dtype} train step ran the SSD backward kernels "
+                        f"{sorted(ssd_bwd)}, expected {want}")
 
 
 if __name__ == "__main__":

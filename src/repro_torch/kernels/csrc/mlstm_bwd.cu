@@ -82,9 +82,19 @@
 // small shared buffers in a fixed order; the short sums that cancel (row
 // and column sums of Q x Q matrices, the partials across column blocks,
 // the reverse cumsum of db) run in fp64, which costs nothing beside the
-// products.  Shared memory: 205,328 bytes at Q 128, D 384 (dS 49,152; M
-// 67,584; v, dnum 32,768; q, k tiles 36,864; vectors and partial sums
-// 18,960): one block an SM, 384 blocks.
+// products.  The gate math (b, the stabilisers) runs in fp64 in both
+// launches, and every exponent b_i - b_j + ig_j - m_i (and those of s_i,
+// c_j and the state's decay) is formed in fp64 and rounded once before
+// expf: an fp32 b, down to ~-50 over a chunk of 128, carried an absolute
+// error of ~1e-5 into them, which put single entries of dk 1.15x past err
+// / (1e-4 + 1e-4 |exact|) <= 1 against the fp64 gradient at D 384, chunk
+// 128, where the sequential plain version stays under 0.12 (ROADMAP C2,
+// found by a CPU emulation; after the repair the kernel's worst there is
+// 0.24 on the card).  m' is rounded to fp32 before the exponents that use
+// it, as the states scratch keeps it, so the state stays exactly
+// stabilised by the value the next chunk reads.  Shared memory: 206,352
+// bytes at Q 128, D 384 (dS 49,152; M 67,584; v, dnum 32,768; q, k tiles
+// 36,864; vectors and partial sums 19,984): one block an SM, 384 blocks.
 //
 // The stabiliser's start: m_prev is -inf before the first chunk; s_i and
 // so are set to 0 there instead of evaluating exp(-inf - m), so -inf -
@@ -152,6 +162,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// e^{v} of an exponent formed in fp64.
+__device__ __forceinline__ float exp_of(double v) { return expf(static_cast<float>(v)); }
+
 // log(sigmoid(x)) = min(x, 0) - log1p(exp(-|x|)), as jax.nn.log_sigmoid.
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
@@ -195,23 +208,30 @@ __device__ __forceinline__ void dot_tile(const float* A, int a0, int lda, const 
   }
 }
 
-// The chunk's gate math, in warp 0 (up to 4 rows a lane), as the forward's:
-// b (bq), the input gate (igs, -inf past the end), m_i (mi), s_i (isc), the
-// update's weights c_j (cw).  Returns m' (the stabiliser after the chunk)
-// and sets *scale_old = e^{m_prev + tot - m'} (0 while m_prev is -inf).
+// The chunk's gate math, in warp 0 (up to 4 rows a lane), as the forward's
+// but in fp64: b (bq, double), the input gate (igs, -inf past the end), m_i
+// (mi, double), s_i (isc), the update's weights c_j (cw).  Returns m' (the
+// stabiliser after the chunk, rounded to fp32, as the states scratch keeps
+// it; every exponent that involves it uses that rounded value, so the state
+// stays exactly stabilised by it) and sets *scale_old = e^{m_prev + tot - m'}
+// (0 while m_prev is -inf).  In fp32, b (down to ~-50 over a chunk of 128)
+// carries an absolute error of ~1e-5 into every exponent b_i - b_j + ig_j -
+// m_i, which put single gradient entries past (1e-4 + 1e-4 |exact|) of the
+// fp64 gradient; each exponent is therefore formed in fp64 and rounded once.
 template <typename T>
 __device__ float gate_math(const T* ig_g, const T* fg_g, int64_t iss, int64_t fss, int t0,
-                           int qv, int Q, float m_prev, float* bq, float* igs, float* mi,
+                           int qv, int Q, float m_prev, double* bq, float* igs, double* mi,
                            float* isc, float* cw, float* scale_old, int lane) {
   const int E = (Q + 31) / 32;
   const int j0 = lane * E;
-  float lf[4], igv[4], bl[4], am[4];
-  float run = 0.f, amax = -INFINITY;
+  const double mp = m_prev;
+  double lf[4], igv[4], bl[4], am[4];
+  double run = 0.0, amax = -INFINITY;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int j = j0 + e;
     igv[e] = -INFINITY;
-    lf[e] = 0.f;
+    lf[e] = 0.0;
     if (e < E && j < qv) {
       igv[e] = to_f(__ldg(ig_g + (t0 + j) * iss));
       lf[e] = log_sigmoid(to_f(__ldg(fg_g + (t0 + j) * fss)));
@@ -219,57 +239,58 @@ __device__ float gate_math(const T* ig_g, const T* fg_g, int64_t iss, int64_t fs
     run += lf[e];
     bl[e] = run;
   }
-  float incl = run;
+  double incl = run;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    const double o = __shfl_up_sync(0xffffffffu, incl, off);
     if (lane >= off) incl += o;
   }
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.f;
+  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     bl[e] += excl;
-    amax = fmaxf(amax, igv[e] - bl[e]);
+    amax = fmax(amax, igv[e] - bl[e]);
     am[e] = amax;
     const int j = j0 + e;
     if (e < E && j < Q) {
       bq[j] = bl[e];
-      igs[j] = igv[e];
+      igs[j] = static_cast<float>(igv[e]);
     }
   }
-  float mincl = amax;
+  double mincl = amax;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, mincl, off);
-    if (lane >= off) mincl = fmaxf(mincl, o);
+    const double o = __shfl_up_sync(0xffffffffu, mincl, off);
+    if (lane >= off) mincl = fmax(mincl, o);
   }
-  float mexcl = __shfl_up_sync(0xffffffffu, mincl, 1);
+  double mexcl = __shfl_up_sync(0xffffffffu, mincl, 1);
   if (lane == 0) mexcl = -INFINITY;
   __syncwarp();
-  const float total = bq[Q - 1];
-  float wmax = -INFINITY;
+  const double total = bq[Q - 1];
+  double wmax = -INFINITY;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int j = j0 + e;
     if (e < E && j < Q) {
-      const float m_intra = bl[e] + fmaxf(mexcl, am[e]);
-      const float m_i = fmaxf(m_prev + bl[e], m_intra);
+      const double m_intra = bl[e] + fmax(mexcl, am[e]);
+      const double m_i = fmax(mp + bl[e], m_intra);
       mi[j] = m_i;
-      isc[j] = m_prev == -INFINITY ? 0.f : expf(m_prev + bl[e] - m_i);
-      wmax = fmaxf(wmax, total - bl[e] + igv[e]);
+      isc[j] = m_prev == -INFINITY ? 0.f : exp_of(mp + bl[e] - m_i);
+      wmax = fmax(wmax, total - bl[e] + igv[e]);
     }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    wmax = fmaxf(wmax, __shfl_xor_sync(0xffffffffu, wmax, off));
-  const float m_new = fmaxf(m_prev + total, wmax);
+    wmax = fmax(wmax, __shfl_xor_sync(0xffffffffu, wmax, off));
+  const float m_new = static_cast<float>(fmax(mp + total, wmax));
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int j = j0 + e;
-    if (e < E && j < Q) cw[j] = expf(total - bl[e] + igv[e] - m_new);
+    if (e < E && j < Q) cw[j] = exp_of(total - bl[e] + igv[e] - m_new);
   }
-  if (lane == 0) *scale_old = m_prev == -INFINITY ? 0.f : expf(m_prev + total - m_new);
+  if (lane == 0)
+    *scale_old = m_prev == -INFINITY ? 0.f : exp_of(mp + total - m_new);
   return m_new;
 }
 
@@ -292,12 +313,12 @@ struct StLayout {
         kt(qt + (D < COLS ? D : COLS) * (Q + 4)),       // [KT][LQ] k^T tile
         part(kt + (D < COLS ? D : COLS) * (Q + 4)),     // [Q][V4]  dh . h over 4 columns
         nv(part + Q * ((D < COLS ? D : COLS) / 4)),     // [D]      n
-        bq(nv + D),                                     // [Q] each below
-        ig(bq + Q),
-        mi(bq + 2 * Q),
-        isc(bq + 3 * Q),
-        cw(bq + 4 * Q),
-        scal(bq + 5 * Q),
+        bq(nv + D),                                     // double[Q]
+        ig(bq + 2 * Q),                                 // [Q] each below
+        mi(bq + 3 * Q),                                 // double[Q]
+        isc(bq + 5 * Q),
+        cw(bq + 6 * Q),
+        scal(bq + 7 * Q),
         total(scal + 4) {}
 };
 
@@ -322,9 +343,9 @@ __global__ void __launch_bounds__(NTHREADS) mlstm_bwd_states(const Params p) {
   float* Kt = sm + L.kt;
   float* part = sm + L.part;
   float* nv = sm + L.nv;
-  float* bq = sm + L.bq;
+  double* bq = reinterpret_cast<double*>(sm + L.bq);
   float* igs = sm + L.ig;
-  float* mi = sm + L.mi;
+  double* mi = reinterpret_cast<double*>(sm + L.mi);
   float* isc = sm + L.isc;
   float* cw = sm + L.cw;
   float* scal = sm + L.scal;
@@ -462,7 +483,7 @@ __global__ void __launch_bounds__(NTHREADS) mlstm_bwd_states(const Params p) {
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int i = i0 + u;
-            out[u] = j <= i ? acc[r][u][w] * expf(bq[i] - bq[j] + igs[j] - mi[i]) : 0.f;
+            out[u] = j <= i ? acc[r][u][w] * exp_of(bq[i] - bq[j] + igs[j] - mi[i]) : 0.f;
           }
           *reinterpret_cast<float4*>(Wt + j * LQ + i0) =
               make_float4(out[0], out[1], out[2], out[3]);
@@ -491,7 +512,7 @@ __global__ void __launch_bounds__(NTHREADS) mlstm_bwd_states(const Params p) {
       for (int u = 0; u < 4; ++u) {
         const int i = oi + u;
         const float e_i = isc[i];
-        const float den = fmaxf(fabsf(aqn[u] * e_i + rs[u]), expf(-mi[i]));
+        const float den = fmaxf(fabsf(aqn[u] * e_i + rs[u]), exp_of(-mi[i]));
         float dr[4];
         unpack(ld4(dHs + i * VB + ov), dr);
         float s = 0.f;
@@ -531,24 +552,24 @@ struct Layout {
         ks(qs + Q * ((D < COLS ? D : COLS) + 4)),       // [Q][KP]  k tile
         dnv(ks + Q * ((D < COLS ? D : COLS) + 4)),      // [D]      dn
         npv(dnv + D),                                   // [D]      n_p
-        bq(npv + D),                                    // [Q] each below
-        ig(bq + Q),
-        mi(bq + 2 * Q),
-        isc(bq + 3 * Q),
-        cw(bq + 4 * Q),
-        aqn(bq + 5 * Q),                                // qq_i . n_p
-        ginv(bq + 6 * Q),                               // 1 / g_i (0 past the end)
-        dden(bq + 7 * Q),
-        dd(bq + 8 * Q),                                 // dh_i . h_i
-        rowg(bq + 9 * Q),                               // row sums of G
-        colg(bq + 10 * Q),                              // column sums of G
-        dbf(bq + 11 * Q),                               // db, this block's share
-        dwv(bq + 12 * Q),                               // dw_j
-        part1(bq + 13 * Q),                             // [Q][V4]
-        part2(bq + 13 * Q + Q * ((D < COLS ? D : COLS) / 4)),
-        red(bq + 13 * Q + 2 * Q * ((D < COLS ? D : COLS) / 4)),  // [NTHREADS]
-        scal(bq + 13 * Q + 2 * Q * ((D < COLS ? D : COLS) / 4) + NTHREADS),
-        total(bq + 13 * Q + 2 * Q * ((D < COLS ? D : COLS) / 4) + NTHREADS + 4) {}
+        bq(npv + D),                                    // double[Q]
+        ig(bq + 2 * Q),                                 // [Q] each below
+        mi(bq + 3 * Q),                                 // double[Q]
+        isc(bq + 5 * Q),
+        cw(bq + 6 * Q),
+        aqn(bq + 7 * Q),                                // qq_i . n_p
+        ginv(bq + 8 * Q),                               // 1 / g_i (0 past the end)
+        dden(bq + 9 * Q),
+        dd(bq + 10 * Q),                                // dh_i . h_i
+        rowg(bq + 11 * Q),                              // row sums of G
+        colg(bq + 12 * Q),                              // column sums of G
+        dbf(bq + 13 * Q),                               // db, this block's share
+        dwv(bq + 14 * Q),                               // dw_j
+        part1(bq + 15 * Q),                             // [Q][V4]
+        part2(bq + 15 * Q + Q * ((D < COLS ? D : COLS) / 4)),
+        red(bq + 15 * Q + 2 * Q * ((D < COLS ? D : COLS) / 4)),  // [NTHREADS]
+        scal(bq + 15 * Q + 2 * Q * ((D < COLS ? D : COLS) / 4) + NTHREADS),
+        total(bq + 15 * Q + 2 * Q * ((D < COLS ? D : COLS) / 4) + NTHREADS + 4) {}
 };
 
 constexpr size_t MAX_BYTES = sizeof(float) * Layout(MAX_Q, MAX_D).total;
@@ -571,9 +592,9 @@ __global__ void __launch_bounds__(NTHREADS) mlstm_bwd_main(const Params p) {
   float* Ks = sm + L.ks;
   float* dnv = sm + L.dnv;
   float* npv = sm + L.npv;
-  float* bq = sm + L.bq;
+  double* bq = reinterpret_cast<double*>(sm + L.bq);
   float* igs = sm + L.ig;
-  float* mi = sm + L.mi;
+  double* mi = reinterpret_cast<double*>(sm + L.mi);
   float* isc = sm + L.isc;
   float* cw = sm + L.cw;
   float* aqnv = sm + L.aqn;
@@ -713,7 +734,7 @@ __global__ void __launch_bounds__(NTHREADS) mlstm_bwd_main(const Params p) {
 #pragma unroll
           for (int w = 0; w < 4; ++w) {
             const int j = j0 + w;
-            out[w] = j <= i ? acc[r][u][w] * expf(bq[i] - bq[j] + igs[j] - mi[i]) : 0.f;
+            out[w] = j <= i ? acc[r][u][w] * exp_of(bq[i] - bq[j] + igs[j] - mi[i]) : 0.f;
           }
           *reinterpret_cast<float4*>(M + i * LQ + j0) =
               make_float4(out[0], out[1], out[2], out[3]);
@@ -729,7 +750,7 @@ __global__ void __launch_bounds__(NTHREADS) mlstm_bwd_main(const Params p) {
       double s = 0.0;
       for (int j = 0; j <= i; ++j) s += M[i * LQ + j];
       const float den = fmaf(isc[i], aqnv[i], static_cast<float>(s));
-      const float floor_i = expf(-mi[i]);
+      const float floor_i = exp_of(-mi[i]);
       const float g = fmaxf(fabsf(den), floor_i);
       const bool in = i < qv;
       ginv[i] = in ? 1.f / g : 0.f;
@@ -796,7 +817,7 @@ __global__ void __launch_bounds__(NTHREADS) mlstm_bwd_main(const Params p) {
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
           const int j = j0 + w;
-          out[w] = j <= i ? expf(bq[i] - bq[j] + igs[j] - mi[i]) * (dp[u][w] + extra) : 0.f;
+          out[w] = j <= i ? exp_of(bq[i] - bq[j] + igs[j] - mi[i]) * (dp[u][w] + extra) : 0.f;
         }
         *reinterpret_cast<float4*>(M + i * LQ + j0) = make_float4(out[0], out[1], out[2], out[3]);
       }

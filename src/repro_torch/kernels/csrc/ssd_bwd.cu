@@ -27,18 +27,21 @@
 // evaluates exp above the diagonal and masks after it, is NaN (a chunk
 // whose log-decay spans more than ~88.7).
 //
-// Launches, all on the caller's stream:
-//   1. ssd_bwd: one block (256 threads) per (b, h).  Sweep 1 walks the
-//      chunks forward and writes the state before each, S_{c-1}, to an
-//      fp32 scratch (B, nc, H, N, P) that the wrapper allocates (33.5 MB at
-//      zamba2_1p2b's shape; the forward kernel and its C interface stay as
-//      they are).  Sweep 2 walks the chunks backward carrying dS (N, P) in
-//      shared memory and writes dx and ddt, and per-head fp32 partials of
-//      dB and dC (B, H, S, N) and of dA (B, H) to the same scratch, since
-//      B and C are shared by the heads and A by the batch.
-//   2. ssd_bwd_reduce: sums the partials over heads (dB, dC) and over the
-//      batch (dA) in a fixed order.  No atomics anywhere, so two calls give
-//      the same bits.
+// Two paths, chosen by dtype alone, each two launches on the caller's
+// stream sharing one scratch that the wrapper allocates:
+//   bf16: ssd_bwd_bf16 (tensor cores), then ssd_bwd_reduce;
+//   fp32: ssd_bwd (scalar fp32 FMAs, which hold the fp32 tolerances), then
+//         ssd_bwd_reduce.
+// The main kernel runs one block per (b, h).  Sweep 1 walks the chunks
+// forward and writes the state before each, S_{c-1}, to the scratch (B,
+// nc, H, N, P): fp32 on the scalar path (33.5 MB at zamba2_1p2b's shape),
+// bf16 on the tensor-core path (16.8 MB); the forward kernel and its C
+// interface stay as they are.  Sweep 2 walks the chunks backward carrying
+// dS (N, P) and writes dx and ddt, and per-head fp32 partials of dB and dC
+// (B, H, S, N; 2 x 67 MB there) and of dA (B, H), since B and C are shared
+// by the heads and A by the batch.  ssd_bwd_reduce sums the partials over
+// heads (dB, dC) and over the batch (dA) in a fixed order, in fp64.  No
+// atomics anywhere, so two calls give the same bits.
 //
 // What bounds it.  At zamba2_1p2b's train shape (B 8, S 512, H 64, P 64,
 // N 64, Q 128, bf16) the call must read x, dy (33.5 MB each), dt, B, C and
@@ -47,30 +50,89 @@
 // triangle), W^T dy, E B, E^T C, C^T dy, the two state products and
 // S_{c-1} dy: Q^2 (3 N + 2 P) over the lower triangle and 10 Q N P
 // (chip_smoke.py's ``ssd_bwd_bound_ms``) = 10.5 MFLOP, x 2,048 = 21.5
-// GFLOP: 22 us at the bf16 tensor-core peak, so bytes bound it.  This
-// kernel does all of it in scalar fp32 FMAs (67 TFLOP/s at most; bf16
-// inputs are converted where they are loaded), which puts it at ~0.3 ms at
-// best; putting the products on the tensor cores is later work.
+// GFLOP: 22 us at the bf16 tensor-core peak, so bytes bound it.
 //
-// The design.  The TPU's sequential chunk axis is a loop inside the block
-// (Hopper blocks run in no order).  The chunk lives in shared memory as
-// fp32, rows in their natural order: x and dy [Q][P], B and C [Q][N]; one
-// Q x Q matrix M [Q][Q+4] holds in turn V = (C B^T)(.)L(.)(dy x^T) (whose
-// column sums give ddt's direct intra part and whose row sums, weighted by
-// dt, give dcum's), W = (C B^T)(.)L(.)dt (for dx), and E = L(.)dt(.)(dy x^T)
-// (for dB and dC), each formed on the 4 x 4 tiles on or below the diagonal
-// only and recomputed rather than kept.  A thread owns 4 x 4 register tiles
-// and walks every inner dimension in steps of 4 with float4 loads.  Sums
-// across tiles go through small shared buffers in a fixed order.  S_{c-1}
-// is read back from the scratch through L2 (__ldcg: this block wrote it).
-// The short sums that cancel (row and column sums of V, the per-row
-// partials, dtot, the reverse cumsum of dcum and dA) run in fp64: in fp32
-// dA came out many times farther from the fp64 gradient than autograd of
-// the plain version at the train shape, and in fp64 they cost nothing
-// beside the products.
-// Shared memory: 229,376 bytes at Q 128, N = P = 64 (x, dy, B, C 131,072;
-// M 67,584; dS 16,384; partial sums and vectors 14,336): one block an SM,
-// 512 blocks at the train shape.
+// The fp32 design (ssd_bwd).  The TPU's sequential chunk axis is a loop
+// inside the block (Hopper blocks run in no order).  The chunk lives in
+// shared memory as fp32, rows in their natural order: x and dy [Q][P], B
+// and C [Q][N]; one Q x Q matrix M [Q][Q+4] holds in turn V = (C
+// B^T)(.)L(.)(dy x^T) (whose column sums give ddt's direct intra part and
+// whose row sums, weighted by dt, give dcum's), W = (C B^T)(.)L(.)dt (for
+// dx), and E = L(.)dt(.)(dy x^T) (for dB and dC), each formed on the 4 x 4
+// tiles on or below the diagonal only and recomputed rather than kept.  A
+// thread owns 4 x 4 register tiles and walks every inner dimension in
+// steps of 4 with float4 loads.  Sums across tiles go through small shared
+// buffers in a fixed order.  S_{c-1} is read back from the scratch through
+// L2 (__ldcg: this block wrote it).  The short sums that cancel (row and
+// column sums of V, the per-row partials, dtot, the reverse cumsum of dcum
+// and dA) run in fp64: in fp32 dA came out many times farther from the
+// fp64 gradient than autograd of the plain version at the train shape, and
+// in fp64 they cost nothing beside the products.  cum runs in fp64 too, and
+// every exponent (cum_i - cum_j, tot - cum_j, cum_i, tot) is formed in fp64
+// and rounded once before expf: an fp32 cum, down to ~-100 over a chunk of
+// 128, carries an absolute error of ~1e-5 into every decay, which put
+// single entries of dx, dC and ddt up to 3.9x past err / (1e-4 + 1e-4
+// |exact|) <= 1 against the fp64 gradient at chunk 64-128, where the
+// sequential plain version stays under 0.2 (ROADMAP C2: a CPU emulation
+// with the kernel's fp32 scan and everything else in fp64 reproduced the
+// drift; fp64 exponents with everything else in fp32 removed it).  Shared
+// memory: 230,400 bytes at Q 128, N = P = 64 (x, dy, B, C 131,072; M
+// 67,584; dS 16,384; partial sums and vectors 15,360): one block an SM.
+// Scalar FMAs cap it at 67 TFLOP/s.
+//
+// The bf16 design (ssd_bwd_bf16).  Still one block per (b, h) looping over
+// the chunks, now of 16 warps, and every product an mma.sync m16n8k16 on
+// bf16 operands with fp32 accumulators.  x, dy, B and C stay in shared
+// memory as bf16 as loaded, in two sets: the next chunk's lands by
+// cp.async while this one computes (element by element where rows are not
+// whole 16-byte units; 64- and 128-wide rows XOR-swizzled, narrower ones
+// padded by 16 bytes, so each ldmatrix hits distinct banks).  cum is in
+// log2 units and every decay an exp2 on the special-function unit.  Per
+// chunk:
+//   phase T, one warp per 16 x 16 tile of the lower triangle: C B^T over N
+//     and dy x^T over P, each formed once; with L_ij = 2^(cum_i - cum_j),
+//     taken only where j <= i, W = (C B^T) L dt_j and E = L dt_j (dy x^T)
+//     go to shared memory as bf16 [Q][Q] each, and V = (C B^T) L (dy x^T)
+//     is summed straight from the accumulators, by rows (times dt_j) and
+//     by columns, with warp shuffles in a fixed order into per-tile partial
+//     sums;
+//   phase P, one warp per 16 x 16 output tile: dx = W^T dy + u (B dS), dB =
+//     E^T C + u (x dS^T) and dC = E B + 2^cum (dy S_{c-1}^T), the A operand
+//     W^T or E^T read by ldmatrix.trans, with the row dots x_j . (B_j dS)
+//     and C_i . (S_{c-1} dy_i) that dcum and ddt need; the output tiles of
+//     rows j and of rows Q - 1 - j go together, so a warp's triangle sums
+//     are as long as another's;
+//   the dS update, 2^tot dS + C^T (2^cum dy), on dS held in fp32
+//     accumulators spread over the warps (a bf16 copy in shared memory is
+//     the operand of B dS and x dS^T), beside one thread a row summing the
+//     partials into dcum in fp64; then warp 0 runs dtot, the reverse scan,
+//     ddt and dA in fp64 as the scalar kernel does.
+// Sweep 1 is the forward's state update on the tensor cores, its state in
+// accumulators, written out as bf16, its x and B double-buffered too.
+// Rounding: a CPU emulation of the kernel's roundings put every gradient
+// within a relative rms of 2.5e-3 of autograd of the fp32 plain version at
+// the train shape and the card tests' shapes, with W, E, dS, S_{c-1}, coef
+// x and 2^cum dy each rounded to one bf16 (the outputs' own bf16 rounding
+// is 1.7e-3 of that), except dA where a chunk ends raggedly under the
+// final state's cotangent: 1.6e-2 on the card (chip_smoke's "ragged S 100
+// chunk 32 +dfinal"; the emulation on the same inputs gave the same
+// digits).  Splitting coef x into hi + lo (two mma, one accumulator), as
+// the forward does, took that to 3.2e-3; nothing else is split.  Shared
+// memory: 230,464 bytes at Q 128, N = P = 64 (two sets of x, dy, B, C
+// 131,072; W, E 65,536; dS and S_{c-1} 16,384; vectors and partial sums
+// 17,472): one block of 16 warps an SM.  Two blocks of 8 warps would need
+// <= ~113 KB each, and one set of x, dy, B, C with one Q x Q matrix
+// already takes 96 KB, so the chunk's loads are hidden by the double
+// buffer rather than by a second block.  125 registers, no spills.  C B^T
+// is recomputed per head, as in the forward.
+//
+// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W), at the train shape in
+// bf16: 0.51 ms a call (in a profiled zamba2 step ssd_bwd_bf16 takes 0.45
+// ms and ssd_bwd_reduce 0.05), against the scalar kernel's 4.15, autograd
+// of the plain version's 3.8 and a 31 us bound; fp32 (scalar) 4.2 ms.
+// What holds the bf16 kernel at 16x its bound: one block an SM and each
+// chunk's serial steps (five block barriers, the reverse scan), not bytes
+// or the tensor cores.
 //
 // Sizes are runtime values: N and P multiples of 4 in [4, 64], Q a
 // multiple of 4 in [4, 128], any S >= 1; a ragged last chunk is zero-filled
@@ -78,12 +140,16 @@
 // and only valid rows are written.  x, B, C and dy may be strided views
 // (element strides of their leading axes, last axis contiguous); dt is
 // read through its strides.  dx (B,S,H,P) and dB, dC (B,S,N) are written
-// contiguous in x's type, ddt (B,S,H) and dA (H,) contiguous in fp32.
+// contiguous in x's type, ddt (B,S,H) and dA (H,) contiguous in fp32.  On
+// the bf16 path a chunk is padded to whole 16-row tiles with zero rows (Q
+// 4 and 12 are one tile), and N and P to multiples of 16 with zero columns.
 // Launch errors are returned, never swallowed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -114,9 +180,6 @@ struct Params {
   int64_t ysb, yss, ysh;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
@@ -127,7 +190,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 }
 
 // Shared-memory plan, in floats.  Every offset is a multiple of 4 floats
-// (Q, N, P are), so float4 accesses stay aligned.
+// (Q, N, P are), so float4 and double accesses stay aligned.
 struct Layout {
   int LQ, W4, xs, ys, bs, cs, mm, ds, part, cum, ecum, erem, uu, dtq, colv, rowt, du, dcum,
       red, total;
@@ -141,17 +204,17 @@ struct Layout {
         mm(2 * Q * P + 2 * Q * N),      // [Q][LQ]  V, then W, then E (M[i][j], j <= i)
         ds(mm + Q * (Q + 4)),           // [N][P]   S in sweep 1, dS in sweep 2
         part(ds + N * P),               // [Q][W4]  per-row partial sums over 4-wide tiles
-        cum(part + Q * ((N > P ? N : P) / 4)),
-        ecum(cum + Q),                  // e^{cum_i}
-        erem(cum + 2 * Q),              // e^{tot - cum_j}
-        uu(cum + 3 * Q),                // u_j = e^{tot - cum_j} dt_j
-        dtq(cum + 4 * Q),               // dt
-        colv(cum + 5 * Q),              // column sums of V, then ddt's direct part
-        rowt(cum + 6 * Q),              // row sums of V dt
-        du(cum + 7 * Q),                // B_j^T dS x_j
-        dcum(cum + 8 * Q),              // dcum
-        red(cum + 9 * Q),               // [NTHREADS] block reduction
-        total(cum + 9 * Q + NTHREADS) {}
+        cum(part + Q * ((N > P ? N : P) / 4)),  // double[Q]: cum in fp64
+        ecum(cum + 2 * Q),              // e^{cum_i}
+        erem(cum + 3 * Q),              // e^{tot - cum_j}
+        uu(cum + 4 * Q),                // u_j = e^{tot - cum_j} dt_j
+        dtq(cum + 5 * Q),               // dt
+        colv(cum + 6 * Q),              // column sums of V, then ddt's direct part
+        rowt(cum + 7 * Q),              // row sums of V dt
+        du(cum + 8 * Q),                // B_j^T dS x_j
+        dcum(cum + 9 * Q),              // double[Q]: dcum
+        red(cum + 11 * Q),              // [NTHREADS] block reduction
+        total(cum + 11 * Q + NTHREADS) {}
 };
 
 constexpr size_t MAX_BYTES = sizeof(float) * Layout(MAX_Q, MAX_NP, MAX_NP).total;
@@ -197,27 +260,31 @@ __device__ __forceinline__ void dot_tile(const float* A, int a0, const float* Bm
   }
 }
 
-// cum = inclusive scan of dt * a over the chunk, in warp 0 (up to 4 rows a lane).
-__device__ __forceinline__ void chunk_cumsum(const float* dtq, float* cum, int Q, float a,
+// cum = inclusive scan of dt * a over the chunk, in fp64, in warp 0 (up to 4
+// rows a lane).  In fp32, cum (down to ~-100 over a chunk of 128) carries an
+// absolute error of ~1e-5 into every e^{cum_i - cum_j}, which put single
+// gradient entries 4-6x past (1e-4 + 1e-4 |exact|) of the fp64 gradient;
+// every exponent is therefore formed in fp64 and rounded once.
+__device__ __forceinline__ void chunk_cumsum(const float* dtq, double* cum, int Q, float a,
                                              int tid) {
   if (tid < 32) {
     const int E = (Q + 31) / 32;
     const int j0 = tid * E;
-    float loc[4];
-    float run = 0.f;
+    double loc[4];
+    double run = 0.0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int j = j0 + e;
-      if (e < E && j < Q) run += dtq[j] * a;
+      if (e < E && j < Q) run += static_cast<double>(dtq[j]) * a;
       loc[e] = run;
     }
-    float incl = run;
+    double incl = run;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, incl, off);
+      const double v = __shfl_up_sync(0xffffffffu, incl, off);
       if (tid >= off) incl += v;
     }
-    const float excl = incl - run;
+    const double excl = incl - run;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int j = j0 + e;
@@ -226,7 +293,9 @@ __device__ __forceinline__ void chunk_cumsum(const float* dtq, float* cum, int Q
   }
 }
 
-template <typename T>
+// e^{v} of an exponent formed in fp64.
+__device__ __forceinline__ float exp_of(double v) { return expf(static_cast<float>(v)); }
+
 __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -240,7 +309,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
   float* M = sm + L.mm;
   float* dS = sm + L.ds;
   float* part = sm + L.part;
-  float* cum = sm + L.cum;
+  double* cum = reinterpret_cast<double*>(sm + L.cum);
   float* ecum = sm + L.ecum;
   float* erem = sm + L.erem;
   float* uu = sm + L.uu;
@@ -248,18 +317,18 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
   float* colv = sm + L.colv;
   float* rowt = sm + L.rowt;
   float* du = sm + L.du;
-  float* dcum = sm + L.dcum;
+  double* dcum = reinterpret_cast<double*>(sm + L.dcum);
   float* red = sm + L.red;
 
   const int tid = threadIdx.x;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const T* xg = static_cast<const T*>(p.x) + b * p.xsb + h * p.xsh;
+  const float* xg = static_cast<const float*>(p.x) + b * p.xsb + h * p.xsh;
   const float* dg = p.dt + b * p.dsb + h * p.dsh;
-  const T* bg = static_cast<const T*>(p.b) + b * p.bsb;
-  const T* cg = static_cast<const T*>(p.c) + b * p.csb;
-  const T* yg = static_cast<const T*>(p.dy) + b * p.ysb + h * p.ysh;
-  T* dxg = static_cast<T*>(p.dx) + (static_cast<int64_t>(b) * p.S * p.H + h) * P;
+  const float* bg = static_cast<const float*>(p.b) + b * p.bsb;
+  const float* cg = static_cast<const float*>(p.c) + b * p.csb;
+  const float* yg = static_cast<const float*>(p.dy) + b * p.ysb + h * p.ysh;
+  float* dxg = static_cast<float*>(p.dx) + (static_cast<int64_t>(b) * p.S * p.H + h) * P;
   float* ddtg = p.ddt + static_cast<int64_t>(b) * p.S * p.H + h;
   float* dbg = p.dbh + (static_cast<int64_t>(b) * p.H + h) * p.S * N;
   float* dcg = p.dch + (static_cast<int64_t>(b) * p.H + h) * p.S * N;
@@ -277,15 +346,15 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
       const int j = e / P;
       const int c = e - j * P;
       const bool in = j < qv;
-      Xs[e] = in ? to_f(__ldg(xg + (t0 + j) * p.xss + c)) : 0.f;
-      if (with_dy) Ys[e] = in ? to_f(__ldg(yg + (t0 + j) * p.yss + c)) : 0.f;
+      Xs[e] = in ? __ldg(xg + (t0 + j) * p.xss + c) : 0.f;
+      if (with_dy) Ys[e] = in ? __ldg(yg + (t0 + j) * p.yss + c) : 0.f;
     }
     for (int e = tid; e < Q * N; e += NTHREADS) {
       const int j = e / N;
       const int n = e - j * N;
       const bool in = j < qv;
-      Bs[e] = in ? to_f(__ldg(bg + (t0 + j) * p.bss + n)) : 0.f;
-      Cs[e] = in ? to_f(__ldg(cg + (t0 + j) * p.css + n)) : 0.f;
+      Bs[e] = in ? __ldg(bg + (t0 + j) * p.bss + n) : 0.f;
+      Cs[e] = in ? __ldg(cg + (t0 + j) * p.css + n) : 0.f;
     }
     for (int j = tid; j < Q; j += NTHREADS) dtq[j] = j < qv ? __ldg(dg + (t0 + j) * p.dss) : 0.f;
   };
@@ -302,10 +371,10 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
     __syncthreads();
     chunk_cumsum(dtq, cum, Q, a, tid);
     __syncthreads();
-    const float tot = cum[Q - 1];
-    for (int j = tid; j < Q; j += NTHREADS) uu[j] = expf(tot - cum[j]) * dtq[j];
+    const double tot = cum[Q - 1];
+    for (int j = tid; j < Q; j += NTHREADS) uu[j] = exp_of(tot - cum[j]) * dtq[j];
     __syncthreads();
-    const float decay = expf(tot);
+    const float decay = exp_of(tot);
     for (int k = tid; k < N4 * P4; k += NTHREADS) {
       const int n0 = (k / P4) * 4;
       const int p0 = (k % P4) * 4;
@@ -347,10 +416,10 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
     __syncthreads();
     chunk_cumsum(dtq, cum, Q, a, tid);
     __syncthreads();
-    const float tot = cum[Q - 1];
+    const double tot = cum[Q - 1];
     for (int j = tid; j < Q; j += NTHREADS) {
-      ecum[j] = expf(cum[j]);
-      erem[j] = expf(tot - cum[j]);
+      ecum[j] = exp_of(cum[j]);
+      erem[j] = exp_of(tot - cum[j]);
       uu[j] = erem[j] * dtq[j];
     }
 
@@ -368,7 +437,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
           const int j = j0 + w;
-          out[w] = j <= i ? g[u][w] * expf(cum[i] - cum[j]) * d[u][w] : 0.f;
+          out[w] = j <= i ? g[u][w] * exp_of(cum[i] - cum[j]) * d[u][w] : 0.f;
         }
         *reinterpret_cast<float4*>(M + i * LQ + j0) = make_float4(out[0], out[1], out[2], out[3]);
       }
@@ -401,7 +470,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
           const int j = j0 + w;
-          out[w] = j <= i ? g[u][w] * expf(cum[i] - cum[j]) * dtq[j] : 0.f;
+          out[w] = j <= i ? g[u][w] * exp_of(cum[i] - cum[j]) * dtq[j] : 0.f;
         }
         *reinterpret_cast<float4*>(M + i * LQ + j0) = make_float4(out[0], out[1], out[2], out[3]);
       }
@@ -446,9 +515,9 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
         part[j * W4 + p0 / 4] = s;
         if (j < qv) {
           const float uj = uu[j];
-          T* row = dxg + static_cast<int64_t>(t0 + j) * p.H * P + p0;
+          float* row = dxg + static_cast<int64_t>(t0 + j) * p.H * P + p0;
 #pragma unroll
-          for (int v = 0; v < 4; ++v) row[v] = from_f<T>(fmaf(uj, sb[w][v], acc[w][v]));
+          for (int v = 0; v < 4; ++v) row[v] = fmaf(uj, sb[w][v], acc[w][v]);
         }
       }
     }
@@ -472,7 +541,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
           const int j = j0 + w;
-          out[w] = j <= i ? expf(cum[i] - cum[j]) * dtq[j] * d[u][w] : 0.f;
+          out[w] = j <= i ? exp_of(cum[i] - cum[j]) * dtq[j] * d[u][w] : 0.f;
         }
         *reinterpret_cast<float4*>(M + i * LQ + j0) = make_float4(out[0], out[1], out[2], out[3]);
       }
@@ -586,8 +655,8 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
     for (int i = tid; i < Q; i += NTHREADS) {
       double s = 0.0;
       for (int t = 0; t < N4; ++t) s += part[i * W4 + t];
-      dcum[i] = static_cast<float>(s + rowt[i] - static_cast<double>(dtq[i]) * colv[i] -
-                                   static_cast<double>(uu[i]) * du[i]);
+      dcum[i] = s + rowt[i] - static_cast<double>(dtq[i]) * colv[i] -
+                static_cast<double>(uu[i]) * du[i];
       colv[i] = static_cast<float>(static_cast<double>(erem[i]) * du[i] + colv[i]);
     }
     __syncthreads();
@@ -605,7 +674,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      const double dtot = static_cast<double>(expf(tot)) * red[0] + s;
+      const double dtot = static_cast<double>(exp_of(tot)) * red[0] + s;
       double loc[4];
       double run = 0.0;
 #pragma unroll
@@ -636,7 +705,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_bwd(const Params p) {
       if (tid == 0) dA_acc += da_sum;
     }
     // dS <- e^{tot} dS + sum_i e^{cum_i} C_i dy_i^T (every read of dS is done).
-    const float decay = expf(tot);
+    const float decay = exp_of(tot);
     for (int k = tid; k < N4 * P4; k += NTHREADS) {
       const int n0 = (k / P4) * 4;
       const int p0 = (k % P4) * 4;
@@ -704,9 +773,19 @@ struct Scratch {
   }
 };
 
+// The partials of dB, dC (over heads) and dA (over the batch) summed.
 template <typename T>
-cudaError_t launch(Params p, void* db, void* dc, float* dA, cudaStream_t stream) {
-  auto kern = ssd_bwd<T>;
+cudaError_t launch_reduce(const Params& p, void* db, void* dc, float* dA, cudaStream_t stream) {
+  const int64_t n = 2 * static_cast<int64_t>(p.B) * p.S * p.N + p.H;
+  const int64_t blocks = (n + RED_THREADS - 1) / RED_THREADS;
+  if (blocks > 2147483647) return cudaErrorInvalidValue;
+  ssd_bwd_reduce<T><<<static_cast<unsigned>(blocks), RED_THREADS, 0, stream>>>(
+      p.dbh, p.dch, p.dah, static_cast<T*>(db), static_cast<T*>(dc), dA, p.B, p.S, p.H, p.N);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fp32(Params p, void* db, void* dc, float* dA, cudaStream_t stream) {
+  auto kern = ssd_bwd;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(MAX_BYTES));
   if (attr != cudaSuccess) return attr;
@@ -714,12 +793,682 @@ cudaError_t launch(Params p, void* db, void* dc, float* dA, cudaStream_t stream)
   kern<<<dim3(p.H, p.B), NTHREADS, bytes, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t n = 2 * static_cast<int64_t>(p.B) * p.S * p.N + p.H;
-  const int64_t blocks = (n + RED_THREADS - 1) / RED_THREADS;
-  if (blocks > 2147483647) return cudaErrorInvalidValue;
-  ssd_bwd_reduce<T><<<static_cast<unsigned>(blocks), RED_THREADS, 0, stream>>>(
-      p.dbh, p.dch, p.dah, static_cast<T*>(db), static_cast<T*>(dc), dA, p.B, p.S, p.H, p.N);
-  return cudaGetLastError();
+  return launch_reduce<float>(p, db, dc, dA, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators; helpers in mma_bf16.cuh).
+
+using bf16 = __nv_bfloat16;
+constexpr int TC_WARPS = 16;
+constexpr int TC_THREADS = TC_WARPS * 32;
+
+__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
+
+// A bf16 tile of rows of `units` 16-byte units (a width rounded up to 16).
+// Rows of a multiple of 8 units are XOR-swizzled (unit u of row r at
+// u ^ (r & 7)); other rows are padded by one unit.  Either way the 8 row
+// addresses of an ldmatrix fall in distinct banks.
+struct Tile {
+  int units, stride;  // stride in elements
+  __host__ __device__ constexpr Tile(int width)
+      : units(round16(width) / 8),
+        stride(round16(width) % 64 == 0 ? round16(width) : round16(width) + 8) {}
+  __device__ int off(int row, int unit) const {
+    return row * stride + (units % 8 == 0 ? unit ^ (row & 7) : unit) * 8;
+  }
+};
+
+// Shared-memory plan: two sets (the next chunk's lands while this one
+// computes) of bf16 tiles x, dy [QP][P] and B, C [QP][N]; W, E [QP][QP]
+// (row i, column j); dS and S_{c-1} [N][P] (element offsets); then fp32 and
+// fp64 vectors and partial sums (byte offsets).
+struct TcLayout {
+  int QP, NP, PP, QT;
+  Tile xt, nt, qt;
+  int set, xs, ys, bs, cs, ws, es, dsb, spb;                                  // bf16 elements
+  int dt, cum, ecum, uu, rowp, colp, dup, cpp, dotp, dcum, cvd, dud, bytes;  // bytes
+  __host__ __device__ constexpr TcLayout(int Q, int N, int P)
+      : QP(round16(Q)), NP(round16(N)), PP(round16(P)), QT(round16(Q) / 16),
+        xt(P), nt(N), qt(round16(Q)),
+        set(2 * QP * (xt.stride + nt.stride)),
+        xs(0),
+        ys(QP * xt.stride),
+        bs(2 * QP * xt.stride),
+        cs(2 * QP * xt.stride + QP * nt.stride),
+        ws(2 * set),
+        es(ws + QP * qt.stride),
+        dsb(es + QP * qt.stride),
+        spb(dsb + NP * xt.stride),
+        dt(2 * (spb + NP * xt.stride)),
+        cum(dt + 4 * QP),
+        ecum(cum + 4 * QP),
+        uu(ecum + 4 * QP),
+        rowp(uu + 4 * QP),                      // [QT][QP] by column tile
+        colp(rowp + 4 * QT * QP),               // [QT][QP] by row tile
+        dup(colp + 4 * QT * QP),                // [PP/16][QP]
+        cpp(dup + 4 * (PP / 16) * QP),          // [NP/16][QP]
+        dotp(cpp + 4 * (NP / 16) * QP),         // [TC_WARPS]
+        dcum(dotp + 4 * TC_WARPS),              // double[QP] each: dcum,
+        cvd(dcum + 8 * QP),                     // colv, ddt's direct part,
+        dud(cvd + 8 * QP),                      // x_j . (B_j dS)
+        bytes(dud + 8 * QP) {}
+};
+
+constexpr int TC_MAX_BYTES = TcLayout(MAX_Q, MAX_NP, MAX_NP).bytes;
+static_assert(TC_MAX_BYTES <= 232448, "tensor-core shared memory plan exceeds 227 KB");
+
+struct TcParams {
+  Params p;
+  int vec16;  // x, dy, B, C rows 16-byte aligned in whole units: cp.async
+};
+
+__global__ void __launch_bounds__(TC_THREADS, 1) ssd_bwd_bf16(const TcParams tp) {
+  const Params& p = tp.p;
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  bf16* sm = reinterpret_cast<bf16*>(smem4);
+  const int Q = p.Q, N = p.N, P = p.P;
+  const TcLayout L(Q, N, P);
+  const int QP = L.QP, QT = L.QT, NT = L.NP / 16, PT = L.PP / 16;
+  bf16* Ws = sm + L.ws;
+  bf16* Es = sm + L.es;
+  bf16* dSb = sm + L.dsb;
+  bf16* Spb = sm + L.spb;
+  float* dts = reinterpret_cast<float*>(base + L.dt);
+  float* cum = reinterpret_cast<float*>(base + L.cum);    // log2 units
+  float* ecum = reinterpret_cast<float*>(base + L.ecum);  // 2^cum_i
+  float* uu = reinterpret_cast<float*>(base + L.uu);      // u_j = 2^(tot - cum_j) dt_j
+  float* rowp = reinterpret_cast<float*>(base + L.rowp);
+  float* colp = reinterpret_cast<float*>(base + L.colp);
+  float* dup = reinterpret_cast<float*>(base + L.dup);
+  float* cpp = reinterpret_cast<float*>(base + L.cpp);
+  float* dotp = reinterpret_cast<float*>(base + L.dotp);
+  double* dcum = reinterpret_cast<double*>(base + L.dcum);
+  double* cvd = reinterpret_cast<double*>(base + L.cvd);
+  double* dud = reinterpret_cast<double*>(base + L.dud);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const bf16* xg = static_cast<const bf16*>(p.x) + b * p.xsb + h * p.xsh;
+  const float* dg = p.dt + b * p.dsb + h * p.dsh;
+  const bf16* bg = static_cast<const bf16*>(p.b) + b * p.bsb;
+  const bf16* cg = static_cast<const bf16*>(p.c) + b * p.csb;
+  const bf16* yg = static_cast<const bf16*>(p.dy) + b * p.ysb + h * p.ysh;
+  bf16* dxg = static_cast<bf16*>(p.dx) + (static_cast<int64_t>(b) * p.S * p.H + h) * P;
+  float* ddtg = p.ddt + static_cast<int64_t>(b) * p.S * p.H + h;
+  float* dbg = p.dbh + (static_cast<int64_t>(b) * p.H + h) * p.S * N;
+  float* dcg = p.dch + (static_cast<int64_t>(b) * p.H + h) * p.S * N;
+  const float a = p.A[h];
+  const float a2 = a * 1.4426950408889634f;  // A log2 e: cum in log2 units, exp2 below
+  const int64_t NPs = static_cast<int64_t>(N) * P;
+  // S_{c-1} of each chunk, bf16, in the scratch's states region.
+  bf16* states = reinterpret_cast<bf16*>(p.states);
+  auto state_at = [&](int ch) {
+    return states + ((static_cast<int64_t>(b) * p.nc + ch) * p.H + h) * NPs;
+  };
+
+  // Rows of a chunk into a tile; rows past the sequence and columns past
+  // `width` are zeros.  cp.async where the rows allow, else plain loads.
+  auto stage = [&](const bf16* src, int64_t rstride, int width, const Tile tl, bf16* dst,
+                   int t0, int qv) {
+    if (tp.vec16) {
+      for (int idx = tid; idx < QP * tl.units; idx += TC_THREADS) {
+        const int j = idx / tl.units;
+        const int u = idx - j * tl.units;
+        const bool ok = j < qv && u * 8 < width;
+        mma::cp_async16(dst + tl.off(j, u), ok ? src + (t0 + j) * rstride + u * 8 : src, ok);
+      }
+    } else {
+      for (int idx = tid; idx < QP * tl.units * 8; idx += TC_THREADS) {
+        const int j = idx / (tl.units * 8);
+        const int c = idx - j * tl.units * 8;
+        dst[tl.off(j, c >> 3) + (c & 7)] =
+            j < qv && c < width ? src[(t0 + j) * rstride + c] : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+  // dt of row tid of chunk ch (0 past the sequence); threads tid < QP.
+  auto dt_at = [&](int ch) -> float {
+    const int t0 = ch * Q;
+    return tid < min(Q, p.S - t0) ? __ldg(dg + (t0 + tid) * p.dss) : 0.f;
+  };
+  // Chunk ch's x and B (sweep 1), or x, dy, B and C (sweep 2), into input
+  // set ch & 1, as one cp.async group.
+  auto stage_chunk = [&](int ch, bool with_dy_c) {
+    const int t0 = ch * Q;
+    const int qv = min(Q, p.S - t0);
+    bf16* in = sm + (ch & 1) * L.set;
+    stage(xg, p.xss, P, L.xt, in + L.xs, t0, qv);
+    stage(bg, p.bss, N, L.nt, in + L.bs, t0, qv);
+    if (with_dy_c) {
+      stage(yg, p.yss, P, L.xt, in + L.ys, t0, qv);
+      stage(cg, p.css, N, L.nt, in + L.cs, t0, qv);
+    }
+    mma::cp_async_commit();
+  };
+  // cum = cumsum(dt A) log2 e over the chunk: warp 0, up to 4 rows a lane,
+  // in fp32 as the bf16 forward does; fp64 (the scalar kernel's C2 repair)
+  // would lengthen warp 0's serial step for no gain at the bf16 gate.
+  auto chunk_cum = [&]() {
+    if (warp == 0) {
+      const int E = (QP + 31) / 32;
+      const int j0 = lane * E;
+      float loc[4];
+      float run = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + e;
+        if (e < E && j < QP) run += dts[j] * a2;
+        loc[e] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      const float excl = incl - run;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + e;
+        if (e < E && j < QP) cum[j] = excl + loc[e];
+      }
+    }
+  };
+
+  // The state S (sweep 1) and its cotangent dS (sweep 2) live in mma
+  // accumulators: warp w owns m-tile w % MT (16 rows of N) and a run of up
+  // to 2 n8 tiles of P.
+  const int MT = NT;
+  const int groups = TC_WARPS / MT;
+  const int PT8 = L.PP / 8;
+  const int per = (PT8 + groups - 1) / groups;  // <= 2
+  const int s_m = warp % MT;
+  const int s_n0 = (warp / MT) * per;
+  const int s_cnt = max(0, min(per, PT8 - s_n0));
+  float st[2][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) st[c][0] = st[c][1] = st[c][2] = st[c][3] = 0.f;
+
+  // ---- Sweep 1: the state before each chunk, as bf16, into the scratch. --
+  // The chunks' x and B alternate between the two input sets, the next
+  // chunk's landing while this one computes; the last chunk is not loaded
+  // (the state after it is not needed).
+  if (p.nc > 1) {
+    stage_chunk(0, false);
+    if (tid < QP) dts[tid] = dt_at(0);
+  }
+  for (int ch = 0; ch < p.nc; ++ch) {
+    const int t0 = ch * Q;
+    const int qv = min(Q, p.S - t0);
+    bf16* sg = state_at(ch);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = (s_n0 + c) * 8 + 2 * t;
+      if (c >= s_cnt || col >= P) break;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = s_m * 16 + g + 8 * r;
+        if (n < N)
+          *reinterpret_cast<uint32_t*>(sg + n * P + col) =
+              mma::pack_bf16(st[c][2 * r], st[c][2 * r + 1]);
+      }
+    }
+    if (ch + 1 == p.nc) break;
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    float dt_next = 0.f;
+    if (ch + 2 < p.nc) {
+      stage_chunk(ch + 1, false);
+      if (tid < QP) dt_next = dt_at(ch + 1);
+    }
+    const bf16* Xs = sm + (ch & 1) * L.set + L.xs;
+    const bf16* Bs = sm + (ch & 1) * L.set + L.bs;
+    chunk_cum();
+    __syncthreads();
+    // S <- 2^tot S + sum_j B_j (coef_j x_j)^T, coef_j = 2^(tot - cum_j) dt_j;
+    // coef x is split into bf16 hi + lo (see the note at the top).
+    if (s_cnt > 0) {
+      const float tot = cum[QP - 1];
+      const float decay = mma::exp2_approx(tot);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[c][e] *= decay;
+      for (int j0 = 0; j0 < qv; j0 += 16) {
+        uint32_t ab[4];
+        mma::ldmatrix_x4_trans(ab, Bs + L.nt.off(j0 + (lane & 7) + ((lane >> 4) << 3),
+                                                 2 * s_m + ((lane >> 3) & 1)));
+        float cf[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + 2 * t + (e & 1) + 8 * (e >> 1);
+          cf[e] = mma::exp2_approx(tot - cum[j]) * dts[j];
+        }
+        const int xrow = j0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (c >= s_cnt) break;
+          uint32_t xb[2];
+          mma::ldmatrix_x2_trans(xb, Xs + L.xt.off(xrow, s_n0 + c));
+          const float2 x0 = mma::unpack_bf16(xb[0]);
+          const float2 x1 = mma::unpack_bf16(xb[1]);
+          uint32_t bh0, bl0, bh1, bl1;
+          mma::split_bf16(x0.x * cf[0], x0.y * cf[1], bh0, bl0);
+          mma::split_bf16(x1.x * cf[2], x1.y * cf[3], bh1, bl1);
+          mma::mma_bf16(st[c], ab, bh0, bh1);
+          mma::mma_bf16(st[c], ab, bl0, bl1);
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < QP) dts[tid] = dt_next;
+  }
+  __syncthreads();  // the last chunk's S_{c-1}, read back below
+
+  // ---- Sweep 2: backward over the chunks, carrying dS. --------------------
+  const float* dfg =
+      p.dfinal ? p.dfinal + (static_cast<int64_t>(b) * p.H + h) * NPs : nullptr;
+  float ds[2][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = s_m * 16 + g + 8 * (e >> 1);
+      const int col = (s_n0 + c) * 8 + 2 * t + (e & 1);
+      ds[c][e] = dfg && c < s_cnt && n < N && col < P ? dfg[n * P + col] : 0.f;
+    }
+  // dS as a bf16 operand, [N][P] (every tile written, padding zero).
+  auto write_dsb = [&]() {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (c >= s_cnt) break;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(dSb + L.xt.off(s_m * 16 + g + 8 * r, s_n0 + c) + 2 * t) =
+            mma::pack_bf16(ds[c][2 * r], ds[c][2 * r + 1]);
+    }
+  };
+  write_dsb();
+  double dA_acc = 0.0;  // warp 0, lane 0
+  const int ntri = QT * (QT + 1) / 2;
+  const int per_row = PT + 2 * NT;  // product tasks per 16-row tile: dx, dB, dC
+  // S_{c-1} of chunk ch (zero before the first chunk), written by sweep 1,
+  // via L2: cp.async where its rows are whole 16-byte units (one group).
+  auto load_prev = [&](int ch) {
+    const bf16* sg = state_at(ch);
+    if (P % 8 == 0) {
+      for (int idx = tid; idx < L.NP * L.xt.units; idx += TC_THREADS) {
+        const int n = idx / L.xt.units;
+        const int u = idx - n * L.xt.units;
+        const bool ok = n < N && u * 8 < P;
+        mma::cp_async16(Spb + L.xt.off(n, u), ok ? sg + n * P + u * 8 : sg, ok);
+      }
+      mma::cp_async_commit();
+    } else {
+      const int half = L.PP / 2;
+      for (int idx = tid; idx < L.NP * half; idx += TC_THREADS) {
+        const int n = idx / half;
+        const int c2 = (idx - n * half) * 2;
+        const uint32_t v =
+            n < N && c2 < P ? __ldcg(reinterpret_cast<const uint32_t*>(sg + n * P + c2)) : 0u;
+        *reinterpret_cast<uint32_t*>(Spb + L.xt.off(n, c2 >> 3) + (c2 & 7)) = v;
+      }
+    }
+  };
+  stage_chunk(p.nc - 1, true);
+  if (tid < QP) dts[tid] = dt_at(p.nc - 1);
+  if (p.nc > 1) load_prev(p.nc - 1);
+  for (int ch = p.nc - 1; ch >= 0; --ch) {
+    const int t0 = ch * Q;
+    const int qv = min(Q, p.S - t0);
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    // The next chunk (ch - 1) lands in the other input set while this one
+    // computes; its S_{c-1} after phase P, the last read of this one's.
+    float dt_next = 0.f;
+    if (ch > 0) {
+      stage_chunk(ch - 1, true);
+      if (tid < QP) dt_next = dt_at(ch - 1);
+    }
+    const bf16* Xs = sm + (ch & 1) * L.set + L.xs;
+    const bf16* Ys = sm + (ch & 1) * L.set + L.ys;
+    const bf16* Bs = sm + (ch & 1) * L.set + L.bs;
+    const bf16* Cs = sm + (ch & 1) * L.set + L.cs;
+    chunk_cum();
+    // <dS, S_{c-1}> over this warp's tiles, for dtot (dS not yet updated).
+    {
+      float s = 0.f;
+      if (ch > 0) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (c >= s_cnt) break;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float2 sp = mma::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+                Spb + L.xt.off(s_m * 16 + g + 8 * r, s_n0 + c) + 2 * t));
+            s = fmaf(ds[c][2 * r], sp.x, fmaf(ds[c][2 * r + 1], sp.y, s));
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) dotp[warp] = s;
+    }
+    __syncthreads();
+    const float tot = cum[QP - 1];
+    if (tid < QP) {
+      ecum[tid] = mma::exp2_approx(cum[tid]);
+      uu[tid] = mma::exp2_approx(tot - cum[tid]) * dts[tid];
+    }
+
+    // Phase T: per 16 x 16 tile of the lower triangle, C B^T over N and
+    // dy x^T over P, once; then with L_ij = 2^(cum_i - cum_j) (j <= i only)
+    // W = (C B^T) L dt_j and E = L dt_j (dy x^T) into shared memory as bf16,
+    // and V = (C B^T) L (dy x^T) summed by row (times dt_j) and by column.
+    for (int k = warp; k < ntri; k += TC_WARPS) {
+      int it = static_cast<int>((sqrtf(8.f * k + 1.f) - 1.f) * 0.5f);
+      while ((it + 1) * (it + 2) / 2 <= k) ++it;
+      while (it * (it + 1) / 2 > k) --it;
+      const int jt = k - it * (it + 1) / 2;
+      const int i0 = it * 16, j0 = jt * 16;
+      if (i0 >= qv) continue;
+      float cb[2][4] = {}, dd[2][4] = {};
+      for (int kn = 0; kn < NT; ++kn) {
+        uint32_t af[4], bb[4];
+        mma::ldmatrix_x4(af, Cs + L.nt.off(i0 + (lane & 15), 2 * kn + (lane >> 4)));
+        mma::ldmatrix_x4(bb, Bs + L.nt.off(j0 + (lane & 7) + ((lane >> 4) << 3),
+                                           2 * kn + ((lane >> 3) & 1)));
+        mma::mma_bf16(cb[0], af, bb[0], bb[1]);
+        mma::mma_bf16(cb[1], af, bb[2], bb[3]);
+      }
+      for (int kp = 0; kp < PT; ++kp) {
+        uint32_t af[4], bb[4];
+        mma::ldmatrix_x4(af, Ys + L.xt.off(i0 + (lane & 15), 2 * kp + (lane >> 4)));
+        mma::ldmatrix_x4(bb, Xs + L.xt.off(j0 + (lane & 7) + ((lane >> 4) << 3),
+                                           2 * kp + ((lane >> 3) & 1)));
+        mma::mma_bf16(dd[0], af, bb[0], bb[1]);
+        mma::mma_bf16(dd[1], af, bb[2], bb[3]);
+      }
+      const float ci[2] = {cum[i0 + g], cum[i0 + g + 8]};
+      float rsum[2] = {0.f, 0.f}, csum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + mma::acc_row(lane, e);
+          const int j = j0 + 8 * jj + mma::acc_col(lane, e);
+          const float l = j <= i ? mma::exp2_approx(ci[e >> 1] - cum[j]) : 0.f;
+          const float gl = cb[jj][e] * l;
+          const float v = gl * dd[jj][e];
+          rsum[e >> 1] = fmaf(v, dts[j], rsum[e >> 1]);
+          csum[jj][e & 1] += v;
+          cb[jj][e] = gl * dts[j];
+          dd[jj][e] = l * dts[j] * dd[jj][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      }
+      if (t == 0) {
+        rowp[jt * QP + i0 + g] = rsum[0];
+        rowp[jt * QP + i0 + g + 8] = rsum[1];
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float v = csum[jj][c];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) colp[it * QP + j0 + 8 * jj + 2 * t + c] = v;
+        }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int o = L.qt.off(i0 + g + 8 * r, 2 * jt + jj) + 2 * t;
+          *reinterpret_cast<uint32_t*>(Ws + o) = mma::pack_bf16(cb[jj][2 * r], cb[jj][2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(Es + o) = mma::pack_bf16(dd[jj][2 * r], dd[jj][2 * r + 1]);
+        }
+    }
+    __syncthreads();
+
+    // Phase P: 16 x 16 output tiles.  Per 16-row tile rt, its dx and dB
+    // tiles (rows j = rt) and the dC tiles of rows i = QT - 1 - rt, whose
+    // triangle sums are as long; the longest first.
+    //   dx_j = sum_{i>=j} W_ij dy_i + u_j (B_j dS)     (W^T dy, B dS)
+    //   dB_j = sum_{i>=j} E_ij C_i + u_j (dS x_j)      (E^T C, x dS^T)
+    //   dC_i = sum_{j<=i} E_ij B_j + 2^cum_i (S_{c-1} dy_i)  (E B, dy S^T)
+    // with the row dots x_j . (B_j dS) and C_i . 2^cum_i (S_{c-1} dy_i)
+    // that dcum and ddt take.
+    for (int task = warp; task < QT * per_row; task += TC_WARPS) {
+      const int rt = task / per_row;
+      int col = task - rt * per_row;
+      const int kind = col < PT ? 0 : col < PT + NT ? 1 : 2;
+      col -= kind == 0 ? 0 : kind == 1 ? PT : PT + NT;
+      const int r0 = (kind == 2 ? QT - 1 - rt : rt) * 16;  // output rows
+      if (r0 >= qv) continue;
+      float a1[2][4] = {}, a2v[2][4] = {};
+      if (kind == 2) {
+        for (int jt = 0; jt * 16 <= r0; ++jt) {
+          uint32_t af[4], bb[4];
+          mma::ldmatrix_x4(af, Es + L.qt.off(r0 + (lane & 15), 2 * jt + (lane >> 4)));
+          mma::ldmatrix_x4_trans(bb, Bs + L.nt.off(jt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                   2 * col + (lane >> 4)));
+          mma::mma_bf16(a1[0], af, bb[0], bb[1]);
+          mma::mma_bf16(a1[1], af, bb[2], bb[3]);
+        }
+        if (ch > 0)
+          for (int kp = 0; kp < PT; ++kp) {
+            uint32_t af[4], bb[4];
+            mma::ldmatrix_x4(af, Ys + L.xt.off(r0 + (lane & 15), 2 * kp + (lane >> 4)));
+            mma::ldmatrix_x4(bb, Spb + L.xt.off(col * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                                2 * kp + ((lane >> 3) & 1)));
+            mma::mma_bf16(a2v[0], af, bb[0], bb[1]);
+            mma::mma_bf16(a2v[1], af, bb[2], bb[3]);
+          }
+      } else {
+        const bf16* Mt = kind == 0 ? Ws : Es;    // W^T or E^T as the A operand
+        const bf16* Ri = kind == 0 ? Ys : Cs;    // dy_i or C_i as the B operand
+        const Tile rt_tile = kind == 0 ? L.xt : L.nt;
+        for (int i0 = r0; i0 < qv; i0 += 16) {
+          uint32_t af[4], bb[4];
+          mma::ldmatrix_x4_trans(af, Mt + L.qt.off(i0 + (lane & 7) + ((lane >> 4) << 3),
+                                                   r0 / 8 + ((lane >> 3) & 1)));
+          mma::ldmatrix_x4_trans(bb, Ri + rt_tile.off(i0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                      2 * col + (lane >> 4)));
+          mma::mma_bf16(a1[0], af, bb[0], bb[1]);
+          mma::mma_bf16(a1[1], af, bb[2], bb[3]);
+        }
+        if (kind == 0) {
+          for (int kn = 0; kn < NT; ++kn) {
+            uint32_t af[4], bb[4];
+            mma::ldmatrix_x4(af, Bs + L.nt.off(r0 + (lane & 15), 2 * kn + (lane >> 4)));
+            mma::ldmatrix_x4_trans(bb, dSb + L.xt.off(kn * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                      2 * col + (lane >> 4)));
+            mma::mma_bf16(a2v[0], af, bb[0], bb[1]);
+            mma::mma_bf16(a2v[1], af, bb[2], bb[3]);
+          }
+        } else {
+          for (int kp = 0; kp < PT; ++kp) {
+            uint32_t af[4], bb[4];
+            mma::ldmatrix_x4(af, Xs + L.xt.off(r0 + (lane & 15), 2 * kp + (lane >> 4)));
+            mma::ldmatrix_x4(bb, dSb + L.xt.off(col * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                                2 * kp + ((lane >> 3) & 1)));
+            mma::mma_bf16(a2v[0], af, bb[0], bb[1]);
+            mma::mma_bf16(a2v[1], af, bb[2], bb[3]);
+          }
+        }
+      }
+      // Epilogue: rows r0 + g + 8r, columns col * 16 + 8 nn + 2t (+1).
+      const int width = kind == 0 ? P : N;
+      float dot[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r;
+        const float sc = kind == 2 ? ecum[row] : uu[row];
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn) {
+          const int c = col * 16 + 8 * nn + 2 * t;
+          const float v0 = a2v[nn][2 * r], v1 = a2v[nn][2 * r + 1];
+          if (kind != 1) {  // x_j . (B_j dS), or C_i . (S_{c-1} dy_i)
+            const float2 o = mma::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+                kind == 0 ? Xs + L.xt.off(row, 2 * col + nn) + 2 * t
+                          : Cs + L.nt.off(row, 2 * col + nn) + 2 * t));
+            dot[r] = fmaf(o.x, v0, fmaf(o.y, v1, dot[r]));
+          }
+          if (row >= qv || c >= width) continue;
+          const float o0 = fmaf(sc, v0, a1[nn][2 * r]);
+          const float o1 = fmaf(sc, v1, a1[nn][2 * r + 1]);
+          const int64_t tr = t0 + row;
+          if (kind == 0)
+            *reinterpret_cast<__nv_bfloat162*>(dxg + tr * p.H * P + c) =
+                __floats2bfloat162_rn(o0, o1);
+          else
+            *reinterpret_cast<float2*>((kind == 1 ? dbg : dcg) + tr * N + c) = make_float2(o0, o1);
+        }
+      }
+      if (kind != 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
+          dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
+        }
+        if (t == 0) {
+          float* dst = kind == 0 ? dup : cpp;
+          dst[col * QP + r0 + g] = dot[0] * (kind == 2 ? ecum[r0 + g] : 1.f);
+          dst[col * QP + r0 + g + 8] = dot[1] * (kind == 2 ? ecum[r0 + g + 8] : 1.f);
+        }
+      }
+    }
+    __syncthreads();
+
+    if (ch > 1) load_prev(ch - 1);
+    // Per row, one thread a row, in fp64 (these sums cancel): the partial
+    // sums of V, x_j . (B_j dS) and C_i . (S_{c-1} dy_i) summed in a fixed
+    // order, and dcum; rows past the chunk's end are zero.
+    if (tid < QP) {
+      const int j = tid;
+      double colv = 0.0, du = 0.0, d = 0.0;
+      if (j < qv) {
+        double rowt = 0.0, part = 0.0;
+        for (int it = j / 16; it * 16 < qv; ++it) colv += colp[it * QP + j];
+        for (int jt = 0; jt <= j / 16; ++jt) rowt += rowp[jt * QP + j];
+        for (int c = 0; c < PT; ++c) du += dup[c * QP + j];
+        if (ch > 0)
+          for (int c = 0; c < NT; ++c) part += cpp[c * QP + j];
+        d = part + rowt - static_cast<double>(dts[j]) * colv - static_cast<double>(uu[j]) * du;
+      }
+      dcum[j] = d;
+      cvd[j] = colv;
+      dud[j] = du;
+    }
+    // dS <- 2^tot dS + sum_i C_i (2^cum_i dy_i)^T (every read of dSb is done).
+    if (s_cnt > 0) {
+      const float decay = mma::exp2_approx(tot);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[c][e] *= decay;
+      for (int i0 = 0; i0 < qv; i0 += 16) {
+        uint32_t ab[4];
+        mma::ldmatrix_x4_trans(ab, Cs + L.nt.off(i0 + (lane & 7) + ((lane >> 4) << 3),
+                                                 2 * s_m + ((lane >> 3) & 1)));
+        float ef[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ef[e] = ecum[i0 + 2 * t + (e & 1) + 8 * (e >> 1)];
+        const int yrow = i0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (c >= s_cnt) break;
+          uint32_t yb[2];
+          mma::ldmatrix_x2_trans(yb, Ys + L.xt.off(yrow, s_n0 + c));
+          const float2 y0 = mma::unpack_bf16(yb[0]);
+          const float2 y1 = mma::unpack_bf16(yb[1]);
+          mma::mma_bf16(ds[c], ab, mma::pack_bf16(y0.x * ef[0], y0.y * ef[1]),
+                        mma::pack_bf16(y1.x * ef[2], y1.y * ef[3]));
+        }
+      }
+      write_dsb();
+    }
+    __syncthreads();
+    // Warp 0: dtot, the reverse scan (d(dt a)_t = sum_{k>=t} dcum_k), ddt
+    // and this chunk's share of dA, in fp64.
+    if (warp == 0) {
+      const int E = (QP + 31) / 32;
+      const int j0 = lane * E;
+      double s = 0.0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + e;
+        if (e < E && j < qv) s += static_cast<double>(uu[j]) * dud[j];
+      }
+      double dot = 0.0;
+      for (int w = 0; w < TC_WARPS; ++w) dot += dotp[w];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      const double dtot = static_cast<double>(mma::exp2_approx(tot)) * dot + s;
+      double loc[4];
+      double run = 0.0;
+#pragma unroll
+      for (int e = 3; e >= 0; --e) {
+        const int j = j0 + e;
+        if (e < E && j < QP) run += dcum[j] + (j == QP - 1 ? dtot : 0.0);
+        loc[e] = run;
+      }
+      double incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const double v = __shfl_down_sync(0xffffffffu, incl, off);
+        if (lane + off < 32) incl += v;
+      }
+      const double excl = incl - run;
+      double da_sum = 0.0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + e;
+        if (e < E && j < qv) {
+          const double da = loc[e] + excl;
+          const double erem = mma::exp2_approx(tot - cum[j]);
+          ddtg[static_cast<int64_t>(t0 + j) * p.H] =
+              static_cast<float>(a * da + cvd[j] + erem * dud[j]);
+          da_sum += dts[j] * da;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) da_sum += __shfl_xor_sync(0xffffffffu, da_sum, off);
+      if (lane == 0) dA_acc += da_sum;
+    }
+    __syncthreads();
+    if (tid < QP) dts[tid] = dt_next;
+  }
+  if (tid == 0) p.dah[static_cast<int64_t>(b) * p.H + h] = static_cast<float>(dA_acc);
+}
+
+cudaError_t launch_bf16(Params p, void* db, void* dc, float* dA, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ssd_bwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_MAX_BYTES);
+  if (attr != cudaSuccess) return attr;
+  auto al16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  const bool vec16 = al16(p.x) && al16(p.b) && al16(p.c) && al16(p.dy) && p.P % 8 == 0 &&
+                     p.N % 8 == 0 && p.xsb % 8 == 0 && p.xss % 8 == 0 && p.xsh % 8 == 0 &&
+                     p.bsb % 8 == 0 && p.bss % 8 == 0 && p.csb % 8 == 0 && p.css % 8 == 0 &&
+                     p.ysb % 8 == 0 && p.yss % 8 == 0 && p.ysh % 8 == 0;
+  const TcParams tp{p, vec16 ? 1 : 0};
+  ssd_bwd_bf16<<<dim3(p.H, p.B), TC_THREADS, TcLayout(p.Q, p.N, p.P).bytes, stream>>>(tp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<bf16>(p, db, dc, dA, stream);
 }
 
 bool supported(int v, int hi) { return v >= 4 && v <= hi && v % 4 == 0; }
@@ -729,6 +1478,11 @@ bool supported(int v, int hi) { return v >= 4 && v <= hi && v % 4 == 0; }
 // Bytes of dynamic shared memory a block of the main kernel takes.
 extern "C" int ssd_scan_bwd_smem_bytes(int Q, int N, int P) {
   return static_cast<int>(sizeof(float) * Layout(Q, N, P).total);
+}
+
+// Bytes of dynamic shared memory a block of the bf16 (tensor-core) kernel takes.
+extern "C" int ssd_scan_bwd_tc_smem_bytes(int Q, int N, int P) {
+  return TcLayout(Q, N, P).bytes;
 }
 
 // Bytes of fp32 device scratch a call takes: the states before each chunk
@@ -763,8 +1517,8 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = launch<float>(p, db, dc, static_cast<float*>(dA), s); break;
-    case 1: err = launch<__nv_bfloat16>(p, db, dc, static_cast<float*>(dA), s); break;
+    case 0: err = launch_fp32(p, db, dc, static_cast<float*>(dA), s); break;
+    case 1: err = launch_bf16(p, db, dc, static_cast<float*>(dA), s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -11,6 +11,9 @@ allocated as a contiguous (B,S,H,P) tensor, the state as (B,H,N,P) fp32.
 The backward (``csrc/ssd_bwd.cu``, its own library) is
 :func:`ssd_scan_bwd_cuda`, which :class:`SsdScanFunction` calls; the
 differentiable entry on the card is :func:`repro_torch.kernels.ops.ssd_scan`.
+Like the forward it chooses its kernel by dtype alone: bf16 runs on the
+tensor cores (``ssd_bwd_bf16``), fp32 on scalar FMAs (``ssd_bwd``); either
+is followed by ``ssd_bwd_reduce``, which sums the per-head partials.
 :func:`ssd_scan_cuda` alone refuses inputs that require a gradient under
 grad mode, since its output would carry none.  ``launches`` counts the
 forward kernel's launches and ``bwd_launches`` the backward's calls (two
@@ -72,8 +75,15 @@ def _bwd_query(name: str, *args: int, restype=ctypes.c_int) -> int:
 
 
 def bwd_smem_bytes(chunk: int, N: int, P: int) -> int:
-    """Dynamic shared memory a block of the backward's main kernel takes."""
+    """Dynamic shared memory a block of the backward's fp32 (scalar) kernel
+    takes."""
     return _bwd_query("ssd_scan_bwd_smem_bytes", chunk, N, P)
+
+
+def bwd_tc_smem_bytes(chunk: int, N: int, P: int) -> int:
+    """Dynamic shared memory a block of the backward's bf16 (tensor-core)
+    kernel takes."""
+    return _bwd_query("ssd_scan_bwd_tc_smem_bytes", chunk, N, P)
 
 
 def bwd_scratch_bytes(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:

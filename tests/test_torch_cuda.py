@@ -622,8 +622,9 @@ def test_ssd_and_mlstm_refuse_grad_and_serve_without(dev):
 # inputs, as chip_smoke.py holds them: fp32 a relative rms of 1e-4 and a
 # max abs error of 1e-4 times the gradient's largest entry (an entry that
 # is small because its terms cancel differs by more between two fp32
-# summation orders); bf16 (the same scalar fp32 arithmetic, inputs and
-# gradients rounded to bf16) a relative rms of 2e-2.
+# summation orders); bf16 a relative rms of 2e-2 (the SSD backward's bf16
+# path is its tensor-core kernel, the mLSTM's the same scalar fp32
+# arithmetic as its fp32 path, inputs and gradients rounded to bf16).
 
 BWD_REL_RMS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -660,6 +661,9 @@ def ssd_plain_grads(args, chunk, dy, dfinal):
     (2, 96, 2, 64, 64, 32, True),     # the widest N and P
     (1, 37, 3, 12, 20, 12, False),    # widths that are not powers of two
     (2, 200, 4, 64, 64, 128, True),   # zamba2's widths and chunk, ragged
+    (1, 40, 2, 4, 4, 4, False),       # chunk 4: one 16-row tile, 12 rows of it padding
+    (2, 50, 3, 20, 12, 128, True),    # S shorter than a chunk of 128, widths not multiples of 16
+    (1, 230, 2, 48, 36, 100, True),   # 7 row tiles of 16, 3 column tiles of N and of P
 ])
 def test_ssd_grads_match_plain_version(dev, B, S, H, P, N, chunk, with_final, dtype):
     args = ssd_inputs(B, S, H, P, N, dtype, dev, seed=S + N)
@@ -704,6 +708,76 @@ def test_ssd_grads_finite_where_the_unmasked_exp_overflows(dev):
     t = [a.detach().requires_grad_() for a in (x, dt, A, Bm, Cm)]
     want = torch.autograd.grad(ssd_ref(*t)[0], t, dy)
     assert_bwd_close(got, want, (x, dt, A, Bm, Cm), torch.float32)
+
+
+def test_ssd_grads_bf16_where_the_unmasked_exp_overflows(dev):
+    """The bf16 twin of the case above: the tensor-core kernel forms
+    2^(cum_i - cum_j) only where j <= i, so its gradient stays finite."""
+    x, _, _, Bm, Cm = ssd_inputs(1, 256, 2, 8, 4, torch.bfloat16, dev, seed=9)
+    dt = torch.full((1, 256, 2), 0.8, device=dev)
+    A = torch.tensor([-1.0, -0.5], device=dev)
+    dy = rand((1, 256, 2, 8), torch.bfloat16, 10, dev)
+    got = ssd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=128)
+    t = [a.detach().float().requires_grad_() for a in (x, dt, A, Bm, Cm)]
+    want = torch.autograd.grad(ssd_ref(*t)[0], t, dy.float())
+    assert_bwd_close(got, want, (x, dt, A, Bm, Cm), torch.bfloat16)
+
+
+@pytest.mark.parametrize("P,N", [(12, 20), (64, 64)])
+def test_ssd_grads_bf16_in_the_model_layout(dev, P, N):
+    """x, B and C as views of one bf16 (B,S,H*P+2N) tensor straight into
+    the backward: with P 12, N 20 (and dy a view starting 4 bytes into its
+    rows) the rows are not whole 16-byte units and the kernel loads them
+    element by element; with P = N = 64 by cp.async."""
+    B, S, H = 2, 150, 3
+    xbc = rand((B, S, H * P + 2 * N), torch.bfloat16, 21, dev)
+    xs, Bm, Cm = torch.split(xbc, [H * P, N, N], dim=-1)
+    x = xs.reshape(B, S, H, P)
+    dt = torch.nn.functional.softplus(rand((B, S, H), torch.float32, 22, dev))
+    A = -torch.exp(rand((H,), torch.float32, 23, dev) * 0.5)
+    dy = (rand((B, S + 3, H, P + 4), torch.bfloat16, 24, dev)[:, 3:, :, 2:P + 2] if P == 12
+          else rand((B, S, H, P), torch.bfloat16, 24, dev))
+    args = (x, dt, A, Bm, Cm)
+    got = ssd.ssd_scan_bwd_cuda(*args, dy, chunk=64)
+    assert_bwd_close(got, ssd_plain_grads(args, 64, dy, None), args, torch.bfloat16)
+
+
+def exact_ratio(got, exact) -> float:
+    """Worst err / (1e-4 + 1e-4 |exact|) over every entry of every gradient."""
+    return max(float(((g.double() - e).abs() / (1e-4 + 1e-4 * e.abs())).max())
+               for g, e in zip(got, exact))
+
+
+@pytest.mark.parametrize("case", ["ssd zamba2 widths S 200 chunk 128 +dfinal",
+                                  "ssd (1,128,1,32) N 16 chunk 64",
+                                  "mlstm D 384 S 200 chunk 128"])
+def test_fp32_backward_elementwise_against_fp64(dev, case):
+    """ROADMAP C2: at these shapes the fp32 plain versions stay within
+    err / (1e-4 + 1e-4 |exact|) <= 1 of the fp64 gradient (autograd of the
+    oracle on fp64 inputs), and so must each fp32 kernel, entry by entry."""
+    if case.startswith("mlstm"):
+        args = mlstm_inputs(1, 200, 2, 384, torch.float32, dev, seed=31)
+        dh = rand((1, 200, 2, 384), torch.float32, 32, dev)
+        got = mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=128)
+        t = [a.detach().double().requires_grad_() for a in args]
+        exact = torch.autograd.grad(mlstm_ref(*t)[0], t, dh.double())
+    else:
+        B, S, H, P, N, chunk, with_final = ((2, 200, 4, 64, 64, 128, True) if "zamba2" in case
+                                            else (1, 128, 1, 32, 16, 64, False))
+        args = ssd_inputs(B, S, H, P, N, torch.float32, dev, seed=33)
+        dy = rand((B, S, H, P), torch.float32, 34, dev)
+        dfinal = rand((B, H, N, P), torch.float32, 35, dev) if with_final else None
+        got = ssd.ssd_scan_bwd_cuda(*args, dy, dfinal, chunk=chunk)
+        t = [a.detach().double().requires_grad_() for a in args]
+        y, st = ssd_ref(*t) if with_final else ssd_chunked(*t, chunk)
+        outs, cots = [y], [dy.double()]
+        if with_final:
+            outs.append(st)
+            cots.append(dfinal.double())
+        exact = torch.autograd.grad(outs, t, cots)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert exact_ratio(got, exact) <= 1.0
 
 
 def mlstm_plain_grads(args, chunk, dh):
