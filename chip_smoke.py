@@ -28,9 +28,9 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              mLSTM with gates of +-20 and with the e^{-m} floor winning),
              each fp32 kernel at three shapes (labels ending in "C2") also
              entry by entry against the fp64 gradient, then timed at
-             zamba2_1p2b's and xlstm_125m's train shapes (the SSD's bf16
-             path on the tensor cores, its fp32 path scalar), two bf16
-             calls there bitwise equal;
+             zamba2_1p2b's and xlstm_125m's train shapes (each backward's
+             bf16 path on the tensor cores, its fp32 path scalar; the
+             mLSTM's split by kernel), two bf16 calls there bitwise equal;
 3. serve stablelm_3b — at full size, seed-initialised on the card:
              batch 8, prompt 512, 64 greedy tokens in bf16 through
              ``repro_torch.launch.serve``; the attention kernel must have
@@ -88,9 +88,10 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              8 x 512, 4 steps, seed 0): finite losses and grad norms, the
              kernels' calls a step (zamba2: 76 SSD, 38 SSD backward, 12
              attention, 6 attention backward; xlstm: 12 mLSTM, 6 mLSTM
-             backward, no attention), a profiled step (zamba2: the SSD
+             backward, no attention), a profiled step (the SSD or mLSTM
              backward's share, its bf16 kernels by name, which must be
-             ssd_bwd_bf16 and ssd_bwd_reduce), the same steps with
+             ssd_bwd_bf16 and ssd_bwd_reduce, or the five
+             mlstm_bwd_*_bf16), the same steps with
              the plain versions (printed), and one fp32 step at full width
              and 6 layers (zamba2: its shared block follows layer 5) or 2
              units (xlstm) against the plain twin: the loss, every grad leaf
@@ -345,10 +346,14 @@ def build_phase(torch):
           f"fp32 scratch a call at "
           f"({BATCH},{TRAIN_SEQ},64,64): {ssd.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 64, 64, 64, 128)}"
           f" bytes")
-    print(f"[build] mlstm_bwd: dynamic shared memory a block of the main kernel at the train "
-          f"shape (chunk 128, D 384): {mlstm.bwd_smem_bytes(128, 384)} bytes; fp32 scratch a "
-          f"call at ({BATCH},{TRAIN_SEQ},4,384): "
-          f"{mlstm.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 4, 384, 128)} bytes")
+    print(f"[build] mlstm_bwd: dynamic shared memory a block at the train shape (chunk 128, "
+          f"D 384): bf16 (tensor cores; the two sweeps 8 warps, two blocks an SM; the rest 16 "
+          f"warps) "
+          + ", ".join(f"{k} {mlstm.bwd_tc_smem_bytes(128, 384, k)}" for k in mlstm.BWD_TC_KERNELS)
+          + f" bytes (mlstm_bwd_dstates_bf16 as mlstm_bwd_states_bf16, mlstm_bwd_gates_bf16 "
+          f"none); fp32 (scalar, 8 warps) mlstm_bwd_main {mlstm.bwd_smem_bytes(128, 384)} bytes; "
+          f"fp32 scratch a call at ({BATCH},{TRAIN_SEQ},4,384): "
+          f"{mlstm.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 4, 384, 128)} bytes (the larger path's)")
 
 
 def kernel_phase(torch, dev, failures) -> dict:
@@ -729,6 +734,30 @@ SSD_BWD_PATHS = {
                  "kernels": ["ssd_bwd_bf16", "ssd_bwd_reduce"]},
     "float32": {"route": "scalar fp32 FMA", "kernels": ["ssd_bwd", "ssd_bwd_reduce"]},
 }
+# The mLSTM backward's two paths, chosen by dtype alone.
+MLSTM_BWD_PATHS = {
+    "bfloat16": {"route": "tensor cores (mma.sync bf16)",
+                 "kernels": ["mlstm_bwd_states_bf16", "mlstm_bwd_chunk_bf16",
+                             "mlstm_bwd_dstates_bf16", "mlstm_bwd_out_bf16",
+                             "mlstm_bwd_gates_bf16"]},
+    "float32": {"route": "scalar fp32 FMA",
+                "kernels": ["mlstm_bwd_states", "mlstm_bwd_main", "mlstm_bwd_reduce_qk",
+                            "mlstm_bwd_reduce_gates"]},
+}
+
+
+def kernel_split(torch, fn, pattern) -> list[tuple[str, float]]:
+    """(name, device ms) of each kernel of one call of ``fn`` whose name
+    matches ``pattern`` (its first group), in launch order, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    return [(m.group(1), e.self_device_time_total / 1e3) for e in events
+            for m in [re.search(pattern, e.name)] if m]
 
 
 def grad_check(torch, label, got, want, inputs, dtype, failures, exact=None,
@@ -1012,12 +1041,21 @@ def mlstm_bwd_phase(torch, dev, failures) -> dict:
                                  iters=2, reps=3),
              "library_ms": None}
         t["bound_ms"], t["bound_by"] = mlstm_bwd_bound_ms(args[0], 128)
-        print(f"[time] mlstm_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms (scalar fp32 FMA: "
-              f"mlstm_bwd_states + mlstm_bwd_main + two reductions), plain {t['plain_ms']:.4f} "
+        path = MLSTM_BWD_PATHS[dtype]
+        print(f"[time] mlstm_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms ({path['route']}: "
+              f"{' + '.join(path['kernels'])}), plain {t['plain_ms']:.4f} "
               f"ms (autograd of mlstm_chunked, backward only), no single PyTorch call, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
-        entry["paths"].append({"dtype": dtype, "shape": f"{shape} {dtype}", "max_abs_err": err,
-                               **t})
+        split = kernel_split(torch, lambda: mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=128),
+                             r"(mlstm_bwd_\w+)")
+        print(f"[time] mlstm_bwd {shape} {dtype}: one call by kernel (profiler): "
+              + ", ".join(f"{name} {ms:.4f} ms" for name, ms in split))
+        if [name for name, _ in split] != path["kernels"]:
+            failures.append(f"mlstm_bwd {dtype}: a call ran {[n for n, _ in split]}, expected "
+                            f"{path['kernels']}")
+        entry["paths"].append({"dtype": dtype, **path, "shape": f"{shape} {dtype}",
+                               "max_abs_err": err, **t,
+                               "ms_by_kernel": {name: ms for name, ms in split}})
         if dtype == "bfloat16":
             entry.update(max_abs_err=err, shape=f"{shape} bf16", **t)
         del h_plain, t_in, args, dh
@@ -1883,7 +1921,7 @@ def recurrent_train_phase(torch, dev, arch, failures, counts):
             failures.append(f"{path}: {name} launched {got} times, expected {TRAIN_STEPS * want}")
     profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev),
                        cfg.dtype, failures, tag=tag, attention=cfg.family == "hybrid",
-                       ssd=cfg.family == "hybrid")
+                       ssd=cfg.family == "hybrid", mlstm=arch == XLSTM)
     del model, state, step_fn
     torch.cuda.empty_cache()
 
@@ -2073,14 +2111,14 @@ def one_step(torch, model, params, batch, failures, *, plain=False):
 
 
 def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
-                       tag="[train]", attention=True, ssd=False):
+                       tag="[train]", attention=True, ssd=False, mlstm=False):
     """Where a warm train step's time goes: one more step split in its two
     phases by host clock (each ended by a device sync), then one under
     torch.profiler: the device's busy share, its kernels by group, and the
-    attention and SSD backwards' kernels by name, which must be those of
-    the compute dtype's path (``BWD_PATHS``, ``SSD_BWD_PATHS``), or none
-    for a model without attention or Mamba2 layers; the SSD backward's
-    share of the step."""
+    attention, SSD and mLSTM backwards' kernels by name, which must be
+    those of the compute dtype's path (``BWD_PATHS``, ``SSD_BWD_PATHS``,
+    ``MLSTM_BWD_PATHS``), or none for a model without attention, Mamba2 or
+    mLSTM layers; the SSD and mLSTM backwards' shares of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.optim import adamw_update, global_norm
@@ -2153,6 +2191,22 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
     if sorted(ssd_bwd) != want:
         failures.append(f"profiled {dtype} train step ran the SSD backward kernels "
                         f"{sorted(ssd_bwd)}, expected {want}")
+    mlstm_bwd = {}
+    for e in kernels:
+        m = re.search(r"(mlstm_bwd_\w+)", e.key)
+        if m:
+            ms, n = mlstm_bwd.get(m.group(1), (0.0, 0))
+            mlstm_bwd[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if mlstm_bwd:
+        ms = sum(v[0] for v in mlstm_bwd.values())
+        print(f"{tag} mLSTM backward share of the profiled step: {ms:.1f} ms of {busy:.1f} ms "
+              f"device time ({ms / busy:.1%}), {ms / wall_ms:.1%} of the wall; kernels: "
+              + ", ".join(f"{name} {t:.2f} ms in {n} launches"
+                          for name, (t, n) in sorted(mlstm_bwd.items())))
+    want = sorted(MLSTM_BWD_PATHS[dtype]["kernels"]) if mlstm else []
+    if sorted(mlstm_bwd) != want:
+        failures.append(f"profiled {dtype} train step ran the mLSTM backward kernels "
+                        f"{sorted(mlstm_bwd)}, expected {want}")
 
 
 if __name__ == "__main__":

@@ -35,26 +35,16 @@
 // make the gate gradients cancel, put d f_gate several percent (relative
 // rms) off autograd of the plain version on the card.
 //
-// Launches, all on the caller's stream, sharing one fp32 scratch that the
-// wrapper allocates:
-//   1. mlstm_bwd_states: the forward's scalar kernel (csrc/mlstm.cu) run
-//      again, writing instead of h the states before each chunk, S_p
-//      (B, nc, H, D, D), n_p (B, nc, H, D) and m_prev (B, nc, H) (75.5 MB at
-//      xlstm_125m's train shape; recomputed rather than saved by the
-//      forward, whose kernel and C interface stay as they are), and each
-//      column block's share of dh_i . h_i (ncb, B, S, H).
-//   2. mlstm_bwd_main: S is split over blocks of VB value columns, as in the
-//      forward (dS (D, D) is 576 KB in fp32 at D 384; a block may have
-//      227 KB): block (vb, h, b) owns dS[:, v0:v0+VB] and walks the chunks
-//      backward.  Everything that needs a full value row (dP, hence G, dqq,
-//      dk) it computes over its own columns only, as an fp32 partial; the
-//      terms in dden and dn, which need no value column, only block 0 adds.
-//      dv, which is per column, it writes whole.  It recomputes q k^T over
-//      all key columns, streaming q and k 32 columns at a time.
-//   3. mlstm_bwd_reduce_qk: dq and dk, the partials summed over the column
-//      blocks in a fixed order.
-//   4. mlstm_bwd_reduce_gates: dig, and db reverse-summed within each chunk
-//      into dlogf, then df; one thread a (b, h, chunk).
+// Two paths, chosen by dtype alone in mlstm_scan_bwd, every launch on the
+// caller's stream, sharing one fp32 scratch that the wrapper allocates (its
+// size query takes no dtype: it gives the larger path's need):
+//   fp32: mlstm_bwd_states, mlstm_bwd_main, mlstm_bwd_reduce_qk,
+//         mlstm_bwd_reduce_gates, scalar fp32 FMAs (they hold the fp32
+//         gates, elementwise against the fp64 gradient at C2's shapes);
+//   bf16: mlstm_bwd_states_bf16, mlstm_bwd_chunk_bf16,
+//         mlstm_bwd_dstates_bf16, mlstm_bwd_out_bf16, mlstm_bwd_gates_bf16,
+//         every product an mma.sync m16n8k16 on bf16 operands with fp32
+//         accumulators (mma_bf16.cuh).
 // No atomics anywhere, so two calls give the same bits.
 //
 // What bounds it.  At xlstm_125m's train shape (B 8, S 512, H 4, D 384,
@@ -65,36 +55,98 @@
 // states, q S_p, S_p dnum, dS v, dS^T k and the dS update (12 Q D^2):
 // 258 MFLOP, x 128 = 33 GFLOP: 33 us at the bf16 tensor-core peak, so
 // operations bound it, barely (chip_smoke.py's ``mlstm_bwd_bound_ms``).
-// This kernel does it all in scalar fp32 FMAs (bf16 inputs converted where
-// they are loaded), with q k^T recomputed by each of the D / 32 column
-// blocks twice (the states launch and the main one), and writes and reads
-// the dq, dk partials (12 x 12.6 MB each in fp32 at that shape); putting
-// the products on the tensor cores is later work (ROADMAP.md B3d).
 //
-// The design of the main kernel.  One block (256 threads) per (column
-// block, h, b) with a loop over the chunks inside (the TPU's sequential
-// axis; Hopper blocks run in no order).  Shared memory holds dS[:, cols],
-// one Q x Q matrix M [Q][Q+4] (in turn P, G and A dP, on the 4 x 4 tiles on
-// or below the diagonal), v and dnum of its columns [Q][VB], q and k tiles
-// [Q][36], dn and n_p (D) and the per-row vectors.  A thread owns 4 x 4
-// register tiles; every inner dimension is walked 4 wide with float4 loads.
-// S_p is read from the scratch through L2.  Sums across tiles go through
-// small shared buffers in a fixed order; the short sums that cancel (row
-// and column sums of Q x Q matrices, the partials across column blocks,
-// the reverse cumsum of db) run in fp64, which costs nothing beside the
-// products.  The gate math (b, the stabilisers) runs in fp64 in both
-// launches, and every exponent b_i - b_j + ig_j - m_i (and those of s_i,
-// c_j and the state's decay) is formed in fp64 and rounded once before
-// expf: an fp32 b, down to ~-50 over a chunk of 128, carried an absolute
-// error of ~1e-5 into them, which put single entries of dk 1.15x past err
-// / (1e-4 + 1e-4 |exact|) <= 1 against the fp64 gradient at D 384, chunk
-// 128, where the sequential plain version stays under 0.12 (ROADMAP C2,
-// found by a CPU emulation; after the repair the kernel's worst there is
-// 0.24 on the card).  m' is rounded to fp32 before the exponents that use
-// it, as the states scratch keeps it, so the state stays exactly
-// stabilised by the value the next chunk reads.  Shared memory: 206,352
-// bytes at Q 128, D 384 (dS 49,152; M 67,584; v, dnum 32,768; q, k tiles
-// 36,864; vectors and partial sums 19,984): one block an SM, 384 blocks.
+// The scalar design (fp32; it ran bf16 too until the tensor-core kernels).
+//   1. mlstm_bwd_states: the forward's scalar kernel (csrc/mlstm.cu) run
+//      again, writing instead of h the states before each chunk, S_p
+//      (B, nc, H, D, D), n_p (B, nc, H, D) and m_prev (B, nc, H) (75.5 MB at
+//      the train shape; recomputed rather than saved by the forward, whose
+//      kernel and C interface stay as they are), and each column block's
+//      share of dh_i . h_i (ncb, B, S, H).
+//   2. mlstm_bwd_main: dS (576 KB in fp32 at D 384; a block may have 227 KB)
+//      split over blocks of VB = 32 value columns, as in the forward: block
+//      (vb, h, b) owns dS[:, v0:v0+VB] and walks the chunks backward.
+//      Everything that needs a full value row (dP, hence G, dqq, dk) it
+//      computes over its own columns only, as an fp32 partial; the terms in
+//      dden and dn, which need no value column, only block 0 adds.  dv it
+//      writes whole.  It recomputes q k^T, streaming q and k 32 columns at
+//      a time.
+//   3. mlstm_bwd_reduce_qk: dq and dk, the partials summed over the column
+//      blocks in a fixed order.
+//   4. mlstm_bwd_reduce_gates: dig, and db reverse-summed within each chunk
+//      into dlogf, then df; one thread a (b, h, chunk).
+// The main kernel: 256 threads a (column block, h, b), a loop over the
+// chunks inside (the TPU's sequential axis; Hopper blocks run in no
+// order).  Shared memory holds dS[:, cols], one Q x Q matrix M [Q][Q+4] (in
+// turn P, G and A dP, on the 4 x 4 tiles on or below the diagonal), v and
+// dnum of its columns [Q][VB], q and k tiles [Q][36], dn and n_p and the
+// per-row vectors: 206,352 bytes at Q 128, D 384, one block an SM.  A
+// thread owns 4 x 4 register tiles; every inner dimension is walked 4 wide
+// with float4 loads.  The short sums that cancel (row and column sums of
+// Q x Q matrices, the partials across column blocks, the reverse cumsum of
+// db) run in fp64, in a fixed order.  The gate math (b, the stabilisers)
+// runs in fp64 (gate_math) and every exponent b_i - b_j + ig_j - m_i (and
+// those of s_i, c_j and the state's decay) is formed in fp64 and rounded
+// once before expf: an fp32 b, down to ~-50 over a chunk of 128, carried an
+// absolute error of ~1e-5 into them, which put single entries of dk 1.15x
+// past err / (1e-4 + 1e-4 |exact|) <= 1 against the fp64 gradient at D 384,
+// chunk 128, where the sequential plain version stays under 0.12 (ROADMAP
+// C2).  m' is rounded to fp32 before the exponents that use it, as the
+// states scratch keeps it, so the state stays exactly stabilised by the
+// value the next chunk reads.  At the train shape in bf16 these four took
+// 12.7 ms, 380x the bound, by launch 3.50 / 8.87 / 0.21 / 0.20 ms
+// (scripts/mlstm_bwd_split.py --old on this file's earlier version, H100
+// 80GB HBM3 at 700 W).
+//
+// The bf16 design, against the five things that held the scalar kernels
+// back at bf16:
+//   (a) every product a scalar fp32 FMA: every product here is an mma;
+//   (b) the states launch was the forward's scalar kernel run again: launch
+//       1 carries S and n alone on the tensor cores (the update is one
+//       product a chunk, (cw (.) k)^T v), and h moves to launch 2;
+//   (c) q k^T recomputed by every value-column block, twice: launch 2 forms
+//       P = q k^T (.) A once per (b, h, chunk), over all D;
+//   (d) dP, G and everything after them were partials over 32 value
+//       columns, dq and dk 12 fp32 partials of 25.2 MB each: launch 2 forms
+//       dP = dh v^T / g + dden over all D once, and launch 4 tiles dq, dk
+//       and dv over their output columns, each block owning its columns
+//       whole, so none of them has partials;
+//   (e) one block of 8 warps an SM walking 4 chunks in order: launches 2
+//       and 4 are chunk-parallel (128 and 768 blocks of 16 warps at the
+//       train shape); only the two sweeps walk the chunks, 384 blocks of 8
+//       warps, two an SM.
+// Launches (grids at the train shape):
+//   1. mlstm_bwd_states_bf16 (D / 32, H, B): the states before each chunk,
+//      S_p, n_p and m_prev, to the scratch (state_sweep below).
+//   2. mlstm_bwd_chunk_bf16 (chunks, H, B): per chunk, P, q . n_p, den and
+//      g; per group of 64 value columns, h = (s q S_p / sqrt(D) + P v) / g
+//      in fp32 accumulators, dh . h and dh . (q S_p); dh v^T over all D;
+//      then dden, dP, G's row and column sums and the inter-chunk term of
+//      db into the chunk's record, and A (.) dP / sqrt(D) and P / g as bf16.
+//   3. mlstm_bwd_dstates_bf16 (D / 32, H, B): dS and dn after each chunk,
+//      carried backward, dS <- so dS + (s / g (.) qq)^T dh, to the scratch
+//      (75.5 MB, as S_p), and <dS, S_p> over its columns.
+//   4. mlstm_bwd_out_bf16 (chunks x D / 64, H, B): dq, dk, dv of a (chunk,
+//      64-column tile), whole, and k_j . (dS v_j + dn) over the tile.
+//   5. mlstm_bwd_gates_bf16: dw, dtot, the reverse cumsum of db, d i_gate
+//      and d f_gate, one warp a chunk, all in fp64.
+// Rounding.  q, k, v and dh are bf16 already; of the computed operands, S_p
+// (in q S_p and dh S_p^T), P (in P v), s / g (.) qq (in the dS update) and
+// dS (in v dS^T and k dS) are split into hi + lo (two mma into one
+// accumulator, ~2^-16 of the value); cw (.) k, A (.) dP / sqrt(D) and P / g
+// are rounded once.  dh . h takes h in fp32; the gate math and the sums
+// that cancel are the scalar path's, in fp64.  A CPU emulation of exactly
+// this arithmetic (tests/test_torch_mlstm.py::emulate_bwd) holds every
+// gradient within a relative rms of 2e-2 of the fp32 plain version, and
+// puts one past it wherever any of the four splits is rounded once instead
+// (at gates of +-20: 0.52-4.6).  S_p and dS stay fp32 in the scratch; the
+// kernels that read them split them as they stage them.
+// Staging.  bf16 tiles come by 16-byte cp.async where rows are whole
+// 16-byte units (else element by element), fp32 ones four float4 loads a
+// thread before any is stored, so their latencies overlap; every tile row
+// is padded by 8 elements, so ldmatrix's 8 row addresses fall in distinct
+// banks.  Shared memory at Q 128, D 384: launches 1 and 3 87,088 bytes,
+// launch 2 227,344, launch 4 214,528 (mlstm_scan_bwd_tc_smem_bytes).
 //
 // The stabiliser's start: m_prev is -inf before the first chunk; s_i and
 // so are set to 0 there instead of evaluating exp(-inf - m), so -inf -
@@ -114,6 +166,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -157,10 +213,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // e^{v} of an exponent formed in fp64.
 __device__ __forceinline__ float exp_of(double v) { return expf(static_cast<float>(v)); }
@@ -1153,6 +1205,1199 @@ cudaError_t launch(const Params& p, void* dq, void* dk, void* dig, void* df,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: five tensor-core launches (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators; helpers in mma_bf16.cuh).
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int TC_WARPS = 16;
+constexpr int TC_THREADS = TC_WARPS * 32;
+constexpr int SW_WARPS = 8;         // the sweeps: two blocks an SM
+constexpr int SW_THREADS = SW_WARPS * 32;
+constexpr int KC = 128;             // key columns staged at once (8 m16 tiles of the state)
+constexpr int MAX_KC = MAX_D / KC;  // key chunks of the state a warp carries
+constexpr int MAX_TRI16 = 3;        // 16 x 16 tiles of the lower triangle a warp owns: ceil(36 / 16)
+constexpr int GATE_WARPS = 4;       // mlstm_bwd_gates_bf16: one warp a (b, h, chunk)
+constexpr int SMEM_LIMIT = 232448;  // 227 KB, a block's most
+
+__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
+// Width of the column tiles (a block's value columns in the sweeps, an
+// output tile, a value group): 16 where D <= 16, else 32.
+__host__ __device__ constexpr int tile_w(int D) { return D <= 16 ? 16 : 32; }
+__host__ __device__ constexpr int n_tiles(int D) { return (D + tile_w(D) - 1) / tile_w(D); }
+// Width of launch 4's output tiles: 64 where D is a multiple of 64.
+__host__ __device__ constexpr int out_w(int D) { return D % 64 == 0 ? 64 : tile_w(D); }
+// A chunk's record in the scratch, in floats: s_i, c_j, 1/g_i, dden_i, the
+// chunk's share of db_i and of d i_gate_i (QP each), then the old state's scale.
+__host__ __device__ constexpr int rec_floats(int QP) { return 6 * QP + 4; }
+
+struct TcParams {
+  const bf16 *q, *k, *v, *ig, *fg, *dh;
+  bf16 *dq, *dk, *dv, *dig, *df;
+  float *Sp, *np, *mp, *dS, *dn, *rec, *tdp, *dwp;
+  bf16* mats;       // per (b, h, chunk): A (.) dP / sqrt(D), then P / g, [QP][QP] bf16 each
+  int B, L, H, D, Q, nc, QP, W, nt, W4, nt4, nst;
+  float inv_sqrt_d;
+  int vec16;        // q, k, v, dh rows in whole 16-byte units, 16-byte aligned
+  int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
+  int64_t isb, iss, ish, fsb, fss, fsh, dsb, dss, dsh;
+};
+
+// The bf16 path's scratch, offsets in floats (every one a multiple of 4).
+struct TcScratch {
+  int64_t Sp, np, mp, dS, dn, rec, tdp, dwp, mats, total;
+  TcScratch(int B, int L, int H, int D, int Q) {
+    const int64_t nc = (L + Q - 1) / Q;
+    const int64_t n = static_cast<int64_t>(B) * nc * H;
+    const int64_t QP = round16(Q);
+    const int64_t nt = n_tiles(D);
+    Sp = 0;                            // (B, nc, H, D, D) state before each chunk
+    np = Sp + n * D * D;               // (B, nc, H, D)
+    mp = np + n * D;                   // (B, nc, H) stabiliser before each chunk
+    dS = mp + (n + 3) / 4 * 4;         // (B, nc, H, D, D) cotangent of the state after it
+    dn = dS + n * D * D;               // (B, nc, H, D)
+    rec = dn + n * D;                  // (B, nc, H) records
+    tdp = rec + n * rec_floats(QP);    // (nt, B, nc, H): <dS, S_p> over a block's columns
+    dwp = tdp + (nt * n + 3) / 4 * 4;  // (nt, B, nc, H, QP): k_j . (dS v_j + dn) over a tile
+    mats = dwp + nt * n * QP;          // (B, nc, H, 2, QP, QP) bf16
+    total = mats + n * QP * QP;
+  }
+};
+
+// Fragment loads.  lda: the A fragment (16 x 16 at rows m0, columns k0)
+// of a row-major matrix; lda_t: of A = X^T with X row-major [k][m]; ldb:
+// the B fragments of two n8 tiles (n0, n0 + 8; b[0..1] the first) of
+// B = Y^T with Y row-major [n][k]; ldb_t: of B row-major [k][n].  ld in
+// elements, a multiple of 8 and, as width + 8, conflict-free for ldmatrix.
+__device__ __forceinline__ void lda(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0,
+                                    int lane) {
+  mma::ldmatrix_x4(a, s + (m0 + (lane & 15)) * ld + k0 + ((lane >> 4) << 3));
+}
+__device__ __forceinline__ void lda_t(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0,
+                                      int lane) {
+  mma::ldmatrix_x4_trans(a, s + (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + m0 +
+                                (((lane >> 3) & 1) << 3));
+}
+__device__ __forceinline__ void ldb(uint32_t (&b)[4], const bf16* s, int ld, int n0, int k0,
+                                    int lane) {
+  mma::ldmatrix_x4(b, s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
+                          (((lane >> 3) & 1) << 3));
+}
+__device__ __forceinline__ void ldb_t(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0,
+                                      int lane) {
+  mma::ldmatrix_x4_trans(b, s + (k0 + (lane & 15)) * ld + n0 + ((lane >> 4) << 3));
+}
+// acc (two n8 tiles) += a b.
+__device__ __forceinline__ void mma2(float (&acc)[2][4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[4]) {
+  mma::mma_bf16(acc[0], a, b[0], b[1]);
+  mma::mma_bf16(acc[1], a, b[2], b[3]);
+}
+
+// Row r, column c of accumulator element e of n8 tile nt in a warp's
+// 16 x 16 tile.
+__device__ __forceinline__ int frag_row(int lane, int e) { return (lane >> 2) + ((e >> 1) << 3); }
+__device__ __forceinline__ int frag_col(int lane, int nt, int e) {
+  return nt * 8 + ((lane & 3) << 1) + (e & 1);
+}
+
+// Tile k of the lower triangle of 16 x 16 tiles, row-major: (row r, column j <= r).
+__device__ __forceinline__ void tri16(int k, int& r, int& j) {
+  int ti = static_cast<int>((sqrtf(8.f * k + 1.f) - 1.f) * 0.5f);
+  while ((ti + 1) * (ti + 2) / 2 <= k) ++ti;
+  while (ti * (ti + 1) / 2 > k) --ti;
+  r = ti;
+  j = k - ti * (ti + 1) / 2;
+}
+
+// Rows [0, nrows) and columns [c0, c0 + W) of a bf16 matrix (row stride rs)
+// into dst [nrows][W + 8]; rows >= qv and columns >= D are zeros.  By
+// 16-byte cp.async where ``vec`` says the rows allow it (the caller waits
+// with staged() before its barrier), else by plain loads.
+__device__ __forceinline__ void stage_bf16(bf16* dst, int W, const bf16* src, int64_t rs, int qv,
+                                           int nrows, int c0, int D, bool vec) {
+  const int units = W / 8;
+  for (int idx = threadIdx.x; idx < nrows * units; idx += blockDim.x) {
+    const int r = idx / units;
+    const int c = c0 + (idx - r * units) * 8;
+    if (vec) {  // D % 8 == 0: a unit lies wholly inside D or wholly past it
+      const bool ok = r < qv && c < D;
+      mma::cp_async16(dst + r * (W + 8) + (c - c0), ok ? src + r * rs + c : src, ok);
+      continue;
+    }
+    uint32_t w4[4] = {0u, 0u, 0u, 0u};
+    if (r < qv) {
+      const bf16* s = src + r * rs + c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t lo = c + 2 * e < D ? __bfloat16_as_ushort(s[2 * e]) : 0u;
+        const uint32_t hi = c + 2 * e + 1 < D ? __bfloat16_as_ushort(s[2 * e + 1]) : 0u;
+        w4[e] = lo | (hi << 16);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * (W + 8) + (c - c0)) = make_uint4(w4[0], w4[1], w4[2], w4[3]);
+  }
+}
+
+// This thread's cp.async copies landed (then a barrier makes them the block's).
+__device__ __forceinline__ void staged() {
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+}
+
+// Rows [r0, r0 + nrows) and columns [c0, c0 + W) of an fp32 (D, D)
+// row-major matrix (zeros past D) into bf16 hi and lo [nrows][W + 8].
+// Loads go out STAGE_BATCH at a time before any store, so their latencies
+// overlap.
+constexpr int STAGE_BATCH = 4;
+__device__ __forceinline__ void stage_split(bf16* hi, bf16* lo, int W, const float* src, int D,
+                                            int r0, int nrows, int c0) {
+  const int units = W / 4, total = nrows * units;
+  for (int base = threadIdx.x; base < total; base += STAGE_BATCH * blockDim.x) {
+    float4 x[STAGE_BATCH];
+#pragma unroll
+    for (int u = 0; u < STAGE_BATCH; ++u) {
+      const int idx = base + u * blockDim.x;
+      const int r = idx / units;
+      const int c = (idx - r * units) * 4;
+      x[u] = idx < total && r0 + r < D && c0 + c < D
+                 ? __ldcg(reinterpret_cast<const float4*>(
+                       src + static_cast<int64_t>(r0 + r) * D + c0 + c))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < STAGE_BATCH; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx >= total) break;
+      const int r = idx / units;
+      const int c = (idx - r * units) * 4;
+      uint32_t h0, l0, h1, l1;
+      mma::split_bf16(x[u].x, x[u].y, h0, l0);
+      mma::split_bf16(x[u].z, x[u].w, h1, l1);
+      *reinterpret_cast<uint2*>(hi + r * (W + 8) + c) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(lo + r * (W + 8) + c) = make_uint2(l0, l1);
+    }
+  }
+}
+
+__device__ __forceinline__ float bf(const bf16* s) { return __bfloat162float(*s); }
+
+// Shared memory of the two sweeps, in bytes.
+struct SwLayout {
+  int bq, mi, xh, xl, ys, wv, w2, igs, isc, cw, nv, red, npart, bytes;
+  __host__ __device__ constexpr SwLayout(int QP, int W, int D)
+      : bq(0), mi(8 * QP), xh(16 * QP),
+        xl(16 * QP + 2 * QP * (KC + 8)),
+        ys(16 * QP + 4 * QP * (KC + 8)),
+        wv(16 * QP + 4 * QP * (KC + 8) + 2 * QP * (W + 8)),
+        w2(wv + 4 * QP), igs(wv + 8 * QP), isc(wv + 12 * QP), cw(wv + 16 * QP),
+        nv(wv + 20 * QP), red(wv + 20 * QP + 4 * round16(D)),
+        npart(wv + 20 * QP + 4 * round16(D) + 4 * (SW_WARPS + 4)),
+        bytes(wv + 20 * QP + 4 * round16(D) + 4 * (SW_WARPS + 4) + 4 * SW_WARPS * 32) {}
+};
+
+// Launches 1 and 3: a state (D x D) carried over the chunks in fp32
+// accumulators, split by value columns: block (vblk, h, b) owns columns
+// [v0, v0 + W), its 8 warps each a 16-row tile of every 128 key rows, all
+// W columns (two blocks an SM, so one's loads overlap the other's
+// products).  Per chunk it writes the state to the scratch, then
+// adds X^T Y, X = w (.) R (the chunk's rows of k or q weighted per row,
+// staged 128 key columns at a time as bf16, hi + lo where BACK), Y the
+// chunk's rows of v or dh (own columns); it carries key rows [v0, v0 + W)
+// of the vector alike, in fp32 from unrounded values:
+//   forward (BACK false):  S  <- so S  + (cw (.) k)^T v,             n  <- so n  + sum_j cw_j k_j
+//   backward (BACK true):  dS <- so dS + (s / g (.) qq)^T dh,         dn <- so dn + sum_i s_i dden_i qq_i
+// Forward, it writes the state before each chunk (S_p, n_p, m_prev), with
+// the gate math of the scalar kernel; backward, the cotangent of the state
+// after each chunk (dS, dn), the weights from launch 2's records, and
+// <dS, S_p> over its columns.
+template <bool BACK, int NP>
+__device__ __forceinline__ void state_sweep(const TcParams& p) {
+  extern __shared__ __align__(16) unsigned char smem_sw[];
+  const int QP = p.QP, W = p.W, D = p.D, DP = round16(D);
+  const SwLayout L(QP, W, D);
+  double* bq = reinterpret_cast<double*>(smem_sw + L.bq);
+  double* mi = reinterpret_cast<double*>(smem_sw + L.mi);
+  bf16* Xh = reinterpret_cast<bf16*>(smem_sw + L.xh);
+  bf16* Xl = reinterpret_cast<bf16*>(smem_sw + L.xl);
+  bf16* Ys = reinterpret_cast<bf16*>(smem_sw + L.ys);
+  float* wv = reinterpret_cast<float*>(smem_sw + L.wv);
+  float* w2 = reinterpret_cast<float*>(smem_sw + L.w2);
+  float* igs = reinterpret_cast<float*>(smem_sw + L.igs);
+  float* isc = reinterpret_cast<float*>(smem_sw + L.isc);
+  float* cw = reinterpret_cast<float*>(smem_sw + L.cw);
+  float* nv = reinterpret_cast<float*>(smem_sw + L.nv);
+  float* red = reinterpret_cast<float*>(smem_sw + L.red);
+  float* scal = red + SW_WARPS;
+  float* npart = reinterpret_cast<float*>(smem_sw + L.npart);  // [SW_WARPS][32]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int vblk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int v0 = vblk * W;
+  const int mr = warp;  // and all W columns: NP pairs of n8 tiles
+  const int nkc = (DP + KC - 1) / KC;
+  const bf16* R = BACK ? p.q + b * p.qsb + h * p.qsh : p.k + b * p.ksb + h * p.ksh;
+  const int64_t rs = BACK ? p.qss : p.kss;
+  const bf16* Yg = BACK ? p.dh + b * p.dsb + h * p.dsh : p.v + b * p.vsb + h * p.vsh;
+  const int64_t ys = BACK ? p.dss : p.vss;
+  const bf16* ig_g = p.ig + b * p.isb + h * p.ish;
+  const bf16* fg_g = p.fg + b * p.fsb + h * p.fsh;
+  float* out = BACK ? p.dS : p.Sp;
+  float* nout = BACK ? p.dn : p.np;
+
+  float acc[MAX_KC][NP][2][4];
+#pragma unroll
+  for (int pk = 0; pk < MAX_KC; ++pk)
+#pragma unroll
+    for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[pk][pr][nt][e] = 0.f;
+  for (int i = tid; i < DP; i += SW_THREADS) nv[i] = 0.f;
+  float m_prev = -INFINITY;  // forward: warp 0 keeps it
+
+  for (int step = 0; step < p.nc; ++step) {
+    const int ch = BACK ? p.nc - 1 - step : step;
+    const int t0 = ch * p.Q;
+    const int qv = min(p.Q, p.L - t0);
+    const int64_t st = (static_cast<int64_t>(b) * p.nc + ch) * p.H + h;
+    __syncthreads();  // the last chunk is done with the weights and Y
+    if (BACK) {
+      const float* rec = p.rec + st * rec_floats(QP);
+      for (int i = tid; i < QP; i += SW_THREADS) {
+        const float s = rec[i] * p.inv_sqrt_d;
+        wv[i] = s * rec[2 * QP + i];
+        w2[i] = s * rec[3 * QP + i];
+      }
+      if (tid == 0) scal[0] = rec[6 * QP];
+    } else if (warp == 0) {
+      const float m = gate_math<bf16>(ig_g, fg_g, p.iss, p.fss, t0, qv, p.Q, m_prev, bq, igs, mi,
+                                      isc, cw, scal, lane);
+      if (vblk == 0 && lane == 0) p.mp[st] = m_prev;
+      m_prev = m;
+    }
+    stage_bf16(Ys, W, Yg + t0 * ys, ys, qv, QP, v0, D, p.vec16);
+    staged();
+    __syncthreads();
+    if (!BACK) {
+      for (int i = tid; i < QP; i += SW_THREADS) wv[i] = w2[i] = i < p.Q ? cw[i] : 0.f;
+      __syncthreads();
+    }
+    const float so = scal[0];
+    {  // the vector's key rows [v0, v0 + W): each warp sums the chunk's rows
+       // j = warp mod 16, then one thread a key row the warps' sums in order
+      const int dl = lane, d = v0 + lane;
+      float s = 0.f;
+      if (dl < W && d < D) {
+#pragma unroll 4
+        for (int j = warp; j < qv; j += SW_WARPS)
+          s = fmaf(w2[j], __bfloat162float(R[(t0 + j) * rs + d]), s);
+      }
+      npart[warp * 32 + dl] = s;
+      __syncthreads();
+      if (tid < W && v0 + tid < D) {
+        nout[st * D + v0 + tid] = nv[tid];
+        float t = nv[tid] * so;
+        for (int w = 0; w < SW_WARPS; ++w) t += npart[w * 32 + tid];
+        nv[tid] = t;
+      }
+    }
+    float* og = out + st * D * D;
+    const float* spg = p.Sp + st * D * D;
+    float tsum = 0.f;  // backward: this thread's share of <dS, S_p>
+#pragma unroll
+    for (int pk = 0; pk < MAX_KC; ++pk) {
+      if (pk >= nkc) break;
+      const int d0 = pk * KC;
+      // X = w (.) R[:, d0:d0+KC] as bf16 (hi + lo backward), a 16-byte unit a
+      // thread, STAGE_BATCH units loaded before any is stored.
+      const int units = QP * (KC / 8);
+      for (int base = tid; base < units; base += STAGE_BATCH * SW_THREADS) {
+        uint32_t raw[STAGE_BATCH][4];
+#pragma unroll
+        for (int u = 0; u < STAGE_BATCH; ++u) {
+          const int idx = base + u * SW_THREADS;
+          const int r = idx >> 4;
+          const int c = d0 + ((idx & 15) << 3);
+          raw[u][0] = raw[u][1] = raw[u][2] = raw[u][3] = 0u;
+          if (idx < units && r < qv && c < D) {
+            const bf16* s = R + (t0 + r) * rs + c;
+            if (p.vec16) {
+              const uint4 v4 = __ldg(reinterpret_cast<const uint4*>(s));
+              raw[u][0] = v4.x;
+              raw[u][1] = v4.y;
+              raw[u][2] = v4.z;
+              raw[u][3] = v4.w;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const uint32_t lo = c + 2 * e < D ? __bfloat16_as_ushort(s[2 * e]) : 0u;
+                const uint32_t hi = c + 2 * e + 1 < D ? __bfloat16_as_ushort(s[2 * e + 1]) : 0u;
+                raw[u][e] = lo | (hi << 16);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < STAGE_BATCH; ++u) {
+          const int idx = base + u * SW_THREADS;
+          if (idx >= units) break;
+          const int r = idx >> 4;
+          const float w = wv[r];
+          uint32_t hi[4], lo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = mma::unpack_bf16(raw[u][e]);
+            mma::split_bf16(w * f.x, w * f.y, hi[e], lo[e]);
+          }
+          const int o = r * (KC + 8) + ((idx & 15) << 3);
+          *reinterpret_cast<uint4*>(Xh + o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          if (BACK) *reinterpret_cast<uint4*>(Xl + o) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
+      }
+      __syncthreads();
+      const int row0 = d0 + 16 * mr;
+      if (row0 < DP) {
+        float2 sp[NP][2][2];  // backward: S_p at this thread's entries, all loads first
+#pragma unroll
+        for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int row = row0 + (lane >> 2) + 8 * hf;
+              const int col = v0 + 16 * pr + frag_col(lane, nt, 0);
+              sp[pr][nt][hf] = BACK && row < D && col < D
+                                   ? __ldcg(reinterpret_cast<const float2*>(
+                                         spg + static_cast<int64_t>(row) * D + col))
+                                   : make_float2(0.f, 0.f);
+            }
+#pragma unroll
+        for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int row = row0 + (lane >> 2) + 8 * hf;
+              const int col = v0 + 16 * pr + frag_col(lane, nt, 0);
+              float* a = acc[pk][pr][nt];
+              if (row < D && col < D) {
+                const int64_t o = static_cast<int64_t>(row) * D + col;
+                *reinterpret_cast<float2*>(og + o) = make_float2(a[2 * hf], a[2 * hf + 1]);
+                tsum = fmaf(a[2 * hf], sp[pr][nt][hf].x, fmaf(a[2 * hf + 1], sp[pr][nt][hf].y, tsum));
+              }
+              a[2 * hf] *= so;
+              a[2 * hf + 1] *= so;
+            }
+        for (int jt = 0; jt * 16 < qv; ++jt) {
+          uint32_t a[4], al[4];
+          lda_t(a, Xh, KC + 8, 16 * mr, 16 * jt, lane);
+          if (BACK) lda_t(al, Xl, KC + 8, 16 * mr, 16 * jt, lane);
+#pragma unroll
+          for (int pr = 0; pr < NP; ++pr) {
+            uint32_t bb[4];
+            ldb_t(bb, Ys, W + 8, 16 * jt, 16 * pr, lane);
+            mma2(acc[pk][pr], a, bb);
+            if (BACK) mma2(acc[pk][pr], al, bb);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (BACK) {  // <dS, S_p> over this block's columns, in a fixed order
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) tsum += __shfl_xor_sync(0xffffffffu, tsum, o);
+      if (lane == 0) red[warp] = tsum;
+      __syncthreads();
+      if (tid == 0) {
+        double s = 0.0;
+        for (int w = 0; w < SW_WARPS; ++w) s += red[w];
+        p.tdp[vblk * static_cast<int64_t>(p.nst) + st] = static_cast<float>(s);
+      }
+    }
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(SW_THREADS, 2) mlstm_bwd_states_bf16(const TcParams p) {
+  state_sweep<false, NP>(p);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(SW_THREADS, 2) mlstm_bwd_dstates_bf16(const TcParams p) {
+  state_sweep<true, NP>(p);
+}
+
+// Shared memory of launch 2, in bytes.
+struct ChLayout {
+  int bq, mi, qs, ks, dhs, vs, sph, spl, ph, pl, igs, isc, cw, qn, den, flo, ginv, dden, npv,
+      rowt, colt, xh, ddh, scal, bytes;
+  __host__ __device__ constexpr ChLayout(int QP, int W, int D)
+      : bq(0), mi(8 * QP), qs(16 * QP),
+        ks(16 * QP + 2 * QP * (KC + 8)),
+        dhs(16 * QP + 4 * QP * (KC + 8)),
+        vs(dhs + 2 * QP * (W + 8)),
+        sph(dhs + 4 * QP * (W + 8)),
+        spl(sph + 2 * KC * (W + 8)),
+        ph(sph + 4 * KC * (W + 8)),
+        pl(ph + 2 * QP * (QP + 8)),
+        igs(ph + 4 * QP * (QP + 8)),
+        isc(igs + 4 * QP), cw(igs + 8 * QP), qn(igs + 12 * QP), den(igs + 16 * QP),
+        flo(igs + 20 * QP), ginv(igs + 24 * QP), dden(igs + 28 * QP), npv(igs + 32 * QP),
+        rowt(npv + 4 * round16(D)),
+        colt(rowt + 4 * 16 * (QP / 16) * (QP / 16 + 1) / 2),
+        xh(colt + 4 * 16 * (QP / 16) * (QP / 16 + 1) / 2),
+        ddh(xh + 8 * QP), scal(xh + 16 * QP), bytes(xh + 16 * QP + 16) {}
+};
+
+// Launch 2, grid (chunks, H, B), 16 warps: one (b, h, chunk), all of it
+// chunk-parallel.  P = q k^T / sqrt(D) (.) A once over all D (each warp up
+// to 3 16 x 16 tiles of the lower triangle), its row sums, and P to shared
+// memory as bf16 hi + lo; q . n_p, den and g; then, per group of W = out_w(D)
+// value columns (a warp: 16 rows, 16 NP columns), h in fp32 accumulators
+// (q S_p over 128 key columns at a time with S_p split hi + lo, scaled by
+// s_i / sqrt(D), plus P v), dh . h and dh . (q S_p) as row partials, and
+// dh v^T added into the triangle's registers; then dden, dP = dh v^T / g +
+// dden and G = P (.) dP (P read back as hi + lo), whose row and column sums
+// (and the inter-chunk term of db) go to the chunk's record, and A (.) dP /
+// sqrt(D) and P / g to the scratch as bf16 for launch 4.
+template <int NP>
+__global__ void __launch_bounds__(TC_THREADS, 1) mlstm_bwd_chunk_bf16(const TcParams p) {
+  extern __shared__ __align__(16) unsigned char smem_ch[];
+  const int QP = p.QP, W = p.W4, D = p.D, DP = round16(D), QT = QP / 16;
+  const ChLayout L(QP, W, D);
+  double* bq = reinterpret_cast<double*>(smem_ch + L.bq);
+  double* mi = reinterpret_cast<double*>(smem_ch + L.mi);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_ch + L.qs);
+  bf16* Ks = reinterpret_cast<bf16*>(smem_ch + L.ks);
+  bf16* dHs = reinterpret_cast<bf16*>(smem_ch + L.dhs);
+  bf16* Vs = reinterpret_cast<bf16*>(smem_ch + L.vs);
+  bf16* Sph = reinterpret_cast<bf16*>(smem_ch + L.sph);
+  bf16* Spl = reinterpret_cast<bf16*>(smem_ch + L.spl);
+  bf16* Ph = reinterpret_cast<bf16*>(smem_ch + L.ph);
+  bf16* Pl = reinterpret_cast<bf16*>(smem_ch + L.pl);
+  float* igs = reinterpret_cast<float*>(smem_ch + L.igs);
+  float* isc = reinterpret_cast<float*>(smem_ch + L.isc);
+  float* cw = reinterpret_cast<float*>(smem_ch + L.cw);
+  float* qn = reinterpret_cast<float*>(smem_ch + L.qn);
+  float* den = reinterpret_cast<float*>(smem_ch + L.den);
+  float* flo = reinterpret_cast<float*>(smem_ch + L.flo);
+  float* ginv = reinterpret_cast<float*>(smem_ch + L.ginv);
+  float* dden = reinterpret_cast<float*>(smem_ch + L.dden);
+  float* npv = reinterpret_cast<float*>(smem_ch + L.npv);
+  float* rowt = reinterpret_cast<float*>(smem_ch + L.rowt);
+  float* colt = reinterpret_cast<float*>(smem_ch + L.colt);
+  float* xh = reinterpret_cast<float*>(smem_ch + L.xh);
+  float* ddh = reinterpret_cast<float*>(smem_ch + L.ddh);
+  float* scal = reinterpret_cast<float*>(smem_ch + L.scal);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ch = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int t0 = ch * p.Q;
+  const int qv = min(p.Q, p.L - t0);
+  const int64_t st = (static_cast<int64_t>(b) * p.nc + ch) * p.H + h;
+  const float isd = p.inv_sqrt_d;
+  const bf16* qg = p.q + b * p.qsb + h * p.qsh + t0 * p.qss;
+  const bf16* kg = p.k + b * p.ksb + h * p.ksh + t0 * p.kss;
+  const bf16* vg = p.v + b * p.vsb + h * p.vsh + t0 * p.vss;
+  const bf16* dhg = p.dh + b * p.dsb + h * p.dsh + t0 * p.dss;
+  const float* spg = p.Sp + st * D * D;
+  float* rec = p.rec + st * rec_floats(QP);
+  const int ntri = QT * (QT + 1) / 2;
+  const int nkc = (DP + KC - 1) / KC;
+
+  if (warp == 0)
+    gate_math<bf16>(p.ig + b * p.isb + h * p.ish, p.fg + b * p.fsb + h * p.fsh, p.iss, p.fss, t0,
+                    qv, p.Q, p.mp[st], bq, igs, mi, isc, cw, scal, lane);
+  for (int i = tid; i < DP; i += TC_THREADS) npv[i] = i < D ? p.np[st * D + i] : 0.f;
+  for (int i = tid; i < 2 * QP; i += TC_THREADS) xh[i] = ddh[i] = 0.f;
+  __syncthreads();
+  for (int i = p.Q + tid; i < QP; i += TC_THREADS) isc[i] = cw[i] = 0.f;
+
+  int tr[MAX_TRI16], tj[MAX_TRI16];
+#pragma unroll
+  for (int u = 0; u < MAX_TRI16; ++u) tri16(warp + TC_WARPS * u, tr[u], tj[u]);
+  float P[MAX_TRI16][2][4], DV[MAX_TRI16][2][4];  // q k^T then P (steps 1-2); dh v^T
+#pragma unroll
+  for (int u = 0; u < MAX_TRI16; ++u)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) P[u][nt][e] = DV[u][nt][e] = 0.f;
+
+  // 1. q k^T on the triangle, and q . n_p (4 threads a row), 128 columns at a time.
+  float qnp = 0.f;
+  for (int kc = 0; kc < nkc; ++kc) {
+    stage_bf16(Qs, KC, qg, p.qss, qv, QP, kc * KC, D, p.vec16);
+    stage_bf16(Ks, KC, kg, p.kss, qv, QP, kc * KC, D, p.vec16);
+    staged();
+    __syncthreads();
+    const int kw = min(KC, DP - kc * KC);
+#pragma unroll
+    for (int u = 0; u < MAX_TRI16; ++u) {
+      if (warp + TC_WARPS * u >= ntri) break;
+      for (int k0 = 0; k0 < kw; k0 += 16) {
+        uint32_t a[4], bb[4];
+        lda(a, Qs, KC + 8, 16 * tr[u], k0, lane);
+        ldb(bb, Ks, KC + 8, 16 * tj[u], k0, lane);
+        mma2(P[u], a, bb);
+      }
+    }
+    {
+      const int i = tid >> 2, part = tid & 3;
+      if (i < QP)
+        for (int c = part * (KC / 4); c < (part + 1) * (KC / 4); ++c)
+          if (kc * KC + c < DP) qnp = fmaf(bf(Qs + i * (KC + 8) + c), npv[kc * KC + c], qnp);
+    }
+    __syncthreads();
+  }
+  qnp += __shfl_xor_sync(0xffffffffu, qnp, 1);
+  qnp += __shfl_xor_sync(0xffffffffu, qnp, 2);
+  if ((tid & 3) == 0 && (tid >> 2) < QP) qn[tid >> 2] = qnp * isd;
+
+  // 2. P, its row sums by tile, and P as bf16 hi + lo.
+#pragma unroll
+  for (int u = 0; u < MAX_TRI16; ++u) {
+    const int idx = warp + TC_WARPS * u;
+    if (idx >= ntri) break;
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 16 * tr[u] + frag_row(lane, e);
+        const int j = 16 * tj[u] + frag_col(lane, nt, e);
+        P[u][nt][e] = j <= i && i < qv
+                          ? P[u][nt][e] * isd * exp_of(bq[i] - bq[j] + igs[j] - mi[i])
+                          : 0.f;
+        rs[e >> 1] += P[u][nt][e];
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        uint32_t hi, lo;
+        mma::split_bf16(P[u][nt][2 * hf], P[u][nt][2 * hf + 1], hi, lo);
+        const int o = (16 * tr[u] + (lane >> 2) + 8 * hf) * (QP + 8) + 16 * tj[u] +
+                      frag_col(lane, nt, 0);
+        *reinterpret_cast<uint32_t*>(Ph + o) = hi;
+        *reinterpret_cast<uint32_t*>(Pl + o) = lo;
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      rs[hf] += __shfl_xor_sync(0xffffffffu, rs[hf], 1);
+      rs[hf] += __shfl_xor_sync(0xffffffffu, rs[hf], 2);
+    }
+    if ((lane & 3) == 0) {
+      rowt[idx * 16 + (lane >> 2)] = rs[0];
+      rowt[idx * 16 + (lane >> 2) + 8] = rs[1];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < QP; i += TC_THREADS) {
+    const int r = i >> 4;
+    double s = 0.0;
+    for (int j = 0; j <= r; ++j) s += rowt[(r * (r + 1) / 2 + j) * 16 + (i & 15)];
+    const float d = fmaf(isc[i], qn[i], static_cast<float>(s));
+    const float fl = i < qv ? exp_of(-mi[i]) : 1.f;
+    den[i] = d;
+    flo[i] = fl;
+    ginv[i] = i < qv ? 1.f / fmaxf(fabsf(d), fl) : 0.f;
+  }
+  __syncthreads();
+
+  // 3. Per group of W value columns: h, dh . h, dh . (q S_p), dh v^T.
+  const int mr = warp & 7, nh = warp >> 3;
+  const int cb = 16 * NP * nh;  // this warp's first column in the group
+  const bool act = mr < QT && cb < W;
+  float xr[2] = {0.f, 0.f}, ddr[2] = {0.f, 0.f};
+  for (int grp = 0; grp < p.nt4; ++grp) {
+    const int c0 = grp * W;
+    float acc[NP][2][4];
+#pragma unroll
+    for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        acc[pr][nt][0] = acc[pr][nt][1] = acc[pr][nt][2] = acc[pr][nt][3] = 0.f;
+    for (int kc = 0; kc < nkc; ++kc) {
+      stage_bf16(Qs, KC, qg, p.qss, qv, QP, kc * KC, D, p.vec16);
+      stage_split(Sph, Spl, W, spg, D, kc * KC, KC, c0);
+      staged();
+      __syncthreads();
+      if (act) {
+        const int kw = min(KC, DP - kc * KC);
+        for (int k0 = 0; k0 < kw; k0 += 16) {
+          uint32_t a[4], bh[4], bl[4];
+          lda(a, Qs, KC + 8, 16 * mr, k0, lane);
+#pragma unroll
+          for (int pr = 0; pr < NP; ++pr) {
+            ldb_t(bh, Sph, W + 8, k0, cb + 16 * pr, lane);
+            ldb_t(bl, Spl, W + 8, k0, cb + 16 * pr, lane);
+            mma2(acc[pr], a, bh);
+            mma2(acc[pr], a, bl);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    stage_bf16(dHs, W, dhg, p.dss, qv, QP, c0, D, p.vec16);
+    stage_bf16(Vs, W, vg, p.vss, qv, QP, c0, D, p.vec16);
+    staged();
+    __syncthreads();
+    if (act) {
+      float sc[2], gi[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 16 * mr + (lane >> 2) + 8 * hf;
+        sc[hf] = isc[i] * isd;
+        gi[hf] = ginv[i];
+      }
+#pragma unroll
+      for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float dhx = bf(dHs + (16 * mr + frag_row(lane, e)) * (W + 8) + cb + 16 * pr +
+                                 frag_col(lane, nt, e));
+            xr[e >> 1] = fmaf(dhx, acc[pr][nt][e], xr[e >> 1]);
+            acc[pr][nt][e] *= sc[e >> 1];
+          }
+      for (int jt = 0; jt <= mr; ++jt) {
+        uint32_t ah[4], al[4], bb[4];
+        lda(ah, Ph, QP + 8, 16 * mr, 16 * jt, lane);
+        lda(al, Pl, QP + 8, 16 * mr, 16 * jt, lane);
+#pragma unroll
+        for (int pr = 0; pr < NP; ++pr) {
+          ldb_t(bb, Vs, W + 8, 16 * jt, cb + 16 * pr, lane);
+          mma2(acc[pr], ah, bb);
+          mma2(acc[pr], al, bb);
+        }
+      }
+#pragma unroll
+      for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float dhx = bf(dHs + (16 * mr + frag_row(lane, e)) * (W + 8) + cb + 16 * pr +
+                                 frag_col(lane, nt, e));
+            ddr[e >> 1] = fmaf(dhx, acc[pr][nt][e] * gi[e >> 1], ddr[e >> 1]);
+          }
+    }
+#pragma unroll
+    for (int u = 0; u < MAX_TRI16; ++u) {
+      if (warp + TC_WARPS * u >= ntri) break;
+      for (int k0 = 0; k0 < W; k0 += 16) {
+        uint32_t a[4], bb[4];
+        lda(a, dHs, W + 8, 16 * tr[u], k0, lane);
+        ldb(bb, Vs, W + 8, 16 * tj[u], k0, lane);
+        mma2(DV[u], a, bb);
+      }
+    }
+    __syncthreads();
+  }
+
+  // 4. dh . h and dh . (q S_p) summed over the two column halves; dden, db's inter term.
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    xr[hf] += __shfl_xor_sync(0xffffffffu, xr[hf], 1);
+    xr[hf] += __shfl_xor_sync(0xffffffffu, xr[hf], 2);
+    ddr[hf] += __shfl_xor_sync(0xffffffffu, ddr[hf], 1);
+    ddr[hf] += __shfl_xor_sync(0xffffffffu, ddr[hf], 2);
+  }
+  if (act && (lane & 3) == 0)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = 16 * mr + (lane >> 2) + 8 * hf;
+      xh[nh * QP + i] = xr[hf];
+      ddh[nh * QP + i] = ddr[hf];
+    }
+  __syncthreads();
+  for (int i = tid; i < QP; i += TC_THREADS) {
+    const float dd = ddh[i] + ddh[QP + i];
+    const float x = xh[i] + xh[QP + i];
+    const float dn_i =
+        i < qv && fabsf(den[i]) > flo[i] ? -copysignf(1.f, den[i]) * dd * ginv[i] : 0.f;
+    dden[i] = dn_i;
+    xh[i] = isc[i] * fmaf(ginv[i] * isd, x, qn[i] * dn_i);  // db's inter-chunk term
+    rec[i] = isc[i];
+    rec[QP + i] = cw[i];
+    rec[2 * QP + i] = ginv[i];
+    rec[3 * QP + i] = dn_i;
+  }
+  if (tid == 0) rec[6 * QP] = scal[0];
+  __syncthreads();
+
+  // 5. dP, G's row and column sums by tile; A (.) dP / sqrt(D) and P / g as bf16.
+  bf16* Ad = p.mats + st * 2 * QP * QP;
+  bf16* Pg = Ad + QP * QP;
+  for (int e = tid; e < QP * QP / 2; e += TC_THREADS) {  // the tiles above the diagonal: zeros
+    const int r = e / (QP / 2);
+    const int c = 2 * (e - r * (QP / 2));
+    if ((c >> 4) > (r >> 4)) {
+      *reinterpret_cast<uint32_t*>(Ad + r * QP + c) = 0u;
+      *reinterpret_cast<uint32_t*>(Pg + r * QP + c) = 0u;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < MAX_TRI16; ++u) {
+    const int idx = warp + TC_WARPS * u;
+    if (idx >= ntri) break;
+    float rs[2] = {0.f, 0.f};
+    float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float ad[4], pg[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 16 * tr[u] + frag_row(lane, e);
+        const int j = 16 * tj[u] + frag_col(lane, nt, e);
+        const bool in = j <= i && i < qv;
+        const int o = i * (QP + 8) + j;
+        const float pv = __bfloat162float(Ph[o]) + __bfloat162float(Pl[o]);  // P, hi + lo
+        const float dp = in ? fmaf(DV[u][nt][e], ginv[i], dden[i]) : 0.f;
+        const float gv = pv * dp;
+        rs[e >> 1] += gv;
+        cs[nt][e & 1] += gv;
+        ad[e] = in ? exp_of(bq[i] - bq[j] + igs[j] - mi[i]) * dp * isd : 0.f;
+        pg[e] = pv * ginv[i];
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int o = (16 * tr[u] + (lane >> 2) + 8 * hf) * QP + 16 * tj[u] + frag_col(lane, nt, 0);
+        *reinterpret_cast<uint32_t*>(Ad + o) = mma::pack_bf16(ad[2 * hf], ad[2 * hf + 1]);
+        *reinterpret_cast<uint32_t*>(Pg + o) = mma::pack_bf16(pg[2 * hf], pg[2 * hf + 1]);
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      rs[hf] += __shfl_xor_sync(0xffffffffu, rs[hf], 1);
+      rs[hf] += __shfl_xor_sync(0xffffffffu, rs[hf], 2);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) cs[nt][e] += __shfl_xor_sync(0xffffffffu, cs[nt][e], o);
+    if ((lane & 3) == 0) {
+      rowt[idx * 16 + (lane >> 2)] = rs[0];
+      rowt[idx * 16 + (lane >> 2) + 8] = rs[1];
+    }
+    if (lane < 4)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        colt[idx * 16 + frag_col(lane, nt, 0)] = cs[nt][0];
+        colt[idx * 16 + frag_col(lane, nt, 1)] = cs[nt][1];
+      }
+  }
+  __syncthreads();
+  for (int i = tid; i < QP; i += TC_THREADS) {
+    const int r = i >> 4;
+    double rg = 0.0, cg = 0.0;
+    for (int j = 0; j <= r; ++j) rg += rowt[(r * (r + 1) / 2 + j) * 16 + (i & 15)];
+    for (int k = r; k < QT; ++k) cg += colt[(k * (k + 1) / 2 + r) * 16 + (i & 15)];
+    rec[4 * QP + i] = static_cast<float>(rg - cg + xh[i]);
+    rec[5 * QP + i] = static_cast<float>(cg);
+  }
+}
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// Shared memory of launch 4, in bytes: the streamed tiles (dh, v, k
+// [QP][KC + 8]; S_p and dS rows [W][KC + 8] hi + lo; dS columns [KC][W + 8]
+// hi + lo), which A (.) dP / sqrt(D) and P / g [QP][QP + 8] and the output
+// tile's k, q, dh [QP][W + 8] replace afterwards; then the vectors.
+struct OutLayout {
+  int dhs, vs, ks, sph, spl, dah, dal, dbh, dbl, ad, pg, kt, qt, dht, s, c, ginv, dden, npt,
+      dnt, dwh, bytes;
+  __host__ __device__ constexpr OutLayout(int QP, int W)
+      : dhs(0), vs(2 * QP * (KC + 8)), ks(4 * QP * (KC + 8)),
+        sph(6 * QP * (KC + 8)), spl(sph + 2 * W * (KC + 8)), dah(sph + 4 * W * (KC + 8)),
+        dal(sph + 6 * W * (KC + 8)), dbh(sph + 8 * W * (KC + 8)),
+        dbl(sph + 8 * W * (KC + 8) + 2 * KC * (W + 8)),
+        ad(0), pg(2 * QP * (QP + 8)), kt(4 * QP * (QP + 8)),
+        qt(4 * QP * (QP + 8) + 2 * QP * (W + 8)), dht(4 * QP * (QP + 8) + 4 * QP * (W + 8)),
+        s(imax(sph + 8 * W * (KC + 8) + 4 * KC * (W + 8), 4 * QP * (QP + 8) + 6 * QP * (W + 8))),
+        c(s + 4 * QP), ginv(s + 8 * QP), dden(s + 12 * QP), npt(s + 16 * QP),
+        dnt(s + 16 * QP + 4 * W), dwh(s + 16 * QP + 8 * W), bytes(s + 24 * QP + 8 * W) {}
+};
+
+// Launch 4, grid (chunks x column tiles, H, B), 16 warps: the Q x W tile of
+// dq, dk and dv at columns [c0, c0 + W) of one (b, h, chunk), whole (W =
+// out_w(D): 64 where D allows, so dh, v and k are read by D / 64 blocks of
+// a chunk; a warp: 16 rows, 16 NP columns of each).  The inter-chunk
+// products first, over all D 128 at a time, S_p and dS split hi + lo:
+//   dq  = s / g / sqrt(D) (.) dh S_p^T + s dden / sqrt(D) n_p
+//   dk' = v dS^T + dn  (k . dk' over the tile to the scratch: dw's share)
+//   dk  = c (.) dk',   dv = c (.) k dS
+// then the chunk's own: dq += (A (.) dP / sqrt(D)) k, dk += (A (.) dP /
+// sqrt(D))^T q, dv += (P / g)^T dh, on the tiles on or below the diagonal.
+template <int NP>
+__global__ void __launch_bounds__(TC_THREADS, 1) mlstm_bwd_out_bf16(const TcParams p) {
+  extern __shared__ __align__(16) unsigned char smem_out[];
+  const int QP = p.QP, W = p.W4, D = p.D, DP = round16(D), QT = QP / 16;
+  const OutLayout L(QP, W);
+  auto at = [&](int off) { return reinterpret_cast<bf16*>(smem_out + off); };
+  auto atf = [&](int off) { return reinterpret_cast<float*>(smem_out + off); };
+  float* sv = atf(L.s);
+  float* cv = atf(L.c);
+  float* gv = atf(L.ginv);
+  float* ddv = atf(L.dden);
+  float* npt = atf(L.npt);
+  float* dnt = atf(L.dnt);
+  float* dwh = atf(L.dwh);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ch = blockIdx.x / p.nt4, tile = blockIdx.x - ch * p.nt4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int t0 = ch * p.Q;
+  const int qv = min(p.Q, p.L - t0);
+  const int c0 = tile * W;
+  const int64_t st = (static_cast<int64_t>(b) * p.nc + ch) * p.H + h;
+  const float isd = p.inv_sqrt_d;
+  const bf16* qg = p.q + b * p.qsb + h * p.qsh + t0 * p.qss;
+  const bf16* kg = p.k + b * p.ksb + h * p.ksh + t0 * p.kss;
+  const bf16* vg = p.v + b * p.vsb + h * p.vsh + t0 * p.vss;
+  const bf16* dhg = p.dh + b * p.dsb + h * p.dsh + t0 * p.dss;
+  const float* spg = p.Sp + st * D * D;
+  const float* dsg = p.dS + st * D * D;
+  const float* rec = p.rec + st * rec_floats(QP);
+  const int mr = warp & 7, nh = warp >> 3;
+  const int cb = 16 * NP * nh;  // this warp's first column in the tile
+  const bool act = mr < QT && cb < W;
+  const int nkc = (DP + KC - 1) / KC;
+
+  for (int i = tid; i < QP; i += TC_THREADS) {
+    sv[i] = rec[i];
+    cv[i] = rec[QP + i];
+    gv[i] = rec[2 * QP + i];
+    ddv[i] = rec[3 * QP + i];
+    dwh[i] = dwh[QP + i] = 0.f;
+  }
+  for (int c = tid; c < W; c += TC_THREADS) {
+    npt[c] = c0 + c < D ? p.np[st * D + c0 + c] : 0.f;
+    dnt[c] = c0 + c < D ? p.dn[st * D + c0 + c] : 0.f;
+  }
+
+  float aq[NP][2][4], ak[NP][2][4], av[NP][2][4];
+#pragma unroll
+  for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) aq[pr][nt][e] = ak[pr][nt][e] = av[pr][nt][e] = 0.f;
+
+  for (int kc = 0; kc < nkc; ++kc) {
+    const int d0 = kc * KC;
+    stage_bf16(at(L.dhs), KC, dhg, p.dss, qv, QP, d0, D, p.vec16);
+    stage_bf16(at(L.vs), KC, vg, p.vss, qv, QP, d0, D, p.vec16);
+    stage_bf16(at(L.ks), KC, kg, p.kss, qv, QP, d0, D, p.vec16);
+    stage_split(at(L.sph), at(L.spl), KC, spg, D, c0, W, d0);
+    stage_split(at(L.dah), at(L.dal), KC, dsg, D, c0, W, d0);
+    stage_split(at(L.dbh), at(L.dbl), W, dsg, D, d0, KC, c0);
+    staged();
+    __syncthreads();
+    if (act) {
+      const int kw = min(KC, DP - d0);
+      for (int k0 = 0; k0 < kw; k0 += 16) {
+        uint32_t a[4], bh[4], bl[4];
+        lda(a, at(L.dhs), KC + 8, 16 * mr, k0, lane);
+#pragma unroll
+        for (int pr = 0; pr < NP; ++pr) {
+          ldb(bh, at(L.sph), KC + 8, cb + 16 * pr, k0, lane);
+          ldb(bl, at(L.spl), KC + 8, cb + 16 * pr, k0, lane);
+          mma2(aq[pr], a, bh);
+          mma2(aq[pr], a, bl);
+        }
+        lda(a, at(L.vs), KC + 8, 16 * mr, k0, lane);
+#pragma unroll
+        for (int pr = 0; pr < NP; ++pr) {
+          ldb(bh, at(L.dah), KC + 8, cb + 16 * pr, k0, lane);
+          ldb(bl, at(L.dal), KC + 8, cb + 16 * pr, k0, lane);
+          mma2(ak[pr], a, bh);
+          mma2(ak[pr], a, bl);
+        }
+        lda(a, at(L.ks), KC + 8, 16 * mr, k0, lane);
+#pragma unroll
+        for (int pr = 0; pr < NP; ++pr) {
+          ldb_t(bh, at(L.dbh), W + 8, k0, cb + 16 * pr, lane);
+          ldb_t(bl, at(L.dbl), W + 8, k0, cb + 16 * pr, lane);
+          mma2(av[pr], a, bh);
+          mma2(av[pr], a, bl);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // The chunk's matrices (rows of 16-byte units) and the tile's k, q, dh.
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(p.mats + st * 2 * QP * QP);
+    const int units = QP / 8;
+    for (int idx = tid; idx < 2 * QP * units; idx += TC_THREADS) {
+      const int r = idx / units;  // rows of A (.) dP, then of P / g
+      const int u = idx - r * units;
+      bf16* dst = r < QP ? at(L.ad) + r * (QP + 8) : at(L.pg) + (r - QP) * (QP + 8);
+      mma::cp_async16(dst + 8 * u, src + idx);
+    }
+  }
+  stage_bf16(at(L.kt), W, kg, p.kss, qv, QP, c0, D, p.vec16);
+  stage_bf16(at(L.qt), W, qg, p.qss, qv, QP, c0, D, p.vec16);
+  stage_bf16(at(L.dht), W, dhg, p.dss, qv, QP, c0, D, p.vec16);
+  staged();
+  __syncthreads();
+  if (act) {
+    float dwr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 16 * mr + frag_row(lane, e);
+          const int cl = cb + 16 * pr + frag_col(lane, nt, e);
+          const float si = sv[i];
+          aq[pr][nt][e] = fmaf(aq[pr][nt][e], si * gv[i] * isd, si * ddv[i] * isd * npt[cl]);
+          const float kin = ak[pr][nt][e] + dnt[cl];
+          dwr[e >> 1] = fmaf(bf(at(L.kt) + i * (W + 8) + cl), kin, dwr[e >> 1]);
+          ak[pr][nt][e] = cv[i] * kin;
+          av[pr][nt][e] *= cv[i];
+        }
+    for (int jt = 0; jt <= mr; ++jt) {
+      uint32_t a[4], bb[4];
+      lda(a, at(L.ad), QP + 8, 16 * mr, 16 * jt, lane);
+#pragma unroll
+      for (int pr = 0; pr < NP; ++pr) {
+        ldb_t(bb, at(L.kt), W + 8, 16 * jt, cb + 16 * pr, lane);
+        mma2(aq[pr], a, bb);
+      }
+    }
+    for (int it = mr; it < QT; ++it) {
+      uint32_t a[4], bb[4];
+      lda_t(a, at(L.ad), QP + 8, 16 * mr, 16 * it, lane);
+#pragma unroll
+      for (int pr = 0; pr < NP; ++pr) {
+        ldb_t(bb, at(L.qt), W + 8, 16 * it, cb + 16 * pr, lane);
+        mma2(ak[pr], a, bb);
+      }
+      lda_t(a, at(L.pg), QP + 8, 16 * mr, 16 * it, lane);
+#pragma unroll
+      for (int pr = 0; pr < NP; ++pr) {
+        ldb_t(bb, at(L.dht), W + 8, 16 * it, cb + 16 * pr, lane);
+        mma2(av[pr], a, bb);
+      }
+    }
+    const int64_t base = (static_cast<int64_t>(b) * p.L + t0) * p.H + h;
+#pragma unroll
+    for (int pr = 0; pr < NP; ++pr)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 16 * mr + (lane >> 2) + 8 * hf;
+          const int col = c0 + cb + 16 * pr + frag_col(lane, nt, 0);
+          if (i < qv && col < D) {
+            const int64_t o = (base + static_cast<int64_t>(i) * p.H) * D + col;
+            *reinterpret_cast<uint32_t*>(p.dq + o) =
+                mma::pack_bf16(aq[pr][nt][2 * hf], aq[pr][nt][2 * hf + 1]);
+            *reinterpret_cast<uint32_t*>(p.dk + o) =
+                mma::pack_bf16(ak[pr][nt][2 * hf], ak[pr][nt][2 * hf + 1]);
+            *reinterpret_cast<uint32_t*>(p.dv + o) =
+                mma::pack_bf16(av[pr][nt][2 * hf], av[pr][nt][2 * hf + 1]);
+          }
+        }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      dwr[hf] += __shfl_xor_sync(0xffffffffu, dwr[hf], 1);
+      dwr[hf] += __shfl_xor_sync(0xffffffffu, dwr[hf], 2);
+    }
+    if ((lane & 3) == 0) {
+      dwh[nh * QP + 16 * mr + (lane >> 2)] = dwr[0];
+      dwh[nh * QP + 16 * mr + (lane >> 2) + 8] = dwr[1];
+    }
+  }
+  __syncthreads();
+  float* dwg = p.dwp + (tile * static_cast<int64_t>(p.nst) + st) * QP;
+  for (int i = tid; i < QP; i += TC_THREADS) dwg[i] = dwh[i] + dwh[QP + i];
+}
+
+// Launch 5, one warp a (b, h, chunk), E = QP / 32 rows a lane (at least
+// one): dw_j = c_j sum over the tiles of launch 4's shares; dtot = sum_j dw_j
+// + so (<dS, S_p> + <dn, n_p>); db_i = the record's share - dw_i, plus dtot
+// on the chunk's last valid row; d i_gate = the record's share + dw; the
+// reverse cumsum of db within the chunk is d log f, and df = d log f
+// sigmoid(-f).  All sums in fp64, in a fixed order.
+__global__ void __launch_bounds__(GATE_WARPS * 32) mlstm_bwd_gates_bf16(const TcParams p) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t st = static_cast<int64_t>(blockIdx.x) * GATE_WARPS + warp;
+  if (st >= p.nst) return;
+  const int h = static_cast<int>(st % p.H);
+  const int ch = static_cast<int>((st / p.H) % p.nc);
+  const int b = static_cast<int>(st / (static_cast<int64_t>(p.H) * p.nc));
+  const int QP = p.QP, D = p.D;
+  const int t0 = ch * p.Q;
+  const int qv = min(p.Q, p.L - t0);
+  const float* rec = p.rec + st * rec_floats(QP);
+  const int E = (QP + 31) / 32;
+
+  double td = 0.0;
+  for (int d = lane; d < D; d += 32)
+    td += static_cast<double>(p.dn[st * D + d]) * p.np[st * D + d];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) td += __shfl_xor_sync(0xffffffffu, td, o);
+  for (int vb = 0; vb < p.nt; ++vb) td += p.tdp[vb * static_cast<int64_t>(p.nst) + st];
+  const int nt4 = p.nt4;
+
+  double db[4], dw[4];
+  double dws = 0.0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = lane * E + e;
+    db[e] = dw[e] = 0.0;
+    if (e < E && i < qv) {
+      double s = 0.0;
+      for (int t = 0; t < nt4; ++t) s += p.dwp[(t * static_cast<int64_t>(p.nst) + st) * QP + i];
+      dw[e] = static_cast<double>(rec[QP + i]) * s;
+      dws += dw[e];
+      db[e] = static_cast<double>(rec[4 * QP + i]) - dw[e];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) dws += __shfl_xor_sync(0xffffffffu, dws, o);
+  const double dtot = dws + static_cast<double>(rec[6 * QP]) * td;
+  double run = 0.0;  // this lane's rows, last first
+#pragma unroll
+  for (int e = 3; e >= 0; --e) {
+    const int i = lane * E + e;
+    if (e < E && i == qv - 1) db[e] += dtot;
+    run += db[e];
+    db[e] = run;  // suffix sum within the lane
+  }
+  double incl = run;  // suffix sums over the lanes above
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double x = __shfl_down_sync(0xffffffffu, incl, o);
+    if (lane + o < 32) incl += x;
+  }
+  double above = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane == 31) above = 0.0;
+  const bf16* fgp = p.fg + b * p.fsb + h * p.fsh;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = lane * E + e;
+    if (e < E && i < qv) {
+      const int64_t o = (static_cast<int64_t>(b) * p.L + t0 + i) * p.H + h;
+      const float f = __bfloat162float(fgp[(t0 + i) * p.fss]);
+      p.dig[o] = __float2bfloat16(static_cast<float>(static_cast<double>(rec[5 * QP + i]) + dw[e]));
+      p.df[o] = __float2bfloat16(static_cast<float>(db[e] + above) / (1.f + expf(f)));
+    }
+  }
+}
+
+cudaError_t launch_bf16(const Params& sp, void* dq, void* dk, void* dig, void* df, void* scratch,
+                        cudaStream_t stream) {
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaSuccess;
+    for (const void* f : {reinterpret_cast<const void*>(mlstm_bwd_states_bf16<1>),
+                          reinterpret_cast<const void*>(mlstm_bwd_states_bf16<2>),
+                          reinterpret_cast<const void*>(mlstm_bwd_dstates_bf16<1>),
+                          reinterpret_cast<const void*>(mlstm_bwd_dstates_bf16<2>),
+                          reinterpret_cast<const void*>(mlstm_bwd_chunk_bf16<1>),
+                          reinterpret_cast<const void*>(mlstm_bwd_chunk_bf16<2>),
+                          reinterpret_cast<const void*>(mlstm_bwd_out_bf16<1>),
+                          reinterpret_cast<const void*>(mlstm_bwd_out_bf16<2>)})
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    return e;
+  }();
+  if (attr != cudaSuccess) return attr;
+  TcParams p{};
+  p.q = static_cast<const bf16*>(sp.q);
+  p.k = static_cast<const bf16*>(sp.k);
+  p.v = static_cast<const bf16*>(sp.v);
+  p.ig = static_cast<const bf16*>(sp.ig);
+  p.fg = static_cast<const bf16*>(sp.fg);
+  p.dh = static_cast<const bf16*>(sp.dh);
+  p.dq = static_cast<bf16*>(dq);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(sp.dv);
+  p.dig = static_cast<bf16*>(dig);
+  p.df = static_cast<bf16*>(df);
+  const TcScratch sc(sp.B, sp.L, sp.H, sp.D, sp.Q);
+  float* base = static_cast<float*>(scratch);
+  p.Sp = base + sc.Sp;
+  p.np = base + sc.np;
+  p.mp = base + sc.mp;
+  p.dS = base + sc.dS;
+  p.dn = base + sc.dn;
+  p.rec = base + sc.rec;
+  p.tdp = base + sc.tdp;
+  p.dwp = base + sc.dwp;
+  p.mats = reinterpret_cast<bf16*>(base + sc.mats);
+  p.B = sp.B;
+  p.L = sp.L;
+  p.H = sp.H;
+  p.D = sp.D;
+  p.Q = sp.Q;
+  p.nc = sp.nc;
+  p.QP = round16(sp.Q);
+  p.W = tile_w(sp.D);
+  p.nt = n_tiles(sp.D);
+  p.W4 = out_w(sp.D);
+  p.nt4 = (sp.D + p.W4 - 1) / p.W4;
+  p.nst = sp.B * sp.nc * sp.H;
+  p.inv_sqrt_d = 1.f / sp.sqrt_d;
+  p.qsb = sp.qsb; p.qss = sp.qss; p.qsh = sp.qsh;
+  p.ksb = sp.ksb; p.kss = sp.kss; p.ksh = sp.ksh;
+  p.vsb = sp.vsb; p.vss = sp.vss; p.vsh = sp.vsh;
+  p.isb = sp.isb; p.iss = sp.iss; p.ish = sp.ish;
+  p.fsb = sp.fsb; p.fss = sp.fss; p.fsh = sp.fsh;
+  p.dsb = sp.dsb; p.dss = sp.dss; p.dsh = sp.dsh;
+  auto al16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  p.vec16 = al16(sp.q) && al16(sp.k) && al16(sp.v) && al16(sp.dh) && sp.D % 8 == 0 &&
+            sp.qsb % 8 == 0 && sp.qss % 8 == 0 && sp.qsh % 8 == 0 && sp.ksb % 8 == 0 &&
+            sp.kss % 8 == 0 && sp.ksh % 8 == 0 && sp.vsb % 8 == 0 && sp.vss % 8 == 0 &&
+            sp.vsh % 8 == 0 && sp.dsb % 8 == 0 && sp.dss % 8 == 0 && sp.dsh % 8 == 0;
+  const dim3 sweep(p.nt, p.H, p.B);
+  const int sw_bytes = SwLayout(p.QP, p.W, p.D).bytes;
+  if (p.W == 32)
+    mlstm_bwd_states_bf16<2><<<sweep, SW_THREADS, sw_bytes, stream>>>(p);
+  else
+    mlstm_bwd_states_bf16<1><<<sweep, SW_THREADS, sw_bytes, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int ch_bytes = ChLayout(p.QP, p.W4, p.D).bytes;
+  if (p.W4 == 64)
+    mlstm_bwd_chunk_bf16<2><<<dim3(p.nc, p.H, p.B), TC_THREADS, ch_bytes, stream>>>(p);
+  else
+    mlstm_bwd_chunk_bf16<1><<<dim3(p.nc, p.H, p.B), TC_THREADS, ch_bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (p.W == 32)
+    mlstm_bwd_dstates_bf16<2><<<sweep, SW_THREADS, sw_bytes, stream>>>(p);
+  else
+    mlstm_bwd_dstates_bf16<1><<<sweep, SW_THREADS, sw_bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 out_grid(p.nc * p.nt4, p.H, p.B);
+  if (p.W4 == 64)
+    mlstm_bwd_out_bf16<2><<<out_grid, TC_THREADS, OutLayout(p.QP, p.W4).bytes, stream>>>(p);
+  else
+    mlstm_bwd_out_bf16<1><<<out_grid, TC_THREADS, OutLayout(p.QP, p.W4).bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mlstm_bwd_gates_bf16<<<static_cast<unsigned>((p.nst + GATE_WARPS - 1) / GATE_WARPS),
+                         GATE_WARPS * 32, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+static_assert(SwLayout(128, 32, MAX_D).bytes <= SMEM_LIMIT, "sweep plan exceeds 227 KB");
+static_assert(ChLayout(128, 64, MAX_D).bytes <= SMEM_LIMIT, "chunk plan exceeds 227 KB");
+static_assert(OutLayout(128, 64).bytes <= SMEM_LIMIT, "output plan exceeds 227 KB");
+
 bool head_dim_ok(int D) {
   return D >= 4 && D % 4 == 0 && (D <= COLS || (D % COLS == 0 && D <= MAX_D));
 }
@@ -1164,9 +2409,23 @@ extern "C" int mlstm_scan_bwd_smem_bytes(int Q, int D) {
   return static_cast<int>(sizeof(float) * Layout(Q, D).total);
 }
 
-// Bytes of fp32 device scratch a call takes.
+// Bytes of fp32 device scratch a call takes: the larger of the two paths' needs.
 extern "C" int64_t mlstm_scan_bwd_scratch_bytes(int B, int L, int H, int D, int Q) {
-  return static_cast<int64_t>(sizeof(float)) * Scratch(B, L, H, D, Q).total;
+  const int64_t scalar = Scratch(B, L, H, D, Q).total, tc = TcScratch(B, L, H, D, Q).total;
+  return static_cast<int64_t>(sizeof(float)) * (scalar > tc ? scalar : tc);
+}
+
+// Bytes of dynamic shared memory a block of each bf16 kernel takes: 0
+// mlstm_bwd_states_bf16 and mlstm_bwd_dstates_bf16, 1 mlstm_bwd_chunk_bf16,
+// 2 mlstm_bwd_out_bf16 (mlstm_bwd_gates_bf16 takes none).
+extern "C" int mlstm_scan_bwd_tc_smem_bytes(int Q, int D, int kernel) {
+  const int QP = round16(Q), W = tile_w(D);
+  switch (kernel) {
+    case 0: return SwLayout(QP, W, D).bytes;
+    case 1: return ChLayout(QP, out_w(D), D).bytes;
+    case 2: return OutLayout(QP, out_w(D)).bytes;
+    default: return -1;
+  }
 }
 
 // dtype (of q, k, v, the gates, dh and every output): 0 = float32,
@@ -1194,7 +2453,7 @@ extern "C" int mlstm_scan_bwd(const void* q, const void* k, const void* v, const
   cudaError_t err;
   switch (dtype) {
     case 0: err = launch<float>(p, dq, dk, dig, df, st); break;
-    case 1: err = launch<__nv_bfloat16>(p, dq, dk, dig, df, st); break;
+    case 1: err = launch_bf16(p, dq, dk, dig, df, scratch, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

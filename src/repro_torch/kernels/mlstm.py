@@ -17,11 +17,13 @@ wrapper allocates with ``torch.empty``, one launch does the rest).
 The backward (``csrc/mlstm_bwd.cu``, its own library) is
 :func:`mlstm_scan_bwd_cuda`, which :class:`MlstmScanFunction` calls; the
 differentiable entry on the card is :func:`repro_torch.kernels.ops.mlstm_scan`.
+It too chooses by dtype alone inside the library: fp32 runs four scalar FMA
+launches, bf16 five tensor-core launches (``mlstm_bwd_*_bf16``).
 :func:`mlstm_scan_cuda` alone refuses inputs that require a gradient under
 grad mode, since its output would carry none.  ``launches`` counts calls
 that launched the forward kernels (a bf16 call is two kernel launches, an
 fp32 call one) and ``bwd_launches`` calls of the backward (four kernel
-launches each); nothing else changes them.
+launches each in fp32, five in bf16); nothing else changes them.
 """
 from __future__ import annotations
 
@@ -107,8 +109,20 @@ def bwd_smem_bytes(chunk: int, D: int) -> int:
     return _query("mlstm_scan_bwd_smem_bytes", chunk, D, lib="mlstm_bwd")
 
 
+BWD_TC_KERNELS = ("mlstm_bwd_states_bf16", "mlstm_bwd_chunk_bf16", "mlstm_bwd_out_bf16")
+
+
+def bwd_tc_smem_bytes(chunk: int, D: int, kernel: str) -> int:
+    """Dynamic shared memory a block of one of the bf16 backward's kernels
+    takes (``BWD_TC_KERNELS``; ``mlstm_bwd_dstates_bf16`` takes what
+    ``mlstm_bwd_states_bf16`` does, ``mlstm_bwd_gates_bf16`` none)."""
+    return _query("mlstm_scan_bwd_tc_smem_bytes", chunk, D, BWD_TC_KERNELS.index(kernel),
+                  lib="mlstm_bwd")
+
+
 def bwd_scratch_bytes(B: int, S: int, H: int, D: int, chunk: int) -> int:
-    """Bytes of fp32 device scratch a backward call takes."""
+    """Bytes of fp32 device scratch a backward call takes (what the larger
+    of its two paths, fp32 and bf16, needs)."""
     return _query("mlstm_scan_bwd_scratch_bytes", B, S, H, D, chunk, restype=ctypes.c_int64,
                   lib="mlstm_bwd")
 
@@ -220,9 +234,9 @@ def mlstm_scan_bwd_cuda(q, k, v, i_gate, f_gate, dh, *, chunk: int):
 
 class MlstmScanFunction(torch.autograd.Function):
     """The mLSTM scan with the hand-written forward and backward kernels:
-    the forward saves its inputs; the backward recomputes the forward in
-    fp32 (the states before each chunk, and h where its gradient needs it,
-    ``csrc/mlstm_bwd.cu``).  Returns h and the final
+    the forward saves its inputs; the backward recomputes the forward with
+    fp32 accumulation (the states before each chunk, and h where its
+    gradient needs it, ``csrc/mlstm_bwd.cu``).  Returns h and the final
     (S, n, m) flat; the final state is marked non-differentiable (unlike
     h, the stabilised state depends on m, and nothing trains through it)."""
 

@@ -9,6 +9,8 @@ The attention backward is held against autograd of ``attention_ref``, and
 a train step on the card against the same step on the CPU, which
 ``tests/test_torch_train.py`` holds against the JAX package.
 """
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -792,6 +794,7 @@ def mlstm_plain_grads(args, chunk, dh):
     (1, 5, 2, 8, 8, None),            # S shorter than a chunk
     (2, 64, 2, 12, 16, None),         # D not a multiple of 8
     (1, 96, 1, 64, 32, None),         # two value-column blocks
+    (1, 230, 2, 96, 64, None),        # three column tiles, four row tiles, ragged S
     (1, 200, 2, 384, 128, None),      # xlstm's head dim and chunk, ragged
     (1, 32, 1, 8, 8, 20.0),           # gates of +-20: the e^{-m} floor wins on some rows
 ])
@@ -803,6 +806,44 @@ def test_mlstm_grads_match_plain_version(dev, B, S, H, D, chunk, gate_scale, dty
     torch.cuda.synchronize()
     assert mlstm.bwd_launches == before + 1
     assert_bwd_close(got, mlstm_plain_grads(args, chunk, dh), args, dtype)
+
+
+def test_mlstm_grads_bf16_in_the_model_layout(dev):
+    """The gates as the two halves of one (B,S,2H) bf16 tensor, as
+    mlstm_block passes them, straight into the tensor-core backward."""
+    B, S, H, D = 2, 150, 4, 64
+    q, k, v, _, _ = mlstm_inputs(B, S, H, D, torch.bfloat16, dev, seed=41)
+    gates = rand((B, S, 2 * H), torch.float32, 42, dev)
+    gates[..., H:] += 1.0
+    ig, fg = torch.split(gates.to(torch.bfloat16), H, dim=-1)
+    dh = rand((B, S, H, D), torch.bfloat16, 43, dev)
+    args = (q, k, v, ig, fg)
+    got = mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=32)
+    assert_bwd_close(got, mlstm_plain_grads(args, 32, dh), args, torch.bfloat16)
+
+
+def test_mlstm_backward_path_follows_dtype(dev):
+    """The dtype alone picks the backward's kernels: a bf16 call runs the
+    five tensor-core kernels, an fp32 call the four scalar ones; each call
+    counts once in bwd_launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ran = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = mlstm_inputs(1, 64, 2, 32, dtype, dev, seed=44)
+        dh = rand((1, 64, 2, 32), dtype, 45, dev)
+        before = mlstm.bwd_launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=16)
+            torch.cuda.synchronize()
+        assert mlstm.bwd_launches == before + 1
+        ran[dtype] = sorted({m.group(1) for e in prof.key_averages()
+                             for m in [re.search(r"(mlstm_bwd_\w+)", e.key)] if m})
+    assert ran[torch.bfloat16] == sorted(["mlstm_bwd_states_bf16", "mlstm_bwd_chunk_bf16",
+                                          "mlstm_bwd_dstates_bf16", "mlstm_bwd_out_bf16",
+                                          "mlstm_bwd_gates_bf16"])
+    assert ran[torch.float32] == sorted(["mlstm_bwd_states", "mlstm_bwd_main",
+                                         "mlstm_bwd_reduce_qk", "mlstm_bwd_reduce_gates"])
 
 
 def test_mlstm_function_final_state_is_not_differentiable(dev):

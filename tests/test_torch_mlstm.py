@@ -221,6 +221,134 @@ def test_single_rounding_of_w_misses_bf16_tolerance():
     assert tol_ratio(h, want_h, TOL["bfloat16"]) > 1.0
 
 
+# The bf16 backward kernels' rounding plan (csrc/mlstm_bwd.cu).  Every
+# product takes bf16 operands into fp32 accumulators; q, k, v and dh are
+# bf16 already; of the computed operands, these are split into hi + lo
+# (two products into one accumulator), each because rounding it once put
+# a gradient past the bf16 tolerance (see the test below):
+BWD_SPLITS = (
+    "S_p",   # the state before the chunk, in q S_p (h) and dh S_p^T (dq)
+    "P",     # P = q k^T / sqrt(D) (.) A, in P v (h)
+    "q_dS",  # s / g / sqrt(D) (.) q, in the dS update
+    "dS",    # the state's cotangent, in v dS^T (dk) and k dS (dv)
+)
+
+
+def emulate_bwd(q, k, v, i_gate, f_gate, dh, chunk, splits=BWD_SPLITS):
+    """The bf16 backward kernels' arithmetic in plain PyTorch on the CPU:
+    gate math in fp64 with each exponent rounded once (m' rounded to fp32
+    first); products accumulated in fp32 from operands rounded to bf16
+    where the kernels feed an mma (``split_bf16``: hi + lo for the names in
+    ``splits``, hi alone otherwise: cw (.) k in the states, A (.) dP /
+    sqrt(D) and P / g); h in fp32; the sums that cancel (G's row and column
+    sums, dw, dtot, the reverse cumsum of db) in fp64.  Returns dq, dk, dv,
+    d i_gate, d f_gate in q's dtype."""
+    B, S, H, D = q.shape
+    Q = chunk
+    pad = (-S) % Q
+    isd = 1.0 / math.sqrt(D)
+    F = torch.nn.functional
+
+    def rnd(x, name):
+        return split_bf16(x, name in splits)
+
+    qf, kf, vf, dhf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, dh))   # (B,H,S,D)
+    ig = i_gate.double().permute(0, 2, 1)
+    lf = F.logsigmoid(f_gate.float()).double().permute(0, 2, 1)
+    fgf = f_gate.float().permute(0, 2, 1)
+    if pad:
+        qf, kf, vf, dhf = (F.pad(t, (0, 0, 0, pad)) for t in (qf, kf, vf, dhf))
+        ig = F.pad(ig, (0, pad), value=float("-inf"))
+        lf, fgf = F.pad(lf, (0, pad)), F.pad(fgf, (0, pad))
+    nc = (S + pad) // Q
+    valid = (torch.arange(S + pad) < S).float().reshape(nc, Q)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    rows = [slice(c * Q, (c + 1) * Q) for c in range(nc)]
+
+    # Launch 1: the gate math and the states before each chunk.
+    gates, Sp, npv = [], [], []
+    m = torch.full((B, H), float("-inf"), dtype=torch.float64)
+    St, n = torch.zeros(B, H, D, D), torch.zeros(B, H, D)
+    for c, sl in enumerate(rows):
+        b = torch.cumsum(lf[..., sl], -1)
+        igc, tot = ig[..., sl], b[..., -1]
+        logw = (b[..., :, None] - b[..., None, :] + igc[..., None, :]).masked_fill(
+            ~mask, float("-inf"))
+        mi = torch.maximum(m[..., None] + b, logw.amax(-1))
+        first = torch.isinf(m)
+        s = torch.where(first[..., None], 0.0, torch.exp((m[..., None] + b - mi).float()))
+        w = tot[..., None] - b + igc
+        m_new = torch.maximum(m + tot, w.amax(-1)).float().double()
+        so = torch.where(first, 0.0, torch.exp((m + tot - m_new).float()))
+        cw = torch.exp((w - m_new[..., None]).float())
+        A = torch.exp((logw - mi[..., None]).float())
+        gates.append(dict(s=s, so=so, cw=cw, A=A, floor=torch.exp((-mi).float())))
+        Sp.append(St)
+        npv.append(n)
+        kc, vc = kf[:, :, sl], vf[:, :, sl]
+        St = so[..., None, None] * St + rnd(cw[..., None] * kc, "cw_k").transpose(-1, -2) @ vc
+        n = so[..., None] * n + (cw[..., None] * kc).sum(-2)
+        m = m_new
+
+    # Launch 2: per chunk, P, den, h in fp32, dden, G's sums, A (.) dP, P / g.
+    recs = []
+    for c, sl in enumerate(rows):
+        gt = gates[c]
+        qc, kc, vc, dhc = qf[:, :, sl], kf[:, :, sl], vf[:, :, sl], dhf[:, :, sl]
+        P = (qc @ kc.transpose(-1, -2)) * isd * gt["A"]
+        qn = (qc @ npv[c][..., None])[..., 0] * isd
+        den = gt["s"] * qn + P.double().sum(-1).float()
+        ginv = valid[c] / torch.maximum(den.abs(), gt["floor"])
+        Pr = rnd(P, "P")   # kept in shared memory as hi + lo; G and P / g read it back
+        hint = qc @ rnd(Sp[c], "S_p")
+        x = (dhc * hint).sum(-1)
+        h = (hint * (gt["s"] * isd)[..., None] + Pr @ vc) * ginv[..., None]
+        dd = (dhc * h).sum(-1)
+        dden = torch.where((den.abs() > gt["floor"]) & (valid[c] > 0),
+                           -torch.sign(den) * dd * ginv, 0.0)
+        dP = (dhc @ vc.transpose(-1, -2) * ginv[..., None] + dden[..., None]) * mask
+        G = (Pr * dP).double()
+        binter = (gt["s"] * (ginv * isd * x + qn * dden)).double()
+        recs.append(dict(ginv=ginv, dden=dden, dig=G.sum(-2),
+                         db=G.sum(-1) - G.sum(-2) + binter,
+                         AdP=rnd(gt["A"] * dP * isd, "AdP"), Pg=rnd(Pr * ginv[..., None], "Pg")))
+
+    # Launch 3: dS and dn after each chunk, going backward; <dS, S_p> + <dn, n_p>.
+    dS, dn = torch.zeros(B, H, D, D), torch.zeros(B, H, D)
+    dSs, dns, tdot = [None] * nc, [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        gt, r, qc = gates[c], recs[c], qf[:, :, rows[c]]
+        dSs[c], dns[c] = dS, dn
+        tdot[c] = ((dS.double() * Sp[c].double()).sum((-1, -2))
+                   + (dn.double() * npv[c].double()).sum(-1))
+        wq = (gt["s"] * r["ginv"] * isd)[..., None] * qc
+        dS = gt["so"][..., None, None] * dS + rnd(wq, "q_dS").transpose(-1, -2) @ dhf[:, :, rows[c]]
+        dn = gt["so"][..., None] * dn + ((gt["s"] * r["dden"] * isd)[..., None] * qc).sum(-2)
+
+    # Launches 4 and 5: dq, dk, dv per chunk; the gates' gradients.
+    outs = [[], [], [], [], []]
+    for c, sl in enumerate(rows):
+        gt, r = gates[c], recs[c]
+        qc, kc, vc, dhc = qf[:, :, sl], kf[:, :, sl], vf[:, :, sl], dhf[:, :, sl]
+        s, cw = gt["s"], gt["cw"]
+        dSr = rnd(dSs[c], "dS")
+        dq = ((dhc @ rnd(Sp[c], "S_p").transpose(-1, -2)) * (s * r["ginv"] * isd)[..., None]
+              + (s * r["dden"] * isd)[..., None] * npv[c][..., None, :] + r["AdP"] @ kc)
+        dk_in = vc @ dSr.transpose(-1, -2) + dns[c][..., None, :]
+        dk = dk_in * cw[..., None] + r["AdP"].transpose(-1, -2) @ qc
+        dv = (kc @ dSr) * cw[..., None] + r["Pg"].transpose(-1, -2) @ dhc
+        dw = cw.double() * (kc * dk_in).double().sum(-1) * valid[c].double()
+        db = r["db"] - dw
+        db[..., int(valid[c].sum()) - 1] += dw.sum(-1) + gt["so"].double() * tdot[c]
+        dlogf = torch.flip(torch.cumsum(torch.flip(db, [-1]), -1), [-1])
+        for lst, val in zip(outs, (dq, dk, dv, r["dig"] + dw,
+                                   dlogf.float() * torch.sigmoid(-fgf[..., sl]))):
+            lst.append(val)
+    grads = [torch.cat(o, 2)[:, :, :S].permute(0, 2, 1, 3) for o in outs[:3]]
+    grads += [torch.cat(o, -1)[..., :S].permute(0, 2, 1).float() for o in outs[3:]]
+    return tuple(g.to(q.dtype) for g in grads)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     _, t = both(inputs(5, 1, 16, 2, 8), "float32")
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -519,3 +647,58 @@ def test_ops_routes_to_the_function_only_off_the_cpu_under_grad(monkeypatch):
     with torch.no_grad():
         ops.mlstm_scan(*[a.clone().requires_grad_() for a in meta], chunk=8)
     assert calls == ["kernel", "kernel"]
+
+
+# The bf16 backward's rounding plan, emulated on the CPU (emulate_bwd), against
+# autograd of the fp32 plain version and jax.vjp: within the bf16 gradient
+# tolerance with BWD_SPLITS split, and past it with any one of them rounded
+# once.
+
+
+def bf16_case(seed, B, S, H, D, gate_scale=None):
+    _, t = both(inputs(seed, B, S, H, D, gate_scale), "bfloat16")
+    return t, torch.from_numpy(cotangent(seed + 1, B, S, H, D)).to(torch.bfloat16)
+
+
+def fp32_plain_grads(t, dh, chunk):
+    return port_grads([a.float() for a in t], chunk, f32(dh))
+
+
+@pytest.mark.parametrize("B,S,H,D,chunk,gate_scale", [(1, 256, 1, 384, 128, None),
+                                                      (1, 128, 1, 64, 32, 20.0)])
+def test_bwd_rounding_plan_holds_bf16_tolerance(B, S, H, D, chunk, gate_scale):
+    """At xlstm_125m's head dim and chunk with model-like gates, and with
+    gates of +-20: every gradient of the emulated bf16 kernels within a
+    relative rms of 2e-2 of autograd of the fp32 plain version."""
+    t, dh = bf16_case(30, B, S, H, D, gate_scale)
+    got = emulate_bwd(*t, dh, chunk)
+    for g, w, a in zip(got, fp32_plain_grads(t, dh, chunk), t):
+        assert g.dtype == a.dtype and g.shape == a.shape
+        assert rel_rms(f32(g), f32(w)) <= GRAD_REL_RMS["bfloat16"]
+
+
+def test_bwd_rounding_plan_matches_jax_vjp():
+    """The emulated bf16 kernels against jax.vjp of JAX's mlstm_chunked in
+    fp32 on the same bf16 values, at a chunk of 24 (the kernels pad it to
+    32 rows)."""
+    t, dh = bf16_case(31, 2, 96, 2, 16)
+    _, vjp = jax.vjp(lambda *a: jax_xlstm.mlstm_chunked(*a, 24)[0],
+                     *(jnp.asarray(f32(a)) for a in t))
+    want = vjp(jnp.asarray(f32(dh)))
+    for g, w in zip(emulate_bwd(*t, dh, 24), want):
+        assert rel_rms(f32(g), np.asarray(w)) <= GRAD_REL_RMS["bfloat16"]
+
+
+@pytest.mark.parametrize("once", BWD_SPLITS)
+def test_bwd_single_rounding_misses_bf16_tolerance(once):
+    """Why each operand of BWD_SPLITS is split: with gates of +-20 (1,32,1,8)
+    chunk 8, the plan holds every gradient within 2e-2 of the fp32 plain
+    version, and rounding that one operand to bf16 once puts one past it."""
+    t, dh = bf16_case(0, 1, 32, 1, 8, 20.0)
+    want = fp32_plain_grads(t, dh, 8)
+
+    def worst(splits):
+        return max(rel_rms(f32(g), f32(w)) for g, w in zip(emulate_bwd(*t, dh, 8, splits), want))
+
+    assert worst(BWD_SPLITS) <= GRAD_REL_RMS["bfloat16"]
+    assert worst(tuple(s for s in BWD_SPLITS if s != once)) > GRAD_REL_RMS["bfloat16"]
