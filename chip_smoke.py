@@ -11,8 +11,11 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              sm_90a, one ``nvcc`` per source, all six started together;
 2. kernels — every kernel against its plain PyTorch version on the card
              (the cases of ``tests/test_kernels.py``, in fp32 (the scalar
-             kernels) and bf16 (the tensor-core kernels), and the serve
-             paths' shapes), then timed at the serve paths' shapes beside
+             kernels) and bf16 (the tensor-core kernels), attention at
+             gemma2's head dim 256 (softcap 50, window 4096, GQA 16/8, a
+             ragged Sq, decode at Sk 4096 and 5184, each timed beside its
+             bound), and the serve paths' shapes), then timed at the serve
+             paths' shapes beside
              the plain version, one library call where there is one, and
              the card's bound; attention decode is timed with a cold L2;
              the attention backward's dq, dk, dv against autograd of the
@@ -96,7 +99,29 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              and 6 layers (zamba2: its shared block follows layer 5) or 2
              units (xlstm) against the plain twin: the loss, every grad leaf
              and the params after AdamW; zamba2 also prints the largest
-             per-chunk log-decay span at init.
+             per-chunk log-decay span at init;
+9. serve gemma2_9b — full size (42 layers, head dim 256, softcaps), bf16,
+             batch 2, prompt 5120, past its window of 4096: its 21 local
+             layers' ring caches wrap in the prefill and in decode; the
+             attention kernel on every layer of the prefill and of every
+             decode step (2,688 launches), finite logits; the kernel timed
+             at its four shapes (global and local prefill, decode over a
+             full ring and the global cache) beside the plain version, SDPA
+             without softcap (not the same function) and the bound; the
+             bf16 gap to the plain attention printed; in fp32 at full
+             width and 4 layers (2 rings) the prefill's last logits and 4
+             decode steps after it against the plain attention;
+10. phi35_moe_42b — full width, depth cut: served at 8 layers (bf16,
+             batch 8, prompt 512, 64 tokens; 512 attention launches, finite
+             logits; the share of routed pairs dropped at prefill and at
+             decode; the attention kernel timed at its D 128 GQA shapes;
+             the fp32 prefill and 4 decode steps at 2 layers against the
+             plain attention), then trained at 2 layers through
+             ``repro_torch.launch.train`` (fp32 masters, bf16, remat, 8 x
+             512, 4 steps: finite losses and grad norms, 4 forward and 2
+             backward attention calls a step; the share of routed pairs
+             dropped before and after) and one fp32 step at 1 layer
+             against the plain twin.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -146,6 +171,13 @@ ELASTIC_SCENARIO, ELASTIC_STEPS = "steady-cycle", 25
 RESTART_STEP = 5        # restart-vs-shrink's RESTART, read back from step 4's snapshot
 HYBRID = "zamba2_1p2b"
 XLSTM = "xlstm_125m"
+# gemma2 serves 2 x 5120 tokens: past its window of 4096, so its rings wrap;
+# its fp32 gate at 4 layers holds 2 local (ring) and 2 global layers.
+GEMMA2, GEMMA2_BATCH, GEMMA2_PROMPT, GEMMA2_GATE_LAYERS = "gemma2_9b", 2, 5120, 4
+# phi3.5-MoE (41.9 B params) fits one card cut in depth: 8 layers served
+# (42.6 GB fp32 at init, 21.3 GB bf16), 2 trained (~46 GB of fp32 masters
+# and AdamW state); the serve gate at 2 layers in fp32.
+MOE, MOE_SERVE_LAYERS, MOE_GATE_LAYERS, MOE_TRAIN_LAYERS = "phi35_moe_42b", 8, 2, 2
 # Depth of the recurrent families' fp32 train gate: zamba2's shared block
 # follows layer 5, so 6 layers reach it; xlstm's 4 layers are 2 units.
 RECURRENT_GATE_LAYERS = {HYBRID: 6, XLSTM: 4}
@@ -207,6 +239,11 @@ def main() -> int:
     for arch in (HYBRID, XLSTM):
         torch.cuda.empty_cache()
         recurrent_train_phase(torch, dev, arch, failures, counts)
+        if failures:
+            return fail("; ".join(failures))
+    for phase in (gemma2_phase, moe_phase):
+        torch.cuda.empty_cache()
+        phase(torch, dev, entry, failures, counts)
         if failures:
             return fail("; ".join(failures))
     kernels = [entry, bwd_entry, ssd_entry, mlstm_entry, ssd_bwd_entry, mlstm_bwd_entry]
@@ -330,6 +367,11 @@ def build_phase(torch):
             for (kernel, args), props in summary.items():
                 if args[-1:] == (80,):
                     print(f"[build] {name}: {kernel} at D 80: {props}")
+        if name == "flash_attention":       # gemma2's head dim
+            for (kernel, args), props in summary.items():
+                if args[:1] == (256,):
+                    print(f"[build] {name}: {kernel} at D 256{f' {args[1:]}' if args[1:] else ''}"
+                          f": {props}")
     from repro_torch.kernels import mlstm, ssd
 
     print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
@@ -356,27 +398,35 @@ def build_phase(torch):
           f"{mlstm.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 4, 384, 128)} bytes (the larger path's)")
 
 
-def kernel_phase(torch, dev, failures) -> dict:
+def attention_check(torch, tag, label, q, k, v, dtype, failures, tol=None, *, causal,
+                    window=0, softcap=0.0, convex=False) -> float:
+    """The forward kernel against its plain version on the card, on the
+    same inputs, within ``tol`` (``TOL[dtype]`` by default); a miss is a
+    failure.  Returns the max abs error."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+
+    out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    tol = tol or TOL[dtype]
+    ok = bool(torch.isfinite(out).all()) and torch.allclose(out.float(), want.float(), **tol)
+    if convex:
+        ok = ok and float(out.abs().max()) <= float(v.abs().max()) + 1e-4
+    print(f"{tag} {label:<34} {dtype:<8} max_abs_err={err:.3e} "
+          f"(rtol={tol['rtol']}, atol={tol['atol']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"flash_attention {label} {dtype}: max_abs_err {err:.3e}")
+    return err
+
+
+def kernel_phase(torch, dev, failures) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     # kernel vs plain version on the card
-    def compare(label, q, k, v, dtype, tol=None, *, causal, window=0, softcap=0.0,
-                convex=False) -> float:
-        out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
-        want = ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
-        torch.cuda.synchronize()
-        err = float((out.float() - want.float()).abs().max())
-        tol = tol or TOL[dtype]
-        ok = bool(torch.isfinite(out).all()) and torch.allclose(
-            out.float(), want.float(), **tol)
-        if convex:
-            ok = ok and float(out.abs().max()) <= float(v.abs().max()) + 1e-4
-        print(f"[kernel] {label:<34} {dtype:<8} max_abs_err={err:.3e} "
-              f"(rtol={tol['rtol']}, atol={tol['atol']}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"flash_attention {label} {dtype}: max_abs_err {err:.3e}")
-        return err
+    def compare(label, q, k, v, dtype, tol=None, **opts) -> float:
+        return attention_check(torch, "[kernel]", label, q, k, v, dtype, failures, tol, **opts)
 
     cases = [  # label, B, H, KV, Sq, Sk, D, causal, window
         ("mha", 1, 2, 2, 128, 128, 64, True, 0),
@@ -424,6 +474,29 @@ def kernel_phase(torch, dev, failures) -> dict:
             compare(f"D {D} ragged Sq {Sq} Sk {Sk}{' causal' if causal else ''}", q, k, v,
                     "bfloat16", causal=causal)
 
+    # gemma2's head dim 256 in both dtypes (softcap 50, its window of 4096
+    # past which a 5120-row sequence reaches, GQA 16/8, a ragged Sq, decode
+    # over a full ring and a global cache), each case timed beside its bound.
+    d256 = [  # label, B, H, KV, Sq, Sk, causal, window, softcap
+        ("D 256 causal softcap 50 gqa 16/8", 1, 16, 8, 1100, 1100, True, 0, 50.0),
+        ("D 256 window 4096 softcap 50", 1, 4, 2, 5120, 5120, True, 4096, 50.0),
+        ("D 256 gqa 16/8 ragged Sq 77 Sk 300", 2, 16, 8, 77, 300, True, 0, 0.0),
+        ("D 256 decode Sk 4096 (a full ring)", 2, 16, 8, 1, 4096, False, 0, 50.0),
+        ("D 256 decode Sk 5184", 2, 16, 8, 1, 5184, False, 0, 50.0),
+    ]
+    for seed, (label, B, H, KV, Sq, Sk, causal, window, softcap) in enumerate(d256):
+        for dtype in ("float32", "bfloat16"):
+            q = randn(torch, (B, H, Sq, 256), dtype, 300 + 3 * seed, dev, 2.0)
+            k = randn(torch, (B, KV, Sk, 256), dtype, 301 + 3 * seed, dev, 2.0)
+            v = randn(torch, (B, KV, Sk, 256), dtype, 302 + 3 * seed, dev)
+            opts = dict(causal=causal, window=window, softcap=softcap)
+            compare(label, q, k, v, dtype, **opts)
+            ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, **opts), iters=5, reps=3)
+            bound, by = bound_ms(torch, q, k, v, causal=causal, window=window, dev=dev)
+            print(f"[time] flash_attention {label} {dtype}: kernel {ms:.4f} ms, bound "
+                  f"{bound * 1e3:.2f} us ({by}), {ms / bound:.1f}x")
+            del q, k, v
+
     # The serve path's two shapes, in the model's strided layout.
     H, D, Sk_dec = 32, 80, PROMPT + GEN - 1
     pq = model_layout(torch, BATCH, H, PROMPT, D, "bfloat16", 200, dev)
@@ -454,14 +527,15 @@ def kernel_phase(torch, dev, failures) -> dict:
     }
 
 
-def decode_sets(torch, B, H, Sk, D, seed, dev) -> list:
-    """Distinct (k, v) caches in the model's layout, enough of them that
-    together they exceed the L2: a decode step reads each layer's cache
-    cold, and a timing on one set would read it from the L2."""
+def decode_sets(torch, B, H, Sk, D, seed, dev, s_alloc=PROMPT + GEN) -> list:
+    """Distinct (k, v) caches in the model's layout (``s_alloc`` rows
+    allocated), enough of them that together they exceed the L2: a decode
+    step reads each layer's cache cold, and a timing on one set would read
+    it from the L2."""
     one = 2 * B * H * Sk * D * 2
     n = L2_BYTES // one + 2
-    return [(model_layout(torch, B, H, Sk, D, "bfloat16", seed + 2 * i, dev, PROMPT + GEN),
-             model_layout(torch, B, H, Sk, D, "bfloat16", seed + 2 * i + 1, dev, PROMPT + GEN))
+    return [(model_layout(torch, B, H, Sk, D, "bfloat16", seed + 2 * i, dev, s_alloc),
+             model_layout(torch, B, H, Sk, D, "bfloat16", seed + 2 * i + 1, dev, s_alloc))
             for i in range(n)]
 
 
@@ -493,43 +567,57 @@ def graph_ms(torch, fns, reps=5) -> float:
     return statistics.median(samples)
 
 
-def attention_timings(torch, q, kv_sets, causal, dev) -> dict:
+def attention_timings(torch, q, kv_sets, causal, dev, *, window=0, softcap=0.0,
+                      iters=None) -> dict:
     """Kernel, plain version and one library call at one shape, and the
     bound.  With more than one (k, v) set (decode), each timed call reads
     the next set, so every call finds its K/V outside the L2; the kernel
     and SDPA are then timed as a CUDA graph of such calls (``ms``,
     ``library_ms``), which leaves out the host's launch time: at ~20 us a
     call that is as long as the kernel's.  The calls launched one by one
-    are kept as ``eager_ms`` and ``library_eager_ms``."""
+    are kept as ``eager_ms`` and ``library_eager_ms``.  SDPA has no window
+    or softcap argument: with either, it is timed without them
+    (``library_note`` says so), and is not the same function."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     n = len(kv_sets)
-    kern = lambda i: fa.flash_attention_cuda(q, *kv_sets[i % n], causal=causal)   # noqa: E731
-    sdpa = lambda i: F.scaled_dot_product_attention(q, *kv_sets[i % n], is_causal=causal)  # noqa: E731
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    gqa = q.shape[1] != kv_sets[0][0].shape[1]
+    kern = lambda i: fa.flash_attention_cuda(q, *kv_sets[i % n], **opts)   # noqa: E731
+    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        q, *kv_sets[i % n], is_causal=causal, enable_gqa=gqa)
 
     def rotating(fn):
         it = iter(range(10**9))
         return lambda: fn(next(it))
 
-    iters = 20 if n == 1 else 8 * n
+    iters = iters or (20 if n == 1 else 8 * n)
     t = {
         "ms": time_ms(torch, rotating(kern), iters=iters),
         "plain_ms": time_ms(torch, rotating(lambda i: ref.attention_ref(
-            q, *kv_sets[i % n], causal=causal)), iters=iters),
+            q, *kv_sets[i % n], **opts)), iters=iters),
         "library_ms": time_ms(torch, rotating(sdpa), iters=iters),
     }
     if n > 1:
         t["eager_ms"], t["library_eager_ms"] = t["ms"], t["library_ms"]
         t["ms"] = graph_ms(torch, [lambda i=i: kern(i) for i in range(iters)])
         t["library_ms"] = graph_ms(torch, [lambda i=i: sdpa(i) for i in range(iters)])
-    t["bound_ms"], t["bound_by"] = bound_ms(torch, q, *kv_sets[0], causal=causal, window=0,
-                                            dev=dev)
+    if window or softcap:
+        t["library_note"] = (f"SDPA {'causal ' if causal else ''}without the "
+                             + " and ".join(w for w, on in (("window", window),
+                                                            ("softcap", softcap)) if on)
+                             + ": not the same function (no PyTorch call applies a tanh "
+                               "softcap)")
+    t["bound_ms"], t["bound_by"] = bound_ms(torch, q, *kv_sets[0], causal=causal,
+                                            window=window, dev=dev)
     return t
 
 
 def print_attention_time(label, t):
+    if "library_note" in t:
+        label = f"{label} (sdpa: {t['library_note']})"
     if "eager_ms" in t:
         print(f"[time] flash_attention {label}, cold L2 (each call reads the next of "
               f"several K/V sets that together exceed the 50 MB L2): kernel "
@@ -1479,8 +1567,6 @@ def prefill_then_decode(torch, model, params, prompts, tokens, failures, *, plai
 
 
 def hybrid_phase(torch, dev, fa_entry, ssd_entry, failures, counts):
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
     from repro_torch.launch import serve
     from repro_torch.models import Model
 
@@ -1537,16 +1623,11 @@ def hybrid_phase(torch, dev, fa_entry, ssd_entry, failures, counts):
                                      PROMPT + GEN))]
         else:
             kv_sets = decode_sets(torch, BATCH, H, Sk, D, seed + 1, dev)
-        k, v = kv_sets[0]
-        out = fa.flash_attention_cuda(q, k, v, causal=causal)
-        want = ref.attention_ref(q, k, v, causal=causal)
-        err = float((out.float() - want.float()).abs().max())
-        ok = torch.allclose(out.float(), want.float(), **TOL["bfloat16"])
         shape = f"{label} ({BATCH},{H},{S},{D}) Sk {Sk}{' causal' if causal else ''} bf16"
-        print(f"[kernel] flash_attention {shape}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"flash_attention {shape}: max_abs_err {err:.3e}")
-        att[label] = {"shape": shape, **attention_timings(torch, q, kv_sets, causal, dev)}
+        err = attention_check(torch, "[kernel] flash_attention", shape, q, *kv_sets[0],
+                              "bfloat16", failures, causal=causal)
+        att[label] = {"shape": shape, "max_abs_err": err,
+                      **attention_timings(torch, q, kv_sets, causal, dev)}
         print_attention_time(shape, att[label])
     fa_entry[HYBRID] = att
     pre_ms = res.prefill_s * 1e3
@@ -1699,6 +1780,320 @@ def first_mlstm_and_logits(torch, model, params, prompts, failures, *, plain=Fal
     with mock.patch.object(transformer, "mlstm_block", recording):
         last = last_logits(torch, model, params, prompts, failures, plain=plain)
     return seen[0], last
+
+
+# ------------------------------------------------ gemma2 and the MoE family --
+
+
+def gemma2_phase(torch, dev, fa_entry, failures, counts):
+    """Full gemma2_9b served (bf16, batch 2, a prompt past its window, so
+    its 21 local layers' ring caches wrap), the attention kernel timed at
+    its four shapes, the bf16 gap to the plain attention, then the fp32
+    gate at full width and GEMMA2_GATE_LAYERS layers (2 rings)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import init_cache_shapes, local_layers
+
+    tag = f"[{GEMMA2}]"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, params = serve.build_model(GEMMA2, full=True, device=dev, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    W, B, P = cfg.sliding_window, GEMMA2_BATCH, GEMMA2_PROMPT
+    n_params = sum(p.numel() for p in params.values())
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers (even ones local, window {W}), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv x {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, softcaps {cfg.attn_softcap} / {cfg.final_softcap}; "
+          f"{n_params / 1e9:.3f} B params in {cfg.dtype}, initialised in "
+          f"{time.perf_counter() - t0:.1f}s (peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f}"
+          f" GiB: the fp32 draw, then its bf16 cast)")
+    shapes = init_cache_shapes(cfg, B, P + GEN)
+    print(f"{tag} cache at batch {B}, {P} + {GEN} positions: "
+          + ", ".join(f"{name} {shape}" for name, (shape, *_rest) in shapes.items()))
+    if set(shapes) != {"k_loc", "v_loc", "k", "v"} or shapes["k_loc"][0][2] != W:
+        failures.append(f"{GEMMA2}: cache {shapes} has no window-sized rings")
+    prompts = serve.make_prompts(model, B, P, seed=1)
+    cold = serve.generate(model, params, prompts[:, :16], 4)
+    print(f"{tag} warm-up (prompt 16, 4 tokens): prefill {cold.prefill_s * 1e3:.1f} ms, "
+          f"decode {cold.decode_s * 1e3:.1f} ms, finite {cold.finite}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = serve.generate(model, params, prompts, GEN)
+    counts[GEMMA2] = read_counts()
+    step_ms = res.decode_s / (GEN - 1) * 1e3
+    print(f"{tag} prefill {B}x{P} tokens: {res.prefill_s * 1e3:.1f} ms; decode "
+          f"{res.decode_tok_s:.1f} tok/s ({GEN - 1} steps in {res.decode_s:.3f}s, "
+          f"{step_ms:.2f} ms a step; the rings written at pos % {W} from pos {P}); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"{tag} sample output ids: {res.generated[0, :12].tolist()}")
+    for name, want in (("flash_attention", cfg.n_layers * GEN), ("flash_attention_bwd", 0),
+                       ("ssd", 0), ("mlstm", 0)):
+        got = counts[GEMMA2][name]
+        print(f"{tag} {name} launches: {got} (expected {want})")
+        if got != want:
+            failures.append(f"{GEMMA2}: {name} launched {got} times, expected {want}")
+    if not (res.finite and cold.finite):
+        failures.append(f"non-finite logits in the {GEMMA2} serve run")
+
+    # The attention kernel at this model's four shapes: the global (causal)
+    # and local (window) layers' prefill, and decode over a full ring and
+    # over the global cache at its longest; SDPA without softcap beside it.
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    att = {}
+    for label, Sq, Sk, causal, window, seed in (
+            ("prefill global", P, P, True, 0, 500), ("prefill local", P, P, True, W, 510),
+            ("decode ring", 1, W, False, 0, 520), ("decode global", 1, P + GEN - 1, False, 0, 530)):
+        q = model_layout(torch, B, H, Sq, D, "bfloat16", seed, dev)
+        if Sq > 1:
+            kv_sets = [tuple(model_layout(torch, B, KV, Sk, D, "bfloat16", seed + i, dev)
+                             for i in (1, 2))]
+        else:
+            kv_sets = decode_sets(torch, B, KV, Sk, D, seed + 1, dev, s_alloc=Sk)
+        shape = (f"{label} ({B},{H},{Sq},{D}) kv {KV} Sk {Sk}{' causal' if causal else ''}"
+                 f"{f' window {window}' if window else ''} softcap {cfg.attn_softcap:g} bf16")
+        err = attention_check(torch, tag, shape, q, *kv_sets[0], "bfloat16", failures,
+                              causal=causal, window=window, softcap=cfg.attn_softcap)
+        t = attention_timings(torch, q, kv_sets, causal, dev, window=window,
+                              softcap=cfg.attn_softcap, iters=5 if Sq > 1 else None)
+        att[label.replace(" ", "_")] = {"shape": shape, "max_abs_err": err, **t}
+        print_attention_time(shape, t)
+        del q, kv_sets
+    fa_entry[GEMMA2] = att
+    n_loc = len(local_layers(cfg))
+    attn_ms = n_loc * att["prefill_local"]["ms"] + (cfg.n_layers - n_loc) * att["prefill_global"]["ms"]
+    print(f"{tag} attention kernel share of the prefill: {n_loc} x "
+          f"{att['prefill_local']['ms']:.4f} + {cfg.n_layers - n_loc} x "
+          f"{att['prefill_global']['ms']:.4f} ms = {attn_ms:.1f} ms, "
+          f"{attn_ms / (res.prefill_s * 1e3):.1%} of {res.prefill_s * 1e3:.1f} ms; decode at most "
+          f"{n_loc} x {att['decode_ring']['ms']:.4f} + {cfg.n_layers - n_loc} x "
+          f"{att['decode_global']['ms']:.4f} ms of a {step_ms:.2f} ms step")
+
+    # Information: the served bf16 prefill against the same prefill with the
+    # plain attention (rounding over 42 bf16 layers, not a tolerance).
+    last = last_logits(torch, model, params, prompts, failures, plain=True)
+    bf16_gap(torch, f"{tag} bf16 prefill last logits, kernel vs plain attention",
+             res.prefill_logits.float(), last, failures)
+    del last, res
+
+    # The gate, in fp32 at full width and GEMMA2_GATE_LAYERS layers (the
+    # first 2 of them local, with rings): the prefill of the same prompts,
+    # which wraps the rings, and 4 decode steps after it, through the
+    # kernel against the same with the plain attention.
+    L = GEMMA2_GATE_LAYERS
+    small = cfg.replace(n_layers=L, dtype="float32", logit_dtype="float32")
+    params32 = {k: (v[:L] if k.startswith("blocks/") else v).float() for k, v in params.items()}
+    del model, params
+    torch.cuda.empty_cache()
+    model32 = Model(small, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (B, 4), generator=g, device=dev)
+    lk, sk = prefill_then_decode(torch, model32, params32, prompts, tokens, failures)
+    lp, sp = prefill_then_decode(torch, model32, params32, prompts, tokens, failures, plain=True)
+    gate(torch, f"{tag} fp32 at full width and {L} layers ({(L + 1) // 2} rings), prefill last "
+         f"logits, kernel vs plain attention", lk, lp, failures)
+    gate(torch, f"{tag} fp32 at full width and {L} layers, 4 decode steps after the prefill "
+         f"(ring slots {P % W}..{(P + 3) % W}), kernel vs plain attention", sk, sp, failures)
+    del params32, model32, lk, lp, sk, sp
+    torch.cuda.empty_cache()
+
+
+class Routes:
+    """Wraps ``layers.moe_route`` and keeps each call's routed (token,
+    expert) pairs: their experts and whether each was kept (within the
+    capacity)."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+
+        self.calls: list = []
+        self._real = layers.moe_route
+
+    def __call__(self, *args):
+        out = self._real(*args)
+        self.calls.append((out[1], out[3]))
+        return out
+
+    @staticmethod
+    def dropped(calls) -> float:
+        """The share of the pairs of ``calls`` dropped past the capacity."""
+        return 1 - sum(int(keep.sum()) for _, keep in calls) / sum(
+            keep.numel() for _, keep in calls)
+
+    def record(self, layers, fn):
+        """fn() with every routing call recorded here."""
+        from unittest import mock
+
+        with mock.patch.object(layers, "moe_route", self):
+            return fn()
+
+
+def moe_phase(torch, dev, fa_entry, failures, counts):
+    """phi35_moe_42b at full width: served at MOE_SERVE_LAYERS layers (bf16,
+    batch 8, prompt 512, 64 tokens; the share of routed pairs dropped at
+    prefill and at decode; the fp32 gate at MOE_GATE_LAYERS layers), then
+    trained at MOE_TRAIN_LAYERS layers (4 steps, fp32 masters, remat) and
+    the fp32 step gate at 1 layer."""
+    from repro_torch.configs import arch_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.device import card_label
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import Model, layers
+
+    tag = f"[{MOE}]"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, params = serve.build_model(MOE, full=True, device=dev, seed=0, layers=MOE_SERVE_LAYERS)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    full = arch_config(MOE)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"{tag} {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv x {cfg.hd}, {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+          f"{cfg.d_ff}, capacity factor {cfg.capacity_factor}), depth cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers: {n_params / 1e9:.3f} B params in {cfg.dtype} (the whole "
+          f"model: {full.param_count() / 1e9:.1f} B), initialised in "
+          f"{time.perf_counter() - t0:.1f}s (peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f}"
+          f" GiB)")
+    prompts = serve.make_prompts(model, BATCH, PROMPT, seed=1)
+    cold = serve.generate(model, params, prompts[:, :16], 4)
+    print(f"{tag} warm-up (prompt 16, 4 tokens): prefill {cold.prefill_s * 1e3:.1f} ms, "
+          f"decode {cold.decode_s * 1e3:.1f} ms, finite {cold.finite}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = serve.generate(model, params, prompts, GEN)
+    counts[MOE] = read_counts()
+    step_ms = res.decode_s / (GEN - 1) * 1e3
+    print(f"{tag} prefill {BATCH}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f} ms; decode "
+          f"{res.decode_tok_s:.1f} tok/s ({GEN - 1} steps in {res.decode_s:.3f}s, {step_ms:.2f} ms "
+          f"a step); peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"{tag} sample output ids: {res.generated[0, :12].tolist()}")
+    for name, want in (("flash_attention", cfg.n_layers * GEN), ("flash_attention_bwd", 0),
+                       ("ssd", 0), ("mlstm", 0)):
+        got = counts[MOE][name]
+        print(f"{tag} {name} launches: {got} (expected {want})")
+        if got != want:
+            failures.append(f"{MOE}: {name} launched {got} times, expected {want}")
+    if not (res.finite and cold.finite):
+        failures.append(f"non-finite logits in the {MOE} serve run")
+
+    # The attention kernel at this model's shapes (head dim 128, GQA 32/8).
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    att = {}
+    for label, Sq, Sk, causal, seed in (("prefill", PROMPT, PROMPT, True, 600),
+                                        ("decode", 1, PROMPT + GEN - 1, False, 610)):
+        q = model_layout(torch, BATCH, H, Sq, D, "bfloat16", seed, dev)
+        if Sq > 1:
+            kv_sets = [tuple(model_layout(torch, BATCH, KV, Sk, D, "bfloat16", seed + i, dev)
+                             for i in (1, 2))]
+        else:
+            kv_sets = decode_sets(torch, BATCH, KV, Sk, D, seed + 1, dev)
+        shape = f"{label} ({BATCH},{H},{Sq},{D}) kv {KV} Sk {Sk}{' causal' if causal else ''} bf16"
+        err = attention_check(torch, tag, shape, q, *kv_sets[0], "bfloat16", failures,
+                              causal=causal)
+        att[label] = {"shape": shape, "max_abs_err": err,
+                      **attention_timings(torch, q, kv_sets, causal, dev)}
+        print_attention_time(shape, att[label])
+    fa_entry[MOE] = att
+
+    # The routing of the same run again, counted (not the timed run): the
+    # prefill's calls route B x P tokens at a capacity of
+    # int(B P k 1.25 / E), a decode step's B tokens at int(B k 1.25 / E).
+    drops = Routes()
+    drops.record(layers, lambda: serve.generate(model, params, prompts, GEN))
+    L = cfg.n_layers
+    cap_pre = max(int(BATCH * PROMPT * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
+    cap_dec = max(int(BATCH * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
+    print(f"{tag} routed (token, expert) pairs dropped past the capacity: prefill "
+          f"{drops.dropped(drops.calls[:L]):.2%} (capacity {cap_pre} per expert, {L} calls), decode "
+          f"{drops.dropped(drops.calls[L:]):.2%} (capacity {cap_dec}, {len(drops.calls) - L} calls)")
+
+    # Information: the bf16 prefill against the same with the plain
+    # attention, and how many routed pairs pick another expert in each
+    # layer between the two (a flip changes that token's whole output).
+    kern, plain = Routes(), Routes()
+    kern.record(layers, lambda: last_logits(torch, model, params, prompts, failures))
+    last = plain.record(layers, lambda: last_logits(torch, model, params, prompts, failures,
+                                                    plain=True))
+    bf16_gap(torch, f"{tag} bf16 prefill last logits, kernel vs plain attention",
+             res.prefill_logits.float(), last, failures)
+    print(f"{tag} bf16 prefill, kernel vs plain attention (information): routed pairs whose "
+          "expert differs, by layer: " + ", ".join(
+              f"{float((a != b).float().mean()):.2%}"
+              for (a, _), (b, _) in zip(kern.calls, plain.calls)))
+    del last, res, kern, plain
+
+    # The serve gate in fp32 at MOE_GATE_LAYERS layers of the same weights:
+    # the prefill's last logits and 4 decode steps after it.
+    G = MOE_GATE_LAYERS
+    params32 = {k: (v[:G] if k.startswith("blocks/") else v).float() for k, v in params.items()}
+    del model, params
+    torch.cuda.empty_cache()
+    model32 = Model(cfg.replace(n_layers=G, dtype="float32", logit_dtype="float32"), dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, 4), generator=g, device=dev)
+    lk, sk = prefill_then_decode(torch, model32, params32, prompts, tokens, failures)
+    lp, sp = prefill_then_decode(torch, model32, params32, prompts, tokens, failures, plain=True)
+    gate(torch, f"{tag} fp32 at full width and {G} layers, prefill last logits, kernel vs plain "
+         "attention", lk, lp, failures)
+    gate(torch, f"{tag} fp32 at full width and {G} layers, 4 decode steps after the prefill, "
+         "kernel vs plain attention", sk, sp, failures)
+    del params32, model32, lk, lp, sk, sp
+    torch.cuda.empty_cache()
+
+    # Training at MOE_TRAIN_LAYERS layers through repro_torch.launch.train.
+    tcfg = full.replace(n_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, state, step_fn = train_cli.build(tcfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    print(f"{tag} train: depth cut to {tcfg.n_layers} layers, {n_params / 1e9:.3f} B params as "
+          f"fp32 masters (params, grads and AdamW mu / nu: {16 * n_params / 1e9:.1f} GB), compute "
+          f"{tcfg.dtype}, remat {tcfg.remat}; initialised in {time.perf_counter() - t0:.1f}s")
+    data = SyntheticTokens(tcfg, BATCH, TRAIN_SEQ, seed=0)
+
+    def dropped(params, batch) -> str:
+        """The share of routed pairs each layer drops in a forward of batch."""
+        drops = Routes()
+        with torch.no_grad():
+            drops.record(layers, lambda: model.loss(params, to_device(batch, dev)))
+        return ", ".join(f"layer {i} {drops.dropped([c]):.2%}" for i, c in enumerate(drops.calls))
+
+    at_init = dropped(state.params, data.sample(0))
+    reset_counts()
+    state, records = train_cli.train(model, state, step_fn, data.iter(), TRAIN_STEPS,
+                                     log=lambda line: print(f"{tag} {line}"))
+    path = f"train {MOE}"
+    counts[path] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in records:
+        print(f"{tag} step {r.step}: loss {r.loss:.4f}, grad norm {r.grad_norm:.4f}, "
+              f"{r.seconds * 1e3:.1f} ms")
+    step_s = statistics.median(r.seconds for r in records[1:])
+    print(f"{tag} step time {step_s * 1e3:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; step 0, "
+          f"cold, {records[0].seconds * 1e3:.1f} ms), {BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, "
+          f"peak memory {peak / 2**30:.1f} GiB ({peak / 1e9:.1f} GB), on {card_label(dev)}")
+    finite = all(math.isfinite(r.loss) and math.isfinite(r.grad_norm) for r in records)
+    print(f"{tag} every loss and grad norm finite: {finite}")
+    if not finite:
+        failures.append(f"non-finite loss or grads in the {MOE} train run")
+    for name, want in train_launches(tcfg).items():
+        got = counts[path][name]
+        print(f"{tag} {name} launches: {got} in {TRAIN_STEPS} steps (expected "
+              f"{TRAIN_STEPS} x {want} = {TRAIN_STEPS * want})")
+        if got != TRAIN_STEPS * want:
+            failures.append(f"{path}: {name} launched {got} times, expected {TRAIN_STEPS * want}")
+    print(f"{tag} routed pairs dropped in a train batch's forward (capacity {cap_pre}): at "
+          f"init, batch 0: {at_init}; after the {TRAIN_STEPS} steps, batch {TRAIN_STEPS}: "
+          f"{dropped(state.params, data.sample(TRAIN_STEPS))}")
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    step_gate(torch, dev, full, 1, to_device(data.sample(0), dev), tag, "plain attention",
+              failures)
 
 
 # ------------------------------------------------------------------- train --

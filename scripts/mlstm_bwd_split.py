@@ -44,11 +44,7 @@ def inputs(dtype, dev):
 
 def load_old(src: Path):
     """The C entry of ``src`` built into the port's (git-ignored) build directory."""
-    out = _build.BUILD_DIR / "libmlstm_bwd_old.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    lib = _build.load_source(src, "mlstm_bwd_old")
     lib.mlstm_scan_bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                                    + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
     lib.mlstm_scan_bwd.restype = ctypes.c_int

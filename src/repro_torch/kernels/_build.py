@@ -78,3 +78,16 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def load_source(src: Path, name: str) -> ctypes.CDLL:
+    """Compile another source ``src`` (an older commit's ``csrc/*.cu``, as
+    the A/B scripts under ``scripts/`` take; it may include this tree's
+    headers) into ``build/lib<name>.so`` and load it.  Built on every call."""
+    out = BUILD_DIR / f"lib{name}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):\n{proc.stdout}")
+    return ctypes.CDLL(str(out))

@@ -13,7 +13,8 @@
 //           written; TF32 products would miss the 2e-5 fp32 tolerance):
 //           a block per (b, h, q-tile) walks KV tiles of 32 keys staged
 //           as fp32 in shared memory, a lane per key for the scores;
-//           decode splits the tiles over 4 warps and merges them;
+//           decode splits the tiles over 4 warps and merges them (not at
+//           D 256, where four warps' slabs would not fit: see launch_mode);
 //   bf16 -> attn_prefill_bf16 (Sq >= 16) and attn_decode_bf16 (Sq < 16),
 //           tensor-core products (mma.sync m16n8k16, bf16 operands, fp32
 //           accumulators; helpers in mma_bf16.cuh).
@@ -44,13 +45,31 @@
 // 67,584 bytes of shared memory at D 80, two blocks an SM (128 registers;
 // ptxas spills 52 bytes at D 80 and 20 at D 64).
 //
+// At D 256 (gemma2_9b) the same plan is kept, one block an SM.  What is
+// scarce there: a warp's 16-row fp32 O is D / 2 = 128 registers a lane and
+// its 64-key S 32 more, so the launch bounds give the kernel the whole 255
+// registers a thread (8 warps an SM, the occupancy the register file
+// allows with O whole in registers); the Q tile (128 rows) and the four
+// 64-key K/V buffers take 202,752 bytes, under the 227 KB a block may
+// have.  Halving the rows (64 a block) or the keys (32 a tile) would
+// free shared memory that the registers could not use, and splitting O's D
+// over warp pairs would double each pair's Q K^T work or pass S through
+// shared memory.  gemma2's prefill at (2, 16, 5120, 256) causal is bound by
+// the tensor cores (4 D flops a pair: 0.434 ms at 989 TFLOP/s against
+// 0.038 ms for its 126 MB), softcap adding a tanh a score.
+//
 // The bf16 decode design.  A block owns one (b, KV head) and up to 16
 // query rows of its GQA group (head-in-group x position), so the group
 // shares every K/V read; its 4 warps split the keys in steps of 32 (16 at
 // D 128) and read K and V straight from global memory into registers with
 // 16-byte loads, all of a step's loads issued before its products; the
 // inner index of each product is permuted so that a lane's share of a row
-// is contiguous.  The warps merge their (m, l, o) in shared memory.
+// is contiguous.  The warps merge their (m, l, o) in shared memory.  At
+// D 256 (DcMap::LEAN) O is 128 registers a lane, Q's fragments would be 64
+// more and a step's K and V words 64 each: Q's fragments go to shared
+// memory once for the block (8 KB, read back 16 bytes a lane a k-step) and
+// a step loads V only after its scores are formed, when K's registers are
+// free; 16 keys a step as at D 128.
 //
 // Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): prefill 0.0906 ms
 // against SDPA's 0.0571 (stablelm shape) and 0.0801 against 0.0418 (D 64,
@@ -382,9 +401,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Decode mode gives each warp a K/V slab of its own; at D 256 four slabs
+// (264 KB) pass the 227 KB a block may have, so D 256 always runs the
+// shared-slab mode (at Sq < 16 with rows of the block left empty).
 template <typename T, int D>
 cudaError_t launch_mode(const Params& p, cudaStream_t stream) {
-  if (p.Sq < SPLIT_BELOW_SQ) return launch<T, D, 1, true>(p, stream);
+  if constexpr (D <= 128) {
+    if (p.Sq < SPLIT_BELOW_SQ) return launch<T, D, 1, true>(p, stream);
+  }
   return launch<T, D, 4, false>(p, stream);
 }
 
@@ -396,6 +420,7 @@ cudaError_t launch_dim(const Params& p, int D, cudaStream_t stream) {
     case 64: return launch_mode<T, 64>(p, stream);
     case 80: return launch_mode<T, 80>(p, stream);
     case 128: return launch_mode<T, 128>(p, stream);
+    case 256: return launch_mode<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -660,6 +685,10 @@ struct DcMap {
   static constexpr int VW = D / 16;  // words of a value row per lane
   static constexpr int KEYS = D > 80 ? 16 : 32;  // keys a warp takes per step (registers)
   static constexpr int NKT = KEYS / 8;
+  // Above D 128 the output alone is D / 2 registers a lane: Q's fragments
+  // move to shared memory (one copy for the block's 4 warps) and a step's
+  // V loads wait until its scores are formed and its K registers free.
+  static constexpr bool LEAN = D > 128;
   __device__ static int col(int nt, int c) {
     return nt < 8 * W64 ? 64 * (nt / 8) + 8 * c + nt % 8 : 64 * W64 + (R / 8) * c + nt - 8 * W64;
   }
@@ -711,11 +740,28 @@ __device__ __forceinline__ void load_vrow(uint32_t (&w)[DcMap<D>::VW], const bf1
   }
 }
 
+// V rows of one step's keys kb.. as the B fragments of P V: for k-step kk,
+// the lane's keys 16 kk + 2 t + {0, 1, 8, 9}.
 template <int D>
-struct DcSmem {  // in floats: each warp's m and l of 16 rows, then its 16 x D partial o
+__device__ __forceinline__ void load_vstep(uint32_t (&w)[DcMap<D>::NKT / 2][4][DcMap<D>::VW],
+                                           const bf16* vg, int64_t vss, int kb, int k_hi,
+                                           int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DcMap<D>::NKT / 2; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = kb + 16 * kk + 2 * (lane & 3) + (i & 1) + 8 * (i >> 1);
+      load_vrow<D>(w[kk][i], vg + key * vss, key < k_hi, lane >> 2);
+    }
+}
+
+template <int D>
+struct DcSmem {  // in floats: each warp's m and l of 16 rows, then its 16 x D partial o,
+                 // then (LEAN) Q's A fragments, [k-step][lane] as 16 bytes each
   static constexpr int L = DC_WARPS * 16;
   static constexpr int O = 2 * DC_WARPS * 16;
-  static constexpr size_t BYTES = sizeof(float) * (O + DC_WARPS * 16 * D);
+  static constexpr int QF = O + DC_WARPS * 16 * D;
+  static constexpr size_t BYTES = sizeof(float) * (QF + (DcMap<D>::LEAN ? D / 16 * 32 * 4 : 0));
 };
 
 template <int D>
@@ -741,9 +787,11 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ksb + kvh * p.ksh;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vsb + kvh * p.vsh;
 
-  // This lane's two query rows (g and g + 8) as A fragments of Q K^T.
+  // This lane's two query rows (g and g + 8) as A fragments of Q K^T: in
+  // registers, or (LEAN) in shared memory, where warp 0 writes them.
   int qpos[2];
-  uint32_t qf[KS][4];
+  uint32_t qf[M::LEAN ? 1 : KS][4];
+  uint4* Qs = reinterpret_cast<uint4*>(sm + S::QF);
   {
     uint32_t qw[2][M::KW];
 #pragma unroll
@@ -758,12 +806,18 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const int w = M::kword(ks);
-      qf[ks][0] = qw[0][w];
-      qf[ks][1] = qw[1][w];
-      qf[ks][2] = qw[0][w + 1];
-      qf[ks][3] = qw[1][w + 1];
+      const uint4 f = make_uint4(qw[0][w], qw[1][w], qw[0][w + 1], qw[1][w + 1]);
+      if constexpr (M::LEAN) {
+        if (warp == 0) Qs[ks * 32 + lane] = f;
+      } else {
+        qf[ks][0] = f.x;
+        qf[ks][1] = f.y;
+        qf[ks][2] = f.z;
+        qf[ks][3] = f.w;
+      }
     }
   }
+  if constexpr (M::LEAN) __syncthreads();
 
   const int k_hi = p.causal ? min(p.Sk, p.Sq) : p.Sk;
   const int nsteps = (k_hi + M::KEYS - 1) / M::KEYS;
@@ -774,7 +828,8 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
 
   for (int step = warp; step < nsteps; step += DC_WARPS) {
     const int kb = step * M::KEYS;
-    // Every load of the step first: K for the scores, V for P V.
+    // Every load of the step first (LEAN: V after the scores): K for the
+    // scores, V for P V.
     uint32_t kw[NKT][M::KW];
     uint32_t vw[NKT / 2][4][M::VW];
 #pragma unroll
@@ -782,13 +837,7 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
       const int key = kb + 8 * j + g;
       load_krow<D>(kw[j], kg + key * p.kss, key < k_hi, t);
     }
-#pragma unroll
-    for (int kk = 0; kk < NKT / 2; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = kb + 16 * kk + 2 * t + (i & 1) + 8 * (i >> 1);
-        load_vrow<D>(vw[kk][i], vg + key * p.vss, key < k_hi, g);
-      }
+    if constexpr (!M::LEAN) load_vstep<D>(vw, vg, p.vss, kb, k_hi, lane);
 
     float s[NKT][4];
 #pragma unroll
@@ -797,9 +846,16 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         const int w = M::kword(ks);
-        mma::mma_bf16(s[j], qf[ks], kw[j][w], kw[j][w + 1]);
+        if constexpr (M::LEAN) {
+          const uint4 f = Qs[ks * 32 + lane];
+          const uint32_t a[4] = {f.x, f.y, f.z, f.w};
+          mma::mma_bf16(s[j], a, kw[j][w], kw[j][w + 1]);
+        } else {
+          mma::mma_bf16(s[j], qf[ks], kw[j][w], kw[j][w + 1]);
+        }
       }
     }
+    if constexpr (M::LEAN) load_vstep<D>(vw, vg, p.vss, kb, k_hi, lane);
     const bool need_mask = p.causal || p.window > 0 || kb + M::KEYS > p.Sk;
 #pragma unroll
     for (int j = 0; j < NKT; ++j)
@@ -899,6 +955,7 @@ cudaError_t launch_bf16(const Params& p, int D, cudaStream_t stream) {
     case 64: return launch_bf16_mode<64>(p, stream);
     case 80: return launch_bf16_mode<80>(p, stream);
     case 128: return launch_bf16_mode<128>(p, stream);
+    case 256: return launch_bf16_mode<256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -31,7 +31,9 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 
-SUPPORTED_D = (16, 32, 64, 80, 128)
+SUPPORTED_D = (16, 32, 64, 80, 128, 256)
+# The backward has no D 256 path yet (gemma2 training on the card: ROADMAP.md A21).
+BWD_SUPPORTED_D = (16, 32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -40,16 +42,44 @@ _fn = None
 _bwd_fn = None
 
 
+def bind_fwd(lib: ctypes.CDLL):
+    """``lib``'s C entry ``flash_attention_fwd`` with its signature set:
+    this tree's library, or one built from another source of
+    ``csrc/flash_attention.cu`` (``scripts/attention_fwd_ab.py``)."""
+    fn = lib.flash_attention_fwd
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + [
+        I, I, ctypes.c_float, ctypes.c_float, P]
+    fn.restype = I
+    return fn
+
+
 def _kernel():
     global _fn
     if _fn is None:
-        fn = _build.load("flash_attention").flash_attention_fwd
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + [
-            I, I, ctypes.c_float, ctypes.c_float, P]
-        fn.restype = I
-        _fn = fn
+        _fn = bind_fwd(_build.load("flash_attention"))
     return _fn
+
+
+def run_fwd(fn, q, k, v, *, causal: bool, window: int, softcap: float) -> torch.Tensor:
+    """Call the forward entry ``fn`` (from :func:`bind_fwd`) on checked
+    inputs; counts nothing.  Returns the (B,H,Sq,D) view of a (B,Sq,H,D)
+    output."""
+    B, H, Sq, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, k.shape[1], Sq, k.shape[2], D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(D), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device):
@@ -84,8 +114,9 @@ def _bwd_kernel():
     return _bwd_fn
 
 
-def _check_inputs(q, k, v) -> tuple[int, int, int, int, int, int]:
-    """Raises on q/k/v the kernels do not take; returns (B, H, KV, Sq, Sk, D)."""
+def _check_inputs(q, k, v, supported=SUPPORTED_D) -> tuple[int, int, int, int, int, int]:
+    """Raises on q/k/v the kernel (head dims ``supported``) does not take;
+    returns (B, H, KV, Sq, Sk, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:
@@ -98,8 +129,9 @@ def _check_inputs(q, k, v) -> tuple[int, int, int, int, int, int]:
     if k.shape != (B, KV, Sk, D) or v.shape != k.shape or H % KV:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if D not in SUPPORTED_D:
-        raise ValueError(f"flash_attention: head dim {D} not in {SUPPORTED_D}")
+    if D not in supported:
+        todo = " (the backward at D 256 is ROADMAP.md A21)" if D in SUPPORTED_D else ""
+        raise ValueError(f"flash_attention: head dim {D} not in {supported}{todo}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q.dtype, q.device)
     return B, H, KV, Sq, Sk, D
@@ -116,21 +148,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError("flash_attention_cuda records no gradient; call "
                            "repro_torch.kernels.ops.flash_attention, whose autograd Function "
                            "runs the backward kernel")
-    B, H, KV, Sq, Sk, D = _check_inputs(q, k, v)
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(D), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _check_inputs(q, k, v)
+    out = run_fwd(_kernel(), q, k, v, causal=causal, window=window, softcap=softcap)
+    if out.numel():
+        launches += 1
     return out
 
 
@@ -144,7 +165,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True, window:
     could not read it in place.  Returns (dq, dk, dv) in q's, k's and v's
     dtypes and layouts."""
     global bwd_launches
-    B, H, KV, Sq, Sk, D = _check_inputs(q, k, v)
+    B, H, KV, Sq, Sk, D = _check_inputs(q, k, v, BWD_SUPPORTED_D)
     for name, t in (("out", out), ("dout", dout)):
         if tuple(t.shape) != (B, H, Sq, D):
             raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)}, "

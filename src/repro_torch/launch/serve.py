@@ -16,11 +16,20 @@ by token.  Greedy decode then calls ``decode_step`` ``gen_len - 1``
 times.  Attention, the Mamba2 chunked scan and the mLSTM chunked scan
 run in the hand-written CUDA kernels on the card
 (``repro_torch.kernels``); the sLSTM recurrence is a Python loop over
-the prompt, as the JAX package's is a ``lax.scan``.
+the prompt, as the JAX package's is a ``lax.scan``.  gemma2's local
+layers keep window-sized ring caches where the cache outgrows the window.
+The MoE layer's capacity is per call, so a one-pass prefill routes (and
+drops) as the JAX package's one-pass forward does, not as its
+token-by-token loop.  ``--layers`` cuts the config's depth, for a model
+that does not fit one card whole (phi3.5-MoE's 41.9 B params).
 
     python -m repro_torch.launch.serve --static --arch stablelm_3b --full
     python -m repro_torch.launch.serve --static --arch zamba2_1p2b --full
     python -m repro_torch.launch.serve --static --arch xlstm_125m --full
+    python -m repro_torch.launch.serve --static --arch gemma2_9b --full \\
+        --batch 2 --prompt-len 5120 --gen-len 64
+    python -m repro_torch.launch.serve --static --arch phi35_moe_42b --full \\
+        --layers 8 --prompt-len 512 --gen-len 64
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  The elastic serving
 plane (the JAX package's default mode) is not ported yet: without
@@ -59,11 +68,13 @@ class ServeResult:
 
 
 def build_model(arch: str, *, full: bool = False, device: DeviceLike = None,
-                seed: int = 0) -> tuple[Model, dict]:
+                seed: int = 0, layers: Optional[int] = None) -> tuple[Model, dict]:
     """The arch's config (``full``: published widths and depth; else the
-    smoke config) with params drawn from ``seed`` on the device and cast
-    once to the compute dtype."""
+    smoke config; ``layers``: that depth instead) with params drawn from
+    ``seed`` on the device and cast once to the compute dtype."""
     cfg = (arch_config if full else smoke_config)(arch).replace(embed_inputs=False)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     model = Model(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params, _ = model.init(gen)
@@ -128,7 +139,7 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, gen_len: int) ->
 
 def run_static(args: argparse.Namespace) -> int:
     dev = resolve_device(args.device)
-    model, params = build_model(args.arch, full=args.full, device=dev)
+    model, params = build_model(args.arch, full=args.full, device=dev, layers=args.layers)
     prompts = make_prompts(model, args.batch, args.prompt_len)
     res = generate(model, params, prompts, args.gen_len)
     B, P, G = args.batch, args.prompt_len, args.gen_len
@@ -191,6 +202,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--arch", default="", help="model config")
     ap.add_argument("--full", action="store_true",
                     help="the arch's full config (default: its smoke config)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=32)

@@ -10,8 +10,9 @@ their ``est`` and ``downtime`` are the cost model's modelled cluster
 times, not card times (the slots of the pool are logical, all on one
 card).  On the card, attention, the SSD scan and the mLSTM scan run
 forward and backward in the hand-written CUDA kernels
-(``repro_torch.kernels``), so the dense, hybrid (zamba2) and xLSTM
-families train there.
+(``repro_torch.kernels``), so the dense, moe, hybrid (zamba2) and xLSTM
+families train there (gemma2 only on the CPU: the attention backward at
+its head dim of 256 is ROADMAP.md A21).
 
     python -m repro_torch.launch.train --arch stablelm_3b --full-config \\
         --steps 4 --batch 8 --seq 512
@@ -19,12 +20,17 @@ families train there.
         --scenario steady-cycle --batch 8 --seq 512
     python -m repro_torch.launch.train --arch zamba2_1p2b --full-config \\
         --steps 4 --batch 8 --seq 512
+    python -m repro_torch.launch.train --arch phi35_moe_42b --full-config \\
+        --layers 2 --steps 4 --batch 8 --seq 512
     python -m repro_torch.launch.train --device cpu --arch xlstm_125m \\
         --scenario steady-cycle --batch 8 --seq 32
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  What is not ported
+``--layers`` cuts the config's depth (phi3.5-MoE's fp32 masters and
+AdamW state take ~16 GB a layer).  Runs on ``cuda`` unless ``--device
+cpu`` is given.  What is not ported
 yet exits 2 and names its ROADMAP.md item: ``--model-parallel`` above 1
-(A16) and the ``moe`` family (A12).
+(A16), and training on the card at a head dim the attention backward
+does not take (gemma2's 256: A21).
 """
 from __future__ import annotations
 
@@ -42,13 +48,15 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import arch_config, smoke_config
 from repro_torch.data import SyntheticTokens, to_device
 from repro_torch.device import DeviceLike, card_label, resolve_device
+from repro_torch.kernels.flash_attention import BWD_SUPPORTED_D, SUPPORTED_D
 from repro_torch.models import Model
 from repro_torch.models.common import ModelConfig
 from repro_torch.train import TrainState, build_init_fn, build_train_step
 
 NOT_PORTED = {
     "model_parallel": "--model-parallel > 1 is not ported yet: ROADMAP.md A16",
-    "moe": "the moe family is not ported yet: ROADMAP.md A12",
+    "bwd_head_dim": ("training on the card at head dim {hd} is not ported yet: the attention "
+                     "forward takes it, the backward only {supported} (ROADMAP.md A21)"),
 }
 
 
@@ -60,11 +68,15 @@ class StepRecord:
     seconds: float   # host clock of the step, ended by a device sync
 
 
-def refusal(cfg: ModelConfig, args: argparse.Namespace) -> Optional[str]:
-    """Why this run is not ported yet, or None."""
+def refusal(args: argparse.Namespace, cfg: ModelConfig) -> Optional[str]:
+    """Why this run is not ported yet, or None; decided before any weight
+    is drawn."""
     if args.model_parallel > 1:
         return NOT_PORTED["model_parallel"]
-    return NOT_PORTED.get(cfg.family)
+    on_card = torch.device(args.device or "cuda").type == "cuda"
+    if on_card and cfg.hd in SUPPORTED_D and cfg.hd not in BWD_SUPPORTED_D:
+        return NOT_PORTED["bwd_head_dim"].format(supported=BWD_SUPPORTED_D, hd=cfg.hd)
+    return None
 
 
 def build(cfg: ModelConfig, *, device: DeviceLike = None, lr: float = 3e-4,
@@ -116,6 +128,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--full-config", action="store_true",
                     help="use the full arch config (production scale)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--model-parallel", type=int, default=1)
@@ -126,7 +140,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     cfg = arch_config(args.arch) if args.full_config else smoke_config(args.arch)
-    why = refusal(cfg, args)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
+    why = refusal(args, cfg)
     if why:
         print(why, file=sys.stderr)
         return 2

@@ -13,7 +13,8 @@ from repro_torch.device import DeviceLike, resolve_device
 
 from .common import ModelConfig, ParamBuilder, torch_dtype
 from .layers import init_rmsnorm, rmsnorm
-from .transformer import decode_blocks, forward_blocks, init_blocks, init_cache_shapes
+from .transformer import (KV_ENTRIES, decode_blocks, forward_blocks, init_blocks,
+                          init_cache_shapes, local_layers)
 
 
 def _build_params(cfg: ModelConfig, generator: Optional[torch.Generator]) -> tuple[dict, dict]:
@@ -139,17 +140,28 @@ class Model:
 
     def prefill(self, params: dict, cache: dict, batch: dict) -> torch.Tensor:
         """One forward pass over the prompt that fills ``cache`` as S decode
-        steps would: attention (k, v) at positions 0..S-1, recurrent states
-        (hybrid ``ssm``, ``conv``; xLSTM ``mlstm_*``, ``slstm_*``) whole.
-        Returns the logits (B,S,V)."""
+        steps would: attention (k, v) at positions 0..S-1 (in gemma2's
+        window-sized rings, position p of the last ``window`` at slot
+        p % window), recurrent states (hybrid ``ssm``, ``conv``; xLSTM
+        ``mlstm_*``, ``slstm_*``) whole.  Returns the logits (B,S,V)."""
         logits, caches = self.forward(params, batch, collect_kv=True)
+        if "k_loc" in cache:
+            # forward_blocks collects every layer's (k, v): the local ones
+            # go to the rings, the others to the global cache
+            loc = local_layers(self.cfg)
+            glob = [i for i in range(self.cfg.n_layers) if i not in loc]
+            caches = {"k_loc": caches["k"][loc], "v_loc": caches["v"][loc],
+                      "k": caches["k"][glob], "v": caches["v"][glob]}
         for name, val in caches.items():
             dst = cache[name]
-            if val.shape == dst.shape:
-                # a recurrent state, of the cache's own shape: written whole
-                dst.copy_(val)
+            if name not in KV_ENTRIES:
+                dst.copy_(val)   # a recurrent state, of the cache's own shape
+                continue
+            # (n, B, S, KV, hd) into the cache's (n, B, max_len or window, KV, hd)
+            S, n = val.shape[2], dst.shape[2]
+            if name.endswith("_loc") and S > n:
+                slots = torch.arange(S - n, S, device=dst.device) % n
+                dst[:, :, slots] = val[:, :, S - n:].to(dst.dtype)
             else:
-                # an attention entry: (n, B, S, KV, hd) into the cache's
-                # (n, B, max_len, KV, hd), positions 0..S-1
-                dst[:, :, :val.shape[2]] = val.to(dst.dtype)
+                dst[:, :, :S] = val.to(dst.dtype)
         return logits

@@ -3,16 +3,16 @@
 
 Training/prefill walk the stacked per-layer params with a Python loop
 (the JAX package's ``lax.scan``); decode walks the layers over per-layer
-cache slices.  With ``cfg.remat`` and grad enabled, each step of the
+cache slices (gemma2's local layers over window-sized ring caches, where
+the cache outgrows the window).  With ``cfg.remat`` and grad enabled, each step of the
 layer loop runs under ``torch.utils.checkpoint`` (the JAX package's
 ``jax.checkpoint`` of its scan body, with ``nothing_saveable``): a dense
 block; a Mamba2 layer with the shared block when it follows; an xLSTM
 unit.  Its activations are recomputed in the backward.
-Families not ported yet raise ``NotImplementedError`` naming their
-ROADMAP.md item.
 
-Families ported:
+Families:
   dense   — [attn, mlp] x L     (gemma2: alternating sliding window + softcap)
+  moe     — [attn, moe] x L     (optional shared expert)
   audio / vlm — the dense stack over precomputed embeddings / M-RoPE
   hybrid  — zamba2: Mamba2 backbone + ONE shared attn+mlp block applied
             after every ``attn_every``-th layer (weights shared)
@@ -27,7 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .common import ModelConfig, ParamBuilder, stack_params, torch_dtype
-from .layers import attention, init_attention, init_mlp, init_moe, init_rmsnorm, mlp, rmsnorm
+from .layers import attention, init_attention, init_mlp, init_moe, init_rmsnorm, mlp, moe, rmsnorm
 from .ssm import init_mamba2, mamba2_block, mamba2_state_shapes
 from .xlstm import (
     init_mlstm_block,
@@ -38,17 +38,17 @@ from .xlstm import (
     slstm_state_shapes,
 )
 
-DENSE_FAMILIES = ("dense", "audio", "vlm")
-_TODO = {
-    "moe": "MoE layers are not ported yet: ROADMAP.md A12",
-}
+DENSE_FAMILIES = ("dense", "moe", "audio", "vlm")
+# Cache entries that hold attention keys / values, (n, B, S_max, KV, hd);
+# "k_loc" / "v_loc" are gemma2's rings of ``sliding_window`` slots.
+KV_ENTRIES = ("k", "v", "k_loc", "v_loc", "attn_k", "attn_v")
 MLSTM_STATES = ("mlstm_S", "mlstm_n", "mlstm_m")
 SLSTM_STATES = ("slstm_c", "slstm_n", "slstm_h", "slstm_m")
 
 
-def _require_ported(cfg: ModelConfig):
+def _check_family(cfg: ModelConfig):
     if cfg.family not in DENSE_FAMILIES + ("hybrid", "ssm"):
-        raise NotImplementedError(_TODO.get(cfg.family, f"unknown family {cfg.family!r}"))
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -94,9 +94,9 @@ def init_blocks(generator: Optional[torch.Generator], cfg: ModelConfig) -> tuple
     """Stacked block params (leading ``layers`` axis: layers, or xLSTM
     units) + their logical axes; for the hybrid family also the shared
     block's (not stacked).  ``generator=None`` gives :class:`ParamShape`
-    records for every family, moe included."""
+    records for every family."""
     if generator is not None:
-        _require_ported(cfg)
+        _check_family(cfg)
     if cfg.family == "ssm":
         per_layer = [_init_xlstm_unit(generator, cfg) for _ in range(_n_units(cfg))]
     else:
@@ -126,6 +126,15 @@ def _layer_windows(cfg: ModelConfig) -> Optional[list[int]]:
     return [cfg.sliding_window] * cfg.n_layers
 
 
+def local_layers(cfg: ModelConfig) -> list[int]:
+    """The layers that attend within a window while the others attend to
+    every position (gemma2's alternation; its even layers): those whose
+    ``_layer_windows`` entry is > 0.  Empty without the alternation."""
+    if not cfg.alt_local_global:
+        return []
+    return [i for i, w in enumerate(_layer_windows(cfg) or []) if w > 0]
+
+
 def _split_stacked(params: dict, prefix: str, dtype=None) -> dict:
     """Extract a sub-dict; optionally cast floating params to the compute
     dtype once here (a no-op for params already in it)."""
@@ -144,21 +153,28 @@ def _dense_block(layer_params, cfg, x, positions, window, collect_kv):
     )
     x = x + attn_out
     h = rmsnorm(layer_params, "ln_mlp", x, cfg.norm_eps)
-    x = x + mlp(layer_params, "mlp", h)
-    return x, kv
+    return x + _ffn(layer_params, cfg, h), kv
+
+
+def _ffn(layer_params, cfg, h):
+    """The block's feed-forward: the MoE layer in the moe family, else the MLP."""
+    if cfg.family == "moe":
+        return moe(layer_params, "moe", cfg, h)
+    return mlp(layer_params, "mlp", h)
 
 
 def forward_blocks(params, cfg: ModelConfig, x, positions, collect_kv=False):
     """x: (B,S,d) post-embedding.  Returns (y, caches-or-None).
 
     With ``collect_kv``, caches holds every entry of ``init_cache_shapes``
-    that the prompt fills, stacked over layers: dense ``k``/``v``
-    (L, B, S, KV, hd); hybrid ``ssm`` (L, B, H, N, P) fp32 and ``conv``
+    that the prompt fills, stacked over layers: dense and moe ``k``/``v``
+    (L, B, S, KV, hd), every layer's (``Model.prefill`` hands gemma2's
+    local layers' to their rings); hybrid ``ssm`` (L, B, H, N, P) fp32 and ``conv``
     (L, B, K-1, C), the states a decode step continues from, and the
     shared block's ``attn_k``/``attn_v`` (n_attn, B, S, KV, hd); xLSTM
     ``mlstm_S``/``mlstm_n``/``mlstm_m`` (n_units, every-1, B, H, ...) and
     ``slstm_c/n/h/m`` (n_units, B, H, dh), all fp32."""
-    _require_ported(cfg)
+    _check_family(cfg)
     if cfg.family == "hybrid":
         return _forward_hybrid(params, cfg, x, positions, collect_kv)
     if cfg.family == "ssm":
@@ -272,17 +288,27 @@ def _forward_xlstm(params, cfg: ModelConfig, x, collect_kv):
 
 def decode_blocks(params, cfg: ModelConfig, x, positions, cache: dict, cache_pos: int):
     """One decode step.  x: (B,1,d).  cache: stacked per-layer dict, written
-    in place (the JAX package returns a new one).  Returns (y, cache)."""
-    _require_ported(cfg)
+    in place (the JAX package returns a new one).  Returns (y, cache).
+    With ``k_loc`` in the cache (gemma2), the local (even) layers read and
+    write their ring slots, the global ones ``k``/``v``."""
+    _check_family(cfg)
     if cfg.family == "hybrid":
         return _decode_hybrid(params, cfg, x, positions, cache, cache_pos), cache
     if cfg.family == "ssm":
         return _decode_xlstm(params, cfg, x, cache), cache
     stacked = _split_stacked(params, "blocks/")
     windows = _layer_windows(cfg)
+    rings = set(local_layers(cfg)) if "k_loc" in cache else set()
+    loc_slot = glob_slot = 0
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in stacked.items()}
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        if i in rings:
+            layer_cache = {"k": cache["k_loc"][loc_slot], "v": cache["v_loc"][loc_slot],
+                           "ring": True}
+            loc_slot += 1
+        else:
+            layer_cache = {"k": cache["k"][glob_slot], "v": cache["v"][glob_slot]}
+            glob_slot += 1
         window = None if windows is None else windows[i]
         h = rmsnorm(lp, "ln_attn", x, cfg.norm_eps)
         attn_out, _ = attention(
@@ -291,7 +317,7 @@ def decode_blocks(params, cfg: ModelConfig, x, positions, cache: dict, cache_pos
         )
         x = x + attn_out
         h = rmsnorm(lp, "ln_mlp", x, cfg.norm_eps)
-        x = x + mlp(lp, "mlp", h)
+        x = x + _ffn(lp, cfg, h)
     return x, cache
 
 
@@ -348,10 +374,12 @@ def _decode_xlstm(params, cfg: ModelConfig, x, cache: dict):
 def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """Abstract cache spec: name -> (shape, dtype, logical_axes, fill).
 
-    Where the JAX package gives gemma2's local layers window-sized ring
-    caches (a window shorter than ``max_len``), this raises: not ported.
+    gemma2 (``alt_local_global`` with ``0 < sliding_window < max_len``):
+    its local (even) layers only ever see the last ``sliding_window``
+    tokens and get window-sized ring caches ``k_loc``/``v_loc``, its global
+    (odd) layers ``k``/``v`` of ``max_len``, as in the JAX package.
     """
-    _require_ported(cfg)
+    _check_family(cfg)
     dt = cfg.dtype
     kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
     if cfg.family == "hybrid":
@@ -384,7 +412,10 @@ def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
                          ("layers", "batch", "xlstm_heads", None), 0.0)
         return out
     if cfg.alt_local_global and 0 < cfg.sliding_window < max_len:
-        raise NotImplementedError(
-            "ring KV caches (gemma2 local layers) are not ported yet: ROADMAP.md A11")
+        n_loc = len(local_layers(cfg))
+        ring = (n_loc, batch, cfg.sliding_window, cfg.n_kv_heads, cfg.hd)
+        shape = (cfg.n_layers - n_loc, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"k_loc": (ring, dt, kv_axes, 0.0), "v_loc": (ring, dt, kv_axes, 0.0),
+                "k": (shape, dt, kv_axes, 0.0), "v": (shape, dt, kv_axes, 0.0)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": (shape, dt, kv_axes, 0.0), "v": (shape, dt, kv_axes, 0.0)}

@@ -94,6 +94,15 @@ def rand(shape, dtype, seed, dev):
         (2, 4, 2, 81, 130, 64, True, 0, 0.0),
         (2, 4, 2, 130, 81, 80, False, 0, 0.0),
         (2, 4, 2, 17, 200, 128, True, 0, 0.0),
+        # gemma2's head dim 256: softcap 50, window, GQA 16/8, ragged, decode
+        # over a full ring (Sk 4096) and a global cache
+        (1, 16, 8, 130, 130, 256, True, 0, 50.0),
+        (1, 4, 2, 300, 300, 256, True, 64, 50.0),
+        (2, 4, 2, 37, 100, 256, True, 0, 0.0),
+        (2, 4, 2, 150, 61, 256, False, 0, 0.0),
+        (2, 16, 8, 1, 4096, 256, False, 0, 50.0),
+        (2, 16, 8, 1, 5184, 256, False, 0, 50.0),
+        (1, 8, 2, 7, 300, 256, True, 0, 0.0),
     ],
 )
 def test_kernel_matches_plain_version(dev, B, H, KV, Sq, Sk, D, causal, window, softcap, dtype):
@@ -115,6 +124,48 @@ def test_kernel_refuses_what_it_does_not_take(dev):
     q = rand((1, 2, 16, 64), torch.float16, 0, dev)
     with pytest.raises(TypeError, match="not supported"):
         ops.flash_attention(q, q, q)
+
+
+def test_backward_refuses_head_dim_256(dev):
+    """The forward takes D 256 (gemma2); the backward does not yet and names
+    its ROADMAP item, whether reached through autograd or called."""
+    q = rand((1, 2, 16, 256), torch.bfloat16, 0, dev).requires_grad_()
+    out = ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="A21"):
+        out.sum().backward()
+    with pytest.raises(ValueError, match="A21"):
+        fa.flash_attention_bwd_cuda(q.detach(), q.detach(), q.detach(), out.detach(),
+                                    out.detach())
+
+
+def test_gemma2_ring_decode_on_card_matches_cpu(dev):
+    """Smoke gemma2 at head dim 256 in fp32, a prompt of 11 past its window
+    of 8: the one-pass prefill (its rings written wrapped) and 3 decode
+    steps through the ring caches on the card (the kernel) give the CPU's
+    (plain version) logits; the kernel runs once per layer and step."""
+    cfg = smoke_config("gemma2_9b").replace(dtype="float32", logit_dtype="float32",
+                                            head_dim=256)
+    params, _ = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 14), generator=torch.Generator().manual_seed(1))
+    P = 11
+    logits = {}
+    for device in ("cpu", dev):
+        m = Model(cfg, device=device)
+        p = {k: v.to(device) for k, v in params.items()}
+        t = tokens.to(device)
+        with torch.no_grad():
+            cache = m.init_cache(2, 14)
+            assert cache["k_loc"].shape[2] == cfg.sliding_window
+            before = fa.launches
+            out = [m.prefill(p, cache, {"tokens": t[:, :P]})]
+            for i in range(P, 14):
+                pos = torch.full((2, 1), i, dtype=torch.int32, device=device)
+                out.append(m.decode_step(p, cache, {"tokens": t[:, i:i + 1], "positions": pos,
+                                                    "cache_pos": i})[0])
+        logits[str(device)] = torch.cat(out, dim=1).cpu()
+        if device == dev:
+            assert fa.launches - before == cfg.n_layers * (1 + 14 - P)
+    torch.testing.assert_close(logits[str(dev)], logits["cpu"], rtol=2e-3, atol=5e-4)
 
 
 def test_model_on_card_matches_cpu(dev):
@@ -963,6 +1014,37 @@ def test_elastic_trainer_on_card_matches_cpu(dev):
     assert gpu.transfer_log == cpu.transfer_log
     torch.testing.assert_close(torch.tensor(gpu.losses()), torch.tensor(cpu.losses()),
                                rtol=2e-3, atol=5e-4)
+
+
+def test_moe_train_step_on_card_matches_cpu(dev):
+    """Smoke phi3.5-MoE in fp32 with remat: a train step on the card (both
+    attention kernels; the MoE layer's batched matmuls) and on the CPU
+    (plain attention) from the same params and batch give the same loss,
+    grad norm and params; the forward kernel runs twice a layer (the
+    recompute) and the backward once."""
+    cfg = smoke_config("phi35_moe_42b").replace(dtype="float32", logit_dtype="float32",
+                                                remat=True)
+    cpu = Model(cfg, device="cpu")
+    state = build_init_fn(cpu)(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=dev)
+    gstate = state._replace(
+        params={k: p.detach().clone().to(dev).requires_grad_() for k, p in state.params.items()},
+        opt=state.opt._replace(step=state.opt.step.clone().to(dev),
+                               mu={k: m.clone().to(dev) for k, m in state.opt.mu.items()},
+                               nu={k: m.clone().to(dev) for k, m in state.opt.nu.items()}),
+        step=state.step.clone().to(dev))
+    batch = SyntheticTokens(cfg, 2, 24).sample(0)
+    before, before_bwd = fa.launches, fa.bwd_launches
+    gstate, gm = build_train_step(gpu, lr=1e-2)(gstate, to_device(batch, dev))
+    torch.cuda.synchronize()
+    assert fa.launches - before == 2 * cfg.n_layers
+    assert fa.bwd_launches - before_bwd == cfg.n_layers
+    state, m = build_train_step(cpu, lr=1e-2)(state, to_device(batch, "cpu"))
+    torch.testing.assert_close(gm["loss"].cpu(), m["loss"], rtol=2e-3, atol=5e-4)
+    torch.testing.assert_close(gm["grad_norm"].cpu(), m["grad_norm"], rtol=2e-3, atol=5e-4)
+    for k, p in state.params.items():
+        torch.testing.assert_close(gstate.params[k].detach().cpu(), p.detach(),
+                                   rtol=2e-3, atol=5e-4)
 
 
 @pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_125m"])

@@ -67,6 +67,23 @@ def test_matches_jax_ref_and_pallas(B, H, KV, Sq, Sk, D, bq, bk, causal, dtype):
     assert fa.launches == 0   # CPU tensors never reach the kernel
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (40, 40, True, 16),     # gemma2's local layers: window, softcap
+    (40, 40, True, 0),      # its global layers: causal, softcap
+    (1, 24, False, 0),      # a decode step over a ring's slots
+])
+def test_head_dim_256_matches_jax_ref_and_pallas(Sq, Sk, causal, window, dtype):
+    """gemma2's head dim, 256, with its attention softcap of 50 and GQA 2."""
+    (jq, jk, jv), (tq, tk, tv) = both(*inputs(10, 1, 4, 2, Sq, Sk, 256, scale=2.0), dtype)
+    opts = dict(causal=causal, window=window, softcap=50.0)
+    out = ops.flash_attention(tq, tk, tv, **opts)
+    assert out.dtype == tq.dtype and out.shape == (1, 4, Sq, 256)
+    check(out, jax_attention_ref(jq, jk, jv, **opts), TOL[dtype])
+    pallas = jax_flash_attention(jq, jk, jv, **opts, block_q=8, block_k=8)
+    check(out, pallas, TOL[dtype])
+
+
 @pytest.mark.parametrize("window", [16, 64, 128])
 def test_window(window):
     (jq, jk, jv), (tq, tk, tv) = both(*inputs(1, 1, 2, 2, 128, 128, 32), "float32")

@@ -1,5 +1,6 @@
 """The port's model against ``repro.models.Model`` on the CPU: the dense
-transformer, the hybrid Mamba2 family (zamba2) and xLSTM.
+transformer (gemma2 with its ring caches), the MoE family, the hybrid
+Mamba2 family (zamba2) and xLSTM.
 
 The JAX package's params are handed to the port through
 ``repro_torch.bridge``; inputs are numpy arrays made from a seed.  fp32,
@@ -38,7 +39,7 @@ def pair(arch, seed=2):
     return jm, jp, tm, tp
 
 
-def make_batch(cfg, seed):
+def make_batch(cfg, seed, S=S):
     rng = np.random.default_rng(seed)
     if cfg.embed_inputs:
         batch = {"embeds": rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)}
@@ -70,12 +71,14 @@ def step_batch(cfg, batch, t):
     return tok
 
 
-def jax_decode_all(jm, jp, batch):
-    """Logits of the JAX token-by-token loop, (B, S, V)."""
-    cache = jm.init_cache(B, S)
+def jax_decode_all(jm, jp, batch, cache=None, start=0):
+    """Logits of the JAX token-by-token loop over ``batch``'s positions
+    ``start``.. (B, S - start, V), from ``cache`` (default: empty)."""
+    S = batch["embeds" if "embeds" in batch else "tokens"].shape[1]
+    cache = jm.init_cache(B, S) if cache is None else cache
     step = jax.jit(jm.decode_step)
     outs = []
-    for t in range(S):
+    for t in range(start, S):
         tok = jax_batch(step_batch(jm.cfg, batch, t)) | {"cache_pos": jnp.int32(t)}
         lg, cache = step(jp, cache, tok)
         outs.append(np.asarray(lg))
@@ -83,10 +86,11 @@ def jax_decode_all(jm, jp, batch):
 
 
 @pytest.mark.parametrize("arch", ["stablelm_3b", "yi_34b", "gemma2_9b", "qwen2_vl_7b",
-                                  "musicgen_medium"])
+                                  "musicgen_medium", "phi35_moe_42b", "llama4_scout_17b"])
 def test_forward_and_prefill_caches_match(arch):
     """Logits and the collect_kv caches; gemma2 covers window + softcaps,
-    qwen2-vl M-RoPE, musicgen embedding inputs."""
+    qwen2-vl M-RoPE, musicgen embedding inputs, phi3.5 top-2 routing with
+    drops, llama4 top-1 routing and a shared expert."""
     jm, jp, tm, tp = pair(arch)
     batch = make_batch(tm.cfg, seed=3)
     jl, (jk, jv) = jax.jit(lambda p, b: jm.forward(p, b, collect_kv=True))(jp, jax_batch(batch))
@@ -116,7 +120,8 @@ def test_decode_steps_and_one_pass_prefill_match(arch):
     (for zamba2 and xlstm the half, 4, is ragged against their chunk of 8).
     qwen2-vl decodes with (3, B, 1) M-RoPE positions, musicgen from
     embeddings, gemma2 with softcaps at a cache of S = 8, its smoke
-    window (no ring cache, ROADMAP.md A11)."""
+    window (the plain cache; past it, the ring caches have a test of
+    their own)."""
     jm, jp, tm, tp = pair(arch)
     batch = make_batch(tm.cfg, seed=4)
     ref = jax_decode_all(jm, jp, batch)                      # (B, S, V)
@@ -301,19 +306,129 @@ def test_attention_always_goes_through_ops(attn_impl):
 
 
 def test_ring_cache_raises_plain_cache_builds():
-    """gemma2's local layers would need ring caches once the cache outgrows
-    the window: not ported, so init_cache raises; within the window it
-    builds the plain per-layer cache, as the JAX package does."""
+    """gemma2's local layers get window-sized ring caches once the cache
+    outgrows the window (this raised before the rings were ported); within
+    the window init_cache builds the plain per-layer cache, as the JAX
+    package does."""
     cfg = smoke_config("gemma2_9b")
     m = Model(cfg, device="cpu")
-    cache = m.init_cache(B, cfg.sliding_window)
+    W, L = cfg.sliding_window, cfg.n_layers
+    cache = m.init_cache(B, W)
     assert set(cache) == {"k", "v"}
-    assert tuple(cache["k"].shape) == (cfg.n_layers, B, cfg.sliding_window,
-                                       cfg.n_kv_heads, cfg.hd)
-    assert set(JaxModel(jax_smoke_config("gemma2_9b")).init_cache(B, cfg.sliding_window)) \
-        == {"k", "v"}
-    with pytest.raises(NotImplementedError, match="A11"):
-        m.init_cache(B, cfg.sliding_window + 1)
+    assert tuple(cache["k"].shape) == (L, B, W, cfg.n_kv_heads, cfg.hd)
+    ring = m.init_cache(B, W + 1)
+    assert set(ring) == {"k_loc", "v_loc", "k", "v"}
+    assert tuple(ring["k_loc"].shape) == ((L + 1) // 2, B, W, cfg.n_kv_heads, cfg.hd)
+    assert tuple(ring["k"].shape) == (L // 2, B, W + 1, cfg.n_kv_heads, cfg.hd)
+
+
+@pytest.mark.parametrize("n_layers,max_len", [(4, 8), (4, 9), (4, 13), (5, 13), (3, 100)])
+def test_ring_cache_shapes_match_jax(n_layers, max_len):
+    """Keys, shapes, dtypes and fills of gemma2's cache equal JAX's
+    init_cache, within the window and past it, at even and odd depth."""
+    jcache = JaxModel(jax_smoke_config("gemma2_9b").replace(n_layers=n_layers)).init_cache(
+        B, max_len)
+    cache = Model(smoke_config("gemma2_9b").replace(n_layers=n_layers),
+                  device="cpu").init_cache(B, max_len)
+    assert set(cache) == set(jcache)
+    for name, want in jcache.items():
+        assert tuple(cache[name].shape) == want.shape, name
+        assert str(cache[name].dtype).removeprefix("torch.") == str(want.dtype), name
+        np.testing.assert_array_equal(cache[name].float().numpy(), np.asarray(want, np.float32))
+
+
+def test_gemma2_ring_decode_and_prefill_match_jax_loop():
+    """A sequence of 13, past the smoke window of 8: per-step decode logits
+    through the ring caches equal JAX's token-by-token loop (the rings wrap
+    at step 8), and so do a one-pass prefill of 11 (which writes the rings
+    wrapped: positions 3..10 at slots p % 8) and 2 decode steps after it."""
+    T = 13
+    jm, jp, tm, tp = pair("gemma2_9b")
+    batch = make_batch(tm.cfg, seed=6, S=T)
+    ref = jax_decode_all(jm, jp, batch)                      # (B, T, V)
+    assert tm.cfg.sliding_window < T
+
+    with torch.no_grad():
+        cache = tm.init_cache(B, T)
+        assert "k_loc" in cache
+        for t in range(T):
+            lg, cache = tm.decode_step(tp, cache, torch_batch(step_batch(tm.cfg, batch, t))
+                                       | {"cache_pos": t})
+            np.testing.assert_allclose(lg.numpy(), ref[:, t:t + 1], **TOL)
+
+        P = 11
+        cache = tm.init_cache(B, T)
+        logits = [tm.prefill(tp, cache, torch_batch(prompt_batch(tm.cfg, batch, P)))]
+        for t in range(P, T):
+            lg, cache = tm.decode_step(tp, cache, torch_batch(step_batch(tm.cfg, batch, t))
+                                       | {"cache_pos": t})
+            logits.append(lg)
+    np.testing.assert_allclose(torch.cat(logits, dim=1).numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("arch", ["phi35_moe_42b", "llama4_scout_17b"])
+def test_moe_decode_and_one_pass_prefill_match_jax(arch):
+    """Per-step decode logits equal JAX's token-by-token loop.  The MoE
+    layer's capacity is per call (T = B in a decode step, B * P in a
+    one-pass prefill), so a one-pass prefill is held to JAX's one-pass
+    ``forward(collect_kv=True)`` written into JAX's cache, then JAX's
+    decode_step, and not to the token-by-token loop (with drops, the two
+    differ by design)."""
+    jm, jp, tm, tp = pair(arch)
+    batch = make_batch(tm.cfg, seed=7)
+    ref = jax_decode_all(jm, jp, batch)
+    P = S // 2
+    prompt = prompt_batch(tm.cfg, batch, P)
+    jl, (jk, jv) = jax.jit(lambda p, b: jm.forward(p, b, collect_kv=True))(jp, jax_batch(prompt))
+    jcache = jm.init_cache(B, S)
+    jcache = {"k": jcache["k"].at[:, :, :P].set(jk), "v": jcache["v"].at[:, :, :P].set(jv)}
+    want = np.concatenate([np.asarray(jl), jax_decode_all(jm, jp, batch, jcache, start=P)], axis=1)
+
+    with torch.no_grad():
+        cache = tm.init_cache(B, S)
+        for t in range(S):
+            lg, cache = tm.decode_step(tp, cache, torch_batch(step_batch(tm.cfg, batch, t))
+                                       | {"cache_pos": t})
+            np.testing.assert_allclose(lg.numpy(), ref[:, t:t + 1], **TOL)
+        cache = tm.init_cache(B, S)
+        logits = [tm.prefill(tp, cache, torch_batch(prompt))]
+        for t in range(P, S):
+            lg, cache = tm.decode_step(tp, cache, torch_batch(step_batch(tm.cfg, batch, t))
+                                       | {"cache_pos": t})
+            logits.append(lg)
+    np.testing.assert_allclose(torch.cat(logits, dim=1).numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("arch,T", [("phi35_moe_42b", 10), ("llama4_scout_17b", 7),
+                                    ("phi35_moe_42b", 1)])
+def test_moe_tied_router_picks_jax_experts_and_slots(arch, T):
+    """A router of zeros ties every logit: JAX's top_k takes the lowest
+    indices first, so every token goes to experts 0..k-1 and all past the
+    capacity are dropped.  The port's routing gives the same experts,
+    slots and drops, and the layer the output of the JAX package's
+    ``_moe_dense``."""
+    from repro.models.layers import _moe_dense
+    from repro_torch.models.layers import moe, moe_route
+
+    _, jp, tm, tp = pair(arch)
+    cfg = tm.cfg
+    lp = {k.removeprefix("blocks/"): v[0] for k, v in tp.items() if k.startswith("blocks/")}
+    lp["moe/router"] = torch.zeros_like(lp["moe/router"])
+    jlp = {k: jnp.asarray(v.numpy()) for k, v in lp.items()}
+    x = np.random.default_rng(8).standard_normal((1, T, cfg.d_model), dtype=np.float32)
+    xt = torch.from_numpy(x)
+
+    _, expert, slot, keep, cap = moe_route(lp, "moe", cfg, xt[0])
+    k = cfg.top_k
+    np.testing.assert_array_equal(expert.numpy(), np.tile(np.arange(k), T))
+    np.testing.assert_array_equal(slot.numpy(), np.minimum(np.repeat(np.arange(T), k), cap))
+    assert int(keep.sum()) == k * min(T, cap)
+    want = _moe_dense(jlp, "moe", jm_cfg(arch), jnp.asarray(x))
+    np.testing.assert_allclose(moe(lp, "moe", cfg, xt).numpy(), np.asarray(want), **TOL)
+
+
+def jm_cfg(arch):
+    return fp32(jax_smoke_config(arch))
 
 
 def test_serving_params_cast_once():

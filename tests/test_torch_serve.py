@@ -49,13 +49,14 @@ def jax_greedy(cfg, params, prompts, G):
 @pytest.mark.parametrize("arch,P", [("stablelm_3b", 8), ("yi_34b", 8), ("zamba2_1p2b", 8),
                                     ("zamba2_1p2b", 5), ("xlstm_125m", 8), ("xlstm_125m", 5),
                                     ("qwen2_vl_7b", 8), ("musicgen_medium", 8),
-                                    ("gemma2_9b", 2)])
+                                    ("gemma2_9b", 2), ("gemma2_9b", 13)])
 def test_greedy_ids_equal_jax_token_by_token(arch, P):
     """zamba2 and xlstm at P = 5 prefill a prompt that is not a whole
     number of their chunks of 8.  qwen2-vl decodes with (3, B, 1) M-RoPE
     positions; musicgen is served from token ids (``_run_static`` sets
     ``embed_inputs=False``); gemma2, with its softcaps, at a cache of
-    P + G = 8, its smoke window (no ring cache, ROADMAP.md A11)."""
+    P + G = 8, its smoke window (the plain cache), and at P 13, past it:
+    its local layers' ring caches wrap in the prefill and in decode."""
     B, G = 2, 6
     fp32 = dict(dtype="float32", logit_dtype="float32", embed_inputs=False)
     jcfg = jax_smoke_config(arch).replace(**fp32)
@@ -101,6 +102,16 @@ def test_cli_serves_xlstm_with_a_ragged_prompt(capsys):
                          "--batch", "2", "--prompt-len", prompt_len, "--gen-len", "3"])
         assert rc == 0
         assert "arch=xlstm-smoke batch=2 on cpu" in capsys.readouterr().out
+
+
+def test_cli_serves_moe(capsys):
+    """The MoE family through the CLI, its depth cut to one layer (phi3.5's
+    top-2 routing, with capacity drops in the decode steps' calls of B
+    tokens)."""
+    rc = serve.main(["--static", "--arch", "phi35_moe_42b", "--device", "cpu",
+                     "--layers", "1", "--batch", "3", "--prompt-len", "9", "--gen-len", "4"])
+    assert rc == 0
+    assert "arch=phi35-moe-smoke batch=3 on cpu" in capsys.readouterr().out
 
 
 def test_profile_refuses_the_cpu():
