@@ -1,17 +1,28 @@
 #!/usr/bin/env python
-"""The attention forward at the serve paths' bf16 shapes, beside another source.
+"""The attention forward or backward beside another source of its kernel.
 
     PYTHONPATH=src python scripts/attention_fwd_ab.py --old PATH
+    PYTHONPATH=src python scripts/attention_fwd_ab.py --bwd --old PATH
 
-Times ``repro_torch.kernels.flash_attention.flash_attention_cuda`` and the
-same C entry built from ``--old`` (another ``csrc/flash_attention.cu``,
-taken with ``git show <commit>:src/repro_torch/kernels/csrc/flash_attention.cu``;
-it includes this tree's ``csrc/mma_bf16.cuh``) in turns (this tree, old,
-old, this tree) at each shape: decode over cold caches as a CUDA graph of
-calls (``chip_smoke.graph_ms``, each call reading the next of K/V sets
-that together pass the L2), prefill by CUDA events.  Prints whether the
-two outputs are bitwise equal, and the card's name and power limit first.
-Needs a CUDA card and nvcc; imports no JAX.
+Forward: times ``repro_torch.kernels.flash_attention.flash_attention_cuda``
+and the same C entry built from ``--old`` (another
+``csrc/flash_attention.cu``, taken with ``git show
+<commit>:src/repro_torch/kernels/csrc/flash_attention.cu``; it includes
+this tree's ``csrc/mma_bf16.cuh``) in turns (this tree, old, old, this
+tree) at each shape: decode over cold caches as a CUDA graph of calls
+(``chip_smoke.graph_ms``, each call reading the next of K/V sets that
+together pass the L2), prefill by CUDA events.  Prints whether the two
+outputs are bitwise equal.
+
+Backward (``--bwd``, ``--old`` another ``csrc/flash_attention_bwd.cu``):
+calls ``flash_attention_bwd_cuda`` and the old entry on the same inputs
+at each head dim below 256, in fp32 and bf16, over chip_smoke.py's
+``ATTN_BWD_CASES`` and ``ATTN_BWD_EDGES``, and says whether dq, dk and dv
+are bitwise equal; then times both at stablelm_3b's train shape in turns
+by CUDA events.  Exits 1 if any output differs.
+
+Prints the card's name and power limit first.  Needs a CUDA card and
+nvcc; imports no JAX.
 """
 from __future__ import annotations
 
@@ -46,20 +57,11 @@ def load_old(src: Path):
                                                  softcap=0.0)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old", type=Path, required=True,
-                    help="another csrc/flash_attention.cu to measure beside")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
-    print(f"card: {card}")
+def forward_ab(old_src: Path, dev) -> int:
+    """The forward at SHAPES, in turns; always 0 (bitwise equality is
+    printed, not gated: a forward change may move the bits)."""
     impls = {"this tree": lambda q, k, v, causal: fa.flash_attention_cuda(q, k, v, causal=causal),
-             "old": lambda q, k, v, causal, old=load_old(args.old): old(q, k, v, causal=causal)}
+             "old": lambda q, k, v, causal, old=load_old(old_src): old(q, k, v, causal=causal)}
     for seed, (label, B, H, KV, Sq, Sk, D, causal) in enumerate(SHAPES):
         q = cs.model_layout(torch, B, H, Sq, D, "bfloat16", 900 + 10 * seed, dev)
         if Sq > 1:
@@ -82,6 +84,69 @@ def main(argv=None) -> int:
         print(f"{label} ({B},{H},{Sq},{D}) kv {KV} Sk {Sk}: outputs bitwise equal {same}; ms "
               + ", ".join(times))
     return 0
+
+
+def backward_ab(old_src: Path, dev) -> int:
+    """The backward over chip_smoke's cases and edges at every head dim
+    below 256, then at stablelm_3b's train shape in turns; 1 if any dq,
+    dk or dv differs."""
+    old_fn = fa.bind_bwd(_build.load_source(old_src, "flash_attention_bwd_old"))
+    impls = {"this tree": lambda *t, **o: fa.flash_attention_bwd_cuda(*t, **o),
+             "old": lambda *t, **o: fa.run_bwd(old_fn, *t, **o)}
+    cases = ([(label, B, H, KV, Sq, Sk, causal, window, softcap, 1.0)
+              for label, B, H, KV, Sq, Sk, causal, window, softcap in cs.ATTN_BWD_CASES]
+             + [(label, B, H, KV, Sq, Sk, causal, 0, 0.0, scale)
+                for label, B, H, KV, Sq, Sk, causal, scale in cs.ATTN_BWD_EDGES])
+    differ = 0
+    for D in (d for d in fa.SUPPORTED_D if d < 256):
+        for dtype in ("float32", "bfloat16"):
+            same = 0
+            for j, (label, B, H, KV, Sq, Sk, causal, window, softcap, scale) in enumerate(cases):
+                seed = 700 + 10 * j + D
+                q = cs.randn(torch, (B, H, Sq, D), "float32", seed, dev, scale).to(
+                    getattr(torch, dtype))
+                k = cs.randn(torch, (B, KV, Sk, D), "float32", seed + 1, dev, scale).to(q.dtype)
+                v = cs.randn(torch, (B, KV, Sk, D), dtype, seed + 2, dev)
+                dout = cs.randn(torch, (B, H, Sq, D), dtype, seed + 3, dev)
+                opts = dict(causal=causal, window=window, softcap=softcap)
+                out = fa.flash_attention_cuda(q, k, v, **opts)
+                got = {name: fn(q, k, v, out, dout, **opts) for name, fn in impls.items()}
+                if all(torch.equal(a, b) for a, b in zip(got["this tree"], got["old"])):
+                    same += 1
+                else:
+                    differ += 1
+                    print(f"D {D} {dtype} {label}: dq, dk, dv NOT bitwise equal")
+            print(f"D {D} {dtype}: dq, dk, dv bitwise equal in {same} of {len(cases)} cases")
+
+    H, D = 32, 80
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, dout = (cs.model_layout(torch, cs.BATCH, H, cs.TRAIN_SEQ, D, dtype, 900 + n, dev)
+                         for n in range(4))
+        out = fa.flash_attention_cuda(q, k, v, causal=True)
+        times = []
+        for name in ("this tree", "old", "old", "this tree"):
+            fn = impls[name]
+            ms = cs.time_ms(torch, lambda: fn(q, k, v, out, dout, causal=True, window=0,
+                                              softcap=0.0), iters=10)
+            times.append(f"{name} {ms:.4f}")
+        print(f"train ({cs.BATCH},{H},{cs.TRAIN_SEQ},{D}) causal {dtype}: ms " + ", ".join(times))
+    return 1 if differ else 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old", type=Path, required=True,
+                    help="another csrc/flash_attention.cu (or, with --bwd, "
+                         "csrc/flash_attention_bwd.cu) to measure beside")
+    ap.add_argument("--bwd", action="store_true", help="the backward instead of the forward")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"card: {card}")
+    return (backward_ab if args.bwd else forward_ab)(args.old, torch.device("cuda"))
 
 
 if __name__ == "__main__":

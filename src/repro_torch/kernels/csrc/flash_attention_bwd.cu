@@ -22,7 +22,7 @@
 //           gradient tolerance);
 //   bf16 -> attn_bwd_dq_bf16, attn_bwd_dkdv_bf16: tensor-core products
 //           (mma.sync m16n8k16, bf16 operands, fp32 accumulators; helpers
-//           in mma_bf16.cuh) in two launches.
+//           in mma_bf16.cuh) in two launches (three at D 256, below).
 //
 // What bounds it.  At stablelm_3b's train shape (B 8, H = KV = 32, S 512,
 // D 80, causal) the call must read q, k, v, o, dO and write dq, dk, dv:
@@ -79,6 +79,40 @@
 // Warps whose rows (keys) the masks hide from a whole tile skip its
 // products; only tiles that straddle a mask or a ragged edge evaluate it.
 //
+// Head dim 256 (gemma2; every other config has D <= 128).  What bounds it:
+// at gemma2's train shape (B 1, H 16, KV 8, S 8192, softcap 50) the
+// global layer's causal mask admits 33,558,528 (query, key) pairs a head,
+// five 2 D-flop products each: 1.374 TFLOP, 1.39 ms at 989 TFLOP/s; the
+// local layer (window 4096) 25,167,872 pairs, 1.04 ms; the bytes (q, k,
+// v, o, dO read, dq, dk, dv written) 0.12 ms.  Operations bound both.
+// Registers bound the design: a warp's 16 x D fp32 accumulator is D / 2 =
+// 128 registers a lane, of the 255 a thread may have.
+//   fp32: the same three launches; Tiles<256> is 140,800 bytes (one block
+//     an SM), and attn_bwd_dkdv's accumulate phase holds 2 x 16 float4
+//     (dK and dV: 128 floats) a thread.
+//   bf16 launch 1: dQ takes 128 registers, so K/V tiles shrink to 32 keys
+//     (DqSmem::BK), which halves S and dP (32 registers, from 64); shared
+//     memory 135,168 bytes (Q, dO: 2 x 64 rows; K, V: 2 x 2 x 32 rows; rows
+//     of 264 bf16).  The D <= 128 instantiations keep 64-key tiles.
+//   bf16 launch 2: dK and dV together would be 256 registers a lane, so at
+//     D 256 the kernel runs twice over the same grid (PART): first dV
+//     alone (S^T = K Q^T, P^T, dV += P^T dO as hi + lo: 3 products; V and
+//     delta not read), then dK alone (S^T and dP^T, dS^T, dK += dS^T Q as
+//     hi + lo: 4 products), each holding one 128-register accumulator
+//     beside S^T / dP^T of a 32-query tile (32 registers).  KvSmem<256> is
+//     135,680 bytes (K, V: 64 rows; Q, dO: 2 x 2 x 32 rows; lse, delta).
+//     The cost: S^T = K Q^T is formed twice and Q, dO and lse are read
+//     twice (from L2 mostly), so a pair costs 13 products of the 5 (6 in
+//     launch 1, 3 + 4 in launch 2) where D <= 128 costs 12.  Splitting D's
+//     columns between two warps instead would form S^T and dP^T twice (14
+//     products) or pass them through shared memory.  No atomics: each
+//     launch owns its keys' dk or dv, so the result stays deterministic.
+//   Measured (chip_smoke.py's attention backward phase, H100 80GB HBM3 at
+//   700 W): bf16 26.85 ms global, 20.57 ms local, 19.3-19.7x the bound
+//   (cuDNN's SDPA backward without softcap, not the same function: 3.6-3.7
+//   ms); ptxas at D 256 254 registers (launch 1), 240 / 242 (dV / dK), fp32
+//   attn_bwd_dkdv 253, no spill.
+//
 // Rounding.  A CPU emulation of the bf16 roundings against an fp64
 // gradient chose three things (PERF.md).  delta is rowsum(P * dP) in fp32
 // from sweep 1, not rowsum(dO * O): O reaches the backward rounded to
@@ -87,9 +121,9 @@
 // dS^T Q as bf16 hi + lo (one rounding left dq 1.16x past it), and P
 // enters P^T dO as hi + lo (one rounding left dv at 0.80 of it under
 // MQA).  So the bf16 path issues per admitted (query, key) pair
-// 2 D x (2 + 4 + 6) flops: 12 products of the 5 the function needs.  The
-// fp32 path's delta is rowsum(P * dP) too: from the fp32 O it put dq up
-// to 1.3x past 1e-4 at the same logits.
+// 2 D x (2 + 4 + 6) flops: 12 products of the 5 the function needs (13 at
+// D 256).  The fp32 path's delta is rowsum(P * dP) too: from the fp32 O
+// it put dq up to 1.3x past 1e-4 at the same logits.
 //
 // Measured (chip_smoke.py, H100 80GB HBM3 at 700 W) at the train shape:
 // bf16 0.475 ms (the scalar kernels took 2.86 ms; SDPA's backward 0.28
@@ -525,6 +559,7 @@ cudaError_t launch_dim(const Params& p, int D, cudaStream_t stream) {
     case 64: return launch_all<T, 64>(p, stream);
     case 80: return launch_all<T, 80>(p, stream);
     case 128: return launch_all<T, 128>(p, stream);
+    case 256: return launch_all<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -535,8 +570,11 @@ cudaError_t launch_dim(const Params& p, int D, cudaStream_t stream) {
 using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int DQ_BQ = NWARPS * 16;     // query rows of a launch-1 block, 16 a warp
-constexpr int DQ_BK = 64;              // keys of a launch-1 K/V tile
 constexpr int KV_BK = NWARPS * 16;     // keys of a launch-2 block, 16 a warp
+// What a launch-2 block accumulates: dK and dV together up to D 128; at
+// D 256 the two (256 registers a lane) do not fit, so dV and dK are two
+// launches of the same kernel.
+constexpr int DV_PART = 1, DK_PART = 2, DKDV_PART = DV_PART | DK_PART;
 
 // The score of a raw product q . k in log2 units (scale, then softcap), and
 // the softcap's derivative 1 - t^2 in `dcap` (1 without a softcap).
@@ -586,7 +624,8 @@ __device__ __forceinline__ void split_fragment(const float (&s)[N][4], int kk, u
 // s += A B^T and dp += A2 B2^T for one warp: A and A2 are 16 rows of the
 // shared tiles `a` and `a2` (row stride LD, k = D), B and B2 the N8 * 8
 // rows of `bm` and `bm2`.  The two products share their loop and index maths.
-template <int D, int N8, int LD>
+// With SECOND false only s is formed (a2, bm2 and dp are not touched).
+template <int D, int N8, int LD, bool SECOND = true>
 __device__ __forceinline__ void two_products(float (&s)[N8][4], float (&dp)[N8][4], const bf16* a,
                                              const bf16* a2, const bf16* bm, const bf16* bm2,
                                              int lane) {
@@ -595,18 +634,20 @@ __device__ __forceinline__ void two_products(float (&s)[N8][4], float (&dp)[N8][
     uint32_t fa[4], fa2[4];
     const int a_off = (lane & 15) * LD + ks * 16 + (lane >> 4) * 8;
     mma::ldmatrix_x4(fa, a + a_off);
-    mma::ldmatrix_x4(fa2, a2 + a_off);
+    if constexpr (SECOND) mma::ldmatrix_x4(fa2, a2 + a_off);
 #pragma unroll
     for (int np = 0; np < N8 / 2; ++np) {
       uint32_t fb[4], fb2[4];
       const int b_off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +
                         ((lane >> 3) & 1) * 8;
       mma::ldmatrix_x4(fb, bm + b_off);
-      mma::ldmatrix_x4(fb2, bm2 + b_off);
+      if constexpr (SECOND) mma::ldmatrix_x4(fb2, bm2 + b_off);
       mma::mma_bf16(s[2 * np], fa, fb[0], fb[1]);
       mma::mma_bf16(s[2 * np + 1], fa, fb[2], fb[3]);
-      mma::mma_bf16(dp[2 * np], fa2, fb2[0], fb2[1]);
-      mma::mma_bf16(dp[2 * np + 1], fa2, fb2[2], fb2[3]);
+      if constexpr (SECOND) {
+        mma::mma_bf16(dp[2 * np], fa2, fb2[0], fb2[1]);
+        mma::mma_bf16(dp[2 * np + 1], fa2, fb2[2], fb2[3]);
+      }
     }
   }
 }
@@ -647,8 +688,11 @@ __device__ __forceinline__ void store_rows(bf16* dst, int64_t stride, const floa
 
 template <int D>
 struct DqSmem {  // in bf16 elements
+  // Keys a K/V tile: 64, or 32 at D 256, where a warp's dQ (16 rows x D)
+  // already takes 128 registers a lane and S and dP of 64 keys 64 more.
+  static constexpr int BK = D <= 128 ? 64 : 32;
   static constexpr int LD = D + 8;  // row stride: 16 bytes of padding keep ldmatrix conflict-free
-  static constexpr int TILE = DQ_BK * LD;
+  static constexpr int TILE = BK * LD;
   static constexpr int DO = DQ_BQ * LD;       // Q tile at 0, dO tile here
   static constexpr int KV0 = 2 * DQ_BQ * LD;  // K[i] = KV0 + i TILE, V[i] = K[2 + i]
   static constexpr size_t BYTES = sizeof(bf16) * (KV0 + 4 * TILE);
@@ -659,6 +703,7 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_bf16(const Params p) {
   using S = DqSmem<D>;
   constexpr int LD = S::LD;
+  constexpr int DQ_BK = S::BK;
   constexpr int NKT = DQ_BK / 8;  // n8 tiles of a score tile
   extern __shared__ float4 smem4[];
   bf16* sm = reinterpret_cast<bf16*>(smem4);
@@ -834,13 +879,17 @@ struct KvSmem {  // in bf16 elements; lse and delta as fp32 after the tiles
   static constexpr size_t BYTES = sizeof(bf16) * STATS + sizeof(float) * 4 * BQ;
 };
 
-// Launch 2: dK and dV of 64 keys of one (b, KV head).
-template <int D>
+// Launch 2: dK and dV (PART: DKDV_PART), or dV alone (DV_PART: S^T only,
+// no V and no delta read) or dK alone (DK_PART), of 64 keys of one
+// (b, KV head).
+template <int D, int PART>
 __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
   using S = KvSmem<D>;
   constexpr int LD = S::LD;
   constexpr int BQ = S::BQ;
   constexpr int NQT = BQ / 8;  // n8 tiles of a (transposed) score tile
+  constexpr bool WANT_DV = (PART & DV_PART) != 0;
+  constexpr bool WANT_DK = (PART & DK_PART) != 0;
   extern __shared__ float4 smem4[];
   bf16* sm = reinterpret_cast<bf16*>(smem4);
   float* stats = reinterpret_cast<float*>(sm + S::STATS);
@@ -855,8 +904,9 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
 
   async_rows<D, KV_BK, LD>(sm, static_cast<const bf16*>(p.k) + b * p.ks[0] + kvh * p.ks[1] +
                                    key0 * p.ks[2], p.ks[2], nkeys);
-  async_rows<D, KV_BK, LD>(sm + S::V, static_cast<const bf16*>(p.v) + b * p.vs[0] +
-                                          kvh * p.vs[1] + key0 * p.vs[2], p.vs[2], nkeys);
+  if constexpr (WANT_DK)
+    async_rows<D, KV_BK, LD>(sm + S::V, static_cast<const bf16*>(p.v) + b * p.vs[0] +
+                                            kvh * p.vs[1] + key0 * p.vs[2], p.vs[2], nkeys);
   mma::cp_async_commit();
 
   // Query rows that can see a key of this block: causal q >= key0; window
@@ -884,7 +934,8 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
     for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
       const bool ok = q0 + i < p.Sq;
       cp_async4(stats + buf * BQ + i, ok ? p.lse + row0 + i : p.lse, ok);
-      cp_async4(stats + (2 + buf) * BQ + i, ok ? p.delta + row0 + i : p.delta, ok);
+      if constexpr (WANT_DK)
+        cp_async4(stats + (2 + buf) * BQ + i, ok ? p.delta + row0 + i : p.delta, ok);
     }
     mma::cp_async_commit();
   };
@@ -921,7 +972,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
     for (int j = 0; j < NQT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    two_products<D, NQT, LD>(st, dpt, Kw, Vw, Qs, dOs, lane);
+    two_products<D, NQT, LD, WANT_DK>(st, dpt, Kw, Vw, Qs, dOs, lane);
     const bool need_mask = kw0 + 16 > p.Sk || q0 + BQ > p.Sq || (p.causal && kw0 + 15 > q0) ||
                            (p.window > 0 && q0 + BQ - 1 - p.window >= kw0);
     // P^T into st, dS^T = P^T (dP^T - delta) (1 - t^2) into dpt.
@@ -936,22 +987,28 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
                              ? 0.f
                              : mma::exp2_approx(x - lse[col]);
         st[j][e] = pe;
-        dpt[j][e] = pe * (dpt[j][e] - delta[col]) * dcap;
+        if constexpr (WANT_DK) dpt[j][e] = pe * (dpt[j][e] - delta[col]) * dcap;
       }
 #pragma unroll
     for (int kk = 0; kk < NQT / 2; ++kk) {
       uint32_t hi[4], lo[4];
-      split_fragment<NQT>(st, kk, hi, lo);
-      split_product<D, LD>(dv, hi, lo, dOs, kk, lane);
-      split_fragment<NQT>(dpt, kk, hi, lo);
-      split_product<D, LD>(dk, hi, lo, Qs, kk, lane);
+      if constexpr (WANT_DV) {
+        split_fragment<NQT>(st, kk, hi, lo);
+        split_product<D, LD>(dv, hi, lo, dOs, kk, lane);
+      }
+      if constexpr (WANT_DK) {
+        split_fragment<NQT>(dpt, kk, hi, lo);
+        split_product<D, LD>(dk, hi, lo, Qs, kk, lane);
+      }
     }
   }
   mma::cp_async_wait<0>();  // K and V, where the block saw no query
-  store_rows<D>(static_cast<bf16*>(p.dk) + b * p.dks[0] + kvh * p.dks[1], p.dks[2], dk, p.scale,
-                kw0, p.Sk, lane);
-  store_rows<D>(static_cast<bf16*>(p.dv) + b * p.dvs[0] + kvh * p.dvs[1], p.dvs[2], dv, 1.f, kw0,
-                p.Sk, lane);
+  if constexpr (WANT_DK)
+    store_rows<D>(static_cast<bf16*>(p.dk) + b * p.dks[0] + kvh * p.dks[1], p.dks[2], dk, p.scale,
+                  kw0, p.Sk, lane);
+  if constexpr (WANT_DV)
+    store_rows<D>(static_cast<bf16*>(p.dv) + b * p.dvs[0] + kvh * p.dvs[1], p.dvs[2], dv, 1.f, kw0,
+                  p.Sk, lane);
 }
 
 template <int D>
@@ -959,8 +1016,14 @@ cudaError_t launch_bf16_dim(const Params& p, cudaStream_t stream) {
   cudaError_t err = launch_with_smem<attn_bwd_dq_bf16<D>>(
       dim3(p.B * p.H, (p.Sq + DQ_BQ - 1) / DQ_BQ), DqSmem<D>::BYTES, p, stream);
   if (err != cudaSuccess || p.Sk == 0) return err;
-  return launch_with_smem<attn_bwd_dkdv_bf16<D>>(dim3(p.B * p.KV, (p.Sk + KV_BK - 1) / KV_BK),
-                                                 KvSmem<D>::BYTES, p, stream);
+  const dim3 grid(p.B * p.KV, (p.Sk + KV_BK - 1) / KV_BK);
+  if constexpr (D <= 128) {
+    return launch_with_smem<attn_bwd_dkdv_bf16<D, DKDV_PART>>(grid, KvSmem<D>::BYTES, p, stream);
+  } else {
+    err = launch_with_smem<attn_bwd_dkdv_bf16<D, DV_PART>>(grid, KvSmem<D>::BYTES, p, stream);
+    if (err != cudaSuccess) return err;
+    return launch_with_smem<attn_bwd_dkdv_bf16<D, DK_PART>>(grid, KvSmem<D>::BYTES, p, stream);
+  }
 }
 
 cudaError_t launch_bf16(const Params& p, int D, cudaStream_t stream) {
@@ -970,6 +1033,7 @@ cudaError_t launch_bf16(const Params& p, int D, cudaStream_t stream) {
     case 64: return launch_bf16_dim<64>(p, stream);
     case 80: return launch_bf16_dim<80>(p, stream);
     case 128: return launch_bf16_dim<128>(p, stream);
+    case 256: return launch_bf16_dim<256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,7 +19,8 @@ sends those through :class:`FlashAttentionFunction` instead.
 
 ``launches`` counts the forward kernel's launches and ``bwd_launches``
 the backward's calls (two kernel launches each in bf16, on the tensor
-cores; three in fp32, scalar); nothing else changes them.
+cores, three at head dim 256; three in fp32, scalar); nothing else
+changes them.  Both directions take the head dims ``SUPPORTED_D``.
 """
 from __future__ import annotations
 
@@ -31,9 +32,7 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 
-SUPPORTED_D = (16, 32, 64, 80, 128, 256)
-# The backward has no D 256 path yet (gemma2 training on the card: ROADMAP.md A21).
-BWD_SUPPORTED_D = (16, 32, 64, 80, 128)
+SUPPORTED_D = (16, 32, 64, 80, 128, 256)   # head dims of the forward and of the backward
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -102,21 +101,27 @@ def _aligned(t: torch.Tensor) -> bool:
             and all(s % vec == 0 for s in t.stride()[:-1]))
 
 
+def bind_bwd(lib: ctypes.CDLL):
+    """``lib``'s C entry ``flash_attention_bwd`` with its signature set:
+    this tree's library, or one built from another source of
+    ``csrc/flash_attention_bwd.cu`` (``scripts/attention_bwd_ab.py``)."""
+    fn = lib.flash_attention_bwd
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 10 + [I] * 7 + [ctypes.POINTER(ctypes.c_int64), I, I,
+                                         ctypes.c_float, ctypes.c_float, P]
+    fn.restype = I
+    return fn
+
+
 def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
-        fn = _build.load("flash_attention_bwd").flash_attention_bwd
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 10 + [I] * 7 + [ctypes.POINTER(ctypes.c_int64), I, I,
-                                             ctypes.c_float, ctypes.c_float, P]
-        fn.restype = I
-        _bwd_fn = fn
+        _bwd_fn = bind_bwd(_build.load("flash_attention_bwd"))
     return _bwd_fn
 
 
-def _check_inputs(q, k, v, supported=SUPPORTED_D) -> tuple[int, int, int, int, int, int]:
-    """Raises on q/k/v the kernel (head dims ``supported``) does not take;
-    returns (B, H, KV, Sq, Sk, D)."""
+def _check_inputs(q, k, v) -> tuple[int, int, int, int, int, int]:
+    """Raises on q/k/v the kernels do not take; returns (B, H, KV, Sq, Sk, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:
@@ -129,9 +134,8 @@ def _check_inputs(q, k, v, supported=SUPPORTED_D) -> tuple[int, int, int, int, i
     if k.shape != (B, KV, Sk, D) or v.shape != k.shape or H % KV:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if D not in supported:
-        todo = " (the backward at D 256 is ROADMAP.md A21)" if D in SUPPORTED_D else ""
-        raise ValueError(f"flash_attention: head dim {D} not in {supported}{todo}")
+    if D not in SUPPORTED_D:
+        raise ValueError(f"flash_attention: head dim {D} not in {SUPPORTED_D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q.dtype, q.device)
     return B, H, KV, Sq, Sk, D
@@ -155,17 +159,43 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+def run_bwd(fn, q, k, v, out, dout, *, causal: bool, window: int, softcap: float):
+    """Call the backward entry ``fn`` (from :func:`bind_bwd`) on checked
+    inputs (``dout`` 16-byte aligned); counts nothing.  Returns (dq, dk,
+    dv)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, out, dout, dq, dk, dv)
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, D, strides,
+            int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(D), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    return dq, dk, dv
+
+
 def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True, window: int = 0,
                              softcap: float = 0.0):
     """dq, dk, dv of :func:`flash_attention_cuda`'s function at (q, k, v),
     given its output ``out`` and the output's gradient ``dout``, by the
-    backward kernels (bf16: two tensor-core launches; fp32: three scalar
-    ones); raises on what it does not take.
+    backward kernels (bf16: two tensor-core launches, three at D 256;
+    fp32: three scalar ones); raises on what it does not take.
     ``dout`` may have any strides: it is made contiguous where the kernel
     could not read it in place.  Returns (dq, dk, dv) in q's, k's and v's
     dtypes and layouts."""
     global bwd_launches
-    B, H, KV, Sq, Sk, D = _check_inputs(q, k, v, BWD_SUPPORTED_D)
+    B, H, KV, Sq, Sk, D = _check_inputs(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if tuple(t.shape) != (B, H, Sq, D):
             raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)}, "
@@ -176,25 +206,11 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True, window:
                         f"q is {q.dtype} on {q.device}")
     if not _aligned(dout):
         dout = dout.contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if dq.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, out, dout, dq, dk, dv)
-                                      for s in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _bwd_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, D, strides,
-            int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(D), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
-    bwd_launches += 1
-    return dq, dk, dv
+    grads = run_bwd(_bwd_kernel(), q, k, v, out, dout, causal=causal, window=window,
+                    softcap=softcap)
+    if q.numel():
+        bwd_launches += 1
+    return grads
 
 
 class FlashAttentionFunction(torch.autograd.Function):

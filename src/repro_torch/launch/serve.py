@@ -1,9 +1,23 @@
-"""Static serving driver: ``python -m repro_torch.launch.serve --static``.
+"""Serving driver: ``python -m repro_torch.launch.serve``.
 
-Ports ``repro.launch.serve._run_static``: batched greedy decoding over
-synthetic prompts with a KV cache, reporting prefill time and decode
-throughput.  Weights (seed 0) and prompts (seed 1) are random, drawn on
-the device.
+Ports ``repro.launch.serve``.  The default mode drives the **elastic
+decode service** (:mod:`repro_torch.serving`): it replays one (or all)
+registered serve traffic traces (the decode pool grown and shrunk by the
+traffic policy, in-flight KV caches migrated and priced on every resize)
+on the simulator and the live runtime, prints per-phase latency and
+throughput, and exits with the number of traces on which the two
+executors disagree on any number.  As in the JAX package the service runs
+no model: a decode step is priced at ``ServeConfig.step_time_s``, so its
+latencies and tokens/s are modelled, not measured.  The live runtime's
+pool is logical slots on one device (``--device``).
+
+    python -m repro_torch.launch.serve --scenario all
+    python -m repro_torch.launch.serve --device cpu --scenario serve-slo --executor sim
+
+``--static`` ports ``repro.launch.serve._run_static``: batched greedy
+decoding over synthetic prompts with a KV cache, reporting prefill time
+and decode throughput.  Weights (seed 0) and prompts (seed 1) are
+random, drawn on the device.
 
 The prefill is ONE ``Model.forward(collect_kv=True)`` pass whose cache
 contents (attention k/v; for the hybrid family also every Mamba2
@@ -31,9 +45,7 @@ that does not fit one card whole (phi3.5-MoE's 41.9 B params).
     python -m repro_torch.launch.serve --static --arch phi35_moe_42b --full \\
         --layers 8 --prompt-len 512 --gen-len 64
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The elastic serving
-plane (the JAX package's default mode) is not ported yet: without
-``--static`` the driver exits non-zero and says so.
+Both modes run on ``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -48,10 +60,6 @@ import torch
 from repro_torch.configs import arch_config, smoke_config
 from repro_torch.device import DeviceLike, card_label, resolve_device
 from repro_torch.models import Model
-
-ELASTIC_TODO = ("elastic mode not yet ported: the elastic serving plane is "
-                "ROADMAP.md A15; use --static")
-
 
 @dataclass
 class ServeResult:
@@ -194,12 +202,54 @@ def print_profile(model: Model, params: dict, prompts: torch.Tensor, gen_len: in
         print(f"  {e.self_device_time_total / 1e3:10.2f} ms {e.count:7d}x  {e.key[:100]}")
 
 
+def print_serve_report(rep) -> None:
+    """Per-phase table + totals for one serve replay."""
+    print(f"[{rep.executor}] {rep.scenario}: {rep.submitted} requests, "
+          f"{rep.completed} completed, {rep.dropped} dropped "
+          f"({rep.migrated} migrated / {rep.requeued} requeued on resizes)")
+    print(f"  {'steps':>12} {'workers':>7} {'done':>5} "
+          f"{'p50 lat':>9} {'tok/s':>8}")
+    for ph in rep.phases:
+        print(f"  [{ph.start_step:4d},{ph.end_step:4d}) {ph.workers:7d} "
+              f"{ph.completed:5d} {ph.p50_latency_s:8.3f}s "
+              f"{ph.throughput_tok_s:8.1f}")
+    print(f"  total: wall {rep.wall_s:.2f}s, downtime {rep.downtime_s:.4f}s, "
+          f"queued {rep.queued_s:.2f}s, p50 {rep.p50_latency_s:.3f}s, "
+          f"p99 {rep.p99_latency_s:.3f}s, {rep.throughput_tok_s:.1f} tok/s, "
+          f"{rep.bytes_moved / 1e6:.1f} MB KV moved "
+          f"({rep.bytes_cross_rack / 1e6:.1f} MB cross-rack)")
+
+
+def run_elastic(names: Sequence[str], executor: str, strategy: Optional[str],
+                device: DeviceLike = None) -> int:
+    """Replay serve traces; returns the number of sim/live disagreements.
+    The live executor's slots lie on ``device``."""
+    from repro_torch.serving import run_serve, serve_parity_key
+
+    bad = 0
+    for name in names:
+        if executor in ("sim", "live"):
+            print_serve_report(run_serve(name, executor=executor,
+                                         strategy=strategy, device=device))
+            continue
+        sim = run_serve(name, executor="sim", strategy=strategy)
+        live = run_serve(name, executor="live", strategy=strategy, device=device)
+        print_serve_report(live)
+        if serve_parity_key(sim) == serve_parity_key(live):
+            print(f"  sim == live: OK ({len(live.records)} resizes, "
+                  f"{live.completed} requests, every number identical)")
+        else:
+            bad += 1
+            print(f"  sim == live: DISAGREE on {name!r}", file=sys.stderr)
+    return bad
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--static", action="store_true",
                     help="single-shot batched greedy decode (needs --arch)")
-    ap.add_argument("--arch", default="", help="model config")
+    ap.add_argument("--arch", default="", help="model config (static mode only)")
     ap.add_argument("--full", action="store_true",
                     help="the arch's full config (default: its smoke config)")
     ap.add_argument("--layers", type=int, default=None,
@@ -207,13 +257,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--scenario", default="all",
+                    help="serve trace name, or 'all' (elastic mode)")
+    ap.add_argument("--executor", choices=("sim", "live", "both"),
+                    default="both", help="elastic-mode executor(s)")
+    ap.add_argument("--strategy", default=None,
+                    help="spawn strategy override (elastic mode)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--profile", action="store_true",
                     help="then profile a warm run: device busy share, top kernels")
     args = ap.parse_args(argv)
     if not args.static:
-        print(ELASTIC_TODO, file=sys.stderr)
-        return 2
+        from repro_torch.malleability.policies import SERVE_SCENARIO_NAMES
+
+        names = (SERVE_SCENARIO_NAMES if args.scenario == "all"
+                 else (args.scenario,))
+        return run_elastic(names, args.executor, args.strategy, args.device)
     if not args.arch:
         ap.error("--static requires --arch")
     if args.profile and args.device not in (None, "cuda"):

@@ -10,9 +10,8 @@ their ``est`` and ``downtime`` are the cost model's modelled cluster
 times, not card times (the slots of the pool are logical, all on one
 card).  On the card, attention, the SSD scan and the mLSTM scan run
 forward and backward in the hand-written CUDA kernels
-(``repro_torch.kernels``), so the dense, moe, hybrid (zamba2) and xLSTM
-families train there (gemma2 only on the CPU: the attention backward at
-its head dim of 256 is ROADMAP.md A21).
+(``repro_torch.kernels``), so every family trains there: dense (gemma2
+at its head dim of 256 too), moe, hybrid (zamba2) and xLSTM.
 
     python -m repro_torch.launch.train --arch stablelm_3b --full-config \\
         --steps 4 --batch 8 --seq 512
@@ -22,15 +21,16 @@ its head dim of 256 is ROADMAP.md A21).
         --steps 4 --batch 8 --seq 512
     python -m repro_torch.launch.train --arch phi35_moe_42b --full-config \\
         --layers 2 --steps 4 --batch 8 --seq 512
+    python -m repro_torch.launch.train --arch gemma2_9b --full-config \\
+        --layers 4 --steps 4 --batch 1 --seq 8192
     python -m repro_torch.launch.train --device cpu --arch xlstm_125m \\
         --scenario steady-cycle --batch 8 --seq 32
 
 ``--layers`` cuts the config's depth (phi3.5-MoE's fp32 masters and
-AdamW state take ~16 GB a layer).  Runs on ``cuda`` unless ``--device
-cpu`` is given.  What is not ported
-yet exits 2 and names its ROADMAP.md item: ``--model-parallel`` above 1
-(A16), and training on the card at a head dim the attention backward
-does not take (gemma2's 256: A21).
+AdamW state take ~16 GB a layer; gemma2's embedding and head alone 29
+GB).  Runs on ``cuda`` unless ``--device cpu`` is given.  What is not
+ported yet exits 2 and names its ROADMAP.md item: ``--model-parallel``
+above 1 (A16).
 """
 from __future__ import annotations
 
@@ -48,16 +48,9 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import arch_config, smoke_config
 from repro_torch.data import SyntheticTokens, to_device
 from repro_torch.device import DeviceLike, card_label, resolve_device
-from repro_torch.kernels.flash_attention import BWD_SUPPORTED_D, SUPPORTED_D
 from repro_torch.models import Model
 from repro_torch.models.common import ModelConfig
 from repro_torch.train import TrainState, build_init_fn, build_train_step
-
-NOT_PORTED = {
-    "model_parallel": "--model-parallel > 1 is not ported yet: ROADMAP.md A16",
-    "bwd_head_dim": ("training on the card at head dim {hd} is not ported yet: the attention "
-                     "forward takes it, the backward only {supported} (ROADMAP.md A21)"),
-}
 
 
 @dataclass
@@ -68,14 +61,11 @@ class StepRecord:
     seconds: float   # host clock of the step, ended by a device sync
 
 
-def refusal(args: argparse.Namespace, cfg: ModelConfig) -> Optional[str]:
+def refusal(args: argparse.Namespace) -> Optional[str]:
     """Why this run is not ported yet, or None; decided before any weight
     is drawn."""
     if args.model_parallel > 1:
-        return NOT_PORTED["model_parallel"]
-    on_card = torch.device(args.device or "cuda").type == "cuda"
-    if on_card and cfg.hd in SUPPORTED_D and cfg.hd not in BWD_SUPPORTED_D:
-        return NOT_PORTED["bwd_head_dim"].format(supported=BWD_SUPPORTED_D, hd=cfg.hd)
+        return "--model-parallel > 1 is not ported yet: ROADMAP.md A16"
     return None
 
 
@@ -142,7 +132,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = arch_config(args.arch) if args.full_config else smoke_config(args.arch)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
-    why = refusal(args, cfg)
+    why = refusal(args)
     if why:
         print(why, file=sys.stderr)
         return 2

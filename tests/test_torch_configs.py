@@ -77,7 +77,8 @@ assert not bad, bad
             "repro_torch.train.steps", "repro_torch.checkpoint.store",
             "repro_torch.launch.train", "repro_torch.core.engine",
             "repro_torch.malleability.scenarios", "repro_torch.elastic.trainer",
-            "repro_torch.parallel.sharding"} <= walked
+            "repro_torch.parallel.sharding", "repro_torch.serving.service",
+            "repro_torch.launch.serve"} <= walked
 
 
 def test_port_sources_name_no_jax_or_repro_import():

@@ -126,18 +126,6 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         ops.flash_attention(q, q, q)
 
 
-def test_backward_refuses_head_dim_256(dev):
-    """The forward takes D 256 (gemma2); the backward does not yet and names
-    its ROADMAP item, whether reached through autograd or called."""
-    q = rand((1, 2, 16, 256), torch.bfloat16, 0, dev).requires_grad_()
-    out = ops.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="A21"):
-        out.sum().backward()
-    with pytest.raises(ValueError, match="A21"):
-        fa.flash_attention_bwd_cuda(q.detach(), q.detach(), q.detach(), out.detach(),
-                                    out.detach())
-
-
 def test_gemma2_ring_decode_on_card_matches_cpu(dev):
     """Smoke gemma2 at head dim 256 in fp32, a prompt of 11 past its window
     of 8: the one-pass prefill (its rings written wrapped) and 3 decode
@@ -510,7 +498,7 @@ GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize(
     "B,H,KV,Sq,Sk,causal,window,softcap",
     [
@@ -558,7 +546,7 @@ def attention_grads(q, k, v, dout, **opts):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [80, 128])
+@pytest.mark.parametrize("D", [80, 128, 256])
 @pytest.mark.parametrize(
     "B,H,KV,Sq,Sk,causal",
     [
@@ -573,8 +561,9 @@ def attention_grads(q, k, v, dout, **opts):
 )
 def test_attention_grads_on_tile_edges(dev, B, H, KV, Sq, Sk, D, causal, dtype):
     """Shapes on the edges of the bf16 kernels' 64-row / 64-key tiles (32
-    query rows at D 128 in the dK / dV launch) and of the scalar kernels'
-    32-row tiles, against autograd of attention_ref in fp32."""
+    query rows at D 128 and 256 in the dK / dV launches, 32-key tiles at D
+    256 in the dQ launch) and of the scalar kernels' 32-row tiles, against
+    autograd of attention_ref in fp32."""
     q = rand((B, H, Sq, D), dtype, 10, dev)
     k, v = rand((B, KV, Sk, D), dtype, 11, dev), rand((B, KV, Sk, D), dtype, 12, dev)
     grads, want = attention_grads(q, k, v, rand((B, H, Sq, D), dtype, 13, dev), causal=causal)
@@ -585,7 +574,7 @@ def test_attention_grads_on_tile_edges(dev, B, H, KV, Sq, Sk, D, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [80, 128])
+@pytest.mark.parametrize("D", [80, 128, 256])
 def test_attention_grads_with_large_logits(dev, D, dtype):
     """q and k scaled by 4 (scores of std ~16: a peaked softmax, where dS
     cancels most and the bf16 path's delta and dS roundings would show),
@@ -1024,6 +1013,38 @@ def test_moe_train_step_on_card_matches_cpu(dev):
     recompute) and the backward once."""
     cfg = smoke_config("phi35_moe_42b").replace(dtype="float32", logit_dtype="float32",
                                                 remat=True)
+    cpu = Model(cfg, device="cpu")
+    state = build_init_fn(cpu)(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=dev)
+    gstate = state._replace(
+        params={k: p.detach().clone().to(dev).requires_grad_() for k, p in state.params.items()},
+        opt=state.opt._replace(step=state.opt.step.clone().to(dev),
+                               mu={k: m.clone().to(dev) for k, m in state.opt.mu.items()},
+                               nu={k: m.clone().to(dev) for k, m in state.opt.nu.items()}),
+        step=state.step.clone().to(dev))
+    batch = SyntheticTokens(cfg, 2, 24).sample(0)
+    before, before_bwd = fa.launches, fa.bwd_launches
+    gstate, gm = build_train_step(gpu, lr=1e-2)(gstate, to_device(batch, dev))
+    torch.cuda.synchronize()
+    assert fa.launches - before == 2 * cfg.n_layers
+    assert fa.bwd_launches - before_bwd == cfg.n_layers
+    state, m = build_train_step(cpu, lr=1e-2)(state, to_device(batch, "cpu"))
+    torch.testing.assert_close(gm["loss"].cpu(), m["loss"], rtol=2e-3, atol=5e-4)
+    torch.testing.assert_close(gm["grad_norm"].cpu(), m["grad_norm"], rtol=2e-3, atol=5e-4)
+    for k, p in state.params.items():
+        torch.testing.assert_close(gstate.params[k].detach().cpu(), p.detach(),
+                                   rtol=2e-3, atol=5e-4)
+
+
+def test_gemma2_train_step_on_card_matches_cpu(dev):
+    """Smoke gemma2 at its own head dim of 256, in fp32 with remat (local
+    layers of window 8 and global ones, softcap 50, over 24 positions): a
+    train step on the card (the attention backward at D 256) and on the
+    CPU (plain attention) from the same params and batch give the same
+    loss, grad norm and params; the forward kernel runs twice a layer and
+    the backward once."""
+    cfg = smoke_config("gemma2_9b").replace(dtype="float32", logit_dtype="float32",
+                                            remat=True, head_dim=256)
     cpu = Model(cfg, device="cpu")
     state = build_init_fn(cpu)(torch.Generator().manual_seed(0))
     gpu = Model(cfg, device=dev)

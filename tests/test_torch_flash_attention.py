@@ -6,6 +6,9 @@ run in interpret mode, as ``tests/test_kernels.py`` runs it, on the same
 numpy inputs.  The CUDA kernel itself is held against the same plain
 version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,6 +20,7 @@ from repro.kernels import flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.ref import attention_ref as jax_attention_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ref import attention_ref  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -136,6 +140,13 @@ def test_strided_views_match_contiguous():
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
+def test_both_directions_take_the_same_head_dims():
+    """No head dim is taken by the forward and refused by the backward:
+    one list, SUPPORTED_D, holds both (gemma2's 256 among them)."""
+    assert fa.SUPPORTED_D == (16, 32, 64, 80, 128, 256)
+    assert not hasattr(fa, "BWD_SUPPORTED_D")
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     tq, tk, tv = (torch.from_numpy(a) for a in inputs(5, 1, 2, 2, 16, 16, 16))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -153,6 +164,8 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
     (1, 4, 1, 9, 17, 16, False, 0, 50.0),     # Sq != Sk, softcap 50
     (1, 4, 2, 20, 20, 80, True, 4, 2.0),      # window so short some rows see 1 key
     (1, 2, 2, 12, 5, 16, False, 3, 0.0),      # rows 7.. see no key: fully masked
+    (1, 4, 2, 20, 20, 256, True, 6, 50.0),    # gemma2's head dim: GQA 2, window, softcap 50
+    (1, 2, 2, 9, 17, 256, False, 0, 0.0),     # head dim 256, Sq != Sk
 ])
 def test_plain_version_grads_match_jax(B, H, KV, Sq, Sk, D, causal, window, softcap):
     """Autograd of the plain version, which the backward kernel is held
@@ -171,12 +184,13 @@ def test_plain_version_grads_match_jax(B, H, KV, Sq, Sk, D, causal, window, soft
         np.testing.assert_allclose(f32(g), np.asarray(w), **GRAD_TOL)
 
 
-def test_autograd_function_wires_forward_and_backward(monkeypatch):
+@pytest.mark.parametrize("D", [16, 256])
+def test_autograd_function_wires_forward_and_backward(monkeypatch, D):
     """FlashAttentionFunction saves q, k, v and the forward's output and
     hands them, with the output's gradient and the mask options, to the
-    backward kernel; its grads go back to q, k, v in order.  The two CUDA
-    wrappers are replaced by plain versions here (the kernels run on the
-    card only)."""
+    backward kernel; its grads go back to q, k, v in order, at every head
+    dim the kernels take (gemma2's 256 too).  The two CUDA wrappers are
+    replaced by plain versions here (the kernels run on the card only)."""
     seen = {}
 
     def fwd(q, k, v, **opts):
@@ -191,7 +205,7 @@ def test_autograd_function_wires_forward_and_backward(monkeypatch):
 
     monkeypatch.setattr(fa, "flash_attention_cuda", fwd)
     monkeypatch.setattr(fa, "flash_attention_bwd_cuda", bwd)
-    q, k, v = inputs(9, 1, 4, 2, 12, 12, 16)
+    q, k, v = inputs(9, 1, 4, 2, 12, 12, D)
     t = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     out = fa.FlashAttentionFunction.apply(*t, True, 5, 3.0)
     dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
@@ -236,3 +250,45 @@ def test_ops_keeps_cpu_grads_on_the_plain_version():
     t = [torch.from_numpy(a).requires_grad_() for a in inputs(6, 1, 2, 2, 8, 8, 16)]
     out = ops.flash_attention(*t)
     assert "FlashAttentionFunction" not in type(out.grad_fn).__name__
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("window", [512, 1024])
+@pytest.mark.parametrize("shift", [-1, 1])
+def test_d256_train_gate_sees_a_window_off_by_one(window, shift):
+    """chip_smoke.py's gate at gemma2's train shapes (S = 2 x window, D
+    256, softcap 50; ``region_rms_gate`` at ``ATTN_D256_TRAIN_REL_RMS``),
+    at smaller windows: the exact gradient rounded to bf16 passes in every
+    region, and the gradient of a window one key short or long fails on
+    dq's rows past the window."""
+    cs = _chip_smoke()
+    S, H, D = 2 * window, 2 if window == 512 else 1, 256
+    rng = np.random.default_rng(window + shift)
+    q, dout = (torch.from_numpy(rng.standard_normal((1, H, S, D), dtype=np.float32))
+               for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 1, S, D), dtype=np.float32))
+            for _ in range(2))
+
+    def grads(w):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attention_ref(*x, causal=True, window=w, softcap=50.0)
+        return torch.autograd.grad(out, x, dout)
+
+    exact = grads(window)
+    regions = [("all", slice(None), slice(None)),
+               ("before", slice(0, window), slice(0, S - window)),
+               ("past", slice(window, S), slice(S - window, S))]
+    failures = []
+    cs.region_rms_gate(torch, "exact", [g.bfloat16() for g in exact], exact, regions, failures)
+    assert failures == []
+    off = [g.bfloat16() for g in grads(window + shift)]
+    read = cs.region_rms_gate(torch, "off by one", off, exact, regions, failures)
+    assert read["rel_rms"]["past"][0] > cs.ATTN_D256_TRAIN_REL_RMS
+    assert any(f.startswith("off by one past") for f in failures)

@@ -120,11 +120,6 @@ def test_profile_refuses_the_cpu():
         serve.main(["--static", "--arch", "stablelm_3b", "--device", "cpu", "--profile"])
 
 
-def test_elastic_mode_is_refused(capsys):
-    assert serve.main(["--arch", "stablelm_3b"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
-
-
 def test_entry_points_without_a_card_raise():
     """No device given means cuda; with no card the port raises rather
     than carrying on on the CPU."""
@@ -136,3 +131,8 @@ def test_entry_points_without_a_card_raise():
         serve.build_model("stablelm_3b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--static", "--arch", "stablelm_3b"])
+    # the elastic plane's live executor puts its slots on the card too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--scenario", "serve-slo", "--executor", "live"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--scenario", "serve-slo"])

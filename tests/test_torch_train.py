@@ -29,7 +29,7 @@ from repro.models import Model as JaxModel  # noqa: E402
 from repro.parallel.sharding import ShardingContext  # noqa: E402
 from repro.train import steps as jax_steps  # noqa: E402
 from repro_torch import bridge, checkpoint, optim  # noqa: E402
-from repro_torch.configs import arch_config, smoke_config  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.data import SyntheticTokens, to_device  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -81,6 +81,7 @@ def assert_grads_close(got: dict, want: dict, zero=()):
     ("stablelm_3b", {"loss_chunk": 4}),      # divides S: the chunked sum
     ("stablelm_3b", {"loss_chunk": 5}),      # does not: unchunked, as in JAX
     ("gemma2_9b", {"loss_chunk": 8}),
+    ("gemma2_9b", {"head_dim": 256}),        # gemma2's own head dim
     ("zamba2_1p2b", {}),                     # Mamba2 layers + the shared block
     ("xlstm_125m", {}),                      # mLSTM + sLSTM units
     ("phi35_moe_42b", {}),                   # top-2 routing with capacity drops
@@ -310,16 +311,32 @@ def test_cli_refuses_what_is_not_ported(capsys, argv, item):
     assert item in capsys.readouterr().err
 
 
-def test_cli_refuses_gemma2_training_on_the_card(capsys):
-    """gemma2's head dim 256 has a forward kernel and no backward one
-    (A21): on the card the CLI exits 2 before it draws a weight (here,
-    without a card, it would otherwise fail to find one); on the CPU the
-    same config is not refused."""
-    assert train_cli.main(["--arch", "gemma2_9b", "--full-config", "--steps", "1"]) == 2
-    err = capsys.readouterr().err
-    assert "A21" in err and "head dim 256" in err
-    cpu = argparse.Namespace(model_parallel=1, device="cpu")
-    assert train_cli.refusal(cpu, arch_config("gemma2_9b")) is None
+def test_cli_refuses_nothing_of_gemma2_on_the_card():
+    """gemma2's head dim 256 has a forward and a backward kernel, so the
+    CLI refuses it nowhere: the refusal reads no config, and the full
+    config goes on to look for the card (this needs none)."""
+    for device in ("cuda", "cpu", None):
+        args = argparse.Namespace(model_parallel=1, device=device)
+        assert train_cli.refusal(args) is None
+    if not torch.cuda.is_available():   # it goes on to look for the card
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_cli.main(["--arch", "gemma2_9b", "--full-config", "--steps", "1"])
+
+
+@pytest.mark.parametrize("scenario", [None, "steady-cycle"])
+def test_cli_trains_gemma2_on_cpu(capsys, scenario):
+    """gemma2 (local and global layers, softcaps) trains through the CLI at
+    smoke size, plain and through the elastic loop, with finite losses."""
+    argv = ["--device", "cpu", "--arch", "gemma2_9b", "--steps", "2", "--batch", "2",
+            "--seq", "16"]
+    if scenario:
+        argv += ["--scenario", scenario]
+    assert train_cli.main(argv) == 0
+    out = capsys.readouterr().out
+    if scenario:
+        assert f"scenario {scenario!r}: 30 steps" in out and out.count("reconfig ") == 4
+    else:
+        assert "step     0 loss" in out and "step     1 loss" in out
 
 
 @pytest.mark.parametrize("arch", ["zamba2_1p2b", "xlstm_125m"])
