@@ -209,6 +209,27 @@ MOE, MOE_SERVE_LAYERS, MOE_GATE_LAYERS, MOE_TRAIN_LAYERS = "phi35_moe_42b", 8, 2
 # Depth of the recurrent families' fp32 train gate: zamba2's shared block
 # follows layer 5, so 6 layers reach it; xlstm's 4 layers are 2 units.
 RECURRENT_GATE_LAYERS = {HYBRID: 6, XLSTM: 4}
+# [train parallel]: four ranks on the one card (gloo), a (data 2, model 2)
+# mesh.  stablelm_3b at full width and 8 layers trains 8 x 512 for 4
+# steps; its fp32 gate, at 2 layers on 2 x 1024, holds the mesh's step
+# against the single-process step.  phi35_moe_42b at full width and 2
+# layers trains 3 steps through the expert-parallel path; its fp32 gate,
+# at 1 layer on 2 x 128, holds the ranks on the card against the same
+# ranks on the CPU.
+PAR_MESH, PAR_LAYERS, PAR_STEPS = (2, 2), 8, 4
+PAR_GATE_LAYERS, PAR_GATE_BATCH, PAR_GATE_SEQ = 2, 2, 1024
+PAR_MOE_LAYERS, PAR_MOE_STEPS = 2, 3
+PAR_MOE_GATE_LAYERS, PAR_MOE_GATE_BATCH, PAR_MOE_GATE_SEQ = 1, 2, 128
+PAR_GATE_LOSS, PAR_GATE_REL_RMS = 1e-5, 1e-6   # fp32: the mesh's numbers are the step's
+# fp32, the gradients: the grad norm's relative gap and AdamW mu's worst
+# leaf (mu after one step is the clipped gradient; sums split over the
+# ranks round apart, so a gradient is held looser than the sign-like step)
+PAR_GATE_GRAD = 1e-5
+# The twin runs on another device (MKL against cuBLAS, the plain attention
+# against the kernel): it is held as the other fp32 step gates hold the
+# kernels against their plain twins, the loss within MODEL_TOL, and the
+# grad norm's relative gap, AdamW mu's worst leaf and each param leaf
+# after AdamW within GRAD_REL_RMS.
 
 
 def fail(msg: str) -> int:
@@ -282,6 +303,10 @@ def main() -> int:
         return fail("; ".join(failures))
     torch.cuda.empty_cache()
     moe_phase(torch, dev, entry, failures, counts)
+    if failures:
+        return fail("; ".join(failures))
+    torch.cuda.empty_cache()
+    train_parallel_phase(torch, dev, failures, counts)
     if failures:
         return fail("; ".join(failures))
     kernels = [entry, bwd_entry, ssd_entry, mlstm_entry, ssd_bwd_entry, mlstm_bwd_entry]
@@ -2908,6 +2933,456 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
     if sorted(mlstm_bwd) != want:
         failures.append(f"profiled {dtype} train step ran the mLSTM backward kernels "
                         f"{sorted(mlstm_bwd)}, expected {want}")
+
+
+
+# ----------------------------------------------------------- train parallel --
+
+
+def predicted_comm_bytes(torch, cfg, mesh_shape, batch, seq) -> dict:
+    """The bytes one train step's collectives move on a rank of a (data,
+    model) mesh, by (operation, axis), from the shapes alone, as
+    ``ProcessMesh.comm_bytes`` counts them (an all-gather's output, a
+    reduce-scatter's input, an all-reduce's tensor).
+
+    Params: each gather from the storage shard toward the compute layout
+    (the port's ``param_layout``: minor axes first), in the compute dtype
+    where the param is cast, and the reduce-scatter that is its transpose,
+    in fp32 (the masters' dtype) whatever the compute dtype.
+    Activations, on a model axis above 1 (X = one data shard's whole
+    sequence, B/data x S x d_model, in the compute dtype): the embedding's
+    reduce-scatter; per block, attention's gather of its input and
+    reduce-scatter of its output, and the MLP's (or the MoE layer's
+    gather of its tokens and of the experts' outputs (E, cap + 1, d), plus
+    the shared expert's MLP), twice with remat (the recompute), but for
+    the block's last reduce-scatter: ``torch.utils.checkpoint`` stops a
+    recompute once it has every tensor the backward saved, and the
+    block's output is not one; the logits' gather; each with its
+    transpose in the backward; the
+    vocabulary-parallel loss's all-reduces of (B/data, S) fp32 (max, sum
+    of exponentials, picked logit; the last two again backward).  Over
+    'data': the loss's sum forward and backward and its count; on every
+    axis, the grad norm."""
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import Mesh, ShardingContext, spec_axes
+    from repro_torch.train import param_layout
+
+    D, M = mesh_shape
+    sizes = {"data": D, "model": M}
+    out: dict = {}
+
+    def add(op, axis, n):
+        if sizes[axis] > 1:
+            out[(op, axis)] = out.get((op, axis), 0) + n
+
+    model = Model(cfg, "cpu")
+    layout = param_layout(model, ShardingContext(mesh=Mesh(tuple(range(D * M)), ("data", "model"),
+                                                           mesh_shape)))
+    c = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    for k, shape in model.abstract_params()[0].items():
+        item = c if k in layout.cast else 4
+        src = [spec_axes(e) for e in layout.storage[k]]
+        dst = [spec_axes(e) for e in layout.compute[k]]
+        local = [d // math.prod(sizes[a] for a in e) for d, e in zip(shape.shape, src)]
+        for i, (se, de) in enumerate(zip(src, dst)):
+            keep = 0
+            while keep < min(len(se), len(de)) and se[keep] == de[keep]:
+                keep += 1
+            for ax in reversed(se[keep:]):
+                local[i] *= sizes[ax]
+                add("all_gather", ax, math.prod(local) * item)
+                add("reduce_scatter", ax, math.prod(local) * 4)
+        used = {a for e in src for a in e}
+        for ax in sizes:
+            if ax not in used:
+                add("all_reduce", ax, math.prod(shape.shape) // math.prod(
+                    sizes[a] for a in used) * 4)
+    if M > 1:
+        Bl = batch // D
+        X = Bl * seq * cfg.d_model * c
+        passes = 2 if cfg.remat else 1
+
+        def gather(n, times=1):
+            add("all_gather", "model", n * times)
+            add("reduce_scatter", "model", n)
+
+        def scatter(n, times=1):
+            add("reduce_scatter", "model", n * times)
+            add("all_gather", "model", n)
+
+        if not cfg.embed_inputs:
+            scatter(X)
+        for _ in range(cfg.n_layers):
+            gather(X, passes)
+            scatter(X, passes)
+            if cfg.family == "moe":
+                cap = max(int(Bl * seq * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
+                gather(X, passes)
+                gather(cfg.n_experts * (cap + 1) * cfg.d_model * c, passes)
+                if cfg.n_shared_experts:
+                    gather(X, passes)
+                    scatter(X)
+            else:
+                gather(X, passes)
+                scatter(X)
+        gather(X)
+        if cfg.vocab % M == 0:
+            add("all_reduce", "model", 5 * Bl * seq * 4)
+    add("all_reduce", "data", 12)
+    for ax in sizes:
+        add("all_reduce", ax, 4)
+    return out
+
+
+def _shard_rel_rms(torch, mesh, layout, got: dict, want: dict) -> tuple[float, str]:
+    """The worst leaf's relative rms of ``got`` against ``want`` (this
+    rank's storage shards of both), over every rank: each element counted
+    once."""
+    from repro_torch.parallel import collectives
+
+    keys = sorted(want)
+    sums = []
+    for k in keys:
+        first = all(mesh.axis_index(a) == 0 for a in mesh.replicated_axes(layout.storage[k]))
+        a, b = got[k].detach().double(), want[k].detach().to(got[k].device).double()
+        sums.append(torch.stack([(a - b).square().sum(), b.square().sum()]) * float(first))
+    total = collectives.sum_over(torch.stack(sums), mesh, mesh.axis_names)
+    rms = (total[:, 0] / total[:, 1].clamp_min(1e-300)).sqrt()
+    i = int(rms.argmax())
+    return float(rms[i]), keys[i]
+
+
+def _mesh_run(torch, ctx, cfg, batch, seq, steps) -> dict:
+    """``steps`` steps of ``cfg`` on the mesh through the training entry
+    points (``build_init_fn(model, ctx)``, ``build_train_step(model, ctx)``,
+    ``repro_torch.launch.train.train`` with each rank's batch shard), from
+    seed 0, counting this rank's kernel launches and collective bytes."""
+    from repro_torch.data import SyntheticTokens, make_batch_on_mesh
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import Model
+    from repro_torch.train import build_init_fn, build_train_step
+
+    mesh = ctx.mesh
+    dev = mesh.device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Model(cfg, dev)
+    t0 = time.perf_counter()
+    state = build_init_fn(model, ctx)(torch.Generator(device=dev).manual_seed(0))
+    step_fn = build_train_step(model, ctx)
+    init_s = time.perf_counter() - t0
+    data = SyntheticTokens(cfg, batch, seq, seed=0)
+    mesh.comm_bytes.clear()
+    reset_counts()
+    state, records = train_cli.train(model, state, step_fn, data.iter(), steps, log=lambda _: None,
+                                     place=lambda b: make_batch_on_mesh(b, cfg, ctx))
+    out = {"counts": read_counts(), "init_s": init_s,
+           "comm": {f"{op} {ax}": n / steps for (op, ax), n in mesh.comm_bytes.items()},
+           "losses": [r.loss for r in records], "grad_norms": [r.grad_norm for r in records],
+           "seconds": [r.seconds for r in records],
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "params": sum(p.numel() for p in state.params.values())}
+    del state, step_fn, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gate_vs_single(torch, ctx, cfg, batch, seq) -> dict:
+    """One step on the mesh against the single-process step on the card
+    (``loss_and_grads`` then ``adamw_update``), both from seed 0 on the
+    same batch: every rank runs the single-process step in turn (rank
+    order, one at a time on the card) and keeps its storage shard of the
+    params and of AdamW's ``mu`` after it.  After one step ``mu`` is
+    (1 - b1) times the clipped gradient, so its worst leaf reads the
+    gradients leaf by leaf, and the grad norms (before clipping) read
+    their scale; AdamW's first step is about sign(g), so the params
+    alone would not see an error in a gradient's size."""
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticTokens, make_batch_on_mesh, to_device
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init, adamw_update, global_norm
+    from repro_torch.train import build_init_fn, build_train_step, loss_and_grads, param_layout
+
+    mesh = ctx.mesh
+    dev = mesh.device
+    model = Model(cfg, dev)
+    layout = param_layout(model, ctx)
+    host = SyntheticTokens(cfg, batch, seq, seed=0).sample(0)
+    want = {}
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+            params = {k: p.requires_grad_() for k, p in params.items()}
+            loss, grads = loss_and_grads(model, params, to_device(host, dev))
+            with torch.no_grad():
+                gnorm = global_norm(grads)
+                _, opt = adamw_update(grads, adamw_init(params), params, 3e-4, grad_norm=gnorm)
+            single_loss, single_norm = float(loss), float(gnorm)
+            want, want_mu = ({k: t.detach()[mesh.shard_slices(layout.storage[k],
+                                                               tuple(t.shape))].cpu()
+                              for k, t in tree.items()} for tree in (params, opt.mu))
+            del params, grads, loss, opt
+            torch.cuda.empty_cache()
+        dist.barrier()
+    state = build_init_fn(model, ctx)(torch.Generator(device=dev).manual_seed(0))
+    state, metrics = build_train_step(model, ctx, lr=3e-4)(
+        state, make_batch_on_mesh(host, cfg, ctx))
+    worst = _shard_rel_rms(torch, mesh, layout, state.params, want)
+    worst_mu = _shard_rel_rms(torch, mesh, layout, state.opt.mu, want_mu)
+    out = {"loss": float(metrics["loss"]), "single_loss": single_loss, "worst": worst,
+           "grad_norm": float(metrics["grad_norm"]), "single_grad_norm": single_norm,
+           "worst_mu": worst_mu}
+    del state, want, want_mu
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_twin(torch, ctx, cfg, batch, seq) -> dict:
+    """One fp32 step of ``cfg`` on the mesh's ranks on the card (kernels),
+    then the same step by the same ranks on the CPU (gloo, the plain
+    versions) from the same initial shards and batch: the losses, the
+    grad norms, and the worst leaf of the params and of AdamW's ``mu``
+    (the clipped gradient) after it."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticTokens, make_batch_on_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import ShardingContext
+    from repro_torch.train import TrainState, build_init_fn, build_train_step, param_layout
+
+    mesh = ctx.mesh
+    dev = mesh.device
+    host = SyntheticTokens(cfg, batch, seq, seed=0).sample(0)
+    model = Model(cfg, dev)
+    state = build_init_fn(model, ctx)(torch.Generator(device=dev).manual_seed(0))
+    init = {k: p.detach().to("cpu", copy=True) for k, p in state.params.items()}
+    state, card = build_train_step(model, ctx, lr=3e-4)(state, make_batch_on_mesh(host, cfg, ctx))
+    # the card's results stay on the card: the host holds the CPU twin
+    on_card, card_mu = ({k: t.detach().clone() for k, t in tree.items()}
+                        for tree in (state.params, state.opt.mu))
+    del state
+    torch.cuda.empty_cache()
+    cpu_ctx = ShardingContext(mesh=dataclasses.replace(mesh, device=torch.device("cpu")))
+    cpu_model = Model(cfg, "cpu")
+    params = {k: p.requires_grad_() for k, p in init.items()}
+    state = TrainState(params=params, opt=adamw_init(params), step=torch.zeros((), dtype=torch.int32))
+    t0 = time.perf_counter()
+    state, twin = build_train_step(cpu_model, cpu_ctx, lr=3e-4)(
+        state, make_batch_on_mesh(host, cfg, cpu_ctx))
+    twin_s = time.perf_counter() - t0
+    cpu_layout = param_layout(cpu_model, cpu_ctx)
+    worst = _shard_rel_rms(torch, cpu_ctx.mesh, cpu_layout, on_card, state.params)
+    worst_mu = _shard_rel_rms(torch, cpu_ctx.mesh, cpu_layout, card_mu, state.opt.mu)
+    return {"loss": float(card["loss"]), "twin_loss": float(twin["loss"]), "worst": worst,
+            "grad_norm": float(card["grad_norm"]), "twin_grad_norm": float(twin["grad_norm"]),
+            "worst_mu": worst_mu, "twin_s": twin_s}
+
+
+def _single_run(torch, dev, cfg, batch, seq, steps) -> dict:
+    """The same steps as ``_mesh_run`` in this one process
+    (``repro_torch.launch.train``'s ``build`` and ``train``)."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train as train_cli
+
+    model, state, step_fn = train_cli.build(cfg, device=dev, seed=0)
+    _, records = train_cli.train(model, state, step_fn, SyntheticTokens(cfg, batch, seq, seed=0)
+                                 .iter(), steps, log=lambda _: None)
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    return {"losses": [r.loss for r in records], "seconds": [r.seconds for r in records]}
+
+
+def parallel_ranks(out_dir: str):
+    """One rank of ``[train parallel]`` (spawned by
+    ``repro_torch.launch.mesh.spawn``): its results go to
+    ``out_dir/rank<r>.json``."""
+    import os
+    import resource
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import arch_config
+    from repro_torch.device import card_label
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import ShardingContext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // math.prod(PAR_MESH)))  # the CPU twin
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(PAR_MESH[1], device=dev)
+    ctx = ShardingContext(mesh=mesh, mode="train")
+    dense, moe = arch_config(ARCH), arch_config(MOE)
+    res = {"device": str(dev), "card": card_label(dev), "backend": mesh.backend,
+           "coords": mesh.coords(), "peak_rss": {}}
+    t0 = time.perf_counter()
+
+    def done(part):
+        # this rank's peak resident host memory so far (Linux: KiB); gloo
+        # stages CUDA tensors through pinned host buffers, which count
+        res["peak_rss"][part] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        if mesh.rank == 0:
+            print(f"[train parallel] rank 0: {part} done at {time.perf_counter() - t0:.1f}s, peak "
+                  f"host memory {res['peak_rss'][part] / 2**30:.2f} GiB", flush=True)
+
+    # The CPU twin first: its four fp32 copies of phi3.5's layer are the
+    # host's largest load, and gloo's pinned staging buffers, which the
+    # card runs leave cached in each rank, are small then.
+    res["moe_gate"] = _moe_twin(torch, ctx, moe.replace(n_layers=PAR_MOE_GATE_LAYERS,
+                                                        dtype="float32", logit_dtype="float32"),
+                                PAR_MOE_GATE_BATCH, PAR_MOE_GATE_SEQ)
+    done("moe twin")
+    res["dense"] = _mesh_run(torch, ctx, dense.replace(n_layers=PAR_LAYERS), BATCH, TRAIN_SEQ,
+                             PAR_STEPS)
+    done("dense")
+    if mesh.rank == 0:   # the same steps in one process, for the losses beside the mesh's
+        res["dense_single"] = _single_run(torch, dev, dense.replace(n_layers=PAR_LAYERS),
+                                          BATCH, TRAIN_SEQ, PAR_STEPS)
+    dist.barrier()
+    res["dense_gate"] = {
+        dtype: _gate_vs_single(torch, ctx, dense.replace(n_layers=PAR_GATE_LAYERS, dtype=dtype,
+                                                         logit_dtype=dtype),
+                               PAR_GATE_BATCH, PAR_GATE_SEQ)
+        for dtype in ("float32", "bfloat16")}
+    done("dense gate")
+    res["moe"] = _mesh_run(torch, ctx, moe.replace(n_layers=PAR_MOE_LAYERS), BATCH, TRAIN_SEQ,
+                           PAR_MOE_STEPS)
+    done("moe")
+    with open(Path(out_dir) / f"rank{mesh.rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def train_parallel_phase(torch, dev, failures, counts):
+    """Four ranks on the one card (gloo), one process each, through
+    ``repro_torch.launch.mesh.spawn``: stablelm_3b and phi35_moe_42b
+    trained on a (data 2, model 2) mesh, and their fp32 gates."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import arch_config
+    from repro_torch.launch.mesh import backend_for, spawn
+
+    tag = "[train parallel]"
+    world = math.prod(PAR_MESH)
+    backend, why = backend_for(dev, world)
+    print(f"{tag} backend {backend}: {why} (chosen once by repro_torch.launch.mesh.backend_for; "
+          f"the NCCL route, one card a rank, cannot be exercised on one card: unverified)")
+    # four processes share the card: let each allocator return what it frees
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        try:
+            spawn(parallel_ranks, world, (out,), init_file=os.path.join(out, "store"),
+                  device="cuda", timeout=600)
+        except Exception as e:   # a rank failed: its traceback is in the message
+            failures.append(f"{tag} a rank failed: {e}")
+            return
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    print(f"{tag} {world} ranks ran every part in {time.perf_counter() - t0:.1f}s (spawn, kernel "
+          f"loads, init and the CPU twin included)")
+    for r, res in enumerate(ranks):
+        print(f"{tag} rank {r} {res['coords']}: {res['device']}, {res['card']}, backend "
+              f"{res['backend']}; peak host memory after each part: "
+              + ", ".join(f"{part} {b / 2**30:.2f} GiB" for part, b in res["peak_rss"].items()))
+    for key, arch, layers, steps in (("dense", ARCH, PAR_LAYERS, PAR_STEPS),
+                                     ("moe", MOE, PAR_MOE_LAYERS, PAR_MOE_STEPS)):
+        cfg = arch_config(arch).replace(n_layers=layers)
+        runs = [res[key] for res in ranks]
+        label = f"{tag} {arch} at full width, {layers} layers, mesh data {PAR_MESH[0]} x model " \
+                f"{PAR_MESH[1]}, batch {BATCH} x {TRAIN_SEQ}"
+        total = sum(p for p in (run["params"] for run in runs))
+        print(f"{label}: {cfg.param_count() / 1e9:.3f} B params, {total / 1e9:.3f} B stored over the "
+              f"ranks (fp32 masters; AdamW mu / nu beside them), init {max(r['init_s'] for r in runs):.1f}s")
+        for r, run in enumerate(runs):
+            print(f"{tag}   rank {r}: losses " + ", ".join(f"{x:.4f}" for x in run["losses"])
+                  + "; grad norms " + ", ".join(f"{x:.4f}" for x in run["grad_norms"])
+                  + "; step times " + ", ".join(f"{x * 1e3:.1f}" for x in run["seconds"])
+                  + f" ms; peak memory {run['peak'] / 2**30:.2f} GiB")
+        step_s = max(statistics.median(run["seconds"][1:]) for run in runs)
+        print(f"{tag}   step time {step_s * 1e3:.1f} ms (the slowest rank's median of steps "
+              f"1-{steps - 1}), {BATCH * TRAIN_SEQ / step_s:.0f} tokens/s on {world} ranks, peak "
+              f"memory {sum(run['peak'] for run in runs) / 2**30:.1f} GiB over the ranks, on "
+              f"{ranks[0]['card']}")
+        if not all(math.isfinite(x) for run in runs for x in run["losses"] + run["grad_norms"]):
+            failures.append(f"{tag} {arch}: non-finite loss or grads")
+        if len({tuple(run["losses"]) for run in runs}) != 1:
+            failures.append(f"{tag} {arch}: the ranks disagree on the loss")
+        if key == "dense":
+            single = ranks[0]["dense_single"]
+            print(f"{tag}   the same steps in one process (information, bf16 rounds "
+                  "differently): losses " + ", ".join(f"{x:.4f}" for x in single["losses"])
+                  + "; step times " + ", ".join(f"{x * 1e3:.1f}" for x in single["seconds"])
+                  + " ms")
+        want = predicted_comm_bytes(torch, cfg, PAR_MESH, BATCH, TRAIN_SEQ)
+        for r, run in enumerate(runs):
+            got = {tuple(k.split()): v for k, v in run["comm"].items()}
+            if got != want:
+                failures.append(f"{tag} {arch} rank {r}: collective bytes {got} != predicted {want}")
+        print(f"{tag}   collective bytes a step, each rank (measured = predicted from the shapes): "
+              + ", ".join(f"{op} over {ax} {runs[0]['comm'].get(f'{op} {ax}', 0) / 1e6:.2f} MB"
+                          f" (predicted {want[(op, ax)] / 1e6:.2f})" for op, ax in sorted(want)))
+        per_step = train_launches(cfg)
+        summed = {name: sum(run["counts"][name] for run in runs) for name in KERNELS}
+        counts[f"train parallel {arch}"] = summed
+        for r, run in enumerate(runs):
+            for name in KERNELS:
+                exp = steps * per_step.get(name, 0)
+                if run["counts"][name] != exp:
+                    failures.append(f"{tag} {arch} rank {r}: {name} launched "
+                                    f"{run['counts'][name]} times, expected {exp}")
+        print(f"{tag}   attention kernel launches per rank in {steps} steps: "
+              + ", ".join(f"rank {r} {run['counts']['flash_attention']} forward / "
+                          f"{run['counts']['flash_attention_bwd']} backward" for r, run in
+                          enumerate(runs))
+              + f" (expected {steps} x {per_step['flash_attention']} / "
+                f"{steps} x {per_step['flash_attention_bwd']}, each on the rank's "
+                f"{cfg.n_heads // PAR_MESH[1]} of {cfg.n_heads} heads)")
+    gate = ranks[0]["dense_gate"]
+    for dtype, g in gate.items():
+        gap = abs(g["loss"] - g["single_loss"])
+        label = (f"{tag} {ARCH} {dtype} step at full width, {PAR_GATE_LAYERS} layers, "
+                 f"{PAR_GATE_BATCH} x {PAR_GATE_SEQ}, {world} ranks vs the single-process step")
+        norm_gap = abs(g["grad_norm"] - g["single_grad_norm"]) / g["single_grad_norm"]
+        if dtype == "float32":
+            ok = (gap < PAR_GATE_LOSS and norm_gap < PAR_GATE_GRAD and g["worst_mu"][0] <
+                  PAR_GATE_GRAD and g["worst"][0] < PAR_GATE_REL_RMS)
+            print(f"{label}: loss {g['loss']:.7f} vs {g['single_loss']:.7f} (|gap| {gap:.3e}, < "
+                  f"{PAR_GATE_LOSS}); grad norm {g['grad_norm']:.7f} vs "
+                  f"{g['single_grad_norm']:.7f} (relative gap {norm_gap:.3e}, < {PAR_GATE_GRAD}); "
+                  f"AdamW mu (the clipped gradient): worst leaf relative rms "
+                  f"{g['worst_mu'][0]:.3e} ({g['worst_mu'][1]}; < {PAR_GATE_GRAD}); params after "
+                  f"AdamW: worst leaf relative rms {g['worst'][0]:.3e} ({g['worst'][1]}; < "
+                  f"{PAR_GATE_REL_RMS}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{tag} fp32 gate against the single-process step")
+        else:
+            print(f"{label} (information): loss {g['loss']:.6f} vs {g['single_loss']:.6f} (|gap| "
+                  f"{gap:.3e}); grad norm relative gap {norm_gap:.3e}; AdamW mu: worst leaf "
+                  f"relative rms {g['worst_mu'][0]:.3e} ({g['worst_mu'][1]}); params after AdamW: "
+                  f"worst leaf relative rms {g['worst'][0]:.3e} ({g['worst'][1]})")
+    twin = ranks[0]["moe_gate"]
+    gap = abs(twin["loss"] - twin["twin_loss"])
+    limit = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * abs(twin["twin_loss"])
+    norm_gap = abs(twin["grad_norm"] - twin["twin_grad_norm"]) / twin["twin_grad_norm"]
+    ok = (gap <= limit and norm_gap <= GRAD_REL_RMS and twin["worst_mu"][0] <= GRAD_REL_RMS
+          and twin["worst"][0] <= GRAD_REL_RMS)
+    print(f"{tag} {MOE} float32 step at full width, {PAR_MOE_GATE_LAYERS} layer, "
+          f"{PAR_MOE_GATE_BATCH} x {PAR_MOE_GATE_SEQ}: {world} ranks on the card vs the same ranks "
+          f"on the CPU (gloo, plain versions; {twin['twin_s']:.1f}s): loss {twin['loss']:.7f} vs "
+          f"{twin['twin_loss']:.7f} (|gap| {gap:.3e}, at most {limit:.3e}); grad norm "
+          f"{twin['grad_norm']:.7f} vs {twin['twin_grad_norm']:.7f} (relative gap "
+          f"{norm_gap:.3e}, at most {GRAD_REL_RMS}); AdamW mu (the clipped gradient): worst leaf "
+          f"relative rms {twin['worst_mu'][0]:.3e} ({twin['worst_mu'][1]}; at most "
+          f"{GRAD_REL_RMS}); params after AdamW: worst leaf relative rms {twin['worst'][0]:.3e} "
+          f"({twin['worst'][1]}; at most {GRAD_REL_RMS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{tag} {MOE} fp32 gate against the CPU twin")
 
 
 if __name__ == "__main__":

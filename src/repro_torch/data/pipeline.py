@@ -3,20 +3,23 @@
 Deterministic per (seed, step), in numpy, bit-identical to the JAX
 package's stream: the same tokens and labels, the ``embeds`` of
 ``embed_inputs`` configs and the ``(3, B, S)`` M-RoPE positions.  The JAX
-module imports jax, so the port keeps its own copy; ``to_device`` takes
-the place of ``make_batch_on_mesh`` (nothing is sharded here).
+module imports jax, so the port keeps its own copy.  ``to_device`` puts a
+whole host batch on one device; ``make_batch_on_mesh`` keeps a rank's
+shard of it, as JAX's ``device_put`` with the batch's shardings does.
 """
 from __future__ import annotations
 
+import math
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel.sharding import ShardingContext, resolve_spec
 
 
 @dataclass
@@ -77,3 +80,48 @@ def to_device(host_batch: dict, device) -> dict:
     positions, fp32 embeddings)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in host_batch.items()}
+
+
+def batch_spec(cfg: ModelConfig, ctx: ShardingContext) -> tuple[dict, Callable]:
+    """(field -> ndim, field -> logical axes) for the batch fields under
+    the context's rules: ``positions`` (None, batch, seq) for M-RoPE,
+    ``embeds`` (batch, seq, embed), the others (batch, seq)."""
+    def spec_for(name: str, ndim: int):
+        if name == "positions" and cfg.mrope_sections:
+            axes = (None, "batch", "seq")
+        elif name == "embeds":
+            axes = ("batch", "seq", "embed")
+        else:
+            axes = ("batch", "seq")
+        return axes[:ndim] if ndim else axes
+
+    names = {"labels": 2}
+    if cfg.embed_inputs:
+        names["embeds"] = 3
+    else:
+        names["tokens"] = 2
+    if cfg.mrope_sections:
+        names["positions"] = 3
+    return names, spec_for
+
+
+def make_batch_on_mesh(host_batch: dict, cfg: ModelConfig, ctx: ShardingContext) -> dict:
+    """This rank's shard of a host batch, on ``ctx.mesh.device``: each
+    field resolved as an activation (``batch`` over the data axis in
+    train mode) and cut at the rank's coordinates.  Every rank draws the
+    same host batch from the seed, so the shards tile it as the JAX
+    package's ``device_put`` does.  The port splits evenly only: a batch
+    that the data shards do not divide raises (JAX pads an uneven split
+    and replicates a batch smaller than the shards)."""
+    _, spec_for = batch_spec(cfg, ctx)
+    mesh = ctx.mesh
+    B = host_batch["labels"].shape[0]
+    shards = math.prod(mesh.axis_size(a) for a in ("pod", "data"))
+    if B % shards:
+        raise ValueError(f"a global batch of {B} does not split evenly over {shards} data shards")
+    out = {}
+    for k, v in host_batch.items():
+        spec = resolve_spec(tuple(spec_for(k, v.ndim)), v.shape, ctx, "act")
+        shard = np.ascontiguousarray(v[mesh.shard_slices(spec, v.shape)])
+        out[k] = torch.from_numpy(shard).to(mesh.device)
+    return out

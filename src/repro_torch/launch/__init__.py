@@ -1,1 +1,1 @@
-"""Launchers: the static serve driver."""
+"""Launchers: the serve and train entry points, and the host mesh of ranks."""

@@ -25,12 +25,25 @@ at its head dim of 256 too), moe, hybrid (zamba2) and xLSTM.
         --layers 4 --steps 4 --batch 1 --seq 8192
     python -m repro_torch.launch.train --device cpu --arch xlstm_125m \\
         --scenario steady-cycle --batch 8 --seq 32
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch stablelm_3b \\
+        --full-config --layers 8 --model-parallel 2
+
+Under ``torchrun`` (a world of more than one rank) or with
+``--model-parallel`` above 1 the step runs on a (world / N, N) mesh of
+the ranks (``repro_torch.launch.mesh.make_host_mesh``), one process per
+rank: the state sharded over it, the batch over 'data', the layers
+tensor, sequence and expert parallel over 'model'
+(``repro_torch.train.steps``).  Rank 0 prints the lines; the backend
+(NCCL with a card per rank, gloo where ranks share one or run on the
+CPU) is printed once.  ``--checkpoint-dir`` gathers the full params to
+rank 0, which writes the store's layout.  A data-only mesh
+(``--model-parallel 1``) trains every family.
 
 ``--layers`` cuts the config's depth (phi3.5-MoE's fp32 masters and
 AdamW state take ~16 GB a layer; gemma2's embedding and head alone 29
 GB).  Runs on ``cuda`` unless ``--device cpu`` is given.  What is not
-ported yet exits 2 and names its ROADMAP.md item: ``--model-parallel``
-above 1 (A16).
+ported yet exits 2 and names its ROADMAP.md item: the hybrid and xLSTM
+families on a model axis above 1 (A16b).
 """
 from __future__ import annotations
 
@@ -46,11 +59,14 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import arch_config, smoke_config
-from repro_torch.data import SyntheticTokens, to_device
+from repro_torch.data import SyntheticTokens, make_batch_on_mesh, to_device
 from repro_torch.device import DeviceLike, card_label, resolve_device
+from repro_torch.launch.mesh import env_world, init_distributed, make_host_mesh
 from repro_torch.models import Model
 from repro_torch.models.common import ModelConfig
-from repro_torch.train import TrainState, build_init_fn, build_train_step
+from repro_torch.parallel.sharding import ShardingContext
+from repro_torch.train import (ParamLayout, TrainState, build_init_fn, build_train_step,
+                               gather_params, param_layout)
 
 
 @dataclass
@@ -61,11 +77,22 @@ class StepRecord:
     seconds: float   # host clock of the step, ended by a device sync
 
 
-def refusal(args: argparse.Namespace) -> Optional[str]:
-    """Why this run is not ported yet, or None; decided before any weight
-    is drawn."""
-    if args.model_parallel > 1:
-        return "--model-parallel > 1 is not ported yet: ROADMAP.md A16"
+def refusal(args: argparse.Namespace, cfg: Optional[ModelConfig] = None) -> Optional[str]:
+    """Why this run cannot go ahead, or None; decided before any weight is
+    drawn or any process group joined."""
+    _, world, _ = env_world()
+    if getattr(args, "scenario", None):
+        if world > 1:
+            return ("--scenario runs the elastic loop in one process (its slots are "
+                    "logical); run it without torchrun")
+        return None
+    if cfg is not None and args.model_parallel > 1 and cfg.family in ("hybrid", "ssm"):
+        return (f"the {cfg.family} family on --model-parallel {args.model_parallel} is not "
+                "ported yet: ROADMAP.md A16b (--model-parallel 1 trains it on a data-only "
+                "mesh)")
+    if world % args.model_parallel:
+        return (f"--model-parallel {args.model_parallel} needs a world of ranks it divides "
+                f"(this one has {world}): run under torchrun --nproc-per-node <n>")
     return None
 
 
@@ -86,8 +113,10 @@ def _sync(device: torch.device):
 
 def train(model: Model, state: TrainState, step_fn: Callable, batches: Iterable[dict],
           steps: int, *, ckpt: Optional[CheckpointManager] = None, checkpoint_every: int = 50,
-          log: Callable[[str], None] = print) -> tuple[TrainState, list[StepRecord]]:
-    """``steps`` steps over ``batches`` (host batches); logs JAX's
+          log: Callable[[str], None] = print,
+          place: Optional[Callable[[dict], dict]] = None) -> tuple[TrainState, list[StepRecord]]:
+    """``steps`` steps over ``batches`` (host batches, each put on the
+    model's device, or through ``place``: a rank's shard); logs JAX's
     ``step {i} loss ...`` lines at every 10th and the last step."""
     records = []
     t0 = time.perf_counter()
@@ -95,7 +124,8 @@ def train(model: Model, state: TrainState, step_fn: Callable, batches: Iterable[
         if i >= steps:
             break
         ts = time.perf_counter()
-        state, metrics = step_fn(state, to_device(host_batch, model.device))
+        batch = place(host_batch) if place else to_device(host_batch, model.device)
+        state, metrics = step_fn(state, batch)
         _sync(model.device)
         records.append(StepRecord(i, float(metrics["loss"]), float(metrics["grad_norm"]),
                                   time.perf_counter() - ts))
@@ -122,7 +152,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="cut the config's depth to this many layers")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=50)
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="size of the mesh's model axis; the ranks come from torchrun "
+                         "(torchrun --nproc-per-node <world> -m repro_torch.launch.train "
+                         "...), the data axis is world / N")
     ap.add_argument("--scenario", default=None,
                     help="run the elastic loop against a registered scenario "
                          "(see repro_torch.malleability.registered_scenarios)")
@@ -132,10 +165,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = arch_config(args.arch) if args.full_config else smoke_config(args.arch)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
-    why = refusal(args)
+    why = refusal(args, cfg)
     if why:
         print(why, file=sys.stderr)
         return 2
+    if not args.scenario and (env_world()[1] > 1 or args.model_parallel > 1):
+        return run_on_mesh(cfg, args)
     dev = resolve_device(args.device)
     if args.scenario:
         return run_scenario(Model(cfg, dev), args)
@@ -157,6 +192,67 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("non-finite loss or grads", file=sys.stderr)
         return 1
     return 0
+
+
+class MeshCheckpoint:
+    """``CheckpointManager``'s ``save``/``wait`` for the ranks of a mesh:
+    every rank gathers the full params (a collective), rank 0 writes them
+    in the store's layout."""
+
+    def __init__(self, manager: Optional[CheckpointManager], layout: ParamLayout):
+        self.manager, self.layout = manager, layout
+
+    def save(self, tree: dict, step: int) -> None:
+        full = {"params": gather_params(tree["params"], self.layout)}
+        if self.manager is not None:
+            self.manager.save(full, step)
+
+    def wait(self) -> None:
+        if self.manager is not None:
+            self.manager.wait()
+
+
+def run_on_mesh(cfg: ModelConfig, args: argparse.Namespace) -> int:
+    """This rank's part of a mesh run (``repro.launch.train.main`` on
+    ``make_host_mesh``): params from seed 0, each rank its storage shards
+    and its data shard of ``SyntheticTokens``; rank 0 prints."""
+    import torch.distributed as dist
+
+    dev, backend, why = init_distributed(args.device)
+    try:
+        mesh = make_host_mesh(args.model_parallel, device=dev)
+        ctx = ShardingContext(mesh=mesh, mode="train")
+        model = Model(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = build_init_fn(model, ctx)(gen)
+        step_fn = build_train_step(model, ctx, lr=args.lr)
+        first = mesh.rank == 0
+        log = (lambda line: print(line, flush=True)) if first else (lambda line: None)
+        n_params = sum(math.prod(s.shape) for s in model.abstract_params()[0].values())
+        log(f"arch={cfg.name} params={n_params / 1e9:.3f}B batch={args.batch} seq={args.seq} "
+            f"mesh data {mesh.shape[0]} x model {mesh.shape[1]}, backend {backend} ({why}); "
+            f"rank 0 on {card_label(dev)}")
+        ckpt = None
+        if args.checkpoint_dir:
+            ckpt = MeshCheckpoint(CheckpointManager(args.checkpoint_dir) if first else None,
+                                  param_layout(model, ctx))
+        data = SyntheticTokens(cfg, args.batch, args.seq)
+        state, records = train(model, state, step_fn, data.iter(), args.steps, ckpt=ckpt,
+                               checkpoint_every=args.checkpoint_every, log=log,
+                               place=lambda b: make_batch_on_mesh(b, cfg, ctx))
+        if dev.type == "cuda" and len(records) > 1:
+            step_s = statistics.median(r.seconds for r in records[1:])
+            log(f"step time {step_s * 1e3:.1f} ms (median of steps 1..{len(records) - 1}), "
+                f"{args.batch * args.seq / step_s:.0f} tokens/s on {mesh.size} ranks")
+            print(f"rank {mesh.rank}: peak memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB on {card_label(dev)}",
+                  flush=True)
+        if not all(math.isfinite(r.loss) and math.isfinite(r.grad_norm) for r in records):
+            print(f"rank {mesh.rank}: non-finite loss or grads", file=sys.stderr)
+            return 1
+        return 0
+    finally:
+        dist.destroy_process_group()
 
 
 def run_scenario(model: Model, args: argparse.Namespace) -> int:

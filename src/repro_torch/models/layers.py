@@ -2,13 +2,43 @@
 (full / sliding-window / soft-capped, plain or ring KV cache), the GLU MLP
 and the capacity-routed MoE layer.
 
-Ports :mod:`repro.models.layers` without a sharding context, where
-``constrain``, ``column_parallel_in`` and ``row_parallel_out`` reduce to
-plain matmuls and ``moe`` to ``_moe_dense``.  Attention's score/softmax/PV
-part runs in :func:`repro_torch.kernels.ops.flash_attention`: the
-hand-written kernel on CUDA tensors, its plain version on CPU tensors.
-The MoE layer's expert products are batched matmuls, as the JAX package's
-are einsums.
+Ports :mod:`repro.models.layers`.  Attention's score/softmax/PV part runs
+in :func:`repro_torch.kernels.ops.flash_attention`: the hand-written
+kernel on CUDA tensors, its plain version on CPU tensors.  The MoE
+layer's expert products are batched matmuls, as the JAX package's are
+einsums.
+
+Without a sharding context (and on a mesh whose model axis is 1) the
+projections are plain matmuls and ``moe`` is ``_moe_dense``.  Under a
+train-mode context on a :class:`~repro_torch.parallel.sharding.ProcessMesh`
+whose model axis m is above 1, a rank holds the weights in the layout
+:func:`compute_spec` gives them and the residual stream sequence-sharded
+over ``model`` (Megatron-SP, ``residual_seq``):
+
+* ``column_parallel_in`` all-gathers the input's sequence once for the
+  block's projections (its backward reduce-scatters);
+  ``row_parallel_out`` multiplies by the rank's rows and reduce-scatters
+  the partial sums into the sequence-sharded layout (its backward
+  all-gathers);
+* ``attention`` runs the rank's H/m query heads and, where m divides
+  ``n_kv_heads``, its KV/m heads, through the same kernel; where it does
+  not (phi3.5's smoke config: 2 KV heads over 4), K and V are computed
+  whole on every rank and each rank keeps the KV heads its query heads
+  read, where JAX's constraint drops the axis;
+* ``mlp`` is tensor parallel over d_ff;
+* ``moe`` runs ``_moe_shard_map``'s expert parallelism where m divides
+  ``n_experts``: routing and the capacity buffer per data shard (the
+  capacity from its own Tl tokens), only the rank's E/m experts, one
+  all-gather of their outputs over ``model``.
+
+Where JAX's ``shard_map`` paths fall back to an einsum and a constraint
+(m not dividing d_model or n_heads), the port computes that projection
+whole on every rank of the model axis (the weight replicated there):
+the numbers are the same, only the work is repeated.  The port has no
+GSPMD behind those fallbacks, so two more cases differ in how they are
+refused, not in their numbers: the model axis must divide the sequence
+(``Model.forward`` raises) and, where it divides d_model, d_ff
+(:func:`compute_spec` raises).
 """
 from __future__ import annotations
 
@@ -18,6 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import constrain, current_context
 
 from .common import ModelConfig, ParamBuilder
 
@@ -120,13 +152,22 @@ def attention(
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
     win = int(window) if window is not None and int(window) > 0 else 0
+    # the rank's heads: H/m and KV/m under tensor parallelism, else all
+    Hl, KVl = params[f"{name}/wq"].shape[1], params[f"{name}/wk"].shape[1]
 
-    q = (x @ params[f"{name}/wq"].to(dt).reshape(d, H * hd)).reshape(B, S, H, hd)
-    k = (x @ params[f"{name}/wk"].to(dt).reshape(d, KV * hd)).reshape(B, S, KV, hd)
-    v = (x @ params[f"{name}/wv"].to(dt).reshape(d, KV * hd)).reshape(B, S, KV, hd)
+    q, k, v = column_parallel_in(x, [
+        params[f"{name}/wq"].to(dt).reshape(d, Hl * hd),
+        params[f"{name}/wk"].to(dt).reshape(d, KVl * hd),
+        params[f"{name}/wv"].to(dt).reshape(d, KVl * hd)])
+    S = q.shape[1]          # the whole sequence, gathered over 'model'
+    q = q.reshape(B, S, Hl, hd)
+    k = k.reshape(B, S, KVl, hd)
+    v = v.reshape(B, S, KVl, hd)
     q = rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     fresh_kv = (k, v) if collect_kv else None
+    if Hl < H and KVl == KV:
+        k, v = _kv_for_local_heads(cfg, Hl, k, v)
 
     if cache is not None:
         if S != 1:
@@ -158,8 +199,104 @@ def attention(
         out = _attend(cfg, q, k, v, causal=True, window=win)
         aux = fresh_kv
 
-    out = out.reshape(B, S, H * hd) @ params[f"{name}/wo"].to(dt).reshape(H * hd, d)
+    out = row_parallel_out(out.reshape(B, S, Hl * hd),
+                           params[f"{name}/wo"].to(dt).reshape(Hl * hd, d), Hl < H)
     return out, aux
+
+
+def _kv_for_local_heads(cfg: ModelConfig, Hl: int, k, v):
+    """K and V (B, S, KV, hd), whole, cut to the heads this rank's Hl
+    query heads read (query head h reads KV head h // (H / KV)): one head
+    when one group holds every local query head, else one per query head
+    (a GQA ratio of 1)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    first = current_context().mesh.axis_index("model") * Hl
+    if G % Hl == 0:
+        sel = slice(first // G, first // G + 1)
+        return k[:, :, sel], v[:, :, sel]
+    idx = torch.arange(first, first + Hl, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _row_parallel_ctx():
+    """(ctx, m) when a train-mode context's mesh has a 'model' axis of
+    m > 1, so the block runs the explicit Megatron-SP collectives, else
+    None.  JAX also asks that m divide the contracted dim and the
+    sequence: the first decides each projection's layout in
+    :func:`compute_spec`, the second ``Model.forward`` requires."""
+    ctx = current_context()
+    if ctx is None:
+        return None
+    m = ctx.mesh.axis_sizes().get("model", 1)
+    if m <= 1:
+        return None
+    if ctx.mode != "train":
+        raise NotImplementedError(f"mode {ctx.mode!r} on a model axis of {m} is not ported "
+                                  "yet: ROADMAP.md A17")
+    return ctx, m
+
+
+def row_parallel_out(x, w, contract_sharded: bool):
+    """y = x @ w into the sequence-sharded residual layout.
+
+    x: (B, S, K) whole over the sequence; w: (K, d).  With the
+    contraction sharded over 'model' (``contract_sharded``: the rank's K
+    rows) the partial sums are reduce-scattered over the sequence in one
+    collective (Megatron-SP's g-bar; backward: all-gather); with K whole
+    the product is complete on every rank and each keeps its sequence
+    slice.  Without a model axis, x @ w."""
+    out = x @ w
+    rp = _row_parallel_ctx()
+    if rp is None:
+        return out
+    mesh = rp[0].mesh
+    if contract_sharded:
+        return coll.reduce_scatter(out, mesh, "model", 1)
+    return coll.take(out, mesh, "model", 1)
+
+
+def column_parallel_in(x, weights: list):
+    """Column-parallel projections under SP: ONE all-gather of the
+    sequence-sharded input feeds every projection in the block (its
+    backward is a reduce-scatter).  x: (B, S/m, d); weights: (d, F_i)
+    local (the rank's columns, or whole).  Returns [(B, S, F_i)].
+    Without a model axis, plain matmuls."""
+    rp = _row_parallel_ctx()
+    if rp is not None:
+        x = coll.all_gather(x, rp[0].mesh, "model", 1)
+    return [x @ w for w in weights]
+
+
+def compute_spec(name: str, logical_axes: tuple, cfg: ModelConfig, m: int) -> tuple:
+    """The layout a param is computed in on a model axis of m: per
+    dimension "model" (the rank's 1/m of it) or None (whole).
+
+    Query heads (and ``wo``'s heads) split where m divides d_model and
+    n_heads, KV heads where it also divides n_kv_heads; d_ff where it
+    divides d_model; experts where it divides n_experts (their d_ff is
+    then whole); the vocabulary where it divides it.  The rest (norms,
+    the router, the recurrent families' params) is whole.  Raises where
+    m divides d_model but not d_ff: JAX's ``shard_map`` falls back to
+    GSPMD there, which the port has no counterpart of."""
+    if m <= 1:
+        return (None,) * len(logical_axes)
+    d = cfg.d_model
+    heads = d % m == 0 and cfg.n_heads % m == 0
+    split = {
+        "heads": heads,
+        "kv_heads": heads and cfg.n_kv_heads % m == 0,
+        "vocab": cfg.vocab % m == 0,
+    }
+    expert_weight = "experts" in logical_axes and "mlp" in logical_axes
+    if expert_weight:
+        split["experts"] = cfg.n_experts % m == 0
+    elif "mlp" in logical_axes and d % m == 0:
+        ff = cfg.d_ff * (cfg.n_shared_experts if "shared" in name.split("/") else 1)
+        if ff % m:
+            raise ValueError(f"{name}: a model axis of {m} divides d_model {d} but not "
+                             f"d_ff {ff}")
+        split["mlp"] = True
+    return tuple("model" if split.get(a) else None for a in logical_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -174,11 +311,16 @@ def init_mlp(b: ParamBuilder, name: str, d: int, d_ff: int):
 
 
 def mlp(params, name: str, x):
+    """GLU MLP; tensor parallel over d_ff on a model axis that divides
+    d_model (the weights then hold the rank's columns of ``wi_*`` and
+    rows of ``wo``)."""
     dt = x.dtype
-    gate = x @ params[f"{name}/wi_gate"].to(dt)
-    up = x @ params[f"{name}/wi_up"].to(dt)
+    gate, up = column_parallel_in(
+        x, [params[f"{name}/wi_gate"].to(dt), params[f"{name}/wi_up"].to(dt)])
     h = F.silu(gate) * up
-    return h @ params[f"{name}/wo"].to(dt)
+    rp = _row_parallel_ctx()
+    return row_parallel_out(h, params[f"{name}/wo"].to(dt),
+                            rp is not None and x.shape[-1] % rp[1] == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -226,9 +368,63 @@ def moe_route(params, name: str, cfg: ModelConfig, xt):
 
 
 def moe(params, name: str, cfg: ModelConfig, x):
-    """Top-k expert routing with per-expert capacity buffers:
-    ``repro.models.layers._moe_dense`` (what ``moe`` runs without a
-    sharding context).  x (B, S, d) -> (B, S, d)."""
+    """Top-k expert routing with per-expert capacity buffers.
+
+    Under a context whose model axis m > 1 divides n_experts,
+    :func:`_moe_shard_map` (expert parallel, capacity per data shard).
+    Otherwise ``_moe_dense`` over every token of the global batch (what
+    ``moe`` runs without a sharding context): on a mesh, the tokens are
+    all-gathered over 'data' (and the sequence over 'model') first and
+    the rank's own come back out.  x (B, S, d) -> (B, S, d)."""
+    ctx = current_context()
+    if ctx is None:
+        return _moe_dense(params, name, cfg, x)
+    m = ctx.mesh.axis_sizes().get("model", 1)
+    if _row_parallel_ctx() is not None and cfg.n_experts % m == 0:
+        return _moe_shard_map(params, name, cfg, x, ctx)
+    src = ("batch", "residual_seq", "embed") if m > 1 else ("batch", "seq", "embed")
+    whole = (None, "seq", "embed")
+    y = _moe_dense(params, name, cfg, constrain(x, whole, src))
+    return constrain(y, src, whole)
+
+
+def _moe_shard_map(params, name: str, cfg: ModelConfig, x, ctx):
+    """Expert parallelism (``repro.models.layers._moe_shard_map``): x is
+    the rank's (B/data, S/m, d) residual shard; its sequence is gathered
+    over 'model', so the ranks of a model group route the same Tl tokens
+    of their data shard, each with the capacity
+    ``max(int(Tl k capacity_factor / E), 1)`` (not the global batch's),
+    compute only their E/m experts, and all-gather the experts' outputs
+    (E, cap + 1, d) over 'model' to combine them; each keeps its sequence
+    slice.  The shared expert, if any, runs through :func:`mlp`."""
+    mesh = ctx.mesh
+    xg = constrain(x, ("batch", "seq", "embed"), ("batch", "residual_seq", "embed"))
+    Bl, Sl, d = xg.shape
+    dt = xg.dtype
+    Tl, k = Bl * Sl, cfg.top_k
+    xt = xg.reshape(Tl, d)
+    weights, expert, slot, keep, cap = moe_route(params, name, cfg, xt)
+    token = torch.arange(Tl, device=x.device).repeat_interleave(k)
+    buf = torch.zeros((cfg.n_experts, cap + 1, d), dtype=dt, device=x.device)
+    buf = buf.index_put((expert, slot), xt[token], accumulate=True)
+    wg = params[f"{name}/wi_gate"].to(dt)        # (E/m, d, ff): the rank's experts
+    E_loc = wg.shape[0]
+    my = buf.narrow(0, mesh.axis_index("model") * E_loc, E_loc)
+    out_loc = torch.bmm(F.silu(torch.bmm(my, wg)) * torch.bmm(my, params[f"{name}/wi_up"].to(dt)),
+                        params[f"{name}/wo"].to(dt))
+    out_all = coll.all_gather(out_loc, mesh, "model", 0)   # (E, cap + 1, d)
+    gathered = torch.where(keep[:, None], out_all[expert, slot], 0)
+    y = (gathered * weights.reshape(-1, 1)).reshape(Tl, k, d).sum(dim=1)
+    y = constrain(y.reshape(Bl, Sl, d), ("batch", "residual_seq", "embed"),
+                  ("batch", "seq", "embed"))
+    if cfg.n_shared_experts:
+        y = y + mlp(params, f"{name}/shared", x)
+    return y
+
+
+def _moe_dense(params, name: str, cfg: ModelConfig, x):
+    """``repro.models.layers._moe_dense``: every token of x routed with one
+    capacity for the call.  x (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
     dt = x.dtype
     T, k = B * S, cfg.top_k

@@ -2,6 +2,18 @@
 
 Params are a flat dict of tensors under the JAX package's keys, so
 :mod:`repro_torch.bridge` passes them 1:1 between the two packages.
+
+Under a train-mode sharding context on a
+:class:`~repro_torch.parallel.sharding.ProcessMesh`, a rank's batch is its
+data shard, its params are in :func:`~repro_torch.models.layers.compute_spec`'s
+layout, and with a model axis m > 1: the embedding table and the head are
+split on the vocabulary, the lookup's partial rows are reduce-scattered
+into the sequence-sharded residual, the logits are the rank's
+vocabulary slice for the whole sequence, and ``loss`` is a
+vocabulary-parallel cross entropy (the max, the sum of exponentials and
+the picked logit all-reduced over 'model').  The loss is then summed
+over 'data' and divided by the global count of labels, so every rank
+returns the JAX package's global mean.
 """
 from __future__ import annotations
 
@@ -10,6 +22,8 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import current_context
 
 from .common import ModelConfig, ParamBuilder, torch_dtype
 from .layers import init_rmsnorm, rmsnorm
@@ -65,14 +79,36 @@ class Model:
 
     # -------------------------------------------------------------- forward --
     def embed(self, params: dict, batch: dict) -> torch.Tensor:
+        """(B, S, d) in the compute dtype; on a model axis m > 1 the rank's
+        sequence slice (B, S/m, d)."""
         cfg = self.cfg
+        mesh = _model_mesh()
         if cfg.embed_inputs:
-            return batch["embeds"].to(cfg.compute_dtype)
-        return params["embed/table"][batch["tokens"]].to(cfg.compute_dtype)
+            x = batch["embeds"].to(cfg.compute_dtype)
+            return x if mesh is None else coll.take(x, mesh, "model", 1)
+        table, tokens = params["embed/table"], batch["tokens"]
+        if mesh is None:
+            return table[tokens].to(cfg.compute_dtype)
+        if table.shape[0] == cfg.vocab:            # the table whole on every rank
+            return coll.take(table[tokens].to(cfg.compute_dtype), mesh, "model", 1)
+        # the rank's rows of the table: a token elsewhere gives a zero row,
+        # so the sum over 'model' is the lookup, exactly
+        lo = mesh.axis_index("model") * table.shape[0]
+        local = tokens.long() - lo
+        hit = (local >= 0) & (local < table.shape[0])
+        rows = table[local.clamp(0, table.shape[0] - 1)].to(cfg.compute_dtype)
+        rows = torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                             device=rows.device))
+        return coll.reduce_scatter(rows, mesh, "model", 1)
 
     def logits(self, params: dict, y: torch.Tensor) -> torch.Tensor:
+        """(B, S, V) from the residual; on a model axis m > 1 the rank's
+        vocabulary slice (B, S, V/m) of the whole sequence."""
         cfg = self.cfg
         y = rmsnorm(params, "final_norm", y, cfg.norm_eps)
+        mesh = _model_mesh()
+        if mesh is not None:
+            y = coll.all_gather(y, mesh, "model", 1)
         w = params["embed/table"].T if cfg.tie_embeddings else params["head/w"]
         logits = (y @ w.to(cfg.compute_dtype)).to(torch_dtype(cfg.logit_dtype))
         if cfg.final_softcap > 0:
@@ -83,10 +119,13 @@ class Model:
     def forward(self, params: dict, batch: dict, collect_kv: bool = False):
         """Logits (B,S,V) and, with ``collect_kv``, the prefill's cache
         contents: a dict keyed like ``init_cache`` (``forward_blocks``)."""
+        B, S = batch["embeds" if self.cfg.embed_inputs else "tokens"].shape[:2]
+        mesh = _model_mesh()
+        if mesh is not None:
+            _check_model_axis(self.cfg, S, mesh.axis_size("model"))
         x = self.embed(params, batch)
         positions = batch.get("positions")
         if positions is None:
-            B, S = x.shape[:2]
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
         y, caches = forward_blocks(params, self.cfg, x, positions, collect_kv)
         return self.logits(params, y), caches
@@ -96,17 +135,29 @@ class Model:
         """Mean next-token cross entropy; labels < 0 are masked.  The logits
         are cast to fp32 for it; with ``cfg.loss_chunk`` dividing S, the sum
         runs over sequence chunks of that length, in order, as the JAX
-        package's scan does (else over the whole sequence)."""
+        package's scan does (else over the whole sequence).
+
+        Under a sharding context the logits are the rank's vocabulary
+        slice on a model axis above 1 (the max, the sum of exponentials
+        and the picked logit all-reduced over 'model'), and the sum and
+        the count of the rank's data shard are summed over 'data': every
+        rank returns the global mean."""
         cfg = self.cfg
         logits, _ = self.forward(params, batch)
         labels = batch["labels"].long()
         mask = (labels >= 0).float()
         labels = labels.clamp_min(0)
+        ctx = current_context()
+        mesh = None if ctx is None else ctx.mesh
+        split = _model_mesh() is not None and logits.shape[-1] < cfg.vocab
 
         def xent(lg, lb, mk):
             lg = lg.float()
-            lse = torch.logsumexp(lg, dim=-1)
-            picked = torch.gather(lg, -1, lb[..., None])[..., 0]
+            if split:
+                lse, picked = _vocab_parallel_terms(lg, lb, mesh)
+            else:
+                lse = torch.logsumexp(lg, dim=-1)
+                picked = torch.gather(lg, -1, lb[..., None])[..., 0]
             return torch.sum((lse - picked) * mk), torch.sum(mk)
 
         S = logits.shape[1]
@@ -118,6 +169,9 @@ class Model:
                 tot, cnt = tot + ls, cnt + c
         else:
             tot, cnt = xent(logits, labels, mask)
+        if mesh is not None:
+            tot = coll.all_reduce(tot, mesh, "data")
+            cnt = coll.sum_over(cnt, mesh, ["data"])
         return tot / torch.clamp(cnt, min=1.0)
 
     # ---------------------------------------------------------------- decode --
@@ -165,3 +219,39 @@ class Model:
             else:
                 dst[:, :, :S] = val.to(dst.dtype)
         return logits
+
+
+def _model_mesh():
+    """The current context's mesh when it has a model axis above 1 (and
+    the mode is train), else None."""
+    from .layers import _row_parallel_ctx
+
+    rp = _row_parallel_ctx()
+    return None if rp is None else rp[0].mesh
+
+
+def _check_model_axis(cfg: ModelConfig, seq: int, m: int):
+    """What a model axis of m > 1 needs of the model and the batch."""
+    if cfg.family in ("hybrid", "ssm"):
+        raise NotImplementedError(
+            f"the {cfg.family} family on a model axis of {m} is not ported yet: "
+            "ROADMAP.md A16b (a data-only mesh, --model-parallel 1, runs it)")
+    if seq % m:
+        raise ValueError(f"a model axis of {m} does not divide the sequence length {seq} "
+                         "(the sequence-parallel residual splits it evenly)")
+
+
+def _vocab_parallel_terms(lg: torch.Tensor, lb: torch.Tensor, mesh):
+    """(logsumexp, picked logit) per token over the whole vocabulary, from
+    this rank's fp32 logits slice lg (..., V/m) and the labels lb: the
+    max (no gradient), the sum of exponentials and the picked logit (0
+    from every rank whose slice lacks the label) are all-reduced over
+    'model'."""
+    n = lg.shape[-1]
+    mx = coll.all_reduce(lg.detach().amax(dim=-1), mesh, "model", op="max")
+    se = coll.all_reduce(torch.exp(lg - mx[..., None]).sum(dim=-1), mesh, "model")
+    local = lb - mesh.axis_index("model") * n
+    hit = (local >= 0) & (local < n)
+    mine = torch.gather(lg, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    picked = coll.all_reduce(torch.where(hit, mine, torch.zeros_like(mine)), mesh, "model")
+    return torch.log(se) + mx, picked

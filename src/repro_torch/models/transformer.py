@@ -10,6 +10,13 @@ layer loop runs under ``torch.utils.checkpoint`` (the JAX package's
 block; a Mamba2 layer with the shared block when it follows; an xLSTM
 unit.  Its activations are recomputed in the backward.
 
+Under a sharding context whose model axis m is above 1 (dense and moe
+families), the residual stream between blocks is sequence-sharded over
+'model' (``residual_seq``, Megatron-SP): the embedding hands each rank
+its S/m rows and every block's output projection reduce-scatters back
+into them, so the norms run on the rank's own rows and remat saves 1/m
+of each carry (``repro_torch.models.layers``).
+
 Families:
   dense   — [attn, mlp] x L     (gemma2: alternating sliding window + softcap)
   moe     — [attn, moe] x L     (optional shared expert)
@@ -25,6 +32,8 @@ from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.parallel.sharding import carry_context
 
 from .common import ModelConfig, ParamBuilder, stack_params, torch_dtype
 from .layers import attention, init_attention, init_mlp, init_moe, init_rmsnorm, mlp, moe, rmsnorm
@@ -190,8 +199,8 @@ def forward_blocks(params, cfg: ModelConfig, x, positions, collect_kv=False):
         lp = {k: v[i] for k, v in layers.items()}
         window = None if windows is None else windows[i]
         if remat:
-            x, kv = checkpoint(_dense_block, lp, cfg, x, positions, window, collect_kv,
-                               use_reentrant=False)
+            x, kv = checkpoint(carry_context(_dense_block), lp, cfg, x, positions, window,
+                               collect_kv, use_reentrant=False)
         else:
             x, kv = _dense_block(lp, cfg, x, positions, window, collect_kv)
         if collect_kv:
@@ -231,7 +240,7 @@ def _forward_hybrid(params, cfg: ModelConfig, x, positions, collect_kv):
         lp = {k: v[i] for k, v in layers.items()}
         args = (lp, shared, cfg, x, positions, _applies_shared_attn(cfg, i), collect_kv)
         if remat:
-            x, st, kv = checkpoint(_hybrid_layer, *args, use_reentrant=False)
+            x, st, kv = checkpoint(carry_context(_hybrid_layer), *args, use_reentrant=False)
         else:
             x, st, kv = _hybrid_layer(*args)
         if collect_kv:
@@ -268,7 +277,8 @@ def _forward_xlstm(params, cfg: ModelConfig, x, collect_kv):
     for u in range(_n_units(cfg)):
         lp = {k: v[u] for k, v in units.items()}
         if remat:
-            x, unit, st = checkpoint(_xlstm_unit, lp, cfg, x, collect_kv, use_reentrant=False)
+            x, unit, st = checkpoint(carry_context(_xlstm_unit), lp, cfg, x, collect_kv,
+                                     use_reentrant=False)
         else:
             x, unit, st = _xlstm_unit(lp, cfg, x, collect_kv)
         if collect_kv:

@@ -34,11 +34,27 @@ def adamw_init(params: dict) -> AdamWState:
     )
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, mesh=None, specs: Optional[dict] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's fp32 sum of squares, leaves in sorted
-    key order (the JAX package's pytree order)."""
-    leaves = [torch.sum(torch.square(tree[k].float())) for k in sorted(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    key order (the JAX package's pytree order).
+
+    With a :class:`~repro_torch.parallel.sharding.ProcessMesh` and each
+    leaf's storage spec, the leaves are this rank's shards: every element
+    is counted once (a leaf replicated over an axis contributes from the
+    rank at coordinate 0 of that axis only) and the sum runs over every
+    rank, so each gets the norm of the whole tree."""
+    if mesh is None:
+        leaves = [torch.sum(torch.square(tree[k].float())) for k in sorted(tree)]
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    from repro_torch.parallel import collectives
+
+    leaves = []
+    for k in sorted(tree):
+        first = all(mesh.axis_index(a) == 0 for a in mesh.replicated_axes(specs[k]))
+        sq = torch.sum(torch.square(tree[k].float()))
+        leaves.append(sq if first else torch.zeros_like(sq))
+    total = collectives.sum_over(torch.sum(torch.stack(leaves)), mesh, mesh.axis_names)
+    return torch.sqrt(total)
 
 
 def adamw_update(
@@ -56,7 +72,9 @@ def adamw_update(
 ) -> tuple[dict, AdamWState]:
     """One AdamW step, in place; returns (params, new_state), the same
     tensors.  ``grad_norm``: ``global_norm(grads)`` if the caller has it
-    already (it is computed here otherwise)."""
+    already (it is computed here otherwise).  Every op is elementwise, so
+    on a mesh it runs on the storage shards as they are, given the norm
+    over all of them (``global_norm(grads, mesh, specs)``)."""
     step = state.step + 1
     if clip_norm is not None:
         gnorm = global_norm(grads) if grad_norm is None else grad_norm

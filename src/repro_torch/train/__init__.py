@@ -1,4 +1,6 @@
 """Train state, init and step functions (ports :mod:`repro.train`)."""
-from .steps import TrainState, build_init_fn, build_train_step, loss_and_grads
+from .steps import (ParamLayout, TrainState, batch_shardings, build_init_fn, build_train_step,
+                    gather_params, loss_and_grads, param_layout, train_state_shardings)
 
-__all__ = ["TrainState", "build_init_fn", "build_train_step", "loss_and_grads"]
+__all__ = ["ParamLayout", "TrainState", "batch_shardings", "build_init_fn", "build_train_step",
+           "gather_params", "loss_and_grads", "param_layout", "train_state_shardings"]

@@ -1,22 +1,49 @@
-"""Train step and init (ports :mod:`repro.train.steps`, without sharding).
+"""Train step and init (ports :mod:`repro.train.steps`).
 
 ``build_train_step`` returns ``step(state, batch) -> (state, metrics)``:
 the loss and its grads by ``torch.autograd`` over the fp32 master params
 (leaves that require grad), then ``adamw_update`` under
 ``torch.no_grad()``, as the JAX step runs ``jax.value_and_grad(model.loss)``
-then ``adamw_update``.  Nothing is sharded (ROADMAP.md A16); the params,
-``mu``, ``nu`` and the grads are updated in place (see
-:mod:`repro_torch.optim.adamw`), so the returned state holds the same
-tensors as the one passed in.
+then ``adamw_update``.  The params, ``mu``, ``nu`` and the grads are
+updated in place (see :mod:`repro_torch.optim.adamw`), so the returned
+state holds the same tensors as the one passed in.
+
+Without a sharding context one process holds and computes everything.
+With one (a :class:`~repro_torch.parallel.sharding.ProcessMesh`, one
+process per rank) the state is sharded as the JAX package's
+``train_state_shardings`` gives it: each param and both AdamW moments
+stored as ``resolve_spec(kind="weight")`` places them, the fallback pass
+included (ZeRO-3 over 'data', tensor parallel over 'model').  Before the
+forward, each leaf is gathered from that storage shard into the layout the
+layers compute in (:func:`~repro_torch.models.layers.compute_spec`: the
+rank's tensor-parallel slice, whole over 'data'), cast first to the
+compute dtype where the forward reads it only in that dtype; autograd
+takes each gather's transpose, so the grads come back reduce-scattered
+to the storage shards, summed over the data shards into the gradient of
+JAX's global mean.  The reduce-scatters sum in fp32 whatever the compute
+dtype (the cotangent is cast back up before them,
+``collectives.redistribute(..., dtype)``).  In bf16 each data shard's
+gradient is still rounded to bf16 once by its own backward, where one
+process rounds the whole batch's once, so a bf16 step on a data axis
+above 1 differs from the single-process step by that rounding.  The whole step's params are gathered at once
+(gathering per layer is later work, ROADMAP.md); AdamW then runs on the
+storage shards, clipped by the norm over all shards.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.data.pipeline import batch_spec
 from repro_torch.models import Model
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import compute_spec
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, global_norm
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import (ShardingContext, param_specs, resolve_spec,
+                                           spec_axes, use_sharding)
 
 
 class TrainState(NamedTuple):
@@ -25,26 +52,118 @@ class TrainState(NamedTuple):
     step: torch.Tensor   # () int32
 
 
-def loss_and_grads(model: Model, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+@dataclass(frozen=True)
+class ParamLayout:
+    """How each param lives on a rank (``storage``: its weight spec) and
+    is computed (``compute``: per dimension "model" or None), and which
+    params are cast to the compute dtype before they are gathered."""
+
+    ctx: ShardingContext
+    storage: dict
+    compute: dict
+    cast: frozenset
+
+    def to_compute(self, name: str, p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The storage shard ``p`` in its compute layout, in ``dtype`` if
+        it is cast (autograd keeps the transpose: zero pads and
+        reduce-scatters, in ``p``'s dtype)."""
+        src = tuple(spec_axes(e) for e in self.storage[name])
+        dst = tuple(spec_axes(e) for e in self.compute[name])
+        return coll.redistribute(p, self.ctx.mesh, src, dst,
+                                 dtype if name in self.cast else None)
+
+
+def param_layout(model: Model, ctx: ShardingContext) -> ParamLayout:
+    """The :class:`ParamLayout` of ``model``'s params on ``ctx.mesh``.
+    Every param but the final norm's scale is read by the forward only in
+    the compute dtype (the stacked blocks through ``_split_stacked``, the
+    embedding after its lookup, the head at its product), so those are
+    cast before the gather: the forward reads the same numbers, and its
+    gathers move half the bytes in bf16; their gradients are summed over
+    the ranks in fp32 (:meth:`ParamLayout.to_compute`)."""
+    shapes, specs = model.abstract_params()
+    m = ctx.mesh.axis_sizes().get("model", 1)
+    return ParamLayout(
+        ctx=ctx,
+        storage=param_specs(shapes, specs, ctx),
+        compute={k: compute_spec(k, tuple(specs[k]), model.cfg, m) for k in shapes},
+        cast=frozenset(k for k in shapes if not k.startswith("final_norm/")),
+    )
+
+
+def train_state_shardings(model: Model, ctx: ShardingContext) -> tuple[TrainState, TrainState]:
+    """(abstract state, spec tree): the params' shapes, and each leaf's
+    storage spec (params, ``mu`` and ``nu`` alike; the step counters
+    replicated, ``()``)."""
+    shapes, specs = model.abstract_params()
+    p_spec = param_specs(shapes, specs, ctx)
+    abstract = TrainState(params=shapes, opt=AdamWState(step=(), mu=shapes, nu=shapes), step=())
+    shardings = TrainState(params=p_spec, opt=AdamWState(step=(), mu=dict(p_spec),
+                                                         nu=dict(p_spec)), step=())
+    return abstract, shardings
+
+
+def batch_shardings(cfg: ModelConfig, ctx: ShardingContext, batch: int, seq: int) -> dict:
+    """Each batch field's activation spec for a global batch x seq."""
+    names, spec_for = batch_spec(cfg, ctx)
+    out = {}
+    for name, ndim in names.items():
+        if name == "positions":
+            shape = (3, batch, seq)
+        elif name == "embeds":
+            shape = (batch, seq, cfg.d_model)
+        else:
+            shape = (batch, seq)
+        out[name] = resolve_spec(tuple(spec_for(name, ndim)), shape, ctx, "act")
+    return out
+
+
+def loss_and_grads(model: Model, params: dict, batch: dict,
+                   layout: Optional[ParamLayout] = None) -> tuple[torch.Tensor, dict]:
     """``jax.value_and_grad(model.loss)``: the loss and one grad per param,
-    keyed like the params (zeros for a param the loss does not reach)."""
+    keyed like the params (zeros for a param the loss does not reach).
+
+    With a ``layout``, ``params`` and the grads are this rank's storage
+    shards and ``batch`` its data shard: the loss (the global mean, on
+    every rank) runs under the layout's context on the params gathered
+    into their compute layout.  The loss is replicated over the mesh's W
+    ranks, so each seeds 1/W of its cotangent (the convention of
+    :mod:`repro_torch.parallel.collectives`), and a grad whose storage is
+    replicated over an axis is summed over it."""
     names = sorted(params)
     leaves = [params[k] for k in names]
-    loss = model.loss(params, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    if layout is None:
+        loss = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    else:
+        mesh = layout.ctx.mesh
+        with use_sharding(layout.ctx):
+            dt = model.cfg.compute_dtype
+            local = {k: layout.to_compute(k, params[k], dt) for k in names}
+            loss = model.loss(local, batch)
+            del local
+            seed = torch.full_like(loss, 1.0 / mesh.size)
+            grads = torch.autograd.grad(loss, leaves, grad_outputs=seed, allow_unused=True)
+        grads = [g if g is None else coll.sum_over(g, mesh, mesh.replicated_axes(layout.storage[k]))
+                 for k, g in zip(names, grads)]
     return loss.detach(), {k: (torch.zeros_like(p) if g is None else g)
                            for k, p, g in zip(names, leaves, grads)}
 
 
-def build_train_step(model: Model, lr: float = 3e-4) -> Callable:
+def build_train_step(model: Model, ctx: Optional[ShardingContext] = None,
+                     lr: float = 3e-4) -> Callable:
     """``step(state, batch) -> (state, metrics)``; metrics: ``loss``,
     ``step`` and the grads' fp32 global norm ``grad_norm`` (finite only if
-    every grad is)."""
+    every grad is).  With ``ctx``, ``state`` holds this rank's storage
+    shards (``build_init_fn(model, ctx)``) and ``batch`` its data shard
+    (``make_batch_on_mesh``)."""
+    layout = None if ctx is None else param_layout(model, ctx)
 
     def train_step(state: TrainState, batch: dict):
-        loss, grads = loss_and_grads(model, state.params, batch)
+        loss, grads = loss_and_grads(model, state.params, batch, layout)
         with torch.no_grad():
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads) if layout is None else \
+                global_norm(grads, layout.ctx.mesh, layout.storage)
             params, opt = adamw_update(grads, state.opt, state.params, lr, grad_norm=gnorm)
         step = state.step + 1
         metrics = {"loss": loss, "step": step, "grad_norm": gnorm}
@@ -53,15 +172,53 @@ def build_train_step(model: Model, lr: float = 3e-4) -> Callable:
     return train_step
 
 
-def build_init_fn(model: Model) -> Callable:
+def build_init_fn(model: Model, ctx: Optional[ShardingContext] = None) -> Callable:
     """``init_fn(generator) -> TrainState``: params drawn on the model's
     device in ``cfg.param_dtype`` (fp32 masters) that require grad, zero
-    AdamW state, step 0."""
+    AdamW state, step 0.
+
+    With ``ctx`` every rank draws the full params from the generator and
+    keeps its storage shard, so every mesh starts from the single-process
+    weights; the ranks draw in turn (rank order), so ranks that share a
+    card hold one full copy at a time."""
 
     def init_fn(generator: torch.Generator) -> TrainState:
-        params, _ = model.init(generator)
+        if ctx is None:
+            params, _ = model.init(generator)
+        else:
+            params = _draw_shards(model, generator, ctx)
         params = {k: v.requires_grad_(v.is_floating_point()) for k, v in params.items()}
         return TrainState(params=params, opt=adamw_init(params),
                           step=torch.zeros((), dtype=torch.int32, device=model.device))
 
     return init_fn
+
+
+def _draw_shards(model: Model, generator: torch.Generator, ctx: ShardingContext) -> dict:
+    import torch.distributed as dist
+
+    mesh = ctx.mesh
+    specs = param_layout(model, ctx).storage
+    shards = {}
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            full, _ = model.init(generator)
+            for k in sorted(full):
+                p = full.pop(k)
+                # a copy: a view would keep the whole tensor alive
+                shards[k] = p[mesh.shard_slices(specs[k], tuple(p.shape))].clone()
+        dist.barrier()
+    return shards
+
+
+def gather_params(params: dict, layout: ParamLayout, *, to_host: bool = True) -> dict:
+    """Every param whole, from the ranks' storage shards (each rank takes
+    part; every rank gets the whole tree, on the host with ``to_host``)."""
+    mesh = layout.ctx.mesh
+    out = {}
+    with torch.no_grad():
+        for k in sorted(params):
+            src = tuple(spec_axes(e) for e in layout.storage[k])
+            full = coll.redistribute(params[k].detach(), mesh, src, ((),) * len(src))
+            out[k] = full.to("cpu", copy=True) if to_host else full.contiguous()
+    return out

@@ -1101,3 +1101,91 @@ def test_recurrent_train_step_on_card_matches_cpu(dev, arch):
     for k, p in state.params.items():
         torch.testing.assert_close(gstate.params[k].detach().cpu(), p.detach(),
                                    rtol=2e-3, atol=5e-4)
+
+
+# ------------------------------------------------------------ ranks (A16) --
+
+
+def _card_tp_ranks(out_dir: str):
+    """One rank of a (1, 2) mesh on the card: one fp32 step of the
+    stablelm smoke config from seed 0 (drawn on the card), tensor and
+    sequence parallel over the two ranks; rank 0 saves the loss, the
+    params after the step (whole) and its attention launches."""
+    import os
+
+    from repro_torch.data import make_batch_on_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import ShardingContext
+    from repro_torch.train import gather_params, param_layout
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(2, device=dev)
+    ctx = ShardingContext(mesh=mesh)
+    cfg = smoke_config("stablelm_3b").replace(dtype="float32", logit_dtype="float32")
+    model = Model(cfg, dev)
+    state = build_init_fn(model, ctx)(torch.Generator(device=dev).manual_seed(0))
+    before, before_bwd = fa.launches, fa.bwd_launches
+    state, metrics = build_train_step(model, ctx, lr=3e-4)(
+        state, make_batch_on_mesh(SyntheticTokens(cfg, 2, 24).sample(0), cfg, ctx))
+    torch.cuda.synchronize()
+    full = gather_params(state.params, param_layout(model, ctx))
+    if mesh.rank == 0:
+        torch.save({"loss": float(metrics["loss"]), "params": full,
+                    "launches": (fa.launches - before, fa.bwd_launches - before_bwd),
+                    "backend": mesh.backend}, os.path.join(out_dir, "tp.pt"))
+
+
+def test_two_ranks_on_the_card_match_the_single_process_step(dev, tmp_path):
+    """Two ranks share the card (gloo, CUDA tensors): a tensor/sequence
+    parallel fp32 step equals the single-process step on the card, and
+    each rank ran both attention kernels on its half of the heads."""
+    from repro_torch.launch.mesh import spawn
+
+    spawn(_card_tp_ranks, 2, (str(tmp_path),), init_file=str(tmp_path / "store"), device="cuda")
+    got = torch.load(tmp_path / "tp.pt")
+    assert got["backend"] == "gloo"
+    cfg = smoke_config("stablelm_3b").replace(dtype="float32", logit_dtype="float32")
+    assert got["launches"] == (cfg.n_layers, cfg.n_layers)
+    model = Model(cfg, dev)
+    state = build_init_fn(model)(torch.Generator(device=dev).manual_seed(0))
+    state, metrics = build_train_step(model, lr=3e-4)(
+        state, to_device(SyntheticTokens(cfg, 2, 24).sample(0), dev))
+    assert abs(got["loss"] - float(metrics["loss"])) < 1e-5
+    for k, p in state.params.items():
+        torch.testing.assert_close(got["params"][k], p.detach().cpu(), rtol=2e-5, atol=2e-5)
+
+
+def _card_collective_ranks(out_dir: str):
+    """The collectives on CUDA and on CPU tensors of the same values, over
+    gloo: equal results and equal gradients, fp32 and bf16."""
+    import os
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives as coll
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(2, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(mesh.rank)
+        x = torch.randn(4, 6, generator=g).to(dtype)
+        out = {}
+        for where in ("cpu", dev):
+            t = x.to(where, copy=True).requires_grad_()
+            y = coll.all_gather(t, mesh, "model", 1)
+            z = coll.reduce_scatter(y * 2, mesh, "model", 0)
+            w = coll.all_reduce(z, mesh, "model")
+            m = coll.all_reduce(w.detach(), mesh, "model", op="max")
+            w.sum().backward()
+            out[str(where)] = [a.detach().cpu() for a in (y, z, w, m, t.grad)]
+        for a, b in zip(out["cpu"], out[str(dev)]):
+            assert torch.equal(a, b), dtype
+    open(os.path.join(out_dir, f"ok{mesh.rank}"), "w").close()
+
+
+def test_collectives_take_cuda_tensors_under_gloo(dev, tmp_path):
+    from repro_torch.launch.mesh import spawn
+
+    spawn(_card_collective_ranks, 2, (str(tmp_path),), init_file=str(tmp_path / "store"),
+          device="cuda")
+    assert (tmp_path / "ok0").exists() and (tmp_path / "ok1").exists()

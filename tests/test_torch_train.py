@@ -304,7 +304,8 @@ def test_cli_trains_on_cpu_when_asked(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    pytest.param(["--arch", "stablelm_3b", "--model-parallel", "2"], "A16", id="argv1-A16"),
+    pytest.param(["--arch", "zamba2_1p2b", "--model-parallel", "2"], "A16b", id="argv1-A16b"),
+    pytest.param(["--arch", "xlstm_125m", "--model-parallel", "2"], "A16b", id="argv2-A16b"),
 ])
 def test_cli_refuses_what_is_not_ported(capsys, argv, item):
     assert train_cli.main(["--device", "cpu", "--steps", "1", *argv]) == 2
