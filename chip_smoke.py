@@ -142,7 +142,19 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              512, 4 steps: finite losses and grad norms, 4 forward and 2
              backward attention calls a step; the share of routed pairs
              dropped before and after) and one fp32 step at 1 layer
-             against the plain twin.
+             against the plain twin;
+11. train parallel — four ranks share the card (gloo), a (data 2,
+             model 2) mesh through ``repro_torch.launch.mesh.spawn``:
+             stablelm_3b at 8 layers, phi35_moe_42b at 2 (expert
+             parallel), zamba2_1p2b at 6 and xlstm_125m at 2 (their blocks
+             tensor parallel over the rank's heads) trained at full width:
+             equal, finite losses on every rank, each kernel's launches a
+             rank, each collective's bytes a step equal to
+             ``predicted_comm_bytes``; fp32 steps against the
+             single-process step (stablelm, zamba2, xlstm) or the same
+             ranks on the CPU (phi3.5); stablelm's bf16 step's gap to the
+             single-process step beside the single-process bf16-vs-fp32
+             gap (printed).
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -220,11 +232,30 @@ PAR_MESH, PAR_LAYERS, PAR_STEPS = (2, 2), 8, 4
 PAR_GATE_LAYERS, PAR_GATE_BATCH, PAR_GATE_SEQ = 2, 2, 1024
 PAR_MOE_LAYERS, PAR_MOE_STEPS = 2, 3
 PAR_MOE_GATE_LAYERS, PAR_MOE_GATE_BATCH, PAR_MOE_GATE_SEQ = 1, 2, 128
+# zamba2_1p2b at full width and 6 layers (the shared block follows layer
+# 5) and xlstm_125m at 2 (one unit: an mLSTM block and the sLSTM) train on
+# the same mesh, each block on the rank's heads: zamba2 8 x 512, xlstm 8 x
+# 256 (its sLSTM loop is host-bound), 3 steps each; their fp32 gates
+# against the single-process step at 6 layers on 2 x 512 and 2 layers on
+# 2 x 128.
+PAR_RECURRENT = {HYBRID: dict(layers=6, batch=8, seq=512, steps=3,
+                              gate_layers=6, gate_batch=2, gate_seq=512),
+                 XLSTM: dict(layers=2, batch=8, seq=256, steps=3,
+                             gate_layers=2, gate_batch=2, gate_seq=128)}
 PAR_GATE_LOSS, PAR_GATE_REL_RMS = 1e-5, 1e-6   # fp32: the mesh's numbers are the step's
 # fp32, the gradients: the grad norm's relative gap and AdamW mu's worst
 # leaf (mu after one step is the clipped gradient; sums split over the
 # ranks round apart, so a gradient is held looser than the sign-like step)
 PAR_GATE_GRAD = 1e-5
+# The recurrent families' fp32 step is ill-conditioned where the dense one
+# is not: a Mamba2 chunk sums dt A to |479| at init (an fp32 rounding of
+# 1e-7 in dt moves its exponentials by ~5e-5), and AdamW's first update of
+# a leaf drawn at zero (conv_b, the sLSTM bias), lr g / (|g| + eps), turns
+# with g where |g| is near eps.  The single-process kernels-vs-plain gate
+# reads 2.7e-5 / 4.7e-5 on their grads for the same reason.  Their mesh
+# gate holds the loss and the grad norm as the dense one does, AdamW mu's
+# worst leaf within GRAD_REL_RMS and every param within MODEL_TOL, as that
+# gate holds them.
 # The twin runs on another device (MKL against cuBLAS, the plain attention
 # against the kernel): it is held as the other fp32 step gates hold the
 # kernels against their plain twins, the loss within MODEL_TOL, and the
@@ -1016,18 +1047,28 @@ MLSTM_BWD_PATHS = {
 }
 
 
-def kernel_split(torch, fn, pattern) -> list[tuple[str, float]]:
+def kernel_split(torch, fn, pattern, want, tries=3) -> tuple[list[tuple[str, float]], int]:
     """(name, device ms) of each kernel of one call of ``fn`` whose name
-    matches ``pattern`` (its first group), in launch order, by torch.profiler."""
+    matches ``pattern`` (its first group), in launch order, by
+    torch.profiler; and the number of calls profiled.  While the record's
+    names differ from ``want`` the call is profiled again, ``tries`` in
+    all: the profiler on the card has returned a record of one call that
+    held only its last kernel, so a record is taken again before the
+    caller holds the names against ``want``."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    return [(m.group(1), e.self_device_time_total / 1e3) for e in events
-            for m in [re.search(pattern, e.name)] if m]
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        split = [(m.group(1), e.self_device_time_total / 1e3) for e in events
+                 for m in [re.search(pattern, e.name)] if m]
+        if [name for name, _ in split] == want:
+            break
+    return split, attempt
 
 
 def grad_check(torch, label, got, want, inputs, dtype, failures, exact=None,
@@ -1316,10 +1357,11 @@ def mlstm_bwd_phase(torch, dev, failures) -> dict:
               f"{' + '.join(path['kernels'])}), plain {t['plain_ms']:.4f} "
               f"ms (autograd of mlstm_chunked, backward only), no single PyTorch call, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
-        split = kernel_split(torch, lambda: mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=128),
-                             r"(mlstm_bwd_\w+)")
-        print(f"[time] mlstm_bwd {shape} {dtype}: one call by kernel (profiler): "
-              + ", ".join(f"{name} {ms:.4f} ms" for name, ms in split))
+        split, profiled = kernel_split(
+            torch, lambda: mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=128),
+            r"(mlstm_bwd_\w+)", path["kernels"])
+        print(f"[time] mlstm_bwd {shape} {dtype}: one call by kernel (profiler, record "
+              f"{profiled}): " + ", ".join(f"{name} {ms:.4f} ms" for name, ms in split))
         if [name for name, _ in split] != path["kernels"]:
             failures.append(f"mlstm_bwd {dtype}: a call ran {[n for n, _ in split]}, expected "
                             f"{path['kernels']}")
@@ -2951,14 +2993,19 @@ def predicted_comm_bytes(torch, cfg, mesh_shape, batch, seq) -> dict:
     in fp32 (the masters' dtype) whatever the compute dtype.
     Activations, on a model axis above 1 (X = one data shard's whole
     sequence, B/data x S x d_model, in the compute dtype): the embedding's
-    reduce-scatter; per block, attention's gather of its input and
-    reduce-scatter of its output, and the MLP's (or the MoE layer's
-    gather of its tokens and of the experts' outputs (E, cap + 1, d), plus
-    the shared expert's MLP), twice with remat (the recompute), but for
-    the block's last reduce-scatter: ``torch.utils.checkpoint`` stops a
-    recompute once it has every tensor the backward saved, and the
-    block's output is not one; the logits' gather; each with its
-    transpose in the backward; the
+    reduce-scatter; per block, the gather of its input and, where its
+    contraction is split over 'model', the reduce-scatter of its output:
+    attention's, the MLP's, the MoE layer's gathers of its tokens and of
+    the experts' outputs (E, cap + 1, d) plus the shared expert's MLP;
+    the Mamba2 block's, with its gated norm's all-reduce of (B/data, S,
+    1) fp32 between them; the mLSTM block's; the sLSTM block's, with the
+    gather of its recurrence's features (X) before the FFN; each with its
+    transpose in the backward.  Under remat the forward's collectives of
+    a checkpointed unit (a dense block; a Mamba2 layer with the shared
+    block after it; an xLSTM unit) run twice (the recompute), but for the
+    unit's last reduce-scatter: ``torch.utils.checkpoint`` stops a
+    recompute once it has every tensor the backward saved, and the unit's
+    output is not one.  Then the logits' gather, and the
     vocabulary-parallel loss's all-reduces of (B/data, S) fp32 (max, sum
     of exponentials, picked logit; the last two again backward).  Over
     'data': the loss's sum forward and backward and its count; on every
@@ -3002,30 +3049,50 @@ def predicted_comm_bytes(torch, cfg, mesh_shape, batch, seq) -> dict:
         X = Bl * seq * cfg.d_model * c
         passes = 2 if cfg.remat else 1
 
-        def gather(n, times=1):
-            add("all_gather", "model", n * times)
-            add("reduce_scatter", "model", n)
+        def split(param):
+            return "model" in layout.compute[param]
 
-        def scatter(n, times=1):
-            add("reduce_scatter", "model", n * times)
-            add("all_gather", "model", n)
-
-        if not cfg.embed_inputs:
-            scatter(X)
-        for _ in range(cfg.n_layers):
-            gather(X, passes)
-            scatter(X, passes)
+        def dense_block(prefix):
+            ev = [("gather", X)] + [("scatter", X)] * split(f"{prefix}/attn/wq")
             if cfg.family == "moe":
                 cap = max(int(Bl * seq * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
-                gather(X, passes)
-                gather(cfg.n_experts * (cap + 1) * cfg.d_model * c, passes)
+                ev += [("gather", X), ("gather", cfg.n_experts * (cap + 1) * cfg.d_model * c)]
                 if cfg.n_shared_experts:
-                    gather(X, passes)
-                    scatter(X)
+                    ev += [("gather", X)] + [("scatter", X)] * split(f"{prefix}/moe/shared/wo")
             else:
-                gather(X, passes)
-                scatter(X)
-        gather(X)
+                ev += [("gather", X)] + [("scatter", X)] * split(f"{prefix}/mlp/wo")
+            return ev
+
+        if cfg.family == "hybrid":
+            every = max(cfg.attn_every, 1)
+            mamba = [("gather", X)] + [("reduce", Bl * seq * 4), ("scatter", X)] * split(
+                "blocks/mamba/A_log")
+            units = [mamba + (dense_block("shared_attn") if i % every == every - 1 else [])
+                     for i in range(cfg.n_layers)]
+        elif cfg.family == "ssm":
+            unit = []
+            for i in range(cfg.xlstm_slstm_every - 1):
+                unit += [("gather", X)] + [("scatter", X)] * split(f"blocks/mlstm{i}/wq")
+            unit += ([("gather", X)] + [("gather", X)] * split("blocks/slstm/r")
+                     + [("scatter", X)] * split("blocks/slstm/ff_down"))
+            units = [unit] * (cfg.n_layers // cfg.xlstm_slstm_every)
+        else:
+            units = [dense_block("blocks")] * cfg.n_layers
+        if not cfg.embed_inputs:
+            add("reduce_scatter", "model", X)
+            add("all_gather", "model", X)
+        for unit in units:
+            for i, (kind, n) in enumerate(unit):
+                times = 1 if i == len(unit) - 1 and kind == "scatter" else passes
+                if kind == "reduce":
+                    add("all_reduce", "model", n * (times + 1))
+                    continue
+                fwd, bwd = ("all_gather", "reduce_scatter") if kind == "gather" else \
+                    ("reduce_scatter", "all_gather")
+                add(fwd, "model", n * times)
+                add(bwd, "model", n)
+        add("all_gather", "model", X)
+        add("reduce_scatter", "model", X)
         if cfg.vocab % M == 0:
             add("all_reduce", "model", 5 * Bl * seq * 4)
     add("all_reduce", "data", 12)
@@ -3050,6 +3117,22 @@ def _shard_rel_rms(torch, mesh, layout, got: dict, want: dict) -> tuple[float, s
     rms = (total[:, 0] / total[:, 1].clamp_min(1e-300)).sqrt()
     i = int(rms.argmax())
     return float(rms[i]), keys[i]
+
+
+def _shard_close(torch, mesh, got: dict, want: dict) -> tuple[float, int]:
+    """The largest absolute error of ``got`` against ``want`` (this rank's
+    storage shards of both) over every rank, and how many elements lie
+    outside MODEL_TOL (an element replicated over ranks counted on each)."""
+    from repro_torch.parallel import collectives
+
+    err, outside = torch.zeros((), dtype=torch.float64), torch.zeros((), dtype=torch.float64)
+    for k in sorted(want):
+        a, b = got[k].detach().double().cpu(), want[k].detach().double().cpu()
+        err = torch.maximum(err, (a - b).abs().max())
+        outside += (~torch.isclose(a, b, **MODEL_TOL)).sum()
+    for ax in mesh.axis_names:
+        err = collectives.all_reduce(err, mesh, ax, op="max")
+    return float(err), int(collectives.sum_over(outside, mesh, mesh.axis_names))
 
 
 def _mesh_run(torch, ctx, cfg, batch, seq, steps) -> dict:
@@ -3087,7 +3170,7 @@ def _mesh_run(torch, ctx, cfg, batch, seq, steps) -> dict:
     return out
 
 
-def _gate_vs_single(torch, ctx, cfg, batch, seq) -> dict:
+def _gate_vs_single(torch, ctx, cfg, batch, seq, keep_single=False) -> dict:
     """One step on the mesh against the single-process step on the card
     (``loss_and_grads`` then ``adamw_update``), both from seed 0 on the
     same batch: every rank runs the single-process step in turn (rank
@@ -3132,8 +3215,10 @@ def _gate_vs_single(torch, ctx, cfg, batch, seq) -> dict:
     worst_mu = _shard_rel_rms(torch, mesh, layout, state.opt.mu, want_mu)
     out = {"loss": float(metrics["loss"]), "single_loss": single_loss, "worst": worst,
            "grad_norm": float(metrics["grad_norm"]), "single_grad_norm": single_norm,
-           "worst_mu": worst_mu}
-    del state, want, want_mu
+           "worst_mu": worst_mu, "params_close": _shard_close(torch, mesh, state.params, want)}
+    if keep_single:   # this rank's shards of the single-process step's params and mu
+        out["single"] = (want, want_mu)
+    del state
     torch.cuda.empty_cache()
     return out
 
@@ -3207,7 +3292,9 @@ def parallel_ranks(out_dir: str):
     from repro_torch.configs import arch_config
     from repro_torch.device import card_label
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
     from repro_torch.parallel.sharding import ShardingContext
+    from repro_torch.train import param_layout
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3242,23 +3329,63 @@ def parallel_ranks(out_dir: str):
         res["dense_single"] = _single_run(torch, dev, dense.replace(n_layers=PAR_LAYERS),
                                           BATCH, TRAIN_SEQ, PAR_STEPS)
     dist.barrier()
-    res["dense_gate"] = {
-        dtype: _gate_vs_single(torch, ctx, dense.replace(n_layers=PAR_GATE_LAYERS, dtype=dtype,
-                                                         logit_dtype=dtype),
-                               PAR_GATE_BATCH, PAR_GATE_SEQ)
-        for dtype in ("float32", "bfloat16")}
+    gate = {dtype: _gate_vs_single(torch, ctx, dense.replace(
+        n_layers=PAR_GATE_LAYERS, dtype=dtype, logit_dtype=dtype), PAR_GATE_BATCH, PAR_GATE_SEQ,
+        keep_single=True) for dtype in ("float32", "bfloat16")}
+    # the single-process bf16 step against the fp32 one, on the same leaves
+    (p32, mu32), (p16, mu16) = (gate[dtype].pop("single") for dtype in ("float32", "bfloat16"))
+    layout = param_layout(Model(dense.replace(n_layers=PAR_GATE_LAYERS), dev), ctx)
+    gate["bfloat16"]["single_vs_fp32"] = {
+        "loss": gate["bfloat16"]["single_loss"] - gate["float32"]["single_loss"],
+        "grad_norm": gate["bfloat16"]["single_grad_norm"] / gate["float32"]["single_grad_norm"] - 1,
+        "worst_mu": _shard_rel_rms(torch, mesh, layout, mu16, mu32),
+        "worst": _shard_rel_rms(torch, mesh, layout, p16, p32)}
+    res["dense_gate"] = gate
+    del p32, mu32, p16, mu16
     done("dense gate")
     res["moe"] = _mesh_run(torch, ctx, moe.replace(n_layers=PAR_MOE_LAYERS), BATCH, TRAIN_SEQ,
                            PAR_MOE_STEPS)
     done("moe")
+    for arch, p in PAR_RECURRENT.items():
+        cfg = arch_config(arch)
+        res[arch] = _mesh_run(torch, ctx, cfg.replace(n_layers=p["layers"]), p["batch"],
+                              p["seq"], p["steps"])
+        res[f"{arch} gate"] = _gate_vs_single(
+            torch, ctx, cfg.replace(n_layers=p["gate_layers"], dtype="float32",
+                                    logit_dtype="float32"), p["gate_batch"], p["gate_seq"])
+        done(arch)
     with open(Path(out_dir) / f"rank{mesh.rank}.json", "w") as f:
         json.dump(res, f)
 
 
+def _fp32_gate_line(label, g, recurrent=False) -> bool:
+    """Print an fp32 mesh-vs-single-process gate (``_gate_vs_single``);
+    True where it holds.  A recurrent family's leaves are held as its
+    single-process step gate holds them (see GRAD_REL_RMS beside
+    PAR_GATE_GRAD)."""
+    gap = abs(g["loss"] - g["single_loss"])
+    norm_gap = abs(g["grad_norm"] - g["single_grad_norm"]) / g["single_grad_norm"]
+    mu_gate = GRAD_REL_RMS if recurrent else PAR_GATE_GRAD
+    err, outside = g["params_close"]
+    params_ok = outside == 0 if recurrent else g["worst"][0] < PAR_GATE_REL_RMS
+    ok = gap < PAR_GATE_LOSS and norm_gap < PAR_GATE_GRAD and g["worst_mu"][0] < mu_gate \
+        and params_ok
+    print(f"{label}: loss {g['loss']:.7f} vs {g['single_loss']:.7f} (|gap| {gap:.3e}, < "
+          f"{PAR_GATE_LOSS}); grad norm {g['grad_norm']:.7f} vs {g['single_grad_norm']:.7f} "
+          f"(relative gap {norm_gap:.3e}, < {PAR_GATE_GRAD}); AdamW mu (the clipped gradient): "
+          f"worst leaf relative rms {g['worst_mu'][0]:.3e} ({g['worst_mu'][1]}; < {mu_gate}); "
+          f"params after AdamW: worst leaf relative rms {g['worst'][0]:.3e} ({g['worst'][1]}"
+          + (f"), max_abs_err {err:.3e}, {outside} elements outside rtol={MODEL_TOL['rtol']}, "
+             f"atol={MODEL_TOL['atol']}" if recurrent else f"; < {PAR_GATE_REL_RMS})")
+          + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def train_parallel_phase(torch, dev, failures, counts):
     """Four ranks on the one card (gloo), one process each, through
-    ``repro_torch.launch.mesh.spawn``: stablelm_3b and phi35_moe_42b
-    trained on a (data 2, model 2) mesh, and their fp32 gates."""
+    ``repro_torch.launch.mesh.spawn``: stablelm_3b, phi35_moe_42b,
+    zamba2_1p2b and xlstm_125m trained on a (data 2, model 2) mesh, and
+    their fp32 gates."""
     import os
     import tempfile
 
@@ -3276,7 +3403,7 @@ def train_parallel_phase(torch, dev, failures, counts):
     with tempfile.TemporaryDirectory() as out:
         try:
             spawn(parallel_ranks, world, (out,), init_file=os.path.join(out, "store"),
-                  device="cuda", timeout=600)
+                  device="cuda", timeout=900)
         except Exception as e:   # a rank failed: its traceback is in the message
             failures.append(f"{tag} a rank failed: {e}")
             return
@@ -3290,12 +3417,15 @@ def train_parallel_phase(torch, dev, failures, counts):
         print(f"{tag} rank {r} {res['coords']}: {res['device']}, {res['card']}, backend "
               f"{res['backend']}; peak host memory after each part: "
               + ", ".join(f"{part} {b / 2**30:.2f} GiB" for part, b in res["peak_rss"].items()))
-    for key, arch, layers, steps in (("dense", ARCH, PAR_LAYERS, PAR_STEPS),
-                                     ("moe", MOE, PAR_MOE_LAYERS, PAR_MOE_STEPS)):
+    runs_of = [("dense", ARCH, PAR_LAYERS, BATCH, TRAIN_SEQ, PAR_STEPS),
+               ("moe", MOE, PAR_MOE_LAYERS, BATCH, TRAIN_SEQ, PAR_MOE_STEPS)]
+    runs_of += [(arch, arch, p["layers"], p["batch"], p["seq"], p["steps"])
+                for arch, p in PAR_RECURRENT.items()]
+    for key, arch, layers, batch, seq, steps in runs_of:
         cfg = arch_config(arch).replace(n_layers=layers)
         runs = [res[key] for res in ranks]
         label = f"{tag} {arch} at full width, {layers} layers, mesh data {PAR_MESH[0]} x model " \
-                f"{PAR_MESH[1]}, batch {BATCH} x {TRAIN_SEQ}"
+                f"{PAR_MESH[1]}, batch {batch} x {seq}"
         total = sum(p for p in (run["params"] for run in runs))
         print(f"{label}: {cfg.param_count() / 1e9:.3f} B params, {total / 1e9:.3f} B stored over the "
               f"ranks (fp32 masters; AdamW mu / nu beside them), init {max(r['init_s'] for r in runs):.1f}s")
@@ -3306,8 +3436,9 @@ def train_parallel_phase(torch, dev, failures, counts):
                   + f" ms; peak memory {run['peak'] / 2**30:.2f} GiB")
         step_s = max(statistics.median(run["seconds"][1:]) for run in runs)
         print(f"{tag}   step time {step_s * 1e3:.1f} ms (the slowest rank's median of steps "
-              f"1-{steps - 1}), {BATCH * TRAIN_SEQ / step_s:.0f} tokens/s on {world} ranks, peak "
-              f"memory {sum(run['peak'] for run in runs) / 2**30:.1f} GiB over the ranks, on "
+              f"1-{steps - 1}), {batch * seq / step_s:.0f} tokens/s on {world} ranks, peak "
+              f"memory {max(run['peak'] for run in runs) / 2**30:.2f} GiB a rank, "
+              f"{sum(run['peak'] for run in runs) / 2**30:.1f} GiB over the ranks, on "
               f"{ranks[0]['card']}")
         if not all(math.isfinite(x) for run in runs for x in run["losses"] + run["grad_norms"]):
             failures.append(f"{tag} {arch}: non-finite loss or grads")
@@ -3319,7 +3450,7 @@ def train_parallel_phase(torch, dev, failures, counts):
                   "differently): losses " + ", ".join(f"{x:.4f}" for x in single["losses"])
                   + "; step times " + ", ".join(f"{x * 1e3:.1f}" for x in single["seconds"])
                   + " ms")
-        want = predicted_comm_bytes(torch, cfg, PAR_MESH, BATCH, TRAIN_SEQ)
+        want = predicted_comm_bytes(torch, cfg, PAR_MESH, batch, seq)
         for r, run in enumerate(runs):
             got = {tuple(k.split()): v for k, v in run["comm"].items()}
             if got != want:
@@ -3336,36 +3467,37 @@ def train_parallel_phase(torch, dev, failures, counts):
                 if run["counts"][name] != exp:
                     failures.append(f"{tag} {arch} rank {r}: {name} launched "
                                     f"{run['counts'][name]} times, expected {exp}")
-        print(f"{tag}   attention kernel launches per rank in {steps} steps: "
-              + ", ".join(f"rank {r} {run['counts']['flash_attention']} forward / "
-                          f"{run['counts']['flash_attention_bwd']} backward" for r, run in
-                          enumerate(runs))
-              + f" (expected {steps} x {per_step['flash_attention']} / "
-                f"{steps} x {per_step['flash_attention_bwd']}, each on the rank's "
-                f"{cfg.n_heads // PAR_MESH[1]} of {cfg.n_heads} heads)")
+        print(f"{tag}   kernel launches per rank in {steps} steps: " + "; ".join(
+            f"{name} " + ", ".join(str(run["counts"][name]) for run in runs)
+            + f" (expected {steps} x {n})" for name, n in per_step.items() if n)
+            + f"; each on the rank's heads ({_local_heads(cfg)})")
+        if key in PAR_RECURRENT:
+            p = PAR_RECURRENT[key]
+            ok = _fp32_gate_line(f"{tag} {arch} float32 step at full width, {p['gate_layers']} "
+                                 f"layers, {p['gate_batch']} x {p['gate_seq']}, {world} ranks vs "
+                                 f"the single-process step", ranks[0][f"{arch} gate"],
+                                 recurrent=True)
+            if not ok:
+                failures.append(f"{tag} {arch} fp32 gate against the single-process step")
     gate = ranks[0]["dense_gate"]
     for dtype, g in gate.items():
-        gap = abs(g["loss"] - g["single_loss"])
         label = (f"{tag} {ARCH} {dtype} step at full width, {PAR_GATE_LAYERS} layers, "
                  f"{PAR_GATE_BATCH} x {PAR_GATE_SEQ}, {world} ranks vs the single-process step")
-        norm_gap = abs(g["grad_norm"] - g["single_grad_norm"]) / g["single_grad_norm"]
         if dtype == "float32":
-            ok = (gap < PAR_GATE_LOSS and norm_gap < PAR_GATE_GRAD and g["worst_mu"][0] <
-                  PAR_GATE_GRAD and g["worst"][0] < PAR_GATE_REL_RMS)
-            print(f"{label}: loss {g['loss']:.7f} vs {g['single_loss']:.7f} (|gap| {gap:.3e}, < "
-                  f"{PAR_GATE_LOSS}); grad norm {g['grad_norm']:.7f} vs "
-                  f"{g['single_grad_norm']:.7f} (relative gap {norm_gap:.3e}, < {PAR_GATE_GRAD}); "
-                  f"AdamW mu (the clipped gradient): worst leaf relative rms "
-                  f"{g['worst_mu'][0]:.3e} ({g['worst_mu'][1]}; < {PAR_GATE_GRAD}); params after "
-                  f"AdamW: worst leaf relative rms {g['worst'][0]:.3e} ({g['worst'][1]}; < "
-                  f"{PAR_GATE_REL_RMS}) {'ok' if ok else 'FAIL'}")
-            if not ok:
+            if not _fp32_gate_line(label, g):
                 failures.append(f"{tag} fp32 gate against the single-process step")
-        else:
-            print(f"{label} (information): loss {g['loss']:.6f} vs {g['single_loss']:.6f} (|gap| "
-                  f"{gap:.3e}); grad norm relative gap {norm_gap:.3e}; AdamW mu: worst leaf "
-                  f"relative rms {g['worst_mu'][0]:.3e} ({g['worst_mu'][1]}); params after AdamW: "
-                  f"worst leaf relative rms {g['worst'][0]:.3e} ({g['worst'][1]})")
+            continue
+        gap = abs(g["loss"] - g["single_loss"])
+        norm_gap = abs(g["grad_norm"] - g["single_grad_norm"]) / g["single_grad_norm"]
+        one = g["single_vs_fp32"]
+        print(f"{label} (information): loss {g['loss']:.6f} vs {g['single_loss']:.6f} (|gap| "
+              f"{gap:.3e}); grad norm relative gap {norm_gap:.3e}; AdamW mu: worst leaf "
+              f"relative rms {g['worst_mu'][0]:.3e} ({g['worst_mu'][1]}); params after AdamW: "
+              f"worst leaf relative rms {g['worst'][0]:.3e} ({g['worst'][1]}). Beside it, the "
+              f"single-process bf16 step vs the single-process fp32 step: loss gap "
+              f"{abs(one['loss']):.3e}; grad norm relative gap {abs(one['grad_norm']):.3e}; "
+              f"AdamW mu: worst leaf relative rms {one['worst_mu'][0]:.3e} ({one['worst_mu'][1]}); "
+              f"params: worst leaf relative rms {one['worst'][0]:.3e} ({one['worst'][1]})")
     twin = ranks[0]["moe_gate"]
     gap = abs(twin["loss"] - twin["twin_loss"])
     limit = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * abs(twin["twin_loss"])
@@ -3383,6 +3515,21 @@ def train_parallel_phase(torch, dev, failures, counts):
           f"({twin['worst'][1]}; at most {GRAD_REL_RMS}) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"{tag} {MOE} fp32 gate against the CPU twin")
+
+
+def _local_heads(cfg) -> str:
+    """What a rank of ``PAR_MESH`` computes of ``cfg``'s heads."""
+    m = PAR_MESH[1]
+    if cfg.family == "hybrid":
+        H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        return (f"{H // m} of {H} SSD heads, {cfg.n_heads // m} of {cfg.n_heads} attention "
+                f"heads in the shared block")
+    if cfg.family == "ssm":
+        return f"{cfg.n_heads // m} of {cfg.n_heads} mLSTM and sLSTM heads"
+    if cfg.family == "moe":
+        return (f"{cfg.n_heads // m} of {cfg.n_heads} attention heads, {cfg.n_experts // m} of "
+                f"{cfg.n_experts} experts")
+    return f"{cfg.n_heads // m} of {cfg.n_heads} attention heads"
 
 
 if __name__ == "__main__":

@@ -27,6 +27,8 @@ at its head dim of 256 too), moe, hybrid (zamba2) and xLSTM.
         --scenario steady-cycle --batch 8 --seq 32
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch stablelm_3b \\
         --full-config --layers 8 --model-parallel 2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch zamba2_1p2b \\
+        --full-config --layers 6 --model-parallel 2
 
 Under ``torchrun`` (a world of more than one rank) or with
 ``--model-parallel`` above 1 the step runs on a (world / N, N) mesh of
@@ -36,14 +38,13 @@ tensor, sequence and expert parallel over 'model'
 (``repro_torch.train.steps``).  Rank 0 prints the lines; the backend
 (NCCL with a card per rank, gloo where ranks share one or run on the
 CPU) is printed once.  ``--checkpoint-dir`` gathers the full params to
-rank 0, which writes the store's layout.  A data-only mesh
-(``--model-parallel 1``) trains every family.
+rank 0, which writes the store's layout.  Every family trains on any
+``--model-parallel`` that divides the world and the sequence (the
+hybrid and xLSTM blocks tensor parallel over their heads).
 
 ``--layers`` cuts the config's depth (phi3.5-MoE's fp32 masters and
 AdamW state take ~16 GB a layer; gemma2's embedding and head alone 29
-GB).  Runs on ``cuda`` unless ``--device cpu`` is given.  What is not
-ported yet exits 2 and names its ROADMAP.md item: the hybrid and xLSTM
-families on a model axis above 1 (A16b).
+GB).  Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ class StepRecord:
     seconds: float   # host clock of the step, ended by a device sync
 
 
-def refusal(args: argparse.Namespace, cfg: Optional[ModelConfig] = None) -> Optional[str]:
+def refusal(args: argparse.Namespace) -> Optional[str]:
     """Why this run cannot go ahead, or None; decided before any weight is
     drawn or any process group joined."""
     _, world, _ = env_world()
@@ -86,10 +87,6 @@ def refusal(args: argparse.Namespace, cfg: Optional[ModelConfig] = None) -> Opti
             return ("--scenario runs the elastic loop in one process (its slots are "
                     "logical); run it without torchrun")
         return None
-    if cfg is not None and args.model_parallel > 1 and cfg.family in ("hybrid", "ssm"):
-        return (f"the {cfg.family} family on --model-parallel {args.model_parallel} is not "
-                "ported yet: ROADMAP.md A16b (--model-parallel 1 trains it on a data-only "
-                "mesh)")
     if world % args.model_parallel:
         return (f"--model-parallel {args.model_parallel} needs a world of ranks it divides "
                 f"(this one has {world}): run under torchrun --nproc-per-node <n>")
@@ -165,7 +162,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = arch_config(args.arch) if args.full_config else smoke_config(args.arch)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
-    why = refusal(args, cfg)
+    why = refusal(args)
     if why:
         print(why, file=sys.stderr)
         return 2

@@ -1,6 +1,8 @@
 """Transformer layer primitives: norm, RoPE/M-RoPE, GQA attention
 (full / sliding-window / soft-capped, plain or ring KV cache), the GLU MLP
-and the capacity-routed MoE layer.
+and the capacity-routed MoE layer; and the tensor-parallel helpers the
+recurrent blocks (:mod:`repro_torch.models.ssm`,
+:mod:`repro_torch.models.xlstm`) share with them.
 
 Ports :mod:`repro.models.layers`.  Attention's score/softmax/PV part runs
 in :func:`repro_torch.kernels.ops.flash_attention`: the hand-written
@@ -29,7 +31,13 @@ over ``model`` (Megatron-SP, ``residual_seq``):
 * ``moe`` runs ``_moe_shard_map``'s expert parallelism where m divides
   ``n_experts``: routing and the capacity buffer per data shard (the
   capacity from its own Tl tokens), only the rank's E/m experts, one
-  all-gather of their outputs over ``model``.
+  all-gather of their outputs over ``model``;
+* the recurrent blocks run the rank's heads where m divides their head
+  count: a param whose columns concatenate several parts (Mamba2's
+  ``in_proj`` ``[z | x | B | C | dt]``, mLSTM's ``up`` ``[xm | z]``)
+  is whole in the compute layout and the block takes its own columns
+  (:func:`take_columns`, :func:`first_local_head`); autograd's zeros
+  outside them are summed away by the param's reduce-scatter.
 
 Where JAX's ``shard_map`` paths fall back to an einsum and a constraint
 (m not dividing d_model or n_heads), the port computes that projection
@@ -267,19 +275,56 @@ def column_parallel_in(x, weights: list):
     return [x @ w for w in weights]
 
 
-def compute_spec(name: str, logical_axes: tuple, cfg: ModelConfig, m: int) -> tuple:
-    """The layout a param is computed in on a model axis of m: per
-    dimension "model" (the rank's 1/m of it) or None (whole).
+# The recurrent blocks' params that are split over 'model' in the compute
+# layout, by block and leaf: the logical axis split (the heads, or the
+# channels in head order).  The rest of each block is whole: its norms,
+# and the params whose columns concatenate parts (Mamba2's in_proj
+# [z | x | B | C | dt] and conv [x | B | C], mLSTM's up [xm | z] and
+# w_if [i | f], sLSTM's gate-major (4, H, dh) w_in and bias), of which
+# the block takes its own columns.
+_RECURRENT_SPLIT = {
+    "mamba": {"A_log": "ssm_heads", "D": "ssm_heads", "dt_bias": "ssm_heads",
+              "norm_scale": "ssm_inner", "out_proj": "ssm_inner"},
+    "mlstm": {"wq": "xlstm_heads", "wk": "xlstm_heads", "wv": "xlstm_heads",
+              "out_scale": "xlstm_inner", "down": "xlstm_inner"},
+    "slstm": {"r": "xlstm_heads", "ff_gate": "mlp", "ff_up": "mlp", "ff_down": "mlp"},
+}
+
+
+def _recurrent_heads(cfg: ModelConfig, block: str) -> int:
+    if block == "mamba":
+        return cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    return cfg.n_heads
+
+
+def compute_spec(name: str, logical_axes: tuple, shape: tuple, cfg: ModelConfig,
+                 m: int) -> tuple:
+    """The layout a param of ``shape`` is computed in on a model axis of
+    m: per dimension "model" (the rank's 1/m of it) or None (whole).
 
     Query heads (and ``wo``'s heads) split where m divides d_model and
     n_heads, KV heads where it also divides n_kv_heads; d_ff where it
     divides d_model; experts where it divides n_experts (their d_ff is
-    then whole); the vocabulary where it divides it.  The rest (norms,
-    the router, the recurrent families' params) is whole.  Raises where
-    m divides d_model but not d_ff: JAX's ``shard_map`` falls back to
-    GSPMD there, which the port has no counterpart of."""
+    then whole); the vocabulary where it divides it.  The recurrent
+    blocks split their heads where m divides their head count (Mamba2's
+    SSM heads, the xLSTM's heads) and the sLSTM's FFN where m divides its
+    width (``_RECURRENT_SPLIT``).  The rest (norms, the router, the
+    recurrent params whose columns concatenate parts) is whole.  Raises
+    where m divides d_model but not a dense MLP's d_ff: JAX's
+    ``shard_map`` falls back to GSPMD there, which the port has no
+    counterpart of."""
     if m <= 1:
         return (None,) * len(logical_axes)
+    parts = name.split("/")
+    block = parts[-2].rstrip("0123456789") if len(parts) > 1 else ""
+    if block in _RECURRENT_SPLIT:
+        axis = _RECURRENT_SPLIT[block].get(parts[-1])
+        if axis is None:
+            return (None,) * len(logical_axes)
+        dim = logical_axes.index(axis)
+        n = shape[dim] if axis == "mlp" else _recurrent_heads(cfg, block)
+        return tuple("model" if i == dim and n % m == 0 else None
+                     for i in range(len(logical_axes)))
     d = cfg.d_model
     heads = d % m == 0 and cfg.n_heads % m == 0
     split = {
@@ -291,12 +336,36 @@ def compute_spec(name: str, logical_axes: tuple, cfg: ModelConfig, m: int) -> tu
     if expert_weight:
         split["experts"] = cfg.n_experts % m == 0
     elif "mlp" in logical_axes and d % m == 0:
-        ff = cfg.d_ff * (cfg.n_shared_experts if "shared" in name.split("/") else 1)
+        ff = shape[logical_axes.index("mlp")]
         if ff % m:
             raise ValueError(f"{name}: a model axis of {m} divides d_model {d} but not "
                              f"d_ff {ff}")
         split["mlp"] = True
     return tuple("model" if split.get(a) else None for a in logical_axes)
+
+
+def first_local_head(n_local: int, n: int) -> int:
+    """The first of this rank's ``n_local`` of a block's ``n`` heads: its
+    share of the model axis where they are split (``n_local < n``), else
+    0."""
+    if n_local == n:
+        return 0
+    return current_context().mesh.axis_index("model") * n_local
+
+
+def take_columns(w: torch.Tensor, spans: list) -> torch.Tensor:
+    """The columns ``[start, start + n)`` of each ``(start, n)`` span of
+    ``w``'s last dimension, in order, as one tensor; ``w`` itself where
+    the spans, joined, are all of it."""
+    merged: list = []
+    for start, n in spans:
+        if merged and merged[-1][0] + merged[-1][1] == start:
+            merged[-1] = (merged[-1][0], merged[-1][1] + n)
+        else:
+            merged.append((start, n))
+    if merged == [(0, w.shape[-1])]:
+        return w
+    return torch.cat([w[..., s:s + n] for s, n in merged], dim=-1)
 
 
 # ---------------------------------------------------------------------------

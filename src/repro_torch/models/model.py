@@ -231,11 +231,7 @@ def _model_mesh():
 
 
 def _check_model_axis(cfg: ModelConfig, seq: int, m: int):
-    """What a model axis of m > 1 needs of the model and the batch."""
-    if cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"the {cfg.family} family on a model axis of {m} is not ported yet: "
-            "ROADMAP.md A16b (a data-only mesh, --model-parallel 1, runs it)")
+    """What a model axis of m > 1 needs of the batch."""
     if seq % m:
         raise ValueError(f"a model axis of {m} does not divide the sequence length {seq} "
                          "(the sequence-parallel residual splits it evenly)")

@@ -10,12 +10,13 @@ layer loop runs under ``torch.utils.checkpoint`` (the JAX package's
 block; a Mamba2 layer with the shared block when it follows; an xLSTM
 unit.  Its activations are recomputed in the backward.
 
-Under a sharding context whose model axis m is above 1 (dense and moe
-families), the residual stream between blocks is sequence-sharded over
-'model' (``residual_seq``, Megatron-SP): the embedding hands each rank
-its S/m rows and every block's output projection reduce-scatters back
-into them, so the norms run on the rank's own rows and remat saves 1/m
-of each carry (``repro_torch.models.layers``).
+Under a sharding context whose model axis m is above 1 (every family),
+the residual stream between blocks is sequence-sharded over 'model'
+(``residual_seq``, Megatron-SP): the embedding hands each rank its S/m
+rows and every block's output projection reduce-scatters back into them
+(the recurrent blocks' too, :mod:`repro_torch.models.ssm` and
+:mod:`repro_torch.models.xlstm`), so the norms run on the rank's own rows
+and remat saves 1/m of each carry (``repro_torch.models.layers``).
 
 Families:
   dense   — [attn, mlp] x L     (gemma2: alternating sliding window + softcap)

@@ -86,7 +86,8 @@ def param_layout(model: Model, ctx: ShardingContext) -> ParamLayout:
     return ParamLayout(
         ctx=ctx,
         storage=param_specs(shapes, specs, ctx),
-        compute={k: compute_spec(k, tuple(specs[k]), model.cfg, m) for k in shapes},
+        compute={k: compute_spec(k, tuple(specs[k]), tuple(shapes[k].shape), model.cfg, m)
+                 for k in shapes},
         cast=frozenset(k for k in shapes if not k.startswith("final_norm/")),
     )
 

@@ -1189,3 +1189,60 @@ def test_collectives_take_cuda_tensors_under_gloo(dev, tmp_path):
     spawn(_card_collective_ranks, 2, (str(tmp_path),), init_file=str(tmp_path / "store"),
           device="cuda")
     assert (tmp_path / "ok0").exists() and (tmp_path / "ok1").exists()
+
+
+def _card_recurrent_tp_ranks(out_dir: str):
+    """One rank of a (1, 2) mesh: one fp32 step of one zamba2 smoke layer
+    and of one xlstm unit, their heads split over the two ranks, on the
+    card (the SSD and mLSTM kernels forward and backward on the rank's
+    heads), then the same step by the same ranks on the CPU (the plain
+    versions) from the same initial shards and batch: the loss, the grad
+    norm and this rank's shards of the params after the step agree."""
+    import dataclasses
+    import os
+
+    from repro_torch.data import make_batch_on_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import ShardingContext
+    from repro_torch.train import TrainState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(2, device=dev)
+    ctx = ShardingContext(mesh=mesh)
+    cpu_ctx = ShardingContext(mesh=dataclasses.replace(mesh, device=torch.device("cpu")))
+    for arch, layers, kernel in (("zamba2_1p2b", 1, ssd), ("xlstm_125m", 2, mlstm)):
+        cfg = smoke_config(arch).replace(n_layers=layers, dtype="float32", logit_dtype="float32")
+        batch = SyntheticTokens(cfg, 2, 24).sample(0)
+        model = Model(cfg, dev)
+        state = build_init_fn(model, ctx)(torch.Generator(device=dev).manual_seed(0))
+        init = {k: p.detach().to("cpu", copy=True) for k, p in state.params.items()}
+        before, before_bwd = kernel.launches, kernel.bwd_launches
+        state, got = build_train_step(model, ctx, lr=1e-2)(state,
+                                                            make_batch_on_mesh(batch, cfg, ctx))
+        torch.cuda.synchronize()
+        assert (kernel.launches - before, kernel.bwd_launches - before_bwd) == (1, 1), arch
+        params = {k: p.requires_grad_() for k, p in init.items()}
+        twin = TrainState(params=params, opt=adamw_init(params),
+                          step=torch.zeros((), dtype=torch.int32))
+        twin, want = build_train_step(Model(cfg, "cpu"), cpu_ctx, lr=1e-2)(
+            twin, make_batch_on_mesh(batch, cfg, cpu_ctx))
+        torch.testing.assert_close(got["loss"].cpu(), want["loss"], rtol=2e-3, atol=5e-4)
+        torch.testing.assert_close(got["grad_norm"].cpu(), want["grad_norm"], rtol=2e-3,
+                                   atol=5e-4)
+        for k, p in twin.params.items():
+            torch.testing.assert_close(state.params[k].detach().cpu(), p.detach(), rtol=2e-3,
+                                       atol=5e-4, msg=k)
+    open(os.path.join(out_dir, f"ok{mesh.rank}"), "w").close()
+
+
+def test_recurrent_heads_split_over_two_ranks_on_the_card_match_the_cpu(dev, tmp_path):
+    """Two ranks share the card (gloo): the SSD and mLSTM kernels and their
+    backwards on a slice of the heads (views of the rank's columns) give
+    the plain versions' step on the same ranks on the CPU."""
+    from repro_torch.launch.mesh import spawn
+
+    spawn(_card_recurrent_tp_ranks, 2, (str(tmp_path),), init_file=str(tmp_path / "store"),
+          device="cuda")
+    assert (tmp_path / "ok0").exists() and (tmp_path / "ok1").exists()
