@@ -145,12 +145,17 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              against the plain twin;
 11. train parallel — four ranks share the card (gloo), a (data 2,
              model 2) mesh through ``repro_torch.launch.mesh.spawn``:
-             stablelm_3b at 8 layers, phi35_moe_42b at 2 (expert
-             parallel), zamba2_1p2b at 6 and xlstm_125m at 2 (their blocks
-             tensor parallel over the rank's heads) trained at full width:
-             equal, finite losses on every rank, each kernel's launches a
-             rank, each collective's bytes a step equal to
-             ``predicted_comm_bytes``; fp32 steps against the
+             stablelm_3b at 8 layers and at its full 32, phi35_moe_42b
+             at 2 (expert parallel), zamba2_1p2b at 6 and xlstm_125m at
+             2 (their blocks tensor parallel over the rank's heads)
+             trained at full width, each block's weights gathered in its
+             remat unit: equal, finite losses on every rank, each
+             kernel's launches a rank, each collective's bytes a step
+             equal to ``predicted_comm_bytes``; each rank's storage
+             shards and what it holds beyond them at its peak in the
+             steps' forward and backward, which may grow by less than
+             PAR_HELD_GROWTH from stablelm's 8 layers to 32 (and in the
+             whole step, printed); fp32 steps against the
              single-process step (stablelm, zamba2, xlstm) or the same
              ranks on the CPU (phi3.5); stablelm's bf16 step's gap to the
              single-process step beside the single-process bf16-vs-fp32
@@ -232,6 +237,15 @@ PAR_MESH, PAR_LAYERS, PAR_STEPS = (2, 2), 8, 4
 PAR_GATE_LAYERS, PAR_GATE_BATCH, PAR_GATE_SEQ = 2, 2, 1024
 PAR_MOE_LAYERS, PAR_MOE_STEPS = 2, 3
 PAR_MOE_GATE_LAYERS, PAR_MOE_GATE_BATCH, PAR_MOE_GATE_SEQ = 1, 2, 128
+# stablelm_3b at full width and full depth (2.795 B params) trains 8 x 512
+# for 2 steps on the same mesh.  Each block's weights are gathered inside
+# its checkpointed unit, so what a rank holds beyond its storage shards
+# (params, grads, AdamW mu and nu) in the forward and backward must not
+# grow with depth by more than the remat carries (24 more layers: ~0.12
+# GiB) and the allocator's slack; gathering the whole model first held
+# ~1.9 GiB more at 32 layers than at 8.
+PAR_FULL_LAYERS, PAR_FULL_STEPS = 32, 2
+PAR_HELD_GROWTH = 0.4 * 2**30
 # zamba2_1p2b at full width and 6 layers (the shared block follows layer
 # 5) and xlstm_125m at 2 (one unit: an mLSTM block and the sLSTM) train on
 # the same mesh, each block on the rank's heads: zamba2 8 x 512, xlstm 8 x
@@ -2990,7 +3004,14 @@ def predicted_comm_bytes(torch, cfg, mesh_shape, batch, seq) -> dict:
     Params: each gather from the storage shard toward the compute layout
     (the port's ``param_layout``: minor axes first), in the compute dtype
     where the param is cast, and the reduce-scatter that is its transpose,
-    in fp32 (the masters' dtype) whatever the compute dtype.
+    in fp32 (the masters' dtype) whatever the compute dtype.  The model
+    gathers a param where it uses it: the embedding table, the head, the
+    final norm and zamba2's shared block once a forward; each stacked
+    block param layer by layer at the start of its checkpointed unit, so
+    under remat twice (the forward and the recompute, which
+    ``torch.utils.checkpoint``'s early stop does not cut, since every
+    gather precedes the unit's first saved tensor), its reduce-scatters
+    once.  The layers' slices of a leaf move its bytes in all.
     Activations, on a model axis above 1 (X = one data shard's whole
     sequence, B/data x S x d_model, in the compute dtype): the embedding's
     reduce-scatter; per block, the gather of its input and, where its
@@ -3028,6 +3049,7 @@ def predicted_comm_bytes(torch, cfg, mesh_shape, batch, seq) -> dict:
     c = torch.empty((), dtype=cfg.compute_dtype).element_size()
     for k, shape in model.abstract_params()[0].items():
         item = c if k in layout.cast else 4
+        gathers = 2 if cfg.remat and k.startswith("blocks/") else 1
         src = [spec_axes(e) for e in layout.storage[k]]
         dst = [spec_axes(e) for e in layout.compute[k]]
         local = [d // math.prod(sizes[a] for a in e) for d, e in zip(shape.shape, src)]
@@ -3037,7 +3059,7 @@ def predicted_comm_bytes(torch, cfg, mesh_shape, batch, seq) -> dict:
                 keep += 1
             for ax in reversed(se[keep:]):
                 local[i] *= sizes[ax]
-                add("all_gather", ax, math.prod(local) * item)
+                add("all_gather", ax, math.prod(local) * item * gathers)
                 add("reduce_scatter", ax, math.prod(local) * 4)
         used = {a for e in src for a in e}
         for ax in sizes:
@@ -3139,11 +3161,23 @@ def _mesh_run(torch, ctx, cfg, batch, seq, steps) -> dict:
     """``steps`` steps of ``cfg`` on the mesh through the training entry
     points (``build_init_fn(model, ctx)``, ``build_train_step(model, ctx)``,
     ``repro_torch.launch.train.train`` with each rank's batch shard), from
-    seed 0, counting this rank's kernel launches and collective bytes."""
+    seed 0, counting this rank's kernel launches and collective bytes.
+    ``peak`` is the card's peak allocation from the init on (the ranks
+    draw the full params in turn), ``step_peak`` the peak during the
+    steps, ``fwd_bwd_peak`` the peak inside their ``loss_and_grads`` (the
+    forward and backward, where the gathered weights live; AdamW's
+    per-leaf temporaries come after it), and ``storage`` the rank's shards
+    of the params, grads and AdamW moments (the grads shaped as the
+    params); ``peak_rss`` the process's peak resident host memory so far,
+    in bytes (``ru_maxrss`` counts KiB on Linux)."""
+    import resource
+    from unittest import mock
+
     from repro_torch.data import SyntheticTokens, make_batch_on_mesh
     from repro_torch.launch import train as train_cli
     from repro_torch.models import Model
     from repro_torch.train import build_init_fn, build_train_step
+    from repro_torch.train import steps as train_steps
 
     mesh = ctx.mesh
     dev = mesh.device
@@ -3154,16 +3188,34 @@ def _mesh_run(torch, ctx, cfg, batch, seq, steps) -> dict:
     state = build_init_fn(model, ctx)(torch.Generator(device=dev).manual_seed(0))
     step_fn = build_train_step(model, ctx)
     init_s = time.perf_counter() - t0
+    peaks = {"init": torch.cuda.max_memory_allocated(dev), "step": 0, "fwd_bwd": 0}
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss_and_grads = train_steps.loss_and_grads
+
+    def measured(*args, **kwargs):
+        peaks["step"] = max(peaks["step"], torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = loss_and_grads(*args, **kwargs)
+        peaks["fwd_bwd"] = max(peaks["fwd_bwd"], torch.cuda.max_memory_allocated(dev))
+        return out
+
     data = SyntheticTokens(cfg, batch, seq, seed=0)
     mesh.comm_bytes.clear()
     reset_counts()
-    state, records = train_cli.train(model, state, step_fn, data.iter(), steps, log=lambda _: None,
-                                     place=lambda b: make_batch_on_mesh(b, cfg, ctx))
+    with mock.patch.object(train_steps, "loss_and_grads", measured):
+        state, records = train_cli.train(model, state, step_fn, data.iter(), steps,
+                                         log=lambda _: None,
+                                         place=lambda b: make_batch_on_mesh(b, cfg, ctx))
+    step_peak = max(peaks["step"], peaks["fwd_bwd"], torch.cuda.max_memory_allocated(dev))
+    held = [state.params, state.params, state.opt.mu, state.opt.nu]   # params, grads, mu, nu
     out = {"counts": read_counts(), "init_s": init_s,
            "comm": {f"{op} {ax}": n / steps for (op, ax), n in mesh.comm_bytes.items()},
            "losses": [r.loss for r in records], "grad_norms": [r.grad_norm for r in records],
            "seconds": [r.seconds for r in records],
-           "peak": torch.cuda.max_memory_allocated(dev),
+           "peak": max(peaks["init"], step_peak), "step_peak": step_peak,
+           "fwd_bwd_peak": peaks["fwd_bwd"],
+           "storage": sum(t.numel() * t.element_size() for tree in held for t in tree.values()),
+           "peak_rss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
            "params": sum(p.numel() for p in state.params.values())}
     del state, step_fn, model
     torch.cuda.empty_cache()
@@ -3325,6 +3377,9 @@ def parallel_ranks(out_dir: str):
     res["dense"] = _mesh_run(torch, ctx, dense.replace(n_layers=PAR_LAYERS), BATCH, TRAIN_SEQ,
                              PAR_STEPS)
     done("dense")
+    res["dense_full"] = _mesh_run(torch, ctx, dense.replace(n_layers=PAR_FULL_LAYERS), BATCH,
+                                  TRAIN_SEQ, PAR_FULL_STEPS)
+    done(f"dense at {PAR_FULL_LAYERS} layers")
     if mesh.rank == 0:   # the same steps in one process, for the losses beside the mesh's
         res["dense_single"] = _single_run(torch, dev, dense.replace(n_layers=PAR_LAYERS),
                                           BATCH, TRAIN_SEQ, PAR_STEPS)
@@ -3383,9 +3438,10 @@ def _fp32_gate_line(label, g, recurrent=False) -> bool:
 
 def train_parallel_phase(torch, dev, failures, counts):
     """Four ranks on the one card (gloo), one process each, through
-    ``repro_torch.launch.mesh.spawn``: stablelm_3b, phi35_moe_42b,
-    zamba2_1p2b and xlstm_125m trained on a (data 2, model 2) mesh, and
-    their fp32 gates."""
+    ``repro_torch.launch.mesh.spawn``: stablelm_3b (8 layers and 32),
+    phi35_moe_42b, zamba2_1p2b and xlstm_125m trained on a (data 2, model
+    2) mesh, the growth with depth of what a rank holds beyond its
+    storage shards, and the fp32 gates."""
     import os
     import tempfile
 
@@ -3418,6 +3474,7 @@ def train_parallel_phase(torch, dev, failures, counts):
               f"{res['backend']}; peak host memory after each part: "
               + ", ".join(f"{part} {b / 2**30:.2f} GiB" for part, b in res["peak_rss"].items()))
     runs_of = [("dense", ARCH, PAR_LAYERS, BATCH, TRAIN_SEQ, PAR_STEPS),
+               ("dense_full", ARCH, PAR_FULL_LAYERS, BATCH, TRAIN_SEQ, PAR_FULL_STEPS),
                ("moe", MOE, PAR_MOE_LAYERS, BATCH, TRAIN_SEQ, PAR_MOE_STEPS)]
     runs_of += [(arch, arch, p["layers"], p["batch"], p["seq"], p["steps"])
                 for arch, p in PAR_RECURRENT.items()]
@@ -3433,7 +3490,13 @@ def train_parallel_phase(torch, dev, failures, counts):
             print(f"{tag}   rank {r}: losses " + ", ".join(f"{x:.4f}" for x in run["losses"])
                   + "; grad norms " + ", ".join(f"{x:.4f}" for x in run["grad_norms"])
                   + "; step times " + ", ".join(f"{x * 1e3:.1f}" for x in run["seconds"])
-                  + f" ms; peak memory {run['peak'] / 2**30:.2f} GiB")
+                  + f" ms; peak memory {run['peak'] / 2**30:.2f} GiB (during the steps "
+                  f"{run['step_peak'] / 2**30:.2f}, in their forward and backward "
+                  f"{run['fwd_bwd_peak'] / 2**30:.2f}); storage {run['storage'] / 2**30:.2f} GiB "
+                  f"(params, grads, mu, nu shards); held beyond storage in the forward and "
+                  f"backward {(run['fwd_bwd_peak'] - run['storage']) / 2**30:.2f} GiB (in the "
+                  f"whole step {(run['step_peak'] - run['storage']) / 2**30:.2f}); peak host "
+                  f"memory {run['peak_rss'] / 2**30:.2f} GiB")
         step_s = max(statistics.median(run["seconds"][1:]) for run in runs)
         print(f"{tag}   step time {step_s * 1e3:.1f} ms (the slowest rank's median of steps "
               f"1-{steps - 1}), {batch * seq / step_s:.0f} tokens/s on {world} ranks, peak "
@@ -3460,7 +3523,8 @@ def train_parallel_phase(torch, dev, failures, counts):
                           f" (predicted {want[(op, ax)] / 1e6:.2f})" for op, ax in sorted(want)))
         per_step = train_launches(cfg)
         summed = {name: sum(run["counts"][name] for run in runs) for name in KERNELS}
-        counts[f"train parallel {arch}"] = summed
+        counts[f"train parallel {arch}" + (f" {layers} layers" if key == "dense_full" else "")] = \
+            summed
         for r, run in enumerate(runs):
             for name in KERNELS:
                 exp = steps * per_step.get(name, 0)
@@ -3479,6 +3543,21 @@ def train_parallel_phase(torch, dev, failures, counts):
                                  recurrent=True)
             if not ok:
                 failures.append(f"{tag} {arch} fp32 gate against the single-process step")
+
+    def growth(peak):
+        return max((res["dense_full"][peak] - res["dense_full"]["storage"])
+                   - (res["dense"][peak] - res["dense"]["storage"]) for res in ranks)
+
+    ok = growth("fwd_bwd_peak") < PAR_HELD_GROWTH
+    print(f"{tag} {ARCH} held beyond storage in the forward and backward, {PAR_FULL_LAYERS} "
+          f"layers less {PAR_LAYERS}: {growth('fwd_bwd_peak') / 2**30:.3f} GiB on the worst rank "
+          f"(< {PAR_HELD_GROWTH / 2**30:.1f}: each block gathered in its unit) "
+          f"{'ok' if ok else 'FAIL'}; in the whole step (information: AdamW's temporaries are "
+          f"a leaf's size, and a stacked leaf grows with depth) {growth('step_peak') / 2**30:.3f}")
+    if not ok:
+        failures.append(f"{tag} {ARCH}: what a rank holds beyond storage in the forward and "
+                        f"backward grew by {growth('fwd_bwd_peak') / 2**30:.3f} GiB from "
+                        f"{PAR_LAYERS} to {PAR_FULL_LAYERS} layers")
     gate = ranks[0]["dense_gate"]
     for dtype, g in gate.items():
         label = (f"{tag} {ARCH} {dtype} step at full width, {PAR_GATE_LAYERS} layers, "

@@ -1,14 +1,20 @@
-"""PyTorch/CUDA port of the model substrate of :mod:`repro`.
+"""PyTorch/CUDA port of :mod:`repro`.
 
 The JAX package ``repro`` stays the reference; this package computes the
-same functions with PyTorch tensors; its attention (forward and
-backward), its Mamba2 SSD scan and its mLSTM scan run in CUDA C++
-kernels written for Hopper (``kernels/csrc/flash_attention.cu``,
-``flash_attention_bwd.cu``, ``ssd.cu``, ``mlstm.cu``).  It serves the
-dense, hybrid and xLSTM families (``launch/serve.py``) and trains the
-dense family (``launch/train.py``), elastically too: ``elastic/`` drives
-the train state through the reconfigurations that its copies of the
-control plane (``core/``, ``malleability/``) plan and price.
+same functions with PyTorch tensors.  Its attention, Mamba2 SSD scan and
+mLSTM scan run forward and backward in CUDA C++ kernels written for
+Hopper (``kernels/csrc/flash_attention.cu``, ``flash_attention_bwd.cu``,
+``ssd.cu``, ``ssd_bwd.cu``, ``mlstm.cu``, ``mlstm_bwd.cu``).  Every
+family (dense, gemma2's alternating windows, MoE, the hybrid Mamba2 and
+xLSTM) serves (``launch/serve.py``) and trains (``launch/train.py``):
+plainly, elastically (``elastic/`` drives the train state through the
+reconfigurations that its copies of the control plane, ``core/`` and
+``malleability/``, plan and price) and across ranks (``launch/mesh.py``,
+``parallel/``: data, tensor/sequence and expert parallel over
+``torch.distributed``, each block's weights gathered in the layer
+loop).  The elastic serving plane (``serving/``) is ported too.
+:mod:`repro_torch.api` is the surface to program against: the names of
+:mod:`repro.api`, each resolving to its counterpart here.
 It imports neither ``jax`` nor anything of ``repro``: where it needs
 code from there (configs, ``ModelConfig``), it keeps its own copy.
 

@@ -344,6 +344,29 @@ def compute_spec(name: str, logical_axes: tuple, shape: tuple, cfg: ModelConfig,
     return tuple("model" if split.get(a) else None for a in logical_axes)
 
 
+def compute_params(params: dict, prefix: str = "", dtype=None) -> dict:
+    """``params`` (keys under ``prefix``, the prefix stripped) as the
+    layers read them.
+
+    While a mesh train step runs, the context carries its
+    :class:`~repro_torch.train.ParamLayout` and ``params`` are the rank's
+    storage shards, or one layer's slices of them: each is gathered here
+    into its :func:`compute_spec` layout, cast to ``dtype`` first where the
+    layout casts it, in sorted order, so every rank issues the same
+    collectives.  Otherwise ``params`` are returned as given."""
+    layout = step_layout()
+    if layout is None:
+        return params
+    return {k: layout.to_compute(prefix + k, params[k], dtype) for k in sorted(params)}
+
+
+def step_layout():
+    """The ``ParamLayout`` of the mesh train step that runs now (its
+    params are the rank's storage shards), else None."""
+    ctx = current_context()
+    return None if ctx is None else ctx.layout
+
+
 def first_local_head(n_local: int, n: int) -> int:
     """The first of this rank's ``n_local`` of a block's ``n`` heads: its
     share of the model axis where they are split (``n_local < n``), else

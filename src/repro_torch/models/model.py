@@ -13,7 +13,11 @@ vocabulary slice for the whole sequence, and ``loss`` is a
 vocabulary-parallel cross entropy (the max, the sum of exponentials and
 the picked logit all-reduced over 'model').  The loss is then summed
 over 'data' and divided by the global count of labels, so every rank
-returns the JAX package's global mean.
+returns the JAX package's global mean.  While a mesh train step runs,
+the params are the rank's storage shards: ``embed`` and ``logits`` gather
+the embedding table, the head and the final norm where they use them,
+and each block's params are gathered in the layer loop
+(:mod:`repro_torch.models.transformer`).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import current_context
 
 from .common import ModelConfig, ParamBuilder, torch_dtype
-from .layers import init_rmsnorm, rmsnorm
+from .layers import compute_params, init_rmsnorm, rmsnorm
 from .transformer import (KV_ENTRIES, decode_blocks, forward_blocks, init_blocks,
                           init_cache_shapes, local_layers)
 
@@ -86,7 +90,7 @@ class Model:
         if cfg.embed_inputs:
             x = batch["embeds"].to(cfg.compute_dtype)
             return x if mesh is None else coll.take(x, mesh, "model", 1)
-        table, tokens = params["embed/table"], batch["tokens"]
+        table, tokens = _read(params, "embed/table", cfg.compute_dtype), batch["tokens"]
         if mesh is None:
             return table[tokens].to(cfg.compute_dtype)
         if table.shape[0] == cfg.vocab:            # the table whole on every rank
@@ -105,11 +109,14 @@ class Model:
         """(B, S, V) from the residual; on a model axis m > 1 the rank's
         vocabulary slice (B, S, V/m) of the whole sequence."""
         cfg = self.cfg
-        y = rmsnorm(params, "final_norm", y, cfg.norm_eps)
+        norm = compute_params({k: v for k, v in params.items() if k.startswith("final_norm/")},
+                              "", cfg.compute_dtype)
+        y = rmsnorm(norm, "final_norm", y, cfg.norm_eps)
         mesh = _model_mesh()
         if mesh is not None:
             y = coll.all_gather(y, mesh, "model", 1)
-        w = params["embed/table"].T if cfg.tie_embeddings else params["head/w"]
+        w = _read(params, "embed/table", cfg.compute_dtype).T if cfg.tie_embeddings else \
+            _read(params, "head/w", cfg.compute_dtype)
         logits = (y @ w.to(cfg.compute_dtype)).to(torch_dtype(cfg.logit_dtype))
         if cfg.final_softcap > 0:
             logits = (cfg.final_softcap * torch.tanh(
@@ -219,6 +226,11 @@ class Model:
             else:
                 dst[:, :, :S] = val.to(dst.dtype)
         return logits
+
+
+def _read(params: dict, name: str, dtype) -> torch.Tensor:
+    """One param as the layers read it (:func:`~repro_torch.models.layers.compute_params`)."""
+    return compute_params({name: params[name]}, "", dtype)[name]
 
 
 def _model_mesh():

@@ -10,6 +10,29 @@ layer loop runs under ``torch.utils.checkpoint`` (the JAX package's
 block; a Mamba2 layer with the shared block when it follows; an xLSTM
 unit.  Its activations are recomputed in the backward.
 
+While a mesh train step runs (the context carries the step's
+``ParamLayout``, :func:`repro_torch.train.loss_and_grads`), the params
+are the rank's fp32 storage shards, and each unit gathers its own
+layer's slice of every stacked leaf into its compute layout at its
+start, inside the function ``checkpoint`` wraps, as the JAX package's
+FSDP gathers run inside its scan body
+(:func:`repro_torch.models.layers.compute_params`).  The layer axis is
+never sharded, so a layer's slice of a storage shard is local
+(``ParamLayout.layer_slice``, whose backward adds each layer's gradient
+into the stacked gradient as soon as it is reduce-scattered, as JAX's
+scan writes its stacked cotangent).  Each slice is cast to the compute
+dtype in the unit, just before its gather, where JAX casts the whole
+stacked shard once before the scan: the same bytes move and the same
+numbers come out, and no bf16 copy of the whole shard is held.  Under
+remat the recompute gathers the unit again (``nothing_saveable``), and
+each gather's transpose reduce-scatters the layer's gradient in fp32: a
+rank then holds at most one unit's gathered weights, besides the
+embedding, the head, the final norm and zamba2's shared block, which is
+gathered once before the loop (JAX's scan closes over it).  Without
+remat autograd saves every layer's gathered weights for its backward, as
+JAX's scan saves them as residuals: there is no such bound.  Without a
+layout the loops read the params as given.
+
 Under a sharding context whose model axis m is above 1 (every family),
 the residual stream between blocks is sequence-sharded over 'model'
 (``residual_seq``, Megatron-SP): the embedding hands each rank its S/m
@@ -37,7 +60,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.parallel.sharding import carry_context
 
 from .common import ModelConfig, ParamBuilder, stack_params, torch_dtype
-from .layers import attention, init_attention, init_mlp, init_moe, init_rmsnorm, mlp, moe, rmsnorm
+from .layers import (attention, compute_params, init_attention, init_mlp, init_moe, init_rmsnorm,
+                     mlp, moe, rmsnorm, step_layout)
 from .ssm import init_mamba2, mamba2_block, mamba2_state_shapes
 from .xlstm import (
     init_mlstm_block,
@@ -155,6 +179,43 @@ def _split_stacked(params: dict, prefix: str, dtype=None) -> dict:
     return out
 
 
+def _block_params(params: dict, prefix: str, dtype) -> dict:
+    """The params under ``prefix`` as the layers read them: cast to
+    ``dtype`` once, or on a mesh step gathered from the storage shards."""
+    if step_layout() is None:
+        return _split_stacked(params, prefix, dtype)
+    return compute_params(_split_stacked(params, prefix), prefix, dtype)
+
+
+def _layer_params(params: dict, prefix: str, dtype):
+    """``at(i)``: layer ``i``'s slices of the stacked leaves under
+    ``prefix``, to be taken where the layer runs.  Off a mesh step each
+    leaf is cast to ``dtype`` once and unbound; on one, each slice is cut
+    from the storage shard as it is (``ParamLayout.layer_slice``: its
+    gradient lands in the stacked gradient when the layer's backward
+    ends) and is cast and gathered in its unit (:func:`_unit`)."""
+    layout = step_layout()
+    if layout is not None:
+        stacked = _split_stacked(params, prefix)
+        return lambda i: {k: layout.layer_slice(prefix + k, v, i) for k, v in stacked.items()}
+    # unbind, not v[i]: its backward stacks the layers' grads in one
+    # tensor, where L selects would each add a full-size zero tensor
+    layers = {k: v.unbind(0) for k, v in _split_stacked(params, prefix, dtype).items()}
+    return lambda i: {k: v[i] for k, v in layers.items()}
+
+
+def _unit(fn, prefix: str, dtype):
+    """``fn(lp, *args)`` with ``lp``, one layer's param slices, first put in
+    their compute layout (:func:`~repro_torch.models.layers.compute_params`;
+    as given off a mesh step), under the context current now: the
+    function a layer loop runs, through ``checkpoint`` under remat, whose
+    recompute then gathers again."""
+    def run(lp, *args):
+        return fn(compute_params(lp, prefix, dtype), *args)
+
+    return carry_context(run)
+
+
 def _dense_block(layer_params, cfg, x, positions, window, collect_kv):
     h = rmsnorm(layer_params, "ln_attn", x, cfg.norm_eps)
     attn_out, kv = attention(
@@ -189,21 +250,19 @@ def forward_blocks(params, cfg: ModelConfig, x, positions, collect_kv=False):
         return _forward_hybrid(params, cfg, x, positions, collect_kv)
     if cfg.family == "ssm":
         return _forward_xlstm(params, cfg, x, collect_kv)
-    stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
-    # unbind, not v[i]: its backward stacks the layers' grads in one
-    # tensor, where L selects would each add a full-size zero tensor
-    layers = {k: v.unbind(0) for k, v in stacked.items()}
+    layer_at = _layer_params(params, "blocks/", cfg.compute_dtype)
+    block = _unit(_dense_block, "blocks/", cfg.compute_dtype)
     windows = _layer_windows(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in layers.items()}
+        lp = layer_at(i)
         window = None if windows is None else windows[i]
         if remat:
-            x, kv = checkpoint(carry_context(_dense_block), lp, cfg, x, positions, window,
-                               collect_kv, use_reentrant=False)
+            x, kv = checkpoint(block, lp, cfg, x, positions, window, collect_kv,
+                               use_reentrant=False)
         else:
-            x, kv = _dense_block(lp, cfg, x, positions, window, collect_kv)
+            x, kv = block(lp, cfg, x, positions, window, collect_kv)
         if collect_kv:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -232,18 +291,17 @@ def _hybrid_layer(lp, shared, cfg, x, positions, with_attn, collect_kv):
 
 
 def _forward_hybrid(params, cfg: ModelConfig, x, positions, collect_kv):
-    stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
-    shared = _split_stacked(params, "shared_attn/", cfg.compute_dtype)
-    layers = {k: v.unbind(0) for k, v in stacked.items()}
+    layer_at = _layer_params(params, "blocks/", cfg.compute_dtype)
+    shared = _block_params(params, "shared_attn/", cfg.compute_dtype)
+    layer = _unit(_hybrid_layer, "blocks/", cfg.compute_dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     collected = {n: [] for n in ("ssm", "conv", "attn_k", "attn_v")}
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in layers.items()}
-        args = (lp, shared, cfg, x, positions, _applies_shared_attn(cfg, i), collect_kv)
+        args = (layer_at(i), shared, cfg, x, positions, _applies_shared_attn(cfg, i), collect_kv)
         if remat:
-            x, st, kv = checkpoint(carry_context(_hybrid_layer), *args, use_reentrant=False)
+            x, st, kv = checkpoint(layer, *args, use_reentrant=False)
         else:
-            x, st, kv = _hybrid_layer(*args)
+            x, st, kv = layer(*args)
         if collect_kv:
             collected["ssm"].append(st["ssm"])
             collected["conv"].append(st["conv"])
@@ -270,18 +328,17 @@ def _xlstm_unit(lp, cfg, x, collect_kv):
 
 
 def _forward_xlstm(params, cfg: ModelConfig, x, collect_kv):
-    stacked = _split_stacked(params, "blocks/", cfg.compute_dtype)
-    units = {k: v.unbind(0) for k, v in stacked.items()}
+    unit_at = _layer_params(params, "blocks/", cfg.compute_dtype)
+    run = _unit(_xlstm_unit, "blocks/", cfg.compute_dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     mstates = {n: [] for n in MLSTM_STATES}
     sstates = {n: [] for n in SLSTM_STATES}
     for u in range(_n_units(cfg)):
-        lp = {k: v[u] for k, v in units.items()}
+        lp = unit_at(u)
         if remat:
-            x, unit, st = checkpoint(carry_context(_xlstm_unit), lp, cfg, x, collect_kv,
-                                     use_reentrant=False)
+            x, unit, st = checkpoint(run, lp, cfg, x, collect_kv, use_reentrant=False)
         else:
-            x, unit, st = _xlstm_unit(lp, cfg, x, collect_kv)
+            x, unit, st = run(lp, cfg, x, collect_kv)
         if collect_kv:
             for j, name in enumerate(mstates):
                 mstates[name].append(torch.stack([s[j] for s in unit]))

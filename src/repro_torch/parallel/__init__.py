@@ -11,6 +11,7 @@ from .sharding import (
     constrain,
     current_context,
     mesh_of,
+    param_sharding,
     param_shardings,
     param_specs,
     resolve_spec,
@@ -27,6 +28,7 @@ __all__ = [
     "constrain",
     "current_context",
     "mesh_of",
+    "param_sharding",
     "param_shardings",
     "param_specs",
     "resolve_spec",

@@ -275,6 +275,10 @@ class ShardingContext:
     mode: str = "train"                       # key into ACT_RULES
     weight_overrides: dict = field(default_factory=dict)
     act_overrides: dict = field(default_factory=dict)
+    # While a mesh train step runs, its ``repro_torch.train.ParamLayout``:
+    # the model then reads its params as the rank's storage shards and
+    # gathers each where it uses it (``repro_torch.models.layers.compute_params``).
+    layout: Any = field(default=None, compare=False)
 
     def weight_rule(self, name: str):
         if name in self.weight_overrides:
@@ -396,6 +400,13 @@ def param_shardings(shapes: dict, specs: dict, ctx: ShardingContext) -> dict:
     """:class:`NamedSharding` per param on ``ctx.mesh``."""
     return {k: NamedSharding(ctx.mesh, spec)
             for k, spec in param_specs(shapes, specs, ctx).items()}
+
+
+def param_sharding(params: dict, specs: dict, ctx: ShardingContext) -> dict:
+    """:class:`NamedSharding` per param of a flat (params, logical-spec)
+    pair, read from the params' shapes (the JAX package's
+    ``param_sharding``)."""
+    return param_shardings(params, specs, ctx)
 
 
 def mesh_of(devices, axes: tuple[str, ...] = ("data",),

@@ -13,24 +13,36 @@ With one (a :class:`~repro_torch.parallel.sharding.ProcessMesh`, one
 process per rank) the state is sharded as the JAX package's
 ``train_state_shardings`` gives it: each param and both AdamW moments
 stored as ``resolve_spec(kind="weight")`` places them, the fallback pass
-included (ZeRO-3 over 'data', tensor parallel over 'model').  Before the
-forward, each leaf is gathered from that storage shard into the layout the
-layers compute in (:func:`~repro_torch.models.layers.compute_spec`: the
-rank's tensor-parallel slice, whole over 'data'), cast first to the
-compute dtype where the forward reads it only in that dtype; autograd
-takes each gather's transpose, so the grads come back reduce-scattered
-to the storage shards, summed over the data shards into the gradient of
-JAX's global mean.  The reduce-scatters sum in fp32 whatever the compute
-dtype (the cotangent is cast back up before them,
+included (ZeRO-3 over 'data', tensor parallel over 'model').  The loss
+runs on those storage shards, under a context that carries the step's
+:class:`ParamLayout`, and the model gathers each param into the layout
+the layers compute in (:func:`~repro_torch.models.layers.compute_spec`:
+the rank's tensor-parallel slice, whole over 'data') where it uses it:
+the embedding table in the embedding, the final norm and the head in the
+logits, zamba2's shared block once before the layer loop, and each
+block's (or xLSTM unit's) slice of the stacked params inside the
+function the loop runs, so that under remat the recompute gathers it
+again, as JAX's ``nothing_saveable`` scan body does
+(:mod:`repro_torch.models.transformer`).  A rank then holds at most one
+checkpointed unit's gathered weights at a time, besides the embedding,
+the head, the final norm and the shared block; without remat autograd
+saves every layer's gathered weights for the backward, as JAX's scan
+saves its residuals.  A param is cast to the compute dtype just before
+its gather where the forward reads it only in that dtype; autograd takes
+each gather's transpose, so the grads come back reduce-scattered to the
+storage shards, summed over the data shards into the gradient of JAX's
+global mean (a stacked param's layer by layer into its gradient,
+:meth:`ParamLayout.layer_slice`).  The reduce-scatters sum in fp32
+whatever the compute dtype (the cotangent is cast back up before them,
 ``collectives.redistribute(..., dtype)``).  In bf16 each data shard's
 gradient is still rounded to bf16 once by its own backward, where one
 process rounds the whole batch's once, so a bf16 step on a data axis
-above 1 differs from the single-process step by that rounding.  The whole step's params are gathered at once
-(gathering per layer is later work, ROADMAP.md); AdamW then runs on the
-storage shards, clipped by the norm over all shards.
+above 1 differs from the single-process step by that rounding.  AdamW
+then runs on the storage shards, clipped by the norm over all shards.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
@@ -52,33 +64,72 @@ class TrainState(NamedTuple):
     step: torch.Tensor   # () int32
 
 
+class _LayerSlice(torch.autograd.Function):
+    """Layer ``i``'s slice of a stacked param ``p``.  Its backward adds the
+    slice's gradient into row ``i`` of ``grad`` at once and passes nothing
+    on to ``p``: ``grad`` is ``p``'s gradient, filled layer by layer as the
+    backward reaches each layer (JAX's scan writes its stacked cotangent
+    the same way), where ``unbind``'s backward would hold every layer's
+    gradient and then stack them into a second copy."""
+
+    @staticmethod
+    def forward(ctx, p, i, grad):
+        ctx.i, ctx.grad = i, grad
+        return p[i]
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.grad[ctx.i].add_(g)
+        return None, None, None
+
+
 @dataclass(frozen=True)
 class ParamLayout:
     """How each param lives on a rank (``storage``: its weight spec) and
     is computed (``compute``: per dimension "model" or None), and which
-    params are cast to the compute dtype before they are gathered."""
+    params are cast to the compute dtype before they are gathered.  In a
+    step, ``grads`` holds the gradients of the stacked params that
+    :meth:`layer_slice` cut (``loss_and_grads`` gives each step its own
+    dict)."""
 
     ctx: ShardingContext
     storage: dict
     compute: dict
     cast: frozenset
+    grads: Optional[dict] = None
+
+    def layer_slice(self, name: str, p: torch.Tensor, i: int) -> torch.Tensor:
+        """Layer ``i``'s slice of ``p``, the storage shard of a stacked
+        param, whose gradient is added into ``grads[name]`` (zeros, like
+        ``p``) as the backward reaches the layer.  Take it where the
+        layer runs: autograd runs the ready node created last first, so a
+        slice taken before the loop would hold every layer's gradient
+        until the backward had passed all of them."""
+        if name not in self.grads:
+            self.grads[name] = torch.zeros_like(p)
+        return _LayerSlice.apply(p, i, self.grads[name])
 
     def to_compute(self, name: str, p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """The storage shard ``p`` in its compute layout, in ``dtype`` if
         it is cast (autograd keeps the transpose: zero pads and
-        reduce-scatters, in ``p``'s dtype)."""
+        reduce-scatters, in ``p``'s dtype).  ``p`` may also be one
+        layer's slice of a stacked param's shard: its leading layer axis,
+        never sharded, is dropped from both layouts."""
         src = tuple(spec_axes(e) for e in self.storage[name])
         dst = tuple(spec_axes(e) for e in self.compute[name])
-        return coll.redistribute(p, self.ctx.mesh, src, dst,
+        lead = len(src) - p.dim()
+        if any(src[:lead] + dst[:lead]):
+            raise ValueError(f"{name}: a slice along a sharded axis ({src}, {dst})")
+        return coll.redistribute(p, self.ctx.mesh, src[lead:], dst[lead:],
                                  dtype if name in self.cast else None)
 
 
 def param_layout(model: Model, ctx: ShardingContext) -> ParamLayout:
     """The :class:`ParamLayout` of ``model``'s params on ``ctx.mesh``.
     Every param but the final norm's scale is read by the forward only in
-    the compute dtype (the stacked blocks through ``_split_stacked``, the
-    embedding after its lookup, the head at its product), so those are
-    cast before the gather: the forward reads the same numbers, and its
+    the compute dtype (the blocks in their layer loop, the embedding after
+    its lookup, the head at its product), so those are cast before the
+    gather: the forward reads the same numbers, and its
     gathers move half the bytes in bf16; their gradients are summed over
     the ranks in fp32 (:meth:`ParamLayout.to_compute`)."""
     shapes, specs = model.abstract_params()
@@ -126,8 +177,9 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
 
     With a ``layout``, ``params`` and the grads are this rank's storage
     shards and ``batch`` its data shard: the loss (the global mean, on
-    every rank) runs under the layout's context on the params gathered
-    into their compute layout.  The loss is replicated over the mesh's W
+    every rank) runs on them under the layout's context, which carries
+    the layout, and the model gathers each param where it uses it (the
+    module docstring).  The loss is replicated over the mesh's W
     ranks, so each seeds 1/W of its cotangent (the convention of
     :mod:`repro_torch.parallel.collectives`), and a grad whose storage is
     replicated over an axis is summed over it."""
@@ -138,13 +190,12 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     else:
         mesh = layout.ctx.mesh
-        with use_sharding(layout.ctx):
-            dt = model.cfg.compute_dtype
-            local = {k: layout.to_compute(k, params[k], dt) for k in names}
-            loss = model.loss(local, batch)
-            del local
+        step = dataclasses.replace(layout, grads={})
+        with use_sharding(dataclasses.replace(layout.ctx, layout=step)):
+            loss = model.loss(params, batch)
             seed = torch.full_like(loss, 1.0 / mesh.size)
             grads = torch.autograd.grad(loss, leaves, grad_outputs=seed, allow_unused=True)
+        grads = [step.grads.get(k, g) for k, g in zip(names, grads)]
         grads = [g if g is None else coll.sum_over(g, mesh, mesh.replicated_axes(layout.storage[k]))
                  for k, g in zip(names, grads)]
     return loss.detach(), {k: (torch.zeros_like(p) if g is None else g)
@@ -208,6 +259,12 @@ def _draw_shards(model: Model, generator: torch.Generator, ctx: ShardingContext)
                 p = full.pop(k)
                 # a copy: a view would keep the whole tensor alive
                 shards[k] = p[mesh.shard_slices(specs[k], tuple(p.shape))].clone()
+            del p
+            if generator.device.type == "cuda":
+                # the caching allocator keeps the full copy's blocks: hand
+                # them back, or the ranks that share a card would each keep
+                # one after their turn
+                torch.cuda.empty_cache()
         dist.barrier()
     return shards
 

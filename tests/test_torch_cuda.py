@@ -1246,3 +1246,70 @@ def test_recurrent_heads_split_over_two_ranks_on_the_card_match_the_cpu(dev, tmp
     spawn(_card_recurrent_tp_ranks, 2, (str(tmp_path),), init_file=str(tmp_path / "store"),
           device="cuda")
     assert (tmp_path / "ok0").exists() and (tmp_path / "ok1").exists()
+
+
+# ------------------------------------------------- per-layer gathers (A16c) --
+
+HELD_CFG = dict(d_model=256, n_heads=4, n_kv_heads=4, d_ff=1024, vocab=512, remat=True)
+
+
+def _card_held_beyond_storage(ctx, layers: int) -> int:
+    """The peak the card allocates in the bf16 remat forward and backward
+    (``loss_and_grads``) of the narrow dense config at ``layers`` layers,
+    less this rank's storage shards (params, grads, AdamW mu and nu)."""
+    from repro_torch.data import make_batch_on_mesh
+    from repro_torch.train import loss_and_grads, param_layout
+
+    dev = ctx.mesh.device
+    cfg = smoke_config("stablelm_3b").replace(n_layers=layers, **HELD_CFG)
+    model = Model(cfg, dev)
+    state = build_init_fn(model, ctx)(torch.Generator(device=dev).manual_seed(0))
+    batch = make_batch_on_mesh(SyntheticTokens(cfg, 2, 64).sample(0), cfg, ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss_and_grads(model, state.params, batch, param_layout(model, ctx))
+    torch.cuda.synchronize()
+    trees = (state.params, state.params, state.opt.mu, state.opt.nu)
+    storage = sum(t.numel() * t.element_size() for tree in trees for t in tree.values())
+    return torch.cuda.max_memory_allocated(dev) - storage
+
+
+def _card_held_ranks(out_dir: str):
+    """One rank of a (1, 2) mesh on the card, at 2 and at 6 layers of a
+    narrow dense config (:func:`_card_held_beyond_storage`); rank 0 saves
+    both."""
+    import json
+    import os
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import ShardingContext
+
+    mesh = make_host_mesh(2, device=torch.device("cuda", torch.cuda.current_device()))
+    held = {layers: _card_held_beyond_storage(ShardingContext(mesh=mesh), layers)
+            for layers in (2, 6)}
+    if mesh.rank == 0:
+        with open(os.path.join(out_dir, "held.json"), "w") as f:
+            json.dump(held, f)
+
+
+def test_mesh_step_holds_one_blocks_gathered_weights_on_the_card(dev, tmp_path):
+    """Two ranks share the card (gloo): what a rank holds beyond its
+    storage shards in a remat forward and backward grows by less than two
+    blocks' gathered weights from 2 to 6 layers (each block is gathered
+    in its unit; gathering the whole model first would add four)."""
+    import json
+    import math
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel.sharding import Mesh, ShardingContext
+    from repro_torch.train import param_layout
+
+    spawn(_card_held_ranks, 2, (str(tmp_path),), init_file=str(tmp_path / "store"), device="cuda")
+    with open(tmp_path / "held.json") as f:
+        held = {int(k): v for k, v in json.load(f).items()}
+    cfg = smoke_config("stablelm_3b").replace(n_layers=2, **HELD_CFG)
+    model = Model(cfg, "cpu")
+    layout = param_layout(model, ShardingContext(mesh=Mesh((0, 1), ("data", "model"), (1, 2))))
+    block = sum(math.prod(s.shape[1:]) // 2 ** sum(e == "model" for e in layout.compute[k]) * 2
+                for k, s in model.abstract_params()[0].items() if k.startswith("blocks/"))
+    assert held[6] - held[2] < 2 * block, (held, block)

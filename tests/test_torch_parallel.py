@@ -31,11 +31,13 @@ import os
 import subprocess
 import sys
 import textwrap
+import weakref
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ARCHS, arch_config, smoke_config  # noqa: E402
@@ -95,6 +97,16 @@ COMM_CASES = {"remat_stablelm_3b": fp32("stablelm_3b", remat=True),
               "remat_zamba2_1p2b": fp32("zamba2_1p2b", remat=True),
               "remat_xlstm_125m": fp32("xlstm_125m", remat=True),
               "bf16_stablelm_3b": fp32("stablelm_3b", **BF16)}
+
+
+# a rank's gathered weights under remat, tracked during one step of each
+# arch's smoke config at HELD_LAYERS layers on each mesh
+HELD_MESHES, HELD_ARCHS, HELD_LAYERS = ((1, 2), (2, 2)), ("stablelm_3b", "zamba2_1p2b"), 4
+HELD_CASES = [(mesh, arch) for mesh in HELD_MESHES for arch in HELD_ARCHS]
+# what a rank holds beyond its storage shards in a remat forward and
+# backward of a narrow dense config, at each depth (the card test's config)
+DEPTH_CFG, DEPTHS = dict(d_model=256, n_heads=4, n_kv_heads=4, d_ff=1024, vocab=512,
+                         remat=True), (2, 6)
 
 
 JAX_RUNS = textwrap.dedent("""
@@ -216,6 +228,17 @@ def _port_ranks(out_dir: str, init_dir: str, mesh_shape: tuple, cases: list):
             out.update({"grad/" + k: v.numpy() for k, v in grads.items()})
             out.update({"param/" + k: v.detach().numpy() for k, v in after.items()})
             np.savez(os.path.join(out_dir, f"{name}.npz"), **out)
+    if mesh_shape in HELD_MESHES:
+        for arch in HELD_ARCHS:
+            held = _held_gathers(ctx, smoke_config(arch).replace(n_layers=HELD_LAYERS, remat=True))
+            if mesh.rank == 0:
+                with open(os.path.join(out_dir, f"held_{arch}.json"), "w") as f:
+                    json.dump(held, f)
+        beyond = {n: _held_beyond_storage(ctx, smoke_config("stablelm_3b").replace(
+            n_layers=n, **DEPTH_CFG)) for n in DEPTHS}
+        if mesh.rank == 0:
+            with open(os.path.join(out_dir, "beyond.json"), "w") as f:
+                json.dump(beyond, f)
     if mesh_shape == (2, 2):
         for name, cfg in COMM_CASES.items():
             model = Model(cfg, "cpu")
@@ -232,6 +255,74 @@ def _port_ranks(out_dir: str, init_dir: str, mesh_shape: tuple, cases: list):
         if mesh.rank == 0:
             np.savez(os.path.join(out_dir, "drawn.npz"),
                      **{k: v.detach().numpy() for k, v in drawn.items()})
+
+
+def _held_gathers(ctx, cfg) -> dict:
+    """One train step of ``cfg`` on ``ctx``'s mesh with every output of
+    ``ParamLayout.to_compute`` that owns memory of its own (a gather or a
+    cast; not a view of the storage shard) tracked by weakref: the bytes
+    of their storages alive at once at the peak, and the params they were
+    gathered from then."""
+    from repro_torch.train import ParamLayout
+
+    tracked, peak = [], {"bytes": 0, "names": []}
+    to_compute = ParamLayout.to_compute
+
+    def tracking(self, name, p, dtype):
+        out = to_compute(self, name, p, dtype)
+        storage = out.untyped_storage()
+        if storage.data_ptr() != p.untyped_storage().data_ptr():
+            tracked.append((name, storage.nbytes(), weakref.ref(out)))
+        alive = [(n, b) for n, b, ref in tracked if ref() is not None]
+        if sum(b for _, b in alive) > peak["bytes"]:
+            peak.update(bytes=sum(b for _, b in alive), names=sorted(n for n, _ in alive))
+        return out
+
+    model = Model(cfg, "cpu")
+    state = build_init_fn(model, ctx)(torch.Generator().manual_seed(0))
+    ParamLayout.to_compute = tracking
+    try:
+        build_train_step(model, ctx)(state, make_batch_on_mesh(SyntheticTokens(cfg, B, S).sample(0),
+                                                               cfg, ctx))
+    finally:
+        ParamLayout.to_compute = to_compute
+    return peak
+
+
+class _LiveBytes(TorchDispatchMode):
+    """The bytes of the storages that ops create, alive at once at the
+    peak (weakrefs to the tensors; views of the storages in ``old`` do
+    not count): ``torch.cuda.max_memory_allocated`` on the CPU."""
+
+    def __init__(self, old):
+        super().__init__()
+        self.old, self.live, self.peak = set(old), {}, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor):
+                storage = t.untyped_storage()
+                ptr = storage.data_ptr()
+                if ptr and ptr not in self.old and ptr not in self.live:
+                    self.live[ptr] = (storage.nbytes(), weakref.ref(t))
+        self.live = {k: (b, ref) for k, (b, ref) in self.live.items() if ref() is not None}
+        self.peak = max(self.peak, sum(b for b, _ in self.live.values()))
+        return out
+
+
+def _held_beyond_storage(ctx, cfg) -> int:
+    """The peak of the bytes one forward and backward (``loss_and_grads``)
+    of ``cfg`` creates, less the grads (storage, as the params and AdamW's
+    moments are)."""
+    model = Model(cfg, "cpu")
+    state = build_init_fn(model, ctx)(torch.Generator().manual_seed(0))
+    batch = make_batch_on_mesh(SyntheticTokens(cfg, B, 64).sample(0), cfg, ctx)
+    trees = (state.params, state.opt.mu, state.opt.nu)
+    live = _LiveBytes(t.untyped_storage().data_ptr() for tree in trees for t in tree.values())
+    with live:
+        loss_and_grads(model, state.params, batch, param_layout(model, ctx))
+    return live.peak - sum(p.numel() * p.element_size() for p in state.params.values())
 
 
 def _results(runs, mesh, name):
@@ -318,6 +409,54 @@ def test_collective_bytes_match_the_shapes(runs):
             got = json.load(f)
         want = smoke.predicted_comm_bytes(torch, cfg, (2, 2), B, S)
         assert got == {f"{op} {ax}": n for (op, ax), n in want.items()}, name
+
+
+@pytest.mark.parametrize("mesh,arch", HELD_CASES, ids=[f"{m[0]}x{m[1]}-{a}" for m, a in HELD_CASES])
+def test_a_rank_holds_one_units_gathered_weights(runs, mesh, arch):
+    """A remat step at 4 layers gathers each block's params in its unit:
+    the gathered weights alive at once are at most one layer's slice of
+    each stacked param in its compute layout (every one of them, at the
+    peak) plus the embedding, the head, the final norm and zamba2's shared
+    block (the JAX package's scan gathers inside its body too)."""
+    from collections import Counter
+
+    with open(runs[1][mesh] / f"held_{arch}.json") as f:
+        peak = json.load(f)
+    cfg = smoke_config(arch).replace(n_layers=HELD_LAYERS, remat=True)
+    model = Model(cfg, "cpu")
+    layout = param_layout(model, ShardingContext(mesh=Mesh(tuple(range(math.prod(mesh))),
+                                                           ("data", "model"), mesh)))
+    bound = 0
+    for k, shape in model.abstract_params()[0].items():
+        n = math.prod(shape.shape) // mesh[1] ** sum(e == "model" for e in layout.compute[k])
+        if k.startswith("blocks/"):
+            n //= shape.shape[0]          # one layer's slice
+        item = torch.empty((), dtype=cfg.compute_dtype).element_size() if k in layout.cast else 4
+        bound += n * item
+    blocks = {k for k in layout.storage if k.startswith("blocks/")}
+    assert 0 < peak["bytes"] <= bound, (peak["bytes"], bound)
+    assert blocks <= set(peak["names"]), sorted(blocks - set(peak["names"]))
+    assert max(Counter(peak["names"]).values()) == 1, peak["names"]
+
+
+@pytest.mark.parametrize("mesh", HELD_MESHES, ids=[f"{m[0]}x{m[1]}" for m in HELD_MESHES])
+def test_what_a_rank_holds_beyond_storage_does_not_grow_with_depth(runs, mesh):
+    """A remat forward and backward at 2 and at 6 layers of a narrow dense
+    config: the bytes it holds at its peak beyond the storage shards
+    (params, grads, AdamW moments) grow by less than two blocks' gathered
+    weights (the
+    remat carries, 4 x 32 KiB, are the growth; gathering the whole model
+    first, or holding each layer's gradient to the end of the backward,
+    adds a block a layer); the card test does the same on the card."""
+    with open(runs[1][mesh] / "beyond.json") as f:
+        beyond = {int(k): v for k, v in json.load(f).items()}
+    cfg = smoke_config("stablelm_3b").replace(n_layers=DEPTHS[0], **DEPTH_CFG)
+    model = Model(cfg, "cpu")
+    layout = param_layout(model, ShardingContext(mesh=Mesh(tuple(range(math.prod(mesh))),
+                                                           ("data", "model"), mesh)))
+    block = sum(math.prod(s.shape[1:]) // mesh[1] ** sum(e == "model" for e in layout.compute[k])
+                * 2 for k, s in model.abstract_params()[0].items() if k.startswith("blocks/"))
+    assert 0 < beyond[DEPTHS[1]] - beyond[DEPTHS[0]] < 2 * block, (beyond, block)
 
 
 # ------------------------------------------------------------------ specs --
