@@ -1061,20 +1061,30 @@ MLSTM_BWD_PATHS = {
 }
 
 
-def kernel_split(torch, fn, pattern, want, tries=3) -> tuple[list[tuple[str, float]], int]:
+def kernel_split(torch, fn, pattern, want, tries=5) -> tuple[list[tuple[str, float]], int]:
     """(name, device ms) of each kernel of one call of ``fn`` whose name
     matches ``pattern`` (its first group), in launch order, by
     torch.profiler; and the number of calls profiled.  While the record's
     names differ from ``want`` the call is profiled again, ``tries`` in
-    all: the profiler on the card has returned a record of one call that
-    held only its last kernel, so a record is taken again before the
-    caller holds the names against ``want``."""
+    all, before the caller holds the names against ``want``.  The
+    profiler on the card has returned records that lack a call's first
+    kernels, on one machine in every try: a kernel that starts near the
+    opening of the profiled window, or the window's first kernel, can be
+    left out.  So a throwaway kernel opens the window, and the call runs
+    with the card idle and a margin of host time on each side of it, a
+    margin that grows with each try."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, tries + 1):
+        margin_s = 0.05 * attempt
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            time.sleep(margin_s)
             fn()
             torch.cuda.synchronize()
+            time.sleep(margin_s)
         events = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
