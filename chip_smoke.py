@@ -39,6 +39,11 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              zamba2_1p2b's and xlstm_125m's train shapes (each backward's
              bf16 path on the tensor cores, its fp32 path scalar; the
              mLSTM's split by kernel), two bf16 calls there bitwise equal;
+             the attention forward's second entry, ``flash_attention_lse``,
+             its output and fp32 log-sum-exp against ``attention_lse_ref``
+             in both dtypes (rows with no key among them), timed at a rank's
+             half of stablelm_3b's and gemma2_9b's decode caches beside
+             efficient attention with its log-sum-exp;
 3. serve stablelm_3b — at full size, seed-initialised on the card:
              batch 8, prompt 512, 64 greedy tokens in bf16 through
              ``repro_torch.launch.serve``; the attention kernel must have
@@ -143,9 +148,20 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              backward attention calls a step; the share of routed pairs
              dropped before and after) and one fp32 step at 1 layer
              against the plain twin;
-11. train parallel — four ranks share the card (gloo), a (data 2,
+11. serve parallel — the same four ranks and mesh serve through
+             ``build_prefill_step`` (the prompt in train mode) and
+             ``build_serve_step``: stablelm_3b at full width and depth in
+             decode mode (8 x 512 + 8 tokens) and zamba2_1p2b in long mode
+             (1 x 4096 + 8; its caches split four ways), bf16, fed one
+             process's greedy ids, which the mesh's must equal wherever
+             the runs' bf16 gap cannot flip them; fp32 gates at 4 / 6
+             layers against one process's logits at every step; each
+             rank's kernel launches (``flash_attention_lse`` on every
+             decode step's attention) and a decode step's collective bytes
+             equal to the dry run's twin;
+12. train parallel — four ranks share the card (gloo), a (data 2,
              model 2) mesh through ``repro_torch.launch.mesh.spawn``:
-             stablelm_3b at 8 layers and at its full 32, phi35_moe_42b
+             stablelm_3b at 8 layers and at 16, phi35_moe_42b
              at 2 (expert parallel), zamba2_1p2b at 6 and xlstm_125m at
              2 (their blocks tensor parallel over the rank's heads)
              trained at full width, each block's weights gathered in its
@@ -154,12 +170,18 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              equal to ``predicted_comm_bytes``; each rank's storage
              shards and what it holds beyond them at its peak in the
              steps' forward and backward, which may grow by less than
-             PAR_HELD_GROWTH from stablelm's 8 layers to 32 (and in the
+             PAR_HELD_GROWTH from stablelm's 8 layers to 16 (and in the
              whole step, printed); fp32 steps against the
              single-process step (stablelm, zamba2, xlstm) or the same
              ranks on the CPU (phi3.5); stablelm's bf16 step's gap to the
              single-process step beside the single-process bf16-vs-fp32
-             gap (printed).
+             gap (printed);
+13. dryrun — ``repro_torch.launch.dryrun`` on fake ranks and abstract
+             tensors (no card): the twin of 12's stablelm_3b cell on every
+             rank, its collective bytes by (operation, axis) and kernel
+             launches equal to the measured, its peak within 15% of
+             ``torch.cuda.max_memory_allocated`` over the steps; then three
+             production cells' records printed.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -191,6 +213,9 @@ MODEL_TOL = dict(rtol=2e-3, atol=5e-4)   # tests/test_models.py, fp32
 GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 GRAD_REL_RMS = 1e-4     # a gradient leaf of the fp32 train gate, against the plain twin
 KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "mlstm", "ssd_bwd", "mlstm_bwd")
+# The launch counters: one a kernel source, and the forward's second entry
+# (its log-sum-exp written too), counted on its own.
+COUNTERS = KERNELS + ("flash_attention_lse",)
 # The attention backward's two paths, chosen by dtype alone.
 BWD_PATHS = {
     "bfloat16": {"route": "tensor cores (mma.sync bf16)",
@@ -230,21 +255,22 @@ RECURRENT_GATE_LAYERS = {HYBRID: 6, XLSTM: 4}
 # mesh.  stablelm_3b at full width and 8 layers trains 8 x 512 for 4
 # steps; its fp32 gate, at 2 layers on 2 x 1024, holds the mesh's step
 # against the single-process step.  phi35_moe_42b at full width and 2
-# layers trains 3 steps through the expert-parallel path; its fp32 gate,
+# layers trains 2 steps through the expert-parallel path; its fp32 gate,
 # at 1 layer on 2 x 128, holds the ranks on the card against the same
 # ranks on the CPU.
 PAR_MESH, PAR_LAYERS, PAR_STEPS = (2, 2), 8, 4
 PAR_GATE_LAYERS, PAR_GATE_BATCH, PAR_GATE_SEQ = 2, 2, 1024
-PAR_MOE_LAYERS, PAR_MOE_STEPS = 2, 3
+PAR_MOE_LAYERS, PAR_MOE_STEPS = 2, 2
 PAR_MOE_GATE_LAYERS, PAR_MOE_GATE_BATCH, PAR_MOE_GATE_SEQ = 1, 2, 128
-# stablelm_3b at full width and full depth (2.795 B params) trains 8 x 512
-# for 2 steps on the same mesh.  Each block's weights are gathered inside
-# its checkpointed unit, so what a rank holds beyond its storage shards
-# (params, grads, AdamW mu and nu) in the forward and backward must not
-# grow with depth by more than the remat carries (24 more layers: ~0.12
-# GiB) and the allocator's slack; gathering the whole model first held
-# ~1.9 GiB more at 32 layers than at 8.
-PAR_FULL_LAYERS, PAR_FULL_STEPS = 32, 2
+# stablelm_3b at full width and 16 layers (cut from its full 32 to make
+# room for [serve parallel]) trains 8 x 512 for 2 steps on the same mesh.  Each
+# block's weights are gathered inside its checkpointed unit, so what a
+# rank holds beyond its storage shards (params, grads, AdamW mu and nu) in
+# the forward and backward must not grow with depth by more than the remat
+# carries (8 more layers: ~0.04 GiB) and the allocator's slack; gathering
+# the whole model first would hold 8 x 79 MB = 0.62 GiB more at 16 layers
+# than at 8 (measured ~1.9 GiB more at 32).
+PAR_FULL_LAYERS, PAR_FULL_STEPS = 16, 2
 PAR_HELD_GROWTH = 0.4 * 2**30
 # zamba2_1p2b at full width and 6 layers (the shared block follows layer
 # 5) and xlstm_125m at 2 (one unit: an mLSTM block and the sLSTM) train on
@@ -308,6 +334,7 @@ def main() -> int:
     bwd_entry = attention_bwd_phase(torch, dev, failures)
     ssd_bwd_entry = ssd_bwd_phase(torch, dev, failures)
     mlstm_bwd_entry = mlstm_bwd_phase(torch, dev, failures)
+    lse_entry = lse_kernel_phase(torch, dev, failures)
     if failures:
         return fail("; ".join(failures))
     counts: dict[str, dict[str, int]] = {}   # serve path -> kernel -> launches
@@ -351,10 +378,18 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     torch.cuda.empty_cache()
-    train_parallel_phase(torch, dev, failures, counts)
+    serve_parallel_phase(torch, dev, failures, counts)
     if failures:
         return fail("; ".join(failures))
-    kernels = [entry, bwd_entry, ssd_entry, mlstm_entry, ssd_bwd_entry, mlstm_bwd_entry]
+    torch.cuda.empty_cache()
+    par_ranks = train_parallel_phase(torch, dev, failures, counts)
+    if failures:
+        return fail("; ".join(failures))
+    dryrun_phase(torch, failures, par_ranks)
+    if failures:
+        return fail("; ".join(failures))
+    kernels = [entry, bwd_entry, ssd_entry, mlstm_entry, ssd_bwd_entry, mlstm_bwd_entry,
+               lse_entry]
     for e in kernels:
         e["launches_by_path"] = {path: c[e["name"]] for path, c in counts.items()}
         e["launches"] = sum(e["launches_by_path"].values())
@@ -738,6 +773,105 @@ def print_attention_time(label, t):
     print(f"[time] flash_attention {label}: kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
           f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+
+
+# ------------------------------------------------- attention with its lse --
+
+# The log-sum-exp entry's timing shapes: a rank's half of each cache a
+# decode step on the (2, 2) mesh of [serve parallel] reads, its sequence
+# split over 'model' (decode mode): stablelm_3b's 575 rows, gemma2_9b's
+# global 5184 (its serve phase's cache).
+LSE_TIMED = [("stablelm decode (8,32,1,80), a rank's half of Sk 575", 8, 32, 32, 288, 80, 0.0),
+             ("gemma2 global decode (2,16,1,256) KV 8 softcap 50, a rank's half of Sk 5184",
+              2, 16, 8, 2592, 256, 50.0)]
+
+
+def lse_bound_ms(q, k, v) -> tuple[float, str]:
+    """Larger of bytes / bandwidth (q, k, v read once, o and the fp32 lse
+    written once) and operations / peak (4 D flops a (query, key) pair;
+    non-causal decode admits every pair)."""
+    B, H, Sq, D = q.shape
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + 4 * B * H * Sq
+    flops = 4 * D * B * H * Sq * k.shape[2]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).removeprefix("torch.")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lse_kernel_phase(torch, dev, failures) -> dict:
+    """``flash_attention_lse`` against ``attention_lse_ref`` (the output
+    and the fp32 log-sum-exp, rows that admit no key among them) in both
+    dtypes, then timed at ``LSE_TIMED`` with a cold L2 (a CUDA graph of
+    calls over K/V sets larger than the L2) beside the plain version and
+    ``aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True)``,
+    which computes the same (o, lse) without softcap and GQA (its K/V are
+    given repeated over the query heads)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    cases = [  # label, B, H, KV, Sq, Sk, D, causal, window, softcap
+        ("decode gqa 4 D 80", 2, 8, 2, 1, 575, 80, False, 0, 0.0),
+        ("decode D 256 softcap 50", 2, 16, 8, 1, 700, 256, False, 0, 50.0),
+        ("decode D 64 one key", 2, 4, 2, 1, 1, 64, False, 0, 0.0),
+        ("Sq 5 D 128 causal", 1, 8, 2, 5, 40, 128, True, 0, 0.0),
+        ("prefill D 80 window 20", 1, 4, 4, 100, 77, 80, False, 20, 0.0),
+        ("prefill D 64 rows with no key", 1, 2, 2, 40, 8, 64, True, 4, 0.0),
+    ]
+    worst = 0.0
+    for seed, (label, B, H, KV, Sq, Sk, D, causal, window, softcap) in enumerate(cases):
+        for dtype in ("float32", "bfloat16"):
+            q = randn(torch, (B, H, Sq, D), dtype, 400 + 3 * seed, dev)
+            k = randn(torch, (B, KV, Sk, D), dtype, 401 + 3 * seed, dev)
+            v = randn(torch, (B, KV, Sk, D), dtype, 402 + 3 * seed, dev)
+            opts = dict(causal=causal, window=window, softcap=softcap)
+            out, lse = fa.flash_attention_lse_cuda(q, k, v, **opts)
+            want, want_lse = ref.attention_lse_ref(q, k, v, **opts)
+            torch.cuda.synchronize()
+            empty = torch.isneginf(want_lse)
+            lse_err = (lse[~empty] - want_lse[~empty]).abs()
+            err = max(float((out.float() - want.float()).abs().max()),
+                      float(lse_err.max()) if lse_err.numel() else 0.0)
+            ok = (torch.equal(torch.isneginf(lse), empty) and not out[empty].any()
+                  and torch.allclose(out.float(), want.float(), **TOL[dtype])
+                  and torch.allclose(lse[~empty], want_lse[~empty], **TOL[dtype]))
+            print(f"[kernel] flash_attention_lse {label:<30} {dtype:<8} max_abs_err={err:.3e} "
+                  f"(out and lse; rtol={TOL[dtype]['rtol']}, atol={TOL[dtype]['atol']}; "
+                  f"{int(empty.sum())} rows with no key) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash_attention_lse {label} {dtype}: max_abs_err {err:.3e}")
+            worst = max(worst, err) if dtype == "bfloat16" else worst
+
+    timed = []
+    for seed, (label, B, H, KV, Sk, D, softcap) in enumerate(LSE_TIMED):
+        q = model_layout(torch, B, H, 1, D, "bfloat16", 500 + seed, dev)
+        kv = decode_sets(torch, B, KV, Sk, D, 510 + 10 * seed, dev, s_alloc=Sk)
+        n = len(kv)
+        reps = H // KV
+        # the library call takes K/V with every query head's copy
+        lib_kv = [(k.repeat_interleave(reps, 1), v.repeat_interleave(reps, 1))
+                  for k, v in kv] if reps > 1 else kv
+        kern = lambda i: fa.flash_attention_lse_cuda(q, *kv[i % n], causal=False,  # noqa: E731
+                                                     softcap=softcap)
+        lib = lambda i: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+            q, *lib_kv[i % n], None, True)
+        iters = 8 * n
+        t = {"ms": graph_ms(torch, [lambda i=i: kern(i) for i in range(iters)]),
+             "plain_ms": time_ms(torch, lambda: ref.attention_lse_ref(
+                 q, *kv[0], causal=False, softcap=softcap), iters=10),
+             "library_ms": graph_ms(torch, [lambda i=i: lib(i) for i in range(iters)])}
+        t["bound_ms"], t["bound_by"] = lse_bound_ms(q, *kv[0])
+        note = "; library without the softcap: not the same function" if softcap else ""
+        print(f"[time] flash_attention_lse {label} bf16, cold L2: kernel {t['ms']:.4f} ms, "
+              f"library (efficient attention, compute_log_sumexp, K/V repeated to the query "
+              f"heads{note}) {t['library_ms']:.4f} ms, as CUDA graphs of calls; plain "
+              f"{t['plain_ms']:.4f} ms (warm); bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']})")
+        timed.append({"shape": f"{label} bf16", **t})
+        del q, kv, lib_kv
+    return {"name": "flash_attention_lse", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:28",
+            "launches": None, "max_abs_err": worst, **timed[0], "gemma2": timed[1]}
 
 
 # ------------------------------------------------------- attention backward --
@@ -1657,6 +1791,7 @@ def reset_counts():
     from repro_torch.kernels import mlstm, ssd
 
     fa.launches = 0
+    fa.lse_launches = 0
     fa.bwd_launches = 0
     ssd.launches = 0
     ssd.bwd_launches = 0
@@ -1670,7 +1805,7 @@ def read_counts() -> dict:
 
     return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
             "ssd": ssd.launches, "mlstm": mlstm.launches, "ssd_bwd": ssd.bwd_launches,
-            "mlstm_bwd": mlstm.bwd_launches}
+            "mlstm_bwd": mlstm.bwd_launches, "flash_attention_lse": fa.lse_launches}
 
 
 def serve_phase(torch, dev, entry, failures, counts):
@@ -3451,7 +3586,8 @@ def train_parallel_phase(torch, dev, failures, counts):
     ``repro_torch.launch.mesh.spawn``: stablelm_3b (8 layers and 32),
     phi35_moe_42b, zamba2_1p2b and xlstm_125m trained on a (data 2, model
     2) mesh, the growth with depth of what a rank holds beyond its
-    storage shards, and the fp32 gates."""
+    storage shards, and the fp32 gates.  Returns the ranks' results
+    (``[dryrun]`` reads them)."""
     import os
     import tempfile
 
@@ -3532,11 +3668,11 @@ def train_parallel_phase(torch, dev, failures, counts):
               + ", ".join(f"{op} over {ax} {runs[0]['comm'].get(f'{op} {ax}', 0) / 1e6:.2f} MB"
                           f" (predicted {want[(op, ax)] / 1e6:.2f})" for op, ax in sorted(want)))
         per_step = train_launches(cfg)
-        summed = {name: sum(run["counts"][name] for run in runs) for name in KERNELS}
+        summed = {name: sum(run["counts"][name] for run in runs) for name in COUNTERS}
         counts[f"train parallel {arch}" + (f" {layers} layers" if key == "dense_full" else "")] = \
             summed
         for r, run in enumerate(runs):
-            for name in KERNELS:
+            for name in COUNTERS:
                 exp = steps * per_step.get(name, 0)
                 if run["counts"][name] != exp:
                     failures.append(f"{tag} {arch} rank {r}: {name} launched "
@@ -3604,6 +3740,354 @@ def train_parallel_phase(torch, dev, failures, counts):
           f"({twin['worst'][1]}; at most {GRAD_REL_RMS}) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"{tag} {MOE} fp32 gate against the CPU twin")
+    return ranks
+
+
+# ------------------------------------------------------------------ dryrun --
+
+# The production cells [dryrun] runs on fake ranks and prints (arch, shape, mesh).
+DRYRUN_CELLS = (("stablelm_3b", "train_4k", "single"), ("gemma2_9b", "decode_32k", "single"),
+                ("zamba2_1p2b", "long_500k", "multi"))
+DRYRUN_PEAK_TOL = 0.15
+
+
+def dryrun_phase(torch, failures, par_ranks):
+    """The dry run's twin of ``[train parallel]``'s stablelm_3b cell (8
+    layers, (2, 2), 8 x 512; ``repro_torch.launch.dryrun.run_config`` on
+    fake ranks, abstract tensors, no card) for every rank, against what
+    the ranks measured: a step's collective bytes by (operation, axis)
+    and each kernel's launches equal, the step's peak within
+    DRYRUN_PEAK_TOL of ``torch.cuda.max_memory_allocated`` over the
+    steps; then three production cells, their records printed."""
+    from repro_torch.configs import arch_config
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.launch import dryrun
+
+    tag = "[dryrun]"
+    cfg = arch_config(ARCH).replace(n_layers=PAR_LAYERS)
+    cell = ShapeCell("train parallel", TRAIN_SEQ, BATCH, "train")
+    t0 = time.perf_counter()
+    for r, res in enumerate(par_ranks):
+        run = res["dense"]
+        rec = dryrun.run_config(cfg, cell, PAR_MESH, ("data", "model"), r)
+        want = rec["collectives"]["per_op_axis"]
+        if run["comm"] != want:
+            failures.append(f"{tag} rank {r}: measured collective bytes {run['comm']} != the "
+                            f"twin's {want}")
+        launches = {k: v // PAR_STEPS for k, v in run["counts"].items() if v}
+        if launches != rec["kernel_launches"]:
+            failures.append(f"{tag} rank {r}: launches a step {launches} != the twin's "
+                            f"{rec['kernel_launches']}")
+        peak, got = rec["per_device"]["peak_hbm_est"], run["step_peak"]
+        rel = got / peak - 1
+        if abs(rel) > DRYRUN_PEAK_TOL:
+            failures.append(f"{tag} rank {r}: peak {got} vs the twin's {peak} ({rel:+.1%})")
+        print(f"{tag} {ARCH} {PAR_LAYERS} layers, {BATCH} x {TRAIN_SEQ}, mesh {PAR_MESH} rank {r} "
+              f"{res['coords']}: peak a step predicted {peak / 2**30:.3f} GiB (arguments "
+              f"{rec['per_device']['argument_bytes'] / 2**30:.3f} + what the step creates at its "
+              f"peak), measured {got / 2**30:.3f} GiB on the card ({rel:+.1%}, within "
+              f"{DRYRUN_PEAK_TOL:.0%}); collective bytes a step "
+              + ("equal" if run["comm"] == want else "DIFFER") + f" ({len(want)} (op, axis) "
+              f"pairs, {sum(want.values()) / 1e9:.3f} GB); kernel launches a step "
+              + ("equal" if launches == rec["kernel_launches"] else "DIFFER")
+              + f" {rec['kernel_launches']}; {rec['per_device']['flops'] / 1e12:.2f} TFLOP a "
+              f"step (predicted); traced in {rec['trace_s']:.1f}s")
+    for arch, shape, mesh in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, mesh)
+        if rec["status"] != "ok":
+            failures.append(f"{tag} {arch} {shape} {mesh}: {rec['status']}")
+        pd = rec["per_device"]
+        print(f"{tag} {arch} {shape} {mesh} ({rec['n_chips']} fake ranks, rank 0; predictions "
+              f"under the H100 data-sheet profile): peak {pd['peak_hbm_est'] / 2**30:.2f} GiB of "
+              f"80, {pd['flops'] / 1e12:.2f} TFLOP, collectives "
+              f"{rec['collectives']['total_bytes'] / 1e9:.3f} GB, traced in {rec['trace_s']}s")
+        print(f"{tag} record: {json.dumps(rec, sort_keys=True)}")
+    print(f"{tag} done in {time.perf_counter() - t0:.1f}s (no card used)")
+
+
+# ----------------------------------------------------------- serve parallel --
+
+# [serve parallel]: four ranks on the card (gloo), the (data 2, model 2)
+# mesh of [train parallel], serving through build_prefill_step (the
+# prompt in train mode) and build_serve_step.  stablelm_3b at full width
+# and depth in decode mode (the cache's sequence over 'model'), zamba2_1p2b
+# at full width in long mode (the batch whole, the cache's sequence over
+# data and model: four ways); bf16, each against one process's greedy
+# tokens; their fp32 gates at a cut depth against one process's logits.
+# A decode step gathers a rank's storage shards of the serving params
+# (FSDP over 'data', as the JAX package's serving layout stores them) and
+# the whole wq, wk, wv over 'model' through gloo's host copies: ~4 GB a rank
+# and 4.4-4.9 s a step on an H100 over gloo, so each run decodes 8 tokens
+# (4 in the fp32 gates) to keep the script inside its limit.
+SERVE_PAR = {
+    "stablelm": dict(arch="stablelm_3b", mode="decode", batch=8, prompt=512, gen=8,
+                     gate_layers=4, gate_gen=4),
+    "zamba2": dict(arch="zamba2_1p2b", mode="long", batch=1, prompt=4096, gen=8,
+                   gate_layers=6, gate_gen=4),
+}
+
+
+def _single_serve(torch, model, params, prompts, gen) -> dict:
+    """One process: the prompt's prefill, then ``gen`` greedy tokens;
+    (the greedy ids (B, gen), the logits of the prefill's last position
+    and of each step (B, gen + 1, V) fp32 on the host)."""
+    import numpy as np
+
+    dev = model.device
+    B, P = prompts.shape
+    with torch.no_grad():
+        cache = model.init_cache(B, P + gen)
+        lg = model.prefill(params, cache, {"tokens": torch.as_tensor(prompts, device=dev)})[:, -1]
+        out, ids = [lg.float().cpu()], []
+        for t in range(gen):
+            ids.append(out[-1].argmax(-1))
+            lg, cache = model.decode_step(params, cache, {
+                "tokens": ids[-1][:, None].to(dev), "cache_pos": P + t,
+                "positions": torch.full((B, 1), P + t, dtype=torch.int32, device=dev)})
+            out.append(lg[:, -1].float().cpu())
+    return {"ids": torch.stack(ids, 1).numpy(), "logits": torch.stack(out, 1).numpy()}
+
+
+def _serve_mesh_run(torch, mesh, key, cfg, p, gen, out_dir) -> dict:
+    """One serving run of ``cfg`` on the mesh (``p`` from ``SERVE_PAR``):
+    the ranks draw the params in turn from seed 0 and keep their storage
+    shards of the serving params (rank 0 first serves them in one process,
+    the reference); then the prompt's prefill and ``gen`` decode steps fed
+    one process's greedy ids.  This rank's logits (its batch rows) go to
+    ``out_dir``; returns its kernel launches, the prefill's and a decode
+    step's collective bytes, the times and the peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.models import Model
+    from repro_torch.parallel.sharding import ShardingContext, use_sharding
+    from repro_torch.train import build_prefill_step, build_serve_step, param_layout, place_batch
+
+    dev = mesh.device
+    ctx = ShardingContext(mesh=mesh, mode=p["mode"])
+    model = Model(cfg, dev)
+    layout = param_layout(model, ctx)
+    B, P = p["batch"], p["prompt"]
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (B, P))
+    shards, single = {}, None
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            full = model.serving_params(model.init(torch.Generator(device=dev).manual_seed(0))[0])
+            shards = {k: v[mesh.shard_slices(layout.storage[k], tuple(v.shape))].clone()
+                      for k, v in full.items()}
+            if mesh.rank == 0:
+                single = _single_serve(torch, model, full, prompts, gen)
+                np.save(Path(out_dir) / f"{key}_single.npy", single["logits"])
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier()
+    box = [None if single is None else single["ids"]]
+    dist.broadcast_object_list(box, src=0)
+    ids = box[0]
+    rows = slice(None)
+    if p["mode"] == "decode":        # this rank's data shard of the batch
+        n = B // mesh.axis_size("data")
+        rows = slice(mesh.axis_index("data") * n, (mesh.axis_index("data") + 1) * n)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh.comm_bytes.clear()
+    reset_counts()
+    with torch.no_grad():
+        with use_sharding(ctx):
+            cache = model.init_cache(B, P + gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prompt = place_batch({"tokens": prompts}, cfg, dataclasses.replace(ctx, mode="train"))
+        lg = build_prefill_step(model, ctx, B, P + gen)(shards, cache, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_bytes = dict(mesh.comm_bytes)
+        mesh.comm_bytes.clear()
+        out = [lg[:, -1].float().cpu()]
+        step = build_serve_step(model, ctx)
+        t0 = time.perf_counter()
+        for t in range(gen):
+            lg, cache = step(shards, cache, {
+                "tokens": torch.as_tensor(ids[rows, t:t + 1], device=dev), "cache_pos": P + t,
+                "positions": torch.full((out[0].shape[0], 1), P + t, dtype=torch.int32,
+                                        device=dev)})
+            out.append(lg[:, -1].float().cpu())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    np.save(Path(out_dir) / f"{key}_rank{mesh.rank}.npy", torch.stack(out, 1).numpy())
+    res = {"counts": read_counts(), "prefill_s": prefill_s, "decode_s": decode_s,
+           "prefill_bytes": {f"{op} {ax}": v for (op, ax), v in prefill_bytes.items()},
+           "step_bytes": {f"{op} {ax}": v / gen for (op, ax), v in mesh.comm_bytes.items()},
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "rows": [rows.start or 0, rows.stop or B], "ids": ids.tolist()}
+    del shards, cache, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_parallel_ranks(out_dir: str):
+    """One rank of ``[serve parallel]`` (spawned by
+    ``repro_torch.launch.mesh.spawn``): its results go to
+    ``out_dir/serve_rank<r>.json`` and its logits beside them."""
+    import torch
+
+    from repro_torch.configs import arch_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(PAR_MESH[1], device=dev)
+    res = {"coords": mesh.coords()}
+    for key, p in SERVE_PAR.items():
+        cfg = arch_config(p["arch"])
+        res[key] = _serve_mesh_run(torch, mesh, key, cfg, p, p["gen"], out_dir)
+        gate = cfg.replace(n_layers=p["gate_layers"], dtype="float32", logit_dtype="float32")
+        res[f"{key} gate"] = _serve_mesh_run(torch, mesh, f"{key}_gate", gate, p, p["gate_gen"],
+                                             out_dir)
+    with open(Path(out_dir) / f"serve_rank{mesh.rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def serve_twin_bytes(cfg, p, rank) -> dict:
+    """The dry run's prediction of one decode step's collective bytes on a
+    rank of the mesh, by (operation, axis)."""
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.launch import dryrun
+
+    kind = "decode" if p["mode"] == "decode" else "long_decode"
+    gen = p["gen"]
+    rec = dryrun.run_config(cfg, ShapeCell("serve", p["prompt"] + gen, p["batch"], kind),
+                            PAR_MESH, ("data", "model"), rank)
+    return rec["collectives"]["per_op_axis"]
+
+
+def serve_parallel_phase(torch, dev, failures, counts):
+    """Four ranks on the one card (gloo) serve stablelm_3b (decode mode)
+    and zamba2_1p2b (long mode) at full width: greedy ids against one
+    process, the fp32 gates at a cut depth, a decode step's collective
+    bytes against the dry run's twin on every rank, and the attention
+    launches (``flash_attention_lse`` on every decode step's attention)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import arch_config
+    from repro_torch.launch.mesh import spawn
+
+    tag = "[serve parallel]"
+    world = math.prod(PAR_MESH)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        try:
+            spawn(serve_parallel_ranks, world, (out,), init_file=os.path.join(out, "store"),
+                  device="cuda", timeout=900)
+        except Exception as e:   # a rank failed: its traceback is in the message
+            failures.append(f"{tag} a rank failed: {e}")
+            return
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"serve_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        logits = {k: (np.load(os.path.join(out, f"{k}_single.npy")),
+                      [np.load(os.path.join(out, f"{k}_rank{r}.npy")) for r in range(world)])
+                  for key in SERVE_PAR for k in (key, f"{key}_gate")}
+    print(f"{tag} {world} ranks ran every part in {time.perf_counter() - t0:.1f}s (spawn, draws "
+          f"and the single-process references included)")
+    serve_parallel_report(ranks, logits, {k: arch_config(p["arch"]) for k, p in SERVE_PAR.items()},
+                          failures, counts)
+
+
+def serve_parallel_report(ranks, logits, configs, failures, counts):
+    """``[serve parallel]``'s checks and lines, from the ranks' results and
+    logits (``configs``: each ``SERVE_PAR`` key's full config)."""
+    import numpy as np
+
+    tag = "[serve parallel]"
+    for key, p in SERVE_PAR.items():
+        cfg = configs[key]
+        for run_key, run_cfg, gen in ((key, cfg, p["gen"]),
+                                      (f"{key}_gate", cfg.replace(
+                                          n_layers=p["gate_layers"], dtype="float32",
+                                          logit_dtype="float32"), p["gate_gen"])):
+            runs = [res[run_key.replace("_gate", " gate")] for res in ranks]
+            single, mine = logits[run_key]
+            label = (f"{tag} {p['arch']} {run_cfg.dtype} at full width, {run_cfg.n_layers} "
+                     f"layers, {p['mode']} mode on data {PAR_MESH[0]} x model {PAR_MESH[1]}, "
+                     f"batch {p['batch']}, prompt {p['prompt']}, {gen} tokens")
+            print(f"{label}: prefill {max(r['prefill_s'] for r in runs) * 1e3:.1f} ms, decode "
+                  f"{max(r['decode_s'] for r in runs) / gen * 1e3:.1f} ms a step (the slowest "
+                  f"rank; the serving params' shards are gathered every step), peak memory "
+                  + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in runs) + " GiB a rank")
+            ties, worst_gap = 0, 0.0
+            for r, (run, got) in enumerate(zip(runs, mine)):
+                lo, hi = run["rows"]
+                want = single[lo:hi]
+                if not np.isfinite(got).all():
+                    failures.append(f"{tag} {run_key} rank {r}: non-finite logits")
+                diff = np.abs(got - want)
+                worst_gap = max(worst_gap, float(diff.max()))
+                if run_cfg.dtype == "float32":
+                    ok = np.allclose(got, want, **MODEL_TOL)
+                    if not ok:
+                        failures.append(f"{tag} {run_key} rank {r}: logits off one process's, "
+                                        f"max_abs_err {float(diff.max()):.3e}")
+                    continue
+                # greedy ids: the mesh's choice at every step where one
+                # process's top two are further apart than the two runs' gap
+                top2 = np.sort(want, axis=-1)[..., -2:]
+                margin = top2[..., 1] - top2[..., 0]
+                row_gap = diff.max(axis=-1)
+                decided = margin > 2 * row_gap
+                same = got.argmax(-1) == want.argmax(-1)
+                ties = max(ties, int((~decided).sum()))
+                if not same[decided].all():
+                    failures.append(f"{tag} {run_key} rank {r}: {int((~same[decided]).sum())} "
+                                    f"greedy ids differ from one process's")
+                run["same"] = float(same.mean())
+            if run_cfg.dtype == "float32":
+                print(f"{label} vs one process, logits at the prefill and every step: "
+                      f"max_abs_err={worst_gap:.3e} (rtol={MODEL_TOL['rtol']}, "
+                      f"atol={MODEL_TOL['atol']})")
+            else:
+                print(f"{label} vs one process (fed one process's greedy ids): the same greedy id "
+                      f"in {min(r['same'] for r in runs):.0%} of (row, step) pairs on the worst "
+                      f"rank; {ties} pairs where one process's top two are within twice the "
+                      f"runs' gap (not held); bf16 logit gap max_abs_err={worst_gap:.3e} "
+                      f"(information)")
+            counts[f"serve parallel {run_key}"] = {
+                name: sum(run["counts"][name] for run in runs) for name in COUNTERS}
+            # the prefill (train mode) launches the forward on every
+            # attention layer (and zamba2's SSD on every Mamba2 layer), each
+            # decode step the log-sum-exp entry on every attention layer
+            if cfg.family == "hybrid":
+                attn = run_cfg.n_layers // max(cfg.attn_every, 1)
+                want_counts = {"ssd": run_cfg.n_layers}
+            else:
+                attn, want_counts = run_cfg.n_layers, {}
+            want_counts.update(flash_attention=attn, flash_attention_lse=attn * gen)
+            for r, run in enumerate(runs):
+                got = {k: v for k, v in run["counts"].items() if v}
+                if got != want_counts:
+                    failures.append(f"{tag} {run_key} rank {r}: launches {got}, expected "
+                                    f"{want_counts}")
+            print(f"{tag}   kernel launches per rank (prefill + {gen} steps): "
+                  + "; ".join(f"{k} {v}" for k, v in sorted(want_counts.items()))
+                  + " (every rank; flash_attention_lse on the decode steps)")
+            twin_cfg = run_cfg
+            for r, run in enumerate(runs):
+                want = serve_twin_bytes(twin_cfg, dict(p, gen=gen), r)
+                if run["step_bytes"] != want:
+                    failures.append(f"{tag} {run_key} rank {r}: a decode step's collective "
+                                    f"bytes {run['step_bytes']} != the dry run's {want}")
+            print(f"{tag}   collective bytes a decode step, each rank (measured = the dry "
+                  f"run's twin): " + ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in
+                                               sorted(runs[0]["step_bytes"].items()))
+                  + "; the prefill's (information): " + ", ".join(
+                      f"{k} {v / 1e6:.2f} MB" for k, v in sorted(runs[0]["prefill_bytes"].items())))
 
 
 def _local_heads(cfg) -> str:

@@ -76,6 +76,11 @@
 // zamba2); decode at Sk 575 with a cold L2, as a CUDA graph of calls,
 // 0.0229 ms against SDPA's 0.0227 (D 80) and 0.0198 against 0.0165 (D 64).
 //
+// A second entry, flash_attention_lse, runs the same kernels with the flag
+// Params::lse set: each also writes its rows' fp32 log-sum-exp, so that the
+// partial outputs of keys split over ranks can be merged (decode with the
+// cache's sequence split, repro_torch.models.layers).
+//
 // Strides are element strides of the (b, head, seq) axes; the last axis
 // must be contiguous, and every pointer and stride 16-byte aligned (the
 // Python wrapper checks).  Launch errors are returned, never swallowed.
@@ -106,7 +111,18 @@ struct Params {
   int64_t osb, osh, oss;
   int causal, window;
   float softcap, scale;
+  float* lse;  // (B, H, Sq) fp32 log-sum-exp of each row's scores, or null (flash_attention_fwd)
 };
+
+constexpr float LN2 = 0.6931471805599453f;
+
+// Row (b, h, qpos)'s log-sum-exp, natural units, into p.lse (when asked):
+// m + log(l) for a row max m (natural units) and a sum l of exp(s - m);
+// -inf for a row that admitted no key (l = 0).
+__device__ __forceinline__ void write_lse(const Params& p, int b, int h, int qpos, float m,
+                                          float l) {
+  p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + qpos] = l > 0.f ? m + logf(l) : -INFINITY;
+}
 
 template <typename T>
 struct Elem;
@@ -201,7 +217,8 @@ template <typename T, int D, int RPW>
 __device__ __forceinline__ void merge_warps(float* buf, const float (&m)[RPW],
                                             const float (&l)[RPW],
                                             const float (&acc)[RPW][(D + 31) / 32], T* og,
-                                            int64_t oss, int q0, int Sq) {
+                                            int64_t oss, int q0, int Sq, const Params& p, int b,
+                                            int h) {
   constexpr int NI = (D + 31) / 32;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -237,6 +254,7 @@ __device__ __forceinline__ void merge_warps(float* buf, const float (&m)[RPW],
       o += As[(w * RPW + r) * D + d] * a;
     }
     og[(q0 + r) * oss + d] = Elem<T>::from_float(o / fmaxf(lsum, 1e-30f));
+    if (p.lse != nullptr && d == 0) write_lse(p, b, h, q0 + r, mx, lsum);
   }
 }
 
@@ -381,9 +399,10 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd(const Params p) {
       for (int i = 0; i < NI; ++i)
         if (i < D / 32 || lane < D % 32)
           og[qpos * p.oss + lane + 32 * i] = Elem<T>::from_float(acc[r][i] * inv);
+      if (p.lse != nullptr && lane == 0) write_lse(p, b, h, qpos, m[r], l[r]);
     }
   } else {
-    merge_warps<T, D, RPW>(smem + S::SLABS, m, l, acc, og, p.oss, q0, p.Sq);
+    merge_warps<T, D, RPW>(smem + S::SLABS, m, l, acc, og, p.oss, q0, p.Sq, p, b, h);
   }
 }
 
@@ -648,6 +667,9 @@ __global__ void __launch_bounds__(PF_WARPS * 32, D <= 80 ? 2 : 1) attn_prefill_b
     for (int nt = 0; nt < NT; ++nt)
       *reinterpret_cast<uint32_t*>(Os + (g + 8 * r) * LD + nt * 8 + 2 * t) =
           mma::pack_bf16(o[nt][2 * r] * inv, o[nt][2 * r + 1] * inv);
+    // m is in log2 units here (the scores carry log2 e)
+    if (p.lse != nullptr && t == 0 && wq0 + g + 8 * r < p.Sq)
+      write_lse(p, b, h, wq0 + g + 8 * r, m[r] * LN2, lr);
   }
   __syncwarp();
   constexpr int VPR = D / 8;
@@ -920,6 +942,8 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
     const int hh = kvh * group + row / p.Sq;
     bf16* og = static_cast<bf16*>(p.o) + b * p.osb + hh * p.osh + (row % p.Sq) * p.oss;
     og[d] = __float2bfloat16_rn(lsum > 0.f ? acc / lsum : 0.f);
+    // mx is in log2 units (the scores carry log2 e)
+    if (p.lse != nullptr && d == 0) write_lse(p, b, hh, row % p.Sq, mx * LN2, lsum);
   }
 }
 
@@ -960,6 +984,19 @@ cudaError_t launch_bf16(const Params& p, int D, cudaStream_t stream) {
   }
 }
 
+int run(const Params& p, int dtype, int D, void* stream) {
+  if (p.B <= 0 || p.H <= 0 || p.KV <= 0 || p.H % p.KV != 0 || p.Sq <= 0 || p.Sk < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dtype) {
+    case 0: err = launch_dim<float>(p, D, s); break;
+    case 1: err = launch_bf16(p, D, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
@@ -971,17 +1008,30 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int64_t osb, int64_t osh, int64_t oss,
                                    int causal, int window, float softcap, float scale,
                                    void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, o, B, H, KV, Sq, Sk,
                  qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-                 causal, window, softcap, scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case 0: err = launch_dim<float>(p, D, s); break;
-    case 1: err = launch_bf16(p, D, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+                 causal, window, softcap, scale, nullptr};
+  return run(p, dtype, D, stream);
+}
+
+// flash_attention_fwd, also writing each row's fp32 log-sum-exp of its
+// scaled, soft-capped, masked scores to `lse`, a contiguous (B, H, Sq)
+// tensor (-inf for a row that admits no key, whose output is 0).  The
+// same kernels run, with the flag Params::lse set: attention whose keys
+// are split over ranks merges the ranks' (o, lse) by
+// o = sum_r exp(lse_r - L) o_r, L = logsumexp_r(lse_r).  What bounds it is
+// what bounds the forward (a decode step reads the cache: bytes); the
+// log-sum-exp adds 4 bytes a row.
+extern "C" int flash_attention_lse(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int dtype, int B, int H, int KV, int Sq, int Sk,
+                                   int D, int64_t qsb, int64_t qsh, int64_t qss,
+                                   int64_t ksb, int64_t ksh, int64_t kss,
+                                   int64_t vsb, int64_t vsh, int64_t vss,
+                                   int64_t osb, int64_t osh, int64_t oss,
+                                   int causal, int window, float softcap, float scale,
+                                   void* stream) {
+  const Params p{q, k, v, o, B, H, KV, Sq, Sk,
+                 qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+                 causal, window, softcap, scale, static_cast<float*>(lse)};
+  return run(p, dtype, D, stream);
 }

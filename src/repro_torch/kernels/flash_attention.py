@@ -17,10 +17,21 @@ projection reads.  dq, dk and dv take q's, k's and v's layouts and dtypes.
 require one while grad mode is on; :func:`repro_torch.kernels.ops.flash_attention`
 sends those through :class:`FlashAttentionFunction` instead.
 
-``launches`` counts the forward kernel's launches and ``bwd_launches``
-the backward's calls (two kernel launches each in bf16, on the tensor
-cores, three at head dim 256; three in fp32, scalar); nothing else
-changes them.  Both directions take the head dims ``SUPPORTED_D``.
+``flash_attention_lse_cuda`` calls the forward's second C entry,
+``flash_attention_lse``: the same kernels, also writing each row's fp32
+log-sum-exp (B,H,Sq), so that attention over keys split across ranks can
+merge the ranks' partial outputs (decode with the cache's sequence split,
+:mod:`repro_torch.models.layers`); it records no gradient either.
+
+``launches`` counts the forward kernel's launches, ``lse_launches`` the
+second entry's and ``bwd_launches`` the backward's calls (two kernel
+launches each in bf16, on the tensor cores, three at head dim 256; three
+in fp32, scalar); nothing else changes them.  Both directions take the
+head dims ``SUPPORTED_D``.
+
+On abstract tensors (:mod:`.abstract`) each wrapper returns outputs of
+the kernel's shapes and records the call's FLOPs (the backward's: twice
+the forward's, Q K^T and P V each differentiated in both operands).
 """
 from __future__ import annotations
 
@@ -30,14 +41,16 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build
+from . import _build, abstract
 
 SUPPORTED_D = (16, 32, 64, 80, 128, 256)   # head dims of the forward and of the backward
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+lse_launches = 0
 bwd_launches = 0
 _fn = None
+_lse_fn = None
 _bwd_fn = None
 
 
@@ -58,6 +71,17 @@ def _kernel():
     if _fn is None:
         _fn = bind_fwd(_build.load("flash_attention"))
     return _fn
+
+
+def _lse_kernel():
+    global _lse_fn
+    if _lse_fn is None:
+        fn = _build.load("flash_attention").flash_attention_lse
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [P] * 5 + [I] * 7 + [L] * 12 + [I, I, ctypes.c_float, ctypes.c_float, P]
+        fn.restype = I
+        _lse_fn = fn
+    return _lse_fn
 
 
 def run_fwd(fn, q, k, v, *, causal: bool, window: int, softcap: float) -> torch.Tensor:
@@ -121,8 +145,9 @@ def _bwd_kernel():
 
 
 def _check_inputs(q, k, v) -> tuple[int, int, int, int, int, int]:
-    """Raises on q/k/v the kernels do not take; returns (B, H, KV, Sq, Sk, D)."""
-    if q.device.type != "cuda":
+    """Raises on q/k/v the kernels do not take; returns (B, H, KV, Sq, Sk, D).
+    Abstract tensors are checked for shape only."""
+    if q.device.type != "cuda" and not abstract.is_abstract(q):
         raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
@@ -136,8 +161,9 @@ def _check_inputs(q, k, v) -> tuple[int, int, int, int, int, int]:
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
     if D not in SUPPORTED_D:
         raise ValueError(f"flash_attention: head dim {D} not in {SUPPORTED_D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, q.dtype, q.device)
+    if not abstract.is_abstract(q):
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check(name, t, q.dtype, q.device)
     return B, H, KV, Sq, Sk, D
 
 
@@ -152,11 +178,49 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError("flash_attention_cuda records no gradient; call "
                            "repro_torch.kernels.ops.flash_attention, whose autograd Function "
                            "runs the backward kernel")
-    _check_inputs(q, k, v)
+    B, H, KV, Sq, Sk, D = _check_inputs(q, k, v)
+    if abstract.is_abstract(q):
+        out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+        if out.numel():
+            abstract.record("flash_attention", abstract.attention_flops(B, H, Sq, Sk, D))
+        return out
     out = run_fwd(_kernel(), q, k, v, causal=causal, window=window, softcap=softcap)
     if out.numel():
         launches += 1
     return out
+
+
+def flash_attention_lse_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                             softcap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel through the ``flash_attention_lse`` entry: (out
+    (B,H,Sq,D) in q's dtype, the view of a (B,Sq,H,D) tensor; lse (B,H,Sq)
+    fp32, the log-sum-exp of each row's scaled, soft-capped, masked
+    scores, -inf where a row admits no key).  Raises as
+    :func:`flash_attention_cuda` does, also on inputs that require a
+    gradient while grad mode is on (it has no backward)."""
+    global lse_launches
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention_lse records no gradient: it serves decode steps")
+    B, H, KV, Sq, Sk, D = _check_inputs(q, k, v)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    if abstract.is_abstract(q):
+        abstract.record("flash_attention_lse", abstract.attention_flops(B, H, Sq, Sk, D))
+        return out, lse
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _lse_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(D), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_lse kernel launch failed: CUDA error {rc}")
+    lse_launches += 1
+    return out, lse
 
 
 def run_bwd(fn, q, k, v, out, dout, *, causal: bool, window: int, softcap: float):
@@ -200,6 +264,12 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True, window:
         if tuple(t.shape) != (B, H, Sq, D):
             raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)}, "
                              f"expected {(B, H, Sq, D)}")
+    if abstract.is_abstract(q):
+        grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        if q.numel():   # the scratch run_bwd allocates: lse and delta
+            torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+            abstract.record("flash_attention_bwd", 2 * abstract.attention_flops(B, H, Sq, Sk, D))
+        return grads
     _check("out", out, q.dtype, q.device)
     if dout.device != q.device or dout.dtype != q.dtype:
         raise TypeError(f"flash_attention_bwd: dout is {dout.dtype} on {dout.device}, "

@@ -24,6 +24,12 @@ grad mode, since its output would carry none.  ``launches`` counts calls
 that launched the forward kernels (a bf16 call is two kernel launches, an
 fp32 call one) and ``bwd_launches`` calls of the backward (four kernel
 launches each in fp32, five in bf16); nothing else changes them.
+
+On abstract tensors (:mod:`.abstract`) both wrappers return outputs of
+the kernels' shapes (not their scratch, whose size the built library
+computes) and record the call's FLOPs
+(the backward's: each einsum differentiated in both operands, less the
+last chunk's state update, which only the final state reads).
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build
+from . import _build, abstract
 
 COLS = 32         # D: a multiple of 4 up to 32, or a multiple of 32 ...
 MAX_D = 512       # ... up to 512
@@ -138,7 +144,7 @@ def _chunk_ok(chunk: int) -> bool:
 def _check_inputs(q, k, v, i_gate, f_gate, chunk: int) -> tuple[int, int, int, int]:
     """(B, S, H, D) of valid kernel inputs; raises on what the kernels do
     not take."""
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not abstract.is_abstract(q):
         raise ValueError(f"mlstm_scan_cuda takes CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"mlstm_scan: dtype {q.dtype} not supported (float32, bfloat16)")
@@ -182,6 +188,9 @@ def mlstm_scan_cuda(q, k, v, i_gate, f_gate, *, chunk: int):
     S_f = torch.empty((B, H, D, D), dtype=torch.float32, device=q.device)
     n_f = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     m_f = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if abstract.is_abstract(q):   # the scratch's size is the built library's: not allocated
+        abstract.record("mlstm", abstract.mlstm_flops(B, S, H, D, chunk))
+        return h, (S_f, n_f, m_f)
     scratch = torch.empty((scratch_bytes(B, S, H, chunk, q.dtype) // 4,), dtype=torch.float32,
                           device=q.device)
     with torch.cuda.device(q.device):
@@ -214,6 +223,9 @@ def mlstm_scan_bwd_cuda(q, k, v, i_gate, f_gate, dh, *, chunk: int):
     dh = dh if dh.stride(-1) == 1 else dh.contiguous()
     dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
     di, df = (torch.empty((B, S, H), dtype=q.dtype, device=q.device) for _ in range(2))
+    if abstract.is_abstract(q):
+        abstract.record("mlstm_bwd", abstract.mlstm_bwd_flops(B, S, H, D, chunk))
+        return dq, dk, dv, di, df
     scratch = torch.empty((bwd_scratch_bytes(B, S, H, D, chunk) // 4,), dtype=torch.float32,
                           device=q.device)
     strides = (ctypes.c_int64 * 18)(*(s for t in (q, k, v, i_gate, f_gate, dh)

@@ -47,6 +47,33 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0, softcap: flo
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 
+def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                      softcap: float = 0.0):
+    """:func:`attention_ref` and each row's log-sum-exp, from one product
+    Q K^T: (out (B,H,Sq,D) in q's dtype, lse (B,H,Sq) fp32), lse the
+    logsumexp of the row's scaled, soft-capped scores over the keys its
+    mask admits, -inf where it admits none (that row's output is 0)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    group = H // KV
+    kf = _wide(k).repeat_interleave(group, dim=1)
+    vf = _wide(v).repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", _wide(q), kf) / math.sqrt(D)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.nan_to_num(torch.exp(s - lse[..., None]), nan=0.0)   # fully-masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype), lse
+
+
 def ssd_ref(x, dt, A, Bmat, Cmat):
     """Sequential SSD recurrence (the definitional oracle).
 

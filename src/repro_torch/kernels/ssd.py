@@ -18,6 +18,12 @@ is followed by ``ssd_bwd_reduce``, which sums the per-head partials.
 grad mode, since its output would carry none.  ``launches`` counts the
 forward kernel's launches and ``bwd_launches`` the backward's calls (two
 kernel launches each); nothing else changes them.
+
+On abstract tensors (:mod:`.abstract`) both wrappers return outputs of
+the kernels' shapes (not the backward's scratch, whose size the built
+library computes) and record the call's FLOPs
+(the backward's twice the forward's: each einsum differentiated in both
+operands).
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build
+from . import _build, abstract
 
 MAX_NP = 64      # N and P: multiples of 4 in [4, 64]
 MAX_CHUNK = 128  # chunk: a multiple of 4 in [4, 128]
@@ -108,7 +114,7 @@ def _size_ok(v: int, hi: int) -> bool:
 def _check_inputs(x, dt, A, Bmat, Cmat, chunk: int) -> tuple[int, int, int, int, int]:
     """(B, S, H, P, N) of valid kernel inputs; raises on what the kernels
     do not take."""
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not abstract.is_abstract(x):
         raise ValueError(f"ssd_scan_cuda takes CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"ssd_scan: dtype {x.dtype} not supported (float32, bfloat16)")
@@ -150,6 +156,9 @@ def ssd_scan_cuda(x, dt, A, Bmat, Cmat, *, chunk: int) -> tuple[torch.Tensor, to
     B, S, H, P, N = _check_inputs(x, dt, A, Bmat, Cmat, chunk)
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    if abstract.is_abstract(x):
+        abstract.record("ssd", abstract.ssd_flops(B, S, H, P, N, chunk))
+        return y, state
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _kernel()(
@@ -190,6 +199,9 @@ def ssd_scan_bwd_cuda(x, dt, A, Bmat, Cmat, dy, dfinal=None, *, chunk: int):
     dA = torch.empty((H,), dtype=torch.float32, device=x.device)
     dB = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
     dC = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
+    if abstract.is_abstract(x):   # the scratch's size is the built library's: not allocated
+        abstract.record("ssd_bwd", 2 * abstract.ssd_flops(B, S, H, P, N, chunk))
+        return dx, ddt, dA, dB, dC
     scratch = torch.empty((bwd_scratch_bytes(B, S, H, P, N, chunk) // 4,), dtype=torch.float32,
                           device=x.device)
     with torch.cuda.device(x.device):

@@ -1,8 +1,12 @@
-"""The host mesh over the ranks of a ``torch.distributed`` world.
+"""The host mesh over the ranks of a ``torch.distributed`` world, and the
+production meshes over fake ranks.
 
 Ports :func:`repro.launch.mesh.make_host_mesh`: a (world / N, N) mesh
 on the axes ("data", "model"), built over the ranks of the process
-group where the JAX package builds it over the host's devices.  One
+group where the JAX package builds it over the host's devices; and
+:func:`repro.launch.mesh.make_production_mesh` (:func:`make_production_mesh`),
+one rank of the 256 or 512 on ``torch.distributed``'s ``fake`` backend,
+for the dry run.  One
 process per rank; the world comes from ``torchrun``'s environment
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``) or from :func:`spawn`, which the tests and
@@ -84,11 +88,18 @@ def make_host_mesh(model_parallel: int = 1, axis_names=("data", "model"), *,
     initialised process group, rank = data * model_parallel + model;
     ``device`` is where this rank's tensors live.  Every rank must call
     it (each creates every axis group, in the same order)."""
-    world, rank = dist.get_world_size(), dist.get_rank()
+    world = dist.get_world_size()
     if world % model_parallel:
         raise ValueError(f"--model-parallel {model_parallel} does not divide the "
                          f"world of {world} ranks")
-    shape = (world // model_parallel, model_parallel)
+    return _process_mesh((world // model_parallel, model_parallel), tuple(axis_names), device)
+
+
+def _process_mesh(shape: tuple, axis_names: tuple, device: torch.device) -> ProcessMesh:
+    """A :class:`ProcessMesh` of ``shape`` over the initialised process
+    group's ranks, row-major; each axis's groups made by every rank in the
+    same order."""
+    world, rank = dist.get_world_size(), dist.get_rank()
     groups = {}
     for a, name in enumerate(axis_names):
         mine = None
@@ -100,8 +111,35 @@ def make_host_mesh(model_parallel: int = 1, axis_names=("data", "model"), *,
             if rank in ranks:
                 mine = group
         groups[name] = mine
-    return ProcessMesh(tuple(range(world)), tuple(axis_names), shape, rank, groups,
+    return ProcessMesh(tuple(range(world)), tuple(axis_names), tuple(shape), rank, groups,
                        dist.get_backend(), device)
+
+
+def make_fake_mesh(shape: tuple, axis_names: tuple, rank: int = 0) -> ProcessMesh:
+    """Rank ``rank`` of a mesh of ``shape`` on ``axis_names`` whose other
+    ranks do not exist: the default process group of this process is
+    (re)made on ``torch.distributed``'s ``fake`` backend (its collectives
+    return outputs of the right shapes and move nothing), so that one
+    process can run one rank's step on abstract tensors (the dry run,
+    :mod:`repro_torch.launch.dryrun`).  Its tensors live on the CPU
+    device, as FakeTensors."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=int(np.prod(shape)))
+    return _process_mesh(tuple(shape), tuple(axis_names), torch.device("cpu"))
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> ProcessMesh:
+    """The JAX package's production meshes (``repro.launch.mesh``), as
+    rank ``rank`` of fake ranks (:func:`make_fake_mesh`): one pod,
+    (16, 16) on ("data", "model"), 256 ranks; two pods, (2, 16, 16) on
+    ("pod", "data", "model"), 512."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"), rank)
+    return make_fake_mesh((16, 16), ("data", "model"), rank)
 
 
 def _rank_main(rank: int, world: int, init_file: str, device: str, fn: Callable, args: tuple):

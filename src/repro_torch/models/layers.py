@@ -12,10 +12,12 @@ einsums.
 
 Without a sharding context (and on a mesh whose model axis is 1) the
 projections are plain matmuls and ``moe`` is ``_moe_dense``.  Under a
-train-mode context on a :class:`~repro_torch.parallel.sharding.ProcessMesh`
-whose model axis m is above 1, a rank holds the weights in the layout
-:func:`compute_spec` gives them and the residual stream sequence-sharded
-over ``model`` (Megatron-SP, ``residual_seq``):
+context on a :class:`~repro_torch.parallel.sharding.ProcessMesh` whose
+model axis m is above 1, a rank holds the weights in the layout
+:func:`compute_spec` gives them, in every mode.  In ``train`` mode (and
+a prefill, which runs in it, as JAX's prefill cell does) the residual
+stream is sequence-sharded over ``model`` (Megatron-SP,
+``residual_seq``):
 
 * ``column_parallel_in`` all-gathers the input's sequence once for the
   block's projections (its backward reduce-scatters);
@@ -39,6 +41,29 @@ over ``model`` (Megatron-SP, ``residual_seq``):
   (:func:`take_columns`, :func:`first_local_head`); autograd's zeros
   outside them are summed away by the param's reduce-scatter.
 
+In the serving modes, ``decode`` and ``long`` (JAX's ``ACT_RULES``), one
+token a step: the residual (B, 1, d) is whole over ``model``, so
+``column_parallel_in`` gathers nothing and ``row_parallel_out``
+all-reduces the rank's partial product over ``model`` (the MLP, the
+recurrent blocks and attention's ``wo`` alike); ``moe`` keeps
+``_moe_shard_map``'s per-data-shard capacity, as JAX takes its
+``shard_map`` whatever the mode.  Attention decodes context-parallel: the
+cache's sequence (``kv_seq``) is split over ``model`` in ``decode`` mode
+and over (pod, data, model) in ``long`` mode, and every KV head's rows
+of a rank's slice are on that rank.  A rank computes every head of the
+new token's q, k and v (``wq``, ``wk``, ``wv`` are whole in these modes,
+:func:`compute_spec`, as GSPMD computes them under those rules),
+writes the token's K and V where its slice holds the written slot,
+attends every query head over the admitted rows of its slice through
+:func:`repro_torch.kernels.ops.flash_attention_lse` (no admitted row:
+output 0, log-sum-exp -inf, no launch), and merges the ranks' partial
+outputs by one all-gather of (o, lse) over the split axes and the sum
+weighted by exp(lse_r - logsumexp_r lse_r); ``wo`` then takes the rank's
+heads.  The serving layout needs the batch split over every axis its
+rule names and the cache's sequence over every axis of ``kv_seq`` the
+batch leaves (``repro_torch.models.Model.cache_layouts`` raises
+otherwise, with the cause).
+
 Where JAX's ``shard_map`` paths fall back to an einsum and a constraint
 (m not dividing d_model or n_heads), the port computes that projection
 whole on every rank of the model axis (the weight replicated there):
@@ -50,6 +75,7 @@ refused, not in their numbers: the model axis must divide the sequence
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -100,10 +126,8 @@ def rope(x, positions, theta: float = 10_000.0, sections: tuple[int, ...] = ()):
         assert sum(sections) == half, (sections, half)
         assert positions.dim() == 3
         # Each frequency channel uses the position id of its section.
-        sec_id = torch.repeat_interleave(
-            torch.arange(len(sections), device=x.device),
-            torch.tensor(sections, device=x.device),
-        )                                                    # (half,) in {0,1,2}
+        sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                              device=x.device)               # (half,) in {0,1,2}
         pos = positions.float()                              # (3, B, S)
         angle = pos[sec_id].permute(1, 2, 0) * freqs         # (B, S, half)
     else:
@@ -160,8 +184,11 @@ def attention(
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
     win = int(window) if window is not None and int(window) > 0 else 0
-    # the rank's heads: H/m and KV/m under tensor parallelism, else all
+    # the rank's heads: H/m and KV/m under tensor parallelism, else all;
+    # in a serving mode the rank computes every head's q, k, v (whole
+    # wq, wk, wv) and its output projection's heads Ho (wo's rows)
     Hl, KVl = params[f"{name}/wq"].shape[1], params[f"{name}/wk"].shape[1]
+    Ho = params[f"{name}/wo"].shape[0]
 
     q, k, v = column_parallel_in(x, [
         params[f"{name}/wq"].to(dt).reshape(d, Hl * hd),
@@ -174,12 +201,14 @@ def attention(
     q = rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     fresh_kv = (k, v) if collect_kv else None
-    if Hl < H and KVl == KV:
-        k, v = _kv_for_local_heads(cfg, Hl, k, v)
 
-    if cache is not None:
-        if S != 1:
-            raise NotImplementedError("decode with a cache takes one token per step")
+    if cache is not None and S != 1:
+        raise NotImplementedError("decode with a cache takes one token per step")
+    split = _kv_split() if cache is not None else None
+    if split is not None:
+        out = _decode_split(cfg, q, k, v, cache, cache_pos, win, *split)
+        aux = cache
+    elif cache is not None:
         S_k = cache["k"].shape[1]
         ring = bool(cache.get("ring", False))
         # In-place write: the JAX package's dynamic_update_slice returns a
@@ -204,11 +233,16 @@ def attention(
         out = _attend(cfg, q, k_att, v_att, causal=False, window=0)
         aux = cache
     else:
+        if Hl < H and KVl == KV:
+            k, v = _kv_for_local_heads(cfg, Hl, k, v)
         out = _attend(cfg, q, k, v, causal=True, window=win)
         aux = fresh_kv
 
-    out = row_parallel_out(out.reshape(B, S, Hl * hd),
-                           params[f"{name}/wo"].to(dt).reshape(Hl * hd, d), Hl < H)
+    if out.shape[2] > Ho:      # this rank's heads of a whole output
+        h0 = first_local_head(Ho, H)
+        out = out[:, :, h0:h0 + Ho]
+    out = row_parallel_out(out.reshape(B, S, Ho * hd),
+                           params[f"{name}/wo"].to(dt).reshape(Ho * hd, d), Ho < H)
     return out, aux
 
 
@@ -227,21 +261,103 @@ def _kv_for_local_heads(cfg: ModelConfig, Hl: int, k, v):
 
 
 def _row_parallel_ctx():
-    """(ctx, m) when a train-mode context's mesh has a 'model' axis of
-    m > 1, so the block runs the explicit Megatron-SP collectives, else
-    None.  JAX also asks that m divide the contracted dim and the
-    sequence: the first decides each projection's layout in
-    :func:`compute_spec`, the second ``Model.forward`` requires."""
+    """(ctx, m) when the current context's mesh has a 'model' axis of
+    m > 1, in any mode, else None.  JAX also asks that m divide the
+    contracted dim and, in train mode, the sequence: the first decides
+    each projection's layout in :func:`compute_spec`, the second
+    ``Model.forward`` requires."""
     ctx = current_context()
     if ctx is None:
         return None
     m = ctx.mesh.axis_sizes().get("model", 1)
-    if m <= 1:
+    return None if m <= 1 else (ctx, m)
+
+
+def _seq_parallel(rp) -> bool:
+    """Megatron-SP (the sequence-sharded residual): train mode on a model
+    axis above 1 (``rp`` from :func:`_row_parallel_ctx`)."""
+    return rp is not None and rp[0].mode == "train"
+
+
+def rule_axes(ctx, name: str) -> tuple[str, ...]:
+    """The axes of ``ctx.mesh`` that the activation rule of ``name`` names,
+    major first."""
+    rule = ctx.act_rule(name)
+    axes = () if rule is None else ((rule,) if isinstance(rule, str) else tuple(rule))
+    return tuple(a for a in axes if a in ctx.mesh.axis_sizes())
+
+
+def kv_seq_axes(ctx) -> tuple[str, ...]:
+    """The axes a serving cache's sequence is split over: those of
+    ``kv_seq``'s rule that the batch's does not take (the cache's batch
+    axis comes first)."""
+    batch = set(rule_axes(ctx, "batch"))
+    return tuple(a for a in rule_axes(ctx, "kv_seq") if a not in batch)
+
+
+def _kv_split():
+    """(mesh, axes) when a serving context splits the cache's sequence
+    over ``axes`` (more than one rank), else None."""
+    ctx = current_context()
+    if ctx is None or ctx.mode == "train":
         return None
-    if ctx.mode != "train":
-        raise NotImplementedError(f"mode {ctx.mode!r} on a model axis of {m} is not ported "
-                                  "yet: ROADMAP.md A17")
-    return ctx, m
+    axes = kv_seq_axes(ctx)
+    sizes = ctx.mesh.axis_sizes()
+    if math.prod(sizes[a] for a in axes) <= 1:
+        return None
+    return ctx.mesh, axes
+
+
+def _decode_split(cfg: ModelConfig, q, k, v, cache: dict, cache_pos: int, win: int, mesh,
+                  axes: tuple):
+    """One token's attention over a cache whose sequence is split over
+    ``axes`` (context parallel): q (B,1,H,hd), k/v (B,1,KV,hd), every
+    head of the new token (the serving layout's wq, wk, wv are whole);
+    the cache's (B, S_k/n, KV, hd) slice, every KV head.  Returns
+    (B,1,H,hd), the merged output of every head (the caller keeps its
+    own)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B = q.shape[0]
+    if q.shape[2] != H or k.shape[2] != KV:
+        raise ValueError(f"split-cache decode needs every head of q, k, v (wq, wk, wv whole, "
+                         f"the serving layout of compute_spec); got {q.shape[2]} of {H} query "
+                         f"and {k.shape[2]} of {KV} KV heads")
+    sizes, coords = mesh.axis_sizes(), mesh.coords()
+    part = 0
+    for a in axes:
+        part = part * sizes[a] + coords[a]
+    Sc = cache["k"].shape[1]
+    S_k = Sc * math.prod(sizes[a] for a in axes)
+    off = part * Sc
+    ring = bool(cache.get("ring", False))
+    w = cache_pos % S_k if ring else cache_pos
+    if off <= w < off + Sc:      # this rank's slice holds the written slot
+        cache["k"][:, w - off:w - off + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, w - off:w - off + 1] = v.to(cache["v"].dtype)
+    # the admitted rows, as on one device (see attention), cut to the slice
+    if ring:
+        lo, hi = 0, min(cache_pos, S_k - 1) + 1
+    else:
+        lo, hi = (max(0, cache_pos - win + 1) if win else 0), cache_pos + 1
+    lo, hi = max(lo, off) - off, min(hi, off + Sc) - off
+    if hi > lo:
+        o, lse = ops.flash_attention_lse(
+            q.transpose(1, 2), cache["k"][:, lo:hi].to(q.dtype).transpose(1, 2),
+            cache["v"][:, lo:hi].to(q.dtype).transpose(1, 2), causal=False, window=0,
+            softcap=cfg.attn_softcap)
+    else:
+        o = q.new_zeros((B, H, 1, hd))
+        lse = torch.full((B, H, 1), float("-inf"), dtype=torch.float32, device=q.device)
+    # one gather of (o, lse) over each split axis, then the weighted sum
+    part = torch.cat([o.float(), lse[..., None]], dim=-1)[None]    # (1,B,H,1,hd+1)
+    for a in axes:
+        part = coll.all_gather(part, mesh, a, 0)
+    o_r, lse_r = part[..., :hd], part[..., hd]
+    top = lse_r.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    wgt = torch.exp(lse_r - top)             # exp(-inf) = 0: a rank with no admitted row
+    out = (wgt[..., None] * o_r).sum(dim=0) / wgt.sum(dim=0)[..., None]
+    return out.to(q.dtype).transpose(1, 2)   # (B,1,H,hd)
 
 
 def row_parallel_out(x, w, contract_sharded: bool):
@@ -252,12 +368,16 @@ def row_parallel_out(x, w, contract_sharded: bool):
     rows) the partial sums are reduce-scattered over the sequence in one
     collective (Megatron-SP's g-bar; backward: all-gather); with K whole
     the product is complete on every rank and each keeps its sequence
-    slice.  Without a model axis, x @ w."""
+    slice.  In a serving mode (one token, the residual whole over
+    'model') the partial sums are all-reduced instead.  Without a model
+    axis, x @ w."""
     out = x @ w
     rp = _row_parallel_ctx()
     if rp is None:
         return out
     mesh = rp[0].mesh
+    if not _seq_parallel(rp):   # a serving mode: the residual is whole over 'model'
+        return coll.all_reduce(out, mesh, "model") if contract_sharded else out
     if contract_sharded:
         return coll.reduce_scatter(out, mesh, "model", 1)
     return coll.take(out, mesh, "model", 1)
@@ -268,9 +388,10 @@ def column_parallel_in(x, weights: list):
     sequence-sharded input feeds every projection in the block (its
     backward is a reduce-scatter).  x: (B, S/m, d); weights: (d, F_i)
     local (the rank's columns, or whole).  Returns [(B, S, F_i)].
-    Without a model axis, plain matmuls."""
+    Without a model axis, or in a serving mode (x whole), plain
+    matmuls."""
     rp = _row_parallel_ctx()
-    if rp is not None:
+    if _seq_parallel(rp):
         x = coll.all_gather(x, rp[0].mesh, "model", 1)
     return [x @ w for w in weights]
 
@@ -298,7 +419,7 @@ def _recurrent_heads(cfg: ModelConfig, block: str) -> int:
 
 
 def compute_spec(name: str, logical_axes: tuple, shape: tuple, cfg: ModelConfig,
-                 m: int) -> tuple:
+                 m: int, mode: str = "train") -> tuple:
     """The layout a param of ``shape`` is computed in on a model axis of
     m: per dimension "model" (the rank's 1/m of it) or None (whole).
 
@@ -312,10 +433,18 @@ def compute_spec(name: str, logical_axes: tuple, shape: tuple, cfg: ModelConfig,
     recurrent params whose columns concatenate parts) is whole.  Raises
     where m divides d_model but not a dense MLP's d_ff: JAX's
     ``shard_map`` falls back to GSPMD there, which the port has no
-    counterpart of."""
+    counterpart of.
+
+    In a serving mode (``decode``, ``long``) attention's ``wq``, ``wk``
+    and ``wv`` are whole: every rank computes the new token's query, key
+    and value heads, as JAX's GSPMD does under those modes' rules (no
+    ``kv_heads`` split, the cache split by sequence), and attends every
+    query head over its slice of the cache; ``wo`` stays split by heads."""
     if m <= 1:
         return (None,) * len(logical_axes)
     parts = name.split("/")
+    if mode != "train" and parts[-2:-1] == ["attn"] and parts[-1] in ("wq", "wk", "wv"):
+        return (None,) * len(logical_axes)
     block = parts[-2].rstrip("0123456789") if len(parts) > 1 else ""
     if block in _RECURRENT_SPLIT:
         axis = _RECURRENT_SPLIT[block].get(parts[-1])
@@ -463,17 +592,23 @@ def moe(params, name: str, cfg: ModelConfig, x):
     """Top-k expert routing with per-expert capacity buffers.
 
     Under a context whose model axis m > 1 divides n_experts,
-    :func:`_moe_shard_map` (expert parallel, capacity per data shard).
+    :func:`_moe_shard_map` (expert parallel, capacity per data shard), in
+    every mode, as JAX takes its ``shard_map`` whatever the mode.
     Otherwise ``_moe_dense`` over every token of the global batch (what
     ``moe`` runs without a sharding context): on a mesh, the tokens are
-    all-gathered over 'data' (and the sequence over 'model') first and
-    the rank's own come back out.  x (B, S, d) -> (B, S, d)."""
+    all-gathered over 'data' (and, in train mode, the sequence over
+    'model') first and the rank's own come back out.  x (B, S, d) ->
+    (B, S, d)."""
     ctx = current_context()
     if ctx is None:
         return _moe_dense(params, name, cfg, x)
     m = ctx.mesh.axis_sizes().get("model", 1)
     if _row_parallel_ctx() is not None and cfg.n_experts % m == 0:
         return _moe_shard_map(params, name, cfg, x, ctx)
+    if ctx.mode != "train":   # one token a step, the batch split over its rule's axes
+        split = ((rule_axes(ctx, "batch"), (), ()), ((), (), ()))
+        y = _moe_dense(params, name, cfg, coll.redistribute(x, ctx.mesh, *split))
+        return coll.redistribute(y, ctx.mesh, *split[::-1])
     src = ("batch", "residual_seq", "embed") if m > 1 else ("batch", "seq", "embed")
     whole = (None, "seq", "embed")
     y = _moe_dense(params, name, cfg, constrain(x, whole, src))
@@ -490,7 +625,8 @@ def _moe_shard_map(params, name: str, cfg: ModelConfig, x, ctx):
     (E, cap + 1, d) over 'model' to combine them; each keeps its sequence
     slice.  The shared expert, if any, runs through :func:`mlp`."""
     mesh = ctx.mesh
-    xg = constrain(x, ("batch", "seq", "embed"), ("batch", "residual_seq", "embed"))
+    sp = ctx.mode == "train"    # a serving mode's token is whole over 'model'
+    xg = constrain(x, ("batch", "seq", "embed"), ("batch", "residual_seq", "embed")) if sp else x
     Bl, Sl, d = xg.shape
     dt = xg.dtype
     Tl, k = Bl * Sl, cfg.top_k
@@ -507,8 +643,9 @@ def _moe_shard_map(params, name: str, cfg: ModelConfig, x, ctx):
     out_all = coll.all_gather(out_loc, mesh, "model", 0)   # (E, cap + 1, d)
     gathered = torch.where(keep[:, None], out_all[expert, slot], 0)
     y = (gathered * weights.reshape(-1, 1)).reshape(Tl, k, d).sum(dim=1)
-    y = constrain(y.reshape(Bl, Sl, d), ("batch", "residual_seq", "embed"),
-                  ("batch", "seq", "embed"))
+    y = y.reshape(Bl, Sl, d)
+    if sp:
+        y = constrain(y, ("batch", "residual_seq", "embed"), ("batch", "seq", "embed"))
     if cfg.n_shared_experts:
         y = y + mlp(params, f"{name}/shared", x)
     return y

@@ -18,6 +18,12 @@ the params are the rank's storage shards: ``embed`` and ``logits`` gather
 the embedding table, the head and the final norm where they use them,
 and each block's params are gathered in the layer loop
 (:mod:`repro_torch.models.transformer`).
+
+Under a serving context (``decode`` or ``long`` mode, one token a step)
+the token is whole over 'model': the lookup's partial rows are
+all-reduced, and the vocabulary-parallel logits are all-gathered over
+'model' so that every rank holds the whole row.  The cache is the rank's
+shard of every leaf (:meth:`Model.cache_layouts`, ``init_cache``).
 """
 from __future__ import annotations
 
@@ -27,10 +33,12 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.parallel import collectives as coll
-from repro_torch.parallel.sharding import current_context
+from repro_torch.parallel.sharding import (ProcessMesh, current_context, resolve_spec,
+                                           spec_axes)
 
 from .common import ModelConfig, ParamBuilder, torch_dtype
-from .layers import compute_params, init_rmsnorm, rmsnorm
+from .layers import (_row_parallel_ctx, _seq_parallel, compute_params, init_rmsnorm,
+                     kv_seq_axes, rmsnorm, rule_axes)
 from .transformer import (KV_ENTRIES, decode_blocks, forward_blocks, init_blocks,
                           init_cache_shapes, local_layers)
 
@@ -83,18 +91,19 @@ class Model:
 
     # -------------------------------------------------------------- forward --
     def embed(self, params: dict, batch: dict) -> torch.Tensor:
-        """(B, S, d) in the compute dtype; on a model axis m > 1 the rank's
-        sequence slice (B, S/m, d)."""
+        """(B, S, d) in the compute dtype; in train mode on a model axis
+        m > 1 the rank's sequence slice (B, S/m, d)."""
         cfg = self.cfg
-        mesh = _model_mesh()
+        mesh, sp = _model_mesh(serving=True), _model_mesh() is not None
         if cfg.embed_inputs:
             x = batch["embeds"].to(cfg.compute_dtype)
-            return x if mesh is None else coll.take(x, mesh, "model", 1)
+            return coll.take(x, mesh, "model", 1) if sp else x
         table, tokens = _read(params, "embed/table", cfg.compute_dtype), batch["tokens"]
         if mesh is None:
             return table[tokens].to(cfg.compute_dtype)
         if table.shape[0] == cfg.vocab:            # the table whole on every rank
-            return coll.take(table[tokens].to(cfg.compute_dtype), mesh, "model", 1)
+            rows = table[tokens].to(cfg.compute_dtype)
+            return coll.take(rows, mesh, "model", 1) if sp else rows
         # the rank's rows of the table: a token elsewhere gives a zero row,
         # so the sum over 'model' is the lookup, exactly
         lo = mesh.axis_index("model") * table.shape[0]
@@ -103,18 +112,27 @@ class Model:
         rows = table[local.clamp(0, table.shape[0] - 1)].to(cfg.compute_dtype)
         rows = torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                              device=rows.device))
-        return coll.reduce_scatter(rows, mesh, "model", 1)
+        if sp:
+            return coll.reduce_scatter(rows, mesh, "model", 1)
+        return coll.all_reduce(rows, mesh, "model")
 
     def logits(self, params: dict, y: torch.Tensor) -> torch.Tensor:
-        """(B, S, V) from the residual; on a model axis m > 1 the rank's
-        vocabulary slice (B, S, V/m) of the whole sequence."""
+        """(B, S, V) from the residual; in train mode on a model axis m > 1
+        the rank's vocabulary slice (B, S, V/m) of the whole sequence (y,
+        the rank's sequence slice, is gathered first), in a serving mode
+        the whole row (the rank's slice gathered over 'model')."""
+        mesh = _model_mesh(serving=True)
+        if mesh is not None and _model_mesh() is not None:
+            return self._head(params, coll.all_gather(y, mesh, "model", 1))
+        return self._whole_vocab(self._head(params, y), mesh)
+
+    def _head(self, params: dict, y: torch.Tensor) -> torch.Tensor:
+        """The final norm, the head (the rank's vocabulary slice on a
+        model axis that splits it) and the final softcap."""
         cfg = self.cfg
         norm = compute_params({k: v for k, v in params.items() if k.startswith("final_norm/")},
                               "", cfg.compute_dtype)
         y = rmsnorm(norm, "final_norm", y, cfg.norm_eps)
-        mesh = _model_mesh()
-        if mesh is not None:
-            y = coll.all_gather(y, mesh, "model", 1)
         w = _read(params, "embed/table", cfg.compute_dtype).T if cfg.tie_embeddings else \
             _read(params, "head/w", cfg.compute_dtype)
         logits = (y @ w.to(cfg.compute_dtype)).to(torch_dtype(cfg.logit_dtype))
@@ -123,9 +141,22 @@ class Model:
                 logits.float() / cfg.final_softcap)).to(logits.dtype)
         return logits
 
-    def forward(self, params: dict, batch: dict, collect_kv: bool = False):
+    def _whole_vocab(self, logits: torch.Tensor, mesh) -> torch.Tensor:
+        """``logits`` whole over the vocabulary: gathered over 'model' where
+        they are the rank's slice."""
+        if mesh is None or logits.shape[-1] == self.cfg.vocab:
+            return logits
+        return coll.all_gather(logits, mesh, "model", 2)
+
+    def forward(self, params: dict, batch: dict, collect_kv: bool = False, *,
+                last: bool = False):
         """Logits (B,S,V) and, with ``collect_kv``, the prefill's cache
-        contents: a dict keyed like ``init_cache`` (``forward_blocks``)."""
+        contents: a dict keyed like ``init_cache`` (``forward_blocks``).
+        With ``last``, the logits of the last position only (B,1,V), as a
+        prefill returns them (the JAX package's prefill cell keeps
+        ``logits[:, -1:]``): on a model axis the last position's row is
+        gathered from each rank's slice, not the whole sequence, and its
+        logits are whole over the vocabulary on every rank."""
         B, S = batch["embeds" if self.cfg.embed_inputs else "tokens"].shape[:2]
         mesh = _model_mesh()
         if mesh is not None:
@@ -135,7 +166,14 @@ class Model:
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
         y, caches = forward_blocks(params, self.cfg, x, positions, collect_kv)
-        return self.logits(params, y), caches
+        if not last:
+            return self.logits(params, y), caches
+        if mesh is None:
+            return self.logits(params, y[:, -1:]), caches
+        # each rank's last row (the last rank's is the prompt's), its
+        # logits gathered whole over the vocabulary
+        y = coll.all_gather(y[:, -1:], mesh, "model", 1)[:, -1:]
+        return self._whole_vocab(self._head(params, y), mesh), caches
 
     # ------------------------------------------------------------------ loss --
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
@@ -183,11 +221,45 @@ class Model:
 
     # ---------------------------------------------------------------- decode --
     def init_cache(self, batch: int, max_len: int) -> dict:
+        """The decode cache for ``batch`` sequences of up to ``max_len``
+        tokens; under a serving context on a
+        :class:`~repro_torch.parallel.sharding.ProcessMesh`, this rank's
+        shard of every leaf (:meth:`cache_layouts`)."""
         shapes = init_cache_shapes(self.cfg, batch, max_len)
-        return {
-            name: torch.full(shape, fill, dtype=torch_dtype(dt), device=self.device)
-            for name, (shape, dt, _axes, fill) in shapes.items()
-        }
+        ctx = current_context()
+        specs = None
+        if ctx is not None and isinstance(ctx.mesh, ProcessMesh) and ctx.mode != "train":
+            specs = self.cache_layouts(batch, max_len, ctx)
+        out = {}
+        for name, (shape, dt, _axes, fill) in shapes.items():
+            if specs is not None:
+                shape = ctx.mesh.shard_shape(specs[name], shape)
+            out[name] = torch.full(shape, fill, dtype=torch_dtype(dt), device=self.device)
+        return out
+
+    def cache_layouts(self, batch: int, max_len: int, ctx) -> dict:
+        """Each cache leaf's spec under a serving context (``decode`` or
+        ``long`` mode): ``resolve_spec`` of its logical axes at its global
+        shape, as the JAX package's ``cache_shardings``.  Raises where the
+        serving path cannot read that layout: the batch must split over
+        every mesh axis its rule names (JAX keeps a smaller batch whole),
+        and an attention cache's sequence over every axis of ``kv_seq``
+        the batch leaves."""
+        out = {}
+        for name, (shape, _dt, axes, _f) in init_cache_shapes(self.cfg, batch,
+                                                               max_len).items():
+            spec = resolve_spec(tuple(axes), tuple(shape), ctx, "act")
+            got = dict(zip(axes, (spec_axes(e) for e in spec)))
+            for logical, want in (("batch", rule_axes(ctx, "batch")),
+                                  ("kv_seq", kv_seq_axes(ctx))):
+                if logical in got and got[logical] != want:
+                    raise ValueError(
+                        f"cache leaf {name} {tuple(shape)} on {ctx.mesh.axis_sizes()} in "
+                        f"{ctx.mode!r} mode: its {logical} dimension resolves to "
+                        f"{got[logical]}, the serving path needs {want} (a dimension "
+                        f"smaller than its axes is kept whole by the rules)")
+            out[name] = spec
+        return out
 
     def decode_step(self, params: dict, cache: dict, batch: dict):
         """One token for every sequence.  batch: tokens/embeds (B,1),
@@ -233,13 +305,14 @@ def _read(params: dict, name: str, dtype) -> torch.Tensor:
     return compute_params({name: params[name]}, "", dtype)[name]
 
 
-def _model_mesh():
-    """The current context's mesh when it has a model axis above 1 (and
-    the mode is train), else None."""
-    from .layers import _row_parallel_ctx
-
+def _model_mesh(serving: bool = False):
+    """The current context's mesh when it has a model axis above 1 and the
+    mode is train (the sequence-parallel residual) or, with ``serving``,
+    any mode; else None."""
     rp = _row_parallel_ctx()
-    return None if rp is None else rp[0].mesh
+    if rp is None or not (serving or _seq_parallel(rp)):
+        return None
+    return rp[0].mesh
 
 
 def _check_model_axis(cfg: ModelConfig, seq: int, m: int):

@@ -6,7 +6,7 @@ on CUDA tensors, :func:`ssd_chunked` (re-exported here under its JAX
 name) on CPU tensors.  A decode step is plain PyTorch on every device,
 as in the JAX package, which has no kernel for it.
 
-Under a train-mode sharding context whose model axis m divides the
+Under a sharding context whose model axis m divides the
 number of SSM heads H, the block is tensor parallel over its heads, in
 the Megatron-SP layout of :mod:`repro_torch.models.layers`: its input
 (B, S/m, d) is gathered over the sequence once (``column_parallel_in``);
@@ -19,8 +19,13 @@ products with ``out_proj`` (``row_parallel_out``).  B and C are shared
 by every head, so each rank's gradient for them is a part, summed by the
 reduce-scatter that is ``in_proj``'s gather's transpose.  Where m does
 not divide H, every rank computes the whole block and keeps its
-sequence slice.  Without a context (or on a model axis of 1) no
-collective runs.
+sequence slice.  In a serving mode (``decode``, ``long``) a decode
+step runs the same head split on the whole token (no sequence to
+gather; ``out_proj``'s partial products all-reduced), its SSM state the
+rank's heads of the cache's; the cache cuts the conv state's channels
+into equal runs over 'model' (``ssm_inner``), which the step gathers and
+writes back (:func:`_next_conv_state`).  Without a context (or on a
+model axis of 1) no collective runs.
 
 Shapes: B batch, S seq, H ssm heads, P head dim, N state dim, Q chunk.
 """
@@ -127,7 +132,19 @@ def mamba2_block(params, name: str, cfg: ModelConfig, x, state=None,
     conv_w = take_columns(params[f"{name}/conv_w"].to(dt_), conv_cols)
     conv_b = take_columns(params[f"{name}/conv_b"].to(dt_), conv_cols)
     conv_state = state["conv"] if state is not None else None
+    full_conv = None
+    if conv_state is not None and (Hl < H or conv_state.shape[-1] < d_in + 2 * N):
+        # The cache holds the conv state in its own layout: whole, or cut
+        # into equal runs of channels over 'model' (``ssm_inner``), which
+        # do not follow the heads.  Read it whole and take this rank's
+        # channels: its heads' x, B and C.
+        full_conv = conv_state
+        if conv_state.shape[-1] < d_in + 2 * N:
+            full_conv = coll.all_gather(conv_state, current_context().mesh, "model", 2)
+        conv_state = take_columns(full_conv, conv_cols)
     conv_out, new_conv = _causal_conv(xbc, conv_w, conv_b, conv_state)
+    if full_conv is not None:
+        new_conv = _next_conv_state(full_conv, xbc, cl, H, Hl, state["conv"].shape[-1])
     # Views into conv_out, handed to the scan kernel without a copy.
     xs, Bmat, Cmat = torch.split(conv_out, [cl, N, N], dim=-1)
     xh = xs.reshape(B, S, Hl, P)
@@ -158,6 +175,21 @@ def mamba2_block(params, name: str, cfg: ModelConfig, x, state=None,
     yf = yf * torch.rsqrt(var + cfg.norm_eps)
     y = (yf * params[f"{name}/norm_scale"].float()).to(dt_)
     return row_parallel_out(y, params[f"{name}/out_proj"].to(dt_), Hl < H), new_state
+
+
+def _next_conv_state(full, xbc, cl: int, H: int, Hl: int, width: int):
+    """The conv state after one decode step, in the cache's layout: the
+    whole state ``full`` (B,K-1,C) shifted by the new token's pre-conv row
+    (this rank's x channels ``xbc[..., :cl]``, gathered over 'model' where
+    the heads are split, then B and C), and cut back to this rank's run of
+    ``width`` channels where the cache splits them."""
+    mesh = current_context().mesh
+    x_part = xbc[..., :cl]
+    if Hl < H:
+        x_part = coll.all_gather(x_part, mesh, "model", 2)
+    row = torch.cat([x_part, xbc[..., cl:]], dim=-1)
+    new = torch.cat([full[:, 1:].to(xbc.dtype), row], dim=1)
+    return coll.take(new, mesh, "model", 2) if width < new.shape[-1] else new
 
 
 def mamba2_state_shapes(cfg: ModelConfig, batch: int) -> dict:

@@ -354,22 +354,39 @@ def _forward_xlstm(params, cfg: ModelConfig, x, collect_kv):
 # ---------------------------------------------------------------------------
 
 
+def _decode_layer_params(params: dict, prefix: str):
+    """``at(i)``: layer ``i``'s params under ``prefix`` for a decode step:
+    the stacked leaves' slices as given, or, while a serving step on a
+    mesh runs (its params the rank's storage shards), each slice gathered
+    into its compute layout where the layer runs (no cast: serving params
+    are in the compute dtype already)."""
+    stacked = _split_stacked(params, prefix)
+    layout = step_layout()
+    if layout is None:
+        return lambda i: {k: v[i] for k, v in stacked.items()}
+    return lambda i: compute_params(
+        {k: layout.layer_slice(prefix + k, v, i) for k, v in stacked.items()}, prefix)
+
+
 def decode_blocks(params, cfg: ModelConfig, x, positions, cache: dict, cache_pos: int):
     """One decode step.  x: (B,1,d).  cache: stacked per-layer dict, written
     in place (the JAX package returns a new one).  Returns (y, cache).
     With ``k_loc`` in the cache (gemma2), the local (even) layers read and
-    write their ring slots, the global ones ``k``/``v``."""
+    write their ring slots, the global ones ``k``/``v``.  Under a serving
+    context on a mesh the cache is the rank's shard
+    (``Model.cache_layouts``) and the params its storage shards, each
+    layer's gathered in the loop."""
     _check_family(cfg)
     if cfg.family == "hybrid":
         return _decode_hybrid(params, cfg, x, positions, cache, cache_pos), cache
     if cfg.family == "ssm":
         return _decode_xlstm(params, cfg, x, cache), cache
-    stacked = _split_stacked(params, "blocks/")
+    layer_at = _decode_layer_params(params, "blocks/")
     windows = _layer_windows(cfg)
     rings = set(local_layers(cfg)) if "k_loc" in cache else set()
     loc_slot = glob_slot = 0
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in stacked.items()}
+        lp = layer_at(i)
         if i in rings:
             layer_cache = {"k": cache["k_loc"][loc_slot], "v": cache["v_loc"][loc_slot],
                            "ring": True}
@@ -390,11 +407,11 @@ def decode_blocks(params, cfg: ModelConfig, x, positions, cache: dict, cache_pos
 
 
 def _decode_hybrid(params, cfg: ModelConfig, x, positions, cache: dict, cache_pos: int):
-    stacked = _split_stacked(params, "blocks/")
-    shared = _split_stacked(params, "shared_attn/")
+    layer_at = _decode_layer_params(params, "blocks/")
+    shared = _block_params(params, "shared_attn/", None)
     slot = 0
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in stacked.items()}
+        lp = layer_at(i)
         h = rmsnorm(lp, "ln", x, cfg.norm_eps)
         st = {"ssm": cache["ssm"][i], "conv": cache["conv"][i]}
         out, new_st = mamba2_block(lp, "mamba", cfg, h, state=st)
@@ -414,10 +431,10 @@ def _decode_hybrid(params, cfg: ModelConfig, x, positions, cache: dict, cache_po
 
 
 def _decode_xlstm(params, cfg: ModelConfig, x, cache: dict):
-    stacked = _split_stacked(params, "blocks/")
+    unit_at = _decode_layer_params(params, "blocks/")
     every = max(cfg.xlstm_slstm_every, 1)
     for u in range(_n_units(cfg)):
-        lp = {k: v[u] for k, v in stacked.items()}
+        lp = unit_at(u)
         for i in range(every - 1):
             h = rmsnorm(lp, f"ln_m{i}", x, cfg.norm_eps)
             st = tuple(cache[n][u, i] for n in MLSTM_STATES)

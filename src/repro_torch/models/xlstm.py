@@ -9,7 +9,7 @@ device, as in the JAX package, which has no kernel for it.  The sLSTM
 runs its recurrence as a Python loop over the sequence (the JAX
 package's ``lax.scan``; it has no kernel either).
 
-Under a train-mode sharding context whose model axis m divides the head
+Under a sharding context whose model axis m divides the head
 count H, both blocks are tensor parallel over their heads, in the
 Megatron-SP layout of :mod:`repro_torch.models.layers`: the input (B,
 S/m, d) is gathered over the sequence once (``column_parallel_in``) and
@@ -22,8 +22,12 @@ two gates of its H/m heads, scans them and multiplies by its rows of
 block-diagonal over heads); its FFN needs every feature, so the rank's
 (B, S, d/m) output is all-gathered over 'model' on the feature dim, and
 the FFN is then tensor parallel over its width where m divides it (else
-whole, each rank keeping its sequence slice).  Where m does not divide
-H, a block runs whole on every rank.  Without a context (or on a model
+whole, each rank keeping its sequence slice).  In a serving mode
+(``decode``, ``long``) a decode step keeps the same head split on the
+whole token, its recurrent states the rank's heads of the cache's (the
+cache splits ``xlstm_heads`` over 'model'), and the row-parallel
+products are all-reduced.  Where m does not divide H, a block runs whole
+on every rank.  Without a context (or on a model
 axis of 1) no collective runs.
 
 Shapes: B batch, S seq, H heads, D = K = V head dim, Q chunk.
@@ -35,7 +39,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import abstract, ops
+from repro_torch.kernels.abstract import is_abstract
 from repro_torch.kernels.ref import mlstm_chunked
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import current_context
@@ -184,23 +189,8 @@ def slstm_block(params, name: str, cfg: ModelConfig, x, state=None,
     else:
         c, n, h, m = state
 
-    hs = []
-    for t in range(S):
-        pre_t = pre[:, t]
-        rec = torch.einsum("bhj,ghjk->bghk", h, R)      # (B,4,Hl,dh)
-        zt = torch.tanh(pre_t[:, 0] + rec[:, 0])
-        it = pre_t[:, 1] + rec[:, 1]
-        ft = pre_t[:, 2] + rec[:, 2]
-        ot = torch.sigmoid(pre_t[:, 3] + rec[:, 3])
-        m_new = torch.maximum(ft + m, it)                # stabiliser
-        i_p = torch.exp(it - m_new)
-        f_p = torch.exp(ft + m - m_new)
-        c = f_p * c + i_p * zt
-        n = f_p * n + i_p
-        h = ot * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, Hl * dh).to(dt_)
+    hs, (c, n, h, m) = _slstm_scan(pre, R, (c, n, h, m))
+    y = hs.reshape(B, S, Hl * dh).to(dt_)
     if Hl < H:   # the FFN reads every feature
         y = coll.all_gather(y, current_context().mesh, "model", 2)
 
@@ -212,6 +202,82 @@ def slstm_block(params, name: str, cfg: ModelConfig, x, state=None,
     out = row_parallel_out(hmid, w_down, w_down.shape[0] < _ffn_width(d))
     new_state = (c, n, h, m) if (state is not None or collect_state) else None
     return out, new_state
+
+
+def _slstm_scan(pre, R, state):
+    """The sLSTM recurrence: pre (B,S,4,Hl,dh) fp32 gate preactivations
+    (z, i, f, o), R (4,Hl,dh,dh) fp32, state (c, n, h, m) each (B,Hl,dh).
+    Returns (h of every step (B,S,Hl,dh), the final (c, n, h, m)).  On
+    abstract tensors, :class:`_SlstmScanAbstract`."""
+    if is_abstract(pre):
+        hs, *final = _SlstmScanAbstract.apply(pre, R, *state)
+        return hs, tuple(final)
+    c, n, h, m = state
+    B, _, _, Hl, dh = pre.shape
+    # R as (Hl, dh, 4 dh) once: each step's h R is one batched product over
+    # the heads, with no copy of R a step for its backward to keep
+    Rh = R.permute(1, 2, 0, 3).reshape(Hl, dh, 4 * dh)
+    hs = []
+    for pre_t in pre.unbind(1):
+        rec = torch.bmm(h.transpose(0, 1), Rh).reshape(Hl, B, 4, dh).permute(1, 2, 0, 3)
+        zt, it, ft, ot = (pre_t + rec).unbind(1)
+        zt, ot = torch.tanh(zt), torch.sigmoid(ot)
+        m_new = torch.maximum(ft + m, it)                # stabiliser
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(ft + m - m_new)
+        c = f_p * c + i_p * zt
+        n = f_p * n + i_p
+        h = ot * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n, h, m)
+
+
+# What the recurrence's autograd keeps for the backward, a step, beside
+# the stacked output: this many (B, Hl, dh) fp32 tensors
+# (tests/test_torch_dryrun.py holds the abstract recurrence's bytes to the
+# loop's on real tensors).
+SLSTM_SAVED_PER_STEP = 14
+
+
+def _slstm_flops(B: int, S: int, Hl: int, dh: int) -> int:
+    """The recurrence's products, a step ``h R``: 2 B 4 Hl dh dh."""
+    return 2 * B * S * 4 * Hl * dh * dh
+
+
+class _SlstmScanAbstract(torch.autograd.Function):
+    """The recurrence on abstract tensors (the dry run): the loop's
+    outputs and, under grad, tensors of the bytes its autograd keeps (R's
+    copy as one batched operand, and ``SLSTM_SAVED_PER_STEP`` step tensors,
+    each rounded to the CUDA allocator's 512-byte blocks), without running S steps of Python (the
+    JAX package's dry run counts its ``lax.scan`` body times its trip
+    count the same way).  Its FLOPs are recorded as the loop's: ``h R``
+    each step, forward; in the backward both operands' products, but the
+    first step's h when the initial state takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, pre, R, c, n, h, m):
+        B, S, _, Hl, dh = pre.shape
+        step = math.ceil(B * Hl * dh * 4 / 512) * 512 // 4
+        if any(ctx.needs_input_grad):   # R's (Hl, dh, 4 dh) copy and the steps' tensors
+            ctx.held = (R.new_empty(R.shape), pre.new_empty((S * SLSTM_SAVED_PER_STEP * step,)))
+        ctx.shapes = (pre.shape, R.shape, h.shape, ctx.needs_input_grad[2:])
+        abstract.record("slstm_recurrence", _slstm_flops(B, S, Hl, dh), launches=0)
+        return (pre.new_empty((B, S, Hl, dh)),) + tuple(pre.new_empty((B, Hl, dh))
+                                                      for _ in range(4))
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh_, dm):
+        pre_shape, R_shape, state_shape, state_grad = ctx.shapes
+        B, S, _, Hl, dh = pre_shape
+        flops = 2 * _slstm_flops(B, S, Hl, dh)
+        if not state_grad[2]:
+            flops -= _slstm_flops(B, 1, Hl, dh)
+        abstract.record("slstm_recurrence_bwd", flops, launches=0)
+        grads = (dhs.new_empty(pre_shape), dhs.new_empty(R_shape),
+                 *(dhs.new_empty(state_shape) if g else None for g in state_grad))
+        del ctx.held   # the loop's saved tensors go as its backward passes them
+        return grads
 
 
 def slstm_state_shapes(cfg: ModelConfig, batch: int) -> tuple:

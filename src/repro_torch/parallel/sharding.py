@@ -22,7 +22,11 @@ Two kinds of mesh carry the same axis names and sizes:
   shard.  Training across ranks (``repro_torch.train.steps``) and the
   tensor/sequence and expert parallel layers (``repro_torch.models.layers``)
   run on it; ``constrain`` moves a local tensor between two layouts over
-  its groups (:mod:`repro_torch.parallel.collectives`).
+  its groups (:mod:`repro_torch.parallel.collectives`).  Serving runs on
+  it too, in the ``decode`` and ``long`` modes (``repro_torch.train``'s
+  ``build_serve_step``: the cache's sequence split over the ranks); and
+  the dry run builds one on ``torch.distributed``'s ``fake`` backend
+  (:mod:`repro_torch.launch.dryrun`), whose collectives move nothing.
 """
 from __future__ import annotations
 
@@ -221,13 +225,14 @@ class ProcessMesh(Mesh):
     ranks).  ``comm_bytes`` counts what the collectives of
     :mod:`repro_torch.parallel.collectives` moved on this rank, by
     (operation, axis): an all-gather's output, a reduce-scatter's input,
-    an all-reduce's tensor."""
+    an all-reduce's tensor; ``comm_calls`` how many calls moved them."""
 
     rank: int
     groups: dict
     backend: str
     device: Any
     comm_bytes: dict = field(default_factory=dict, compare=False)
+    comm_calls: dict = field(default_factory=dict, compare=False)
 
     def coords(self, rank: Optional[int] = None) -> dict[str, int]:
         """A rank's coordinate along every axis (this rank's by default)."""
@@ -250,6 +255,7 @@ class ProcessMesh(Mesh):
     def count(self, op: str, axis: str, nbytes: int):
         key = (op, axis)
         self.comm_bytes[key] = self.comm_bytes.get(key, 0) + nbytes
+        self.comm_calls[key] = self.comm_calls.get(key, 0) + 1
 
     def shard_slices(self, spec: tuple, shape: tuple[int, ...]) -> tuple[slice, ...]:
         """This rank's block of a tensor of ``shape`` under ``spec``
@@ -262,6 +268,11 @@ class ProcessMesh(Mesh):
                 raise ValueError(f"{dim} does not split evenly over {spec_axes(entry)} "
                                  f"(shape {tuple(shape)}, spec {tuple(spec)})")
         return NamedSharding(self, tuple(spec)).devices_indices_map(tuple(shape))[self.rank]
+
+    def shard_shape(self, spec: tuple, shape: tuple[int, ...]) -> tuple[int, ...]:
+        """The shape of this rank's block (:meth:`shard_slices`)."""
+        return tuple(len(range(*sl.indices(d)))
+                     for sl, d in zip(self.shard_slices(spec, shape), shape))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Train step and init (ports :mod:`repro.train.steps`).
+"""Train step and init, and the serving steps (ports :mod:`repro.train.steps`).
 
 ``build_train_step`` returns ``step(state, batch) -> (state, metrics)``:
 the loss and its grads by ``torch.autograd`` over the fp32 master params
@@ -39,6 +39,13 @@ gradient is still rounded to bf16 once by its own backward, where one
 process rounds the whole batch's once, so a bf16 step on a data axis
 above 1 differs from the single-process step by that rounding.  AdamW
 then runs on the storage shards, clipped by the norm over all shards.
+
+The serving steps (``serving_param_shapes``, ``cache_layouts``,
+``abstract_cache``, ``build_serve_step``; the port's own
+``build_prefill_step``, ``shard_params``, ``place_batch``) run the same
+model on the same storage layout, in the ``decode`` or ``long`` mode of
+the JAX package's rules, the params in the compute dtype and the cache
+the rank's shard of every leaf.
 """
 from __future__ import annotations
 
@@ -50,8 +57,9 @@ import torch
 
 from repro_torch.data.pipeline import batch_spec
 from repro_torch.models import Model
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, ParamShape, torch_dtype
 from repro_torch.models.layers import compute_spec
+from repro_torch.models.transformer import KV_ENTRIES, init_cache_shapes, local_layers
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, global_norm
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (ShardingContext, param_specs, resolve_spec,
@@ -104,7 +112,10 @@ class ParamLayout:
         ``p``) as the backward reaches the layer.  Take it where the
         layer runs: autograd runs the ready node created last first, so a
         slice taken before the loop would hold every layer's gradient
-        until the backward had passed all of them."""
+        until the backward had passed all of them.  Outside a train step
+        (``grads`` None: a serving step) the plain slice ``p[i]``."""
+        if self.grads is None:
+            return p[i]
         if name not in self.grads:
             self.grads[name] = torch.zeros_like(p)
         return _LayerSlice.apply(p, i, self.grads[name])
@@ -137,8 +148,8 @@ def param_layout(model: Model, ctx: ShardingContext) -> ParamLayout:
     return ParamLayout(
         ctx=ctx,
         storage=param_specs(shapes, specs, ctx),
-        compute={k: compute_spec(k, tuple(specs[k]), tuple(shapes[k].shape), model.cfg, m)
-                 for k in shapes},
+        compute={k: compute_spec(k, tuple(specs[k]), tuple(shapes[k].shape), model.cfg, m,
+                                 ctx.mode) for k in shapes},
         cast=frozenset(k for k in shapes if not k.startswith("final_norm/")),
     )
 
@@ -280,3 +291,164 @@ def gather_params(params: dict, layout: ParamLayout, *, to_host: bool = True) ->
             full = coll.redistribute(params[k].detach(), mesh, src, ((),) * len(src))
             out[k] = full.to("cpu", copy=True) if to_host else full.contiguous()
     return out
+
+
+# ----------------------------------------------------------------- serving --
+
+
+def serving_param_shapes(model: Model) -> tuple[dict, dict]:
+    """Abstract params with every float in the compute dtype (serving
+    keeps no fp32 master copy), and their logical axes: the JAX
+    package's ``serving_param_shapes``."""
+    shapes, specs = model.abstract_params()
+    dt = model.cfg.compute_dtype
+    return {k: ParamShape(s.shape, dt if s.dtype.is_floating_point else s.dtype, s.axes)
+            for k, s in shapes.items()}, specs
+
+
+def cache_layouts(model: Model, ctx: ShardingContext, batch: int, max_len: int) -> dict:
+    """Each cache leaf's spec on ``ctx.mesh`` in its serving mode (the
+    JAX package's ``cache_shardings``; ``Model.cache_layouts``): a rank
+    holds ``mesh.shard_slices(spec, shape)`` of the leaf."""
+    return model.cache_layouts(batch, max_len, ctx)
+
+
+def abstract_cache(model: Model, batch: int, max_len: int) -> dict:
+    """The cache's leaves as shapes and dtypes, nothing allocated
+    (:class:`~repro_torch.models.common.ParamShape`, with its logical
+    axes): the JAX package's ``abstract_cache``."""
+    return {name: ParamShape(tuple(shape), torch_dtype(dt), tuple(axes))
+            for name, (shape, dt, axes, _f) in init_cache_shapes(model.cfg, batch,
+                                                                 max_len).items()}
+
+
+def shard_params(params: dict, layout: ParamLayout) -> dict:
+    """This rank's storage shard of every param of a whole tree (a copy
+    each)."""
+    mesh = layout.ctx.mesh
+    return {k: v[mesh.shard_slices(layout.storage[k], tuple(v.shape))].clone()
+            for k, v in params.items()}
+
+
+def build_serve_step(model: Model, ctx: Optional[ShardingContext] = None) -> Callable:
+    """``serve_step(params, cache, tok) -> (logits (B,1,V), cache)``: one
+    decode token for every sequence (``tok``: tokens or embeds (B,1),
+    positions, ``cache_pos`` a host int), the cache written in place.
+
+    With ``ctx`` (``decode`` or ``long`` mode on a
+    :class:`~repro_torch.parallel.sharding.ProcessMesh`), ``params`` are
+    this rank's storage shards of the serving params
+    (:func:`shard_params` of :func:`serving_param_shapes`' dtypes), each
+    gathered where the model reads it, ``cache`` its shard of every leaf
+    (``model.init_cache`` under ``ctx``, or :func:`build_prefill_step`)
+    and ``tok`` its shard of the token batch (:func:`place_batch`); every
+    rank returns the whole logits of its batch rows."""
+    if ctx is None:
+        return model.decode_step
+    if ctx.mode == "train":
+        raise ValueError("a serve step runs in a serving mode ('decode' or 'long'); a "
+                         "prefill runs in train mode (build_prefill_step)")
+    step_ctx = dataclasses.replace(ctx, layout=param_layout(model, ctx))
+
+    def serve_step(params: dict, cache: dict, tok: dict):
+        with use_sharding(step_ctx):
+            return model.decode_step(params, cache, tok)
+
+    return serve_step
+
+
+def place_batch(host_batch: dict, cfg: ModelConfig, ctx: ShardingContext) -> dict:
+    """This rank's shard of a host prompt or token batch under ``ctx``'s
+    rules (each field's activation spec; a batch smaller than its axes
+    stays whole, as JAX keeps it), on ``ctx.mesh.device``; ``cache_pos``
+    is kept as it is."""
+    _, spec_for = batch_spec(cfg, ctx)
+    mesh = ctx.mesh
+    out = {}
+    for k, v in host_batch.items():
+        if k == "cache_pos":
+            out[k] = v
+            continue
+        v = torch.as_tensor(v)
+        spec = resolve_spec(tuple(spec_for(k, v.dim())), tuple(v.shape), ctx, "act")
+        out[k] = v[mesh.shard_slices(spec, tuple(v.shape))].contiguous().to(mesh.device)
+    return out
+
+
+def build_prefill_step(model: Model, ctx: Optional[ShardingContext], batch: int,
+                       max_len: int) -> Callable:
+    """``prefill(params, cache, prompt) -> logits (B,1,V)`` of the last
+    position, ``cache`` filled as the prompt's decode steps would fill it.
+
+    Without ``ctx``, ``Model.prefill``.  With ``ctx`` (a serving mode on a
+    mesh, ``params`` and ``cache`` as :func:`build_serve_step` takes
+    them, ``prompt`` the rank's shard of a ``batch`` x S prompt under the
+    train rules, :func:`place_batch`): the prompt runs in train mode, as
+    the JAX package's prefill cell does (the sequence-parallel residual:
+    the model axis must divide S), and each cache leaf it fills is moved
+    from the train layout it comes out in into the cache's
+    (:func:`cache_layouts` for ``batch`` x ``max_len``) by
+    ``collectives.redistribute``: the K/V padded to the cache's length
+    first (gemma2's rings laid out as their slots), the Mamba2 conv tail
+    made whole over its channels first (the train layout holds this
+    rank's heads' x channels beside B and C)."""
+    if ctx is None:
+        def prefill(params, cache, prompt):
+            return model.prefill(params, cache, prompt)[:, -1:]
+        return prefill
+    cfg = model.cfg
+    train_ctx = dataclasses.replace(ctx, mode="train")
+    train_ctx = dataclasses.replace(train_ctx, layout=param_layout(model, train_ctx))
+    shapes = init_cache_shapes(cfg, batch, max_len)
+    dst = cache_layouts(model, ctx, batch, max_len)
+    mesh = ctx.mesh
+    train_batch = tuple(spec_axes(resolve_spec(("batch",), (batch,), train_ctx, "act")[0]))
+
+    def prefill(params: dict, cache: dict, prompt: dict):
+        S = prompt["embeds" if cfg.embed_inputs else "tokens"].shape[1]
+        with use_sharding(train_ctx):
+            logits, caches = model.forward(params, prompt, collect_kv=True, last=True)
+            if "k_loc" in cache:
+                loc = local_layers(cfg)
+                glob = [i for i in range(cfg.n_layers) if i not in loc]
+                caches = {"k_loc": caches["k"][loc], "v_loc": caches["v"][loc],
+                          "k": caches["k"][glob], "v": caches["v"][glob]}
+            if "conv" in caches:
+                caches["conv"] = _whole_conv(cfg, caches["conv"], mesh)
+        for name, val in caches.items():
+            shape, _dt, axes, _f = shapes[name]
+            if name in KV_ENTRIES:
+                val = _kv_slots(val, shape[2], ring=name.endswith("_loc"), prompt_len=S)
+            src = tuple(() if n == g else (train_batch if a == "batch" else ("model",))
+                        for n, g, a in zip(val.shape, shape, axes))
+            moved = coll.redistribute(val, mesh, src, tuple(spec_axes(e) for e in dst[name]))
+            cache[name].copy_(moved.to(cache[name].dtype))
+        return logits
+
+    return prefill
+
+
+def _kv_slots(val: torch.Tensor, n: int, *, ring: bool, prompt_len: int) -> torch.Tensor:
+    """A prompt's (L, B, S, KV, hd) keys or values laid out as a cache of
+    ``n`` slots: positions 0..S-1 at slots 0..S-1 and zeros after them,
+    or, in a ring of ``n`` slots that the prompt outgrows, the last ``n``
+    positions at slots p % n."""
+    S = prompt_len
+    if ring and S > n:
+        out = torch.empty(val.shape[:2] + (n,) + val.shape[3:], dtype=val.dtype,
+                          device=val.device)
+        out[:, :, torch.arange(S - n, S, device=val.device) % n] = val[:, :, S - n:]
+        return out
+    return torch.nn.functional.pad(val, (0, 0, 0, 0, 0, n - S))
+
+
+def _whole_conv(cfg: ModelConfig, conv: torch.Tensor, mesh) -> torch.Tensor:
+    """The prefill's conv tails (L, B, K-1, cl + 2N), this rank's heads'
+    x channels then B and C, as (L, B, K-1, d_in + 2N): the x channels
+    gathered over 'model' where the heads are split."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    cl = conv.shape[-1] - 2 * cfg.ssm_state
+    if cl == d_in:
+        return conv
+    x = coll.all_gather(conv[..., :cl].contiguous(), mesh, "model", 3)
+    return torch.cat([x, conv[..., cl:]], dim=-1)

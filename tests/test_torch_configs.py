@@ -78,7 +78,10 @@ assert not bad, bad
             "repro_torch.launch.train", "repro_torch.core.engine",
             "repro_torch.malleability.scenarios", "repro_torch.elastic.trainer",
             "repro_torch.parallel.sharding", "repro_torch.serving.service",
-            "repro_torch.launch.serve"} <= walked
+            "repro_torch.launch.serve", "repro_torch.launch.dryrun",
+            "repro_torch.launch.dryrun_all", "repro_torch.launch.graph_analysis",
+            "repro_torch.launch.specs", "repro_torch.launch.mesh",
+            "repro_torch.kernels.abstract"} <= walked
 
 
 def test_port_sources_name_no_jax_or_repro_import():

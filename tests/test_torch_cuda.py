@@ -21,6 +21,7 @@ from repro_torch.kernels import mlstm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
+    attention_lse_ref,
     attention_ref,
     mlstm_chunked,
     mlstm_ref,
@@ -115,6 +116,52 @@ def test_kernel_matches_plain_version(dev, B, H, KV, Sq, Sk, D, causal, window, 
     assert fa.launches == before + 1
     want = attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,D,causal,window,softcap",
+    [
+        (8, 32, 32, 1, 288, 80, False, 0, 0.0),     # stablelm decode, half a 575-row cache
+        (2, 16, 8, 1, 2592, 256, False, 0, 50.0),   # gemma2's global decode, split in two
+        (2, 8, 2, 3, 37, 64, True, 0, 0.0),
+        (1, 4, 4, 100, 77, 80, False, 20, 0.0),
+        (1, 8, 2, 70, 70, 128, True, 0, 2.0),
+        (1, 2, 2, 20, 16, 32, True, 0, 0.0),        # rows 16-19 admit every key
+        (2, 4, 2, 1, 1, 16, False, 0, 0.0),
+    ],
+)
+def test_lse_entry_matches_plain_version(dev, B, H, KV, Sq, Sk, D, causal, window, softcap,
+                                         dtype):
+    """``flash_attention_lse`` against ``attention_lse_ref``: the output
+    as the forward's, the fp32 log-sum-exp of every row within 2e-5 (a
+    bf16 case within 2e-2); one launch of its counter."""
+    q = rand((B, H, Sq, D), dtype, 0, dev)
+    k = rand((B, KV, Sk, D), dtype, 1, dev)
+    v = rand((B, KV, Sk, D), dtype, 2, dev)
+    before = fa.lse_launches
+    out, lse = ops.flash_attention_lse(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa.lse_launches == before + 1
+    want, want_lse = attention_lse_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **TOL[dtype])
+
+
+def test_lse_entry_rows_with_no_key(dev):
+    """A row that admits no key (a window past the keys) gives 0 and a
+    log-sum-exp of -inf, in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = rand((1, 2, 40, 64), dtype, 0, dev)
+        k = rand((1, 2, 8, 64), dtype, 1, dev)
+        out, lse = ops.flash_attention_lse(q, k, k, causal=True, window=4)
+        torch.cuda.synchronize()
+        want, want_lse = attention_lse_ref(q, k, k, causal=True, window=4)
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(want_lse))
+        assert torch.isneginf(lse[:, :, 11:]).all() and not out[:, :, 11:].any()
+        finite = torch.isfinite(want_lse)
+        torch.testing.assert_close(lse[finite], want_lse[finite], **TOL[dtype])
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):

@@ -48,7 +48,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.parallel import collectives as coll  # noqa: E402
 from repro_torch.parallel.sharding import (ACT_RULES, Mesh, ProcessMesh,  # noqa: E402
-                                           ShardingContext, resolve_spec)
+                                           ShardingContext, resolve_spec, use_sharding)
 from repro_torch.train import (TrainState, build_init_fn, build_train_step,  # noqa: E402
                                gather_params, loss_and_grads, param_layout)
 
@@ -802,3 +802,195 @@ def test_chip_smoke_defines_every_phase_before_it_runs():
               and isinstance(node.func, ast.Name) and node.func.id in
               {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}}
     assert "train_parallel_phase" in called and called <= defined
+
+
+# ------------------------------------------------------ serving on a mesh --
+
+# (mesh, case name, arch, mode): each family's smoke config served in both
+# serving modes on (1, 2) and (2, 2); gemma2's rings (8 slots) wrap within
+# SERVE_STEPS tokens of a cache of SERVE_LEN, and the written slot crosses
+# from one rank's slice of every cache into the next's
+SERVE_FAMILIES = [("stablelm", "stablelm_3b"), ("gemma2", "gemma2_9b"), ("zamba2", "zamba2_1p2b"),
+                  ("xlstm", "xlstm_125m"), ("phi35", "phi35_moe_42b")]
+SERVE_CASES = [((D, M), name, arch, mode) for D, M in ((1, 2), (2, 2))
+               for name, arch in SERVE_FAMILIES for mode in ("decode", "long")]
+SERVE_STEPS, SERVE_LEN, SERVE_PROMPT = 10, 12, 4
+SERVE_BATCH = {"decode": 2, "long": 1}
+
+JAX_SERVE = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import json, sys
+    import jax, jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from repro.configs import smoke_config
+    from repro.models import Model
+    from repro.parallel.sharding import (ShardingContext, param_sharding_abstract, resolve_spec,
+                                         use_sharding)
+    from repro.train.steps import build_serve_step, cache_shardings, serving_param_shapes
+
+    out_dir, spec = sys.argv[1], json.loads(sys.argv[2])
+    for (D, M), name, arch, mode, B in spec["cases"]:
+        cfg = smoke_config(arch).replace(dtype="float32", logit_dtype="float32")
+        model = Model(cfg)
+        mesh = Mesh(np.array(jax.devices()[:D * M]).reshape(D, M), ("data", "model"))
+        ctx = ShardingContext(mesh=mesh, mode=mode)
+        shapes, pspecs = serving_param_shapes(model)
+        p_sh = param_sharding_abstract(shapes, pspecs, ctx)
+        init = dict(np.load(os.path.join(out_dir, f"init_{name}.npz")))
+        params = jax.device_put({k: jnp.asarray(v) for k, v in init.items()}, p_sh)
+        c_sh = cache_shardings(model, ctx, B, spec["len"])
+        cache = jax.device_put(model.init_cache(B, spec["len"]), c_sh)
+        tokens = np.load(os.path.join(out_dir, f"tokens_{B}.npy"))
+        tok_sh = {"cache_pos": NamedSharding(mesh, P()),
+                  "tokens": NamedSharding(mesh, resolve_spec(("batch", "seq"), (B, 1), ctx, "act")),
+                  "positions": NamedSharding(mesh, resolve_spec(("batch", "seq"), (B, 1), ctx,
+                                                                "act"))}
+        step = jax.jit(build_serve_step(model, ctx), in_shardings=(p_sh, c_sh, tok_sh),
+                       out_shardings=(None, c_sh), donate_argnums=(1,))
+        def decode(cache, start, logits):
+            for t in range(start, spec["steps"]):
+                tok = {"tokens": jnp.asarray(tokens[:, t:t + 1]), "cache_pos": jnp.int32(t),
+                       "positions": jnp.full((B, 1), t, jnp.int32)}
+                lg, cache = step(params, cache, tok)
+                logits.append(np.asarray(lg[:, 0]))
+            return np.stack(logits, 1)
+
+        np.save(os.path.join(out_dir, f"jax_{D}x{M}_{name}_{mode}.npy"), decode(cache, 0, []))
+        if cfg.family in ("hybrid", "ssm"):
+            continue   # the JAX forward collects no recurrent state: token by token is the reference
+        # dense and MoE: JAX's prefill cell (train mode) fills the cache, then the steps
+        # (the MoE capacity of a prompt differs from a token's, so the logits do too)
+        P_ = spec["prompt"]
+        # JAX's train mode needs the data axis to split the batch; a batch of
+        # one is the same prompt on every data shard: one device's prefill
+        tctx = ShardingContext(mesh=mesh, mode="train") if B % D == 0 else None
+
+        def prefill(p, b):
+            with use_sharding(tctx):
+                return model.forward(p, b, collect_kv=True)
+
+        lg, (k, v) = jax.jit(prefill)(params, {"tokens": jnp.asarray(tokens[:, :P_])})
+        host = {n: np.array(x) for n, x in model.init_cache(B, spec["len"]).items()}
+        loc = list(range(0, cfg.n_layers, 2)) if "k_loc" in host else []
+        glob = [i for i in range(cfg.n_layers) if i not in loc]
+        for name_, idx in (("k", glob), ("k_loc", loc)):
+            if idx:
+                host[name_][:, :, :P_] = np.asarray(k)[idx]
+                host["v" + name_[1:]][:, :, :P_] = np.asarray(v)[idx]
+        cache = jax.device_put({n: jnp.asarray(x) for n, x in host.items()}, c_sh)
+        np.save(os.path.join(out_dir, f"jaxprefill_{D}x{M}_{name}_{mode}.npy"),
+                decode(cache, P_, [np.asarray(lg[:, -1])]))
+""")
+
+
+def _serve_tok(tokens, t):
+    B = tokens.shape[0]
+    return {"tokens": torch.as_tensor(tokens[:, t:t + 1]), "cache_pos": t,
+            "positions": torch.full((B, 1), t, dtype=torch.int32)}
+
+
+def _serve_ranks(out_dir: str, mesh_shape: tuple, cases: list):
+    """One rank of the port: every serving case of one mesh, token by token
+    from an empty cache, then from a prefill of the first SERVE_PROMPT
+    tokens (in train mode, its K/V and states moved into the cache's
+    layout); rank 0 saves the logits of both, and the collective bytes."""
+    import dataclasses
+
+    from repro_torch.train import build_prefill_step, build_serve_step, place_batch, shard_params
+
+    torch.set_num_threads(1)   # tiny tensors: the ranks' threads would only contend
+    mesh = make_host_mesh(mesh_shape[1], device=torch.device("cpu"))
+    for name, arch, mode in cases:
+        ctx = ShardingContext(mesh=mesh, mode=mode)
+        B = SERVE_BATCH[mode]
+        model = Model(fp32(arch), "cpu")
+        full = bridge.to_torch(dict(np.load(os.path.join(out_dir, f"init_{name}.npz"))), "cpu")
+        params = shard_params(full, param_layout(model, ctx))
+        tokens = np.load(os.path.join(out_dir, f"tokens_{B}.npy"))
+        step = build_serve_step(model, ctx)
+        runs = {}
+        with torch.no_grad():
+            for prefill in (False, True):
+                with use_sharding(ctx):
+                    cache = model.init_cache(B, SERVE_LEN)
+                logits, start = [], 0
+                mesh.comm_bytes.clear()
+                if prefill:
+                    prompt = place_batch({"tokens": tokens[:, :SERVE_PROMPT]}, model.cfg,
+                                         dataclasses.replace(ctx, mode="train"))
+                    lg = build_prefill_step(model, ctx, B, SERVE_LEN)(params, cache, prompt)
+                    logits.append(lg[:, 0].numpy())
+                    start = SERVE_PROMPT
+                for t in range(start, SERVE_STEPS):
+                    lg, cache = step(params, cache, place_batch(_serve_tok(tokens, t), model.cfg,
+                                                                ctx))
+                    logits.append(lg[:, 0].numpy())
+                runs[prefill] = np.stack(logits, 1)
+        if mesh.rank == 0:   # its data shard's rows, whole over the vocabulary
+            np.save(os.path.join(out_dir, f"port_{mesh_shape[0]}x{mesh_shape[1]}_{name}_{mode}.npy"),
+                    runs[False])
+            np.save(os.path.join(out_dir, f"prefill_{mesh_shape[0]}x{mesh_shape[1]}_{name}_{mode}"
+                                          ".npy"), runs[True])
+
+
+@pytest.fixture(scope="module")
+def serve_runs(tmp_path_factory):
+    """The JAX serve steps (one subprocess a mesh and mode, all started at
+    once) and, while they work, the port's ranks."""
+    root = tmp_path_factory.mktemp("serve")
+    rng = np.random.default_rng(0)
+    for B in set(SERVE_BATCH.values()):
+        np.save(root / f"tokens_{B}.npy", rng.integers(0, 256, (B, SERVE_STEPS)).astype(np.int32))
+    for name, arch in SERVE_FAMILIES:
+        params, _ = Model(fp32(arch), "cpu").init(torch.Generator().manual_seed(0))
+        np.savez(root / f"init_{name}.npz", **{k: v.numpy() for k, v in params.items()})
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
+    procs = []
+    for mesh in ((1, 2), (2, 2)):
+        for mode in ("decode", "long"):
+            spec = {"len": SERVE_LEN, "steps": SERVE_STEPS, "prompt": SERVE_PROMPT,
+                    "cases": [[list(mesh), name, arch, mode, SERVE_BATCH[mode]]
+                              for name, arch in SERVE_FAMILIES]}
+            procs.append(subprocess.Popen([sys.executable, "-c", JAX_SERVE, str(root),
+                                           json.dumps(spec)], stdout=subprocess.DEVNULL,
+                                          stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT))
+    try:
+        for mesh in ((1, 2), (2, 2)):
+            cases = [(n, a, mode) for m, n, a, mode in SERVE_CASES if m == mesh]
+            spawn(_serve_ranks, mesh[0] * mesh[1], (str(root), mesh, cases),
+                  init_file=str(root / ("store_%dx%d" % mesh)), timeout=600)
+        for proc in procs:
+            _, err = proc.communicate(timeout=900)
+            assert proc.returncode == 0, err[-3000:]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return root
+
+
+@pytest.mark.parametrize("mesh,name,arch,mode", SERVE_CASES,
+                         ids=[f"{m[0]}x{m[1]}-{n}-{mode}" for m, n, _, mode in SERVE_CASES])
+def test_serve_steps_match_jax_under_the_same_mesh(serve_runs, mesh, name, arch, mode):
+    """Every decode step's logits within 2e-5 of JAX's ``build_serve_step``
+    jitted with ``cache_shardings`` under the same mesh and mode (rank 0's
+    rows: its data shard in decode mode, the whole batch in long mode),
+    token by token from an empty cache; and after a prefill of the first
+    tokens in train mode moved into the cache's layout, against JAX's
+    prefill (its forward in train mode, the cache filled from its K/V)
+    and the same steps, or, for the recurrent families, whose JAX forward
+    collects no state, against the token-by-token steps."""
+    tag = f"{mesh[0]}x{mesh[1]}_{name}_{mode}"
+    want = np.load(serve_runs / f"jax_{tag}.npy")
+    rows = slice(0, want.shape[0] // mesh[0]) if mode == "decode" else slice(None)
+    got = np.load(serve_runs / f"port_{tag}.npy")
+    np.testing.assert_allclose(got, want[rows], **TOL)
+    after = np.load(serve_runs / f"prefill_{tag}.npy")
+    if (serve_runs / f"jaxprefill_{tag}.npy").exists():     # dense and MoE
+        want = np.load(serve_runs / f"jaxprefill_{tag}.npy")
+        np.testing.assert_allclose(after, want[rows], **TOL)
+    else:
+        np.testing.assert_allclose(after, want[rows, SERVE_PROMPT - 1:], **TOL)
