@@ -14,8 +14,9 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              kernels) and bf16 (the tensor-core kernels), attention at
              gemma2's head dim 256 (softcap 50, window 4096, GQA 16/8, a
              ragged Sq, decode at Sk 4096 and 5184, each timed beside its
-             bound), and the serve paths' shapes), then timed at the serve
-             paths' shapes beside
+             bound; a bf16 decode call the wrappers split runs the split
+             decode and its merge), and the serve paths' shapes), then
+             timed at the serve paths' shapes beside
              the plain version, one library call where there is one, and
              the card's bound; attention decode is timed with a cold L2;
              the attention backward's dq, dk, dv against autograd of the
@@ -26,9 +27,12 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              timed at stablelm_3b's train shape beside SDPA's backward, two
              bf16 calls there bitwise equal, and at gemma2_9b's (1,16,8192,
              256) KV 8 softcap 50, its global (causal) and local (window
-             4096) layers, each first held against autograd of the plain
-             attention, beside SDPA's backward without softcap (not the
-             same function); the SSD and mLSTM backwards'
+             4096) layers (the wgmma kernels), each first held against
+             autograd of the plain attention, beside SDPA's backward
+             without softcap (not the same function) and the earlier
+             design's time; by torch.profiler, a gemma2 decode call and a
+             half-cache lse call run the split decode then its merge, and
+             a D 256 backward call its two wgmma kernels; the SSD and mLSTM backwards'
              gradients against autograd of their plain versions in fp32
              (ragged S, S shorter than a chunk, strided model-layout
              inputs, the forward tests' widths, SSD with the final state's
@@ -41,8 +45,11 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              mLSTM's split by kernel), two bf16 calls there bitwise equal;
              the attention forward's second entry, ``flash_attention_lse``,
              its output and fp32 log-sum-exp against ``attention_lse_ref``
-             in both dtypes (rows with no key among them), timed at a rank's
-             half of stablelm_3b's and gemma2_9b's decode caches beside
+             in both dtypes (rows with no key among them), the split
+             decode's entry called directly against ``attention_split_ref``
+             (more ranges than keys, rows with no key, causal ranges past
+             the keys), timed at a rank's half of stablelm_3b's and
+             gemma2_9b's decode caches (the latter split) beside
              efficient attention with its log-sum-exp;
 3. serve stablelm_3b — at full size, seed-initialised on the card:
              batch 8, prompt 512, 64 greedy tokens in bf16 through
@@ -121,9 +128,10 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              batch 2, prompt 5120, past its window of 4096: its 21 local
              layers' ring caches wrap in the prefill and in decode; the
              attention kernel on every layer of the prefill and of every
-             decode step (2,688 launches), finite logits; the kernel timed
-             at its four shapes (global and local prefill, decode over a
-             full ring and the global cache) beside the plain version, SDPA
+             decode step (2,688 launches), finite logits; the decode step
+             printed beside the unsplit kernel's; the kernel timed at its four shapes
+             (global and local prefill, decode over a full ring and the
+             global cache, both split) beside the plain version, SDPA
              without softcap (not the same function) and the bound; the
              bf16 gap to the plain attention printed; in fp32 at full
              width and 4 layers (2 rings) the prefill's last logits and 4
@@ -133,8 +141,9 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              context, past its 4096 window), through
              ``repro_torch.launch.train`` (fp32 masters, bf16, remat, 4
              steps): finite losses and grad norms, 8 forward and 4
-             backward attention calls a step, a profiled step (the bf16
-             backward kernels by name), the attention backward's share;
+             backward attention calls a step, the step time beside the
+             mma.sync backward's, a profiled step (the bf16 D 256 backward
+             kernels by name, the wgmma ones), the attention backward's share;
              then one fp32 step at full width and 2 layers (one local, one
              global) on 1 x 4608 against the plain twin;
 10. phi35_moe_42b — full width, depth cut: served at 8 layers (bf16,
@@ -216,13 +225,27 @@ KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "mlstm", "ssd_bwd", 
 # The launch counters: one a kernel source, and the forward's second entry
 # (its log-sum-exp written too), counted on its own.
 COUNTERS = KERNELS + ("flash_attention_lse",)
-# The attention backward's two paths, chosen by dtype alone.
+# The attention backward's paths, chosen by dtype alone, and in bf16 by
+# the head dim: D 256 (gemma2) runs the warpgroup kernels.  Kernels in
+# launch order.
 BWD_PATHS = {
     "bfloat16": {"route": "tensor cores (mma.sync bf16)",
                  "kernels": ["attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16"]},
+    "bfloat16 D 256": {"route": "tensor cores (wgmma bf16; TMA, warp-specialised)",
+                       "kernels": ["attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma"]},
     "float32": {"route": "scalar fp32 FMA",
                 "kernels": ["attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq"]},
 }
+# A bf16 decode call the wrappers split (flash_attention.decode_split):
+# the split kernel, then the merge.
+SPLIT_DECODE_KERNELS = ["attn_decode_bf16", "attn_decode_merge"]
+# gemma2's times with the earlier D 256 designs, the unsplit decode kernel
+# and the three-launch mma.sync backward (chip_smoke.py on an H100 80GB
+# HBM3 at 700 W; PERF.md holds their sources): the serve decode step, the
+# 4-layer train step, the kernels at their shapes.
+EARLIER_GEMMA2 = {"decode step": "50.08-73.41 ms", "train step": "659.0 ms",
+                  "decode_ring": "0.1741 ms", "decode_global": "0.1894 ms", "lse": "0.0955 ms",
+                  "global": "26.8730 ms", "local": "20.5695 ms"}
 L2_BYTES = 50 * 2**20   # H100 L2; decode timings rotate over more K/V than this
 # The bf16 prefill gaps to the plain twins that the scalar kernels gave
 # (chip_smoke.py on an H100 80GB HBM3 at 700 W), printed beside today's.
@@ -461,11 +484,16 @@ def bound_ms(torch, q, k, v, *, causal, window, dev) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bwd_path(dtype: str, head_dim: int) -> dict:
+    """The attention backward's path (``BWD_PATHS``) at a dtype and head dim."""
+    return BWD_PATHS["bfloat16 D 256" if dtype == "bfloat16" and head_dim == 256 else dtype]
+
+
 def ptxas_summary(log: str) -> dict[tuple[str, tuple[int, ...]], str]:
     """Registers and spills of each kernel in an ``nvcc -Xptxas=-v`` log, by
     the kernel's own name (the mangled name's first component after its
-    anonymous namespace) and its integer template arguments, in the log's
-    order."""
+    anonymous namespace) and its integer and bool template arguments, in
+    the log's order."""
     out, kernel = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -478,7 +506,7 @@ def ptxas_summary(log: str) -> dict[tuple[str, tuple[int, ...]], str]:
                 if n:
                     name = rest[n.end():n.end() + int(n.group())]
                     args = rest[n.end() + int(n.group()):]
-            kernel = (name, tuple(int(a) for a in re.findall(r"Li(\d+)E", args)))
+            kernel = (name, tuple(int(a) for a in re.findall(r"L[ib](\d+)E", args)))
             out[kernel] = ""
         elif kernel and ("spill" in line or "registers" in line):
             text = re.sub(r"^ptxas info\s*:\s*", "", line.strip())
@@ -506,16 +534,15 @@ def build_phase(torch):
         last = {kernel: props for (kernel, _), props in summary.items()}
         for kernel, props in last.items():
             print(f"[build] {name}: {kernel}: {props}")
-        if name == "flash_attention_bwd":   # stablelm's and gemma2's train head dims
+        if name == "flash_attention_bwd":   # stablelm's train head dim (D 256: the wgmma kernels)
             for (kernel, args), props in summary.items():
-                if args[:1] in ((80,), (256,)):
-                    part = {(1,): " (dV alone)", (2,): " (dK alone)"}.get(args[1:], "")
-                    print(f"[build] {name}: {kernel} at D {args[0]}{part}: {props}")
-        if name == "flash_attention":       # gemma2's head dim
+                if args[:1] == (80,):
+                    print(f"[build] {name}: {kernel} at D 80: {props}")
+        if name == "flash_attention":       # gemma2's head dim; the decode split or not
             for (kernel, args), props in summary.items():
                 if args[:1] == (256,):
-                    print(f"[build] {name}: {kernel} at D 256{f' {args[1:]}' if args[1:] else ''}"
-                          f": {props}")
+                    mode = {(0,): " (unsplit)", (1,): " (split)"}.get(args[1:], "")
+                    print(f"[build] {name}: {kernel} at D 256{mode}: {props}")
     from repro_torch.kernels import mlstm, ssd
 
     print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
@@ -756,12 +783,16 @@ def attention_timings(torch, q, kv_sets, causal, dev, *, window=0, softcap=0.0,
                                "softcap)")
     t["bound_ms"], t["bound_by"] = bound_ms(torch, q, *kv_sets[0], causal=causal,
                                             window=window, dev=dev)
+    t["splits"], t["split_keys"] = fa._split_plan(q, kv_sets[0][0])
     return t
 
 
 def print_attention_time(label, t):
     if "library_note" in t:
         label = f"{label} (sdpa: {t['library_note']})"
+    if t.get("splits", 1) > 1:
+        label = (f"{label} (keys split {t['splits']} ways, {t['split_keys']} a split: "
+                 f"{' + '.join(SPLIT_DECODE_KERNELS)})")
     if "eager_ms" in t:
         print(f"[time] flash_attention {label}, cold L2 (each call reads the next of "
               f"several K/V sets that together exceed the 50 MB L2): kernel "
@@ -784,6 +815,49 @@ def print_attention_time(label, t):
 LSE_TIMED = [("stablelm decode (8,32,1,80), a rank's half of Sk 575", 8, 32, 32, 288, 80, 0.0),
              ("gemma2 global decode (2,16,1,256) KV 8 softcap 50, a rank's half of Sk 5184",
               2, 16, 8, 2592, 256, 50.0)]
+
+
+def split_decode_edges(torch, dev, failures) -> float:
+    """The split decode's entry called directly (``flash_attention.run_split``)
+    where the rule would not cut the keys: more ranges than keys, rows that
+    admit no key (a window: 0 and lse -inf), a causal decode whose later
+    ranges admit none, each against ``attention_split_ref`` and
+    ``attention_lse_ref`` in bf16.  Returns the largest max abs error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    cases = [  # label, B, H, KV, Sq, Sk, D, splits, chunk, causal, window, softcap
+        ("more ranges than keys", 1, 16, 8, 1, 100, 256, 5, 64, False, 0, 50.0),
+        ("rows with no key (window 3)", 1, 4, 2, 12, 5, 256, 4, 64, False, 3, 0.0),
+        ("causal Sq 8, ranges past the rows' keys", 2, 8, 2, 8, 700, 80, 11, 64, True, 0, 0.0),
+    ]
+    worst = 0.0
+    for seed, (label, B, H, KV, Sq, Sk, D, splits, chunk, causal, window, cap) in enumerate(cases):
+        q = randn(torch, (B, H, Sq, D), "bfloat16", 450 + 3 * seed, dev)
+        k = randn(torch, (B, KV, Sk, D), "bfloat16", 451 + 3 * seed, dev)
+        v = randn(torch, (B, KV, Sk, D), "bfloat16", 452 + 3 * seed, dev)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        out = fa.run_split(q, k, v, splits, chunk, lse=lse, **opts)
+        want, want_lse = ref.attention_split_ref(q, k, v, splits, chunk, **opts)
+        whole, whole_lse = ref.attention_lse_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        empty = torch.isneginf(whole_lse)
+        err = max(float((out.float() - want.float()).abs().max()),
+                  float((lse[~empty] - want_lse[~empty]).abs().max()))
+        ok = (torch.equal(torch.isneginf(lse), empty) and torch.equal(torch.isneginf(want_lse), empty)
+              and not out[empty].any() and bool(torch.isfinite(out).all())
+              and torch.allclose(out.float(), want.float(), **TOL["bfloat16"])
+              and torch.allclose(out.float(), whole.float(), **TOL["bfloat16"])
+              and torch.allclose(lse[~empty], whole_lse[~empty], **TOL["bfloat16"]))
+        print(f"[kernel] flash_attention split decode {label} ({splits} ranges of {chunk} keys) "
+              f"bfloat16 max_abs_err={err:.3e} against attention_split_ref (and attention_lse_ref "
+              f"within {TOL['bfloat16']['atol']}); {int(empty.sum())} rows with no key "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"split decode {label}: max_abs_err {err:.3e}")
+        worst = max(worst, err)
+    return worst
 
 
 def lse_bound_ms(q, k, v) -> tuple[float, str]:
@@ -840,6 +914,7 @@ def lse_kernel_phase(torch, dev, failures) -> dict:
             if not ok:
                 failures.append(f"flash_attention_lse {label} {dtype}: max_abs_err {err:.3e}")
             worst = max(worst, err) if dtype == "bfloat16" else worst
+    worst = max(worst, split_decode_edges(torch, dev, failures))
 
     timed = []
     for seed, (label, B, H, KV, Sk, D, softcap) in enumerate(LSE_TIMED):
@@ -860,8 +935,11 @@ def lse_kernel_phase(torch, dev, failures) -> dict:
                  q, *kv[0], causal=False, softcap=softcap), iters=10),
              "library_ms": graph_ms(torch, [lambda i=i: lib(i) for i in range(iters)])}
         t["bound_ms"], t["bound_by"] = lse_bound_ms(q, *kv[0])
+        t["splits"], t["split_keys"] = fa._split_plan(q, kv[0][0])
         note = "; library without the softcap: not the same function" if softcap else ""
-        print(f"[time] flash_attention_lse {label} bf16, cold L2: kernel {t['ms']:.4f} ms, "
+        split = (f" (keys split {t['splits']} ways, {t['split_keys']} a split; earlier design "
+                 f"{EARLIER_GEMMA2['lse']})" if t["splits"] > 1 else " (unsplit)")
+        print(f"[time] flash_attention_lse {label} bf16, cold L2{split}: kernel {t['ms']:.4f} ms, "
               f"library (efficient attention, compute_log_sumexp, K/V repeated to the query "
               f"heads{note}) {t['library_ms']:.4f} ms, as CUDA graphs of calls; plain "
               f"{t['plain_ms']:.4f} ms (warm); bound {t['bound_ms'] * 1e3:.2f} us "
@@ -994,7 +1072,7 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
         err, _ = compare(shape, q, k, v, dout, dtype, causal=True,
                          deterministic=dtype == "bfloat16")
         t = attention_bwd_timings(torch, q, k, v, dout, dev)
-        path = BWD_PATHS[dtype]
+        path = bwd_path(dtype, D)
         print(f"[time] flash_attention_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms "
               f"({path['route']}: {' + '.join(path['kernels'])}), plain {t['plain_ms']:.4f} ms "
               f"(autograd of attention_ref, backward only), sdpa backward {t['library_ms']:.4f} "
@@ -1005,7 +1083,45 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
             entry.update(max_abs_err=err, shape=f"{shape} bf16", **t)
     entry["d256_cases_max_abs_err"] = d256
     entry[GEMMA2] = gemma2_bwd_timings(torch, dev, compare)
+    entry["gemma2_paths"] = gemma2_kernel_paths(torch, dev, failures)
     return entry
+
+
+def gemma2_kernel_paths(torch, dev, failures) -> dict:
+    """The kernels a gemma2 call runs, by name in launch order
+    (``kernel_split``, torch.profiler): a bf16 decode call over a full ring
+    and the lse entry over a rank's half cache, the split decode's two
+    (``SPLIT_DECODE_KERNELS``, the rule's split); a bf16 D 256 backward call
+    the wgmma path's two (``BWD_PATHS``).  Each kernel's device ms printed."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q = randn(torch, (2, 16, 1, 256), "bfloat16", 1400, dev)
+    k, v = (randn(torch, (2, 8, 4096, 256), "bfloat16", 1401 + i, dev) for i in range(2))
+    qt, kt, vt, dot = (randn(torch, (1, H, 1024, 256), "bfloat16", 1410 + i, dev)
+                       for i, H in enumerate((16, 8, 8, 16)))
+    out = fa.flash_attention_cuda(qt, kt, vt, causal=True, softcap=50.0)
+    pattern = r"(attn_decode_bf16|attn_decode_merge|attn_bwd_\w+)"
+    checks = [
+        ("decode ring (2,16,1,256) kv 8 Sk 4096", SPLIT_DECODE_KERNELS,
+         lambda: fa.flash_attention_cuda(q, k, v, causal=False, softcap=50.0)),
+        ("lse entry, half a global cache (2,16,1,256) kv 8 Sk 2592", SPLIT_DECODE_KERNELS,
+         lambda: fa.flash_attention_lse_cuda(q, k[:, :, :2592], v[:, :, :2592], causal=False,
+                                             softcap=50.0)),
+        ("backward (1,16,1024,256) kv 8 causal softcap 50", BWD_PATHS["bfloat16 D 256"]["kernels"],
+         lambda: fa.flash_attention_bwd_cuda(qt, kt, vt, out, dot, causal=True, softcap=50.0)),
+    ]
+    seen = {}
+    for label, want, fn in checks:
+        split, tries = kernel_split(torch, fn, pattern, want)
+        names = [name for name, _ in split]
+        ok = names == want
+        print(f"[kernel] gemma2 {label}: kernels " + ", ".join(
+            f"{name} {ms:.4f} ms" for name, ms in split) + f" ({tries} profiled call(s); want "
+            f"{' then '.join(want)}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"gemma2 {label} ran {names}, expected {want}")
+        seen[label] = split
+    return seen
 
 
 def gemma2_bwd_timings(torch, dev, compare) -> dict:
@@ -1035,12 +1151,13 @@ def gemma2_bwd_timings(torch, dev, compare) -> dict:
         err, rms = compare(shape, q, k, v, dout, "bfloat16", causal=True, window=window,
                            softcap=cap, deterministic=True, regions=regions)
         t = attention_bwd_timings(torch, q, k, v, dout, dev, window=window, softcap=cap)
+        path = bwd_path("bfloat16", D)
         print(f"[time] flash_attention_bwd {shape} bfloat16: kernel {t['ms']:.4f} ms "
-              f"({' + '.join(BWD_PATHS['bfloat16']['kernels'])}, dK and dV in two launches at "
-              f"D 256), bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {t['ms'] / t['bound_ms']:.2f}"
-              f"x), plain {t['plain_ms']:.4f} ms (autograd of attention_ref, backward only), sdpa "
-              f"backward {t['library_ms']:.4f} ms ({t['library_note']}; backend "
-              f"{t['sdpa_backend']})")
+              f"({path['route']}: {' + '.join(path['kernels'])}; earlier design "
+              f"{EARLIER_GEMMA2[label]}), bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+              f"{t['ms'] / t['bound_ms']:.2f}x), plain {t['plain_ms']:.4f} ms (autograd of "
+              f"attention_ref, backward only), sdpa backward {t['library_ms']:.4f} ms "
+              f"({t['library_note']}; backend {t['sdpa_backend']})")
         out[label] = {"shape": f"{shape} bf16", "max_abs_err": err, **rms, **t}
         del q, k, v, dout
         torch.cuda.empty_cache()
@@ -2267,7 +2384,8 @@ def gemma2_phase(torch, dev, fa_entry, failures, counts):
     step_ms = res.decode_s / (GEN - 1) * 1e3
     print(f"{tag} prefill {B}x{P} tokens: {res.prefill_s * 1e3:.1f} ms; decode "
           f"{res.decode_tok_s:.1f} tok/s ({GEN - 1} steps in {res.decode_s:.3f}s, "
-          f"{step_ms:.2f} ms a step; the rings written at pos % {W} from pos {P}); peak memory "
+          f"{step_ms:.2f} ms a step, {EARLIER_GEMMA2['decode step']} with the unsplit decode "
+          f"kernel; the rings written at pos % {W} from pos {P}); peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     print(f"{tag} sample output ids: {res.generated[0, :12].tolist()}")
     for name, want in (("flash_attention", cfg.n_layers * GEN), ("flash_attention_bwd", 0),
@@ -2299,8 +2417,10 @@ def gemma2_phase(torch, dev, fa_entry, failures, counts):
                               causal=causal, window=window, softcap=cfg.attn_softcap)
         t = attention_timings(torch, q, kv_sets, causal, dev, window=window,
                               softcap=cfg.attn_softcap, iters=5 if Sq > 1 else None)
-        att[label.replace(" ", "_")] = {"shape": shape, "max_abs_err": err, **t}
-        print_attention_time(shape, t)
+        key = label.replace(" ", "_")
+        att[key] = {"shape": shape, "max_abs_err": err, **t}
+        print_attention_time(shape + (f"; earlier design {EARLIER_GEMMA2[key]}"
+                                      if key in EARLIER_GEMMA2 else ""), t)
         del q, kv_sets
     fa_entry[GEMMA2] = att
     n_loc = len(local_layers(cfg))
@@ -2723,7 +2843,8 @@ def gemma2_train_phase(torch, dev, bwd_entry, failures, counts):
               f"{r.seconds * 1e3:.1f} ms")
     step_s = statistics.median(r.seconds for r in records[1:])
     print(f"{tag} step time {step_s * 1e3:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; step 0, "
-          f"cold, {records[0].seconds * 1e3:.1f} ms), {S / step_s:.0f} tokens/s, peak memory "
+          f"cold, {records[0].seconds * 1e3:.1f} ms; {EARLIER_GEMMA2['train step']} with the "
+          f"mma.sync D 256 backward), {S / step_s:.0f} tokens/s, peak memory "
           f"{peak / 2**30:.1f} GiB ({peak / 1e9:.1f} GB), on {card_label(dev)}")
     finite = all(math.isfinite(r.loss) and math.isfinite(r.grad_norm) for r in records)
     print(f"{tag} every loss and grad norm finite: {finite}")
@@ -3043,9 +3164,10 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
     phases by host clock (each ended by a device sync), then one under
     torch.profiler: the device's busy share, its kernels by group, and the
     attention, SSD and mLSTM backwards' kernels by name, which must be
-    those of the compute dtype's path (``BWD_PATHS``, ``SSD_BWD_PATHS``,
-    ``MLSTM_BWD_PATHS``), or none for a model without attention, Mamba2 or
-    mLSTM layers; the SSD and mLSTM backwards' shares of the step."""
+    those of the compute dtype's path (``bwd_path`` at the model's head
+    dim, ``SSD_BWD_PATHS``, ``MLSTM_BWD_PATHS``), or none for a model
+    without attention, Mamba2 or mLSTM layers; the SSD and mLSTM
+    backwards' shares of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.optim import adamw_update, global_norm
@@ -3099,7 +3221,7 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
             bwd[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
     print(f"{tag} attention backward kernels in the profiled step: " + ", ".join(
         f"{name} {ms:.2f} ms in {n} launches" for name, (ms, n) in sorted(bwd.items())))
-    want = BWD_PATHS[dtype]["kernels"] if attention else []
+    want = bwd_path(dtype, model.cfg.hd)["kernels"] if attention else []
     if sorted(bwd) != sorted(want):
         failures.append(f"profiled {dtype} train step ran the attention backward kernels "
                         f"{sorted(bwd)}, expected {want}")

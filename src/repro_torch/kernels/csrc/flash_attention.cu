@@ -15,9 +15,11 @@
 //           as fp32 in shared memory, a lane per key for the scores;
 //           decode splits the tiles over 4 warps and merges them (not at
 //           D 256, where four warps' slabs would not fit: see launch_mode);
-//   bf16 -> attn_prefill_bf16 (Sq >= 16) and attn_decode_bf16 (Sq < 16),
-//           tensor-core products (mma.sync m16n8k16, bf16 operands, fp32
-//           accumulators; helpers in mma_bf16.cuh).
+//   bf16 -> attn_prefill_bf16 (Sq >= 16) and attn_decode_bf16 (Sq < 16;
+//           with its keys split over blocks, attn_decode_bf16<D, true>
+//           then attn_decode_merge), tensor-core products (mma.sync
+//           m16n8k16, bf16 operands, fp32 accumulators; helpers in
+//           mma_bf16.cuh).
 //
 // What bounds it.  At stablelm_3b's prefill shape (B 8, H 32, S 512, D 80,
 // causal, bf16) the call does ~10.7 GFLOP (11 us at the H100 SXM's dense
@@ -71,6 +73,38 @@
 // a step loads V only after its scores are formed, when K's registers are
 // free; 16 keys a step as at D 128.
 //
+// The split decode (flash_attention_decode_split).  A decode block owns a
+// (b, KV head), so gemma2's decode (B 2, KV 8) is 16 blocks for 132 SMs:
+// each streams its whole 4-5 MB of cache alone, and the call took 0.1741 /
+// 0.1894 ms (ring Sk 4096 / global Sk 5183) against a bytes bound of 20.04 /
+// 25.36 us.  The wrapper's rule (flash_attention.py::decode_split, a pure
+// function of B, KV, rows, Sk and the SM count) cuts the keys into ranges
+// of a whole number of 64 keys, enough for about two blocks an SM, where
+// the unsplit grid has fewer blocks than SMs.  Each block runs the
+// per-block plan above (DcMap::LEAN at D 256) over its range, the steps a
+// range holds being whole, and writes its unnormalised o with the rows' m
+// (log2 units) and l to fp32 scratch the wrapper allocates; a second
+// launch, attn_decode_merge, a block a row, merges the ranges as the
+// block merges its warps (and as models/layers.py merges ranks) and writes
+// o, and the lse when asked.  It is a programmatic dependent launch: its
+// blocks are scheduled while the split blocks run and wait
+// (griddepcontrol.wait) for their writes.  A range with no admitted key
+// (a causal decode's later ranges, more ranges than keys) has m = -inf and
+// adds nothing; a row with no key anywhere gives 0 and lse -inf.  Grids
+// the rule does not split run the unsplit instantiation, the code of
+// before the split, bit for bit.  Measured (scripts/attention_fwd_ab.py,
+// in turns beside the unsplit kernel, cold L2, CUDA graphs of calls; H100
+// 80GB HBM3 at 700.00 W): gemma2's ring decode 0.0397-0.0399 ms against the
+// unsplit kernel's 0.1412-0.1413 (3.55x; 16 ranges of 256 keys; bound
+// 20.04 us, bytes), the global 0.0457-0.0461 against 0.1732-0.1742 (3.78x;
+// 17 of 320; 25.36 us), the lse entry over half the global cache
+// 0.0312-0.0313 against 0.0936-0.0940 (3.00x; 14 of 192; 12.69 us);
+// phi3.5's 64-block decode 0.0176-0.0177 against 0.0204 (3 of 192);
+// stablelm's and zamba2's decode unsplit and bitwise equal, 0.0223 and
+// 0.0191-0.0192 beside 0.0223 and 0.0192-0.0193.  What is left: each block
+// still waits on its K loads, then its V loads, in turn (at 2.0-2.5x the
+// bound).
+//
 // Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): prefill 0.0906 ms
 // against SDPA's 0.0571 (stablelm shape) and 0.0801 against 0.0418 (D 64,
 // zamba2); decode at Sk 575 with a cold L2, as a CUDA graph of calls,
@@ -79,7 +113,9 @@
 // A second entry, flash_attention_lse, runs the same kernels with the flag
 // Params::lse set: each also writes its rows' fp32 log-sum-exp, so that the
 // partial outputs of keys split over ranks can be merged (decode with the
-// cache's sequence split, repro_torch.models.layers).
+// cache's sequence split, repro_torch.models.layers).  A third,
+// flash_attention_decode_split, is the split decode above, with or without
+// the lse; flash_attention_sm_count gives the rule its SM count.
 //
 // Strides are element strides of the (b, head, seq) axes; the last axis
 // must be contiguous, and every pointer and stride 16-byte aligned (the
@@ -112,6 +148,11 @@ struct Params {
   int causal, window;
   float softcap, scale;
   float* lse;  // (B, H, Sq) fp32 log-sum-exp of each row's scores, or null (flash_attention_fwd)
+  // Decode with its keys split over blocks (flash_attention_decode_split):
+  // `splits` ranges of `chunk` keys, each block's partial (o, m, l) in
+  // `part` (fp32 scratch); null / 0 otherwise.
+  float* part;
+  int splits, chunk;
 };
 
 constexpr float LN2 = 0.6931471805599453f;
@@ -786,7 +827,10 @@ struct DcSmem {  // in floats: each warp's m and l of 16 rows, then its 16 x D p
   static constexpr size_t BYTES = sizeof(float) * (QF + (DcMap<D>::LEAN ? D / 16 * 32 * 4 : 0));
 };
 
-template <int D>
+// SPLIT: the block takes only keys split * chunk .. + chunk (blockIdx.z =
+// b * splits + split) and writes its unnormalised partial o with its rows'
+// max m (log2 units) and sum l to p.part, for attn_decode_merge.
+template <int D, bool SPLIT>
 __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p) {
   using M = DcMap<D>;
   using S = DcSmem<D>;
@@ -801,8 +845,10 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
+  if constexpr (SPLIT) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = SPLIT ? blockIdx.z / p.splits : blockIdx.z;
+  const int split = SPLIT ? blockIdx.z - b * p.splits : 0;
   const int group = p.H / p.KV;
   const int rows = group * p.Sq;
   const int r0 = blockIdx.x * 16;
@@ -842,13 +888,17 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
   if constexpr (M::LEAN) __syncthreads();
 
   const int k_hi = p.causal ? min(p.Sk, p.Sq) : p.Sk;
-  const int nsteps = (k_hi + M::KEYS - 1) / M::KEYS;
+  // This block's steps: all, or (SPLIT) those of its chunk of keys, which
+  // is a whole number of steps.
+  const int s_lo = SPLIT ? split * p.chunk / M::KEYS : 0;
+  const int s_hi = SPLIT ? (min(k_hi, (split + 1) * p.chunk) + M::KEYS - 1) / M::KEYS
+                         : (k_hi + M::KEYS - 1) / M::KEYS;
   float o[NT][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 
-  for (int step = warp; step < nsteps; step += DC_WARPS) {
+  for (int step = s_lo + warp; step < s_hi; step += DC_WARPS) {
     const int kb = step * M::KEYS;
     // Every load of the step first (LEAN: V after the scores): K for the
     // scores, V for P V.
@@ -940,11 +990,57 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
       }
     }
     const int hh = kvh * group + row / p.Sq;
-    bf16* og = static_cast<bf16*>(p.o) + b * p.osb + hh * p.osh + (row % p.Sq) * p.oss;
-    og[d] = __float2bfloat16_rn(lsum > 0.f ? acc / lsum : 0.f);
-    // mx is in log2 units (the scores carry log2 e)
-    if (p.lse != nullptr && d == 0) write_lse(p, b, hh, row % p.Sq, mx * LN2, lsum);
+    if constexpr (SPLIT) {
+      const int64_t part = ((static_cast<int64_t>(b) * p.H + hh) * p.Sq + row % p.Sq) * p.splits +
+                           split;
+      const int64_t all = static_cast<int64_t>(p.B) * p.H * p.Sq * p.splits;
+      p.part[part * D + d] = acc;
+      if (d == 0) {
+        p.part[all * D + 2 * part] = mx;
+        p.part[all * D + 2 * part + 1] = lsum;
+      }
+    } else {
+      bf16* og = static_cast<bf16*>(p.o) + b * p.osb + hh * p.osh + (row % p.Sq) * p.oss;
+      og[d] = __float2bfloat16_rn(lsum > 0.f ? acc / lsum : 0.f);
+      // mx is in log2 units (the scores carry log2 e)
+      if (p.lse != nullptr && d == 0) write_lse(p, b, hh, row % p.Sq, mx * LN2, lsum);
+    }
   }
+}
+
+// The split decode's second launch: one block a row (b, h, position) and a
+// thread a column merges the row's `splits` partials (o, m, l) as the
+// block's warps merge theirs, o = sum_s 2^(m_s - M) o_s / L with M the
+// largest m_s and L = sum_s 2^(m_s - M) l_s, and writes o in bf16 and (when
+// asked) the fp32 log-sum-exp.  A split that admitted no key has m = -inf
+// and adds nothing; a row with none in any split gives 0 and lse -inf.
+__global__ void attn_decode_merge(const Params p, int D) {
+  extern __shared__ float ml[];  // the row's (m, l) of each split, 2 * splits floats
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the split blocks' partials
+  const int row = blockIdx.x;  // (b * H + h) * Sq + position
+  const int d = threadIdx.x;
+  const int qpos = row % p.Sq;
+  const int hh = (row / p.Sq) % p.H;
+  const int b = row / (p.Sq * p.H);
+  const int64_t all = static_cast<int64_t>(p.B) * p.H * p.Sq * p.splits;
+  const float* part_ml = p.part + all * D + 2 * static_cast<int64_t>(row) * p.splits;
+  const float* po = p.part + static_cast<int64_t>(row) * p.splits * D + d;
+  for (int i = d; i < 2 * p.splits; i += blockDim.x) ml[i] = part_ml[i];
+  __syncthreads();
+  float mx = -INFINITY;
+  for (int s = 0; s < p.splits; ++s) mx = fmaxf(mx, ml[2 * s]);
+  float lsum = 0.f, acc = 0.f;
+  if (mx != -INFINITY) {
+#pragma unroll 8
+    for (int s = 0; s < p.splits; ++s) {  // the partials' loads, 8 in flight
+      const float a = mma::exp2_approx(ml[2 * s] - mx);
+      lsum += ml[2 * s + 1] * a;
+      acc += po[s * D] * a;
+    }
+  }
+  bf16* og = static_cast<bf16*>(p.o) + b * p.osb + hh * p.osh + qpos * p.oss;
+  og[d] = __float2bfloat16_rn(lsum > 0.f ? acc / lsum : 0.f);
+  if (p.lse != nullptr && d == 0) write_lse(p, b, hh, qpos, mx * LN2, lsum);
 }
 
 // Launches Kern with `bytes` of dynamic shared memory; the opt-in above
@@ -965,8 +1061,27 @@ template <int D>
 cudaError_t launch_bf16_mode(const Params& p, cudaStream_t stream) {
   if (p.Sq < SPLIT_BELOW_SQ) {
     const int mtiles = (p.H / p.KV * p.Sq + 15) / 16;
-    return launch_with_smem<attn_decode_bf16<D>>(dim3(mtiles, p.KV, p.B), DC_WARPS * 32,
-                                                 DcSmem<D>::BYTES, p, stream);
+    if (p.part != nullptr) {
+      const cudaError_t err = launch_with_smem<attn_decode_bf16<D, true>>(
+          dim3(mtiles, p.KV, p.B * p.splits), DC_WARPS * 32, DcSmem<D>::BYTES, p, stream);
+      if (err != cudaSuccess) return err;
+      // The merge as a programmatic dependent launch: its blocks are
+      // scheduled while the split blocks finish and wait for their writes
+      // (griddepcontrol.wait) instead of for a launch after them.
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      attr[0].val.programmaticStreamSerializationAllowed = 1;
+      cudaLaunchConfig_t cfg{};
+      cfg.gridDim = dim3(p.B * p.H * p.Sq);
+      cfg.blockDim = dim3(D);
+      cfg.dynamicSmemBytes = 2 * sizeof(float) * p.splits;
+      cfg.stream = stream;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      return cudaLaunchKernelEx(&cfg, attn_decode_merge, p, D);
+    }
+    return launch_with_smem<attn_decode_bf16<D, false>>(dim3(mtiles, p.KV, p.B), DC_WARPS * 32,
+                                                        DcSmem<D>::BYTES, p, stream);
   }
   return launch_with_smem<attn_prefill_bf16<D>>(dim3(p.B * p.H, (p.Sq + PF_BQ - 1) / PF_BQ),
                                                 PF_WARPS * 32, PfSmem<D>::BYTES, p, stream);
@@ -1010,7 +1125,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    void* stream) {
   const Params p{q, k, v, o, B, H, KV, Sq, Sk,
                  qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-                 causal, window, softcap, scale, nullptr};
+                 causal, window, softcap, scale, nullptr, nullptr, 0, 0};
   return run(p, dtype, D, stream);
 }
 
@@ -1032,6 +1147,41 @@ extern "C" int flash_attention_lse(const void* q, const void* k, const void* v, 
                                    void* stream) {
   const Params p{q, k, v, o, B, H, KV, Sq, Sk,
                  qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-                 causal, window, softcap, scale, static_cast<float*>(lse)};
+                 causal, window, softcap, scale, static_cast<float*>(lse), nullptr, 0, 0};
   return run(p, dtype, D, stream);
+}
+
+// bf16 decode (Sq < 16) with its keys split over blocks: `splits` blocks
+// per (b, KV head, 16 rows), block s taking keys s * chunk .. + chunk
+// (chunk a multiple of 64, splits * chunk >= Sk), each writing its
+// partial (o, m, l) to `part`, fp32 scratch of B * H * Sq * splits * (D +
+// 2) floats the caller allocates; then attn_decode_merge writes o and, if
+// `lse` is not null, the log-sum-exp as flash_attention_lse does.  The
+// same function as flash_attention_fwd / flash_attention_lse; it fills
+// the card where (B, KV) alone gives too few blocks (the wrapper's rule).
+extern "C" int flash_attention_decode_split(const void* q, const void* k, const void* v, void* o,
+                                            void* lse, void* part, int splits, int chunk,
+                                            int dtype, int B, int H, int KV, int Sq, int Sk,
+                                            int D, int64_t qsb, int64_t qsh, int64_t qss,
+                                            int64_t ksb, int64_t ksh, int64_t kss,
+                                            int64_t vsb, int64_t vsh, int64_t vss,
+                                            int64_t osb, int64_t osh, int64_t oss,
+                                            int causal, int window, float softcap, float scale,
+                                            void* stream) {
+  if (dtype != 1 || Sq >= SPLIT_BELOW_SQ || part == nullptr || splits < 1 || chunk <= 0 ||
+      chunk % 64 != 0 || static_cast<int64_t>(splits) * chunk < Sk ||
+      static_cast<int64_t>(B) * splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{q, k, v, o, B, H, KV, Sq, Sk,
+                 qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+                 causal, window, softcap, scale, static_cast<float*>(lse),
+                 static_cast<float*>(part), splits, chunk};
+  return run(p, dtype, D, stream);
+}
+
+// The card's streaming multiprocessors (cudaDevAttrMultiProcessorCount),
+// the input of the wrapper's split rule; -1 on error.
+extern "C" int flash_attention_sm_count(int device) {
+  int n = 0;
+  return cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) == cudaSuccess ? n : -1;
 }

@@ -22,7 +22,9 @@
 //           gradient tolerance);
 //   bf16 -> attn_bwd_dq_bf16, attn_bwd_dkdv_bf16: tensor-core products
 //           (mma.sync m16n8k16, bf16 operands, fp32 accumulators; helpers
-//           in mma_bf16.cuh) in two launches (three at D 256, below).
+//           in mma_bf16.cuh) in two launches; at D 256
+//           attn_bwd_dq_wgmma, attn_bwd_dkdv_wgmma: warpgroup products
+//           (wgmma), operands by TMA, warps specialised (below).
 //
 // What bounds it.  At stablelm_3b's train shape (B 8, H = KV = 32, S 512,
 // D 80, causal) the call must read q, k, v, o, dO and write dq, dk, dv:
@@ -85,33 +87,58 @@
 // five 2 D-flop products each: 1.374 TFLOP, 1.39 ms at 989 TFLOP/s; the
 // local layer (window 4096) 25,167,872 pairs, 1.04 ms; the bytes (q, k,
 // v, o, dO read, dq, dk, dv written) 0.12 ms.  Operations bound both.
-// Registers bound the design: a warp's 16 x D fp32 accumulator is D / 2 =
-// 128 registers a lane, of the 255 a thread may have.
-//   fp32: the same three launches; Tiles<256> is 140,800 bytes (one block
-//     an SM), and attn_bwd_dkdv's accumulate phase holds 2 x 16 float4
-//     (dK and dV: 128 floats) a thread.
-//   bf16 launch 1: dQ takes 128 registers, so K/V tiles shrink to 32 keys
-//     (DqSmem::BK), which halves S and dP (32 registers, from 64); shared
-//     memory 135,168 bytes (Q, dO: 2 x 64 rows; K, V: 2 x 2 x 32 rows; rows
-//     of 264 bf16).  The D <= 128 instantiations keep 64-key tiles.
-//   bf16 launch 2: dK and dV together would be 256 registers a lane, so at
-//     D 256 the kernel runs twice over the same grid (PART): first dV
-//     alone (S^T = K Q^T, P^T, dV += P^T dO as hi + lo: 3 products; V and
-//     delta not read), then dK alone (S^T and dP^T, dS^T, dK += dS^T Q as
-//     hi + lo: 4 products), each holding one 128-register accumulator
-//     beside S^T / dP^T of a 32-query tile (32 registers).  KvSmem<256> is
-//     135,680 bytes (K, V: 64 rows; Q, dO: 2 x 2 x 32 rows; lse, delta).
-//     The cost: S^T = K Q^T is formed twice and Q, dO and lse are read
-//     twice (from L2 mostly), so a pair costs 13 products of the 5 (6 in
-//     launch 1, 3 + 4 in launch 2) where D <= 128 costs 12.  Splitting D's
-//     columns between two warps instead would form S^T and dP^T twice (14
-//     products) or pass them through shared memory.  No atomics: each
-//     launch owns its keys' dk or dv, so the result stays deterministic.
-//   Measured (chip_smoke.py's attention backward phase, H100 80GB HBM3 at
-//   700 W): bf16 26.85 ms global, 20.57 ms local, 19.3-19.7x the bound
-//   (cuDNN's SDPA backward without softcap, not the same function: 3.6-3.7
-//   ms); ptxas at D 256 254 registers (launch 1), 240 / 242 (dV / dK), fp32
-//   attn_bwd_dkdv 253, no spill.
+//   fp32: the same three scalar launches; Tiles<256> is 140,800 bytes (one
+//     block an SM), and attn_bwd_dkdv's accumulate phase holds 2 x 16
+//     float4 (dK and dV: 128 floats) a thread.
+//   bf16: the mma.sync plan did not fit.  A warp's 16 x 256 fp32
+//     accumulator is 128 registers a lane, so dQ ran 32-key tiles and dK /
+//     dV ran as two launches over the same grid (dV alone, then dK alone),
+//     each block 4 warps at 240-254 registers and 135 KB of shared memory:
+//     one warp a scheduler, every ldmatrix -> mma -> exp chain exposed, S^T
+//     formed twice and Q, dO, lse read twice (13 products a pair): 26.87 /
+//     20.57 ms, 19.3-19.7x the bound.  The warpgroup plan (attn_bwd_*_wgmma,
+//     below WgParams) is two launches of three warpgroups a block, one
+//     block an SM (384 threads, 168 registers each at launch):
+//     - warpgroup 0, the producer, cuts its registers to 24 (setmaxnreg);
+//       one thread keeps the operand tiles in flight by TMA (4-D tensor
+//       maps of q, k, v, dO, boxes of 64 rows x 64 columns, 128-byte
+//       swizzle) into an mbarrier ring, each slot released by the
+//       consumers' arrivals;
+//     - warpgroups 1 and 2, the consumers, raise theirs to 240 and run
+//       wgmma: m64n64k16 with A and B in shared memory for the scores
+//       (S = Q K^T, dP = dO V^T, or their transposes), m64n256k16 with A in
+//       registers and B (MN-major) in shared memory for the accumulations.
+//       P^T and dS^T enter the second product from the registers that hold
+//       them (the accumulator layout of m64nN is the A fragment layout of
+//       the next k step, mma_bf16.cuh), not through shared memory: no
+//       store, fence or barrier between the two products;
+//     - attn_bwd_dq_wgmma: a block owns 128 query rows of one (b, h), 64 a
+//       consumer; Q and dO stay in shared memory (128 KB), K and V tiles of
+//       64 keys stream through three 32 KB slots, twice (sweep 1: S, dP,
+//       online lse and delta = rowsum(P dP); sweep 2: S, dP, dS, dQ +=
+//       dS K), 224 KB in all; S runs while V's tile is still in flight;
+//     - attn_bwd_dkdv_wgmma: a block owns 64 keys of one (b, KV head); K
+//       and V stay in shared memory, Q and dO tiles of 64 rows stream
+//       through two stages over the group's heads and the rows the masks
+//       admit; consumer 1 forms S^T and P^T and accumulates dV += P^T dO,
+//       consumer 2 forms dP^T and accumulates dK += dS^T Q, with dS^T =
+//       P^T (1 - t^2) (dP^T - delta), P^T (1 - t^2) handed over in fp32
+//       through shared memory (one 16 KB buffer a stage, one named barrier
+//       a stage).  Each consumer holds one 64 x 256 accumulator (128
+//       registers a thread); S^T and dP^T are formed once, and Q, dO and
+//       lse read once, a tile.
+//     A pair costs 12 products of the 5 (6 a launch, the hi + lo pairs
+//     included).  No atomics: each launch owns its rows of dq or its keys'
+//     dk and dv, so two calls give the same bits.
+//   Measured (scripts/attention_fwd_ab.py --bwd, in turns beside the
+//   mma.sync plan; H100 80GB HBM3 at 700.00 W): global 11.78-11.83 ms
+//   against 26.84-26.85 (2.28x), local 8.95-9.12 against 20.53-20.55
+//   (2.28x), 8.5-8.6x the bound; the two launches take about the same time
+//   (chip_smoke.py's profiled gemma2 train step), and the 12 products
+//   issued a pair (3.3 TFLOP at the global shape) run at ~28% of the
+//   tensor cores' peak.  ptxas: 168 registers at launch, no spill.  What is left: a consumer's exp and tanh do not
+//   overlap its own products, and the dQ launch's V tile waits for the K
+//   tile before it, three slots deep.
 //
 // Rounding.  A CPU emulation of the bf16 roundings against an fp64
 // gradient chose three things (PERF.md).  delta is rowsum(P * dP) in fp32
@@ -121,8 +148,8 @@
 // dS^T Q as bf16 hi + lo (one rounding left dq 1.16x past it), and P
 // enters P^T dO as hi + lo (one rounding left dv at 0.80 of it under
 // MQA).  So the bf16 path issues per admitted (query, key) pair
-// 2 D x (2 + 4 + 6) flops: 12 products of the 5 the function needs (13 at
-// D 256).  The fp32 path's delta is rowsum(P * dP) too: from the fp32 O
+// 2 D x (2 + 4 + 6) flops: 12 products of the 5 the function needs (so does
+// the wgmma plan at D 256).  The fp32 path's delta is rowsum(P * dP) too: from the fp32 O
 // it put dq up to 1.3x past 1e-4 at the same logits.
 //
 // Measured (chip_smoke.py, H100 80GB HBM3 at 700 W) at the train shape:
@@ -135,6 +162,7 @@
 // dk and dv are written in q's / k's / v's dtype.  Neither path reads O.
 // Launch errors are returned, never swallowed.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -524,16 +552,16 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dq(const Params p) {
   }
 }
 
-// Launches Kern with `bytes` of dynamic shared memory; the opt-in above
-// 48 KB is set once per kernel.
-template <auto Kern>
-cudaError_t launch_with_smem(dim3 grid, size_t bytes, const Params& p, cudaStream_t stream) {
+// Launches Kern (THREADS a block) with `bytes` of dynamic shared memory;
+// the opt-in above 48 KB is set once per kernel.
+template <auto Kern, int THREADS = NTHREADS, typename P>
+cudaError_t launch_with_smem(dim3 grid, size_t bytes, const P& p, cudaStream_t stream) {
   static const cudaError_t attr =
       bytes > 48 * 1024 ? cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(bytes))
                         : cudaSuccess;
   if (attr != cudaSuccess) return attr;
-  Kern<<<grid, NTHREADS, bytes, stream>>>(p);
+  Kern<<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -571,10 +599,6 @@ using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int DQ_BQ = NWARPS * 16;     // query rows of a launch-1 block, 16 a warp
 constexpr int KV_BK = NWARPS * 16;     // keys of a launch-2 block, 16 a warp
-// What a launch-2 block accumulates: dK and dV together up to D 128; at
-// D 256 the two (256 registers a lane) do not fit, so dV and dK are two
-// launches of the same kernel.
-constexpr int DV_PART = 1, DK_PART = 2, DKDV_PART = DV_PART | DK_PART;
 
 // The score of a raw product q . k in log2 units (scale, then softcap), and
 // the softcap's derivative 1 - t^2 in `dcap` (1 without a softcap).
@@ -624,8 +648,7 @@ __device__ __forceinline__ void split_fragment(const float (&s)[N][4], int kk, u
 // s += A B^T and dp += A2 B2^T for one warp: A and A2 are 16 rows of the
 // shared tiles `a` and `a2` (row stride LD, k = D), B and B2 the N8 * 8
 // rows of `bm` and `bm2`.  The two products share their loop and index maths.
-// With SECOND false only s is formed (a2, bm2 and dp are not touched).
-template <int D, int N8, int LD, bool SECOND = true>
+template <int D, int N8, int LD>
 __device__ __forceinline__ void two_products(float (&s)[N8][4], float (&dp)[N8][4], const bf16* a,
                                              const bf16* a2, const bf16* bm, const bf16* bm2,
                                              int lane) {
@@ -634,20 +657,18 @@ __device__ __forceinline__ void two_products(float (&s)[N8][4], float (&dp)[N8][
     uint32_t fa[4], fa2[4];
     const int a_off = (lane & 15) * LD + ks * 16 + (lane >> 4) * 8;
     mma::ldmatrix_x4(fa, a + a_off);
-    if constexpr (SECOND) mma::ldmatrix_x4(fa2, a2 + a_off);
+    mma::ldmatrix_x4(fa2, a2 + a_off);
 #pragma unroll
     for (int np = 0; np < N8 / 2; ++np) {
       uint32_t fb[4], fb2[4];
       const int b_off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +
                         ((lane >> 3) & 1) * 8;
       mma::ldmatrix_x4(fb, bm + b_off);
-      if constexpr (SECOND) mma::ldmatrix_x4(fb2, bm2 + b_off);
+      mma::ldmatrix_x4(fb2, bm2 + b_off);
       mma::mma_bf16(s[2 * np], fa, fb[0], fb[1]);
       mma::mma_bf16(s[2 * np + 1], fa, fb[2], fb[3]);
-      if constexpr (SECOND) {
-        mma::mma_bf16(dp[2 * np], fa2, fb2[0], fb2[1]);
-        mma::mma_bf16(dp[2 * np + 1], fa2, fb2[2], fb2[3]);
-      }
+      mma::mma_bf16(dp[2 * np], fa2, fb2[0], fb2[1]);
+      mma::mma_bf16(dp[2 * np + 1], fa2, fb2[2], fb2[3]);
     }
   }
 }
@@ -688,9 +709,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, int64_t stride, const floa
 
 template <int D>
 struct DqSmem {  // in bf16 elements
-  // Keys a K/V tile: 64, or 32 at D 256, where a warp's dQ (16 rows x D)
-  // already takes 128 registers a lane and S and dP of 64 keys 64 more.
-  static constexpr int BK = D <= 128 ? 64 : 32;
+  static constexpr int BK = 64;     // keys a K/V tile
   static constexpr int LD = D + 8;  // row stride: 16 bytes of padding keep ldmatrix conflict-free
   static constexpr int TILE = BK * LD;
   static constexpr int DO = DQ_BQ * LD;       // Q tile at 0, dO tile here
@@ -879,17 +898,13 @@ struct KvSmem {  // in bf16 elements; lse and delta as fp32 after the tiles
   static constexpr size_t BYTES = sizeof(bf16) * STATS + sizeof(float) * 4 * BQ;
 };
 
-// Launch 2: dK and dV (PART: DKDV_PART), or dV alone (DV_PART: S^T only,
-// no V and no delta read) or dK alone (DK_PART), of 64 keys of one
-// (b, KV head).
-template <int D, int PART>
+// Launch 2: dK and dV of 64 keys of one (b, KV head).
+template <int D>
 __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
   using S = KvSmem<D>;
   constexpr int LD = S::LD;
   constexpr int BQ = S::BQ;
   constexpr int NQT = BQ / 8;  // n8 tiles of a (transposed) score tile
-  constexpr bool WANT_DV = (PART & DV_PART) != 0;
-  constexpr bool WANT_DK = (PART & DK_PART) != 0;
   extern __shared__ float4 smem4[];
   bf16* sm = reinterpret_cast<bf16*>(smem4);
   float* stats = reinterpret_cast<float*>(sm + S::STATS);
@@ -904,9 +919,8 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
 
   async_rows<D, KV_BK, LD>(sm, static_cast<const bf16*>(p.k) + b * p.ks[0] + kvh * p.ks[1] +
                                    key0 * p.ks[2], p.ks[2], nkeys);
-  if constexpr (WANT_DK)
-    async_rows<D, KV_BK, LD>(sm + S::V, static_cast<const bf16*>(p.v) + b * p.vs[0] +
-                                            kvh * p.vs[1] + key0 * p.vs[2], p.vs[2], nkeys);
+  async_rows<D, KV_BK, LD>(sm + S::V, static_cast<const bf16*>(p.v) + b * p.vs[0] +
+                                          kvh * p.vs[1] + key0 * p.vs[2], p.vs[2], nkeys);
   mma::cp_async_commit();
 
   // Query rows that can see a key of this block: causal q >= key0; window
@@ -934,8 +948,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
     for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
       const bool ok = q0 + i < p.Sq;
       cp_async4(stats + buf * BQ + i, ok ? p.lse + row0 + i : p.lse, ok);
-      if constexpr (WANT_DK)
-        cp_async4(stats + (2 + buf) * BQ + i, ok ? p.delta + row0 + i : p.delta, ok);
+      cp_async4(stats + (2 + buf) * BQ + i, ok ? p.delta + row0 + i : p.delta, ok);
     }
     mma::cp_async_commit();
   };
@@ -972,7 +985,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
     for (int j = 0; j < NQT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    two_products<D, NQT, LD, WANT_DK>(st, dpt, Kw, Vw, Qs, dOs, lane);
+    two_products<D, NQT, LD>(st, dpt, Kw, Vw, Qs, dOs, lane);
     const bool need_mask = kw0 + 16 > p.Sk || q0 + BQ > p.Sq || (p.causal && kw0 + 15 > q0) ||
                            (p.window > 0 && q0 + BQ - 1 - p.window >= kw0);
     // P^T into st, dS^T = P^T (dP^T - delta) (1 - t^2) into dpt.
@@ -987,28 +1000,479 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(const Params p) {
                              ? 0.f
                              : mma::exp2_approx(x - lse[col]);
         st[j][e] = pe;
-        if constexpr (WANT_DK) dpt[j][e] = pe * (dpt[j][e] - delta[col]) * dcap;
+        dpt[j][e] = pe * (dpt[j][e] - delta[col]) * dcap;
       }
 #pragma unroll
     for (int kk = 0; kk < NQT / 2; ++kk) {
       uint32_t hi[4], lo[4];
-      if constexpr (WANT_DV) {
-        split_fragment<NQT>(st, kk, hi, lo);
-        split_product<D, LD>(dv, hi, lo, dOs, kk, lane);
-      }
-      if constexpr (WANT_DK) {
-        split_fragment<NQT>(dpt, kk, hi, lo);
-        split_product<D, LD>(dk, hi, lo, Qs, kk, lane);
-      }
+      split_fragment<NQT>(st, kk, hi, lo);
+      split_product<D, LD>(dv, hi, lo, dOs, kk, lane);
+      split_fragment<NQT>(dpt, kk, hi, lo);
+      split_product<D, LD>(dk, hi, lo, Qs, kk, lane);
     }
   }
   mma::cp_async_wait<0>();  // K and V, where the block saw no query
-  if constexpr (WANT_DK)
-    store_rows<D>(static_cast<bf16*>(p.dk) + b * p.dks[0] + kvh * p.dks[1], p.dks[2], dk, p.scale,
-                  kw0, p.Sk, lane);
-  if constexpr (WANT_DV)
-    store_rows<D>(static_cast<bf16*>(p.dv) + b * p.dvs[0] + kvh * p.dvs[1], p.dvs[2], dv, 1.f, kw0,
-                  p.Sk, lane);
+  store_rows<D>(static_cast<bf16*>(p.dk) + b * p.dks[0] + kvh * p.dks[1], p.dks[2], dk, p.scale,
+                kw0, p.Sk, lane);
+  store_rows<D>(static_cast<bf16*>(p.dv) + b * p.dvs[0] + kvh * p.dvs[1], p.dvs[2], dv, 1.f, kw0,
+                p.Sk, lane);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at head dim 256: warpgroup kernels (wgmma), operands by TMA, warps
+// specialised.  A block is three warpgroups: warpgroup 0 is the producer
+// (one thread keeps TMA loads in flight into an mbarrier ring; its
+// registers cut to W_PRODUCER_REGS), warpgroups 1 and 2 the consumers
+// (W_CONSUMER_REGS each), which run the products.  Every operand tile is
+// 64 rows of D 256 as four 128-byte-swizzled 64-column slabs
+// (mma_bf16.cuh, namespace wgmma), loaded by four TMA boxes of 64 x 64.
+
+constexpr int W_D = 256;
+constexpr int W_ROWS = 64;                       // rows of a box, of a tile, of a consumer
+constexpr int W_THREADS = 3 * 128;
+constexpr uint32_t W_BOX = W_ROWS * 128;         // one 64 x 64 bf16 box: 8 KB
+constexpr uint32_t W_TILE = (W_D / 64) * W_BOX;  // a 64-row tile of D 256: 32 KB
+constexpr int W_PRODUCER_REGS = 24, W_CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 <= 65,536
+
+struct WgParams {
+  CUtensorMap q, k, v, dout;  // (D, heads, seq, B) bf16, boxes of 64 x 1 x 64 x 1, 128-byte swizzle
+  Params p;
+};
+
+// A (B, heads, seq, D) bf16 tensor with element strides s[0..2] as a 4-D
+// tensor map (D, heads, seq, B).
+bool encode_map(CUtensorMap* map, const void* base, const int64_t* s, int heads, int seq, int B) {
+  const mma::EncodeTiled fn = mma::tensor_map_encoder();
+  if (!fn || seq <= 0) return false;
+  const cuuint64_t dims[4] = {W_D, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[1]) * 2,
+                                 static_cast<cuuint64_t>(s[2]) * 2,
+                                 static_cast<cuuint64_t>(s[0]) * 2};
+  const cuuint32_t box[4] = {64, 1, W_ROWS, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The four boxes of one 64-row tile (rows row0.. of head h, batch b) into
+// `tile`, whose slabs lie `slab_bytes` apart, on barrier `bar`.
+__device__ __forceinline__ void tma_tile(void* tile, uint32_t slab_bytes, const CUtensorMap* map,
+                                         uint64_t* bar, int h, int row0, int b) {
+#pragma unroll
+  for (int c = 0; c < W_D / 64; ++c)
+    mma::tma_load_4d(static_cast<char*>(tile) + c * slab_bytes, map, bar, 64 * c, h, row0, b);
+}
+
+// The dynamic shared memory, rounded up to 1024 bytes (the swizzle's period).
+__device__ __forceinline__ char* aligned_smem() {
+  extern __shared__ __align__(1024) char wg_smem[];
+  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
+}
+
+// Accumulator columns 16 kk .. 16 kk + 15 of a m64nN tile as the hi and lo
+// bf16 A fragments of k step kk of the next product.
+template <int N>
+__device__ __forceinline__ void wg_split(const float (&s)[N], int kk, uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mma::split_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1], hi[i], lo[i]);
+}
+
+// acc (64 x 256) += (hi + lo) B, k steps 0..3 (64 rows of B, MN-major in
+// `tile`): eight asynchronous products, then waited for.
+__device__ __forceinline__ void wg_split_products(float (&acc)[128], const float (&s)[32],
+                                                  const char* tile) {
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg_split<32>(s, kk, hi[kk], lo[kk]);
+  wgmma::fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t b = wgmma::desc_mn(tile, kk, W_BOX);
+    wgmma::m64n256k16_rs(acc, hi[kk], b);
+    wgmma::m64n256k16_rs(acc, lo[kk], b);
+  }
+  wgmma::commit();
+  wgmma::wait<0>();
+}
+
+// s (64 x 64) = A B^T over k = D 256, A the 64 rows at `a` (slabs
+// `a_slab` bytes apart), B the tile at `bt` (slabs W_BOX apart), issued
+// and committed (not waited for).
+__device__ __forceinline__ void wg_scores(float (&s)[32], const char* a, uint32_t a_slab,
+                                          const char* bt) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  wgmma::fence();
+#pragma unroll
+  for (int ks = 0; ks < W_D / 16; ++ks)
+    wgmma::m64n64k16_ss(s, wgmma::desc_k(a, ks, a_slab), wgmma::desc_k(bt, ks, W_BOX));
+  wgmma::commit();
+}
+
+// 64 rows of fp32 accumulators (rows row0 + 16 warp + g, + 8; 256 columns)
+// times `mul` as bf16 into global rows of stride `stride`, rows < rows.
+__device__ __forceinline__ void wg_store(bf16* dst, int64_t stride, const float (&acc)[128],
+                                         float mul, int row0, int rows) {
+  const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * w + (lane >> 2) + 8 * r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      *reinterpret_cast<uint32_t*>(dst + row * stride + 8 * j + 2 * (lane & 3)) =
+          mma::pack_bf16(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// Launch 1 at D 256, attn_bwd_dq_wgmma: lse, delta and dQ of 128 query
+// rows of one (b, h), 64 a consumer warpgroup.  Q and dO stay in shared
+// memory; K and V tiles of 64 keys stream through a ring of three 32 KB
+// slots, K then V of each tile, twice (sweep 1: S and dP for lse and
+// delta; sweep 2: S and dP again, dS, dQ += dS K).
+struct DqWg {  // bytes from the aligned base
+  static constexpr int BQ = 2 * W_ROWS;
+  static constexpr int SLOTS = 3;
+  static constexpr uint32_t SLAB = BQ * 128;              // a 128-row slab of Q or dO
+  static constexpr uint32_t Q = 0, DO = Q + 4 * SLAB, RING = DO + 4 * SLAB;
+  static constexpr uint32_t BARS = RING + SLOTS * W_TILE;  // qbar, full[SLOTS], empty[SLOTS]
+  static constexpr size_t BYTES = BARS + 8 * (1 + 2 * SLOTS) + 1024;
+};
+
+__global__ void __launch_bounds__(W_THREADS, 1) attn_bwd_dq_wgmma(const __grid_constant__ WgParams wp) {
+  using S = DqWg;
+  const Params& p = wp.p;
+  char* sm = aligned_smem();
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + S::SLOTS;
+  const int wg = threadIdx.x >> 7;
+  const int b = blockIdx.x / p.H;
+  const int h = blockIdx.x - b * p.H;
+  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // longest causal tiles first
+  const int q0 = qt * S::BQ;
+  const int kvh = h / (p.H / p.KV);
+  // Keys any row of the block can see: tiles t_lo .. t_lo + ntiles - 1.
+  const int q_last = min(q0 + S::BQ, p.Sq) - 1;
+  const int k_hi = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int t_lo = k_lo / W_ROWS;
+  const int ntiles = k_hi > k_lo ? (k_hi + W_ROWS - 1) / W_ROWS - t_lo : 0;
+  if (threadIdx.x == 0) {
+    mma::mbar_init(qbar, 1);
+    for (int i = 0; i < S::SLOTS; ++i) {
+      mma::mbar_init(&full[i], 1);
+      mma::mbar_init(&empty[i], 2 * 128);
+    }
+    mma::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: Q and dO once, then K_t, V_t of every tile, twice
+    wgmma::regs_dec<W_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mma::mbar_expect_tx(qbar, 8 * 2 * W_BOX);
+      for (int half = 0; half < 2; ++half) {
+        tma_tile(sm + S::Q + half * W_BOX, S::SLAB, &wp.q, qbar, h, q0 + W_ROWS * half, b);
+        tma_tile(sm + S::DO + half * W_BOX, S::SLAB, &wp.dout, qbar, h, q0 + W_ROWS * half, b);
+      }
+      for (int it = 0; it < 4 * ntiles; ++it) {
+        const int slot = it % S::SLOTS;
+        if (it >= S::SLOTS) mma::mbar_wait(&empty[slot], (it / S::SLOTS - 1) & 1);
+        mma::mbar_expect_tx(&full[slot], W_TILE);
+        tma_tile(sm + S::RING + slot * W_TILE, W_BOX, (it & 1) ? &wp.v : &wp.k, &full[slot], kvh,
+                 (t_lo + (it >> 1) % ntiles) * W_ROWS, b);
+      }
+    }
+    return;
+  }
+
+  wgmma::regs_inc<W_CONSUMER_REGS>();
+  const int cw = wg - 1;  // this consumer's 64 rows: q0 + 64 cw ..
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int wq0 = q0 + W_ROWS * cw + 16 * warp;  // this warp's first row
+  const int wg_q0 = q0 + W_ROWS * cw;
+  const char* Qw = sm + S::Q + cw * W_BOX;
+  const char* dOw = sm + S::DO + cw * W_BOX;
+  auto slot_of = [&](int it) { return sm + S::RING + (it % S::SLOTS) * W_TILE; };
+  auto wait_item = [&](int it) { mma::mbar_wait(&full[it % S::SLOTS], (it / S::SLOTS) & 1); };
+  auto release = [&](int it) { mma::mbar_arrive(&empty[it % S::SLOTS]); };
+  mma::mbar_wait(qbar, 0);
+
+  // S and dP of a step's tile (items 2 step, 2 step + 1) for this
+  // warpgroup's rows, waited for; false (both items released) where the
+  // masks hide the whole tile from them.  The caller releases V's item.
+  auto products = [&](int step, int key0, float (&s)[32], float (&dp)[32]) {
+    const int ik = 2 * step;
+    if (wg_q0 >= p.Sq || (p.causal && key0 > wg_q0 + W_ROWS - 1) ||
+        (p.window > 0 && key0 + W_ROWS - 1 <= wg_q0 - p.window)) {
+      wait_item(ik);
+      wait_item(ik + 1);
+      release(ik);
+      release(ik + 1);
+      return false;
+    }
+    wait_item(ik);
+    wg_scores(s, Qw, S::SLAB, slot_of(ik));  // S runs while V's tile may still be in flight
+    wait_item(ik + 1);
+    wg_scores(dp, dOw, S::SLAB, slot_of(ik + 1));
+    wgmma::wait<0>();
+    return true;
+  };
+  auto need_mask = [&](int key0) {
+    return key0 + W_ROWS > p.Sk || (p.causal && key0 + W_ROWS - 1 > wq0) ||
+           (p.window > 0 && key0 <= wq0 + 15 - p.window);
+  };
+  auto hidden = [&](int key0, int i) {  // accumulator element i = 4 j + e
+    return !visible(p, wq0 + mma::acc_row(lane, i & 3), key0 + 8 * (i >> 2) + mma::acc_col(lane, i & 3));
+  };
+
+  // Sweep 1: online max m, l = sum 2^(x - m) and dd = sum 2^(x - m) dP for
+  // rows g and g + 8 of the warp (m quad-uniform, l and dd this lane's part).
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  for (int step = 0; step < ntiles; ++step) {
+    const int key0 = (t_lo + step) * W_ROWS;
+    float s[32], dp[32];
+    if (!products(step, key0, s, dp)) continue;
+    release(2 * step);
+    release(2 * step + 1);
+    const bool masked = need_mask(key0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float dcap;
+      s[i] = masked && hidden(key0, i) ? -INFINITY : score2(s[i], p, dcap);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = mma::exp2_approx(m[r] - m_use);
+      float sum = 0.f, dsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float pe = mma::exp2_approx(s[4 * j + e] - m_use);
+          sum += pe;
+          dsum = fmaf(pe, dp[4 * j + e], dsum);
+        }
+      l[r] = l[r] * alpha + sum;
+      dd[r] = dd[r] * alpha + dsum;
+      m[r] = m_new;
+    }
+  }
+  // lse (log2 units) and delta = rowsum(P dP) of the two rows; a row that
+  // sees no key keeps lse 0 and delta 0 (its P is 0 everywhere).
+  float lse[2], delta[2];
+  const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r], dr = dd[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    dr += __shfl_xor_sync(0xffffffffu, dr, 1);
+    dr += __shfl_xor_sync(0xffffffffu, dr, 2);
+    lse[r] = lr > 0.f ? m[r] + log2f(lr) : 0.f;
+    delta[r] = lr > 0.f ? dr / lr : 0.f;
+    const int row = wq0 + (lane >> 2) + 8 * r;
+    if ((lane & 3) == 0 && row < p.Sq) {
+      p.lse[stat0 + row] = lse[r];
+      p.delta[stat0 + row] = delta[r];
+    }
+  }
+
+  // Sweep 2: P = 2^(x - lse), dS = P (dP - delta) (1 - t^2), dQ += dS K.
+  float dq[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) dq[i] = 0.f;
+  for (int step = ntiles; step < 2 * ntiles; ++step) {
+    const int key0 = (t_lo + step - ntiles) * W_ROWS;
+    float s[32], dp[32];
+    if (!products(step, key0, s, dp)) continue;
+    release(2 * step + 1);
+    const bool masked = need_mask(key0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float dcap;
+      const float x = score2(s[i], p, dcap);
+      const int r = (i >> 1) & 1;
+      const float pe = masked && hidden(key0, i) ? 0.f : mma::exp2_approx(x - lse[r]);
+      s[i] = pe * (dp[i] - delta[r]) * dcap;
+    }
+    wg_split_products(dq, s, slot_of(2 * step));
+    release(2 * step);
+  }
+  wg_store(static_cast<bf16*>(p.dq) + b * p.dqs[0] + h * p.dqs[1], p.dqs[2], dq, p.scale,
+           wg_q0, p.Sq);
+}
+
+// Launch 2 at D 256, attn_bwd_dkdv_wgmma: dK and dV of 64 keys of one
+// (b, KV head).  K and V stay in shared memory; Q, dO of 64 query rows
+// stream through two stages over the GQA group's heads and the rows the
+// masks admit.  Consumer 1 forms S^T = K Q^T, P^T and dV += P^T dO;
+// consumer 2 forms dP^T = V dO^T, then dS^T from P^T (1 - t^2), which
+// consumer 1 hands it through shared memory (Y, one buffer a stage, a
+// named barrier a stage), and dK += dS^T Q.  S^T and dP^T are formed once,
+// and Q, dO and lse read once.
+struct KvWg {  // bytes from the aligned base
+  static constexpr int STAGES = 2;
+  static constexpr uint32_t K = 0, V = W_TILE, STAGE0 = 2 * W_TILE;  // stage i: Q, then dO
+  static constexpr uint32_t Y = STAGE0 + STAGES * 2 * W_TILE;        // P^T (1 - t^2), fp32
+  static constexpr uint32_t Y_BYTES = 32 * 128 * 4;
+  static constexpr uint32_t BARS = Y + STAGES * Y_BYTES;  // kvbar, full[STAGES], empty[STAGES]
+  static constexpr size_t BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+__global__ void __launch_bounds__(W_THREADS, 1) attn_bwd_dkdv_wgmma(const __grid_constant__ WgParams wp) {
+  using S = KvWg;
+  const Params& p = wp.p;
+  char* sm = aligned_smem();
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + S::STAGES;
+  const int wg = threadIdx.x >> 7;
+  const int b = blockIdx.x / p.KV;
+  const int kvh = blockIdx.x - b * p.KV;
+  const int key0 = blockIdx.y * W_ROWS;
+  const int nkeys = min(W_ROWS, p.Sk - key0);
+  const int group = p.H / p.KV;
+  // Query rows that can see a key of this block: causal q >= key0; window
+  // q < key_last + window.  Steps walk the group's heads, and each head's
+  // rows in tiles of 64.
+  const int q_begin = p.causal ? key0 : 0;
+  const int q_end = p.window > 0 ? min(p.Sq, key0 + nkeys - 1 + p.window) : p.Sq;
+  const int nqt = q_end > q_begin ? (q_end - q_begin + W_ROWS - 1) / W_ROWS : 0;
+  const int steps = group * nqt;
+  if (threadIdx.x == 0) {
+    mma::mbar_init(kvbar, 1);
+    for (int i = 0; i < S::STAGES; ++i) {
+      mma::mbar_init(&full[i], 1);
+      mma::mbar_init(&empty[i], 2 * 128);
+    }
+    mma::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: K and V once, then Q and dO of every step
+    wgmma::regs_dec<W_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mma::mbar_expect_tx(kvbar, 2 * W_TILE);
+      tma_tile(sm + S::K, W_BOX, &wp.k, kvbar, kvh, key0, b);
+      tma_tile(sm + S::V, W_BOX, &wp.v, kvbar, kvh, key0, b);
+      for (int step = 0; step < steps; ++step) {
+        const int st = step % S::STAGES;
+        if (step >= S::STAGES) mma::mbar_wait(&empty[st], (step / S::STAGES - 1) & 1);
+        const int gi = step / nqt;
+        const int q0 = q_begin + (step - gi * nqt) * W_ROWS;
+        char* stage = sm + S::STAGE0 + st * 2 * W_TILE;
+        mma::mbar_expect_tx(&full[st], 2 * W_TILE);
+        tma_tile(stage, W_BOX, &wp.q, &full[st], kvh * group + gi, q0, b);
+        tma_tile(stage + W_TILE, W_BOX, &wp.dout, &full[st], kvh * group + gi, q0, b);
+      }
+    }
+    return;
+  }
+
+  wgmma::regs_inc<W_CONSUMER_REGS>();
+  const int cw = wg - 1;  // 0: dV, 1: dK
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int kw0 = key0 + 16 * warp;  // this warp's first key (accumulator rows)
+  float acc[128];  // dV (cw 0) or dK (cw 1): 64 keys x 256
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  mma::mbar_wait(kvbar, 0);
+
+  for (int step = 0; step < steps; ++step) {
+    const int st = step % S::STAGES;
+    const int gi = step / nqt;
+    const int h = kvh * group + gi;
+    const int q0 = q_begin + (step - gi * nqt) * W_ROWS;
+    const char* Qs = sm + S::STAGE0 + st * 2 * W_TILE;
+    const char* dOs = Qs + W_TILE;
+    float* Y = reinterpret_cast<float*>(sm + S::Y + st * S::Y_BYTES);
+    mma::mbar_wait(&full[st], (step / S::STAGES) & 1);
+    // Nothing of this tile is visible to the block's keys (both consumers
+    // agree): skip its products.
+    if (!(key0 >= p.Sk || (p.causal && key0 > q0 + W_ROWS - 1) ||
+          (p.window > 0 && key0 + W_ROWS - 1 <= q0 - p.window))) {
+      const bool masked = kw0 + 16 > p.Sk || q0 + W_ROWS > p.Sq || (p.causal && kw0 + 15 > q0) ||
+                          (p.window > 0 && q0 + W_ROWS - 1 - p.window >= kw0);
+      const int64_t row0 = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+      float t[32];  // S^T (consumer 1) or dP^T (consumer 2): keys on rows, queries on columns
+      if (cw == 0) {
+        wg_scores(t, sm + S::K, W_BOX, Qs);
+        float lse[16];  // of this thread's 16 query columns 8 j + 2 (lane & 3) + c
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int q = q0 + 8 * j + 2 * (lane & 3) + c;
+            lse[2 * j + c] = q < p.Sq ? p.lse[row0 + q] : 0.f;
+          }
+        wgmma::wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i >> 2) + mma::acc_col(lane, i & 3);
+          float dcap;
+          const float x = score2(t[i], p, dcap);
+          const float pe = masked && !visible(p, q0 + col, kw0 + mma::acc_row(lane, i & 3))
+                               ? 0.f
+                               : mma::exp2_approx(x - lse[(i >> 2) * 2 + (i & 1)]);
+          t[i] = pe;
+          Y[i * 128 + tid] = pe * dcap;
+        }
+        wgmma::bar_arrive(1 + st, 2 * 128);
+        wg_split_products(acc, t, dOs);
+      } else {
+        wg_scores(t, sm + S::V, W_BOX, dOs);
+        float delta[16];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int q = q0 + 8 * j + 2 * (lane & 3) + c;
+            delta[2 * j + c] = q < p.Sq ? p.delta[row0 + q] : 0.f;
+          }
+        wgmma::wait<0>();
+        wgmma::bar_sync(1 + st, 2 * 128);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) t[i] = Y[i * 128 + tid] * (t[i] - delta[(i >> 2) * 2 + (i & 1)]);
+        wg_split_products(acc, t, Qs);
+      }
+    }
+    mma::mbar_arrive(&empty[st]);
+  }
+  if (cw == 0)
+    wg_store(static_cast<bf16*>(p.dv) + b * p.dvs[0] + kvh * p.dvs[1], p.dvs[2], acc, 1.f, key0,
+             p.Sk);
+  else
+    wg_store(static_cast<bf16*>(p.dk) + b * p.dks[0] + kvh * p.dks[1], p.dks[2], acc, p.scale,
+             key0, p.Sk);
+}
+
+// Head dim 256 in bf16: the two warpgroup launches.  A tensor map that
+// cannot be encoded (no cuTensorMapEncodeTiled) is an error, not a
+// fallback.
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  WgParams wp{};
+  wp.p = p;
+  if (!encode_map(&wp.q, p.q, p.qs, p.H, p.Sq, p.B) || !encode_map(&wp.dout, p.dout, p.dos, p.H, p.Sq, p.B) ||
+      !encode_map(&wp.k, p.k, p.ks, p.KV, p.Sk, p.B) || !encode_map(&wp.v, p.v, p.vs, p.KV, p.Sk, p.B))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = launch_with_smem<attn_bwd_dq_wgmma, W_THREADS>(
+      dim3(p.B * p.H, (p.Sq + DqWg::BQ - 1) / DqWg::BQ), DqWg::BYTES, wp, stream);
+  if (err != cudaSuccess) return err;
+  return launch_with_smem<attn_bwd_dkdv_wgmma, W_THREADS>(
+      dim3(p.B * p.KV, (p.Sk + W_ROWS - 1) / W_ROWS), KvWg::BYTES, wp, stream);
 }
 
 template <int D>
@@ -1016,14 +1480,8 @@ cudaError_t launch_bf16_dim(const Params& p, cudaStream_t stream) {
   cudaError_t err = launch_with_smem<attn_bwd_dq_bf16<D>>(
       dim3(p.B * p.H, (p.Sq + DQ_BQ - 1) / DQ_BQ), DqSmem<D>::BYTES, p, stream);
   if (err != cudaSuccess || p.Sk == 0) return err;
-  const dim3 grid(p.B * p.KV, (p.Sk + KV_BK - 1) / KV_BK);
-  if constexpr (D <= 128) {
-    return launch_with_smem<attn_bwd_dkdv_bf16<D, DKDV_PART>>(grid, KvSmem<D>::BYTES, p, stream);
-  } else {
-    err = launch_with_smem<attn_bwd_dkdv_bf16<D, DV_PART>>(grid, KvSmem<D>::BYTES, p, stream);
-    if (err != cudaSuccess) return err;
-    return launch_with_smem<attn_bwd_dkdv_bf16<D, DK_PART>>(grid, KvSmem<D>::BYTES, p, stream);
-  }
+  return launch_with_smem<attn_bwd_dkdv_bf16<D>>(dim3(p.B * p.KV, (p.Sk + KV_BK - 1) / KV_BK),
+                                                 KvSmem<D>::BYTES, p, stream);
 }
 
 cudaError_t launch_bf16(const Params& p, int D, cudaStream_t stream) {
@@ -1033,7 +1491,7 @@ cudaError_t launch_bf16(const Params& p, int D, cudaStream_t stream) {
     case 64: return launch_bf16_dim<64>(p, stream);
     case 80: return launch_bf16_dim<80>(p, stream);
     case 128: return launch_bf16_dim<128>(p, stream);
-    case 256: return launch_bf16_dim<256>(p, stream);
+    case 256: return launch_wgmma(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

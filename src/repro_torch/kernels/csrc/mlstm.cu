@@ -1296,36 +1296,12 @@ __global__ void __launch_bounds__(F_WARPS * 32, 1)
   }
 }
 
-// libcuda's cuTensorMapEncodeTiled, fetched through the runtime's
-// entry-point query (so nothing links libcuda); null where it is missing.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &res);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                                                  &res);
-#endif
-    return e == cudaSuccess && res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                                                  : nullptr;
-  }();
-  return fn;
-}
-
 // A (B, L, H, D) bf16 tensor with element strides sb, ss, sh (last axis
 // contiguous) as a 4-D tensor map (D, H, L, B), box KT x 1 x rows x 1,
 // rows of KT swizzled as KTile lays them out (64-byte or 32-byte swizzle).
 bool encode(CUtensorMap* map, const void* base, int64_t sb, int64_t ss, int64_t sh, const Params& p,
             int KT, int rows) {
-  const EncodeTiled fn = encoder();
+  const mma::EncodeTiled fn = mma::tensor_map_encoder();
   if (!fn) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.D), static_cast<cuuint64_t>(p.H),
                               static_cast<cuuint64_t>(p.L), static_cast<cuuint64_t>(p.B)};

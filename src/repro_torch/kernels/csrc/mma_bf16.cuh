@@ -1,14 +1,18 @@
-// Warp-level bf16 tensor-core helpers for NVIDIA Hopper (sm_90a), shared by
-// the bf16 paths of flash_attention.cu, ssd.cu and mlstm.cu.  Header-only;
+// bf16 tensor-core helpers for NVIDIA Hopper (sm_90a), shared by the bf16
+// paths of the kernel sources beside it.  Header-only;
 // a kernel source includes it, and the build hashes it into every
 // library's name, so an edit rebuilds them all.
 //
 // What is here: the m16n8k16 bf16 `mma.sync` with fp32 accumulators (the
-// warp-synchronous product; `wgmma` is a later step), `ldmatrix` (x4, x2,
-// x4.trans and x2.trans), 16-byte `cp.async` copies (with zero fill)
-// and their commit / wait groups, mbarriers and 4-D TMA tile loads, exp2
-// on the special-function unit, bf16 packing and the hi + lo split of an
-// fp32 value, and the fragment index maps.
+// warp-synchronous product), `ldmatrix` (x4, x2, x4.trans and x2.trans),
+// 16-byte `cp.async` copies (with zero fill) and their commit / wait
+// groups, mbarriers and 4-D TMA tile loads, exp2 on the special-function
+// unit, bf16 packing and the hi + lo split of an fp32 value, and the
+// fragment index maps; and, for the warpgroup kernels (namespace wgmma):
+// shared-memory matrix descriptors of 128-byte-swizzled tiles, the
+// asynchronous warpgroup products `wgmma.mma_async` m64n64k16 (A and B in
+// shared memory) and m64n256k16 (A in registers), their fence / commit /
+// wait, `setmaxnreg`, and named barriers.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane = 4 g + t (g = lane >> 2 in 0..7, t = lane & 3):
@@ -30,7 +34,9 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mma {
@@ -170,4 +176,145 @@ __device__ __forceinline__ uint32_t pair_hi(uint32_t x, uint32_t y) {
   return __byte_perm(x, y, 0x7632);
 }
 
+// libcuda's cuTensorMapEncodeTiled, fetched through the runtime's
+// entry-point query (so nothing links libcuda); null where it is missing.
+// Host code: the kernels' launchers encode their TMA tensor maps with it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &res);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                                  &res);
+#endif
+    return e == cudaSuccess && res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                  : nullptr;
+  }();
+  return fn;
+}
+
+// A plain arrival on an mbarrier (a consumer releasing a buffer).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
 }  // namespace mma
+
+// Warpgroup (4 warps, 128 threads) products of sm_90a.  Operand tiles in
+// shared memory are bf16 "slabs" as a 128-byte-swizzled TMA load writes
+// them: rows of 64 elements (128 bytes), the 16-byte unit u of row r
+// stored at unit u ^ (r % 8), each slab 1024-byte aligned.  A tile of D
+// columns is D / 64 such slabs side by side.
+//
+// Descriptors (PTX ISA, "Matrix Descriptor Format"): bits 0-13 the start
+// address / 16, 16-29 the leading byte offset / 16, 32-45 the stride byte
+// offset / 16, 62-63 the layout (1 = 128-byte swizzle).
+//   K-major (the operand's K index along a slab row: A of Q K^T, B as K
+//   or Q rows): 8-row groups 1024 bytes apart (stride offset); the
+//   leading offset is unused; a k16 step inside a slab moves the start
+//   by 32 bytes, the next slab by its size.
+//   MN-major (B's N index along a slab row, its K index down the rows:
+//   V, dO, Q or K read as (keys or queries) x D): 64-column atoms one
+//   slab apart (leading offset), 8-row K groups 1024 bytes apart (stride
+//   offset); a k16 step moves the start by 16 rows, 2048 bytes.
+//
+// Accumulator layout of m64nN (fp32): warp w of the warpgroup holds rows
+// 16 w .. 16 w + 15, and in it d[4 j + e] is element e of n8 tile j in the
+// mma.m16n8 layout above (rows g, g + 8; columns 8 j + 2 t, + 1).  An A
+// operand in registers takes the m16n8k16 A layout per warp, so, as with
+// mma.sync, accumulator tiles 2 kk and 2 kk + 1 are the A fragment of k
+// step kk of the next product.
+namespace wgmma {
+
+__device__ __forceinline__ uint64_t desc(const void* tile, uint32_t lead_bytes,
+                                         uint32_t stride_bytes) {
+  const uint32_t a = mma::smem_addr(tile);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(stride_bytes >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: rows of the tile starting at `tile` (a slab row),
+// k step ks of a D-wide tile whose slabs are `slab_bytes` apart.
+__device__ __forceinline__ uint64_t desc_k(const void* tile, int ks, uint32_t slab_bytes) {
+  return desc(static_cast<const char*>(tile) + (ks >> 2) * slab_bytes + (ks & 3) * 32, 16, 1024);
+}
+// MN-major operand: K rows 16 kk .. 16 kk + 15 of a tile whose 64-column
+// slabs are `slab_bytes` apart.
+__device__ __forceinline__ uint64_t desc_mn(const void* tile, int kk, uint32_t slab_bytes) {
+  return desc(static_cast<const char*>(tile) + kk * 2048, slab_bytes, 1024);
+}
+
+__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// The warpgroup's registers a thread: down (a producer) or up (a consumer).
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+// Named barriers (id 1..15) over `n` threads: sync waits, arrive does not.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+#define WGMMA_D8(i)                                                                         \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]),      \
+      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+// d (64 x 64, fp32) += A B^T, A (64 x 16) and B (64 x 16) K-major in
+// shared memory.
+__device__ __forceinline__ void m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D8(0), WGMMA_D8(8), WGMMA_D8(16), WGMMA_D8(24)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 256, fp32) += A B, A (64 x 16) in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 256) MN-major in shared memory.
+__device__ __forceinline__ void m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WGMMA_D8(0), WGMMA_D8(8), WGMMA_D8(16), WGMMA_D8(24), WGMMA_D8(32), WGMMA_D8(40),
+        WGMMA_D8(48), WGMMA_D8(56), WGMMA_D8(64), WGMMA_D8(72), WGMMA_D8(80), WGMMA_D8(88),
+        WGMMA_D8(96), WGMMA_D8(104), WGMMA_D8(112), WGMMA_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WGMMA_D8
+
+}  // namespace wgmma

@@ -23,11 +23,20 @@ log-sum-exp (B,H,Sq), so that attention over keys split across ranks can
 merge the ranks' partial outputs (decode with the cache's sequence split,
 :mod:`repro_torch.models.layers`); it records no gradient either.
 
-``launches`` counts the forward kernel's launches, ``lse_launches`` the
-second entry's and ``bwd_launches`` the backward's calls (two kernel
-launches each in bf16, on the tensor cores, three at head dim 256; three
-in fp32, scalar); nothing else changes them.  Both directions take the
-head dims ``SUPPORTED_D``.
+A bf16 decode call (Sq < 16) whose (b, KV head) blocks would leave the
+card's SMs idle (:func:`decode_split`: gemma2's 16 blocks on 132 SMs)
+goes, from either wrapper, to a third C entry, ``flash_attention_decode_split``:
+the keys are cut into ranges over more blocks, each writing a partial
+(o, m, l) to fp32 scratch this wrapper allocates, and a second launch
+merges them, as ``models.layers`` merges ranks' partials.  The call
+counts as one launch of the wrapper's counter.
+
+``launches`` counts the forward wrapper's calls that launch a kernel,
+``lse_launches`` the second entry's and ``bwd_launches`` the backward's
+calls (two kernel launches each in bf16: on the tensor cores by
+``mma.sync`` up to head dim 128, by ``wgmma`` at 256; three in fp32,
+scalar); nothing else changes them.  Both directions take the head dims
+``SUPPORTED_D``.
 
 On abstract tensors (:mod:`.abstract`) each wrapper returns outputs of
 the kernel's shapes and records the call's FLOPs (the backward's: twice
@@ -35,6 +44,7 @@ the forward's, Q K^T and P V each differentiated in both operands).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -51,7 +61,33 @@ lse_launches = 0
 bwd_launches = 0
 _fn = None
 _lse_fn = None
+_split_fn = None
 _bwd_fn = None
+_sms: dict[int, int] = {}
+
+# The split decode (csrc/flash_attention.cu, flash_attention_decode_split):
+# a decode block holds 16 query rows of one (b, KV head); a split's keys
+# are a whole number of SPLIT_STEP (a round of the block's 4 warps at D >
+# 80, two at D <= 80) and at least SPLIT_MIN_KEYS.
+DECODE_ROWS = 16
+SPLIT_STEP = 64
+SPLIT_MIN_KEYS = 128
+SPLIT_WAVES = 2     # the split aims at this many blocks an SM
+
+
+def decode_split(B: int, KV: int, rows: int, Sk: int, sms: int) -> tuple[int, int]:
+    """(splits, keys a split) of a decode call with ``rows`` query rows a
+    KV head (GQA group x Sq) over ``Sk`` keys on a card of ``sms`` SMs.
+    One split (all the keys) where the (b, KV head, 16-row) blocks alone
+    reach ``sms``, or where the keys are too few to cut; else enough
+    ranges of keys, each a multiple of SPLIT_STEP, for about SPLIT_WAVES
+    blocks an SM, none shorter than SPLIT_MIN_KEYS."""
+    blocks = -(-rows // DECODE_ROWS) * KV * B
+    if blocks >= sms or Sk <= SPLIT_MIN_KEYS:
+        return 1, Sk
+    want = min(-(-SPLIT_WAVES * sms // blocks), Sk // SPLIT_MIN_KEYS)
+    chunk = -(-Sk // (want * SPLIT_STEP)) * SPLIT_STEP
+    return -(-Sk // chunk), chunk
 
 
 def bind_fwd(lib: ctypes.CDLL):
@@ -73,15 +109,53 @@ def _kernel():
     return _fn
 
 
+def bind_lse(lib: ctypes.CDLL):
+    """``lib``'s C entry ``flash_attention_lse`` with its signature set (as
+    :func:`bind_fwd`)."""
+    fn = lib.flash_attention_lse
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [P] * 5 + [I] * 7 + [L] * 12 + [I, I, ctypes.c_float, ctypes.c_float, P]
+    fn.restype = I
+    return fn
+
+
 def _lse_kernel():
     global _lse_fn
     if _lse_fn is None:
-        fn = _build.load("flash_attention").flash_attention_lse
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [P] * 5 + [I] * 7 + [L] * 12 + [I, I, ctypes.c_float, ctypes.c_float, P]
-        fn.restype = I
-        _lse_fn = fn
+        _lse_fn = bind_lse(_build.load("flash_attention"))
     return _lse_fn
+
+
+def _split_kernel():
+    global _split_fn
+    if _split_fn is None:
+        fn = _build.load("flash_attention").flash_attention_decode_split
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [P] * 6 + [I] * 9 + [L] * 12 + [I, I, ctypes.c_float, ctypes.c_float, P]
+        fn.restype = I
+        _split_fn = fn
+    return _split_fn
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, from the forward library's
+    ``flash_attention_sm_count`` (cudaDevAttrMultiProcessorCount)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        fn = _build.load("flash_attention").flash_attention_sm_count
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        n = fn(index)
+        if n <= 0:
+            raise RuntimeError(f"flash_attention: no SM count for cuda:{index}")
+        _sms[index] = n
+    return _sms[index]
+
+
+@contextlib.contextmanager
+def _launch_stream(device: torch.device):
+    """The launch's device made current; yields its current stream's handle."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def run_fwd(fn, q, k, v, *, causal: bool, window: int, softcap: float) -> torch.Tensor:
@@ -92,8 +166,7 @@ def run_fwd(fn, q, k, v, *, causal: bool, window: int, softcap: float) -> torch.
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _launch_stream(q.device) as stream:
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[q.dtype], B, H, k.shape[1], Sq, k.shape[2], D,
@@ -102,6 +175,59 @@ def run_fwd(fn, q, k, v, *, causal: bool, window: int, softcap: float) -> torch.
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def run_lse(fn, q, k, v, *, causal: bool, window: int, softcap: float):
+    """Call the lse entry ``fn`` (from :func:`bind_lse`) on checked inputs;
+    counts nothing.  Returns (out, lse) as :func:`flash_attention_lse_cuda`."""
+    B, H, Sq, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    with _launch_stream(q.device) as stream:
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, k.shape[1], Sq, k.shape[2], D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(D), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_lse kernel launch failed: CUDA error {rc}")
+    return out, lse
+
+
+def _split_plan(q, k) -> tuple[int, int]:
+    """(splits, keys a split) of a call: :func:`decode_split` for a bf16
+    decode call (Sq < 16), else (1, Sk)."""
+    B, H, Sq, _ = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if q.dtype != torch.bfloat16 or Sq >= DECODE_ROWS:
+        return 1, Sk
+    return decode_split(B, KV, H // KV * Sq, Sk, sm_count(q.device))
+
+
+def run_split(q, k, v, splits: int, chunk: int, *, causal: bool, window: int, softcap: float,
+              lse: torch.Tensor | None = None) -> torch.Tensor:
+    """The split decode entry on checked bf16 decode inputs, with its
+    scratch allocated here on the current stream (a kernel allocates
+    nothing, and a CUDA graph may capture the call); writes ``lse`` when
+    given.  Counts nothing.  Returns the (B,H,Sq,D) view of a (B,Sq,H,D)
+    output."""
+    B, H, Sq, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    part = torch.empty(B * H * Sq * splits * (D + 2), dtype=torch.float32, device=q.device)
+    with _launch_stream(q.device) as stream:
+        rc = _split_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), part.data_ptr(), splits, chunk,
+            _DTYPE_CODE[q.dtype], B, H, k.shape[1], Sq, k.shape[2], D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(D), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_decode_split kernel launch failed: CUDA error {rc}")
     return out
 
 
@@ -128,7 +254,7 @@ def _aligned(t: torch.Tensor) -> bool:
 def bind_bwd(lib: ctypes.CDLL):
     """``lib``'s C entry ``flash_attention_bwd`` with its signature set:
     this tree's library, or one built from another source of
-    ``csrc/flash_attention_bwd.cu`` (``scripts/attention_bwd_ab.py``)."""
+    ``csrc/flash_attention_bwd.cu`` (``scripts/attention_fwd_ab.py --bwd``)."""
     fn = lib.flash_attention_bwd
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [P] * 10 + [I] * 7 + [ctypes.POINTER(ctypes.c_int64), I, I,
@@ -144,11 +270,15 @@ def _bwd_kernel():
     return _bwd_fn
 
 
+def _require_cuda(q):
+    if q.device.type != "cuda" and not abstract.is_abstract(q):
+        raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
+
+
 def _check_inputs(q, k, v) -> tuple[int, int, int, int, int, int]:
     """Raises on q/k/v the kernels do not take; returns (B, H, KV, Sq, Sk, D).
     Abstract tensors are checked for shape only."""
-    if q.device.type != "cuda" and not abstract.is_abstract(q):
-        raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
+    _require_cuda(q)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
                         f"(float32, bfloat16)")
@@ -184,7 +314,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         if out.numel():
             abstract.record("flash_attention", abstract.attention_flops(B, H, Sq, Sk, D))
         return out
-    out = run_fwd(_kernel(), q, k, v, causal=causal, window=window, softcap=softcap)
+    splits, chunk = _split_plan(q, k) if q.numel() and Sk else (1, Sk)
+    if splits > 1:
+        out = run_split(q, k, v, splits, chunk, causal=causal, window=window, softcap=softcap)
+    else:
+        out = run_fwd(_kernel(), q, k, v, causal=causal, window=window, softcap=softcap)
     if out.numel():
         launches += 1
     return out
@@ -202,23 +336,19 @@ def flash_attention_lse_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("flash_attention_lse records no gradient: it serves decode steps")
     B, H, KV, Sq, Sk, D = _check_inputs(q, k, v)
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
+    if abstract.is_abstract(q) or q.numel() == 0:
+        out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        if out.numel():
+            abstract.record("flash_attention_lse", abstract.attention_flops(B, H, Sq, Sk, D))
         return out, lse
-    if abstract.is_abstract(q):
-        abstract.record("flash_attention_lse", abstract.attention_flops(B, H, Sq, Sk, D))
-        return out, lse
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lse_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(D), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_lse kernel launch failed: CUDA error {rc}")
+    splits, chunk = _split_plan(q, k) if Sk else (1, Sk)
+    if splits > 1:
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        out = run_split(q, k, v, splits, chunk, causal=causal, window=window, softcap=softcap,
+                        lse=lse)
+    else:
+        out, lse = run_lse(_lse_kernel(), q, k, v, causal=causal, window=window, softcap=softcap)
     lse_launches += 1
     return out, lse
 
@@ -230,14 +360,13 @@ def run_bwd(fn, q, k, v, out, dout, *, causal: bool, window: int, softcap: float
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if dq.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
+    if dq.numel() == 0 or Sk == 0:   # no query, or no key: every gradient is 0
+        return dq.zero_(), dk.zero_(), dv.zero_()
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, out, dout, dq, dk, dv)
                                       for s in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _launch_stream(q.device) as stream:
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -253,8 +382,8 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True, window:
                              softcap: float = 0.0):
     """dq, dk, dv of :func:`flash_attention_cuda`'s function at (q, k, v),
     given its output ``out`` and the output's gradient ``dout``, by the
-    backward kernels (bf16: two tensor-core launches, three at D 256;
-    fp32: three scalar ones); raises on what it does not take.
+    backward kernels (bf16: two tensor-core launches, ``wgmma`` ones at D
+    256; fp32: three scalar ones); raises on what it does not take.
     ``dout`` may have any strides: it is made contiguous where the kernel
     could not read it in place.  Returns (dq, dk, dv) in q's, k's and v's
     dtypes and layouts."""

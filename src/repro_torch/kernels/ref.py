@@ -48,11 +48,13 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0, softcap: flo
 
 
 def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                      softcap: float = 0.0):
+                      softcap: float = 0.0, k_offset: int = 0):
     """:func:`attention_ref` and each row's log-sum-exp, from one product
     Q K^T: (out (B,H,Sq,D) in q's dtype, lse (B,H,Sq) fp32), lse the
     logsumexp of the row's scaled, soft-capped scores over the keys its
-    mask admits, -inf where it admits none (that row's output is 0)."""
+    mask admits, -inf where it admits none (that row's output is 0).
+    ``k_offset``: the position of k's first key (the masks count key
+    positions from it), for a range of a longer sequence's keys."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     group = H // KV
@@ -62,7 +64,7 @@ def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0,
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    k_pos = torch.arange(Sk, device=q.device)[None, :] + k_offset
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= k_pos <= q_pos
@@ -72,6 +74,37 @@ def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0,
     lse = torch.logsumexp(s, dim=-1)
     p = torch.nan_to_num(torch.exp(s - lse[..., None]), nan=0.0)   # fully-masked rows
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype), lse
+
+
+def attention_split_ref(q, k, v, splits: int, chunk: int | None = None, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
+    """The plain version of the split decode (``flash_attention_decode_split``):
+    the keys cut into ``splits`` ranges of ``chunk`` keys (default
+    ceil(Sk / splits); ranges past Sk are empty), each range's (o, lse)
+    from :func:`attention_lse_ref` in the working precision, merged as
+    o = sum_s exp(lse_s - L) o_s with L = logsumexp_s lse_s.  A range that
+    admits no key adds nothing; a row with none gives 0 and lse -inf.
+    Returns (out in q's dtype, lse fp32), as :func:`attention_lse_ref`."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    chunk = chunk or max(1, -(-Sk // splits))
+    outs, lses = [], []
+    for i in range(splits):
+        lo, hi = min(i * chunk, Sk), min((i + 1) * chunk, Sk)
+        if hi > lo:
+            o, lse = attention_lse_ref(_wide(q), _wide(k[:, :, lo:hi]), _wide(v[:, :, lo:hi]),
+                                       causal=causal, window=window, softcap=softcap,
+                                       k_offset=lo)
+        else:
+            o = torch.zeros((B, H, Sq, D), dtype=_wide(q).dtype, device=q.device)
+            lse = torch.full((B, H, Sq), float("-inf"), dtype=o.dtype, device=q.device)
+        outs.append(o)
+        lses.append(lse)
+    lse = torch.stack(lses)                                   # (splits, B, H, Sq)
+    total = torch.logsumexp(lse, dim=0)
+    w = torch.nan_to_num(torch.exp(lse - total), nan=0.0)     # rows with no key: 0
+    out = (w[..., None] * torch.stack(outs)).sum(0)
+    return out.to(q.dtype), total.float()
 
 
 def ssd_ref(x, dt, A, Bmat, Cmat):

@@ -23,6 +23,7 @@ from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_lse_ref,
     attention_ref,
+    attention_split_ref,
     mlstm_chunked,
     mlstm_ref,
     ssd_chunked,
@@ -162,6 +163,84 @@ def test_lse_entry_rows_with_no_key(dev):
         assert torch.isneginf(lse[:, :, 11:]).all() and not out[:, :, 11:].any()
         finite = torch.isfinite(want_lse)
         torch.testing.assert_close(lse[finite], want_lse[finite], **TOL[dtype])
+
+
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,D,causal,softcap",
+    [
+        (2, 16, 8, 1, 4096, 256, False, 50.0),   # gemma2's decode over a full ring
+        (2, 16, 8, 1, 5183, 256, False, 50.0),   # over its global cache
+        (2, 8, 2, 3, 900, 80, True, 0.0),        # causal: ranges past key 2 admit none
+        (1, 4, 2, 15, 1000, 256, False, 50.0),   # 30 rows: two 16-row blocks a KV head
+        (8, 32, 8, 1, 575, 128, False, 0.0),     # phi3.5's decode: 64 blocks
+    ],
+)
+def test_split_decode_matches_plain_version(dev, B, H, KV, Sq, Sk, D, causal, softcap):
+    """A bf16 decode call the rule splits, through both wrappers (one
+    launch of each counter; the same output): against attention_split_ref
+    over the rule's ranges and attention_lse_ref, the log-sum-exp too."""
+    q = rand((B, H, Sq, D), torch.bfloat16, 0, dev)
+    k = rand((B, KV, Sk, D), torch.bfloat16, 1, dev)
+    v = rand((B, KV, Sk, D), torch.bfloat16, 2, dev)
+    splits, chunk = fa._split_plan(q, k)
+    assert splits > 1
+    opts = dict(causal=causal, softcap=softcap)
+    before = (fa.launches, fa.lse_launches)
+    out = ops.flash_attention(q, k, v, **opts)
+    out2, lse = ops.flash_attention_lse(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.lse_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, out2)
+    want, want_lse = attention_split_ref(q, k, v, splits, chunk, **opts)
+    whole, whole_lse = attention_lse_ref(q, k, v, **opts)
+    for w, wl in ((want, want_lse), (whole, whole_lse)):
+        torch.testing.assert_close(out.float(), w.float(), **TOL[torch.bfloat16])
+        torch.testing.assert_close(lse, wl, **TOL[torch.bfloat16])
+
+
+def test_split_decode_rows_with_no_key(dev):
+    """The split entry where some rows admit no key (a window past 5 keys)
+    and some ranges hold none: 0 and a log-sum-exp of -inf there, the rest
+    as attention_lse_ref."""
+    q = rand((1, 4, 12, 256), torch.bfloat16, 0, dev)
+    k, v = rand((1, 2, 5, 256), torch.bfloat16, 1, dev), rand((1, 2, 5, 256), torch.bfloat16, 2, dev)
+    lse = torch.empty((1, 4, 12), device=dev)
+    out = fa.run_split(q, k, v, 4, 64, causal=False, window=3, softcap=0.0, lse=lse)
+    torch.cuda.synchronize()
+    want, want_lse = attention_lse_ref(q, k, v, causal=False, window=3)
+    assert torch.isneginf(lse[:, :, 7:]).all() and not out[:, :, 7:].any()
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse[:, :, :7], want_lse[:, :, :7], **TOL[torch.bfloat16])
+
+
+def test_gemma2_kernel_paths_by_profiler(dev):
+    """By kernel name, in launch order: a bf16 gemma2 decode call the split
+    decode's two kernels, a bf16 D 256 backward call the wgmma path's two,
+    a D 80 one the mma.sync path's two."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def names(fn, pattern):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device=dev)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        return [m.group(1) for e in events for m in [re.search(pattern, e.name)] if m]
+
+    q = rand((2, 16, 1, 256), torch.bfloat16, 0, dev)
+    k, v = rand((2, 8, 4096, 256), torch.bfloat16, 1, dev), rand((2, 8, 4096, 256), torch.bfloat16, 2, dev)
+    assert names(lambda: fa.flash_attention_cuda(q, k, v, causal=False, softcap=50.0),
+                 r"(attn_decode_\w+?)(?:<|\(|$)") == ["attn_decode_bf16", "attn_decode_merge"]
+    for D, want in ((256, ["attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma"]),
+                    (80, ["attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16"])):
+        q, dout = (rand((1, 16, 200, D), torch.bfloat16, 3 + i, dev) for i in range(2))
+        k, v = (rand((1, 8, 200, D), torch.bfloat16, 5 + i, dev) for i in range(2))
+        out = fa.flash_attention_cuda(q, k, v, causal=True)
+        assert names(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True),
+                     r"(attn_bwd_\w+?)(?:<|\(|$)") == want
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):
@@ -608,9 +687,9 @@ def attention_grads(q, k, v, dout, **opts):
 )
 def test_attention_grads_on_tile_edges(dev, B, H, KV, Sq, Sk, D, causal, dtype):
     """Shapes on the edges of the bf16 kernels' 64-row / 64-key tiles (32
-    query rows at D 128 and 256 in the dK / dV launches, 32-key tiles at D
-    256 in the dQ launch) and of the scalar kernels' 32-row tiles, against
-    autograd of attention_ref in fp32."""
+    query rows at D 128 in the dK / dV launch; at D 256 the wgmma kernels'
+    128-row dQ blocks and 64-key dK / dV blocks) and of the scalar kernels'
+    32-row tiles, against autograd of attention_ref in fp32."""
     q = rand((B, H, Sq, D), dtype, 10, dev)
     k, v = rand((B, KV, Sk, D), dtype, 11, dev), rand((B, KV, Sk, D), dtype, 12, dev)
     grads, want = attention_grads(q, k, v, rand((B, H, Sq, D), dtype, 13, dev), causal=causal)
@@ -635,13 +714,17 @@ def test_attention_grads_with_large_logits(dev, D, dtype):
         torch.testing.assert_close(got.float(), w, **GRAD_TOL[dtype])
 
 
-def test_attention_bwd_bf16_is_deterministic(dev):
+@pytest.mark.parametrize("D,KV,window,softcap", [(80, 8, 0, 0.0), (256, 4, 64, 50.0)])
+def test_attention_bwd_bf16_is_deterministic(dev, D, KV, window, softcap):
     """No atomics: two backward calls on the same bf16 inputs give bitwise
-    equal dq, dk and dv."""
-    q, k, v, out_grad = (rand((2, 8, 256, 80), torch.bfloat16, 30 + i, dev) for i in range(4))
-    out = fa.flash_attention_cuda(q, k, v, causal=True)
-    first = fa.flash_attention_bwd_cuda(q, k, v, out, out_grad, causal=True)
-    second = fa.flash_attention_bwd_cuda(q, k, v, out, out_grad, causal=True)
+    equal dq, dk and dv, on the mma.sync path and on the wgmma one (D 256,
+    GQA 2, a window, softcap 50)."""
+    q, out_grad = (rand((2, 8, 256, D), torch.bfloat16, 30 + i, dev) for i in range(2))
+    k, v = (rand((2, KV, 256, D), torch.bfloat16, 32 + i, dev) for i in range(2))
+    opts = dict(causal=True, window=window, softcap=softcap)
+    out = fa.flash_attention_cuda(q, k, v, **opts)
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, out_grad, **opts)
+    second = fa.flash_attention_bwd_cuda(q, k, v, out, out_grad, **opts)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
