@@ -15,7 +15,12 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              gemma2's head dim 256 (softcap 50, window 4096, GQA 16/8, a
              ragged Sq, decode at Sk 4096 and 5184, each timed beside its
              bound; a bf16 decode call the wrappers split runs the split
-             decode and its merge), and the serve paths' shapes), then
+             decode and its merge; the bf16 prefill, the warpgroup kernel,
+             at the edges of its tiles (Sq 16 to 5183, causal Sq != Sk, Sk
+             not a multiple of 64, windows 64 and 4096, q and k scaled by
+             4, strided views), through the lse entry with rows that admit
+             no key, and two calls at gemma2's serve shape bitwise equal),
+             and the serve paths' shapes), then
              timed at the serve paths' shapes beside
              the plain version, one library call where there is one, and
              the card's bound; attention decode is timed with a cold L2;
@@ -31,8 +36,10 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              autograd of the plain attention, beside SDPA's backward
              without softcap (not the same function) and the earlier
              design's time; by torch.profiler, a gemma2 decode call and a
-             half-cache lse call run the split decode then its merge, and
-             a D 256 backward call its two wgmma kernels; the SSD and mLSTM backwards'
+             half-cache lse call run the split decode then its merge, a
+             D 256 prefill call through either entry the warpgroup prefill
+             (a D 128 one the mma.sync prefill), and a D 256 backward call
+             its two wgmma kernels; the SSD and mLSTM backwards'
              gradients against autograd of their plain versions in fp32
              (ragged S, S shorter than a chunk, strided model-layout
              inputs, the forward tests' widths, SSD with the final state's
@@ -112,7 +119,8 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              saved, bitwise;
 8. train zamba2_1p2b and train xlstm_125m — each full model through
              ``repro_torch.launch.train`` as in 6 (fp32 masters, bf16, remat,
-             8 x 512, 4 steps, seed 0): finite losses and grad norms, the
+             8 x 512, seed 0; zamba2 4 steps, xlstm, whose sLSTM loop takes
+             ~8-10 s a step, 2): finite losses and grad norms, the
              kernels' calls a step (zamba2: 76 SSD, 38 SSD backward, 12
              attention, 6 attention backward; xlstm: 12 mLSTM, 6 mLSTM
              backward, no attention), a profiled step (the SSD or mLSTM
@@ -130,7 +138,8 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              attention kernel on every layer of the prefill and of every
              decode step (2,688 launches), finite logits; the decode step
              printed beside the unsplit kernel's; the kernel timed at its four shapes
-             (global and local prefill, decode over a full ring and the
+             (global and local prefill, the warpgroup kernel, beside the
+             earlier design's time; decode over a full ring and the
              global cache, both split) beside the plain version, SDPA
              without softcap (not the same function) and the bound; the
              bf16 gap to the plain attention printed; in fp32 at full
@@ -143,7 +152,9 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              steps): finite losses and grad norms, 8 forward and 4
              backward attention calls a step, the step time beside the
              mma.sync backward's, a profiled step (the bf16 D 256 backward
-             kernels by name, the wgmma ones), the attention backward's share;
+             kernels by name, the wgmma ones), the attention backward's share,
+             the forward kernel timed at (1,16,8192,256) global and local
+             beside its bound and its share;
              then one fp32 step at full width and 2 layers (one local, one
              global) on 1 x 4608 against the plain twin;
 10. phi35_moe_42b — full width, depth cut: served at 8 layers (bf16,
@@ -160,8 +171,8 @@ from the checkout's sources itself.  Phases, each of which fails the run:
 11. serve parallel — the same four ranks and mesh serve through
              ``build_prefill_step`` (the prompt in train mode) and
              ``build_serve_step``: stablelm_3b at full width and depth in
-             decode mode (8 x 512 + 8 tokens) and zamba2_1p2b in long mode
-             (1 x 4096 + 8; its caches split four ways), bf16, fed one
+             decode mode (8 x 512 + 4 tokens) and zamba2_1p2b in long mode
+             (1 x 4096 + 4; its caches split four ways), bf16, fed one
              process's greedy ids, which the mesh's must equal wherever
              the runs' bf16 gap cannot flip them; fp32 gates at 4 / 6
              layers against one process's logits at every step; each
@@ -192,8 +203,9 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              ``torch.cuda.max_memory_allocated`` over the steps; then three
              production cells' records printed.
 
-Prints the card's name and power limit, one JSON line of kernel numbers,
-and last ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+Prints each phase's wall time (``[smoke] <phase>: N s``), the card's name
+and power limit, one JSON line of kernel numbers, and last ``{"ok": true,
+"device": {...}}``.  Exits non-zero, printing no
 result, on any failure, without a card, or without the port's sources.
 """
 from __future__ import annotations
@@ -245,7 +257,11 @@ SPLIT_DECODE_KERNELS = ["attn_decode_bf16", "attn_decode_merge"]
 # 4-layer train step, the kernels at their shapes.
 EARLIER_GEMMA2 = {"decode step": "50.08-73.41 ms", "train step": "659.0 ms",
                   "decode_ring": "0.1741 ms", "decode_global": "0.1894 ms", "lse": "0.0955 ms",
-                  "global": "26.8730 ms", "local": "20.5695 ms"}
+                  "global": "26.8730 ms", "local": "20.5695 ms",
+                  "prefill_global": "2.3799 ms", "prefill_local": "2.3041 ms"}
+# The bf16 prefill at head dim 256 (Sq >= 16) runs the warpgroup kernel
+# through both forward entries; below D 256 the mma.sync prefill.
+PREFILL_D256_KERNEL, PREFILL_KERNEL = "attn_prefill_wgmma", "attn_prefill_bf16"
 L2_BYTES = 50 * 2**20   # H100 L2; decode timings rotate over more K/V than this
 # The bf16 prefill gaps to the plain twins that the scalar kernels gave
 # (chip_smoke.py on an H100 80GB HBM3 at 700 W), printed beside today's.
@@ -274,6 +290,10 @@ MOE, MOE_SERVE_LAYERS, MOE_GATE_LAYERS, MOE_TRAIN_LAYERS = "phi35_moe_42b", 8, 2
 # Depth of the recurrent families' fp32 train gate: zamba2's shared block
 # follows layer 5, so 6 layers reach it; xlstm's 4 layers are 2 units.
 RECURRENT_GATE_LAYERS = {HYBRID: 6, XLSTM: 4}
+# Their train runs' steps: xlstm's sLSTM loop makes a step ~8-10 s of host
+# time, so it takes 2 steps (each run, and the plain one, 4 until the D 256
+# prefill's timings needed the room).
+RECURRENT_TRAIN_STEPS = {HYBRID: TRAIN_STEPS, XLSTM: 2}
 # [train parallel]: four ranks on the one card (gloo), a (data 2, model 2)
 # mesh.  stablelm_3b at full width and 8 layers trains 8 x 512 for 4
 # steps; its fp32 gate, at 2 layers on 2 x 1024, holds the mesh's step
@@ -326,6 +346,14 @@ PAR_GATE_GRAD = 1e-5
 # after AdamW within GRAD_REL_RMS.
 
 
+@contextlib.contextmanager
+def phase_wall(name: str):
+    """Prints the wall time of the phase run inside, as ``[smoke] name: N s``."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[smoke] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     return 1
@@ -350,65 +378,86 @@ def main() -> int:
 
     t_start = time.perf_counter()
     failures: list[str] = []
-    build_phase(torch)
-    entry = kernel_phase(torch, dev, failures)
-    ssd_entry = ssd_kernel_phase(torch, dev, failures)
-    mlstm_entry = mlstm_kernel_phase(torch, dev, failures)
-    bwd_entry = attention_bwd_phase(torch, dev, failures)
-    ssd_bwd_entry = ssd_bwd_phase(torch, dev, failures)
-    mlstm_bwd_entry = mlstm_bwd_phase(torch, dev, failures)
-    lse_entry = lse_kernel_phase(torch, dev, failures)
+    with phase_wall("build"):
+        build_phase(torch)
+    with phase_wall("kernels attention"):
+        entry = kernel_phase(torch, dev, failures)
+    with phase_wall("kernels ssd"):
+        ssd_entry = ssd_kernel_phase(torch, dev, failures)
+    with phase_wall("kernels mlstm"):
+        mlstm_entry = mlstm_kernel_phase(torch, dev, failures)
+    with phase_wall("kernels attention backward"):
+        bwd_entry = attention_bwd_phase(torch, dev, failures)
+    with phase_wall("kernels ssd backward"):
+        ssd_bwd_entry = ssd_bwd_phase(torch, dev, failures)
+    with phase_wall("kernels mlstm backward"):
+        mlstm_bwd_entry = mlstm_bwd_phase(torch, dev, failures)
+    with phase_wall("kernels attention lse"):
+        lse_entry = lse_kernel_phase(torch, dev, failures)
     if failures:
         return fail("; ".join(failures))
     counts: dict[str, dict[str, int]] = {}   # serve path -> kernel -> launches
-    serve_phase(torch, dev, entry, failures, counts)
+    with phase_wall("serve"):
+        serve_phase(torch, dev, entry, failures, counts)
     if failures:
         return fail("; ".join(failures))
-    serve_elastic_phase(torch, dev, failures, counts)
-    if failures:
-        return fail("; ".join(failures))
-    torch.cuda.empty_cache()
-    hybrid_phase(torch, dev, entry, ssd_entry, failures, counts)
-    if failures:
-        return fail("; ".join(failures))
-    torch.cuda.empty_cache()
-    xlstm_phase(torch, dev, mlstm_entry, failures, counts)
+    with phase_wall("serve elastic"):
+        serve_elastic_phase(torch, dev, failures, counts)
     if failures:
         return fail("; ".join(failures))
     torch.cuda.empty_cache()
-    train_peak = train_phase(torch, dev, entry, bwd_entry, failures, counts)
+    with phase_wall("serve hybrid"):
+        hybrid_phase(torch, dev, entry, ssd_entry, failures, counts)
     if failures:
         return fail("; ".join(failures))
     torch.cuda.empty_cache()
-    elastic_phase(torch, dev, train_peak, failures, counts)
+    with phase_wall("serve xlstm"):
+        xlstm_phase(torch, dev, mlstm_entry, failures, counts)
+    if failures:
+        return fail("; ".join(failures))
+    torch.cuda.empty_cache()
+    with phase_wall("train"):
+        train_peak = train_phase(torch, dev, entry, bwd_entry, failures, counts)
+    if failures:
+        return fail("; ".join(failures))
+    torch.cuda.empty_cache()
+    with phase_wall("elastic"):
+        elastic_phase(torch, dev, train_peak, failures, counts)
     if failures:
         return fail("; ".join(failures))
     for arch in (HYBRID, XLSTM):
         torch.cuda.empty_cache()
-        recurrent_train_phase(torch, dev, arch, failures, counts)
+        with phase_wall(f"train {arch}"):
+            recurrent_train_phase(torch, dev, arch, failures, counts)
         if failures:
             return fail("; ".join(failures))
     torch.cuda.empty_cache()
-    gemma2_phase(torch, dev, entry, failures, counts)
+    with phase_wall(GEMMA2):
+        gemma2_phase(torch, dev, entry, failures, counts)
     if failures:
         return fail("; ".join(failures))
     torch.cuda.empty_cache()
-    gemma2_train_phase(torch, dev, bwd_entry, failures, counts)
+    with phase_wall(f"train {GEMMA2}"):
+        gemma2_train_phase(torch, dev, entry, bwd_entry, failures, counts)
     if failures:
         return fail("; ".join(failures))
     torch.cuda.empty_cache()
-    moe_phase(torch, dev, entry, failures, counts)
+    with phase_wall(MOE):
+        moe_phase(torch, dev, entry, failures, counts)
     if failures:
         return fail("; ".join(failures))
     torch.cuda.empty_cache()
-    serve_parallel_phase(torch, dev, failures, counts)
+    with phase_wall("serve parallel"):
+        serve_parallel_phase(torch, dev, failures, counts)
     if failures:
         return fail("; ".join(failures))
     torch.cuda.empty_cache()
-    par_ranks = train_parallel_phase(torch, dev, failures, counts)
+    with phase_wall("train parallel"):
+        par_ranks = train_parallel_phase(torch, dev, failures, counts)
     if failures:
         return fail("; ".join(failures))
-    dryrun_phase(torch, failures, par_ranks)
+    with phase_wall("dryrun"):
+        dryrun_phase(torch, failures, par_ranks)
     if failures:
         return fail("; ".join(failures))
     kernels = [entry, bwd_entry, ssd_entry, mlstm_entry, ssd_bwd_entry, mlstm_bwd_entry,
@@ -543,6 +592,9 @@ def build_phase(torch):
                 if args[:1] == (256,):
                     mode = {(0,): " (unsplit)", (1,): " (split)"}.get(args[1:], "")
                     print(f"[build] {name}: {kernel} at D 256{mode}: {props}")
+            wg = [props for (kernel, _), props in summary.items() if kernel == PREFILL_D256_KERNEL]
+            print(f"[build] {name}: {PREFILL_D256_KERNEL} (the D 256 bf16 prefill; 384 threads, "
+                  f"one block an SM, before setmaxnreg): {wg[0] if wg else 'not in the log'}")
     from repro_torch.kernels import mlstm, ssd
 
     print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
@@ -668,6 +720,8 @@ def kernel_phase(torch, dev, failures) -> dict:
                   f"{bound * 1e3:.2f} us ({by}), {ms / bound:.1f}x")
             del q, k, v
 
+    d256_prefill_edges(torch, dev, failures)
+
     # The serve path's two shapes, in the model's strided layout.
     H, D, Sk_dec = 32, 80, PROMPT + GEN - 1
     pq = model_layout(torch, BATCH, H, PROMPT, D, "bfloat16", 200, dev)
@@ -696,6 +750,100 @@ def kernel_phase(torch, dev, failures) -> dict:
         **pre,
         "decode": {"shape": f"decode (8,32,1,80) Sk {Sk_dec} bf16", **dec},
     }
+
+
+# The D 256 bf16 prefill's edges (PREFILL_D256_KERNEL: 128 query rows a
+# block, 64 a consumer warpgroup, 64-key tiles): label, B, H, KV, Sq, Sk,
+# causal, window, softcap, the scale of q and k, the model's strided
+# (B,S,H,D) layout.  Sq 16, 63, 64, 65, 129 and 5183 leave one consumer's
+# rows partly or wholly past Sq; windows of 64 and 4096 put whole tiles
+# outside one consumer's keys but not the other's; q and k scaled by 4
+# saturate the softcap.
+D256_PREFILL_EDGES = [
+    ("Sq 16", 1, 4, 2, 16, 16, True, 0, 50.0, 2.0, False),
+    ("Sq 63", 1, 4, 2, 63, 63, True, 0, 50.0, 2.0, False),
+    ("Sq 64", 2, 4, 2, 64, 64, True, 0, 50.0, 2.0, False),
+    ("Sq 65", 1, 4, 2, 65, 65, True, 0, 50.0, 2.0, False),
+    ("Sq 129", 1, 4, 4, 129, 129, True, 0, 50.0, 2.0, False),
+    ("Sq 5183", 1, 2, 1, 5183, 5183, True, 0, 50.0, 2.0, False),
+    ("causal Sq 100 < Sk 300", 1, 4, 2, 100, 300, True, 0, 50.0, 2.0, False),
+    ("causal Sq 300 > Sk 100", 1, 4, 2, 300, 100, True, 0, 0.0, 1.0, False),
+    ("Sq 130 Sk 200", 2, 4, 2, 130, 200, False, 0, 50.0, 2.0, False),
+    ("Sq 200 Sk 77 no softcap", 1, 4, 2, 200, 77, False, 0, 0.0, 1.0, False),
+    ("window 64", 1, 4, 2, 320, 320, True, 64, 50.0, 2.0, False),
+    ("window 4096 Sq 4500", 1, 2, 1, 4500, 4500, True, 4096, 50.0, 2.0, False),
+    ("q, k x 4", 1, 4, 2, 256, 256, True, 0, 50.0, 4.0, False),
+    ("q, k x 4 window 64", 1, 4, 2, 300, 300, True, 64, 50.0, 4.0, False),
+    ("strided (B,S,H,D) gqa 16/8", 2, 16, 8, 600, 600, True, 0, 50.0, 1.0, True),
+    ("strided window 4096 Sq 4200", 1, 16, 8, 4200, 4200, True, 4096, 50.0, 1.0, True),
+]
+# flash_attention_lse at D 256, Sq >= 16: label, B, H, KV, Sq, Sk, causal,
+# window, softcap; the first has rows that admit no key (q >= 163).
+D256_PREFILL_LSE = [
+    ("lse D 256 Sq 300 Sk 100 window 64, rows with no key", 1, 4, 2, 300, 100, False, 64, 50.0),
+    ("lse D 256 causal Sq 700 gqa 16/8", 1, 16, 8, 700, 700, True, 0, 50.0),
+]
+
+
+def d256_prefill_edges(torch, dev, failures) -> float:
+    """The D 256 bf16 prefill at its edges (``D256_PREFILL_EDGES``) against
+    ``attention_ref``, its lse entry (``D256_PREFILL_LSE``) against
+    ``attention_lse_ref``, each within 2e-2; then two calls at gemma2's
+    serve shape (2,16,5120,256) KV 8 softcap 50, global and local, bitwise
+    equal.  Returns the largest max abs error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    worst = 0.0
+    for seed, (label, B, H, KV, Sq, Sk, causal, window, cap, scale, strided) in enumerate(
+            D256_PREFILL_EDGES):
+        if strided:   # k and v as slices of a longer cache, as the model passes them
+            q, k, v = (model_layout(torch, B, n, S, 256, "bfloat16", 1500 + 3 * seed + i, dev,
+                                    s_alloc=S + 64 * i)
+                       for i, (n, S) in enumerate(((H, Sq), (KV, Sk), (KV, Sk))))
+        else:
+            q, k, v = (randn(torch, shape, "bfloat16", 1500 + 3 * seed + i, dev, x)
+                       for i, (shape, x) in enumerate((((B, H, Sq, 256), scale),
+                                                       ((B, KV, Sk, 256), scale),
+                                                       ((B, KV, Sk, 256), 1.0))))
+        worst = max(worst, attention_check(
+            torch, "[kernel]", f"D 256 prefill {label}", q, k, v, "bfloat16", failures,
+            causal=causal, window=window, softcap=cap))
+        del q, k, v
+    for seed, (label, B, H, KV, Sq, Sk, causal, window, cap) in enumerate(D256_PREFILL_LSE):
+        q = randn(torch, (B, H, Sq, 256), "bfloat16", 1600 + 3 * seed, dev, 2.0)
+        k = randn(torch, (B, KV, Sk, 256), "bfloat16", 1601 + 3 * seed, dev, 2.0)
+        v = randn(torch, (B, KV, Sk, 256), "bfloat16", 1602 + 3 * seed, dev)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        out, lse = fa.flash_attention_lse_cuda(q, k, v, **opts)
+        want, want_lse = ref.attention_lse_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        empty = torch.isneginf(want_lse)
+        err = max(float((out.float() - want.float()).abs().max()),
+                  float((lse[~empty] - want_lse[~empty]).abs().max()))
+        ok = (torch.equal(torch.isneginf(lse), empty) and not out[empty].any()
+              and bool(torch.isfinite(out).all())
+              and torch.allclose(out.float(), want.float(), **TOL["bfloat16"])
+              and torch.allclose(lse[~empty], want_lse[~empty], **TOL["bfloat16"]))
+        print(f"[kernel] flash_attention_lse {label} bfloat16 max_abs_err={err:.3e} (out and "
+              f"lse; rtol={TOL['bfloat16']['rtol']}, atol={TOL['bfloat16']['atol']}; "
+              f"{int(empty.sum())} rows with no key) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash_attention_lse {label}: max_abs_err {err:.3e}")
+        worst = max(worst, err)
+    B, H, KV, S = GEMMA2_BATCH, 16, 8, GEMMA2_PROMPT
+    for label, window, seed in (("global", 0, 1620), ("local", 4096, 1630)):
+        q = model_layout(torch, B, H, S, 256, "bfloat16", seed, dev)
+        k, v = (model_layout(torch, B, KV, S, 256, "bfloat16", seed + i, dev) for i in (1, 2))
+        opts = dict(causal=True, window=window, softcap=50.0)
+        first, second = (fa.flash_attention_cuda(q, k, v, **opts) for _ in range(2))
+        same = torch.equal(first, second)
+        print(f"[kernel] D 256 prefill {label} ({B},{H},{S},256) kv {KV} softcap 50 bf16: two "
+              f"calls bitwise equal {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"D 256 prefill {label}: two calls differ")
+        del q, k, v, first, second
+    return worst
 
 
 def decode_sets(torch, B, H, Sk, D, seed, dev, s_alloc=PROMPT + GEN) -> list:
@@ -1089,7 +1237,9 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
 
 def gemma2_kernel_paths(torch, dev, failures) -> dict:
     """The kernels a gemma2 call runs, by name in launch order
-    (``kernel_split``, torch.profiler): a bf16 decode call over a full ring
+    (``kernel_split``, torch.profiler): a bf16 D 256 prefill call through
+    either forward entry, the warpgroup prefill (``PREFILL_D256_KERNEL``;
+    a D 128 call the mma.sync one); a bf16 decode call over a full ring
     and the lse entry over a rank's half cache, the split decode's two
     (``SPLIT_DECODE_KERNELS``, the rule's split); a bf16 D 256 backward call
     the wgmma path's two (``BWD_PATHS``).  Each kernel's device ms printed."""
@@ -1100,8 +1250,16 @@ def gemma2_kernel_paths(torch, dev, failures) -> dict:
     qt, kt, vt, dot = (randn(torch, (1, H, 1024, 256), "bfloat16", 1410 + i, dev)
                        for i, H in enumerate((16, 8, 8, 16)))
     out = fa.flash_attention_cuda(qt, kt, vt, causal=True, softcap=50.0)
-    pattern = r"(attn_decode_bf16|attn_decode_merge|attn_bwd_\w+)"
+    q8, k8, v8 = (randn(torch, (2, H, 512, 128), "bfloat16", 1420 + i, dev)
+                  for i, H in enumerate((32, 8, 8)))
+    pattern = r"(attn_decode_bf16|attn_decode_merge|attn_bwd_\w+|attn_prefill_\w+)"
     checks = [
+        ("prefill (1,16,1024,256) kv 8 causal window 512 softcap 50", [PREFILL_D256_KERNEL],
+         lambda: fa.flash_attention_cuda(qt, kt, vt, causal=True, window=512, softcap=50.0)),
+        ("lse entry, prefill (1,16,1024,256) kv 8 causal softcap 50", [PREFILL_D256_KERNEL],
+         lambda: fa.flash_attention_lse_cuda(qt, kt, vt, causal=True, softcap=50.0)),
+        ("(not gemma2) prefill (2,32,512,128) kv 8 causal, below D 256", [PREFILL_KERNEL],
+         lambda: fa.flash_attention_cuda(q8, k8, v8, causal=True)),
         ("decode ring (2,16,1,256) kv 8 Sk 4096", SPLIT_DECODE_KERNELS,
          lambda: fa.flash_attention_cuda(q, k, v, causal=False, softcap=50.0)),
         ("lse entry, half a global cache (2,16,1,256) kv 8 Sk 2592", SPLIT_DECODE_KERNELS,
@@ -2238,8 +2396,7 @@ def slstm_pass(torch, model, params, dev) -> tuple[float, int]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             slstm_block(lp, "slstm", model.cfg, x)
             torch.cuda.synchronize()
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sum(n for _, n in device_events(torch, prof).values())
     return ms, launches
 
 
@@ -2799,7 +2956,7 @@ def step_gate(torch, dev, cfg, layers, batch, tag, plain_name, failures):
         torch.cuda.empty_cache()
 
 
-def gemma2_train_phase(torch, dev, bwd_entry, failures, counts):
+def gemma2_train_phase(torch, dev, fa_entry, bwd_entry, failures, counts):
     """Full-width gemma2_9b at GEMMA2_TRAIN_LAYERS layers trained
     TRAIN_STEPS steps on batch 1 x GEMMA2_TRAIN_SEQ through
     ``repro_torch.launch.train`` (fp32 masters, bf16, remat, seed 0):
@@ -2861,6 +3018,12 @@ def gemma2_train_phase(torch, dev, bwd_entry, failures, counts):
     print(f"{tag} attention backward share of a step, from the kernel phase's times: {n_loc} x "
           f"{t['local']['ms']:.4f} + {cfg.n_layers - n_loc} x {t['global']['ms']:.4f} ms = "
           f"{bwd_ms:.1f} ms, {bwd_ms / (step_s * 1e3):.1%}")
+    fwd = gemma2_train_fwd_timings(torch, dev, cfg)
+    fa_entry[f"{GEMMA2} train"] = fwd
+    fwd_ms = 2 * (n_loc * fwd["local"]["ms"] + (cfg.n_layers - n_loc) * fwd["global"]["ms"])
+    print(f"{tag} attention forward share of a step (each layer's forward twice under remat): "
+          f"2 x ({n_loc} x {fwd['local']['ms']:.4f} + {cfg.n_layers - n_loc} x "
+          f"{fwd['global']['ms']:.4f}) ms = {fwd_ms:.1f} ms, {fwd_ms / (step_s * 1e3):.1%}")
     profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev),
                        cfg.dtype, failures, tag=tag)
     del model, state, step_fn
@@ -2868,6 +3031,31 @@ def gemma2_train_phase(torch, dev, bwd_entry, failures, counts):
     gate_data = SyntheticTokens(cfg, 1, GEMMA2_STEP_GATE_SEQ, seed=0)
     step_gate(torch, dev, full, GEMMA2_STEP_GATE_LAYERS, to_device(gate_data.sample(0), dev), tag,
               "plain attention", failures)
+
+
+def gemma2_train_fwd_timings(torch, dev, cfg) -> dict:
+    """The forward kernel at gemma2_9b's train shape (1, 16, GEMMA2_TRAIN_SEQ,
+    256) KV 8 in the model's layout, the global (causal) and local (window)
+    layers, beside the bound (``PREFILL_D256_KERNEL``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    H, KV, D, S, W = cfg.n_heads, cfg.n_kv_heads, cfg.hd, GEMMA2_TRAIN_SEQ, cfg.sliding_window
+    out = {}
+    for label, window, seed in (("global", 0, 1700), ("local", W, 1710)):
+        q = model_layout(torch, 1, H, S, D, "bfloat16", seed, dev)
+        k, v = (model_layout(torch, 1, KV, S, D, "bfloat16", seed + i, dev) for i in (1, 2))
+        opts = dict(causal=True, window=window, softcap=cfg.attn_softcap)
+        ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, **opts), iters=10, reps=3)
+        bound, by = bound_ms(torch, q, k, v, causal=True, window=window, dev=dev)
+        print(f"[time] flash_attention gemma2 train forward {label} (1,{H},{S},{D}) kv {KV} "
+              f"causal{f' window {window}' if window else ''} softcap {cfg.attn_softcap:g} bf16 "
+              f"({PREFILL_D256_KERNEL}): kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{ms / bound:.2f}x, {bound / ms:.1%} of the bound's rate)")
+        out[label] = {"shape": f"(1,{H},{S},{D}) kv {KV} causal{f' window {window}' if window else ''}"
+                               f" softcap {cfg.attn_softcap:g} bf16",
+                      "ms": ms, "bound_ms": bound, "bound_by": by}
+        del q, k, v
+    return out
 
 
 def train_launches(cfg) -> dict:
@@ -2910,7 +3098,7 @@ def ssd_log_decay_span(torch, model, params, batch) -> float:
 
 
 def recurrent_train_phase(torch, dev, arch, failures, counts):
-    """Full zamba2_1p2b or xlstm_125m trained 4 steps through
+    """Full zamba2_1p2b or xlstm_125m trained RECURRENT_TRAIN_STEPS steps through
     ``repro_torch.launch.train`` (fp32 masters, bf16 compute, remat, 8 x
     512, seed 0): finite losses and grad norms and the kernels' calls a
     step; a profiled step; the same steps with the plain versions (printed);
@@ -2923,6 +3111,7 @@ def recurrent_train_phase(torch, dev, arch, failures, counts):
 
     tag = f"[train {arch}]"
     cfg = arch_config(arch)
+    steps = RECURRENT_TRAIN_STEPS[arch]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model, state, step_fn = train_cli.build(cfg, device=dev, seed=0)
@@ -2939,7 +3128,7 @@ def recurrent_train_phase(torch, dev, arch, failures, counts):
               f"exp masked after it would be NaN {'here' if span > 88.7 else 'only past it'})")
 
     reset_counts()
-    state, records = train_cli.train(model, state, step_fn, data.iter(), TRAIN_STEPS,
+    state, records = train_cli.train(model, state, step_fn, data.iter(), steps,
                                      log=lambda line: print(f"{tag} {line}"))
     path = f"train {arch}"
     counts[path] = read_counts()
@@ -2948,7 +3137,7 @@ def recurrent_train_phase(torch, dev, arch, failures, counts):
         print(f"{tag} step {r.step}: loss {r.loss:.4f}, grad norm {r.grad_norm:.4f}, "
               f"{r.seconds * 1e3:.1f} ms")
     step_s = statistics.median(r.seconds for r in records[1:])
-    print(f"{tag} step time {step_s * 1e3:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; step 0, "
+    print(f"{tag} step time {step_s * 1e3:.1f} ms (median of steps 1-{steps - 1}; step 0, "
           f"cold, {records[0].seconds * 1e3:.1f} ms), {BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, "
           f"peak memory {peak / 2**30:.1f} GiB ({peak / 1e9:.1f} GB), on {card_label(dev)}")
     finite = all(math.isfinite(r.loss) and math.isfinite(r.grad_norm) for r in records)
@@ -2957,21 +3146,21 @@ def recurrent_train_phase(torch, dev, arch, failures, counts):
         failures.append(f"non-finite loss or grads in the {arch} train run")
     for name, want in train_launches(cfg).items():
         got = counts[path][name]
-        print(f"{tag} {name} launches: {got} in {TRAIN_STEPS} steps (expected "
-              f"{TRAIN_STEPS} x {want} = {TRAIN_STEPS * want})")
-        if got != TRAIN_STEPS * want:
-            failures.append(f"{path}: {name} launched {got} times, expected {TRAIN_STEPS * want}")
-    profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev),
+        print(f"{tag} {name} launches: {got} in {steps} steps (expected "
+              f"{steps} x {want} = {steps * want})")
+        if got != steps * want:
+            failures.append(f"{path}: {name} launched {got} times, expected {steps * want}")
+    profile_train_step(torch, model, state, step_fn, to_device(data.sample(steps), dev),
                        cfg.dtype, failures, tag=tag, attention=cfg.family == "hybrid",
                        ssd=cfg.family == "hybrid", mlstm=arch == XLSTM)
     del model, state, step_fn
     torch.cuda.empty_cache()
 
-    # Information: the same 4 steps with the plain versions (bf16 rounding
+    # Information: the same steps with the plain versions (bf16 rounding
     # differs between the two paths and grows over the steps).
     model, state, step_fn = train_cli.build(cfg, device=dev, seed=0)
     with plain_versions(failures):
-        _, plain = train_cli.train(model, state, step_fn, data.iter(), TRAIN_STEPS,
+        _, plain = train_cli.train(model, state, step_fn, data.iter(), steps,
                                    log=lambda line: None)
     print(f"{tag} the same steps with the plain versions (information): losses "
           + ", ".join(f"{r.loss:.4f}" for r in plain) + " against the kernels' "
@@ -3158,6 +3347,19 @@ def one_step(torch, model, batch, failures, *, plain=False, host=False):
     return float(loss), kept, after
 
 
+def device_events(torch, prof) -> dict[str, tuple[float, int]]:
+    """(device ms, count) of a finished profile's device events (kernels,
+    copies, sets) by name, read from its raw records: building the
+    profiler's event tree for ``key_averages`` takes minutes over a step
+    of ~260,000 launches (xlstm's), reading the records seconds."""
+    out: dict[str, tuple[float, int]] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, n = out.get(e.name(), (0.0, 0))
+            out[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return out
+
+
 def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
                        tag="[train]", attention=True, ssd=False, mlstm=False):
     """Where a warm train step's time goes: one more step split in its two
@@ -3193,11 +3395,11 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
         step_fn(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels = device_events(torch, prof)
+    busy = sum(ms for ms, _ in kernels.values())
     groups: dict[str, float] = {}
-    for e in kernels:
-        name = e.key.lower()
+    for key, (ms, _) in kernels.items():
+        name = key.lower()
         group = ("attention backward kernel" if "attn_bwd" in name else
                  "attention forward kernel" if "attn_" in name else
                  "SSD backward kernel" if "ssd_bwd" in name else
@@ -3206,31 +3408,31 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
                  "mLSTM forward kernel" if "mlstm_" in name else
                  "matmul (cuBLAS)" if any(w in name for w in ("gemm", "xmma", "nvjet", "cutlass"))
                  else "other (elementwise, reductions, copies, AdamW)")
-        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+        groups[group] = groups.get(group, 0.0) + ms
     print(f"{tag} profiled step: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms "
-          f"({busy / wall_ms:.1%}), {sum(e.count for e in kernels)} kernel launches; by group: "
-          + ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.1%})"
-                      for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"{tag}   {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
-    bwd = {}
-    for e in kernels:
-        m = re.search(r"(attn_bwd_\w+)", e.key)
-        if m:
-            ms, n = bwd.get(m.group(1), (0.0, 0))
-            bwd[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+          f"({busy / wall_ms:.1%}), {sum(n for _, n in kernels.values())} kernel launches; by "
+          f"group: " + ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.1%})"
+                                 for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for key, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"{tag}   {ms:9.2f} ms {n:6d}x  {key[:90]}")
+
+    def by_name(pattern):
+        found: dict[str, tuple[float, int]] = {}
+        for key, (ms, n) in kernels.items():
+            m = re.search(pattern, key)
+            if m:
+                t, c = found.get(m.group(1), (0.0, 0))
+                found[m.group(1)] = (t + ms, c + n)
+        return found
+
+    bwd = by_name(r"(attn_bwd_\w+)")
     print(f"{tag} attention backward kernels in the profiled step: " + ", ".join(
         f"{name} {ms:.2f} ms in {n} launches" for name, (ms, n) in sorted(bwd.items())))
     want = bwd_path(dtype, model.cfg.hd)["kernels"] if attention else []
     if sorted(bwd) != sorted(want):
         failures.append(f"profiled {dtype} train step ran the attention backward kernels "
                         f"{sorted(bwd)}, expected {want}")
-    ssd_bwd = {}
-    for e in kernels:
-        m = re.search(r"(ssd_bwd\w*)", e.key)
-        if m:
-            ms, n = ssd_bwd.get(m.group(1), (0.0, 0))
-            ssd_bwd[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    ssd_bwd = by_name(r"(ssd_bwd\w*)")
     if ssd_bwd:
         ms = sum(v[0] for v in ssd_bwd.values())
         print(f"{tag} SSD backward share of the profiled step: {ms:.1f} ms of {busy:.1f} ms device "
@@ -3240,12 +3442,7 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
     if sorted(ssd_bwd) != want:
         failures.append(f"profiled {dtype} train step ran the SSD backward kernels "
                         f"{sorted(ssd_bwd)}, expected {want}")
-    mlstm_bwd = {}
-    for e in kernels:
-        m = re.search(r"(mlstm_bwd_\w+)", e.key)
-        if m:
-            ms, n = mlstm_bwd.get(m.group(1), (0.0, 0))
-            mlstm_bwd[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    mlstm_bwd = by_name(r"(mlstm_bwd_\w+)")
     if mlstm_bwd:
         ms = sum(v[0] for v in mlstm_bwd.values())
         print(f"{tag} mLSTM backward share of the profiled step: {ms:.1f} ms of {busy:.1f} ms "
@@ -3939,12 +4136,13 @@ def dryrun_phase(torch, failures, par_ranks):
 # A decode step gathers a rank's storage shards of the serving params
 # (FSDP over 'data', as the JAX package's serving layout stores them) and
 # the whole wq, wk, wv over 'model' through gloo's host copies: ~4 GB a rank
-# and 4.4-4.9 s a step on an H100 over gloo, so each run decodes 8 tokens
-# (4 in the fp32 gates) to keep the script inside its limit.
+# and 4.4-4.9 s a step on an H100 over gloo, so each run decodes 4 tokens
+# (8 until the D 256 prefill's timings needed the room; 4 in the fp32
+# gates) to keep the script inside its limit.
 SERVE_PAR = {
-    "stablelm": dict(arch="stablelm_3b", mode="decode", batch=8, prompt=512, gen=8,
+    "stablelm": dict(arch="stablelm_3b", mode="decode", batch=8, prompt=512, gen=4,
                      gate_layers=4, gate_gen=4),
-    "zamba2": dict(arch="zamba2_1p2b", mode="long", batch=1, prompt=4096, gen=8,
+    "zamba2": dict(arch="zamba2_1p2b", mode="long", batch=1, prompt=4096, gen=4,
                    gate_layers=6, gate_gen=4),
 }
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """The attention forward or backward beside another source of its kernel.
 
-    PYTHONPATH=src python scripts/attention_fwd_ab.py --old PATH
+    PYTHONPATH=src python scripts/attention_fwd_ab.py --old PATH [--only TEXT]
     PYTHONPATH=src python scripts/attention_fwd_ab.py --bwd --old PATH
 
 Forward: times ``repro_torch.kernels.flash_attention.flash_attention_cuda``
@@ -12,10 +12,16 @@ this tree's ``csrc/mma_bf16.cuh``) in turns (this tree, old, old, this
 tree) at each shape: the decode calls of stablelm, zamba2, phi3.5 and
 gemma2 (ring, global, and the lse entry over a rank's half of the global
 cache) over cold caches as a CUDA graph of calls (``chip_smoke.graph_ms``,
-each call reading the next of K/V sets that together pass the L2),
-stablelm's prefill by CUDA events.  Prints the split this tree's wrapper
-takes (``flash_attention.decode_split``) and whether the two outputs are
-bitwise equal, or their largest difference.
+each call reading the next of K/V sets that together pass the L2), the
+prefills of stablelm, zamba2 and phi3.5, and gemma2's at its serve shape
+(2,16,5120,256) and its train shape (1,16,8192,256), global and local
+(window 4096), by CUDA events.  Prints the split this tree's wrapper
+takes (``flash_attention.decode_split``), whether the two outputs are
+bitwise equal, or their largest difference, and at D 256 the prefill's
+bound.  Then calls both on ``chip_smoke.py``'s forward cases at every head
+dim below 256 in both dtypes and on fp32 cases at D 256.  Exits 1 if any
+output below head dim 256, any decode output, or any fp32 output differs
+from the old kernel's.
 
 Backward (``--bwd``, ``--old`` another ``csrc/flash_attention_bwd.cu``):
 calls ``flash_attention_bwd_cuda`` and the old entry on the same inputs
@@ -45,59 +51,136 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
-# label, B, H, KV, Sq, Sk, D, causal, softcap, entry ("fwd" or "lse"):
-# stablelm, zamba2 and phi3.5-MoE decode at Sk 575 (prompt 512 + 63
+# label, B, H, KV, Sq, Sk, D, causal, window, softcap, entry ("fwd" or
+# "lse"): stablelm, zamba2 and phi3.5-MoE decode at Sk 575 (prompt 512 + 63
 # tokens); gemma2's decode over a full ring and its global cache (prompt
-# 5120 + 63), and the lse entry over a rank's half of that cache;
-# stablelm's prefill
+# 5120 + 63), and the lse entry over a rank's half of that cache; the
+# prefills of stablelm, zamba2 and phi3.5 (8 x 512), and gemma2's at its
+# serve and train shapes, global and local
 SHAPES = [
-    ("stablelm decode", 8, 32, 32, 1, 575, 80, False, 0.0, "fwd"),
-    ("zamba2 decode", 8, 32, 32, 1, 575, 64, False, 0.0, "fwd"),
-    ("phi35 decode", 8, 32, 8, 1, 575, 128, False, 0.0, "fwd"),
-    ("gemma2 decode ring", 2, 16, 8, 1, 4096, 256, False, 50.0, "fwd"),
-    ("gemma2 decode global", 2, 16, 8, 1, 5183, 256, False, 50.0, "fwd"),
-    ("gemma2 lse, half the global cache", 2, 16, 8, 1, 2592, 256, False, 50.0, "lse"),
-    ("stablelm prefill", 8, 32, 32, 512, 512, 80, True, 0.0, "fwd"),
+    ("stablelm decode", 8, 32, 32, 1, 575, 80, False, 0, 0.0, "fwd"),
+    ("zamba2 decode", 8, 32, 32, 1, 575, 64, False, 0, 0.0, "fwd"),
+    ("phi35 decode", 8, 32, 8, 1, 575, 128, False, 0, 0.0, "fwd"),
+    ("gemma2 decode ring", 2, 16, 8, 1, 4096, 256, False, 0, 50.0, "fwd"),
+    ("gemma2 decode global", 2, 16, 8, 1, 5183, 256, False, 0, 50.0, "fwd"),
+    ("gemma2 lse, half the global cache", 2, 16, 8, 1, 2592, 256, False, 0, 50.0, "lse"),
+    ("stablelm prefill", 8, 32, 32, 512, 512, 80, True, 0, 0.0, "fwd"),
+    ("zamba2 prefill", 8, 32, 32, 512, 512, 64, True, 0, 0.0, "fwd"),
+    ("phi35 prefill", 8, 32, 8, 512, 512, 128, True, 0, 0.0, "fwd"),
+    ("gemma2 prefill global", 2, 16, 8, 5120, 5120, 256, True, 0, 50.0, "fwd"),
+    ("gemma2 prefill local", 2, 16, 8, 5120, 5120, 256, True, 4096, 50.0, "fwd"),
+    ("gemma2 train global", 1, 16, 8, 8192, 8192, 256, True, 0, 50.0, "fwd"),
+    ("gemma2 train local", 1, 16, 8, 8192, 8192, 256, True, 4096, 50.0, "fwd"),
 ]
 
 
-def forward_ab(old_src: Path, dev) -> int:
-    """The forward at SHAPES, in turns; always 0 (bitwise equality is
-    printed, not gated: a forward change may move the bits)."""
+def must_match(D: int, Sq: int, dtype) -> bool:
+    """Whether this tree's forward must give the old kernel's bits: below
+    D 256, every decode call, every fp32 call (only the bf16 D 256 prefill
+    was redesigned)."""
+    return D < 256 or Sq < 16 or dtype == torch.float32
+
+
+def bitwise_cases(impls, dev) -> int:
+    """Both builds on chip_smoke's forward cases (``kernel_phase``'s, every
+    head dim below 256, both dtypes) and fp32 D 256 cases; prints each
+    difference; returns how many differ."""
+    cases = [  # B, H, KV, Sq, Sk, D, causal, window, softcap
+        (1, 2, 2, 128, 128, 64, True, 0, 0.0), (2, 8, 2, 128, 128, 64, True, 0, 0.0),
+        (1, 4, 1, 64, 256, 32, False, 0, 0.0), (2, 3, 3, 96, 96, 16, True, 0, 0.0),
+        (2, 4, 2, 5, 37, 80, True, 0, 0.0), (1, 4, 4, 100, 77, 80, False, 20, 0.0),
+        (1, 8, 2, 70, 70, 128, True, 0, 0.0), (1, 2, 2, 128, 128, 32, True, 64, 0.0),
+        (1, 2, 2, 64, 64, 32, True, 0, 20.0), (1, 8, 2, 128, 128, 32, True, 0, 0.0),
+    ]
+    cases += [(2, 8, 2, Sq, 40 * Sq + 17, (16, 32, 64, 80, 128)[Sq % 5], Sq % 2 == 0, 0, 0.0)
+              for Sq in range(1, 16)]
+    cases += [(2, 4, 2, Sq, Sk, D, causal, 0, 0.0) for i, D in enumerate((16, 32, 64, 80, 128))
+              for Sq, Sk, causal in ((37 + 31 * i, 100 + 23 * i, True),
+                                     (150 - 9 * i, 61 + 7 * i, False))]
+    d256 = [(1, 16, 8, 300, 300, 256, True, 0, 50.0), (1, 4, 2, 600, 600, 256, True, 64, 50.0),
+            (2, 16, 8, 1, 700, 256, False, 0, 50.0), (2, 4, 2, 77, 300, 256, True, 0, 0.0)]
+    differ = total = 0
+    for j, (B, H, KV, Sq, Sk, D, causal, window, cap) in enumerate(cases + d256):
+        for dtype in ((torch.float32,) if D == 256 else (torch.float32, torch.bfloat16)):
+            seed = 2000 + 10 * j
+            q = cs.randn(torch, (B, H, Sq, D), "float32", seed, dev, 2.0).to(dtype)
+            k = cs.randn(torch, (B, KV, Sk, D), "float32", seed + 1, dev, 2.0).to(dtype)
+            v = cs.randn(torch, (B, KV, Sk, D), "float32", seed + 2, dev).to(dtype)
+            opts = dict(causal=causal, window=window, softcap=cap)
+            got = [fn(q, k, v, **opts) for fn in impls.values()]
+            total += 1
+            if not torch.equal(*got):
+                differ += 1
+                print(f"({B},{H},{Sq},{D}) kv {KV} Sk {Sk} causal {causal} window {window} "
+                      f"softcap {cap} {dtype}: NOT bitwise equal to the old kernel")
+    print(f"forward cases below D 256 (both dtypes) and fp32 at D 256: bitwise equal in "
+          f"{total - differ} of {total}")
+    return differ
+
+
+def forward_ab(old_src: Path, dev, only: str | None = None) -> int:
+    """The forward at SHAPES (those whose label holds ``only``, and then not
+    the bitwise cases, where given), in turns; 1 if any output that must
+    keep the old kernel's bits (``must_match``) differs."""
     lib = _build.load_source(old_src, "flash_attention_old")
-    old_fwd, old_lse = fa.bind_fwd(lib), fa.bind_lse(lib)
-    for seed, (label, B, H, KV, Sq, Sk, D, causal, cap, entry) in enumerate(SHAPES):
-        opts = dict(causal=causal, window=0, softcap=cap)
+    old_fwd, old_lse, old_split = fa.bind_fwd(lib), fa.bind_lse(lib), fa.bind_split(lib)
+
+    def old_entry(q, k, v, *, lse=False, **opts):
+        """The old source's entries, routed as this tree's wrapper routes a
+        call (a decode call it splits goes to the split entry)."""
+        splits, chunk = fa._split_plan(q, k)
+        if splits > 1:
+            out = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse else None
+            return fa.run_split(q, k, v, splits, chunk, lse=out, fn=old_split, **opts)
+        if lse:
+            return fa.run_lse(old_lse, q, k, v, **opts)[0]
+        return fa.run_fwd(old_fwd, q, k, v, **opts)
+
+    differ = 0
+    for seed, (label, B, H, KV, Sq, Sk, D, causal, window, cap, entry) in enumerate(SHAPES):
+        if only and only not in label:
+            continue
+        opts = dict(causal=causal, window=window, softcap=cap)
         if entry == "lse":
             impls = {"this tree": lambda q, k, v: fa.flash_attention_lse_cuda(q, k, v, **opts)[0],
-                     "old": lambda q, k, v: fa.run_lse(old_lse, q, k, v, **opts)[0]}
+                     "old": lambda q, k, v: old_entry(q, k, v, lse=True, **opts)}
         else:
             impls = {"this tree": lambda q, k, v: fa.flash_attention_cuda(q, k, v, **opts),
-                     "old": lambda q, k, v: fa.run_fwd(old_fwd, q, k, v, **opts)}
+                     "old": lambda q, k, v: old_entry(q, k, v, **opts)}
         q = cs.model_layout(torch, B, H, Sq, D, "bfloat16", 900 + 10 * seed, dev)
         if Sq > 1:
             sets = [tuple(cs.model_layout(torch, B, KV, Sk, D, "bfloat16", 901 + 10 * seed + i, dev)
-                          for i in (0, 1))]
+                          for i in (1, 2))]
         else:
             sets = cs.decode_sets(torch, B, KV, Sk, D, 901 + 10 * seed, dev, s_alloc=Sk)
         outs = {name: fn(q, *sets[0]) for name, fn in impls.items()}
         same = torch.equal(outs["this tree"], outs["old"])
         diff = float((outs["this tree"].float() - outs["old"].float()).abs().max())
+        if must_match(D, Sq, q.dtype) and not same:
+            differ += 1
         times = []
         for name in ("this tree", "old", "old", "this tree"):
             fn = impls[name]
             if Sq > 1:
-                ms = cs.time_ms(torch, lambda: fn(q, *sets[0]))
+                ms = cs.time_ms(torch, lambda: fn(q, *sets[0]), iters=5 if D == 256 else 20)
             else:
                 n = len(sets)
                 ms = cs.graph_ms(torch, [lambda i=i: fn(q, *sets[i % n]) for i in range(8 * n)])
             times.append(f"{name} {ms:.4f}")
         splits, chunk = fa._split_plan(q, sets[0][0])
         plan = f"keys split {splits} ways of {chunk}" if splits > 1 else "unsplit"
-        print(f"{label} ({B},{H},{Sq},{D}) kv {KV} Sk {Sk} ({entry}, {plan}): outputs bitwise "
-              f"equal {same} (max abs difference {diff:.3e}); ms " + ", ".join(times))
+        bound = ""
+        if D == 256 and Sq > 1:
+            t, by = cs.bound_ms(torch, q, *sets[0], causal=causal, window=window, dev=dev)
+            bound = f"; bound {t:.4f} ms ({by})"
+        print(f"{label} ({B},{H},{Sq},{D}) kv {KV} Sk {Sk}{' causal' if causal else ''}"
+              f"{f' window {window}' if window else ''} ({entry}, {plan}): outputs bitwise "
+              f"equal {same} (max abs difference {diff:.3e}){bound}; ms " + ", ".join(times))
         del q, sets, outs
-    return 0
+        torch.cuda.empty_cache()
+    if not only:
+        differ += bitwise_cases({"this tree": fa.flash_attention_cuda, "old": old_entry}, dev)
+    return 1 if differ else 0
 
 
 def backward_ab(old_src: Path, dev) -> int:
@@ -177,6 +260,8 @@ def main(argv=None) -> int:
                     help="another csrc/flash_attention.cu (or, with --bwd, "
                          "csrc/flash_attention_bwd.cu) to measure beside")
     ap.add_argument("--bwd", action="store_true", help="the backward instead of the forward")
+    ap.add_argument("--only", help="forward: only the shapes whose label holds this text "
+                                   "(e.g. 'gemma2 prefill'), without the bitwise cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -184,7 +269,9 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
-    return (backward_ab if args.bwd else forward_ab)(args.old, torch.device("cuda"))
+    if args.bwd:
+        return backward_ab(args.old, torch.device("cuda"))
+    return forward_ab(args.old, torch.device("cuda"), args.only)
 
 
 if __name__ == "__main__":

@@ -15,11 +15,12 @@
 //           as fp32 in shared memory, a lane per key for the scores;
 //           decode splits the tiles over 4 warps and merges them (not at
 //           D 256, where four warps' slabs would not fit: see launch_mode);
-//   bf16 -> attn_prefill_bf16 (Sq >= 16) and attn_decode_bf16 (Sq < 16;
-//           with its keys split over blocks, attn_decode_bf16<D, true>
-//           then attn_decode_merge), tensor-core products (mma.sync
-//           m16n8k16, bf16 operands, fp32 accumulators; helpers in
-//           mma_bf16.cuh).
+//   bf16 -> attn_prefill_bf16 (Sq >= 16; at D 256 attn_prefill_wgmma) and
+//           attn_decode_bf16 (Sq < 16; with its keys split over blocks,
+//           attn_decode_bf16<D, true> then attn_decode_merge), tensor-core
+//           products (mma.sync m16n8k16, and at the D 256 prefill the
+//           warpgroup's wgmma; bf16 operands, fp32 accumulators; helpers
+//           in mma_bf16.cuh).
 //
 // What bounds it.  At stablelm_3b's prefill shape (B 8, H 32, S 512, D 80,
 // causal, bf16) the call does ~10.7 GFLOP (11 us at the H100 SXM's dense
@@ -47,18 +48,34 @@
 // 67,584 bytes of shared memory at D 80, two blocks an SM (128 registers;
 // ptxas spills 52 bytes at D 80 and 20 at D 64).
 //
-// At D 256 (gemma2_9b) the same plan is kept, one block an SM.  What is
-// scarce there: a warp's 16-row fp32 O is D / 2 = 128 registers a lane and
-// its 64-key S 32 more, so the launch bounds give the kernel the whole 255
-// registers a thread (8 warps an SM, the occupancy the register file
-// allows with O whole in registers); the Q tile (128 rows) and the four
-// 64-key K/V buffers take 202,752 bytes, under the 227 KB a block may
-// have.  Halving the rows (64 a block) or the keys (32 a tile) would
-// free shared memory that the registers could not use, and splitting O's D
-// over warp pairs would double each pair's Q K^T work or pass S through
-// shared memory.  gemma2's prefill at (2, 16, 5120, 256) causal is bound by
-// the tensor cores (4 D flops a pair: 0.434 ms at 989 TFLOP/s against
-// 0.038 ms for its 126 MB), softcap adding a tanh a score.
+// The D 256 bf16 prefill (gemma2_9b), attn_prefill_wgmma.  It replaced
+// the plan above stretched to D 256 (one 8-warp block an SM, a warp's
+// 16-row fp32 O whole in its 255 registers, K/V by cp.async issued by
+// every warp with one __syncthreads a tile, Q's fragments re-read by
+// ldmatrix every k step, an accurate tanhf a score), which reached 18% of
+// the bf16 peak: 2.3799 / 2.3041 ms at gemma2's prefill (2, 16, 5120,
+// 256) KV 8 softcap 50, global / local.  What bounds it: 4 D flops an
+// admitted (query, key) pair, 0.434 / 0.417 ms at 989 TFLOP/s, against
+// 0.038 ms for its 126 MB: the tensor cores, which only the warpgroup's
+// asynchronous wgmma reaches in full; beside them the softmax's special-
+// function work, an exp2 a score and, with the softcap, a tanh.  The
+// design: a producer warpgroup, one thread of which keeps Q and K tiles,
+// another V tiles, in flight by TMA (mbarrier stages, K and V apart so
+// that S = Q K^T starts before V lands); two consumer warpgroups of 64 query rows, each
+// issuing S = Q K^T (both operands in shared memory) together with the
+// previous tile's P V (P from registers, where S's accumulators leave
+// it) and running this tile's scores and online softmax while that P V
+// is in flight, the two taking turns under named barriers so that one's
+// softmax runs under the other's products; products are issued on no
+// condition (a condition serialises them: ptxas C7520), the masks hiding
+// what a consumer's rows do not see.  The softcap's tanh y is 1 - 2 / (1
+// + 2^(2 y log2 e)), two special-function operations; tanh.approx.f32,
+// one, would miss the bf16 tolerance at its documented error
+// (tests/test_torch_flash_attention.py emulates both).  O / l leaves
+// through Q's shared memory by TMA stores.  Measured
+// (scripts/attention_fwd_ab.py, in turns beside the earlier plan; H100
+// 80GB HBM3 at 700.00 W): 0.8855-0.8889 / 0.8601-0.8731 ms, 2.7x, about
+// half the bf16 peak.
 //
 // The bf16 decode design.  A block owns one (b, KV head) and up to 16
 // query rows of its GQA group (head-in-group x position), so the group
@@ -723,6 +740,298 @@ __global__ void __launch_bounds__(PF_WARPS * 32, D <= 80 ? 2 : 1) attn_prefill_b
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 prefill at head dim 256 (Sq >= 16): attn_prefill_wgmma, warpgroup
+// products (wgmma) fed by TMA, warps specialised.  A block owns 128 query
+// rows of one (b, h) (causal q-tiles longest first) and is three
+// warpgroups: warpgroup 0 the producer (registers cut to PW_PRODUCER_REGS;
+// one thread loads Q once and then K of every tile, another V of every
+// tile, by TMA into mbarrier-guarded stages), warpgroups 1 and 2 the
+// consumers (PW_CONSUMER_REGS each), 64 query rows each.  Q is four
+// 128-row slabs of 64 columns, a consumer's rows the half of each slab at
+// 64 cw; K and V stream through PW_STAGES stages of 64 keys, each tile
+// four 64 x 64 slabs, with full and empty barriers of their own so that S
+// = Q K^T starts before V lands.  Operands are 128-byte-swizzled slabs
+// (mma_bf16.cuh, namespace wgmma).
+//
+// A consumer's tile it: S_it = Q K_it^T (m64n64k16, 16 k steps, both
+// operands in shared memory) is issued together with O += P_{it-1} V_{it-1}
+// (m64n256k16 with P as the register A operand, V MN-major); the scores'
+// scale, softcap and masks and the online softmax of S_it run while that
+// P V is still in flight, then O is rescaled and P_it rounded to bf16 in
+// registers for the next tile.  The two consumers issue their products in
+// turns, under two named barriers, so that one's softmax runs while the
+// other's products keep the tensor cores busy.
+
+constexpr int PW_D = 256;
+constexpr int PW_ROWS = 64;                          // keys of a tile; query rows of a consumer
+constexpr int PW_BQ = 2 * PW_ROWS;                   // query rows of a block
+constexpr int PW_THREADS = 3 * 128;
+constexpr int PW_STAGES = 2;
+constexpr uint32_t PW_BOX = PW_ROWS * 128;           // a 64 x 64 bf16 slab: 8 KB
+constexpr uint32_t PW_TILE = (PW_D / 64) * PW_BOX;   // 64 keys of D 256: 32 KB
+constexpr uint32_t PW_QSLAB = PW_BQ * 128;           // a 128-row slab of Q: 16 KB
+constexpr int PW_PRODUCER_REGS = 24, PW_CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 <= 65,536
+// Named barriers: the consumers' turns (1, 2), each consumer's epilogue (3, 4).
+constexpr int PW_BAR_TURN = 1, PW_BAR_EPILOGUE = 3;
+
+struct PwSmem {  // bytes from the 1024-aligned base
+  static constexpr uint32_t Q = 0, K = Q + 4 * PW_QSLAB, V = K + PW_STAGES * PW_TILE;
+  static constexpr uint32_t BARS = V + PW_STAGES * PW_TILE;  // qbar, kfull, kempty, vfull, vempty
+  static constexpr size_t BYTES = BARS + 8 * (1 + 4 * PW_STAGES) + 1024;
+};
+
+struct PwParams {
+  CUtensorMap q, k, v, o;  // (D, heads, seq, B) bf16, mma::encode_map's boxes
+  Params p;
+};
+
+__global__ void __launch_bounds__(PW_THREADS, 1)
+    attn_prefill_wgmma(const __grid_constant__ PwParams wp) {
+  using S = PwSmem;
+  const Params& p = wp.p;
+  char* sm = wgmma::aligned_smem();
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* kempty = kfull + PW_STAGES;
+  uint64_t* vfull = kempty + PW_STAGES;
+  uint64_t* vempty = vfull + PW_STAGES;
+  // The warpgroup, by a shuffle: uniform to ptxas, which would serialise
+  // products under conditions that derive from threadIdx.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+  const int b = blockIdx.x / p.H;
+  const int h = blockIdx.x - b * p.H;
+  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // longest causal tiles first
+  const int q0 = qt * PW_BQ;
+  const int kvh = h / (p.H / p.KV);
+  // Keys any row of the block can see: tiles t_lo .. t_lo + ntiles - 1.
+  const int q_last = min(q0 + PW_BQ, p.Sq) - 1;
+  const int k_hi = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int t_lo = k_lo / PW_ROWS;
+  const int ntiles = k_hi > k_lo ? (k_hi + PW_ROWS - 1) / PW_ROWS - t_lo : 0;
+  if (threadIdx.x == 0) {
+    mma::mbar_init(qbar, 1);
+    for (int i = 0; i < PW_STAGES; ++i) {
+      mma::mbar_init(&kfull[i], 1);
+      mma::mbar_init(&vfull[i], 1);
+      mma::mbar_init(&kempty[i], 2 * 128);
+      mma::mbar_init(&vempty[i], 2 * 128);
+    }
+    mma::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: thread 0 Q, then K of every tile; thread 32 V of every tile
+    wgmma::regs_dec<PW_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mma::mbar_expect_tx(qbar, 4 * PW_QSLAB);
+      for (int half = 0; half < 2; ++half)
+        wgmma::tma_tile<PW_D>(sm + S::Q + half * PW_BOX, PW_QSLAB, &wp.q, qbar, h,
+                              q0 + PW_ROWS * half, b);
+    }
+    if (threadIdx.x == 0 || threadIdx.x == 32) {
+      const bool is_k = threadIdx.x == 0;
+      uint64_t* full = is_k ? kfull : vfull;
+      uint64_t* empty = is_k ? kempty : vempty;
+      char* ring = sm + (is_k ? S::K : S::V);
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % PW_STAGES;
+        if (it >= PW_STAGES) mma::mbar_wait(&empty[st], (it / PW_STAGES - 1) & 1);
+        mma::mbar_expect_tx(&full[st], PW_TILE);
+        wgmma::tma_tile<PW_D>(ring + st * PW_TILE, PW_BOX, is_k ? &wp.k : &wp.v, &full[st], kvh,
+                              (t_lo + it) * PW_ROWS, b);
+      }
+    }
+    return;
+  }
+
+  wgmma::regs_inc<PW_CONSUMER_REGS>();
+  const int cw = wg - 1;  // this consumer's rows: c0 .. c0 + 63
+  const int tid = threadIdx.x & 127;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const int c0 = q0 + PW_ROWS * cw;
+  const int wq0 = c0 + 16 * warp;  // this warp's first row
+  const char* Qc = sm + S::Q + cw * PW_BOX;
+  const bool softcap = p.softcap > 0.f;
+  // Scores in log2 units: softcap c tanh(a scale / c) log2 e, tanh y as
+  // 1 - 2 / (1 + 2^(2 y log2 e)) (two special-function operations), or
+  // a scale log2 e.
+  const float mul = softcap ? 2.f * LOG2E * p.scale / p.softcap : p.scale * LOG2E;
+  const float cap = p.softcap * LOG2E;
+
+  float o[128];
+  float s[32];
+  uint32_t pa[4][4] = {};
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mma::mbar_wait(qbar, 0);
+
+  // Scale, softcap, mask and online softmax of S (the tile at key0) in
+  // place: s becomes p = 2^(x - m) of rows g and g + 8 of the warp (m
+  // quad-uniform, l this lane's part); alpha the factor O takes.  Masks
+  // apply only where the tile crosses the diagonal, the window's edge or
+  // Sk for this warp's rows; a row masked so far keeps m = -inf and p = 0.
+  auto softmax = [&](int key0, float (&alpha)[2]) {
+    const bool need_mask = key0 + PW_ROWS > p.Sk || (p.causal && key0 + PW_ROWS - 1 > wq0) ||
+                           (p.window > 0 && key0 <= wq0 + 15 - p.window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = softcap ? cap - 2.f * cap * mma::rcp_approx(1.f + mma::exp2_approx(s[i] * mul))
+                        : s[i] * mul;
+      if (need_mask) {
+        const int qpos = wq0 + mma::acc_row(lane, i & 3);
+        const int kpos = key0 + 8 * (i >> 2) + mma::acc_col(lane, i & 3);
+        bool valid = kpos < p.Sk;
+        if (p.causal) valid = valid && kpos <= qpos;
+        if (p.window > 0) valid = valid && kpos > qpos - p.window;
+        if (!valid) x = -INFINITY;
+      }
+      s[i] = x;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = mma::exp2_approx(m[r] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[4 * j + e] = mma::exp2_approx(s[4 * j + e] - m_use);
+          sum += s[4 * j + e];
+        }
+      l[r] = l[r] * alpha[r] + sum;
+      m[r] = m_new;
+    }
+  };
+  // S = Q K^T of the tile in stage st, issued and committed.
+  auto issue_s = [&](int st) {
+    const char* Kt = sm + S::K + st * PW_TILE;
+#pragma unroll
+    for (int ks = 0; ks < PW_D / 16; ++ks)
+      wgmma::m64n64k16_ss(s, wgmma::desc_k(Qc, ks, PW_QSLAB), wgmma::desc_k(Kt, ks, PW_BOX));
+    wgmma::commit();
+  };
+  // O += P V of the tile in stage st, issued and committed.
+  auto issue_pv = [&](int st) {
+    const char* Vt = sm + S::V + st * PW_TILE;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma::m64n256k16_rs(o, pa[kk], wgmma::desc_mn(Vt, kk, PW_BOX));
+    wgmma::commit();
+  };
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = mma::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  };
+  auto zero_s = [&]() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma::fence_regs(s);
+  };
+
+  // Products are issued in sections, one a turn: S_0; then S_it with
+  // P_{it-1} V_{it-1}; then the last P V.  Every tile the block reads is
+  // multiplied by both consumers, whose masks hide what their rows do not
+  // see (at most a tile a consumer at the causal diagonal or the window's
+  // edge): products under a condition would be serialised.
+  if (ntiles > 0) {
+    if (cw == 1) wgmma::bar_arrive(PW_BAR_TURN, 2 * 128);  // consumer 0 takes the first turn
+    float alpha[2];
+    mma::mbar_wait(&kfull[0], 0);
+    zero_s();
+    wgmma::bar_sync(PW_BAR_TURN + cw, 2 * 128);
+    wgmma::fence();
+    issue_s(0);
+    wgmma::bar_arrive(PW_BAR_TURN + (cw ^ 1), 2 * 128);
+    wgmma::wait<0>();
+    wgmma::fence_regs(s);
+    mma::mbar_arrive(&kempty[0]);
+    softmax(t_lo * PW_ROWS, alpha);
+    pack_p();
+    for (int it = 1; it < ntiles; ++it) {
+      const int st = it % PW_STAGES, pst = (it - 1) % PW_STAGES;
+      mma::mbar_wait(&kfull[st], (it / PW_STAGES) & 1);
+      mma::mbar_wait(&vfull[pst], ((it - 1) / PW_STAGES) & 1);
+      wgmma::fence_regs(o);
+      wgmma::fence_regs(pa);
+      zero_s();
+      wgmma::bar_sync(PW_BAR_TURN + cw, 2 * 128);
+      wgmma::fence();
+      issue_s(st);
+      issue_pv(pst);
+      wgmma::bar_arrive(PW_BAR_TURN + (cw ^ 1), 2 * 128);
+      wgmma::wait<1>();  // S_it done; P_{it-1} V_{it-1} runs under the softmax
+      wgmma::fence_regs(s);
+      mma::mbar_arrive(&kempty[st]);
+      softmax((t_lo + it) * PW_ROWS, alpha);
+      wgmma::wait<0>();
+      wgmma::fence_regs(o);
+      wgmma::fence_regs(pa);
+      mma::mbar_arrive(&vempty[pst]);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      pack_p();
+    }
+    const int pst = (ntiles - 1) % PW_STAGES;
+    mma::mbar_wait(&vfull[pst], ((ntiles - 1) / PW_STAGES) & 1);
+    wgmma::fence_regs(o);
+    wgmma::fence_regs(pa);
+    wgmma::bar_sync(PW_BAR_TURN + cw, 2 * 128);
+    wgmma::fence();
+    issue_pv(pst);
+    if (cw == 0) wgmma::bar_arrive(PW_BAR_TURN + 1, 2 * 128);
+    wgmma::wait<0>();
+    wgmma::fence_regs(o);
+    mma::mbar_arrive(&vempty[pst]);
+  }
+
+  // Epilogue: o / l as bf16 into this consumer's half of the Q slabs (its
+  // own rows, read by no one else, done with after its last product) in
+  // the slabs' swizzled layout, then four TMA stores of 64 x 64; rows past
+  // Sq are not written.  The lse (natural log) where asked.
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float inv = lr > 0.f ? 1.f / lr : 0.f;
+    const int row = 16 * warp + g + 8 * r;  // of the consumer's 64
+    char* dst = sm + S::Q + cw * PW_BOX + row * 128 + 4 * t;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      *reinterpret_cast<uint32_t*>(dst + (j >> 3) * PW_QSLAB + (((j & 7) ^ (row & 7)) << 4)) =
+          mma::pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    // m is in log2 units here (the scores carry log2 e)
+    if (p.lse != nullptr && t == 0 && c0 + row < p.Sq) write_lse(p, b, h, c0 + row, m[r] * LN2, lr);
+  }
+  mma::fence_proxy_async();
+  wgmma::bar_sync(PW_BAR_EPILOGUE + cw, 128);
+  if (tid == 0 && c0 < p.Sq) {
+#pragma unroll
+    for (int c = 0; c < PW_D / 64; ++c)
+      mma::tma_store_4d(&wp.o, sm + S::Q + c * PW_QSLAB + cw * PW_BOX, 64 * c, h, c0, b);
+    mma::bulk_commit();
+    mma::bulk_wait_read<0>();
+  }
+}
+
 // Decode (Sq < 16): a block owns one (b, KV head) and up to 16 query rows
 // of its GQA group (rows r = head-in-group * Sq + position), so the group
 // shares every K/V read.  Its 4 warps split the keys in steps of KEYS and
@@ -1045,8 +1354,8 @@ __global__ void attn_decode_merge(const Params p, int D) {
 
 // Launches Kern with `bytes` of dynamic shared memory; the opt-in above
 // 48 KB is set once per kernel.
-template <auto Kern>
-cudaError_t launch_with_smem(dim3 grid, int threads, size_t bytes, const Params& p,
+template <auto Kern, typename P>
+cudaError_t launch_with_smem(dim3 grid, int threads, size_t bytes, const P& p,
                              cudaStream_t stream) {
   static const cudaError_t attr =
       bytes > 48 * 1024 ? cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1055,6 +1364,23 @@ cudaError_t launch_with_smem(dim3 grid, int threads, size_t bytes, const Params&
   if (attr != cudaSuccess) return attr;
   Kern<<<grid, threads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The D 256 bf16 prefill: its four tensor maps from the strides, then the
+// warpgroup kernel.  A map that cannot be encoded is an error, never a
+// fallback; with Sk 0 no K or V tile is loaded and their maps stay empty.
+cudaError_t launch_prefill_wgmma(const Params& p, cudaStream_t stream) {
+  PwParams wp{};
+  wp.p = p;
+  const int64_t qs[3] = {p.qsb, p.qsh, p.qss}, ks[3] = {p.ksb, p.ksh, p.kss},
+                vs[3] = {p.vsb, p.vsh, p.vss}, os[3] = {p.osb, p.osh, p.oss};
+  if (!mma::encode_map(&wp.q, p.q, qs, PW_D, p.H, p.Sq, p.B) ||
+      !mma::encode_map(&wp.o, p.o, os, PW_D, p.H, p.Sq, p.B) ||
+      (p.Sk > 0 && (!mma::encode_map(&wp.k, p.k, ks, PW_D, p.KV, p.Sk, p.B) ||
+                    !mma::encode_map(&wp.v, p.v, vs, PW_D, p.KV, p.Sk, p.B))))
+    return cudaErrorInvalidValue;
+  return launch_with_smem<attn_prefill_wgmma>(dim3(p.B * p.H, (p.Sq + PW_BQ - 1) / PW_BQ),
+                                              PW_THREADS, PwSmem::BYTES, wp, stream);
 }
 
 template <int D>
@@ -1083,8 +1409,12 @@ cudaError_t launch_bf16_mode(const Params& p, cudaStream_t stream) {
     return launch_with_smem<attn_decode_bf16<D, false>>(dim3(mtiles, p.KV, p.B), DC_WARPS * 32,
                                                         DcSmem<D>::BYTES, p, stream);
   }
-  return launch_with_smem<attn_prefill_bf16<D>>(dim3(p.B * p.H, (p.Sq + PF_BQ - 1) / PF_BQ),
-                                                PF_WARPS * 32, PfSmem<D>::BYTES, p, stream);
+  if constexpr (D == PW_D) {
+    return launch_prefill_wgmma(p, stream);
+  } else {
+    return launch_with_smem<attn_prefill_bf16<D>>(dim3(p.B * p.H, (p.Sq + PF_BQ - 1) / PF_BQ),
+                                                  PF_WARPS * 32, PfSmem<D>::BYTES, p, stream);
+  }
 }
 
 cudaError_t launch_bf16(const Params& p, int D, cudaStream_t stream) {

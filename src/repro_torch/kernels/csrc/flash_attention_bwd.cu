@@ -1039,38 +1039,6 @@ struct WgParams {
   Params p;
 };
 
-// A (B, heads, seq, D) bf16 tensor with element strides s[0..2] as a 4-D
-// tensor map (D, heads, seq, B).
-bool encode_map(CUtensorMap* map, const void* base, const int64_t* s, int heads, int seq, int B) {
-  const mma::EncodeTiled fn = mma::tensor_map_encoder();
-  if (!fn || seq <= 0) return false;
-  const cuuint64_t dims[4] = {W_D, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[1]) * 2,
-                                 static_cast<cuuint64_t>(s[2]) * 2,
-                                 static_cast<cuuint64_t>(s[0]) * 2};
-  const cuuint32_t box[4] = {64, 1, W_ROWS, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The four boxes of one 64-row tile (rows row0.. of head h, batch b) into
-// `tile`, whose slabs lie `slab_bytes` apart, on barrier `bar`.
-__device__ __forceinline__ void tma_tile(void* tile, uint32_t slab_bytes, const CUtensorMap* map,
-                                         uint64_t* bar, int h, int row0, int b) {
-#pragma unroll
-  for (int c = 0; c < W_D / 64; ++c)
-    mma::tma_load_4d(static_cast<char*>(tile) + c * slab_bytes, map, bar, 64 * c, h, row0, b);
-}
-
-// The dynamic shared memory, rounded up to 1024 bytes (the swizzle's period).
-__device__ __forceinline__ char* aligned_smem() {
-  extern __shared__ __align__(1024) char wg_smem[];
-  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
-}
-
 // Accumulator columns 16 kk .. 16 kk + 15 of a m64nN tile as the hi and lo
 // bf16 A fragments of k step kk of the next product.
 template <int N>
@@ -1145,7 +1113,7 @@ struct DqWg {  // bytes from the aligned base
 __global__ void __launch_bounds__(W_THREADS, 1) attn_bwd_dq_wgmma(const __grid_constant__ WgParams wp) {
   using S = DqWg;
   const Params& p = wp.p;
-  char* sm = aligned_smem();
+  char* sm = wgmma::aligned_smem();
   uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + S::BARS);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + S::SLOTS;
@@ -1176,15 +1144,17 @@ __global__ void __launch_bounds__(W_THREADS, 1) attn_bwd_dq_wgmma(const __grid_c
     if (threadIdx.x == 0) {
       mma::mbar_expect_tx(qbar, 8 * 2 * W_BOX);
       for (int half = 0; half < 2; ++half) {
-        tma_tile(sm + S::Q + half * W_BOX, S::SLAB, &wp.q, qbar, h, q0 + W_ROWS * half, b);
-        tma_tile(sm + S::DO + half * W_BOX, S::SLAB, &wp.dout, qbar, h, q0 + W_ROWS * half, b);
+        wgmma::tma_tile<W_D>(sm + S::Q + half * W_BOX, S::SLAB, &wp.q, qbar, h,
+                             q0 + W_ROWS * half, b);
+        wgmma::tma_tile<W_D>(sm + S::DO + half * W_BOX, S::SLAB, &wp.dout, qbar, h,
+                             q0 + W_ROWS * half, b);
       }
       for (int it = 0; it < 4 * ntiles; ++it) {
         const int slot = it % S::SLOTS;
         if (it >= S::SLOTS) mma::mbar_wait(&empty[slot], (it / S::SLOTS - 1) & 1);
         mma::mbar_expect_tx(&full[slot], W_TILE);
-        tma_tile(sm + S::RING + slot * W_TILE, W_BOX, (it & 1) ? &wp.v : &wp.k, &full[slot], kvh,
-                 (t_lo + (it >> 1) % ntiles) * W_ROWS, b);
+        wgmma::tma_tile<W_D>(sm + S::RING + slot * W_TILE, W_BOX, (it & 1) ? &wp.v : &wp.k,
+                             &full[slot], kvh, (t_lo + (it >> 1) % ntiles) * W_ROWS, b);
       }
     }
     return;
@@ -1334,7 +1304,7 @@ struct KvWg {  // bytes from the aligned base
 __global__ void __launch_bounds__(W_THREADS, 1) attn_bwd_dkdv_wgmma(const __grid_constant__ WgParams wp) {
   using S = KvWg;
   const Params& p = wp.p;
-  char* sm = aligned_smem();
+  char* sm = wgmma::aligned_smem();
   uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + S::BARS);
   uint64_t* full = kvbar + 1;
   uint64_t* empty = full + S::STAGES;
@@ -1365,8 +1335,8 @@ __global__ void __launch_bounds__(W_THREADS, 1) attn_bwd_dkdv_wgmma(const __grid
     wgmma::regs_dec<W_PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       mma::mbar_expect_tx(kvbar, 2 * W_TILE);
-      tma_tile(sm + S::K, W_BOX, &wp.k, kvbar, kvh, key0, b);
-      tma_tile(sm + S::V, W_BOX, &wp.v, kvbar, kvh, key0, b);
+      wgmma::tma_tile<W_D>(sm + S::K, W_BOX, &wp.k, kvbar, kvh, key0, b);
+      wgmma::tma_tile<W_D>(sm + S::V, W_BOX, &wp.v, kvbar, kvh, key0, b);
       for (int step = 0; step < steps; ++step) {
         const int st = step % S::STAGES;
         if (step >= S::STAGES) mma::mbar_wait(&empty[st], (step / S::STAGES - 1) & 1);
@@ -1374,8 +1344,8 @@ __global__ void __launch_bounds__(W_THREADS, 1) attn_bwd_dkdv_wgmma(const __grid
         const int q0 = q_begin + (step - gi * nqt) * W_ROWS;
         char* stage = sm + S::STAGE0 + st * 2 * W_TILE;
         mma::mbar_expect_tx(&full[st], 2 * W_TILE);
-        tma_tile(stage, W_BOX, &wp.q, &full[st], kvh * group + gi, q0, b);
-        tma_tile(stage + W_TILE, W_BOX, &wp.dout, &full[st], kvh * group + gi, q0, b);
+        wgmma::tma_tile<W_D>(stage, W_BOX, &wp.q, &full[st], kvh * group + gi, q0, b);
+        wgmma::tma_tile<W_D>(stage + W_TILE, W_BOX, &wp.dout, &full[st], kvh * group + gi, q0, b);
       }
     }
     return;
@@ -1465,8 +1435,10 @@ __global__ void __launch_bounds__(W_THREADS, 1) attn_bwd_dkdv_wgmma(const __grid
 cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   WgParams wp{};
   wp.p = p;
-  if (!encode_map(&wp.q, p.q, p.qs, p.H, p.Sq, p.B) || !encode_map(&wp.dout, p.dout, p.dos, p.H, p.Sq, p.B) ||
-      !encode_map(&wp.k, p.k, p.ks, p.KV, p.Sk, p.B) || !encode_map(&wp.v, p.v, p.vs, p.KV, p.Sk, p.B))
+  if (!mma::encode_map(&wp.q, p.q, p.qs, W_D, p.H, p.Sq, p.B) ||
+      !mma::encode_map(&wp.dout, p.dout, p.dos, W_D, p.H, p.Sq, p.B) ||
+      !mma::encode_map(&wp.k, p.k, p.ks, W_D, p.KV, p.Sk, p.B) ||
+      !mma::encode_map(&wp.v, p.v, p.vs, W_D, p.KV, p.Sk, p.B))
     return cudaErrorInvalidValue;
   const cudaError_t err = launch_with_smem<attn_bwd_dq_wgmma, W_THREADS>(
       dim3(p.B * p.H, (p.Sq + DqWg::BQ - 1) / DqWg::BQ), DqWg::BYTES, wp, stream);

@@ -8,11 +8,13 @@
 // 16-byte `cp.async` copies (with zero fill) and their commit / wait
 // groups, mbarriers and 4-D TMA tile loads, exp2 on the special-function
 // unit, bf16 packing and the hi + lo split of an fp32 value, and the
-// fragment index maps; and, for the warpgroup kernels (namespace wgmma):
+// fragment index maps; for the warpgroup kernels (namespace wgmma):
 // shared-memory matrix descriptors of 128-byte-swizzled tiles, the
 // asynchronous warpgroup products `wgmma.mma_async` m64n64k16 (A and B in
 // shared memory) and m64n256k16 (A in registers), their fence / commit /
-// wait, `setmaxnreg`, and named barriers.
+// wait, `setmaxnreg`, and named barriers; and on the host the tensor-map
+// encoder and the 4-D map of a (b, head, seq, D) bf16 tensor that the
+// attention kernels' TMA loads and stores read (encode_map).
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane = 4 g + t (g = lane >> 2 in 0..7, t = lane & 3):
@@ -150,6 +152,13 @@ __device__ __forceinline__ float exp2_approx(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+// 1 / x on the special-function unit (rcp.approx.ftz: 1 ulp; +inf gives
+// +0).
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // Two floats as one bf16x2 register, lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -204,6 +213,49 @@ inline EncodeTiled tensor_map_encoder() {
 // A plain arrival on an mbarrier (a consumer releasing a buffer).
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// A (B, heads, seq, D) bf16 tensor at `base` with element strides s[0..2]
+// (batch, head, seq; D contiguous) as a 4-D tensor map (D, heads, seq, B)
+// whose box is 64 columns x 1 head x 64 rows x 1, 128-byte swizzled: the
+// slabs of the warpgroup kernels below.  Rows past `seq` read as zeros and
+// are not written.  False where the map cannot be encoded.
+inline bool encode_map(CUtensorMap* map, const void* base, const int64_t* s, int D, int heads,
+                       int seq, int B) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (!fn || seq <= 0) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[1]) * 2,
+                                 static_cast<cuuint64_t>(s[2]) * 2,
+                                 static_cast<cuuint64_t>(s[0]) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One box of shared memory (as a tensor map's box lays it out) stored by
+// TMA at coordinates c0..c3, in this thread's bulk group; elements past
+// the tensor's bounds are not written.  The shared memory's writes must be
+// made visible to the async proxy first (fence_proxy_async), and stay
+// until bulk_wait_read<0>() returns.
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace mma
@@ -268,6 +320,40 @@ __device__ __forceinline__ void regs_dec() {
 template <int R>
 __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+// The dynamic shared memory, rounded up to 1024 bytes (the swizzle's
+// period); a kernel's byte count holds 1024 more for it.
+__device__ __forceinline__ char* aligned_smem() {
+  extern __shared__ __align__(1024) char wg_dynamic_smem[];
+  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(wg_dynamic_smem) + 1023) &
+                                 ~uintptr_t(1023));
+}
+
+// The D / 64 boxes of one tile of a tensor map from mma::encode_map: rows
+// row0 .. row0 + 63 of head h, batch b into `tile`, whose 64-column slabs
+// lie `slab_bytes` apart, on barrier `bar`.
+template <int D>
+__device__ __forceinline__ void tma_tile(void* tile, uint32_t slab_bytes, const CUtensorMap* map,
+                                         uint64_t* bar, int h, int row0, int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    mma::tma_load_4d(static_cast<char*>(tile) + c * slab_bytes, map, bar, 64 * c, h, row0, b);
+}
+
+// Pins registers at this point of the program for the compiler: an
+// asynchronous product's accumulators or A operand are neither read before
+// the wait that completes it nor written before the fence that issues it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 // Named barriers (id 1..15) over `n` threads: sync waits, arrive does not.
 __device__ __forceinline__ void bar_sync(int id, int n) {

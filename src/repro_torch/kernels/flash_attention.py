@@ -126,14 +126,20 @@ def _lse_kernel():
     return _lse_fn
 
 
+def bind_split(lib: ctypes.CDLL):
+    """``lib``'s C entry ``flash_attention_decode_split`` with its signature
+    set (as :func:`bind_fwd`)."""
+    fn = lib.flash_attention_decode_split
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [P] * 6 + [I] * 9 + [L] * 12 + [I, I, ctypes.c_float, ctypes.c_float, P]
+    fn.restype = I
+    return fn
+
+
 def _split_kernel():
     global _split_fn
     if _split_fn is None:
-        fn = _build.load("flash_attention").flash_attention_decode_split
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [P] * 6 + [I] * 9 + [L] * 12 + [I, I, ctypes.c_float, ctypes.c_float, P]
-        fn.restype = I
-        _split_fn = fn
+        _split_fn = bind_split(_build.load("flash_attention"))
     return _split_fn
 
 
@@ -209,8 +215,9 @@ def _split_plan(q, k) -> tuple[int, int]:
 
 
 def run_split(q, k, v, splits: int, chunk: int, *, causal: bool, window: int, softcap: float,
-              lse: torch.Tensor | None = None) -> torch.Tensor:
-    """The split decode entry on checked bf16 decode inputs, with its
+              lse: torch.Tensor | None = None, fn=None) -> torch.Tensor:
+    """The split decode entry (this tree's, or ``fn`` from :func:`bind_split`)
+    on checked bf16 decode inputs, with its
     scratch allocated here on the current stream (a kernel allocates
     nothing, and a CUDA graph may capture the call); writes ``lse`` when
     given.  Counts nothing.  Returns the (B,H,Sq,D) view of a (B,Sq,H,D)
@@ -219,7 +226,7 @@ def run_split(q, k, v, splits: int, chunk: int, *, causal: bool, window: int, so
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     part = torch.empty(B * H * Sq * splits * (D + 2), dtype=torch.float32, device=q.device)
     with _launch_stream(q.device) as stream:
-        rc = _split_kernel()(
+        rc = (fn or _split_kernel())(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), part.data_ptr(), splits, chunk,
             _DTYPE_CODE[q.dtype], B, H, k.shape[1], Sq, k.shape[2], D,

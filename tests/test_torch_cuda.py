@@ -215,8 +215,10 @@ def test_split_decode_rows_with_no_key(dev):
 
 def test_gemma2_kernel_paths_by_profiler(dev):
     """By kernel name, in launch order: a bf16 gemma2 decode call the split
-    decode's two kernels, a bf16 D 256 backward call the wgmma path's two,
-    a D 80 one the mma.sync path's two."""
+    decode's two kernels, a bf16 D 256 prefill call (Sq >= 16) through
+    either forward entry the warpgroup prefill, a D 128 one the mma.sync
+    prefill, a bf16 D 256 backward call the wgmma path's two, a D 80 one
+    the mma.sync path's two."""
     from torch.profiler import ProfilerActivity, profile
 
     def names(fn, pattern):
@@ -234,6 +236,15 @@ def test_gemma2_kernel_paths_by_profiler(dev):
     k, v = rand((2, 8, 4096, 256), torch.bfloat16, 1, dev), rand((2, 8, 4096, 256), torch.bfloat16, 2, dev)
     assert names(lambda: fa.flash_attention_cuda(q, k, v, causal=False, softcap=50.0),
                  r"(attn_decode_\w+?)(?:<|\(|$)") == ["attn_decode_bf16", "attn_decode_merge"]
+    prefill = r"(attn_prefill_\w+?)(?:<|\(|$)"
+    q = rand((1, 16, 300, 256), torch.bfloat16, 10, dev)
+    k, v = rand((1, 8, 300, 256), torch.bfloat16, 11, dev), rand((1, 8, 300, 256), torch.bfloat16, 12, dev)
+    assert names(lambda: fa.flash_attention_cuda(q, k, v, causal=True, softcap=50.0),
+                 prefill) == ["attn_prefill_wgmma"]
+    assert names(lambda: fa.flash_attention_lse_cuda(q, k, v, causal=True, window=64),
+                 prefill) == ["attn_prefill_wgmma"]
+    q, k = rand((1, 8, 300, 128), torch.bfloat16, 13, dev), rand((1, 2, 300, 128), torch.bfloat16, 14, dev)
+    assert names(lambda: fa.flash_attention_cuda(q, k, k, causal=True), prefill) == ["attn_prefill_bf16"]
     for D, want in ((256, ["attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma"]),
                     (80, ["attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16"])):
         q, dout = (rand((1, 16, 200, D), torch.bfloat16, 3 + i, dev) for i in range(2))
@@ -241,6 +252,88 @@ def test_gemma2_kernel_paths_by_profiler(dev):
         out = fa.flash_attention_cuda(q, k, v, causal=True)
         assert names(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True),
                      r"(attn_bwd_\w+?)(?:<|\(|$)") == want
+
+
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,causal,window,softcap,scale",
+    [
+        # 128 query rows a block, 64 a consumer warpgroup: one consumer's
+        # rows partly or wholly past Sq
+        (1, 4, 2, 16, 16, True, 0, 50.0, 2.0),
+        (1, 4, 2, 63, 63, True, 0, 50.0, 2.0),
+        (2, 4, 2, 64, 64, True, 0, 50.0, 2.0),
+        (1, 4, 2, 65, 65, True, 0, 50.0, 2.0),
+        (1, 4, 4, 129, 129, True, 0, 50.0, 2.0),
+        (1, 2, 1, 5183, 5183, True, 0, 50.0, 1.0),
+        # causal Sq != Sk (top-left), Sk not a multiple of the 64-key tile
+        (1, 4, 2, 100, 300, True, 0, 50.0, 2.0),
+        (1, 4, 2, 300, 100, True, 0, 0.0, 1.0),
+        (2, 4, 2, 130, 200, False, 0, 50.0, 2.0),
+        (1, 4, 2, 200, 77, False, 0, 0.0, 1.0),
+        # windows at tile edges: whole tiles no row of one consumer admits
+        (1, 4, 2, 320, 320, True, 64, 50.0, 2.0),
+        (1, 2, 1, 4500, 4500, True, 4096, 50.0, 1.0),
+        # q and k scaled by 4: the softcap saturates
+        (1, 4, 2, 256, 256, True, 0, 50.0, 4.0),
+        (1, 4, 2, 300, 300, True, 64, 50.0, 4.0),
+    ],
+)
+def test_d256_prefill_edges_match_plain_version(dev, B, H, KV, Sq, Sk, causal, window, softcap,
+                                                scale):
+    """The bf16 D 256 prefill (the warpgroup kernel) at the edges of its
+    tiles against ``attention_ref`` within 2e-2."""
+    q = rand((B, H, Sq, 256), torch.float32, 0, dev).mul(scale).bfloat16()
+    k = rand((B, KV, Sk, 256), torch.float32, 1, dev).mul(scale).bfloat16()
+    v = rand((B, KV, Sk, 256), torch.bfloat16, 2, dev)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    out = ops.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, **opts)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+
+
+def test_d256_prefill_in_the_model_layout(dev):
+    """Strided (B,S,H,D) views, k and v slices of a longer cache, at D 256
+    (the tensor maps take the strides)."""
+    q = rand((2, 600, 16, 256), torch.bfloat16, 0, dev).transpose(1, 2)
+    k, v = (rand((2, 700, 8, 256), torch.bfloat16, 1 + i, dev)[:, :600].transpose(1, 2)
+            for i in range(2))
+    out = ops.flash_attention(q, k, v, causal=True, window=256, softcap=50.0)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True, window=256, softcap=50.0)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+
+
+def test_d256_prefill_lse_rows_with_no_key(dev):
+    """``flash_attention_lse`` at D 256 with Sq >= 16 (the warpgroup
+    prefill): rows past the keys' window give 0 and -inf, the rest as
+    ``attention_lse_ref``."""
+    q = rand((1, 4, 300, 256), torch.bfloat16, 0, dev)
+    k, v = rand((1, 2, 100, 256), torch.bfloat16, 1, dev), rand((1, 2, 100, 256), torch.bfloat16, 2, dev)
+    out, lse = ops.flash_attention_lse(q, k, v, causal=False, window=64, softcap=50.0)
+    torch.cuda.synchronize()
+    want, want_lse = attention_lse_ref(q, k, v, causal=False, window=64, softcap=50.0)
+    empty = torch.isneginf(want_lse)
+    assert empty[:, :, 163:].all() and not empty[:, :, :163].any()
+    assert torch.equal(torch.isneginf(lse), empty) and not out[empty].any()
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("window,lse", [(0, False), (4096, False), (0, True)])
+def test_attention_fwd_bf16_d256_prefill_is_deterministic(dev, window, lse):
+    """Two bf16 D 256 prefill calls at gemma2's serve shape (2,16,5120,256)
+    KV 8 softcap 50, global and local, and through the lse entry, are
+    bitwise equal."""
+    q = rand((2, 5120, 16, 256), torch.bfloat16, 0, dev).transpose(1, 2)
+    k, v = (rand((2, 5120, 8, 256), torch.bfloat16, 1 + i, dev).transpose(1, 2) for i in range(2))
+    opts = dict(causal=True, window=window, softcap=50.0)
+    call = (lambda: fa.flash_attention_lse_cuda(q, k, v, **opts)) if lse else (
+        lambda: (fa.flash_attention_cuda(q, k, v, **opts),))
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):

@@ -7,6 +7,7 @@ numpy inputs.  The CUDA kernel itself is held against the same plain
 version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import importlib.util
+import math
 from pathlib import Path
 
 import pytest
@@ -292,3 +293,93 @@ def test_d256_train_gate_sees_a_window_off_by_one(window, shift):
     read = cs.region_rms_gate(torch, "off by one", off, exact, regions, failures)
     assert read["rel_rms"]["past"][0] > cs.ATTN_D256_TRAIN_REL_RMS
     assert any(f.startswith("off by one past") for f in failures)
+
+
+# The bf16 D 256 prefill (csrc/flash_attention.cu, attn_prefill_wgmma)
+# applies gemma2's softcap c tanh(s / c) with tanh y = 1 - 2 / (1 + 2^(2 y
+# log2 e)): ex2.approx.ftz.f32 (relative error 2^-22) and rcp.approx.ftz.f32
+# (one ulp, 2^-23), two special-function operations a score, where
+# tanh.approx.f32 would be one with a relative error of up to 2^-10.987
+# (PTX ISA).  The choice is made here on the CPU: attention_ref with its
+# tanh perturbed by each form's worst error, with both signs and with the
+# sign that pushes each row's output away from the exact one, against the
+# exact plain version, at softcap 50.
+EX2_REL, RCP_REL, TANH_APPROX_REL = 2.0 ** -22, 2.0 ** -23, 2.0 ** -10.987
+SOFTCAP_EMULATION = dict(B=1, H=4, KV=2, S=384, D=256, cap=50.0)
+
+
+def _pushing_sign(q, k, v, window):
+    """+-1 a (query, key) score: the sign of an error in tanh that moves the
+    row's output column with the widest spread of v away from the exact
+    output (a larger score weights keys whose v lies above it)."""
+    c = SOFTCAP_EMULATION
+    group = c["H"] // c["KV"]
+    kf, vf = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kf) / math.sqrt(c["D"])
+    pos = torch.arange(c["S"])
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.softmax((c["cap"] * torch.tanh(s / c["cap"])).masked_fill(~mask, -math.inf), -1)
+    exact = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+    spread = torch.einsum("bhqk,bhkd->bhqd", p, vf.abs()) + exact.abs()
+    col = spread.argmax(-1)                                      # (B, H, Sq)
+    vcol = torch.gather(vf.unsqueeze(2).expand(-1, -1, c["S"], -1, -1), 4,
+                        col[..., None, None].expand(-1, -1, -1, c["S"], 1))[..., 0]
+    ecol = torch.gather(exact, 3, col[..., None])
+    return torch.sign(vcol - ecol) * torch.sign(s)
+
+
+def _tanh_two_mufu(sign):
+    """tanh as the kernel forms it, each operation at its worst error with
+    ``sign`` (the errors aligned: both move tanh the same way), in fp64."""
+    def tanh(y):
+        y = y.double()
+        arg = 2.0 * math.log2(math.e) * y
+        e = torch.exp2(arg) * (1 + sign * (EX2_REL + arg.abs() * math.log(2) * 2.0 ** -24))
+        r = (1 + e).reciprocal() * (1 - sign * RCP_REL)
+        return (1 - 2 * r).float()
+    return tanh
+
+
+def _tanh_approx(sign, exact):
+    return lambda y: exact(y) * (1 + sign * TANH_APPROX_REL)
+
+
+def _softcap_error(monkeypatch, form, signs, window, scale):
+    c = SOFTCAP_EMULATION
+    q, k, v = (torch.from_numpy(a) for a in inputs(40, c["B"], c["H"], c["KV"], c["S"], c["S"],
+                                                   c["D"], scale))
+    opts = dict(causal=True, window=window, softcap=c["cap"])
+    want = attention_ref(q, k, v, **opts)
+    exact = torch.tanh
+    sign = {"+": 1.0, "-": -1.0}.get(signs)
+    if sign is None:
+        sign = _pushing_sign(q, k, v, window)
+    monkeypatch.setattr(torch, "tanh", _tanh_two_mufu(sign) if form == "two_mufu"
+                        else _tanh_approx(sign, exact))
+    got = attention_ref(q, k, v, **opts)
+    monkeypatch.undo()
+    return float((got - want).abs().max()), got, want
+
+
+@pytest.mark.parametrize("signs", ["+", "-", "pushing"])
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+@pytest.mark.parametrize("window", [0, 128], ids=["global", "local"])
+def test_d256_prefill_softcap_holds_the_bf16_tolerance(monkeypatch, window, scale, signs):
+    """The softcap's two-operation tanh at its documented worst error keeps
+    the output within the bf16 tolerance of the exact plain version
+    (global and local, q and k scaled by 4 saturating the cap); it stays
+    far inside it, so the kernel's bf16 roundings keep the margin."""
+    err, got, want = _softcap_error(monkeypatch, "two_mufu", signs, window, scale)
+    check(got, want, TOL["bfloat16"])
+    assert err < 1e-3, err
+
+
+@pytest.mark.parametrize("window", [0, 128], ids=["global", "local"])
+def test_d256_prefill_softcap_tanh_approx_would_miss_it(monkeypatch, window):
+    """Why the kernel does not take tanh.approx.f32: at its documented
+    worst relative error, with the sign that pushes each row's output, q
+    and k scaled by 4 put the output past the bf16 tolerance (2e-2)."""
+    err, got, want = _softcap_error(monkeypatch, "tanh_approx", "pushing", window, 4.0)
+    assert not np.allclose(f32(got), f32(want), **TOL["bfloat16"]), err
