@@ -35,7 +35,11 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              4096) layers (the wgmma kernels), each first held against
              autograd of the plain attention, beside SDPA's backward
              without softcap (not the same function) and the earlier
-             design's time; by torch.profiler, a gemma2 decode call and a
+             design's time; the five families' head
+             layouts (GQA 5, 7 and 12 at D 128, 24 / 24 at D 64: ragged Sq,
+             Sq != Sk, decode with a group over two 16-row blocks and Sk
+             not a multiple of 64) through the forward, its lse entry, the
+             split decode and the backward; by torch.profiler, a gemma2 decode call and a
              half-cache lse call run the split decode then its merge, a
              D 256 prefill call through either entry the warpgroup prefill
              (a D 128 one the mma.sync prefill), and a D 256 backward call
@@ -154,7 +158,7 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              mma.sync backward's, a profiled step (the bf16 D 256 backward
              kernels by name, the wgmma ones), the attention backward's share,
              the forward kernel timed at (1,16,8192,256) global and local
-             beside its bound and its share;
+             beside its bound, the plain version and SDPA, and its share;
              then one fp32 step at full width and 2 layers (one local, one
              global) on 1 x 4608 against the plain twin;
 10. phi35_moe_42b — full width, depth cut: served at 8 layers (bf16,
@@ -168,6 +172,23 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              backward attention calls a step; the share of routed pairs
              dropped before and after) and one fp32 step at 1 layer
              against the plain twin;
+10b. the five other families (``FAMILIES``), each at
+             its published widths and heads: qwen2_vl_7b (28 layers, M-RoPE)
+             and musicgen_medium (48) whole, yi_34b whole (60 layers,
+             68.8 GB of bf16 params drawn and cast layer by layer),
+             llama4_scout_17b and command_r_plus_104b at 8 layers, served
+             through ``repro_torch.launch.serve`` as in 3 (one attention
+             launch a layer in the prefill and each decode step, finite
+             logits, the peak under 76 GiB, the kernel at the model's
+             prefill and decode shapes timed, llama4's dropped pairs, the
+             bf16 gap printed, an fp32 prefill and 4 decode steps at 2-4
+             layers against the plain attention); qwen2_vl at 8 layers,
+             musicgen whole and yi at 4 trained 3 steps through
+             ``repro_torch.launch.train`` (qwen2_vl and musicgen on
+             embeddings, qwen2_vl with (3, B, S) positions; the backward
+             kernel at the train shape held against autograd and timed;
+             the fp32 step gate at 1-2 layers); llama4 and command_r print
+             why one card cannot train them;
 11. serve parallel — the same four ranks and mesh serve through
              ``build_prefill_step`` (the prompt in train mode) and
              ``build_serve_step``: stablelm_3b at full width and depth in
@@ -201,7 +222,16 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              rank, its collective bytes by (operation, axis) and kernel
              launches equal to the measured, its peak within 15% of
              ``torch.cuda.max_memory_allocated`` over the steps; then three
-             production cells' records printed.
+             production cells' records printed;
+14. flex_attention — compiled ``torch.nn.attention.flex_attention``
+             computing the attention kernel's function at gemma2_9b's D 256
+             shapes (its softcap as a score_mod, the causal and window masks
+             as a block mask): the serve prefill and decodes, the train
+             forward and backward, each timed beside the kernel's time and
+             held against the plain version (printed; where it does not
+             compile, the error's first line).  Last, so that no phase
+             after it shares the process with torch.compile's state, and
+             only while the run has used less than FLEX_BY_S.
 
 Prints each phase's wall time (``[smoke] <phase>: N s``), the card's name
 and power limit, one JSON line of kernel numbers, and last ``{"ok": true,
@@ -446,6 +476,12 @@ def main() -> int:
         moe_phase(torch, dev, entry, failures, counts)
     if failures:
         return fail("; ".join(failures))
+    for arch in FAMILIES:
+        torch.cuda.empty_cache()
+        with phase_wall(arch):
+            family_phase(torch, dev, arch, entry, bwd_entry, failures, counts)
+        if failures:
+            return fail("; ".join(failures))
     torch.cuda.empty_cache()
     with phase_wall("serve parallel"):
         serve_parallel_phase(torch, dev, failures, counts)
@@ -460,6 +496,14 @@ def main() -> int:
         dryrun_phase(torch, failures, par_ranks)
     if failures:
         return fail("; ".join(failures))
+    torch.cuda.empty_cache()
+    elapsed = time.perf_counter() - t_start
+    if elapsed < FLEX_BY_S:
+        with phase_wall("flex_attention"):
+            flex_phase(torch, dev, entry, bwd_entry)
+    else:
+        print(f"[time] flex_attention not timed: {elapsed:.0f} s had passed, past FLEX_BY_S "
+              f"({FLEX_BY_S} s); its compiles (~90 s) would put the run near its 1,200 s limit")
     kernels = [entry, bwd_entry, ssd_entry, mlstm_entry, ssd_bwd_entry, mlstm_bwd_entry,
                lse_entry]
     for e in kernels:
@@ -621,6 +665,36 @@ def build_phase(torch):
           f"{mlstm.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 4, 384, 128)} bytes (the larger path's)")
 
 
+# The five families' head layouts, forward and backward: GQA 5 (llama4's
+# 40/8), 7 (qwen2_vl's 28/4, yi's 56/8) and 12 (command_r's 96/8) at D 128,
+# musicgen's 24/24 at D 64; ragged Sq, Sq != Sk, and decode (Sq < 16, the
+# bf16 ones split over the SMs) with a group spread over two 16-row blocks
+# and Sk not a multiple of 64: label, B, H, KV, Sq, Sk, D, causal, window.
+FAMILY_FWD_EDGES = [
+    ("D 128 gqa 5 (40/8) ragged Sq 77", 1, 40, 8, 77, 77, 128, True, 0),
+    ("D 128 gqa 7 (56/8) Sq 100 Sk 300", 1, 56, 8, 100, 300, 128, False, 0),
+    ("D 128 gqa 7 (28/4) window 64 Sq 200", 1, 28, 4, 200, 200, 128, True, 64),
+    ("D 128 gqa 12 (96/8) ragged Sq 130", 1, 96, 8, 130, 130, 128, True, 0),
+    ("D 64 mha 24/24 ragged Sq 150", 1, 24, 24, 150, 150, 64, True, 0),
+    ("D 128 gqa 5 decode Sk 575", 2, 40, 8, 1, 575, 128, False, 0),
+    ("D 128 gqa 7 decode Sk 333", 2, 56, 8, 1, 333, 128, False, 0),
+    ("D 128 gqa 12 decode Sk 1000", 2, 96, 8, 1, 1000, 128, False, 0),
+    ("D 64 mha 24/24 decode Sk 575", 2, 24, 24, 1, 575, 64, False, 0),
+    ("D 128 gqa 5 Sq 4 Sk 461 (a group over two blocks)", 1, 40, 8, 4, 461, 128, False, 0),
+    ("D 128 gqa 7 Sq 3 Sk 200 causal", 2, 56, 8, 3, 200, 128, True, 0),
+    ("D 128 gqa 12 Sq 2 Sk 1000", 1, 96, 8, 2, 1000, 128, False, 0),
+]
+# The backward at those layouts: label, B, H, KV, Sq, Sk, D, causal.
+FAMILY_BWD_EDGES = [
+    ("gqa 5 (40/8) ragged S 77", 1, 40, 8, 77, 77, 128, True),
+    ("gqa 7 (56/8) Sq 100 Sk 300", 1, 56, 8, 100, 300, 128, False),
+    ("gqa 7 (28/4) S 129", 2, 28, 4, 129, 129, 128, True),
+    ("gqa 12 (96/8) ragged S 130", 1, 96, 8, 130, 130, 128, True),
+    ("mha 24/24 ragged S 150", 1, 24, 24, 150, 150, 64, True),
+    ("mha 24/24 Sq 17 Sk 300", 2, 24, 24, 17, 300, 64, False),
+]
+
+
 def attention_check(torch, tag, label, q, k, v, dtype, failures, tol=None, *, causal,
                     window=0, softcap=0.0, convex=False) -> float:
     """The forward kernel against its plain version on the card, on the
@@ -659,7 +733,7 @@ def kernel_phase(torch, dev, failures) -> dict:
         ("D 80 causal Sq<Sk ragged", 2, 4, 2, 5, 37, 80, True, 0),
         ("D 80 window 20 masked rows", 1, 4, 4, 100, 77, 80, False, 20),
         ("D 128 gqa ragged", 1, 8, 2, 70, 70, 128, True, 0),
-    ]
+    ] + FAMILY_FWD_EDGES
     for seed, (label, B, H, KV, Sq, Sk, D, causal, window) in enumerate(cases):
         for dtype in ("float32", "bfloat16"):
             q = randn(torch, (B, H, Sq, D), dtype, 3 * seed, dev)
@@ -954,6 +1028,107 @@ def print_attention_time(label, t):
           f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
 
 
+def flex_timing(torch, q, k, v, *, causal, window=0, softcap=0.0, dout=None) -> dict:
+    """``torch.nn.attention.flex_attention``, compiled, computing the
+    kernel's function on the same inputs: the tanh softcap as its
+    ``score_mod``, the causal (top-left) and window masks as a block mask
+    (none for a decode call), GQA by ``enable_gqa``.  Timed here only; the
+    port never calls it.  ``flex_ms`` is the forward's time (no grad) or,
+    with ``dout``, its backward's (autograd of one forward with grad), with
+    the largest difference from the plain version's output
+    (``flex_max_abs_err``); where it does not compile or run on the card,
+    ``flex_ms`` is None and ``flex_error`` holds the error's first line."""
+    from repro_torch.kernels import ref
+
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        torch._dynamo.reset()
+        Sq, Sk = q.shape[2], k.shape[2]
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return softcap * torch.tanh(score / softcap)
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            keep = kv_idx <= q_idx
+            return keep & (kv_idx > q_idx - window) if window else keep
+
+        mask = create_block_mask(mask_mod, None, None, Sq, Sk, device=q.device) if causal \
+            else None
+        fn = torch.compile(flex_attention, dynamic=False)
+        opts = dict(score_mod=score_mod if softcap else None, block_mask=mask,
+                    enable_gqa=q.shape[1] != k.shape[1])
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        t0 = time.perf_counter()
+        if dout is None:
+            with torch.no_grad():
+                out = fn(qc, kc, vc, **opts)
+                torch.cuda.synchronize()
+                compile_s = time.perf_counter() - t0
+                ms = time_ms(torch, lambda: fn(qc, kc, vc, **opts), iters=5, reps=3)
+        else:
+            inputs = [t.detach().requires_grad_() for t in (qc, kc, vc)]
+            out = fn(*inputs, **opts)
+            torch.autograd.grad(out, inputs, dout, retain_graph=True)
+            torch.cuda.synchronize()
+            compile_s = time.perf_counter() - t0
+            ms = time_ms(torch, lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True),
+                         iters=5, reps=3)
+        want = ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        err = float((out.detach().float() - want.float()).abs().max())
+        return {"flex_ms": ms, "flex_compile_s": compile_s, "flex_max_abs_err": err}
+    except Exception as e:   # the library's own failure to compile, reported in its column
+        first = (str(e).strip().splitlines() or [""])[0][:240]
+        return {"flex_ms": None, "flex_error": f"{type(e).__name__}: {first}"}
+
+
+def flex_phase(torch, dev, fa_entry, bwd_entry):
+    """``flex_timing`` at gemma2_9b's D 256 shapes, beside the kernel's
+    times already in ``fa_entry`` / ``bwd_entry``: the serve prefill
+    (2,16,5120,256) and decodes over a full ring and the global cache, the
+    train forward and backward (1,16,8192,256), global and local layers,
+    KV 8, softcap 50.  Last of the run: ``torch.compile`` and its worker
+    processes touch nothing that a phase measures after them."""
+    W, cap, KV, D = 4096, 50.0, 8, 256
+    shapes = [  # entry, key, B, H, Sq, Sk, causal, window, backward
+        (fa_entry[GEMMA2], "prefill_global", GEMMA2_BATCH, 16, GEMMA2_PROMPT, GEMMA2_PROMPT,
+         True, 0, False),
+        (fa_entry[GEMMA2], "prefill_local", GEMMA2_BATCH, 16, GEMMA2_PROMPT, GEMMA2_PROMPT,
+         True, W, False),
+        (fa_entry[GEMMA2], "decode_ring", GEMMA2_BATCH, 16, 1, W, False, 0, False),
+        (fa_entry[GEMMA2], "decode_global", GEMMA2_BATCH, 16, 1, GEMMA2_PROMPT + GEN - 1, False,
+         0, False),
+        (fa_entry[f"{GEMMA2} train"], "global", 1, 16, GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_SEQ, True,
+         0, False),
+        (fa_entry[f"{GEMMA2} train"], "local", 1, 16, GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_SEQ, True,
+         W, False),
+        (bwd_entry[GEMMA2], "global", 1, 16, GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_SEQ, True, 0, True),
+        (bwd_entry[GEMMA2], "local", 1, 16, GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_SEQ, True, W, True),
+    ]
+    for seed, (entry, key, B, H, Sq, Sk, causal, window, backward) in enumerate(shapes):
+        q = model_layout(torch, B, H, Sq, D, "bfloat16", 1800 + 4 * seed, dev)
+        k, v = (model_layout(torch, B, KV, Sk, D, "bfloat16", 1801 + 4 * seed + i, dev)
+                for i in range(2))
+        dout = model_layout(torch, B, H, Sq, D, "bfloat16", 1803 + 4 * seed, dev) \
+            if backward else None
+        t = flex_timing(torch, q, k, v, causal=causal, window=window, softcap=cap, dout=dout)
+        entry[key].update(t)
+        print_flex(f"{'backward ' if backward else ''}{entry[key]['shape']} (kernel "
+                   f"{entry[key]['ms']:.4f} ms)", t)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+
+
+def print_flex(label, t):
+    if t.get("flex_ms") is None:
+        print(f"[time] flex_attention {label}: did not compile or run: {t['flex_error']}")
+        return
+    print(f"[time] flex_attention {label} (compiled; softcap score_mod, causal / window block "
+          f"mask: the kernel's function): {t['flex_ms']:.4f} ms, compiled in "
+          f"{t['flex_compile_s']:.1f} s, output max_abs_err {t['flex_max_abs_err']:.3e} against "
+          "attention_ref")
+
+
 # ------------------------------------------------- attention with its lse --
 
 # The log-sum-exp entry's timing shapes: a rank's half of each cache a
@@ -978,6 +1153,14 @@ def split_decode_edges(torch, dev, failures) -> float:
         ("more ranges than keys", 1, 16, 8, 1, 100, 256, 5, 64, False, 0, 50.0),
         ("rows with no key (window 3)", 1, 4, 2, 12, 5, 256, 4, 64, False, 3, 0.0),
         ("causal Sq 8, ranges past the rows' keys", 2, 8, 2, 8, 700, 80, 11, 64, True, 0, 0.0),
+        # the five families' head layouts: a 16-row block holding part of
+        # a group (GQA 5 at Sq 4, 7 at Sq 3, 12 at Sq 2), keys not a
+        # multiple of 64
+        ("gqa 5 (40/8) Sq 4, partial groups", 1, 40, 8, 4, 700, 128, 6, 128, False, 0, 0.0),
+        ("gqa 7 (56/8) Sq 3, partial groups", 2, 56, 8, 3, 333, 128, 3, 128, False, 0, 0.0),
+        ("gqa 7 (56/8) Sk 333", 2, 56, 8, 1, 333, 128, 6, 64, False, 0, 0.0),
+        ("gqa 12 (96/8) Sq 2 Sk 1000", 1, 96, 8, 2, 1000, 128, 8, 128, False, 0, 0.0),
+        ("mha 24/24 D 64 Sk 575", 2, 24, 24, 1, 575, 64, 5, 128, False, 0, 0.0),
     ]
     worst = 0.0
     for seed, (label, B, H, KV, Sq, Sk, D, splits, chunk, causal, window, cap) in enumerate(cases):
@@ -1038,7 +1221,8 @@ def lse_kernel_phase(torch, dev, failures) -> dict:
         ("Sq 5 D 128 causal", 1, 8, 2, 5, 40, 128, True, 0, 0.0),
         ("prefill D 80 window 20", 1, 4, 4, 100, 77, 80, False, 20, 0.0),
         ("prefill D 64 rows with no key", 1, 2, 2, 40, 8, 64, True, 4, 0.0),
-    ]
+    ] + [(label, B, H, KV, Sq, Sk, D, causal, window, 0.0)
+         for label, B, H, KV, Sq, Sk, D, causal, window in FAMILY_FWD_EDGES]
     worst = 0.0
     for seed, (label, B, H, KV, Sq, Sk, D, causal, window, softcap) in enumerate(cases):
         for dtype in ("float32", "bfloat16"):
@@ -1205,6 +1389,12 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
                 if scale != 1.0:
                     exact_error_ratios(torch, f"D {D} {label}", q, k, v, dout, dtype,
                                        causal=causal)
+    for j, (label, B, H, KV, Sq, Sk, D, causal) in enumerate(FAMILY_BWD_EDGES):
+        for dtype in ("float32", "bfloat16"):
+            seed = 1200 + 4 * j
+            q, dout = (randn(torch, (B, H, Sq, D), dtype, seed + n, dev) for n in (0, 3))
+            k, v = (randn(torch, (B, KV, Sk, D), dtype, seed + n, dev) for n in (1, 2))
+            compare(f"D {D} {label}", q, k, v, dout, dtype, causal=causal)
 
     # The train path's shape, in the model's strided layout, in both dtypes.
     H, D = 32, 80
@@ -2254,12 +2444,22 @@ def plain_versions(failures):
         failures.append("a run with the plain versions launched a kernel")
 
 
+def positions(torch, model, pos):
+    """Token positions as the model reads them: (B, S), or the (3, B, S)
+    M-RoPE positions of a text prompt (t, h and w alike), as
+    ``repro_torch.launch.serve`` feeds them."""
+    return torch.stack([pos, pos, pos]) if model.cfg.mrope_sections else pos
+
+
 def last_logits(torch, model, params, prompts, failures, *, plain=False):
     """The prefill's last-position logits (B, V) in fp32, through the
     kernels or (``plain``) their plain versions."""
+    B, P = prompts.shape
+    pos = torch.arange(P, dtype=torch.int32, device=prompts.device).expand(B, P)
     with torch.inference_mode(), (plain_versions(failures) if plain
                                   else contextlib.nullcontext()):
-        return model.forward(params, {"tokens": prompts})[0][:, -1].float()
+        return model.forward(params, {"tokens": prompts, "positions": positions(
+            torch, model, pos)})[0][:, -1].float()
 
 
 def prefill_then_decode(torch, model, params, prompts, tokens, failures, *, plain=False):
@@ -2273,12 +2473,14 @@ def prefill_then_decode(torch, model, params, prompts, tokens, failures, *, plai
                                   else contextlib.nullcontext()):
         cache = model.init_cache(B, P + n)
         pos = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
-        last = model.prefill(params, cache, {"tokens": prompts, "positions": pos})[:, -1].float()
+        last = model.prefill(params, cache, {"tokens": prompts, "positions": positions(
+            torch, model, pos)})[:, -1].float()
         steps = []
         for i in range(n):
             lg, cache = model.decode_step(params, cache, {
                 "tokens": tokens[:, i:i + 1], "cache_pos": P + i,
-                "positions": torch.full((B, 1), P + i, dtype=torch.int32, device=dev)})
+                "positions": positions(torch, model, torch.full(
+                    (B, 1), P + i, dtype=torch.int32, device=dev))})
             steps.append(lg[:, -1].float())
     return last, torch.stack(steps, dim=1)
 
@@ -2815,6 +3017,285 @@ def moe_phase(torch, dev, fa_entry, failures, counts):
               failures)
 
 
+# ---------------------------------------------------- the five families --
+
+# The families of the phases after phi35_moe_42b, each at its published
+# widths and head layout through the entry points a user calls: served
+# through ``repro_torch.launch.serve`` (batch 8, prompt 512, 64 greedy
+# tokens, bf16) at ``serve`` layers, the full depth where one card holds it;
+# their fp32 serve gate at ``gate`` layers; trained through
+# ``repro_torch.launch.train`` (8 x 512, fp32 masters, AdamW, remat) at
+# ``train`` layers for FAMILY_TRAIN_STEPS steps, and the fp32 step gate at
+# ``step_gate`` layers.  ``train`` None: one layer's fp32 params, grads and
+# AdamW state do not fit one card (the phase prints the reckoning). yi_34b
+# serves whole: 68.8 GB of bf16 params, drawn and cast layer by layer, under
+# FAMILY_SERVE_PEAK with its cache and prefill.
+FAMILIES = {
+    "qwen2_vl_7b": dict(serve=28, gate=2, train=8, step_gate=1),
+    "musicgen_medium": dict(serve=48, gate=4, train=48, step_gate=2),
+    "yi_34b": dict(serve=60, gate=2, train=4, step_gate=1),
+    "llama4_scout_17b": dict(serve=8, gate=2, train=None, step_gate=None),
+    "command_r_plus_104b": dict(serve=8, gate=2, train=None, step_gate=None),
+}
+FAMILY_TRAIN_STEPS = 3
+# The flex_attention timings (information, the last phase; ~95 s, most of
+# it compiling) run only while the run has used less than this: the
+# host-bound phases before them took 1.5-2x longer on one card machine
+# than on another.
+FLEX_BY_S = 950
+FAMILY_SERVE_PEAK = 76 * 2**30
+CARD_BYTES = 80e9
+
+
+def family_phase(torch, dev, arch, fa_entry, bwd_entry, failures, counts):
+    """One of ``FAMILIES`` served, then trained (or its reckoning)."""
+    run = FAMILIES[arch]
+    family_serve(torch, dev, arch, run, fa_entry, failures, counts)
+    torch.cuda.empty_cache()
+    if not failures:
+        family_train(torch, dev, arch, run, bwd_entry, failures, counts)
+    torch.cuda.empty_cache()
+
+
+def family_serve(torch, dev, arch, run, fa_entry, failures, counts):
+    """``arch`` at full width and ``run["serve"]`` layers through
+    ``repro_torch.launch.serve`` (bf16, batch 8, prompt 512, 64 tokens):
+    prefill ms, decode ms a step and tok/s, peak memory and the init's
+    wall; finite logits, one attention launch a layer in the prefill and
+    in each decode step and no other kernel, the peak under
+    FAMILY_SERVE_PEAK; the attention kernel at the model's prefill and
+    decode shapes against ``attention_ref``, timed beside its bound, the
+    plain version and SDPA; the share of routed pairs dropped (MoE); the
+    bf16 gap to the plain attention (printed); then the fp32 prefill's
+    last logits and 4 decode steps after it at ``run["gate"]`` layers of
+    the same weights, kernel against plain attention, within MODEL_TOL."""
+    from repro_torch.configs import arch_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, layers
+
+    tag = f"[{arch}]"
+    full = arch_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, params = serve.build_model(arch, full=True, device=dev, seed=0, layers=run["serve"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in params.values())
+    extra = (f", M-RoPE sections {cfg.mrope_sections}" if cfg.mrope_sections else "") + (
+        f", {cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} shared of d_ff "
+        f"{cfg.d_ff}, capacity factor {cfg.capacity_factor}" if cfg.n_experts else "")
+    print(f"{tag} {cfg.name} at full width: d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv x {cfg.hd} (GQA group {cfg.q_per_kv}){extra}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}; {cfg.n_layers} of {full.n_layers} layers: {n_params / 1e9:.3f} B "
+          f"params in {cfg.dtype} ({2 * n_params / 1e9:.1f} GB; the whole model "
+          f"{full.param_count() / 1e9:.2f} B), drawn and cast layer by layer in {init_s:.1f} s "
+          f"(peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB)")
+    prompts = serve.make_prompts(model, BATCH, PROMPT, seed=1)
+    cold = serve.generate(model, params, prompts[:, :16], 4)
+    print(f"{tag} warm-up (prompt 16, 4 tokens): prefill {cold.prefill_s * 1e3:.1f} ms, "
+          f"decode {cold.decode_s * 1e3:.1f} ms, finite {cold.finite}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res = serve.generate(model, params, prompts, GEN)
+    counts[arch] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = res.decode_s / (GEN - 1) * 1e3
+    print(f"{tag} prefill {BATCH}x{PROMPT} tokens: {res.prefill_s * 1e3:.1f} ms; decode "
+          f"{res.decode_tok_s:.1f} tok/s ({GEN - 1} steps in {res.decode_s:.3f}s, {step_ms:.2f} ms "
+          f"a step); peak memory {peak / 2**30:.2f} GiB (gate {FAMILY_SERVE_PEAK / 2**30:.0f} GiB)")
+    print(f"{tag} sample output ids: {res.generated[0, :12].tolist()}")
+    for name, want in (("flash_attention", cfg.n_layers * GEN), ("flash_attention_bwd", 0),
+                       ("ssd", 0), ("mlstm", 0), ("flash_attention_lse", 0)):
+        got = counts[arch][name]
+        print(f"{tag} {name} launches: {got} (expected {want})")
+        if got != want:
+            failures.append(f"{arch}: {name} launched {got} times, expected {want}")
+    if not (res.finite and cold.finite):
+        failures.append(f"non-finite logits in the {arch} serve run")
+    if peak >= FAMILY_SERVE_PEAK:
+        failures.append(f"{arch} served at {peak / 2**30:.2f} GiB, past "
+                        f"{FAMILY_SERVE_PEAK / 2**30:.0f} GiB")
+
+    # The attention kernel at this model's serve shapes, in its layout.
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    att = {}
+    for label, Sq, Sk, causal, seed in (("prefill", PROMPT, PROMPT, True, 1500),
+                                        ("decode", 1, PROMPT + GEN - 1, False, 1510)):
+        q = model_layout(torch, BATCH, H, Sq, D, "bfloat16", seed, dev)
+        if Sq > 1:
+            kv_sets = [tuple(model_layout(torch, BATCH, KV, Sk, D, "bfloat16", seed + i, dev)
+                             for i in (1, 2))]
+        else:
+            kv_sets = decode_sets(torch, BATCH, KV, Sk, D, seed + 1, dev)
+        shape = f"{label} ({BATCH},{H},{Sq},{D}) kv {KV} Sk {Sk}{' causal' if causal else ''} bf16"
+        err = attention_check(torch, tag, shape, q, *kv_sets[0], "bfloat16", failures,
+                              causal=causal)
+        att[label] = {"shape": shape, "max_abs_err": err,
+                      **attention_timings(torch, q, kv_sets, causal, dev)}
+        print_attention_time(f"{arch} {shape}", att[label])
+        del q, kv_sets
+    fa_entry[arch] = att
+    print(f"{tag} attention kernel share: prefill {cfg.n_layers} x {att['prefill']['ms']:.4f} ms "
+          f"= {cfg.n_layers * att['prefill']['ms'] / (res.prefill_s * 1e3):.1%}; decode at most "
+          f"{cfg.n_layers} x {att['decode']['ms']:.4f} ms = "
+          f"{cfg.n_layers * att['decode']['ms'] / step_ms:.1%} of a step")
+
+    if cfg.n_experts:
+        # the same run's routing, counted (not the timed run)
+        drops = Routes()
+        drops.record(layers, lambda: serve.generate(model, params, prompts, GEN))
+        L = cfg.n_layers
+        cap_pre = max(int(BATCH * PROMPT * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
+        cap_dec = max(int(BATCH * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
+        print(f"{tag} routed (token, expert) pairs dropped past the capacity: prefill "
+              f"{drops.dropped(drops.calls[:L]):.2%} (capacity {cap_pre} per expert, {L} calls), "
+              f"decode {drops.dropped(drops.calls[L:]):.2%} (capacity {cap_dec}, "
+              f"{len(drops.calls) - L} calls)")
+        del drops
+
+    # Information: the served bf16 prefill against the same with the
+    # plain attention (rounding over the layers, not a tolerance).
+    last = last_logits(torch, model, params, prompts, failures, plain=True)
+    bf16_gap(torch, f"{tag} bf16 prefill last logits, kernel vs plain attention",
+             res.prefill_logits.float(), last, failures)
+    del last, res
+
+    # The gate in fp32 at run["gate"] layers of the same weights, each leaf
+    # cut and cast as the bf16 one is let go (yi_34b's bf16 copy and an
+    # fp32 one would not fit together).
+    G = run["gate"]
+    params32 = {}
+    for k in list(params):
+        v = params.pop(k)
+        params32[k] = (v[:G] if k.startswith("blocks/") else v).float()
+        del v
+    del model, params
+    torch.cuda.empty_cache()
+    model32 = Model(cfg.replace(n_layers=G, dtype="float32", logit_dtype="float32"), dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, 4), generator=g, device=dev)
+    lk, sk = prefill_then_decode(torch, model32, params32, prompts, tokens, failures)
+    lp, sp = prefill_then_decode(torch, model32, params32, prompts, tokens, failures, plain=True)
+    gate(torch, f"{tag} fp32 at full width and {G} layers, prefill last logits, kernel vs plain "
+         "attention", lk, lp, failures)
+    gate(torch, f"{tag} fp32 at full width and {G} layers, 4 decode steps after the prefill, "
+         "kernel vs plain attention", sk, sp, failures)
+    del params32, model32, lk, lp, sk, sp
+
+
+def family_train(torch, dev, arch, run, bwd_entry, failures, counts):
+    """``arch`` at full width and ``run["train"]`` layers trained
+    FAMILY_TRAIN_STEPS steps on 8 x 512 through ``repro_torch.launch.train``
+    (fp32 masters, bf16, remat, seed 0; qwen2_vl and musicgen on
+    ``SyntheticTokens``' embeddings, qwen2_vl with its (3, B, S)
+    positions): finite losses and grad norms, step ms, tokens/s, peak
+    memory, the attention kernels' calls a step; the backward kernel at
+    the model's train shape against autograd of ``attention_ref``, timed
+    beside its bound, the plain version's backward and SDPA's; then the
+    fp32 step gate at ``run["step_gate"]`` layers.  Where one card cannot
+    hold a layer (``run["train"]`` None), the reckoning instead."""
+    from repro_torch.configs import arch_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.device import card_label
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as train_cli
+
+    tag = f"[train {arch}]"
+    full = arch_config(arch)
+    layer = full.replace(n_layers=1).param_count() - full.replace(n_layers=0).param_count()
+    one = full.replace(n_layers=1).param_count()
+    if run["train"] is None:
+        print(f"{tag} not trained on one card: one layer at full width is {layer / 1e9:.3f} B "
+              f"params and the embedding and head {(one - layer) / 1e9:.3f} B; at 1 layer the "
+              f"fp32 params, grads and AdamW mu / nu (16 bytes a param) take "
+              f"{16 * one / 1e9:.1f} GB before activations, {20 * one / 1e9:.1f} GB with the fp32 "
+              f"step gate's copy of the grads, against the card's {CARD_BYTES / 1e9:.0f} GB; it "
+              "waits for more than one card")
+        return
+
+    # The backward kernel at this model's train shape, in its layout.
+    H, KV, D = full.n_heads, full.n_kv_heads, full.hd
+    q, dout = (model_layout(torch, BATCH, H, TRAIN_SEQ, D, "bfloat16", 1600 + n, dev)
+               for n in (0, 3))
+    k, v = (model_layout(torch, BATCH, KV, TRAIN_SEQ, D, "bfloat16", 1600 + n, dev)
+            for n in (1, 2))
+    shape = f"train ({BATCH},{H},{TRAIN_SEQ},{D}) kv {KV} causal bf16"
+    got = fa.flash_attention_bwd_cuda(q, k, v, fa.flash_attention_cuda(q, k, v, causal=True),
+                                      dout, causal=True)
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*ref_in, causal=True), ref_in, dout.float())
+    errs = [float((a.float() - b).abs().max()) for a, b in zip(got, want)]
+    ok = all(bool(torch.isfinite(a).all()) and torch.allclose(a.float(), b, **GRAD_TOL["bfloat16"])
+             for a, b in zip(got, want))
+    print(f"{tag} flash_attention_bwd {shape}: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} "
+          f"dv {errs[2]:.3e} against autograd of attention_ref "
+          f"(rtol={GRAD_TOL['bfloat16']['rtol']}, atol={GRAD_TOL['bfloat16']['atol']}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{tag} flash_attention_bwd {shape}: max_abs_err {max(errs):.3e}")
+    del got, want, ref_in
+    t = attention_bwd_timings(torch, q, k, v, dout, dev)
+    path = bwd_path("bfloat16", D)
+    print(f"[time] flash_attention_bwd {arch} {shape}: kernel {t['ms']:.4f} ms ({path['route']}: "
+          f"{' + '.join(path['kernels'])}), plain {t['plain_ms']:.4f} ms (autograd of "
+          f"attention_ref, backward only), sdpa backward {t['library_ms']:.4f} ms, bound "
+          f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    bwd_entry[arch] = {"shape": shape, "max_abs_err": max(errs), **t}
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+
+    cfg = full.replace(n_layers=run["train"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, state, step_fn = train_cli.build(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    inputs = "embeddings" if cfg.embed_inputs else "tokens"
+    print(f"{tag} full width, {cfg.n_layers} of {full.n_layers} layers: {n_params / 1e9:.3f} B "
+          f"params as fp32 masters (params, grads and AdamW mu / nu: {16 * n_params / 1e9:.1f} "
+          f"GB), compute {cfg.dtype}, remat {cfg.remat}, loss chunk {cfg.loss_chunk}; "
+          f"{BATCH} x {TRAIN_SEQ} {inputs}"
+          f"{', (3, B, S) M-RoPE positions' if cfg.mrope_sections else ''}; initialised in "
+          f"{time.perf_counter() - t0:.1f}s")
+    data = SyntheticTokens(cfg, BATCH, TRAIN_SEQ, seed=0)
+    reset_counts()
+    state, records = train_cli.train(model, state, step_fn, data.iter(), FAMILY_TRAIN_STEPS,
+                                     log=lambda line: print(f"{tag} {line}"))
+    path = f"train {arch}"
+    counts[path] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in records:
+        print(f"{tag} step {r.step}: loss {r.loss:.4f}, grad norm {r.grad_norm:.4f}, "
+              f"{r.seconds * 1e3:.1f} ms")
+    step_s = statistics.median(r.seconds for r in records[1:])
+    print(f"{tag} step time {step_s * 1e3:.1f} ms (median of steps 1-{FAMILY_TRAIN_STEPS - 1}; "
+          f"step 0, cold, {records[0].seconds * 1e3:.1f} ms), {BATCH * TRAIN_SEQ / step_s:.0f} "
+          f"tokens/s, peak memory {peak / 2**30:.1f} GiB ({peak / 1e9:.1f} GB), on "
+          f"{card_label(dev)}")
+    finite = all(math.isfinite(r.loss) and math.isfinite(r.grad_norm) for r in records)
+    print(f"{tag} every loss and grad norm finite: {finite}")
+    if not finite:
+        failures.append(f"non-finite loss or grads in the {arch} train run")
+    per_step = train_launches(cfg)
+    for name, want in per_step.items():
+        got = counts[path][name]
+        print(f"{tag} {name} launches: {got} in {FAMILY_TRAIN_STEPS} steps (expected "
+              f"{FAMILY_TRAIN_STEPS} x {want} = {FAMILY_TRAIN_STEPS * want})")
+        if got != FAMILY_TRAIN_STEPS * want:
+            failures.append(f"{path}: {name} launched {got} times, expected "
+                            f"{FAMILY_TRAIN_STEPS * want}")
+    bwd_ms = per_step["flash_attention_bwd"] * t["ms"]
+    print(f"{tag} attention backward share of a step: {per_step['flash_attention_bwd']} x "
+          f"{t['ms']:.4f} ms = {bwd_ms:.1f} ms, {bwd_ms / (step_s * 1e3):.1%}")
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    step_gate(torch, dev, full, run["step_gate"], to_device(data.sample(0), dev), tag,
+              "plain attention", failures)
+
+
 # ------------------------------------------------------------------- train --
 
 
@@ -2914,7 +3395,7 @@ def step_gate(torch, dev, cfg, layers, batch, tag, plain_name, failures):
     print(f"{tag} step gate at {layers} layers: {n / 1e9:.3f} B params; the card holds one "
           f"step's fp32 params, grads, AdamW mu / nu and a copy of the grads "
           f"({20 * n / 1e9:.1f} GB) beside the activations of batch "
-          f"{tuple(batch['tokens'].shape)}; the host the first step's grads and params "
+          f"{tuple(batch['labels'].shape)}; the host the first step's grads and params "
           f"({8 * n / 1e9:.1f} GB)")
     for dtype in ("float32", "bfloat16"):
         small = cfg.replace(n_layers=layers, dtype=dtype, logit_dtype=dtype)
@@ -3018,16 +3499,16 @@ def gemma2_train_phase(torch, dev, fa_entry, bwd_entry, failures, counts):
     print(f"{tag} attention backward share of a step, from the kernel phase's times: {n_loc} x "
           f"{t['local']['ms']:.4f} + {cfg.n_layers - n_loc} x {t['global']['ms']:.4f} ms = "
           f"{bwd_ms:.1f} ms, {bwd_ms / (step_s * 1e3):.1%}")
+    profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev),
+                       cfg.dtype, failures, tag=tag)
+    del model, state, step_fn
+    torch.cuda.empty_cache()
     fwd = gemma2_train_fwd_timings(torch, dev, cfg)
     fa_entry[f"{GEMMA2} train"] = fwd
     fwd_ms = 2 * (n_loc * fwd["local"]["ms"] + (cfg.n_layers - n_loc) * fwd["global"]["ms"])
     print(f"{tag} attention forward share of a step (each layer's forward twice under remat): "
           f"2 x ({n_loc} x {fwd['local']['ms']:.4f} + {cfg.n_layers - n_loc} x "
           f"{fwd['global']['ms']:.4f}) ms = {fwd_ms:.1f} ms, {fwd_ms / (step_s * 1e3):.1%}")
-    profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev),
-                       cfg.dtype, failures, tag=tag)
-    del model, state, step_fn
-    torch.cuda.empty_cache()
     gate_data = SyntheticTokens(cfg, 1, GEMMA2_STEP_GATE_SEQ, seed=0)
     step_gate(torch, dev, full, GEMMA2_STEP_GATE_LAYERS, to_device(gate_data.sample(0), dev), tag,
               "plain attention", failures)
@@ -3036,8 +3517,11 @@ def gemma2_train_phase(torch, dev, fa_entry, bwd_entry, failures, counts):
 def gemma2_train_fwd_timings(torch, dev, cfg) -> dict:
     """The forward kernel at gemma2_9b's train shape (1, 16, GEMMA2_TRAIN_SEQ,
     256) KV 8 in the model's layout, the global (causal) and local (window)
-    layers, beside the bound (``PREFILL_D256_KERNEL``)."""
+    layers, beside the bound (``PREFILL_D256_KERNEL``), the plain version,
+    and SDPA without the softcap and window (not the same function)."""
+    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
 
     H, KV, D, S, W = cfg.n_heads, cfg.n_kv_heads, cfg.hd, GEMMA2_TRAIN_SEQ, cfg.sliding_window
     out = {}
@@ -3046,15 +3530,22 @@ def gemma2_train_fwd_timings(torch, dev, cfg) -> dict:
         k, v = (model_layout(torch, 1, KV, S, D, "bfloat16", seed + i, dev) for i in (1, 2))
         opts = dict(causal=True, window=window, softcap=cfg.attn_softcap)
         ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, **opts), iters=10, reps=3)
+        plain = time_ms(torch, lambda: ref.attention_ref(q, k, v, **opts), iters=2, reps=3)
+        sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=10, reps=3)
         bound, by = bound_ms(torch, q, k, v, causal=True, window=window, dev=dev)
         print(f"[time] flash_attention gemma2 train forward {label} (1,{H},{S},{D}) kv {KV} "
               f"causal{f' window {window}' if window else ''} softcap {cfg.attn_softcap:g} bf16 "
               f"({PREFILL_D256_KERNEL}): kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-              f"{ms / bound:.2f}x, {bound / ms:.1%} of the bound's rate)")
-        out[label] = {"shape": f"(1,{H},{S},{D}) kv {KV} causal{f' window {window}' if window else ''}"
-                               f" softcap {cfg.attn_softcap:g} bf16",
-                      "ms": ms, "bound_ms": bound, "bound_by": by}
+              f"{ms / bound:.2f}x, {bound / ms:.1%} of the bound's rate), plain {plain:.4f} ms, "
+              f"sdpa causal without the softcap{' and window' if window else ''} (not the same "
+              f"function) {sdpa:.4f} ms")
+        shape = (f"(1,{H},{S},{D}) kv {KV} causal{f' window {window}' if window else ''}"
+                 f" softcap {cfg.attn_softcap:g} bf16")
+        out[label] = {"shape": shape, "ms": ms, "bound_ms": bound, "bound_by": by,
+                      "plain_ms": plain, "library_ms": sdpa}
         del q, k, v
+        torch.cuda.empty_cache()
     return out
 
 

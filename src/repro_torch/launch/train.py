@@ -39,8 +39,9 @@ tensor, sequence and expert parallel over 'model'
 (NCCL with a card per rank, gloo where ranks share one or run on the
 CPU) is printed once.  ``--checkpoint-dir`` gathers the full params to
 rank 0, which writes the store's layout.  Every family trains on any
-``--model-parallel`` that divides the world and the sequence (the
-hybrid and xLSTM blocks tensor parallel over their heads).
+``--model-parallel`` that divides the world (the hybrid and xLSTM blocks
+tensor parallel over their heads); where it does not divide the
+sequence, the residual stays whole over 'model', as in JAX.
 
 ``--layers`` cuts the config's depth (phi3.5-MoE's fp32 masters and
 AdamW state take ~16 GB a layer; gemma2's embedding and head alone 29

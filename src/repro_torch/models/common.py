@@ -168,14 +168,18 @@ class ParamBuilder:
     those of the JAX builder (``normal``: 1/sqrt(shape[0]); ``embed``:
     ``scale``), but the bits are PyTorch's, not ``jax.random``'s.  With
     ``generator=None`` it records a :class:`ParamShape` per param instead.
+    With ``cast``, each param is cast to that dtype as soon as it is
+    drawn in ``param_dtype`` (the values of drawing all, then casting).
     """
 
-    def __init__(self, generator: Optional[torch.Generator], param_dtype=torch.float32):
+    def __init__(self, generator: Optional[torch.Generator], param_dtype=torch.float32,
+                 cast: Optional[torch.dtype] = None):
         self.generator = generator
         self.device = None if generator is None else generator.device
         self.params: dict[str, Any] = {}
         self.specs: dict[str, Any] = {}
         self.param_dtype = param_dtype
+        self.cast = cast
 
     def _normal(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, device=self.device,
@@ -198,6 +202,8 @@ class ParamBuilder:
             arr = self._normal(shape) * s
         elif init == "embed":
             arr = self._normal(shape) * (scale or 1.0)
+        if self.cast is not None and self.generator is not None:
+            arr = arr.to(self.cast)
         self.params[name] = arr
         self.specs[name] = axes
         return arr

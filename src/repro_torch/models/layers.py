@@ -59,22 +59,28 @@ attends every query head over the admitted rows of its slice through
 output 0, log-sum-exp -inf, no launch), and merges the ranks' partial
 outputs by one all-gather of (o, lse) over the split axes and the sum
 weighted by exp(lse_r - logsumexp_r lse_r); ``wo`` then takes the rank's
-heads.  The serving layout needs the batch split over every axis its
-rule names and the cache's sequence over every axis of ``kv_seq`` the
-batch leaves (``repro_torch.models.Model.cache_layouts`` raises
-otherwise, with the cause).
+heads.  The serving layout splits the batch over the axes of its rule
+that it fills (a batch smaller than them stays whole, and the ranks of
+an axis it leaves compute the same rows, as JAX's replicas do) and needs
+the cache's sequence over every axis of ``kv_seq`` the batch's rule
+leaves (``repro_torch.models.Model.cache_layouts`` raises otherwise,
+with the cause).
 
 Where JAX's ``shard_map`` paths fall back to an einsum and a constraint
 (m not dividing d_model or n_heads), the port computes that projection
 whole on every rank of the model axis (the weight replicated there):
-the numbers are the same, only the work is repeated.  The port has no
-GSPMD behind those fallbacks, so two more cases differ in how they are
-refused, not in their numbers: the model axis must divide the sequence
-(``Model.forward`` raises) and, where it divides d_model, d_ff
-(:func:`compute_spec` raises).
+the numbers are the same, only the work is repeated.  Where the model
+axis does not divide a train-mode sequence, JAX's ``_row_parallel_ctx``
+falls back too (einsums and constraints): the port runs that forward with
+the residual whole over 'model', as in a serving mode
+(:func:`whole_residual`).  The port has no GSPMD behind those fallbacks,
+so one case differs in how it is refused, not in its numbers: where the
+model axis divides d_model it must divide d_ff (:func:`compute_spec`
+raises).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -264,8 +270,8 @@ def _row_parallel_ctx():
     """(ctx, m) when the current context's mesh has a 'model' axis of
     m > 1, in any mode, else None.  JAX also asks that m divide the
     contracted dim and, in train mode, the sequence: the first decides
-    each projection's layout in :func:`compute_spec`, the second
-    ``Model.forward`` requires."""
+    each projection's layout in :func:`compute_spec`, the second whether
+    the residual is sequence-sharded (:func:`_seq_parallel`)."""
     ctx = current_context()
     if ctx is None:
         return None
@@ -275,8 +281,24 @@ def _row_parallel_ctx():
 
 def _seq_parallel(rp) -> bool:
     """Megatron-SP (the sequence-sharded residual): train mode on a model
-    axis above 1 (``rp`` from :func:`_row_parallel_ctx`)."""
-    return rp is not None and rp[0].mode == "train"
+    axis above 1 (``rp`` from :func:`_row_parallel_ctx`) whose
+    ``residual_seq`` rule names 'model'.  ``Model.forward`` clears that
+    rule where the model axis does not divide the sequence
+    (:func:`whole_residual`), as JAX's ``_row_parallel_ctx`` falls back
+    there: the residual is then whole over 'model', as in a serving
+    mode."""
+    return rp is not None and rp[0].mode == "train" and "model" in rule_axes(rp[0],
+                                                                              "residual_seq")
+
+
+def whole_residual(ctx):
+    """``ctx`` with the residual whole over 'model' (no ``residual_seq``
+    rule): what a train-mode forward runs under where the model axis does
+    not divide its sequence.  Projections then all-reduce their partial
+    products (``row_parallel_out``) and gather no input
+    (``column_parallel_in``); the numbers are those of the sequence-sharded
+    layout."""
+    return dataclasses.replace(ctx, act_overrides={**ctx.act_overrides, "residual_seq": None})
 
 
 def rule_axes(ctx, name: str) -> tuple[str, ...]:
@@ -368,15 +390,16 @@ def row_parallel_out(x, w, contract_sharded: bool):
     rows) the partial sums are reduce-scattered over the sequence in one
     collective (Megatron-SP's g-bar; backward: all-gather); with K whole
     the product is complete on every rank and each keeps its sequence
-    slice.  In a serving mode (one token, the residual whole over
-    'model') the partial sums are all-reduced instead.  Without a model
-    axis, x @ w."""
+    slice.  Where the residual is whole over 'model' (a serving mode's
+    one token, or a train-mode sequence the model axis does not divide)
+    the partial sums are all-reduced instead.  Without a model axis,
+    x @ w."""
     out = x @ w
     rp = _row_parallel_ctx()
     if rp is None:
         return out
     mesh = rp[0].mesh
-    if not _seq_parallel(rp):   # a serving mode: the residual is whole over 'model'
+    if not _seq_parallel(rp):   # the residual is whole over 'model'
         return coll.all_reduce(out, mesh, "model") if contract_sharded else out
     if contract_sharded:
         return coll.reduce_scatter(out, mesh, "model", 1)
@@ -388,8 +411,8 @@ def column_parallel_in(x, weights: list):
     sequence-sharded input feeds every projection in the block (its
     backward is a reduce-scatter).  x: (B, S/m, d); weights: (d, F_i)
     local (the rank's columns, or whole).  Returns [(B, S, F_i)].
-    Without a model axis, or in a serving mode (x whole), plain
-    matmuls."""
+    Without a model axis, or with the residual whole over 'model' (x
+    whole), plain matmuls."""
     rp = _row_parallel_ctx()
     if _seq_parallel(rp):
         x = coll.all_gather(x, rp[0].mesh, "model", 1)
@@ -625,7 +648,7 @@ def _moe_shard_map(params, name: str, cfg: ModelConfig, x, ctx):
     (E, cap + 1, d) over 'model' to combine them; each keeps its sequence
     slice.  The shared expert, if any, runs through :func:`mlp`."""
     mesh = ctx.mesh
-    sp = ctx.mode == "train"    # a serving mode's token is whole over 'model'
+    sp = _seq_parallel(_row_parallel_ctx())   # else the residual is whole over 'model'
     xg = constrain(x, ("batch", "seq", "embed"), ("batch", "residual_seq", "embed")) if sp else x
     Bl, Sl, d = xg.shape
     dt = xg.dtype

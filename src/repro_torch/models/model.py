@@ -17,7 +17,10 @@ returns the JAX package's global mean.  While a mesh train step runs,
 the params are the rank's storage shards: ``embed`` and ``logits`` gather
 the embedding table, the head and the final norm where they use them,
 and each block's params are gathered in the layer loop
-(:mod:`repro_torch.models.transformer`).
+(:mod:`repro_torch.models.transformer`).  Where the model axis does not
+divide the sequence, the residual stays whole over 'model' (the lookup's
+partial rows all-reduced), as JAX's forward falls back there; the logits
+and the loss keep the vocabulary-parallel layout.
 
 Under a serving context (``decode`` or ``long`` mode, one token a step)
 the token is whole over 'model': the lookup's partial rows are
@@ -34,17 +37,18 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (ProcessMesh, current_context, resolve_spec,
-                                           spec_axes)
+                                           spec_axes, use_sharding)
 
 from .common import ModelConfig, ParamBuilder, torch_dtype
 from .layers import (_row_parallel_ctx, _seq_parallel, compute_params, init_rmsnorm,
-                     kv_seq_axes, rmsnorm, rule_axes)
+                     kv_seq_axes, rmsnorm, whole_residual)
 from .transformer import (KV_ENTRIES, decode_blocks, forward_blocks, init_blocks,
                           init_cache_shapes, local_layers)
 
 
-def _build_params(cfg: ModelConfig, generator: Optional[torch.Generator]) -> tuple[dict, dict]:
-    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
+def _build_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                  cast: Optional[torch.dtype] = None) -> tuple[dict, dict]:
+    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype), cast)
     if not cfg.embed_inputs:
         b.add("embed/table", (cfg.vocab, cfg.d_model), ("vocab", "embed"),
               init="embed", scale=0.02)
@@ -53,7 +57,7 @@ def _build_params(cfg: ModelConfig, generator: Optional[torch.Generator]) -> tup
         b.add("head/w", (cfg.d_model, cfg.vocab), ("embed", "vocab"),
               init="normal")
     params, specs = b.build()
-    bp, bs = init_blocks(generator, cfg)
+    bp, bs = init_blocks(generator, cfg, cast)
     params.update(bp)
     specs.update(bs)
     return params, specs
@@ -72,12 +76,17 @@ class Model:
         self.device = resolve_device(device)
 
     # ---------------------------------------------------------------- init --
-    def init(self, generator: torch.Generator) -> tuple[dict, dict]:
+    def init(self, generator: torch.Generator,
+             cast: Optional[torch.dtype] = None) -> tuple[dict, dict]:
         """Params drawn from ``generator`` (which must live on the model's
-        device), in ``cfg.param_dtype``, and their logical axes."""
+        device), in ``cfg.param_dtype``, and their logical axes.  With
+        ``cast``, each param is cast to it as soon as it is drawn: the
+        values of casting the drawn params, without holding the model in
+        ``param_dtype`` (serving's bf16 copy of yi_34b, 68.8 GB, is drawn so
+        on one card)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
-        return _build_params(self.cfg, generator)
+        return _build_params(self.cfg, generator, cast)
 
     def abstract_params(self) -> tuple[dict, dict]:
         """Shape-only params + logical specs (:func:`abstract_params`)."""
@@ -92,9 +101,9 @@ class Model:
     # -------------------------------------------------------------- forward --
     def embed(self, params: dict, batch: dict) -> torch.Tensor:
         """(B, S, d) in the compute dtype; in train mode on a model axis
-        m > 1 the rank's sequence slice (B, S/m, d)."""
+        m > 1 that splits the sequence, the rank's slice (B, S/m, d)."""
         cfg = self.cfg
-        mesh, sp = _model_mesh(serving=True), _model_mesh() is not None
+        mesh, sp = _model_mesh(serving=True), _seq_parallel(_row_parallel_ctx())
         if cfg.embed_inputs:
             x = batch["embeds"].to(cfg.compute_dtype)
             return coll.take(x, mesh, "model", 1) if sp else x
@@ -119,12 +128,15 @@ class Model:
     def logits(self, params: dict, y: torch.Tensor) -> torch.Tensor:
         """(B, S, V) from the residual; in train mode on a model axis m > 1
         the rank's vocabulary slice (B, S, V/m) of the whole sequence (y,
-        the rank's sequence slice, is gathered first), in a serving mode
-        the whole row (the rank's slice gathered over 'model')."""
-        mesh = _model_mesh(serving=True)
-        if mesh is not None and _model_mesh() is not None:
-            return self._head(params, coll.all_gather(y, mesh, "model", 1))
-        return self._whole_vocab(self._head(params, y), mesh)
+        where it is the rank's sequence slice, is gathered first), in a
+        serving mode the whole row (the rank's slice gathered over
+        'model')."""
+        mesh = _model_mesh()
+        if mesh is not None:
+            if _seq_parallel(_row_parallel_ctx()):
+                y = coll.all_gather(y, mesh, "model", 1)
+            return self._head(params, y)
+        return self._whole_vocab(self._head(params, y), _model_mesh(serving=True))
 
     def _head(self, params: dict, y: torch.Tensor) -> torch.Tensor:
         """The final norm, the head (the rank's vocabulary slice on a
@@ -156,12 +168,22 @@ class Model:
         prefill returns them (the JAX package's prefill cell keeps
         ``logits[:, -1:]``): on a model axis the last position's row is
         gathered from each rank's slice, not the whole sequence, and its
-        logits are whole over the vocabulary on every rank."""
-        B, S = batch["embeds" if self.cfg.embed_inputs else "tokens"].shape[:2]
+        logits are whole over the vocabulary on every rank.
+
+        In train mode on a model axis that does not divide S, the forward
+        runs with the residual whole over 'model' (``whole_residual``), as
+        JAX's falls back from its sequence-parallel projections there."""
+        S = batch["embeds" if self.cfg.embed_inputs else "tokens"].shape[1]
         mesh = _model_mesh()
-        if mesh is not None:
-            _check_model_axis(self.cfg, S, mesh.axis_size("model"))
+        if mesh is not None and S % mesh.axis_size("model"):
+            with use_sharding(whole_residual(current_context())):
+                return self._forward(params, batch, collect_kv, last)
+        return self._forward(params, batch, collect_kv, last)
+
+    def _forward(self, params: dict, batch: dict, collect_kv: bool, last: bool):
+        mesh = _model_mesh()
         x = self.embed(params, batch)
+        B, S = batch["embeds" if self.cfg.embed_inputs else "tokens"].shape[:2]
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
@@ -170,10 +192,11 @@ class Model:
             return self.logits(params, y), caches
         if mesh is None:
             return self.logits(params, y[:, -1:]), caches
-        # each rank's last row (the last rank's is the prompt's), its
-        # logits gathered whole over the vocabulary
-        y = coll.all_gather(y[:, -1:], mesh, "model", 1)[:, -1:]
-        return self._whole_vocab(self._head(params, y), mesh), caches
+        # each rank's last row (the last rank's is the prompt's) where the
+        # sequence is split, its logits gathered whole over the vocabulary
+        y = coll.all_gather(y[:, -1:], mesh, "model", 1) if _seq_parallel(
+            _row_parallel_ctx()) else y
+        return self._whole_vocab(self._head(params, y[:, -1:]), mesh), caches
 
     # ------------------------------------------------------------------ loss --
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
@@ -240,24 +263,23 @@ class Model:
     def cache_layouts(self, batch: int, max_len: int, ctx) -> dict:
         """Each cache leaf's spec under a serving context (``decode`` or
         ``long`` mode): ``resolve_spec`` of its logical axes at its global
-        shape, as the JAX package's ``cache_shardings``.  Raises where the
-        serving path cannot read that layout: the batch must split over
-        every mesh axis its rule names (JAX keeps a smaller batch whole),
-        and an attention cache's sequence over every axis of ``kv_seq``
-        the batch leaves."""
+        shape, as the JAX package's ``cache_shardings``.  A batch smaller
+        than its rule's axes is whole (JAX's ``_fit_axes``): the ranks of
+        the axes it leaves hold and compute the same rows.  Raises where an
+        attention cache's sequence does not split over every axis of
+        ``kv_seq`` the batch's rule leaves (a cache shorter than those
+        axes), which the serving path reads."""
         out = {}
         for name, (shape, _dt, axes, _f) in init_cache_shapes(self.cfg, batch,
                                                                max_len).items():
             spec = resolve_spec(tuple(axes), tuple(shape), ctx, "act")
             got = dict(zip(axes, (spec_axes(e) for e in spec)))
-            for logical, want in (("batch", rule_axes(ctx, "batch")),
-                                  ("kv_seq", kv_seq_axes(ctx))):
-                if logical in got and got[logical] != want:
-                    raise ValueError(
-                        f"cache leaf {name} {tuple(shape)} on {ctx.mesh.axis_sizes()} in "
-                        f"{ctx.mode!r} mode: its {logical} dimension resolves to "
-                        f"{got[logical]}, the serving path needs {want} (a dimension "
-                        f"smaller than its axes is kept whole by the rules)")
+            if "kv_seq" in got and got["kv_seq"] != kv_seq_axes(ctx):
+                raise ValueError(
+                    f"cache leaf {name} {tuple(shape)} on {ctx.mesh.axis_sizes()} in "
+                    f"{ctx.mode!r} mode: its kv_seq dimension resolves to {got['kv_seq']}, "
+                    f"the serving path needs {kv_seq_axes(ctx)} (a dimension smaller than "
+                    "its axes is kept whole by the rules)")
             out[name] = spec
         return out
 
@@ -307,19 +329,12 @@ def _read(params: dict, name: str, dtype) -> torch.Tensor:
 
 def _model_mesh(serving: bool = False):
     """The current context's mesh when it has a model axis above 1 and the
-    mode is train (the sequence-parallel residual) or, with ``serving``,
-    any mode; else None."""
+    mode is train (the vocabulary-parallel logits and loss) or, with
+    ``serving``, any mode; else None."""
     rp = _row_parallel_ctx()
-    if rp is None or not (serving or _seq_parallel(rp)):
+    if rp is None or not (serving or rp[0].mode == "train"):
         return None
     return rp[0].mesh
-
-
-def _check_model_axis(cfg: ModelConfig, seq: int, m: int):
-    """What a model axis of m > 1 needs of the batch."""
-    if seq % m:
-        raise ValueError(f"a model axis of {m} does not divide the sequence length {seq} "
-                         "(the sequence-parallel residual splits it evenly)")
 
 
 def _vocab_parallel_terms(lg: torch.Tensor, lb: torch.Tensor, mesh):

@@ -59,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.parallel.sharding import carry_context
 
-from .common import ModelConfig, ParamBuilder, stack_params, torch_dtype
+from .common import ModelConfig, ParamBuilder, ParamShape, stack_params, torch_dtype
 from .layers import (attention, compute_params, init_attention, init_mlp, init_moe, init_rmsnorm,
                      mlp, moe, rmsnorm, step_layout)
 from .ssm import init_mamba2, mamba2_block, mamba2_state_shapes
@@ -90,8 +90,8 @@ def _check_family(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _init_dense_layer(generator: Optional[torch.Generator], cfg: ModelConfig):
-    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
+def _init_dense_layer(generator: Optional[torch.Generator], cfg: ModelConfig, cast=None):
+    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype), cast)
     init_rmsnorm(b, "ln_attn", cfg.d_model)
     init_attention(b, "attn", cfg)
     init_rmsnorm(b, "ln_mlp", cfg.d_model)
@@ -102,16 +102,16 @@ def _init_dense_layer(generator: Optional[torch.Generator], cfg: ModelConfig):
     return b.build()
 
 
-def _init_mamba_layer(generator: Optional[torch.Generator], cfg: ModelConfig):
-    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
+def _init_mamba_layer(generator: Optional[torch.Generator], cfg: ModelConfig, cast=None):
+    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype), cast)
     init_rmsnorm(b, "ln", cfg.d_model)
     init_mamba2(b, "mamba", cfg)
     return b.build()
 
 
-def _init_xlstm_unit(generator: Optional[torch.Generator], cfg: ModelConfig):
+def _init_xlstm_unit(generator: Optional[torch.Generator], cfg: ModelConfig, cast=None):
     """One unit: (xlstm_slstm_every - 1) mLSTM blocks + 1 sLSTM block."""
-    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype))
+    b = ParamBuilder(generator, torch_dtype(cfg.param_dtype), cast)
     for i in range(cfg.xlstm_slstm_every - 1):
         init_rmsnorm(b, f"ln_m{i}", cfg.d_model)
         init_mlstm_block(b, f"mlstm{i}", cfg)
@@ -120,27 +120,52 @@ def _init_xlstm_unit(generator: Optional[torch.Generator], cfg: ModelConfig):
     return b.build()
 
 
+def _draw_stacked(draw, n: int) -> tuple[dict, dict]:
+    """``n`` layers drawn in order by ``draw()`` (a (params, specs) pair a
+    layer), stacked along a leading 'layers' axis as ``stack_params`` does.
+    Tensors go into the stacked leaves layer by layer, so the device holds
+    the model's params once and one layer's draw, where a list of drawn
+    layers and their stack held them twice (yi_34b's 68.8 GB in bf16)."""
+    if n == 0:
+        return {}, {}
+    params, specs = draw()
+    if not params or isinstance(next(iter(params.values())), ParamShape):
+        return stack_params([(params, specs)] + [draw() for _ in range(n - 1)])
+    stacked = {}
+    for k in list(params):
+        v = params.pop(k)
+        stacked[k] = v.new_empty((n,) + tuple(v.shape))
+        stacked[k][0] = v
+    for i in range(1, n):
+        layer, _ = draw()
+        for k, dst in stacked.items():
+            dst[i] = layer.pop(k)
+    return stacked, {k: ("layers",) + tuple(specs[k]) for k in stacked}
+
+
 def _n_units(cfg: ModelConfig) -> int:
     return cfg.n_layers // max(cfg.xlstm_slstm_every, 1)
 
 
-def init_blocks(generator: Optional[torch.Generator], cfg: ModelConfig) -> tuple[dict, dict]:
+def init_blocks(generator: Optional[torch.Generator], cfg: ModelConfig,
+                cast=None) -> tuple[dict, dict]:
     """Stacked block params (leading ``layers`` axis: layers, or xLSTM
     units) + their logical axes; for the hybrid family also the shared
     block's (not stacked).  ``generator=None`` gives :class:`ParamShape`
-    records for every family."""
+    records for every family.  ``cast``: each param's dtype once drawn
+    (:class:`ParamBuilder`)."""
     if generator is not None:
         _check_family(cfg)
     if cfg.family == "ssm":
-        per_layer = [_init_xlstm_unit(generator, cfg) for _ in range(_n_units(cfg))]
+        init_layer, n = _init_xlstm_unit, _n_units(cfg)
     else:
         init_layer = _init_mamba_layer if cfg.family == "hybrid" else _init_dense_layer
-        per_layer = [init_layer(generator, cfg) for _ in range(cfg.n_layers)]
-    stacked, st_specs = stack_params(per_layer)
+        n = cfg.n_layers
+    stacked, st_specs = _draw_stacked(lambda: init_layer(generator, cfg, cast), n)
     params = {f"blocks/{k}": v for k, v in stacked.items()}
     specs = {f"blocks/{k}": v for k, v in st_specs.items()}
     if cfg.family == "hybrid":
-        shared, sh_specs = _init_dense_layer(generator, cfg)
+        shared, sh_specs = _init_dense_layer(generator, cfg, cast)
         params.update({f"shared_attn/{k}": v for k, v in shared.items()})
         specs.update({f"shared_attn/{k}": v for k, v in sh_specs.items()})
     return params, specs

@@ -384,9 +384,9 @@ def build_prefill_step(model: Model, ctx: Optional[ShardingContext], batch: int,
     mesh, ``params`` and ``cache`` as :func:`build_serve_step` takes
     them, ``prompt`` the rank's shard of a ``batch`` x S prompt under the
     train rules, :func:`place_batch`): the prompt runs in train mode, as
-    the JAX package's prefill cell does (the sequence-parallel residual:
-    the model axis must divide S), and each cache leaf it fills is moved
-    from the train layout it comes out in into the cache's
+    the JAX package's prefill cell does (the residual sequence-parallel
+    where the model axis divides S, else whole), and each cache leaf it
+    fills is moved from the train layout it comes out in into the cache's
     (:func:`cache_layouts` for ``batch`` x ``max_len``) by
     ``collectives.redistribute``: the K/V padded to the cache's length
     first (gemma2's rings laid out as their slots), the Mamba2 conv tail

@@ -78,6 +78,17 @@ CASES = {
              ("xlstm", "xlstm_125m", {}),
              ("phi35_dense", "phi35_moe_42b", {})],          # the global batch's dense MoE
 }
+# cases whose sequence the model axis does not divide (S 15 on a model
+# axis of 2): the residual whole over 'model', as JAX falls back there
+UNEVEN_S = 15
+UNEVEN = {(1, 2): [("stablelm_s15", "stablelm_3b", {})],
+          (2, 2): [("stablelm_s15", "stablelm_3b", {}),
+                   ("gemma2_s15", "gemma2_9b", {}),
+                   ("phi35_s15", "phi35_moe_42b", {}),
+                   ("qwen2_vl_s15", "qwen2_vl_7b", {})]}
+for _mesh, _cases in UNEVEN.items():
+    CASES[_mesh] = CASES[_mesh] + _cases
+CASE_SEQ = {name: UNEVEN_S for cases in UNEVEN.values() for name, _, _ in cases}
 ALL_CASES = [(mesh, name) for mesh, cases in CASES.items() for name, _, _ in cases]
 CASE_KW = {(mesh, name): (arch, kw) for mesh, cases in CASES.items() for name, arch, kw in cases}
 # the JAX runs, at most this many cases a subprocess (they all run at once)
@@ -124,8 +135,8 @@ JAX_RUNS = textwrap.dedent("""
     from repro.train.steps import TrainState, build_train_step
 
     out_dir, spec = sys.argv[1], json.loads(sys.argv[2])
-    B, S, LR, STEPS = spec["B"], spec["S"], spec["LR"], spec["STEPS"]
-    for (D, M), name, arch, kw in spec["cases"]:
+    B, LR, STEPS = spec["B"], spec["LR"], spec["STEPS"]
+    for (D, M), name, arch, kw, S in spec["cases"]:
         cfg = smoke_config(arch).replace(**{"dtype": "float32", "logit_dtype": "float32", **kw})
         model = Model(cfg)
         init = {k: jnp.asarray(v) for k, v in np.load(os.path.join(out_dir, f"init_{name}.npz")).items()}
@@ -149,7 +160,7 @@ JAX_RUNS = textwrap.dedent("""
         out = {"loss": np.float32(loss), "losses": np.array(losses)}
         out.update({"grad/" + k: np.asarray(v) for k, v in grads.items()})
         out.update({"param/" + k: np.asarray(v) for k, v in state.params.items()})
-        if kw == {} and arch in ("phi35_moe_42b", "llama4_scout_17b"):
+        if kw == {} and (arch in ("phi35_moe_42b", "llama4_scout_17b") or S != spec["S"]):
             host = {k: jnp.asarray(v) for k, v in data.sample(0).items()}
             out["single_device_loss"] = np.float32(jax.jit(model.loss)(init, host))
         np.savez(os.path.join(out_dir, f"{D}x{M}_{name}.npz"), **out)
@@ -173,7 +184,8 @@ def runs(tmp_path_factory):
               for n in [-(-len(cases) // JAX_GROUP)] for i in range(n)]
     for mesh, cases in groups:
         spec = {"B": B, "S": S, "LR": LR, "STEPS": STEPS,
-                "cases": [[list(mesh), name, arch, kw] for name, arch, kw in cases]}
+                "cases": [[list(mesh), name, arch, kw, CASE_SEQ.get(name, S)]
+                          for name, arch, kw in cases]}
         procs.append(subprocess.Popen([sys.executable, "-c", JAX_RUNS, str(root), json.dumps(spec)],
                                       stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
                                       text=True, env=env, cwd=ROOT))
@@ -210,7 +222,7 @@ def _port_ranks(out_dir: str, init_dir: str, mesh_shape: tuple, cases: list):
                   .requires_grad_() for k, v in full.items()}
         state = TrainState(params=params, opt=adamw_init(params),
                            step=torch.zeros((), dtype=torch.int32))
-        data = SyntheticTokens(cfg, B, S)
+        data = SyntheticTokens(cfg, B, CASE_SEQ.get(name, S))
         loss, grads = loss_and_grads(model, state.params, make_batch_on_mesh(data.sample(0), cfg,
                                                                              ctx), layout)
         grads = gather_params(grads, layout)
@@ -400,6 +412,8 @@ def test_collective_bytes_match_the_shapes(runs):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     for name, arch, kw in CASES[(2, 2)]:
+        if name in CASE_SEQ:
+            continue   # the prediction is of the sequence-parallel layout
         got = json.loads(str(np.load(runs[1][(2, 2)] / f"{name}.npz")["comm"]))
         cfg = fp32(arch, **kw)
         want = smoke.predicted_comm_bytes(torch, cfg, (2, 2), B, S)
@@ -533,6 +547,31 @@ def test_overrides_and_unknown_modes_follow_jax():
     with pytest.raises(KeyError):
         ShardingContext(mesh=mine.mesh, mode="prefill").act_rule("batch")
     assert set(ACT_RULES) == set(jax_sharding.ACT_RULES)
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "gemma2_9b", "zamba2_1p2b", "xlstm_125m"])
+def test_cache_layouts_equal_jax_where_the_batch_is_smaller_than_its_axes(arch):
+    """``Model.cache_layouts`` is JAX's ``cache_shardings`` spec for every
+    leaf, on (2, 2) in both serving modes, at a batch of 1 (smaller than
+    the data axis: kept whole) and 2; stablelm's cache at batch 1 in
+    decode mode is split over 'model' on its sequence alone."""
+    from repro.models.transformer import init_cache_shapes as jax_cache_shapes
+    from repro.parallel import sharding as jax_sharding
+
+    cfg = smoke_config(arch)
+    names, shape = ("data", "model"), (2, 2)
+    for mode in ("decode", "long"):
+        mine = ShardingContext(mesh=Mesh(tuple(range(4)), names, shape), mode=mode)
+        ref = jax_sharding.ShardingContext(mesh=_jax_mesh(names, shape), mode=mode)
+        for batch in (1, 2):
+            got = Model(cfg, "cpu").cache_layouts(batch, 12, mine)
+            want = {name: tuple(jax_sharding.resolve_spec(tuple(axes), tuple(dims), ref, "act"))
+                    for name, (dims, _dt, axes, _f) in jax_cache_shapes(cfg, batch, 12).items()}
+            assert got == want, (mode, batch)
+    if arch == "stablelm_3b":
+        ctx = ShardingContext(mesh=Mesh(tuple(range(4)), names, shape), mode="decode")
+        assert Model(cfg, "cpu").cache_layouts(1, 12, ctx)["k"] == (None, None, "model", None,
+                                                                     None)
 
 
 @pytest.mark.parametrize("arch", ["stablelm_3b", "phi35_moe_42b", "qwen2_vl_7b", "musicgen_medium",
@@ -747,16 +786,22 @@ def test_cli_refuses_a_model_axis_the_world_cannot_hold(capsys):
     assert "torchrun" in capsys.readouterr().err
 
 
-def test_mesh_refuses_a_model_axis_that_splits_no_sequence():
-    """The sequence-parallel residual needs the model axis to divide S;
-    every family is accepted where it does."""
-    from repro_torch.models.model import _check_model_axis
-
-    with pytest.raises(ValueError, match="sequence length 15"):
-        _check_model_axis(smoke_config("stablelm_3b"), 15, 2)
-    assert _check_model_axis(smoke_config("xlstm_125m"), 16, 2) is None
-    with pytest.raises(ValueError, match="sequence length 15"):
-        _check_model_axis(smoke_config("xlstm_125m"), 15, 2)
+def test_mesh_refuses_a_model_axis_that_splits_no_sequence(runs):
+    """No longer refused: a model axis of 2 that does not divide S 15
+    runs the step with the residual whole over 'model', as JAX's
+    ``_row_parallel_ctx`` falls back there.  On (1, 2) and (2, 2) the
+    dense step's loss is JAX's under the same mesh and JAX's on one
+    device, and its gradients and the params after two AdamW steps are
+    JAX's under the same mesh (every S 15 case's are in
+    ``test_step_matches_jax_under_the_same_mesh``)."""
+    for mesh in UNEVEN:
+        ref, got = _results(runs, mesh, "stablelm_s15")
+        np.testing.assert_allclose(got["loss"], ref["loss"], **TOL)
+        np.testing.assert_allclose(got["loss"], ref["single_device_loss"], **TOL)
+        np.testing.assert_allclose(got["losses"], ref["losses"], **TOL)
+        for k in (k for k in ref.files if k.startswith(("grad/", "param/"))):
+            assert np.isfinite(got[k]).all(), k
+            np.testing.assert_allclose(got[k], ref[k], err_msg=k, **TOL)
 
 
 @pytest.mark.parametrize("config,m,split", [(smoke_config, 2, False), (arch_config, 4, True)])
@@ -812,10 +857,20 @@ def test_chip_smoke_defines_every_phase_before_it_runs():
 # from one rank's slice of every cache into the next's
 SERVE_FAMILIES = [("stablelm", "stablelm_3b"), ("gemma2", "gemma2_9b"), ("zamba2", "zamba2_1p2b"),
                   ("xlstm", "xlstm_125m"), ("phi35", "phi35_moe_42b")]
-SERVE_CASES = [((D, M), name, arch, mode) for D, M in ((1, 2), (2, 2))
-               for name, arch in SERVE_FAMILIES for mode in ("decode", "long")]
 SERVE_STEPS, SERVE_LEN, SERVE_PROMPT = 10, 12, 4
 SERVE_BATCH = {"decode": 2, "long": 1}
+# (mesh, case name, arch, mode, batch); and a decode batch of 1 on (2, 2),
+# smaller than the data axis its rule names: JAX keeps it whole, its cache
+# P(None, None, 'model', None, None), and both data rows of ranks compute it
+SERVE_CASES = [((D, M), name, arch, mode, SERVE_BATCH[mode]) for D, M in ((1, 2), (2, 2))
+               for name, arch in SERVE_FAMILIES for mode in ("decode", "long")] + [
+    ((2, 2), "stablelm", "stablelm_3b", "decode", 1)]
+
+
+def _serve_tag(mesh, name, mode, batch) -> str:
+    """A serving case's file tag (and, with '-' for '_', its test id)."""
+    return (f"{mesh[0]}x{mesh[1]}_{name}_{mode}"
+            + ("" if batch == SERVE_BATCH[mode] else f"_batch{batch}"))
 
 JAX_SERVE = textwrap.dedent("""
     import os
@@ -857,7 +912,8 @@ JAX_SERVE = textwrap.dedent("""
                 logits.append(np.asarray(lg[:, 0]))
             return np.stack(logits, 1)
 
-        np.save(os.path.join(out_dir, f"jax_{D}x{M}_{name}_{mode}.npy"), decode(cache, 0, []))
+        tag = f"{D}x{M}_{name}_{mode}" + spec["suffix"].get(str(B), "")
+        np.save(os.path.join(out_dir, f"jax_{tag}.npy"), decode(cache, 0, []))
         if cfg.family in ("hybrid", "ssm"):
             continue   # the JAX forward collects no recurrent state: token by token is the reference
         # dense and MoE: JAX's prefill cell (train mode) fills the cache, then the steps
@@ -880,7 +936,7 @@ JAX_SERVE = textwrap.dedent("""
                 host[name_][:, :, :P_] = np.asarray(k)[idx]
                 host["v" + name_[1:]][:, :, :P_] = np.asarray(v)[idx]
         cache = jax.device_put({n: jnp.asarray(x) for n, x in host.items()}, c_sh)
-        np.save(os.path.join(out_dir, f"jaxprefill_{D}x{M}_{name}_{mode}.npy"),
+        np.save(os.path.join(out_dir, f"jaxprefill_{tag}.npy"),
                 decode(cache, P_, [np.asarray(lg[:, -1])]))
 """)
 
@@ -902,9 +958,8 @@ def _serve_ranks(out_dir: str, mesh_shape: tuple, cases: list):
 
     torch.set_num_threads(1)   # tiny tensors: the ranks' threads would only contend
     mesh = make_host_mesh(mesh_shape[1], device=torch.device("cpu"))
-    for name, arch, mode in cases:
+    for name, arch, mode, B in cases:
         ctx = ShardingContext(mesh=mesh, mode=mode)
-        B = SERVE_BATCH[mode]
         model = Model(fp32(arch), "cpu")
         full = bridge.to_torch(dict(np.load(os.path.join(out_dir, f"init_{name}.npz"))), "cpu")
         params = shard_params(full, param_layout(model, ctx))
@@ -929,10 +984,9 @@ def _serve_ranks(out_dir: str, mesh_shape: tuple, cases: list):
                     logits.append(lg[:, 0].numpy())
                 runs[prefill] = np.stack(logits, 1)
         if mesh.rank == 0:   # its data shard's rows, whole over the vocabulary
-            np.save(os.path.join(out_dir, f"port_{mesh_shape[0]}x{mesh_shape[1]}_{name}_{mode}.npy"),
-                    runs[False])
-            np.save(os.path.join(out_dir, f"prefill_{mesh_shape[0]}x{mesh_shape[1]}_{name}_{mode}"
-                                          ".npy"), runs[True])
+            tag = _serve_tag(mesh_shape, name, mode, B)
+            np.save(os.path.join(out_dir, f"port_{tag}.npy"), runs[False])
+            np.save(os.path.join(out_dir, f"prefill_{tag}.npy"), runs[True])
 
 
 @pytest.fixture(scope="module")
@@ -941,7 +995,7 @@ def serve_runs(tmp_path_factory):
     once) and, while they work, the port's ranks."""
     root = tmp_path_factory.mktemp("serve")
     rng = np.random.default_rng(0)
-    for B in set(SERVE_BATCH.values()):
+    for B in {case[-1] for case in SERVE_CASES}:
         np.save(root / f"tokens_{B}.npy", rng.integers(0, 256, (B, SERVE_STEPS)).astype(np.int32))
     for name, arch in SERVE_FAMILIES:
         params, _ = Model(fp32(arch), "cpu").init(torch.Generator().manual_seed(0))
@@ -951,14 +1005,16 @@ def serve_runs(tmp_path_factory):
     for mesh in ((1, 2), (2, 2)):
         for mode in ("decode", "long"):
             spec = {"len": SERVE_LEN, "steps": SERVE_STEPS, "prompt": SERVE_PROMPT,
-                    "cases": [[list(mesh), name, arch, mode, SERVE_BATCH[mode]]
-                              for name, arch in SERVE_FAMILIES]}
+                    "suffix": {str(b): f"_batch{b}" for b in range(1, 3)
+                               if b != SERVE_BATCH[mode]},
+                    "cases": [[list(m), name, arch, md, b] for m, name, arch, md, b in SERVE_CASES
+                              if m == mesh and md == mode]}
             procs.append(subprocess.Popen([sys.executable, "-c", JAX_SERVE, str(root),
                                            json.dumps(spec)], stdout=subprocess.DEVNULL,
                                           stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT))
     try:
         for mesh in ((1, 2), (2, 2)):
-            cases = [(n, a, mode) for m, n, a, mode in SERVE_CASES if m == mesh]
+            cases = [(n, a, mode, b) for m, n, a, mode, b in SERVE_CASES if m == mesh]
             spawn(_serve_ranks, mesh[0] * mesh[1], (str(root), mesh, cases),
                   init_file=str(root / ("store_%dx%d" % mesh)), timeout=600)
         for proc in procs:
@@ -972,9 +1028,10 @@ def serve_runs(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("mesh,name,arch,mode", SERVE_CASES,
-                         ids=[f"{m[0]}x{m[1]}-{n}-{mode}" for m, n, _, mode in SERVE_CASES])
-def test_serve_steps_match_jax_under_the_same_mesh(serve_runs, mesh, name, arch, mode):
+@pytest.mark.parametrize("mesh,name,arch,mode,batch", SERVE_CASES,
+                         ids=[_serve_tag(m, n, mode, b).replace("_", "-", 2)
+                              for m, n, _, mode, b in SERVE_CASES])
+def test_serve_steps_match_jax_under_the_same_mesh(serve_runs, mesh, name, arch, mode, batch):
     """Every decode step's logits within 2e-5 of JAX's ``build_serve_step``
     jitted with ``cache_shardings`` under the same mesh and mode (rank 0's
     rows: its data shard in decode mode, the whole batch in long mode),
@@ -982,10 +1039,13 @@ def test_serve_steps_match_jax_under_the_same_mesh(serve_runs, mesh, name, arch,
     tokens in train mode moved into the cache's layout, against JAX's
     prefill (its forward in train mode, the cache filled from its K/V)
     and the same steps, or, for the recurrent families, whose JAX forward
-    collects no state, against the token-by-token steps."""
-    tag = f"{mesh[0]}x{mesh[1]}_{name}_{mode}"
+    collects no state, against the token-by-token steps.  A decode batch
+    of 1 on (2, 2) is whole on every rank (its cache split over 'model'
+    alone, JAX's layout), so rank 0's row is the batch."""
+    tag = _serve_tag(mesh, name, mode, batch)
     want = np.load(serve_runs / f"jax_{tag}.npy")
-    rows = slice(0, want.shape[0] // mesh[0]) if mode == "decode" else slice(None)
+    rows = slice(0, want.shape[0] // mesh[0]) if mode == "decode" and batch >= mesh[0] \
+        else slice(None)
     got = np.load(serve_runs / f"port_{tag}.npy")
     np.testing.assert_allclose(got, want[rows], **TOL)
     after = np.load(serve_runs / f"prefill_{tag}.npy")
