@@ -16,10 +16,12 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              ragged Sq, decode at Sk 4096 and 5184, each timed beside its
              bound; a bf16 decode call the wrappers split runs the split
              decode and its merge; the bf16 prefill, the warpgroup kernel,
-             at the edges of its tiles (Sq 16 to 5183, causal Sq != Sk, Sk
-             not a multiple of 64, windows 64 and 4096, q and k scaled by
-             4, strided views), through the lse entry with rows that admit
-             no key, and two calls at gemma2's serve shape bitwise equal),
+             at the edges of its tiles at every head dim through both
+             entries (Sq 16 to 5183, causal Sq != Sk, Sk not a multiple of
+             the tile, GQA 1 to 24, windows at tile edges and 4096, q and k
+             scaled by 4 under the softcap, strided views, rows that admit
+             no key), and two calls bitwise equal at gemma2's serve shape
+             and at stablelm's and phi3.5's prefill shapes),
              and the serve paths' shapes), then
              timed at the serve paths' shapes beside
              the plain version, one library call where there is one, and
@@ -42,7 +44,7 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              split decode and the backward; by torch.profiler, a gemma2 decode call and a
              half-cache lse call run the split decode then its merge, a
              D 256 prefill call through either entry the warpgroup prefill
-             (a D 128 one the mma.sync prefill), and a D 256 backward call
+             (so do D 64, 80 and 128 calls), and a D 256 backward call
              its two wgmma kernels; the SSD and mLSTM backwards'
              gradients against autograd of their plain versions in fp32
              (ragged S, S shorter than a chunk, strided model-layout
@@ -289,9 +291,17 @@ EARLIER_GEMMA2 = {"decode step": "50.08-73.41 ms", "train step": "659.0 ms",
                   "decode_ring": "0.1741 ms", "decode_global": "0.1894 ms", "lse": "0.0955 ms",
                   "global": "26.8730 ms", "local": "20.5695 ms",
                   "prefill_global": "2.3799 ms", "prefill_local": "2.3041 ms"}
-# The bf16 prefill at head dim 256 (Sq >= 16) runs the warpgroup kernel
-# through both forward entries; below D 256 the mma.sync prefill.
-PREFILL_D256_KERNEL, PREFILL_KERNEL = "attn_prefill_wgmma", "attn_prefill_bf16"
+# The bf16 prefill (Sq >= 16) runs the warpgroup kernel at every head dim
+# through both forward entries.
+PREFILL_KERNEL = "attn_prefill_wgmma"
+# The bf16 prefill's times below D 256 with the earlier mma.sync plan
+# (attn_prefill_bf16; chip_smoke.py on an H100 80GB HBM3 at 700.00 W, PR
+# 27's and PR 31's calls, PERF.md row 1), by q's shape, printed beside
+# today's.
+EARLIER_PREFILL = {(8, 32, 512, 80): "0.0903 ms", (8, 32, 512, 64): "0.0798 ms",
+                   (8, 32, 512, 128): "0.1475 ms", (8, 28, 512, 128): "0.1341 ms",
+                   (8, 56, 512, 128): "0.2601 ms", (8, 96, 512, 128): "0.4286 ms",
+                   (8, 40, 512, 128): "0.1821 ms", (8, 24, 512, 64): "0.0749 ms"}
 L2_BYTES = 50 * 2**20   # H100 L2; decode timings rotate over more K/V than this
 # The bf16 prefill gaps to the plain twins that the scalar kernels gave
 # (chip_smoke.py on an H100 80GB HBM3 at 700 W), printed beside today's.
@@ -607,6 +617,13 @@ def ptxas_summary(log: str) -> dict[tuple[str, tuple[int, ...]], str]:
     return out
 
 
+def fa_dims() -> tuple[int, ...]:
+    """The attention kernels' head dims."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return fa.SUPPORTED_D
+
+
 def build_phase(torch):
     """One nvcc per kernel source, all started together; prints each
     kernel's registers, spills and shared memory as ptxas reports them."""
@@ -633,12 +650,15 @@ def build_phase(torch):
                     print(f"[build] {name}: {kernel} at D 80: {props}")
         if name == "flash_attention":       # gemma2's head dim; the decode split or not
             for (kernel, args), props in summary.items():
-                if args[:1] == (256,):
+                if args[:1] == (256,) and kernel != PREFILL_KERNEL:
                     mode = {(0,): " (unsplit)", (1,): " (split)"}.get(args[1:], "")
                     print(f"[build] {name}: {kernel} at D 256{mode}: {props}")
-            wg = [props for (kernel, _), props in summary.items() if kernel == PREFILL_D256_KERNEL]
-            print(f"[build] {name}: {PREFILL_D256_KERNEL} (the D 256 bf16 prefill; 384 threads, "
-                  f"one block an SM, before setmaxnreg): {wg[0] if wg else 'not in the log'}")
+            wg = {args[0]: props for (kernel, args), props in summary.items()
+                  if kernel == PREFILL_KERNEL and args}
+            for D in fa_dims():
+                print(f"[build] {name}: {PREFILL_KERNEL} at D {D} (the bf16 prefill; 384 "
+                      f"threads, one block an SM, before setmaxnreg): "
+                      f"{wg.get(D, 'not in the log')}")
     from repro_torch.kernels import mlstm, ssd
 
     print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
@@ -794,7 +814,7 @@ def kernel_phase(torch, dev, failures) -> dict:
                   f"{bound * 1e3:.2f} us ({by}), {ms / bound:.1f}x")
             del q, k, v
 
-    d256_prefill_edges(torch, dev, failures)
+    prefill_edges(torch, dev, failures)
 
     # The serve path's two shapes, in the model's strided layout.
     H, D, Sk_dec = 32, 80, PROMPT + GEN - 1
@@ -810,9 +830,9 @@ def kernel_phase(torch, dev, failures) -> dict:
 
     pre, dec = attention_timings(torch, pq, [(pk, pv)], True, dev), \
         attention_timings(torch, dq, dkv, False, dev)
-    for label, t in (("prefill (8,32,512,80) causal bf16", pre),
-                     (f"decode (8,32,1,80) Sk {Sk_dec} bf16", dec)):
-        print_attention_time(label, t)
+    for label, t, q in (("prefill (8,32,512,80) causal bf16", pre, pq),
+                        (f"decode (8,32,1,80) Sk {Sk_dec} bf16", dec, dq)):
+        print_attention_time(label, t, q)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -826,13 +846,13 @@ def kernel_phase(torch, dev, failures) -> dict:
     }
 
 
-# The D 256 bf16 prefill's edges (PREFILL_D256_KERNEL: 128 query rows a
-# block, 64 a consumer warpgroup, 64-key tiles): label, B, H, KV, Sq, Sk,
-# causal, window, softcap, the scale of q and k, the model's strided
-# (B,S,H,D) layout.  Sq 16, 63, 64, 65, 129 and 5183 leave one consumer's
-# rows partly or wholly past Sq; windows of 64 and 4096 put whole tiles
-# outside one consumer's keys but not the other's; q and k scaled by 4
-# saturate the softcap.
+# The D 256 bf16 prefill's edges (PREFILL_KERNEL: 128 query rows an
+# item, 64 a consumer warpgroup, 64-key tiles at D 256): label, B, H, KV,
+# Sq, Sk, causal, window, softcap, the scale of q and k, the model's
+# strided (B,S,H,D) layout.  Sq 16, 63, 64, 65, 129 and 5183 leave one
+# consumer's rows partly or wholly past Sq; windows of 64 and 4096 put
+# whole tiles outside one consumer's keys but not the other's; q and k
+# scaled by 4 saturate the softcap.
 D256_PREFILL_EDGES = [
     ("Sq 16", 1, 4, 2, 16, 16, True, 0, 50.0, 2.0, False),
     ("Sq 63", 1, 4, 2, 63, 63, True, 0, 50.0, 2.0, False),
@@ -857,66 +877,137 @@ D256_PREFILL_LSE = [
     ("lse D 256 Sq 300 Sk 100 window 64, rows with no key", 1, 4, 2, 300, 100, False, 64, 50.0),
     ("lse D 256 causal Sq 700 gqa 16/8", 1, 16, 8, 700, 700, True, 0, 50.0),
 ]
+# The same kernel's edges below D 256 (128-key tiles, one block an SM
+# walking the items), run at D 16, 32, 64, 80 and 128 (the tensor maps'
+# zero-filled columns past D at 16, 32 and 80), through both entries:
+# label, B, H, KV, Sq, Sk, causal, window, softcap, the scale of q and k,
+# the model's strided layout.  Tile edges of Sq (16 to 300); Sk below and
+# above Sq; GQA groups 1, 5, 7, 12 and 24 / 24; windows at a half, a whole
+# and one past a 128-key tile; the softcap saturated; the model's layout;
+# rows that admit no key (the last two; the second with more items than
+# SMs, so that a block walks items with keys and then items without).
+PREFILL_EDGES = [
+    ("Sq 16", 1, 4, 2, 16, 16, True, 0, 0.0, 1.0, False),
+    ("Sq 17", 1, 4, 2, 17, 17, True, 0, 0.0, 1.0, False),
+    ("Sq 63", 1, 4, 2, 63, 63, True, 0, 0.0, 1.0, False),
+    ("Sq 64", 2, 4, 2, 64, 64, True, 0, 0.0, 1.0, False),
+    ("Sq 65", 1, 4, 2, 65, 65, True, 0, 0.0, 1.0, False),
+    ("Sq 127", 1, 4, 2, 127, 127, True, 0, 0.0, 1.0, False),
+    ("Sq 128", 1, 4, 2, 128, 128, True, 0, 0.0, 1.0, False),
+    ("Sq 129 group 1", 1, 4, 4, 129, 129, True, 0, 0.0, 1.0, False),
+    ("Sq 300", 2, 4, 2, 300, 300, True, 0, 0.0, 1.0, False),
+    ("causal Sq 100 < Sk 300", 1, 4, 2, 100, 300, True, 0, 0.0, 1.0, False),
+    ("causal Sq 300 > Sk 100", 1, 4, 2, 300, 100, True, 0, 0.0, 1.0, False),
+    ("Sq 130 Sk 200", 2, 4, 2, 130, 200, False, 0, 0.0, 1.0, False),
+    ("gqa 5 (10/2)", 1, 10, 2, 200, 200, True, 0, 0.0, 1.0, False),
+    ("gqa 7 (14/2)", 1, 14, 2, 129, 129, True, 0, 0.0, 1.0, False),
+    ("gqa 12 (24/2)", 1, 24, 2, 128, 128, True, 0, 0.0, 1.0, False),
+    ("mha 24/24", 1, 24, 24, 150, 150, True, 0, 0.0, 1.0, False),
+    ("window 64", 1, 4, 2, 320, 320, True, 64, 0.0, 1.0, False),
+    ("window 128", 1, 4, 2, 400, 400, True, 128, 0.0, 1.0, False),
+    ("window 129", 1, 4, 2, 300, 300, True, 129, 0.0, 1.0, False),
+    ("softcap 50, q, k x 4", 1, 4, 2, 256, 256, True, 0, 50.0, 4.0, False),
+    ("softcap 50, q, k x 4, window 64", 1, 4, 2, 300, 300, True, 64, 50.0, 4.0, False),
+    ("strided (B,S,H,D) gqa 2 (8/4)", 2, 8, 4, 300, 300, True, 0, 0.0, 1.0, True),
+    ("Sq 300 Sk 100 window 64, rows with no key", 1, 4, 2, 300, 100, False, 64, 0.0, 1.0,
+     False),
+    ("288 items, the blocks' later ones with no key", 2, 48, 8, 300, 100, False, 64, 0.0, 1.0,
+     False),
+]
+# Two calls bitwise equal at these prefill shapes (B, H, KV, S, D) in the
+# model's layout: stablelm's and phi3.5's.
+PREFILL_REPEATS = [("stablelm", 8, 32, 32, 512, 80), ("phi3.5", 8, 32, 8, 512, 128)]
 
 
-def d256_prefill_edges(torch, dev, failures) -> float:
-    """The D 256 bf16 prefill at its edges (``D256_PREFILL_EDGES``) against
-    ``attention_ref``, its lse entry (``D256_PREFILL_LSE``) against
-    ``attention_lse_ref``, each within 2e-2; then two calls at gemma2's
-    serve shape (2,16,5120,256) KV 8 softcap 50, global and local, bitwise
-    equal.  Returns the largest max abs error."""
+def prefill_check(torch, label, q, k, v, failures, **opts) -> float:
+    """The bf16 prefill through both forward entries against
+    ``attention_lse_ref`` within 2e-2: each output, and the lse where a row
+    admits a key; a row that admits none gives 0 and an lse of -inf.
+    Returns the largest max abs error."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    worst = 0.0
+    out = fa.flash_attention_cuda(q, k, v, **opts)
+    out2, lse = fa.flash_attention_lse_cuda(q, k, v, **opts)
+    want, want_lse = ref.attention_lse_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    empty = torch.isneginf(want_lse)
+    tol = TOL["bfloat16"]
+    err = max(float((o.float() - want.float()).abs().max()) for o in (out, out2))
+    lse_err = float((lse[~empty] - want_lse[~empty]).abs().max()) if bool((~empty).any()) else 0.0
+    ok = (all(bool(torch.isfinite(o).all()) and torch.allclose(o.float(), want.float(), **tol)
+              and not o[empty].any() for o in (out, out2))
+          and torch.equal(torch.isneginf(lse), empty)
+          and torch.allclose(lse[~empty], want_lse[~empty], **tol))
+    print(f"[kernel] prefill {label} bfloat16: max_abs_err={err:.3e} (both entries), lse "
+          f"{lse_err:.3e} ({int(empty.sum())} rows with no key; rtol={tol['rtol']}, "
+          f"atol={tol['atol']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"prefill {label}: max_abs_err {err:.3e}, lse {lse_err:.3e}")
+    return max(err, lse_err)
+
+
+def prefill_inputs(torch, B, H, KV, Sq, Sk, D, seed, dev, scale=1.0, strided=False):
+    """q, k, v of a prefill case: randn (q and k times ``scale``), or (strided)
+    views of (B,S,H,D) tensors, k and v slices of longer caches."""
+    if strided:
+        return tuple(model_layout(torch, B, n, S, D, "bfloat16", seed + i, dev, s_alloc=S + 64 * i)
+                     for i, (n, S) in enumerate(((H, Sq), (KV, Sk), (KV, Sk))))
+    return tuple(randn(torch, shape, "bfloat16", seed + i, dev, x)
+                 for i, (shape, x) in enumerate((((B, H, Sq, D), scale), ((B, KV, Sk, D), scale),
+                                                 ((B, KV, Sk, D), 1.0))))
+
+
+def prefill_edges(torch, dev, failures) -> float:
+    """The bf16 prefill at its edges through both forward entries
+    (``prefill_check``): ``PREFILL_EDGES`` at every head dim below 256,
+    ``D256_PREFILL_EDGES`` and ``D256_PREFILL_LSE`` at D 256; then two calls
+    bitwise equal at gemma2's serve shape (2,16,5120,256) KV 8 softcap 50,
+    global and local, and at ``PREFILL_REPEATS``.  Prints its wall time;
+    returns the largest max abs error."""
+    from repro_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    worst, n = 0.0, 0
+    for D in (d for d in fa_dims() if d < 256):
+        for seed, (label, B, H, KV, Sq, Sk, causal, window, cap, scale, strided) in enumerate(
+                PREFILL_EDGES):
+            q, k, v = prefill_inputs(torch, B, H, KV, Sq, Sk, D, 1700 + 3 * seed + 100 * D, dev,
+                                     scale, strided)
+            worst = max(worst, prefill_check(torch, f"D {D} {label}", q, k, v, failures,
+                                             causal=causal, window=window, softcap=cap))
+            n += 1
     for seed, (label, B, H, KV, Sq, Sk, causal, window, cap, scale, strided) in enumerate(
             D256_PREFILL_EDGES):
-        if strided:   # k and v as slices of a longer cache, as the model passes them
-            q, k, v = (model_layout(torch, B, n, S, 256, "bfloat16", 1500 + 3 * seed + i, dev,
-                                    s_alloc=S + 64 * i)
-                       for i, (n, S) in enumerate(((H, Sq), (KV, Sk), (KV, Sk))))
-        else:
-            q, k, v = (randn(torch, shape, "bfloat16", 1500 + 3 * seed + i, dev, x)
-                       for i, (shape, x) in enumerate((((B, H, Sq, 256), scale),
-                                                       ((B, KV, Sk, 256), scale),
-                                                       ((B, KV, Sk, 256), 1.0))))
-        worst = max(worst, attention_check(
-            torch, "[kernel]", f"D 256 prefill {label}", q, k, v, "bfloat16", failures,
-            causal=causal, window=window, softcap=cap))
+        q, k, v = prefill_inputs(torch, B, H, KV, Sq, Sk, 256, 1500 + 3 * seed, dev, scale,
+                                 strided)
+        worst = max(worst, prefill_check(torch, f"D 256 {label}", q, k, v, failures,
+                                         causal=causal, window=window, softcap=cap))
+        n += 1
         del q, k, v
     for seed, (label, B, H, KV, Sq, Sk, causal, window, cap) in enumerate(D256_PREFILL_LSE):
-        q = randn(torch, (B, H, Sq, 256), "bfloat16", 1600 + 3 * seed, dev, 2.0)
-        k = randn(torch, (B, KV, Sk, 256), "bfloat16", 1601 + 3 * seed, dev, 2.0)
-        v = randn(torch, (B, KV, Sk, 256), "bfloat16", 1602 + 3 * seed, dev)
-        opts = dict(causal=causal, window=window, softcap=cap)
-        out, lse = fa.flash_attention_lse_cuda(q, k, v, **opts)
-        want, want_lse = ref.attention_lse_ref(q, k, v, **opts)
-        torch.cuda.synchronize()
-        empty = torch.isneginf(want_lse)
-        err = max(float((out.float() - want.float()).abs().max()),
-                  float((lse[~empty] - want_lse[~empty]).abs().max()))
-        ok = (torch.equal(torch.isneginf(lse), empty) and not out[empty].any()
-              and bool(torch.isfinite(out).all())
-              and torch.allclose(out.float(), want.float(), **TOL["bfloat16"])
-              and torch.allclose(lse[~empty], want_lse[~empty], **TOL["bfloat16"]))
-        print(f"[kernel] flash_attention_lse {label} bfloat16 max_abs_err={err:.3e} (out and "
-              f"lse; rtol={TOL['bfloat16']['rtol']}, atol={TOL['bfloat16']['atol']}; "
-              f"{int(empty.sum())} rows with no key) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"flash_attention_lse {label}: max_abs_err {err:.3e}")
-        worst = max(worst, err)
-    B, H, KV, S = GEMMA2_BATCH, 16, 8, GEMMA2_PROMPT
-    for label, window, seed in (("global", 0, 1620), ("local", 4096, 1630)):
-        q = model_layout(torch, B, H, S, 256, "bfloat16", seed, dev)
-        k, v = (model_layout(torch, B, KV, S, 256, "bfloat16", seed + i, dev) for i in (1, 2))
-        opts = dict(causal=True, window=window, softcap=50.0)
+        q, k, v = prefill_inputs(torch, B, H, KV, Sq, Sk, 256, 1600 + 3 * seed, dev, 2.0)
+        worst = max(worst, prefill_check(torch, label, q, k, v, failures, causal=causal,
+                                         window=window, softcap=cap))
+        n += 1
+    repeats = [(f"D 256 {label} ({GEMMA2_BATCH},16,{GEMMA2_PROMPT},256) kv 8 softcap 50",
+                GEMMA2_BATCH, 16, 8, GEMMA2_PROMPT, 256, window, 50.0, seed)
+               for label, window, seed in (("global", 0, 1620), ("local", 4096, 1630))]
+    repeats += [(f"{name} ({B},{H},{S},{D}) kv {KV}", B, H, KV, S, D, 0, 0.0, 1640 + 10 * i)
+                for i, (name, B, H, KV, S, D) in enumerate(PREFILL_REPEATS)]
+    for label, B, H, KV, S, D, window, cap, seed in repeats:
+        q = model_layout(torch, B, H, S, D, "bfloat16", seed, dev)
+        k, v = (model_layout(torch, B, KV, S, D, "bfloat16", seed + i, dev) for i in (1, 2))
+        opts = dict(causal=True, window=window, softcap=cap)
         first, second = (fa.flash_attention_cuda(q, k, v, **opts) for _ in range(2))
         same = torch.equal(first, second)
-        print(f"[kernel] D 256 prefill {label} ({B},{H},{S},256) kv {KV} softcap 50 bf16: two "
-              f"calls bitwise equal {same} {'ok' if same else 'FAIL'}")
+        print(f"[kernel] prefill {label} bf16: two calls bitwise equal {same} "
+              f"{'ok' if same else 'FAIL'}")
         if not same:
-            failures.append(f"D 256 prefill {label}: two calls differ")
+            failures.append(f"prefill {label}: two calls differ")
         del q, k, v, first, second
+    print(f"[kernel] prefill edges: {n} cases through both entries, {len(repeats)} repeats, "
+          f"{time.perf_counter() - t0:.1f} s")
     return worst
 
 
@@ -964,11 +1055,11 @@ def attention_timings(torch, q, kv_sets, causal, dev, *, window=0, softcap=0.0,
                       iters=None) -> dict:
     """Kernel, plain version and one library call at one shape, and the
     bound.  With more than one (k, v) set (decode), each timed call reads
-    the next set, so every call finds its K/V outside the L2; the kernel
-    and SDPA are then timed as a CUDA graph of such calls (``ms``,
-    ``library_ms``), which leaves out the host's launch time: at ~20 us a
-    call that is as long as the kernel's.  The calls launched one by one
-    are kept as ``eager_ms`` and ``library_eager_ms``.  SDPA has no window
+    the next set, so every call finds its K/V outside the L2.  The kernel
+    and SDPA are timed as a CUDA graph of calls (``ms``, ``library_ms``),
+    which leaves out the host's launch time: at 30-100 us a call that is
+    as long as a decode or a 512-token prefill.  The calls launched one by
+    one are kept as ``eager_ms`` and ``library_eager_ms``.  SDPA has no window
     or softcap argument: with either, it is timed without them
     (``library_note`` says so), and is not the same function."""
     import torch.nn.functional as F
@@ -988,15 +1079,13 @@ def attention_timings(torch, q, kv_sets, causal, dev, *, window=0, softcap=0.0,
 
     iters = iters or (20 if n == 1 else 8 * n)
     t = {
-        "ms": time_ms(torch, rotating(kern), iters=iters),
+        "eager_ms": time_ms(torch, rotating(kern), iters=iters),
         "plain_ms": time_ms(torch, rotating(lambda i: ref.attention_ref(
             q, *kv_sets[i % n], **opts)), iters=iters),
-        "library_ms": time_ms(torch, rotating(sdpa), iters=iters),
+        "library_eager_ms": time_ms(torch, rotating(sdpa), iters=iters),
+        "ms": graph_ms(torch, [lambda i=i: kern(i) for i in range(iters)]),
+        "library_ms": graph_ms(torch, [lambda i=i: sdpa(i) for i in range(iters)]),
     }
-    if n > 1:
-        t["eager_ms"], t["library_eager_ms"] = t["ms"], t["library_ms"]
-        t["ms"] = graph_ms(torch, [lambda i=i: kern(i) for i in range(iters)])
-        t["library_ms"] = graph_ms(torch, [lambda i=i: sdpa(i) for i in range(iters)])
     if window or softcap:
         t["library_note"] = (f"SDPA {'causal ' if causal else ''}without the "
                              + " and ".join(w for w, on in (("window", window),
@@ -1006,26 +1095,41 @@ def attention_timings(torch, q, kv_sets, causal, dev, *, window=0, softcap=0.0,
     t["bound_ms"], t["bound_by"] = bound_ms(torch, q, *kv_sets[0], causal=causal,
                                             window=window, dev=dev)
     t["splits"], t["split_keys"] = fa._split_plan(q, kv_sets[0][0])
+    t["cold"] = n > 1
     return t
 
 
-def print_attention_time(label, t):
+def print_attention_time(label, t, q=None):
+    """One ``[time]`` row for ``attention_timings``' t; with q, a bf16
+    prefill's earlier ``mma.sync`` time at q's shape (``EARLIER_PREFILL``)
+    beside today's."""
     if "library_note" in t:
         label = f"{label} (sdpa: {t['library_note']})"
     if t.get("splits", 1) > 1:
         label = (f"{label} (keys split {t['splits']} ways, {t['split_keys']} a split: "
                  f"{' + '.join(SPLIT_DECODE_KERNELS)})")
-    if "eager_ms" in t:
-        print(f"[time] flash_attention {label}, cold L2 (each call reads the next of "
-              f"several K/V sets that together exceed the 50 MB L2): kernel "
-              f"{t['ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms as a CUDA graph of such calls "
-              f"(device time); launched one by one kernel {t['eager_ms']:.4f} ms, sdpa "
-              f"{t['library_eager_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; bound "
-              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
-        return
-    print(f"[time] flash_attention {label}: kernel {t['ms']:.4f} ms, plain "
-          f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
-          f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    cold = (", cold L2 (each call reads the next of several K/V sets that together exceed "
+            "the 50 MB L2)") if t.get("cold") else ""
+    earlier = EARLIER_PREFILL.get(tuple(q.shape)) if q is not None else None
+    earlier = f" (the earlier mma.sync plan {earlier}, launched one by one)" if earlier else ""
+    print(f"[time] flash_attention {label}{cold}: kernel {t['ms']:.4f} ms{earlier}, sdpa "
+          f"{t['library_ms']:.4f} ms as a CUDA graph of calls (device time); launched one by "
+          f"one kernel {t['eager_ms']:.4f} ms, sdpa {t['library_eager_ms']:.4f} ms; plain "
+          f"{t['plain_ms']:.4f} ms; bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+
+
+def attention_share(terms, total_ms, times=1) -> str:
+    """``times`` x the calls that ``terms`` lists ((n, t): n calls of a
+    shape ``attention_timings`` timed as t) as a share of ``total_ms``: by
+    the device time of a CUDA graph of calls (``ms``), and by the calls
+    launched one by one (``eager_ms``, the host's launch time included)."""
+    parts = []
+    for key in ("ms", "eager_ms"):
+        calls = " + ".join(f"{n} x {t[key]:.4f}" for n, t in terms)
+        ms = times * sum(n * t[key] for n, t in terms)
+        parts.append(f"{f'{times} x ({calls})' if times > 1 else calls} ms = {ms:.2f} ms, "
+                     f"{ms / total_ms:.1%}")
+    return f"{parts[0]} (launched one by one {parts[1]})"
 
 
 def flex_timing(torch, q, k, v, *, causal, window=0, softcap=0.0, dout=None) -> dict:
@@ -1428,8 +1532,8 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
 def gemma2_kernel_paths(torch, dev, failures) -> dict:
     """The kernels a gemma2 call runs, by name in launch order
     (``kernel_split``, torch.profiler): a bf16 D 256 prefill call through
-    either forward entry, the warpgroup prefill (``PREFILL_D256_KERNEL``;
-    a D 128 call the mma.sync one); a bf16 decode call over a full ring
+    either forward entry, the warpgroup prefill (``PREFILL_KERNEL``;
+    so do D 64, 80 and 128 calls); a bf16 decode call over a full ring
     and the lse entry over a rank's half cache, the split decode's two
     (``SPLIT_DECODE_KERNELS``, the rule's split); a bf16 D 256 backward call
     the wgmma path's two (``BWD_PATHS``).  Each kernel's device ms printed."""
@@ -1440,16 +1544,18 @@ def gemma2_kernel_paths(torch, dev, failures) -> dict:
     qt, kt, vt, dot = (randn(torch, (1, H, 1024, 256), "bfloat16", 1410 + i, dev)
                        for i, H in enumerate((16, 8, 8, 16)))
     out = fa.flash_attention_cuda(qt, kt, vt, causal=True, softcap=50.0)
-    q8, k8, v8 = (randn(torch, (2, H, 512, 128), "bfloat16", 1420 + i, dev)
-                  for i, H in enumerate((32, 8, 8)))
+    below = {D: tuple(randn(torch, (2, H, 512, D), "bfloat16", 1420 + 10 * D + i, dev)
+                      for i, H in enumerate((32, 8, 8))) for D in (64, 80, 128)}
     pattern = r"(attn_decode_bf16|attn_decode_merge|attn_bwd_\w+|attn_prefill_\w+)"
     checks = [
-        ("prefill (1,16,1024,256) kv 8 causal window 512 softcap 50", [PREFILL_D256_KERNEL],
+        ("prefill (1,16,1024,256) kv 8 causal window 512 softcap 50", [PREFILL_KERNEL],
          lambda: fa.flash_attention_cuda(qt, kt, vt, causal=True, window=512, softcap=50.0)),
-        ("lse entry, prefill (1,16,1024,256) kv 8 causal softcap 50", [PREFILL_D256_KERNEL],
+        ("lse entry, prefill (1,16,1024,256) kv 8 causal softcap 50", [PREFILL_KERNEL],
          lambda: fa.flash_attention_lse_cuda(qt, kt, vt, causal=True, softcap=50.0)),
-        ("(not gemma2) prefill (2,32,512,128) kv 8 causal, below D 256", [PREFILL_KERNEL],
-         lambda: fa.flash_attention_cuda(q8, k8, v8, causal=True)),
+        *[(f"(not gemma2) {entry}prefill (2,32,512,{D}) kv 8 causal, below D 256",
+           [PREFILL_KERNEL], lambda D=D, fn=fn: fn(*below[D], causal=True))
+          for D in (64, 80, 128)
+          for entry, fn in (("", fa.flash_attention_cuda), ("lse entry, ", fa.flash_attention_lse_cuda))],
         ("decode ring (2,16,1,256) kv 8 Sk 4096", SPLIT_DECODE_KERNELS,
          lambda: fa.flash_attention_cuda(q, k, v, causal=False, softcap=50.0)),
         ("lse entry, half a global cache (2,16,1,256) kv 8 Sk 2592", SPLIT_DECODE_KERNELS,
@@ -2301,8 +2407,8 @@ def serve_phase(torch, dev, entry, failures, counts):
           f"{res.decode_tok_s:.1f} tok/s ({GEN - 1} steps in {res.decode_s:.3f}s, "
           f"{step_ms:.2f} ms a step); peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
-    print(f"[serve] attention kernel share: prefill {cfg.n_layers} x {entry['ms']:.4f} ms = "
-          f"{cfg.n_layers * entry['ms'] / (res.prefill_s * 1e3):.1%}; decode at most "
+    print(f"[serve] attention kernel share: prefill "
+          f"{attention_share([(cfg.n_layers, entry)], res.prefill_s * 1e3)}; decode at most "
           f"{cfg.n_layers} x {entry['decode']['ms']:.4f} ms = "
           f"{cfg.n_layers * entry['decode']['ms'] / step_ms:.1%} of a step")
     print(f"[serve] sample output ids: {res.generated[0, :12].tolist()}")
@@ -2547,13 +2653,13 @@ def hybrid_phase(torch, dev, fa_entry, ssd_entry, failures, counts):
                               "bfloat16", failures, causal=causal)
         att[label] = {"shape": shape, "max_abs_err": err,
                       **attention_timings(torch, q, kv_sets, causal, dev)}
-        print_attention_time(shape, att[label])
+        print_attention_time(shape, att[label], q)
     fa_entry[HYBRID] = att
     pre_ms = res.prefill_s * 1e3
     print(f"[hybrid] kernel shares of the prefill: ssd {cfg.n_layers} x "
           f"{ssd_entry['ms']:.4f} ms = {cfg.n_layers * ssd_entry['ms'] / pre_ms:.1%}, "
-          f"attention {n_attn} x {att['prefill']['ms']:.4f} ms = "
-          f"{n_attn * att['prefill']['ms'] / pre_ms:.1%}; attention in decode at most "
+          f"attention {attention_share([(n_attn, att['prefill'])], pre_ms)}; attention in "
+          f"decode at most "
           f"{n_attn} x {att['decode']['ms']:.4f} ms = "
           f"{n_attn * att['decode']['ms'] / step_ms:.1%} of a step")
 
@@ -2783,11 +2889,10 @@ def gemma2_phase(torch, dev, fa_entry, failures, counts):
         del q, kv_sets
     fa_entry[GEMMA2] = att
     n_loc = len(local_layers(cfg))
-    attn_ms = n_loc * att["prefill_local"]["ms"] + (cfg.n_layers - n_loc) * att["prefill_global"]["ms"]
-    print(f"{tag} attention kernel share of the prefill: {n_loc} x "
-          f"{att['prefill_local']['ms']:.4f} + {cfg.n_layers - n_loc} x "
-          f"{att['prefill_global']['ms']:.4f} ms = {attn_ms:.1f} ms, "
-          f"{attn_ms / (res.prefill_s * 1e3):.1%} of {res.prefill_s * 1e3:.1f} ms; decode at most "
+    terms = [(n_loc, att["prefill_local"]), (cfg.n_layers - n_loc, att["prefill_global"])]
+    print(f"{tag} attention kernel share of the prefill: "
+          f"{attention_share(terms, res.prefill_s * 1e3)} of {res.prefill_s * 1e3:.1f} ms; "
+          f"decode at most "
           f"{n_loc} x {att['decode_ring']['ms']:.4f} + {cfg.n_layers - n_loc} x "
           f"{att['decode_global']['ms']:.4f} ms of a {step_ms:.2f} ms step")
 
@@ -2917,7 +3022,7 @@ def moe_phase(torch, dev, fa_entry, failures, counts):
                               causal=causal)
         att[label] = {"shape": shape, "max_abs_err": err,
                       **attention_timings(torch, q, kv_sets, causal, dev)}
-        print_attention_time(shape, att[label])
+        print_attention_time(shape, att[label], q)
     fa_entry[MOE] = att
 
     # The routing of the same run again, counted (not the timed run): the
@@ -3134,11 +3239,11 @@ def family_serve(torch, dev, arch, run, fa_entry, failures, counts):
                               causal=causal)
         att[label] = {"shape": shape, "max_abs_err": err,
                       **attention_timings(torch, q, kv_sets, causal, dev)}
-        print_attention_time(f"{arch} {shape}", att[label])
+        print_attention_time(f"{arch} {shape}", att[label], q)
         del q, kv_sets
     fa_entry[arch] = att
-    print(f"{tag} attention kernel share: prefill {cfg.n_layers} x {att['prefill']['ms']:.4f} ms "
-          f"= {cfg.n_layers * att['prefill']['ms'] / (res.prefill_s * 1e3):.1%}; decode at most "
+    print(f"{tag} attention kernel share: prefill "
+          f"{attention_share([(cfg.n_layers, att['prefill'])], res.prefill_s * 1e3)}; decode at most "
           f"{cfg.n_layers} x {att['decode']['ms']:.4f} ms = "
           f"{cfg.n_layers * att['decode']['ms'] / step_ms:.1%} of a step")
 
@@ -3344,10 +3449,9 @@ def train_phase(torch, dev, fa_entry, bwd_entry, failures, counts) -> int:
               f"{TRAIN_STEPS} x {want} = {TRAIN_STEPS * want})")
         if got != TRAIN_STEPS * want:
             failures.append(f"{path}: {name} launched {got} times, expected {TRAIN_STEPS * want}")
-    fwd_ms = per_step["flash_attention"] * fa_entry["ms"]
     bwd_ms = per_step["flash_attention_bwd"] * bwd_entry["ms"]
-    print(f"[train] attention kernel shares of a step: forward {per_step['flash_attention']} x "
-          f"{fa_entry['ms']:.4f} ms = {fwd_ms / (step_s * 1e3):.1%}, backward "
+    print(f"[train] attention kernel shares of a step: forward "
+          f"{attention_share([(per_step['flash_attention'], fa_entry)], step_s * 1e3)}, backward "
           f"{per_step['flash_attention_bwd']} x {bwd_entry['ms']:.4f} ms = "
           f"{bwd_ms / (step_s * 1e3):.1%}")
     profile_train_step(torch, model, state, step_fn, to_device(data.sample(TRAIN_STEPS), dev),
@@ -3517,7 +3621,7 @@ def gemma2_train_phase(torch, dev, fa_entry, bwd_entry, failures, counts):
 def gemma2_train_fwd_timings(torch, dev, cfg) -> dict:
     """The forward kernel at gemma2_9b's train shape (1, 16, GEMMA2_TRAIN_SEQ,
     256) KV 8 in the model's layout, the global (causal) and local (window)
-    layers, beside the bound (``PREFILL_D256_KERNEL``), the plain version,
+    layers, beside the bound (``PREFILL_KERNEL``), the plain version,
     and SDPA without the softcap and window (not the same function)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3536,7 +3640,7 @@ def gemma2_train_fwd_timings(torch, dev, cfg) -> dict:
         bound, by = bound_ms(torch, q, k, v, causal=True, window=window, dev=dev)
         print(f"[time] flash_attention gemma2 train forward {label} (1,{H},{S},{D}) kv {KV} "
               f"causal{f' window {window}' if window else ''} softcap {cfg.attn_softcap:g} bf16 "
-              f"({PREFILL_D256_KERNEL}): kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"({PREFILL_KERNEL}): kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}; "
               f"{ms / bound:.2f}x, {bound / ms:.1%} of the bound's rate), plain {plain:.4f} ms, "
               f"sdpa causal without the softcap{' and window' if window else ''} (not the same "
               f"function) {sdpa:.4f} ms")

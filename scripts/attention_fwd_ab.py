@@ -13,15 +13,20 @@ tree) at each shape: the decode calls of stablelm, zamba2, phi3.5 and
 gemma2 (ring, global, and the lse entry over a rank's half of the global
 cache) over cold caches as a CUDA graph of calls (``chip_smoke.graph_ms``,
 each call reading the next of K/V sets that together pass the L2), the
-prefills of stablelm, zamba2 and phi3.5, and gemma2's at its serve shape
-(2,16,5120,256) and its train shape (1,16,8192,256), global and local
-(window 4096), by CUDA events.  Prints the split this tree's wrapper
-takes (``flash_attention.decode_split``), whether the two outputs are
-bitwise equal, or their largest difference, and at D 256 the prefill's
-bound.  Then calls both on ``chip_smoke.py``'s forward cases at every head
-dim below 256 in both dtypes and on fp32 cases at D 256.  Exits 1 if any
-output below head dim 256, any decode output, or any fp32 output differs
-from the old kernel's.
+prefills (8 x 512) of stablelm, zamba2, phi3.5, qwen2_vl, yi, command_r,
+llama4 and musicgen, and gemma2's at its serve shape (2,16,5120,256) and
+its train shape (1,16,8192,256), global and local (window 4096), each as
+a CUDA graph of calls (device time; a prefill's calls launched one by one,
+the wrapper's host time in them, are printed beside).  Prints the split
+this tree's wrapper takes
+(``flash_attention.decode_split``), whether the two outputs are bitwise
+equal, or their largest difference, and at a prefill the bound and
+SDPA's time.  Then calls both on ``chip_smoke.py``'s forward cases at
+every head dim below 256 in both dtypes and on D 256 cases in both.
+Every decode output, every fp32 output and every D 256 output must be
+bitwise the old kernel's; a bf16 prefill below D 256 (Sq >= 16, where the
+old source may run another design) must lie within 2e-2 of the old
+kernel's output and of the plain version's.  Exits 1 if any misses.
 
 Backward (``--bwd``, ``--old`` another ``csrc/flash_attention_bwd.cu``):
 calls ``flash_attention_bwd_cuda`` and the old entry on the same inputs
@@ -44,19 +49,21 @@ import sys
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 
 # label, B, H, KV, Sq, Sk, D, causal, window, softcap, entry ("fwd" or
 # "lse"): stablelm, zamba2 and phi3.5-MoE decode at Sk 575 (prompt 512 + 63
 # tokens); gemma2's decode over a full ring and its global cache (prompt
 # 5120 + 63), and the lse entry over a rank's half of that cache; the
-# prefills of stablelm, zamba2 and phi3.5 (8 x 512), and gemma2's at its
-# serve and train shapes, global and local
+# prefills (8 x 512) of stablelm, zamba2, phi3.5 and the five families,
+# and gemma2's at its serve and train shapes, global and local
 SHAPES = [
     ("stablelm decode", 8, 32, 32, 1, 575, 80, False, 0, 0.0, "fwd"),
     ("zamba2 decode", 8, 32, 32, 1, 575, 64, False, 0, 0.0, "fwd"),
@@ -67,6 +74,11 @@ SHAPES = [
     ("stablelm prefill", 8, 32, 32, 512, 512, 80, True, 0, 0.0, "fwd"),
     ("zamba2 prefill", 8, 32, 32, 512, 512, 64, True, 0, 0.0, "fwd"),
     ("phi35 prefill", 8, 32, 8, 512, 512, 128, True, 0, 0.0, "fwd"),
+    ("qwen2_vl prefill", 8, 28, 4, 512, 512, 128, True, 0, 0.0, "fwd"),
+    ("yi prefill", 8, 56, 8, 512, 512, 128, True, 0, 0.0, "fwd"),
+    ("command_r prefill", 8, 96, 8, 512, 512, 128, True, 0, 0.0, "fwd"),
+    ("llama4 prefill", 8, 40, 8, 512, 512, 128, True, 0, 0.0, "fwd"),
+    ("musicgen prefill", 8, 24, 24, 512, 512, 64, True, 0, 0.0, "fwd"),
     ("gemma2 prefill global", 2, 16, 8, 5120, 5120, 256, True, 0, 50.0, "fwd"),
     ("gemma2 prefill local", 2, 16, 8, 5120, 5120, 256, True, 4096, 50.0, "fwd"),
     ("gemma2 train global", 1, 16, 8, 8192, 8192, 256, True, 0, 50.0, "fwd"),
@@ -75,16 +87,30 @@ SHAPES = [
 
 
 def must_match(D: int, Sq: int, dtype) -> bool:
-    """Whether this tree's forward must give the old kernel's bits: below
-    D 256, every decode call, every fp32 call (only the bf16 D 256 prefill
-    was redesigned)."""
-    return D < 256 or Sq < 16 or dtype == torch.float32
+    """Whether this tree's forward must give the old kernel's bits: every
+    decode call, every fp32 call, the D 256 prefill (the bf16 prefill below
+    D 256 was redesigned: it is held within 2e-2 instead, ``agrees``)."""
+    return D == 256 or Sq < 16 or dtype == torch.float32
+
+
+def agrees(name, new, old, q, k, v, opts) -> bool:
+    """A bf16 prefill output below D 256 within 2e-2 of the old kernel's
+    and of the plain version's; prints a miss."""
+    want = ref.attention_ref(q, k, v, **opts)
+    tol = cs.TOL["bfloat16"]
+    ok = all(torch.allclose(new.float(), w.float(), **tol) for w in (old, want))
+    if not ok:
+        print(f"{name}: NOT within 2e-2 of the old kernel's output and the plain version's "
+              f"(max abs difference {float((new.float() - old.float()).abs().max()):.3e}, "
+              f"{float((new.float() - want.float()).abs().max()):.3e})")
+    return ok
 
 
 def bitwise_cases(impls, dev) -> int:
     """Both builds on chip_smoke's forward cases (``kernel_phase``'s, every
-    head dim below 256, both dtypes) and fp32 D 256 cases; prints each
-    difference; returns how many differ."""
+    head dim below 256, both dtypes) and D 256 cases in both dtypes; each
+    output bitwise the old kernel's where ``must_match``, else within 2e-2
+    of it and of the plain version (``agrees``); returns how many miss."""
     cases = [  # B, H, KV, Sq, Sk, D, causal, window, softcap
         (1, 2, 2, 128, 128, 64, True, 0, 0.0), (2, 8, 2, 128, 128, 64, True, 0, 0.0),
         (1, 4, 1, 64, 256, 32, False, 0, 0.0), (2, 3, 3, 96, 96, 16, True, 0, 0.0),
@@ -99,29 +125,35 @@ def bitwise_cases(impls, dev) -> int:
                                      (150 - 9 * i, 61 + 7 * i, False))]
     d256 = [(1, 16, 8, 300, 300, 256, True, 0, 50.0), (1, 4, 2, 600, 600, 256, True, 64, 50.0),
             (2, 16, 8, 1, 700, 256, False, 0, 50.0), (2, 4, 2, 77, 300, 256, True, 0, 0.0)]
-    differ = total = 0
+    differ = total = same = 0
     for j, (B, H, KV, Sq, Sk, D, causal, window, cap) in enumerate(cases + d256):
-        for dtype in ((torch.float32,) if D == 256 else (torch.float32, torch.bfloat16)):
+        for dtype in (torch.float32, torch.bfloat16):
             seed = 2000 + 10 * j
             q = cs.randn(torch, (B, H, Sq, D), "float32", seed, dev, 2.0).to(dtype)
             k = cs.randn(torch, (B, KV, Sk, D), "float32", seed + 1, dev, 2.0).to(dtype)
             v = cs.randn(torch, (B, KV, Sk, D), "float32", seed + 2, dev).to(dtype)
             opts = dict(causal=causal, window=window, softcap=cap)
             got = [fn(q, k, v, **opts) for fn in impls.values()]
+            name = (f"({B},{H},{Sq},{D}) kv {KV} Sk {Sk} causal {causal} window {window} "
+                    f"softcap {cap} {dtype}")
             total += 1
-            if not torch.equal(*got):
+            same += torch.equal(*got)
+            if must_match(D, Sq, dtype):
+                if not torch.equal(*got):
+                    differ += 1
+                    print(f"{name}: NOT bitwise equal to the old kernel")
+            elif not agrees(name, *got, q, k, v, opts):
                 differ += 1
-                print(f"({B},{H},{Sq},{D}) kv {KV} Sk {Sk} causal {causal} window {window} "
-                      f"softcap {cap} {dtype}: NOT bitwise equal to the old kernel")
-    print(f"forward cases below D 256 (both dtypes) and fp32 at D 256: bitwise equal in "
-          f"{total - differ} of {total}")
+    print(f"forward cases (every head dim, both dtypes): bitwise equal in {same} of {total}; "
+          f"{differ} miss (bitwise where required, else 2e-2)")
     return differ
 
 
 def forward_ab(old_src: Path, dev, only: str | None = None) -> int:
     """The forward at SHAPES (those whose label holds ``only``, and then not
-    the bitwise cases, where given), in turns; 1 if any output that must
-    keep the old kernel's bits (``must_match``) differs."""
+    the cases of ``bitwise_cases``, where given), in turns; 1 if any output
+    that must keep the old kernel's bits (``must_match``) differs, or a bf16
+    prefill below D 256 misses 2e-2 (``agrees``)."""
     lib = _build.load_source(old_src, "flash_attention_old")
     old_fwd, old_lse, old_split = fa.bind_fwd(lib), fa.bind_lse(lib), fa.bind_split(lib)
 
@@ -156,26 +188,35 @@ def forward_ab(old_src: Path, dev, only: str | None = None) -> int:
         outs = {name: fn(q, *sets[0]) for name, fn in impls.items()}
         same = torch.equal(outs["this tree"], outs["old"])
         diff = float((outs["this tree"].float() - outs["old"].float()).abs().max())
-        if must_match(D, Sq, q.dtype) and not same:
-            differ += 1
-        times = []
+        if must_match(D, Sq, q.dtype):
+            differ += not same
+        else:
+            differ += not agrees(label, outs["this tree"], outs["old"], q, *sets[0], opts)
+        times, n = [], len(sets)
+        calls = 5 if D == 256 else 20
         for name in ("this tree", "old", "old", "this tree"):
             fn = impls[name]
             if Sq > 1:
-                ms = cs.time_ms(torch, lambda: fn(q, *sets[0]), iters=5 if D == 256 else 20)
+                ms = cs.graph_ms(torch, [lambda: fn(q, *sets[0])] * calls)
             else:
-                n = len(sets)
                 ms = cs.graph_ms(torch, [lambda i=i: fn(q, *sets[i % n]) for i in range(8 * n)])
             times.append(f"{name} {ms:.4f}")
+        eager = ", ".join(f"{name} {cs.time_ms(torch, lambda: impls[name](q, *sets[0]), iters=calls):.4f}"
+                          for name in ("this tree", "old")) if Sq > 1 else ""
         splits, chunk = fa._split_plan(q, sets[0][0])
         plan = f"keys split {splits} ways of {chunk}" if splits > 1 else "unsplit"
         bound = ""
-        if D == 256 and Sq > 1:
+        if Sq > 1:
             t, by = cs.bound_ms(torch, q, *sets[0], causal=causal, window=window, dev=dev)
-            bound = f"; bound {t:.4f} ms ({by})"
+            sdpa = cs.graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+                q, *sets[0], is_causal=causal, enable_gqa=H != KV)] * calls)
+            bound = (f"; bound {t:.4f} ms ({by}); sdpa {sdpa:.4f} ms"
+                     + (" (without window and softcap: not the same function)"
+                        if window or cap else ""))
         print(f"{label} ({B},{H},{Sq},{D}) kv {KV} Sk {Sk}{' causal' if causal else ''}"
               f"{f' window {window}' if window else ''} ({entry}, {plan}): outputs bitwise "
-              f"equal {same} (max abs difference {diff:.3e}){bound}; ms " + ", ".join(times))
+              f"equal {same} (max abs difference {diff:.3e}){bound}; ms " + ", ".join(times)
+              + (f" (launched one by one: {eager})" if eager else ""))
         del q, sets, outs
         torch.cuda.empty_cache()
     if not only:

@@ -15,67 +15,74 @@
 //           as fp32 in shared memory, a lane per key for the scores;
 //           decode splits the tiles over 4 warps and merges them (not at
 //           D 256, where four warps' slabs would not fit: see launch_mode);
-//   bf16 -> attn_prefill_bf16 (Sq >= 16; at D 256 attn_prefill_wgmma) and
-//           attn_decode_bf16 (Sq < 16; with its keys split over blocks,
-//           attn_decode_bf16<D, true> then attn_decode_merge), tensor-core
-//           products (mma.sync m16n8k16, and at the D 256 prefill the
-//           warpgroup's wgmma; bf16 operands, fp32 accumulators; helpers
-//           in mma_bf16.cuh).
+//   bf16 -> attn_prefill_wgmma<D> (Sq >= 16, every head dim: one
+//           warpgroup kernel, wgmma fed by TMA) and attn_decode_bf16 (Sq
+//           < 16, mma.sync m16n8k16; with its keys split over blocks,
+//           attn_decode_bf16<D, true> then attn_decode_merge); bf16
+//           operands, fp32 accumulators; helpers in mma_bf16.cuh.
 //
 // What bounds it.  At stablelm_3b's prefill shape (B 8, H 32, S 512, D 80,
 // causal, bf16) the call does ~10.7 GFLOP (11 us at the H100 SXM's dense
 // bf16 tensor-core peak) and must move 84 MB of q/k/v/o (25 us at 3.35
-// TB/s): bound by memory.  A decode step (Sq 1) reads B * KV * Sk * D * 2 * 2
-// bytes of cache (47 MB at Sk 575, 14 us) and does ~1 FLOP per byte: bound
-// by memory by far.  The scalar path's FMAs (67 TFLOP/s) alone put the
-// prefill at >= 0.16 ms; it took 0.70-0.71 ms there and 0.053-0.072 ms per
-// decode launch (H100 80GB HBM3 at 700 W, chip_smoke.py), 12.8x SDPA.
+// TB/s): bound by memory, as is every D <= 128 prefill of the models at
+// 512 tokens (15-65 us of bytes).  gemma2's D 256 prefill at 5120 tokens
+// is bound by operations: 4 D flops an admitted (query, key) pair, 0.434 /
+// 0.417 ms at 989 TFLOP/s global / local, against 0.038 ms for its 126
+// MB.  A decode step (Sq 1) reads B * KV * Sk * D * 2 * 2 bytes of cache
+// (47 MB at Sk 575, 14 us) and does ~1 FLOP per byte: bound by memory by
+// far.  The scalar path's FMAs (67 TFLOP/s) alone put the prefill at >=
+// 0.16 ms; it took 0.70-0.71 ms there and 0.053-0.072 ms per decode
+// launch (H100 80GB HBM3 at 700 W, chip_smoke.py), 12.8x SDPA.
 //
-// The bf16 prefill design.  A block owns 128 query rows of one (b, h)
-// (8 warps x 16 rows; causal q-tiles longest first) and walks 64-key K/V
-// tiles in bf16 shared memory, double-buffered: K and V of the next tile
-// are in flight by cp.async while this tile computes, so one barrier a
-// tile suffices; tiles the causal / window bounds mask out for a whole
-// warp are skipped.  Per tile a warp forms S = Q K^T by mma (D / 16
-// k-steps, Q's A fragments re-read from shared memory by ldmatrix, which
-// leaves the registers to S and O and measured faster than holding them),
-// applies scale, softcap and masks to the fp32 accumulators, runs an
-// online softmax in exp2 whose row statistics are reductions within a
-// lane quad, and rounds P to bf16 straight into the A operand of P V,
-// with V through ldmatrix.trans: no score leaves the registers.  The
-// scale is applied to the fp32 scores, not to q.  The epilogue divides by
-// l and writes bf16 rows through the block's Q tile with 16-byte stores.
-// 67,584 bytes of shared memory at D 80, two blocks an SM (128 registers;
-// ptxas spills 52 bytes at D 80 and 20 at D 64).
-//
-// The D 256 bf16 prefill (gemma2_9b), attn_prefill_wgmma.  It replaced
-// the plan above stretched to D 256 (one 8-warp block an SM, a warp's
-// 16-row fp32 O whole in its 255 registers, K/V by cp.async issued by
-// every warp with one __syncthreads a tile, Q's fragments re-read by
-// ldmatrix every k step, an accurate tanhf a score), which reached 18% of
-// the bf16 peak: 2.3799 / 2.3041 ms at gemma2's prefill (2, 16, 5120,
-// 256) KV 8 softcap 50, global / local.  What bounds it: 4 D flops an
-// admitted (query, key) pair, 0.434 / 0.417 ms at 989 TFLOP/s, against
-// 0.038 ms for its 126 MB: the tensor cores, which only the warpgroup's
-// asynchronous wgmma reaches in full; beside them the softmax's special-
-// function work, an exp2 a score and, with the softcap, a tanh.  The
-// design: a producer warpgroup, one thread of which keeps Q and K tiles,
-// another V tiles, in flight by TMA (mbarrier stages, K and V apart so
-// that S = Q K^T starts before V lands); two consumer warpgroups of 64 query rows, each
-// issuing S = Q K^T (both operands in shared memory) together with the
-// previous tile's P V (P from registers, where S's accumulators leave
-// it) and running this tile's scores and online softmax while that P V
-// is in flight, the two taking turns under named barriers so that one's
-// softmax runs under the other's products; products are issued on no
-// condition (a condition serialises them: ptxas C7520), the masks hiding
-// what a consumer's rows do not see.  The softcap's tanh y is 1 - 2 / (1
-// + 2^(2 y log2 e)), two special-function operations; tanh.approx.f32,
-// one, would miss the bf16 tolerance at its documented error
-// (tests/test_torch_flash_attention.py emulates both).  O / l leaves
-// through Q's shared memory by TMA stores.  Measured
-// (scripts/attention_fwd_ab.py, in turns beside the earlier plan; H100
-// 80GB HBM3 at 700.00 W): 0.8855-0.8889 / 0.8601-0.8731 ms, 2.7x, about
-// half the bf16 peak.
+// The bf16 prefill, attn_prefill_wgmma<D> (the design is set out above
+// the kernel).  A TMA producer warpgroup (24 registers) and two consumer
+// warpgroups of 64 query rows (240 registers) issue S = Q K^T (both
+// operands in shared memory) together with the previous tile's P V (P
+// from registers) and run this tile's scale, softcap, masks and online
+// softmax while that P V is in flight, the two consumers taking turns
+// under named barriers; products are issued on no condition (a condition
+// serialises them: ptxas C7520), the masks hiding what a consumer's rows
+// do not see.  The softcap's tanh y is 1 - 2 / (1 + 2^(2 y log2 e)), two
+// special-function operations; tanh.approx.f32, one, would miss the bf16
+// tolerance at its documented error (tests/test_torch_flash_attention.py
+// emulates both).  O / l leaves through Q's shared memory by TMA stores.
+//   At D 256 (gemma2_9b) a block takes one 128-row item, 64-key tiles,
+// 197,712 bytes of shared memory.  It replaced the mma.sync plan
+// stretched to D 256, which reached 18% of the bf16 peak (2.3799 / 2.3041
+// ms at gemma2's prefill (2, 16, 5120, 256) KV 8 softcap 50); measured
+// (scripts/attention_fwd_ab.py, in turns beside it; H100 80GB HBM3 at
+// 700.00 W): 0.8855-0.8889 / 0.8601-0.8731 ms, 2.7x, about half the peak.
+//   At D <= 128 it replaced the mma.sync plan of 8 warps x 16 rows (64-key
+// tiles by cp.async, Q's fragments by ldmatrix, two blocks an SM), which
+// ran at 1.6-2.8x its time.  What was chosen there, and why (each held
+// on the card against the alternative, in turns): 128-key tiles, 64
+// scores a thread, half the turns and barriers of 64-key tiles; one block
+// an SM walking the items, two Q buffers (the next item's Q loads a whole
+// item ahead; its first products hide the wait for the last output
+// store's reads), the K / V ring running on across items: at 512 tokens
+// an item reads 1 to 4 tiles, and its Q load and epilogue cost as much as
+// its products when each item has a block of its own; two stages (a third
+// does not fit beside two Q buffers, and one Q buffer with three stages
+// was slower at 512 tokens); P V at N = D from D 64 up (at D 80 a B
+// operand over 1.25 swizzle atoms, read right on the card and faster than
+// N 128 over zero columns), N 64 at D 16 and 32; a mask is one
+// comparison a score against a bound the lane computes once, and the
+// softcap's and the plain scale's loops are apart (one loop with a select
+// computed both).  What holds it back at 512 tokens: the softmax's exp2,
+// 64 a thread a tile, on the special-function units, and each item's
+// fixed costs (its Q, the K / V ring's refill and its epilogue), which a
+// longer sequence spreads.  Measured below D 256 (scripts/attention_fwd_ab.py,
+// in turns beside the mma.sync plan, CUDA graphs of calls; H100 80GB HBM3
+// at 700.00 W), causal 8 x 512, ms (mma.sync plan; SDPA; bound of bytes):
+// stablelm (32, D 80) 0.0528-0.0532 (0.0861-0.0864; 0.0531; 0.0250),
+// zamba2 (32, D 64) 0.0445-0.0446 (0.0765-0.0766; 0.0402; 0.0200),
+// musicgen (24, D 64) 0.0347-0.0357 (0.0578-0.0588; 0.0332; 0.0150), and
+// at D 128 phi3.5 (32 / 8) 0.0551-0.0559 (0.1450-0.1452; 0.0531; 0.0250),
+// qwen2_vl (28 / 4) 0.0498 (0.1262-0.1267; 0.0488; 0.0200), yi (56 / 8)
+// 0.0933-0.0939 (0.2466-0.2467; 0.0854; 0.0401), command_r (96 / 8)
+// 0.1491-0.1531 (0.4177-0.4181; 0.1390; 0.0651), llama4 (40 / 8)
+// 0.0695-0.0698 (0.1809-0.1811; 0.0639; 0.0300): 1.6-2.8x the earlier
+// plan, 0-11% above SDPA, 2.1-2.4x the bound.
 //
 // The bf16 decode design.  A block owns one (b, KV head) and up to 16
 // query rows of its GQA group (head-in-group x position), so the group
@@ -122,10 +129,9 @@
 // still waits on its K loads, then its V loads, in turn (at 2.0-2.5x the
 // bound).
 //
-// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): prefill 0.0906 ms
-// against SDPA's 0.0571 (stablelm shape) and 0.0801 against 0.0418 (D 64,
-// zamba2); decode at Sk 575 with a cold L2, as a CUDA graph of calls,
-// 0.0229 ms against SDPA's 0.0227 (D 80) and 0.0198 against 0.0165 (D 64).
+// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): decode at Sk 575
+// with a cold L2, as a CUDA graph of calls, 0.0229 ms against SDPA's
+// 0.0227 (D 80) and 0.0198 against 0.0165 (D 64).
 //
 // A second entry, flash_attention_lse, runs the same kernels with the flag
 // Params::lse set: each also writes its rows' fp32 log-sum-exp, so that the
@@ -139,6 +145,9 @@
 // Python wrapper checks).  Launch errors are returned, never swallowed.
 
 #include <cuda_runtime.h>
+#include <limits.h>
+
+#include <atomic>
 #include <math.h>
 #include <stdint.h>
 
@@ -569,216 +578,70 @@ __device__ __forceinline__ void p_fragment(const float (&s)[NKT][4], int kk, uin
   a[3] = mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 }
 
-// Prefill (Sq >= 16): a block owns PF_BQ query rows of one (b, h), 16 per
-// warp, and walks 64-key K/V tiles through two bf16 shared-memory buffers
-// each for K and V: K and V of the next tile load while this one computes,
-// so one barrier a tile suffices.
-constexpr int PF_WARPS = 8;
-constexpr int PF_BQ = PF_WARPS * 16;
-constexpr int PF_BK = 64;
-
-template <int D>
-struct PfSmem {  // in bf16 elements
-  static constexpr int LD = D + 8;  // row stride: 16 bytes of padding keep ldmatrix conflict-free
-  static constexpr int TILE = PF_BK * LD;
-  static constexpr int KV0 = PF_BQ * LD;  // Q tile first; K[i] = KV0 + i TILE, V[i] = K[2 + i]
-  static constexpr size_t BYTES = sizeof(bf16) * (KV0 + 4 * TILE);
-};
-
-// ROWS x D bf16 (row stride `stride`) into shared rows of stride LD by
-// 16-byte cp.async; rows at or past rows_valid are zero-filled.
-template <int D, int ROWS, int LD>
-__device__ __forceinline__ void async_rows(bf16* dst, const bf16* src, int64_t stride,
-                                           int rows_valid, int tid, int nthr) {
-  constexpr int VPR = D / 8;
-  for (int idx = tid; idx < ROWS * VPR; idx += nthr) {
-    const int r = idx / VPR;
-    const int c = idx - r * VPR;
-    const bool ok = r < rows_valid;
-    mma::cp_async16(dst + r * LD + c * 8, ok ? src + r * stride + c * 8 : src, ok);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(PF_WARPS * 32, D <= 80 ? 2 : 1) attn_prefill_bf16(const Params p) {
-  using S = PfSmem<D>;
-  constexpr int LD = S::LD;
-  constexpr int NTHR = PF_WARPS * 32;
-  constexpr int KS = D / 16;     // k-steps of Q K^T
-  constexpr int NT = D / 8;      // n8 tiles of the output
-  constexpr int NKT = PF_BK / 8; // n8 tiles of a score tile
-  extern __shared__ float4 smem4[];
-  bf16* sm = reinterpret_cast<bf16*>(smem4);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int b = blockIdx.x / p.H;
-  const int h = blockIdx.x - b * p.H;
-  // Causal q-tiles in decreasing length: the longest are scheduled first.
-  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * PF_BQ;
-  const int kvh = h / (p.H / p.KV);
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ksb + kvh * p.ksh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vsb + kvh * p.vsh;
-  bf16* og = static_cast<bf16*>(p.o) + b * p.osb + h * p.osh;
-
-  // Keys any row of this block can see: tiles [t_lo, t_hi).
-  const int q_last = min(q0 + PF_BQ, p.Sq) - 1;
-  const int k_hi = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
-  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int t_lo = k_lo / PF_BK;
-  const int t_hi = k_hi > k_lo ? (k_hi + PF_BK - 1) / PF_BK : t_lo;
-
-  bf16* Qs = sm;
-  // K and V of a tile into buffer (tile - t_lo) & 1, as one cp.async group.
-  auto load = [&](int tile) {
-    const int key0 = tile * PF_BK;
-    bf16* dst = sm + S::KV0 + ((tile - t_lo) & 1) * S::TILE;
-    async_rows<D, PF_BK, LD>(dst, kg + key0 * p.kss, p.kss, p.Sk - key0, tid, NTHR);
-    async_rows<D, PF_BK, LD>(dst + 2 * S::TILE, vg + key0 * p.vss, p.vss, p.Sk - key0, tid, NTHR);
-    mma::cp_async_commit();
-  };
-  async_rows<D, PF_BQ, LD>(Qs, qg + q0 * p.qss, p.qss, p.Sq - q0, tid, NTHR);
-  mma::cp_async_commit();
-  if (t_lo < t_hi) load(t_lo);
-
-  const int wq0 = q0 + warp * 16;     // this warp's first query row
-  const bf16* Qw = Qs + warp * 16 * LD;
-  float o[NT][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-
-  // At the top of an iteration the only copy in flight is K/V of this
-  // tile.  After the barrier every warp is done with tile - 1, whose
-  // buffers then take K/V of tile + 1.
-  for (int tile = t_lo; tile < t_hi; ++tile) {
-    mma::cp_async_wait<0>();
-    __syncthreads();
-    if (tile + 1 < t_hi) load(tile + 1);
-    const int key0 = tile * PF_BK;
-    // Nothing of this tile is visible to this warp's rows: skip its products.
-    if (wq0 >= p.Sq || (p.causal && key0 > wq0 + 15) ||
-        (p.window > 0 && key0 + PF_BK - 1 <= wq0 - p.window))
-      continue;
-    const bf16* Ks = sm + S::KV0 + ((tile - t_lo) & 1) * S::TILE;
-    const bf16* Vs = Ks + 2 * S::TILE;
-    float s[NKT][4];
-#pragma unroll
-    for (int j = 0; j < NKT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      // Q stays in shared memory: its A fragments are re-read each tile,
-      // which leaves the registers to S and O (measured faster than
-      // holding all D / 16 fragments).
-      uint32_t qa[4];
-      mma::ldmatrix_x4(qa, Qw + (lane & 15) * LD + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < NKT / 2; ++np) {
-        uint32_t kb[4];
-        mma::ldmatrix_x4(kb, Ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +
-                                 ((lane >> 3) & 1) * 8);
-        mma::mma_bf16(s[2 * np], qa, kb[0], kb[1]);
-        mma::mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
-      }
-    }
-    const bool need_mask = key0 + PF_BK > p.Sk || (p.causal && key0 + PF_BK - 1 > wq0) ||
-                           (p.window > 0 && key0 <= wq0 + 15 - p.window);
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = score(s[j][e], p, need_mask, key0 + 8 * j + mma::acc_col(lane, e),
-                        wq0 + mma::acc_row(lane, e));
-    online_softmax<NKT, NT>(s, m, l, o);
-#pragma unroll
-    for (int kk = 0; kk < NKT / 2; ++kk) {
-      uint32_t a[4];
-      p_fragment<NKT>(s, kk, a);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vb[4];
-        mma::ldmatrix_x4_trans(vb, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                       dp * 16 + (lane >> 4) * 8);
-        mma::mma_bf16(o[2 * dp], a, vb[0], vb[1]);
-        mma::mma_bf16(o[2 * dp + 1], a, vb[2], vb[3]);
-      }
-    }
-  }
-  mma::cp_async_wait<0>();  // Q, copied by every thread, where the block saw no key
-  __syncthreads();
-
-  // Epilogue: o / l as bf16 through this warp's rows of the Q tile (no
-  // other warp reads them), then 16-byte stores of the rows that exist.
-  bf16* Os = Qs + warp * 16 * LD;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lr = l[r];
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    const float inv = lr > 0.f ? 1.f / lr : 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      *reinterpret_cast<uint32_t*>(Os + (g + 8 * r) * LD + nt * 8 + 2 * t) =
-          mma::pack_bf16(o[nt][2 * r] * inv, o[nt][2 * r + 1] * inv);
-    // m is in log2 units here (the scores carry log2 e)
-    if (p.lse != nullptr && t == 0 && wq0 + g + 8 * r < p.Sq)
-      write_lse(p, b, h, wq0 + g + 8 * r, m[r] * LN2, lr);
-  }
-  __syncwarp();
-  constexpr int VPR = D / 8;
-  for (int idx = lane; idx < 16 * VPR; idx += 32) {
-    const int r = idx / VPR;
-    const int c = idx - r * VPR;
-    if (wq0 + r < p.Sq)
-      *reinterpret_cast<uint4*>(og + (wq0 + r) * p.oss + c * 8) =
-          *reinterpret_cast<const uint4*>(Os + r * LD + c * 8);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 prefill at head dim 256 (Sq >= 16): attn_prefill_wgmma, warpgroup
-// products (wgmma) fed by TMA, warps specialised.  A block owns 128 query
-// rows of one (b, h) (causal q-tiles longest first) and is three
-// warpgroups: warpgroup 0 the producer (registers cut to PW_PRODUCER_REGS;
-// one thread loads Q once and then K of every tile, another V of every
-// tile, by TMA into mbarrier-guarded stages), warpgroups 1 and 2 the
-// consumers (PW_CONSUMER_REGS each), 64 query rows each.  Q is four
-// 128-row slabs of 64 columns, a consumer's rows the half of each slab at
-// 64 cw; K and V stream through PW_STAGES stages of 64 keys, each tile
-// four 64 x 64 slabs, with full and empty barriers of their own so that S
-// = Q K^T starts before V lands.  Operands are 128-byte-swizzled slabs
-// (mma_bf16.cuh, namespace wgmma).
+// bf16 prefill (Sq >= 16) at every head dim: attn_prefill_wgmma<D>,
+// warpgroup products (wgmma) fed by TMA, warps specialised.  A work item
+// is 128 query rows of one (b, h) (causal q-tiles longest first); a block
+// is three warpgroups: warpgroup 0 the producer (registers cut to
+// PW_PRODUCER_REGS; one thread loads K of every tile, another V, a third
+// each item's Q, by TMA into mbarrier-guarded stages and buffers),
+// warpgroups 1 and 2 the consumers (PW_CONSUMER_REGS each), 64 query rows
+// each.  Q is Pw::DP / 64 128-row slabs of 64 columns, a consumer's rows
+// the half of each slab at 64 cw; K and V stream through Pw::STAGES
+// stages of Pw::BN keys, each tile DP / 64 slabs, with full and empty
+// barriers of their own so that S = Q K^T starts before V lands.  Operands
+// are 128-byte-swizzled slabs (mma_bf16.cuh, namespace wgmma).
 //
-// A consumer's tile it: S_it = Q K_it^T (m64n64k16, 16 k steps, both
-// operands in shared memory) is issued together with O += P_{it-1} V_{it-1}
-// (m64n256k16 with P as the register A operand, V MN-major); the scores'
-// scale, softcap and masks and the online softmax of S_it run while that
-// P V is still in flight, then O is rescaled and P_it rounded to bf16 in
+// Widths below 64 columns or between multiples of 64 (D 16, 32, 80): the
+// tensor maps keep the true D, and TMA fills the box's columns at or past
+// D with zeros.  S = Q K^T takes D / 16 k steps, so it never reads them;
+// P V runs N = Pw::NPV columns over V's zero columns, and the output's TMA
+// stores drop the columns at or past D.  The scale is Params::scale,
+// 1 / sqrt(D) of the true D, from the wrapper.
+//
+// A consumer's tile t: S_t = Q K_t^T (m64nBNk16, D / 16 k steps, both
+// operands in shared memory) is issued together with O += P_{t-1} V_{t-1}
+// (m64nNPVk16 with P as the register A operand, V MN-major); the scores'
+// scale, softcap and masks and the online softmax of S_t run while that
+// P V is still in flight, then O is rescaled and P_t rounded to bf16 in
 // registers for the next tile.  The two consumers issue their products in
 // turns, under two named barriers, so that one's softmax runs while the
 // other's products keep the tensor cores busy.
+//
+// D <= 128 (Pw::QBUF 2): one block an SM walks the items i = blockIdx.x,
+// + gridDim.x, ...; the producer loads the next item's Q into the other of
+// two Q buffers as soon as the output store of the item before has read
+// it, and its K and V ring runs on across items, while the consumers
+// finish this one, so an item's loads and epilogue hide under the
+// products of its neighbours.  D 256 (QBUF 1: two Q buffers would pass the
+// shared memory a block may have) runs one item a block, the grid all of
+// them; a block that walked more would free its one Q buffer at the end
+// of each item.
 
-constexpr int PW_D = 256;
-constexpr int PW_ROWS = 64;                          // keys of a tile; query rows of a consumer
-constexpr int PW_BQ = 2 * PW_ROWS;                   // query rows of a block
+constexpr int PW_ROWS = 64;                          // query rows of a consumer; rows of a TMA box
+constexpr int PW_BQ = 2 * PW_ROWS;                   // query rows of an item
 constexpr int PW_THREADS = 3 * 128;
-constexpr int PW_STAGES = 2;
-constexpr uint32_t PW_BOX = PW_ROWS * 128;           // a 64 x 64 bf16 slab: 8 KB
-constexpr uint32_t PW_TILE = (PW_D / 64) * PW_BOX;   // 64 keys of D 256: 32 KB
+constexpr uint32_t PW_BOX = PW_ROWS * 128;           // a 64 x 64 bf16 box: 8 KB
 constexpr uint32_t PW_QSLAB = PW_BQ * 128;           // a 128-row slab of Q: 16 KB
 constexpr int PW_PRODUCER_REGS = 24, PW_CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 <= 65,536
 // Named barriers: the consumers' turns (1, 2), each consumer's epilogue (3, 4).
 constexpr int PW_BAR_TURN = 1, PW_BAR_EPILOGUE = 3;
 
-struct PwSmem {  // bytes from the 1024-aligned base
-  static constexpr uint32_t Q = 0, K = Q + 4 * PW_QSLAB, V = K + PW_STAGES * PW_TILE;
-  static constexpr uint32_t BARS = V + PW_STAGES * PW_TILE;  // qbar, kfull, kempty, vfull, vempty
-  static constexpr size_t BYTES = BARS + 8 * (1 + 4 * PW_STAGES) + 1024;
+template <int D>
+struct Pw {
+  static constexpr int DP = (D + 63) / 64 * 64;   // columns of Q, K, V in shared memory
+  static constexpr int NPV = D < 64 ? 64 : D;     // columns of P V
+  static constexpr int BN = D == 256 ? 64 : 128;  // keys of a tile
+  static constexpr int STAGES = 2;
+  static constexpr int QBUF = D == 256 ? 1 : 2;
+  static constexpr uint32_t KSLAB = BN * 128;     // a 64-column slab of a K or V tile
+  static constexpr uint32_t QTILE = DP / 64 * PW_QSLAB, TILE = DP / 64 * KSLAB;
+  // Bytes from the 1024-aligned base: Q buffers, K stages, V stages, then
+  // the barriers qfull, qempty [QBUF]; kfull, kempty, vfull, vempty [STAGES].
+  static constexpr uint32_t Q = 0, K = Q + QBUF * QTILE, V = K + STAGES * TILE;
+  static constexpr uint32_t BARS = V + STAGES * TILE;
+  static constexpr size_t BYTES = BARS + 8 * (2 * QBUF + 4 * STAGES) + 1024;
+  static_assert(BYTES <= 232448, "shared memory of a block");
 };
 
 struct PwParams {
@@ -786,33 +649,52 @@ struct PwParams {
   Params p;
 };
 
+// Work item i: (b, h), its first query row and the key tiles t_lo ..
+// t_lo + ntiles - 1 any of its rows can see.
+struct PwItem {
+  int b, h, q0, t_lo, ntiles;
+};
+
+template <int BN>
+__device__ __forceinline__ PwItem pw_item(const Params& p, int i) {
+  const int bh = p.B * p.H, ntq = (p.Sq + PW_BQ - 1) / PW_BQ;
+  const int qt = p.causal ? ntq - 1 - i / bh : i / bh;  // longest causal tiles first
+  const int r = i % bh;
+  PwItem it;
+  it.b = r / p.H;
+  it.h = r - it.b * p.H;
+  it.q0 = qt * PW_BQ;
+  const int q_last = min(it.q0 + PW_BQ, p.Sq) - 1;
+  const int k_hi = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  const int k_lo = p.window > 0 ? max(0, it.q0 - p.window + 1) : 0;
+  it.t_lo = k_lo / BN;
+  it.ntiles = k_hi > k_lo ? (k_hi + BN - 1) / BN - it.t_lo : 0;
+  return it;
+}
+
+template <int D>
 __global__ void __launch_bounds__(PW_THREADS, 1)
     attn_prefill_wgmma(const __grid_constant__ PwParams wp) {
-  using S = PwSmem;
+  using S = Pw<D>;
+  constexpr int BN = S::BN, STAGES = S::STAGES, QBUF = S::QBUF;
   const Params& p = wp.p;
   char* sm = wgmma::aligned_smem();
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + S::BARS);
-  uint64_t* kfull = qbar + 1;
-  uint64_t* kempty = kfull + PW_STAGES;
-  uint64_t* vfull = kempty + PW_STAGES;
-  uint64_t* vempty = vfull + PW_STAGES;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  uint64_t* qempty = qfull + QBUF;
+  uint64_t* kfull = qempty + QBUF;
+  uint64_t* kempty = kfull + STAGES;
+  uint64_t* vfull = kempty + STAGES;
+  uint64_t* vempty = vfull + STAGES;
   // The warpgroup, by a shuffle: uniform to ptxas, which would serialise
   // products under conditions that derive from threadIdx.
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
-  const int b = blockIdx.x / p.H;
-  const int h = blockIdx.x - b * p.H;
-  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // longest causal tiles first
-  const int q0 = qt * PW_BQ;
-  const int kvh = h / (p.H / p.KV);
-  // Keys any row of the block can see: tiles t_lo .. t_lo + ntiles - 1.
-  const int q_last = min(q0 + PW_BQ, p.Sq) - 1;
-  const int k_hi = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
-  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int t_lo = k_lo / PW_ROWS;
-  const int ntiles = k_hi > k_lo ? (k_hi + PW_ROWS - 1) / PW_ROWS - t_lo : 0;
+  const int nitems = p.B * p.H * ((p.Sq + PW_BQ - 1) / PW_BQ);
   if (threadIdx.x == 0) {
-    mma::mbar_init(qbar, 1);
-    for (int i = 0; i < PW_STAGES; ++i) {
+    for (int i = 0; i < QBUF; ++i) {
+      mma::mbar_init(&qfull[i], 1);
+      mma::mbar_init(&qempty[i], 2);  // a thread of each consumer, its rows stored
+    }
+    for (int i = 0; i < STAGES; ++i) {
       mma::mbar_init(&kfull[i], 1);
       mma::mbar_init(&vfull[i], 1);
       mma::mbar_init(&kempty[i], 2 * 128);
@@ -822,37 +704,43 @@ __global__ void __launch_bounds__(PW_THREADS, 1)
   }
   __syncthreads();
 
-  if (wg == 0) {  // producer: thread 0 Q, then K of every tile; thread 32 V of every tile
+  if (wg == 0) {  // producer: thread 0 K, thread 32 V, thread 64 Q, item after item
     wgmma::regs_dec<PW_PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
-      mma::mbar_expect_tx(qbar, 4 * PW_QSLAB);
-      for (int half = 0; half < 2; ++half)
-        wgmma::tma_tile<PW_D>(sm + S::Q + half * PW_BOX, PW_QSLAB, &wp.q, qbar, h,
-                              q0 + PW_ROWS * half, b);
+    if (threadIdx.x == 64) {  // an item's Q as soon as a buffer is free: a whole item ahead
+      for (int i = blockIdx.x, j = 0; i < nitems; i += gridDim.x, ++j) {
+        const PwItem it = pw_item<BN>(p, i);
+        const int qb = j % QBUF;
+        if (j >= QBUF) mma::mbar_wait(&qempty[qb], (j / QBUF - 1) & 1);
+        mma::mbar_expect_tx(&qfull[qb], S::QTILE);
+        wgmma::tma_tile<S::DP, PW_BQ>(sm + S::Q + qb * S::QTILE, PW_QSLAB, &wp.q, &qfull[qb], it.h,
+                                      it.q0, it.b);
+      }
     }
     if (threadIdx.x == 0 || threadIdx.x == 32) {
       const bool is_k = threadIdx.x == 0;
       uint64_t* full = is_k ? kfull : vfull;
       uint64_t* empty = is_k ? kempty : vempty;
       char* ring = sm + (is_k ? S::K : S::V);
-      for (int it = 0; it < ntiles; ++it) {
-        const int st = it % PW_STAGES;
-        if (it >= PW_STAGES) mma::mbar_wait(&empty[st], (it / PW_STAGES - 1) & 1);
-        mma::mbar_expect_tx(&full[st], PW_TILE);
-        wgmma::tma_tile<PW_D>(ring + st * PW_TILE, PW_BOX, is_k ? &wp.k : &wp.v, &full[st], kvh,
-                              (t_lo + it) * PW_ROWS, b);
+      int n = 0;  // tiles loaded so far: the ring's position
+      for (int i = blockIdx.x; i < nitems; i += gridDim.x) {
+        const PwItem it = pw_item<BN>(p, i);
+        const int kvh = it.h / (p.H / p.KV);
+        for (int t = 0; t < it.ntiles; ++t, ++n) {
+          const int st = n % STAGES;
+          if (n >= STAGES) mma::mbar_wait(&empty[st], (n / STAGES - 1) & 1);
+          mma::mbar_expect_tx(&full[st], S::TILE);
+          wgmma::tma_tile<S::DP, BN>(ring + st * S::TILE, S::KSLAB, is_k ? &wp.k : &wp.v,
+                                     &full[st], kvh, (it.t_lo + t) * BN, it.b);
+        }
       }
     }
     return;
   }
 
   wgmma::regs_inc<PW_CONSUMER_REGS>();
-  const int cw = wg - 1;  // this consumer's rows: c0 .. c0 + 63
+  const int cw = wg - 1;  // this consumer's rows: c0 .. c0 + 63 of each item
   const int tid = threadIdx.x & 127;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
-  const int c0 = q0 + PW_ROWS * cw;
-  const int wq0 = c0 + 16 * warp;  // this warp's first row
-  const char* Qc = sm + S::Q + cw * PW_BOX;
   const bool softcap = p.softcap > 0.f;
   // Scores in log2 units: softcap c tanh(a scale / c) log2 e, tanh y as
   // 1 - 2 / (1 + 2^(2 y log2 e)) (two special-function operations), or
@@ -860,13 +748,11 @@ __global__ void __launch_bounds__(PW_THREADS, 1)
   const float mul = softcap ? 2.f * LOG2E * p.scale / p.softcap : p.scale * LOG2E;
   const float cap = p.softcap * LOG2E;
 
-  float o[128];
-  float s[32];
-  uint32_t pa[4][4] = {};
-#pragma unroll
-  for (int i = 0; i < 128; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  mma::mbar_wait(qbar, 0);
+  float o[S::NPV / 2];
+  float s[BN / 2];
+  uint32_t pa[BN / 16][4] = {};
+  float m[2], l[2];
+  int wq0 = 0;  // this warp's first row in the item
 
   // Scale, softcap, mask and online softmax of S (the tile at key0) in
   // place: s becomes p = 2^(x - m) of rows g and g + 8 of the warp (m
@@ -874,27 +760,41 @@ __global__ void __launch_bounds__(PW_THREADS, 1)
   // apply only where the tile crosses the diagonal, the window's edge or
   // Sk for this warp's rows; a row masked so far keeps m = -inf and p = 0.
   auto softmax = [&](int key0, float (&alpha)[2]) {
-    const bool need_mask = key0 + PW_ROWS > p.Sk || (p.causal && key0 + PW_ROWS - 1 > wq0) ||
+    const bool need_mask = key0 + BN > p.Sk || (p.causal && key0 + BN - 1 > wq0) ||
                            (p.window > 0 && key0 <= wq0 + 15 - p.window);
+    // Two loops under a uniform branch: one loop with a select between
+    // the forms computes both, two special-function operations a score
+    // that the plain form does not need.
+    if (softcap) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float x = softcap ? cap - 2.f * cap * mma::rcp_approx(1.f + mma::exp2_approx(s[i] * mul))
-                        : s[i] * mul;
-      if (need_mask) {
-        const int qpos = wq0 + mma::acc_row(lane, i & 3);
-        const int kpos = key0 + 8 * (i >> 2) + mma::acc_col(lane, i & 3);
-        bool valid = kpos < p.Sk;
-        if (p.causal) valid = valid && kpos <= qpos;
-        if (p.window > 0) valid = valid && kpos > qpos - p.window;
-        if (!valid) x = -INFINITY;
+      for (int i = 0; i < BN / 2; ++i)
+        s[i] = cap - 2.f * cap * mma::rcp_approx(1.f + mma::exp2_approx(s[i] * mul));
+    } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] *= mul;
+    }
+    if (need_mask) {
+      // Score i of this lane sits at key kb + dk and query row qb + dq, dk
+      // and dq constants of i: each mask is one comparison of dk or dk - dq
+      // with a bound the lane computes once (none where its mask is off).
+      const int kb = key0 + 2 * (lane & 3), qb = wq0 + (lane >> 2);
+      const int k_end = p.Sk - kb;
+      const int diag = p.causal ? qb - kb : INT_MAX;
+      const int wedge = p.window > 0 ? qb - kb - p.window : INT_MIN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int dk = 8 * (i >> 2) + (i & 1), dq = 8 * ((i >> 1) & 1);
+        if (!(dk < k_end && dk - dq <= diag && dk - dq > wedge)) s[i] = -INFINITY;
       }
-      s[i] = x;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = -INFINITY;
+      float mj[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // four chains: max is exact
 #pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      for (int j = 0; j < BN / 8; ++j)
+        mj[j & 3] = fmaxf(mj[j & 3], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(fmaxf(mj[0], mj[1]), fmaxf(mj[2], mj[3]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[r], mx);
@@ -902,7 +802,7 @@ __global__ void __launch_bounds__(PW_THREADS, 1)
       alpha[r] = mma::exp2_approx(m[r] - m_use);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
           s[4 * j + e] = mma::exp2_approx(s[4 * j + e] - m_use);
@@ -912,124 +812,163 @@ __global__ void __launch_bounds__(PW_THREADS, 1)
       m[r] = m_new;
     }
   };
-  // S = Q K^T of the tile in stage st, issued and committed.
-  auto issue_s = [&](int st) {
-    const char* Kt = sm + S::K + st * PW_TILE;
+  // S = Q K^T of the tile in stage st (the consumer's Q rows at Qc), issued
+  // and committed.
+  auto issue_s = [&](const char* Qc, int st) {
+    const char* Kt = sm + S::K + st * S::TILE;
 #pragma unroll
-    for (int ks = 0; ks < PW_D / 16; ++ks)
-      wgmma::m64n64k16_ss(s, wgmma::desc_k(Qc, ks, PW_QSLAB), wgmma::desc_k(Kt, ks, PW_BOX));
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma::ss(s, wgmma::desc_k(Qc, ks, PW_QSLAB), wgmma::desc_k(Kt, ks, S::KSLAB));
     wgmma::commit();
   };
   // O += P V of the tile in stage st, issued and committed.
   auto issue_pv = [&](int st) {
-    const char* Vt = sm + S::V + st * PW_TILE;
+    const char* Vt = sm + S::V + st * S::TILE;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma::m64n256k16_rs(o, pa[kk], wgmma::desc_mn(Vt, kk, PW_BOX));
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma::rs(o, pa[kk], wgmma::desc_mn(Vt, kk, S::KSLAB));
     wgmma::commit();
   };
   auto pack_p = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         pa[kk][i] = mma::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
   };
   auto zero_s = [&]() {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
     wgmma::fence_regs(s);
   };
 
-  // Products are issued in sections, one a turn: S_0; then S_it with
-  // P_{it-1} V_{it-1}; then the last P V.  Every tile the block reads is
-  // multiplied by both consumers, whose masks hide what their rows do not
-  // see (at most a tile a consumer at the causal diagonal or the window's
-  // edge): products under a condition would be serialised.
-  if (ntiles > 0) {
-    if (cw == 1) wgmma::bar_arrive(PW_BAR_TURN, 2 * 128);  // consumer 0 takes the first turn
-    float alpha[2];
-    mma::mbar_wait(&kfull[0], 0);
-    zero_s();
-    wgmma::bar_sync(PW_BAR_TURN + cw, 2 * 128);
-    wgmma::fence();
-    issue_s(0);
-    wgmma::bar_arrive(PW_BAR_TURN + (cw ^ 1), 2 * 128);
-    wgmma::wait<0>();
-    wgmma::fence_regs(s);
-    mma::mbar_arrive(&kempty[0]);
-    softmax(t_lo * PW_ROWS, alpha);
-    pack_p();
-    for (int it = 1; it < ntiles; ++it) {
-      const int st = it % PW_STAGES, pst = (it - 1) % PW_STAGES;
-      mma::mbar_wait(&kfull[st], (it / PW_STAGES) & 1);
-      mma::mbar_wait(&vfull[pst], ((it - 1) / PW_STAGES) & 1);
-      wgmma::fence_regs(o);
-      wgmma::fence_regs(pa);
+  int n = 0;         // tiles consumed so far: the ring's position
+  int stored = -1;   // (thread 0) the Q buffer an output store of the last item may still read
+  // Thread 0 waits for that store's reads and frees the buffer for the
+  // producer's next Q: after the next item's first products, which hide the
+  // wait, or before its own store.  With one Q buffer the next item's Q
+  // waits for that release, so it comes at the end of the item instead.
+  auto release = [&]() {
+    if (tid == 0 && stored >= 0) {
+      mma::bulk_wait_read<0>();
+      mma::mbar_arrive(&qempty[stored]);
+      stored = -1;
+    }
+  };
+  for (int i = blockIdx.x, j = 0; i < nitems; i += gridDim.x, ++j) {
+    const PwItem it = pw_item<BN>(p, i);
+    const int qb = j % QBUF;
+    char* Qb = sm + S::Q + qb * S::QTILE;
+    const char* Qc = Qb + cw * PW_BOX;
+    const int c0 = it.q0 + PW_ROWS * cw;
+    wq0 = c0 + 16 * warp;
+#pragma unroll
+    for (int e = 0; e < S::NPV / 2; ++e) o[e] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    mma::mbar_wait(&qfull[qb], (j / QBUF) & 1);
+
+    // Products are issued in sections, one a turn: S_0; then S_t with
+    // P_{t-1} V_{t-1}; then the last P V.  Every tile the item reads is
+    // multiplied by both consumers, whose masks hide what their rows do not
+    // see (at most a tile a consumer at the causal diagonal or the window's
+    // edge): products under a condition would be serialised.
+    if (it.ntiles > 0) {
+      if (cw == 1) wgmma::bar_arrive(PW_BAR_TURN, 2 * 128);  // consumer 0 takes the first turn
+      float alpha[2];
+      const int st0 = n % STAGES;
+      mma::mbar_wait(&kfull[st0], (n / STAGES) & 1);
       zero_s();
       wgmma::bar_sync(PW_BAR_TURN + cw, 2 * 128);
       wgmma::fence();
-      issue_s(st);
-      issue_pv(pst);
+      issue_s(Qc, st0);
       wgmma::bar_arrive(PW_BAR_TURN + (cw ^ 1), 2 * 128);
-      wgmma::wait<1>();  // S_it done; P_{it-1} V_{it-1} runs under the softmax
-      wgmma::fence_regs(s);
-      mma::mbar_arrive(&kempty[st]);
-      softmax((t_lo + it) * PW_ROWS, alpha);
       wgmma::wait<0>();
+      wgmma::fence_regs(s);
+      mma::mbar_arrive(&kempty[st0]);
+      release();
+      softmax(it.t_lo * BN, alpha);
+      pack_p();
+      for (int t = 1; t < it.ntiles; ++t) {
+        const int a = n + t, st = a % STAGES, pst = (a - 1) % STAGES;
+        mma::mbar_wait(&kfull[st], (a / STAGES) & 1);
+        mma::mbar_wait(&vfull[pst], ((a - 1) / STAGES) & 1);
+        wgmma::fence_regs(o);
+        wgmma::fence_regs(pa);
+        zero_s();
+        wgmma::bar_sync(PW_BAR_TURN + cw, 2 * 128);
+        wgmma::fence();
+        issue_s(Qc, st);
+        issue_pv(pst);
+        wgmma::bar_arrive(PW_BAR_TURN + (cw ^ 1), 2 * 128);
+        wgmma::wait<1>();  // S_t done; P_{t-1} V_{t-1} runs under the softmax
+        wgmma::fence_regs(s);
+        mma::mbar_arrive(&kempty[st]);
+        softmax((it.t_lo + t) * BN, alpha);
+        wgmma::wait<0>();
+        wgmma::fence_regs(o);
+        wgmma::fence_regs(pa);
+        mma::mbar_arrive(&vempty[pst]);
+#pragma unroll
+        for (int e = 0; e < S::NPV / 8; ++e) {
+          o[4 * e] *= alpha[0];
+          o[4 * e + 1] *= alpha[0];
+          o[4 * e + 2] *= alpha[1];
+          o[4 * e + 3] *= alpha[1];
+        }
+        pack_p();
+      }
+      const int last = n + it.ntiles - 1, pst = last % STAGES;
+      mma::mbar_wait(&vfull[pst], (last / STAGES) & 1);
       wgmma::fence_regs(o);
       wgmma::fence_regs(pa);
+      wgmma::bar_sync(PW_BAR_TURN + cw, 2 * 128);
+      wgmma::fence();
+      issue_pv(pst);
+      if (cw == 0) wgmma::bar_arrive(PW_BAR_TURN + 1, 2 * 128);
+      wgmma::wait<0>();
+      wgmma::fence_regs(o);
       mma::mbar_arrive(&vempty[pst]);
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        o[4 * j] *= alpha[0];
-        o[4 * j + 1] *= alpha[0];
-        o[4 * j + 2] *= alpha[1];
-        o[4 * j + 3] *= alpha[1];
-      }
-      pack_p();
+      n += it.ntiles;
     }
-    const int pst = (ntiles - 1) % PW_STAGES;
-    mma::mbar_wait(&vfull[pst], ((ntiles - 1) / PW_STAGES) & 1);
-    wgmma::fence_regs(o);
-    wgmma::fence_regs(pa);
-    wgmma::bar_sync(PW_BAR_TURN + cw, 2 * 128);
-    wgmma::fence();
-    issue_pv(pst);
-    if (cw == 0) wgmma::bar_arrive(PW_BAR_TURN + 1, 2 * 128);
-    wgmma::wait<0>();
-    wgmma::fence_regs(o);
-    mma::mbar_arrive(&vempty[pst]);
-  }
 
-  // Epilogue: o / l as bf16 into this consumer's half of the Q slabs (its
-  // own rows, read by no one else, done with after its last product) in
-  // the slabs' swizzled layout, then four TMA stores of 64 x 64; rows past
-  // Sq are not written.  The lse (natural log) where asked.
-  const int g = lane >> 2, t = lane & 3;
+    // Epilogue: o / l as bf16 into this consumer's half of the item's Q
+    // slabs (its own rows, read by no one else, done with after its last
+    // product) in the slabs' swizzled layout, then a TMA store a slab;
+    // rows past Sq and columns past D are not written.  The lse (natural
+    // log) where asked.  The Q buffer is released once the stores have
+    // read it.
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lr = l[r];
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    const float inv = lr > 0.f ? 1.f / lr : 0.f;
-    const int row = 16 * warp + g + 8 * r;  // of the consumer's 64
-    char* dst = sm + S::Q + cw * PW_BOX + row * 128 + 4 * t;
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float inv = lr > 0.f ? 1.f / lr : 0.f;
+      const int row = 16 * warp + g + 8 * r;  // of the consumer's 64
+      char* dst = Qb + cw * PW_BOX + row * 128 + 4 * t;
 #pragma unroll
-    for (int j = 0; j < 32; ++j)
-      *reinterpret_cast<uint32_t*>(dst + (j >> 3) * PW_QSLAB + (((j & 7) ^ (row & 7)) << 4)) =
-          mma::pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-    // m is in log2 units here (the scores carry log2 e)
-    if (p.lse != nullptr && t == 0 && c0 + row < p.Sq) write_lse(p, b, h, c0 + row, m[r] * LN2, lr);
+      for (int e = 0; e < S::NPV / 8; ++e)
+        *reinterpret_cast<uint32_t*>(dst + (e >> 3) * PW_QSLAB + (((e & 7) ^ (row & 7)) << 4)) =
+            mma::pack_bf16(o[4 * e + 2 * r] * inv, o[4 * e + 2 * r + 1] * inv);
+      // m is in log2 units here (the scores carry log2 e)
+      if (p.lse != nullptr && t == 0 && c0 + row < p.Sq)
+        write_lse(p, it.b, it.h, c0 + row, m[r] * LN2, lr);
+    }
+    mma::fence_proxy_async();
+    wgmma::bar_sync(PW_BAR_EPILOGUE + cw, 128);
+    release();
+    if (tid == 0) {
+      if (c0 < p.Sq) {
+#pragma unroll
+        for (int c = 0; c < S::DP / 64; ++c)
+          mma::tma_store_4d(&wp.o, Qb + c * PW_QSLAB + cw * PW_BOX, 64 * c, it.h, c0, it.b);
+        mma::bulk_commit();
+      }
+      stored = qb;
+    }
+    if constexpr (QBUF == 1) release();
   }
-  mma::fence_proxy_async();
-  wgmma::bar_sync(PW_BAR_EPILOGUE + cw, 128);
-  if (tid == 0 && c0 < p.Sq) {
-#pragma unroll
-    for (int c = 0; c < PW_D / 64; ++c)
-      mma::tma_store_4d(&wp.o, sm + S::Q + c * PW_QSLAB + cw * PW_BOX, 64 * c, h, c0, b);
-    mma::bulk_commit();
-    mma::bulk_wait_read<0>();
-  }
+  release();  // the last store's reads: shared memory stays until they finish
 }
 
 // Decode (Sq < 16): a block owns one (b, KV head) and up to 16 query rows
@@ -1366,21 +1305,48 @@ cudaError_t launch_with_smem(dim3 grid, int threads, size_t bytes, const P& p,
   return cudaGetLastError();
 }
 
-// The D 256 bf16 prefill: its four tensor maps from the strides, then the
-// warpgroup kernel.  A map that cannot be encoded is an error, never a
-// fallback; with Sk 0 no K or V tile is loaded and their maps stay empty.
+// The current device's SM count, read once a device: the prefill's grid
+// below D 256 is one block an SM.
+inline cudaError_t current_sm_count(int* sms) {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<int> cache[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && (*sms = cache[dev].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < MAX_DEVICES) cache[dev].store(*sms, std::memory_order_relaxed);
+  return err;
+}
+
+// The bf16 prefill: its four tensor maps from the strides (the true head
+// dim; TMA zero-fills the columns of a box past it), then the warpgroup
+// kernel, on every item (D 256) or on one block an SM walking them.  A map
+// that cannot be encoded is an error, never a fallback; with Sk 0 no K or
+// V tile is loaded and their maps stay empty.
+template <int D>
 cudaError_t launch_prefill_wgmma(const Params& p, cudaStream_t stream) {
+  using S = Pw<D>;
   PwParams wp{};
   wp.p = p;
   const int64_t qs[3] = {p.qsb, p.qsh, p.qss}, ks[3] = {p.ksb, p.ksh, p.kss},
                 vs[3] = {p.vsb, p.vsh, p.vss}, os[3] = {p.osb, p.osh, p.oss};
-  if (!mma::encode_map(&wp.q, p.q, qs, PW_D, p.H, p.Sq, p.B) ||
-      !mma::encode_map(&wp.o, p.o, os, PW_D, p.H, p.Sq, p.B) ||
-      (p.Sk > 0 && (!mma::encode_map(&wp.k, p.k, ks, PW_D, p.KV, p.Sk, p.B) ||
-                    !mma::encode_map(&wp.v, p.v, vs, PW_D, p.KV, p.Sk, p.B))))
+  if (!mma::encode_map(&wp.q, p.q, qs, D, p.H, p.Sq, p.B) ||
+      !mma::encode_map(&wp.o, p.o, os, D, p.H, p.Sq, p.B) ||
+      (p.Sk > 0 && (!mma::encode_map(&wp.k, p.k, ks, D, p.KV, p.Sk, p.B) ||
+                    !mma::encode_map(&wp.v, p.v, vs, D, p.KV, p.Sk, p.B))))
     return cudaErrorInvalidValue;
-  return launch_with_smem<attn_prefill_wgmma>(dim3(p.B * p.H, (p.Sq + PW_BQ - 1) / PW_BQ),
-                                              PW_THREADS, PwSmem::BYTES, wp, stream);
+  const int64_t items = static_cast<int64_t>(p.B) * p.H * ((p.Sq + PW_BQ - 1) / PW_BQ);
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  int grid = static_cast<int>(items);
+  if constexpr (S::QBUF > 1) {
+    int sms = 0;
+    const cudaError_t err = current_sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    grid = static_cast<int>(items < sms ? items : sms);
+  }
+  return launch_with_smem<attn_prefill_wgmma<D>>(dim3(grid), PW_THREADS, S::BYTES, wp, stream);
 }
 
 template <int D>
@@ -1409,12 +1375,7 @@ cudaError_t launch_bf16_mode(const Params& p, cudaStream_t stream) {
     return launch_with_smem<attn_decode_bf16<D, false>>(dim3(mtiles, p.KV, p.B), DC_WARPS * 32,
                                                         DcSmem<D>::BYTES, p, stream);
   }
-  if constexpr (D == PW_D) {
-    return launch_prefill_wgmma(p, stream);
-  } else {
-    return launch_with_smem<attn_prefill_bf16<D>>(dim3(p.B * p.H, (p.Sq + PF_BQ - 1) / PF_BQ),
-                                                  PF_WARPS * 32, PfSmem<D>::BYTES, p, stream);
-  }
+  return launch_prefill_wgmma<D>(p, stream);
 }
 
 cudaError_t launch_bf16(const Params& p, int D, cudaStream_t stream) {

@@ -10,11 +10,12 @@
 // unit, bf16 packing and the hi + lo split of an fp32 value, and the
 // fragment index maps; for the warpgroup kernels (namespace wgmma):
 // shared-memory matrix descriptors of 128-byte-swizzled tiles, the
-// asynchronous warpgroup products `wgmma.mma_async` m64n64k16 (A and B in
-// shared memory) and m64n256k16 (A in registers), their fence / commit /
-// wait, `setmaxnreg`, and named barriers; and on the host the tensor-map
-// encoder and the 4-D map of a (b, head, seq, D) bf16 tensor that the
-// attention kernels' TMA loads and stores read (encode_map).
+// asynchronous warpgroup products `wgmma.mma_async` m64nNk16 with A and B
+// in shared memory (N 64, 128) or A in registers (N 64, 80, 128, 256),
+// their fence / commit / wait, `setmaxnreg`, and named barriers; and on
+// the host the tensor-map encoder and the 4-D map of a (b, head, seq, D)
+// bf16 tensor that the attention kernels' TMA loads and stores read
+// (encode_map: 64-column boxes, zeros past D).
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane = 4 g + t (g = lane >> 2 in 0..7, t = lane & 3):
@@ -218,7 +219,8 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // A (B, heads, seq, D) bf16 tensor at `base` with element strides s[0..2]
 // (batch, head, seq; D contiguous) as a 4-D tensor map (D, heads, seq, B)
 // whose box is 64 columns x 1 head x 64 rows x 1, 128-byte swizzled: the
-// slabs of the warpgroup kernels below.  Rows past `seq` read as zeros and
+// slabs of the warpgroup kernels below.  Rows past `seq` and columns past
+// D (a box is 64 columns wide at D 16, 32 and 80 too) read as zeros and
 // are not written.  False where the map cannot be encoded.
 inline bool encode_map(CUtensorMap* map, const void* base, const int64_t* s, int D, int heads,
                        int seq, int B) {
@@ -329,15 +331,20 @@ __device__ __forceinline__ char* aligned_smem() {
                                  ~uintptr_t(1023));
 }
 
-// The D / 64 boxes of one tile of a tensor map from mma::encode_map: rows
-// row0 .. row0 + 63 of head h, batch b into `tile`, whose 64-column slabs
-// lie `slab_bytes` apart, on barrier `bar`.
-template <int D>
+// The D / 64 x ROWS / 64 boxes of one tile of a tensor map from
+// mma::encode_map: rows row0 .. row0 + ROWS - 1 of head h, batch b into
+// `tile`, whose 64-column slabs of ROWS rows lie `slab_bytes` apart (each
+// slab's 64-row boxes 8 KB apart, as one slab of ROWS rows lays them out),
+// on barrier `bar`.  Columns past the map's width read as zeros.
+template <int D, int ROWS = 64>
 __device__ __forceinline__ void tma_tile(void* tile, uint32_t slab_bytes, const CUtensorMap* map,
                                          uint64_t* bar, int h, int row0, int b) {
 #pragma unroll
   for (int c = 0; c < D / 64; ++c)
-    mma::tma_load_4d(static_cast<char*>(tile) + c * slab_bytes, map, bar, 64 * c, h, row0, b);
+#pragma unroll
+    for (int r = 0; r < ROWS / 64; ++r)
+      mma::tma_load_4d(static_cast<char*>(tile) + c * slab_bytes + r * 8192, map, bar, 64 * c, h,
+                       row0 + 64 * r, b);
 }
 
 // Pins registers at this point of the program for the compiler: an
@@ -363,44 +370,79 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// The asynchronous products.  Each m64nN form writes its asm operand list
+// once: the accumulators (N / 2 fp32 a thread) as "+f" operands
+// (WGMMA_D8: eight of them), their names in the instruction (WGMMA_R*).
+// ss: d (64 x N, fp32) += A B^T, A (64 x 16) and B (N x 16) K-major in
+// shared memory; rs: d (64 x N) += A B, A (64 x 16) in registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B (16 x N) MN-major in
+// shared memory.  The overloads take N from the accumulators' count.
 #define WGMMA_D8(i)                                                                         \
   "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]),      \
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define WGMMA_D32(i) WGMMA_D8(i), WGMMA_D8((i) + 8), WGMMA_D8((i) + 16), WGMMA_D8((i) + 24)
+#define WGMMA_R32                                                                           \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WGMMA_R40 WGMMA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define WGMMA_R64                                                                           \
+  WGMMA_R40 ", %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "   \
+            "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WGMMA_R128                                                                          \
+  WGMMA_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "  \
+            "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, "    \
+            "%94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+            "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, " \
+            "%121, %122, %123, %124, %125, %126, %127"
+// N columns, REGS the accumulators' names, then the names of the operands
+// after them: A's descriptor (ss) or four registers (rs), B's descriptor,
+// and the scale-d flag.
+#define WGMMA_SS(N, REGS, A, B, P, ...)                                                     \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, " P ", 0;\n"                              \
+               " wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, " A    \
+               ", " B ", p, 1, 1, 0, 0;\n}\n"                                                \
+               : __VA_ARGS__                                                                 \
+               : "l"(a), "l"(b), "r"(1))
+#define WGMMA_RS(N, REGS, A, B, P, ...)                                                     \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, " P ", 0;\n"                              \
+               " wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, {" A   \
+               "}, " B ", p, 1, 1, 1;\n}\n"                                                  \
+               : __VA_ARGS__                                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 
-// d (64 x 64, fp32) += A B^T, A (64 x 16) and B (64 x 16) K-major in
-// shared memory.
-__device__ __forceinline__ void m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WGMMA_D8(0), WGMMA_D8(8), WGMMA_D8(16), WGMMA_D8(24)
-      : "l"(a), "l"(b), "r"(1));
+__device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b) {
+  WGMMA_SS(64, WGMMA_R32, "%32", "%33", "%34", WGMMA_D32(0));
 }
-
-// d (64 x 256, fp32) += A B, A (64 x 16) in registers (the m16n8k16 A
-// fragment of each warp's 16 rows), B (16 x 256) MN-major in shared memory.
+__device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b) {
+  WGMMA_SS(128, WGMMA_R64, "%64", "%65", "%66", WGMMA_D32(0), WGMMA_D32(32));
+}
+__device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS(64, WGMMA_R32, "%32, %33, %34, %35", "%36", "%37", WGMMA_D32(0));
+}
+__device__ __forceinline__ void rs(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS(80, WGMMA_R40, "%40, %41, %42, %43", "%44", "%45", WGMMA_D32(0), WGMMA_D8(32));
+}
+__device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS(128, WGMMA_R64, "%64, %65, %66, %67", "%68", "%69", WGMMA_D32(0), WGMMA_D32(32));
+}
+__device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS(256, WGMMA_R128, "%128, %129, %130, %131", "%132", "%133", WGMMA_D32(0),
+           WGMMA_D32(32), WGMMA_D32(64), WGMMA_D32(96));
+}
+// The two forms the backward's kernels name (older sources of the forward,
+// which scripts/attention_fwd_ab.py builds against this header, name them too).
+__device__ __forceinline__ void m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b) { ss(d, a, b); }
 __device__ __forceinline__ void m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
-      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
-      "%125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : WGMMA_D8(0), WGMMA_D8(8), WGMMA_D8(16), WGMMA_D8(24), WGMMA_D8(32), WGMMA_D8(40),
-        WGMMA_D8(48), WGMMA_D8(56), WGMMA_D8(64), WGMMA_D8(72), WGMMA_D8(80), WGMMA_D8(88),
-        WGMMA_D8(96), WGMMA_D8(104), WGMMA_D8(112), WGMMA_D8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  rs(d, a, b);
 }
 
+#undef WGMMA_RS
+#undef WGMMA_SS
+#undef WGMMA_R128
+#undef WGMMA_R64
+#undef WGMMA_R40
+#undef WGMMA_R32
+#undef WGMMA_D32
 #undef WGMMA_D8
 
 }  // namespace wgmma

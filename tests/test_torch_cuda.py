@@ -10,6 +10,7 @@ a train step on the card against the same step on the CPU, which
 ``tests/test_torch_train.py`` holds against the JAX package.
 """
 import re
+import time
 
 import pytest
 
@@ -213,45 +214,74 @@ def test_split_decode_rows_with_no_key(dev):
     torch.testing.assert_close(lse[:, :, :7], want_lse[:, :, :7], **TOL[torch.bfloat16])
 
 
+def kernel_names(fn, pattern, want, tries=5):
+    """The kernels one call of ``fn`` launches whose names match ``pattern``
+    (its first group), in launch order, by torch.profiler.  The profiler on
+    the card has returned records that lack some or all of a call's
+    kernels, so, as ``chip_smoke.kernel_split`` does, a throwaway kernel
+    opens the window, the call runs with the card idle and a margin of host
+    time on each side that grows with each try, and while the names differ
+    from ``want`` the call is profiled again, ``tries`` in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            time.sleep(0.05 * attempt)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05 * attempt)
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [m.group(1) for e in events for m in [re.search(pattern, e.name)] if m]
+        if names == want:
+            break
+    return names
+
+
+PREFILL_NAME = r"(attn_prefill_\w+?)(?:<|\(|$)"
+
+
 def test_gemma2_kernel_paths_by_profiler(dev):
     """By kernel name, in launch order: a bf16 gemma2 decode call the split
     decode's two kernels, a bf16 D 256 prefill call (Sq >= 16) through
-    either forward entry the warpgroup prefill, a D 128 one the mma.sync
-    prefill, a bf16 D 256 backward call the wgmma path's two, a D 80 one
-    the mma.sync path's two."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def names(fn, pattern):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.zeros(1, device=dev)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        return [m.group(1) for e in events for m in [re.search(pattern, e.name)] if m]
+    either forward entry the warpgroup prefill, a bf16 D 256 backward call
+    the wgmma path's two, a D 80 one the mma.sync path's two."""
+    def check(fn, pattern, want):
+        assert kernel_names(fn, pattern, want) == want
 
     q = rand((2, 16, 1, 256), torch.bfloat16, 0, dev)
     k, v = rand((2, 8, 4096, 256), torch.bfloat16, 1, dev), rand((2, 8, 4096, 256), torch.bfloat16, 2, dev)
-    assert names(lambda: fa.flash_attention_cuda(q, k, v, causal=False, softcap=50.0),
-                 r"(attn_decode_\w+?)(?:<|\(|$)") == ["attn_decode_bf16", "attn_decode_merge"]
-    prefill = r"(attn_prefill_\w+?)(?:<|\(|$)"
+    check(lambda: fa.flash_attention_cuda(q, k, v, causal=False, softcap=50.0),
+          r"(attn_decode_\w+?)(?:<|\(|$)", ["attn_decode_bf16", "attn_decode_merge"])
     q = rand((1, 16, 300, 256), torch.bfloat16, 10, dev)
     k, v = rand((1, 8, 300, 256), torch.bfloat16, 11, dev), rand((1, 8, 300, 256), torch.bfloat16, 12, dev)
-    assert names(lambda: fa.flash_attention_cuda(q, k, v, causal=True, softcap=50.0),
-                 prefill) == ["attn_prefill_wgmma"]
-    assert names(lambda: fa.flash_attention_lse_cuda(q, k, v, causal=True, window=64),
-                 prefill) == ["attn_prefill_wgmma"]
-    q, k = rand((1, 8, 300, 128), torch.bfloat16, 13, dev), rand((1, 2, 300, 128), torch.bfloat16, 14, dev)
-    assert names(lambda: fa.flash_attention_cuda(q, k, k, causal=True), prefill) == ["attn_prefill_bf16"]
+    check(lambda: fa.flash_attention_cuda(q, k, v, causal=True, softcap=50.0), PREFILL_NAME,
+          ["attn_prefill_wgmma"])
+    check(lambda: fa.flash_attention_lse_cuda(q, k, v, causal=True, window=64), PREFILL_NAME,
+          ["attn_prefill_wgmma"])
     for D, want in ((256, ["attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma"]),
                     (80, ["attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16"])):
         q, dout = (rand((1, 16, 200, D), torch.bfloat16, 3 + i, dev) for i in range(2))
         k, v = (rand((1, 8, 200, D), torch.bfloat16, 5 + i, dev) for i in range(2))
         out = fa.flash_attention_cuda(q, k, v, causal=True)
-        assert names(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True),
-                     r"(attn_bwd_\w+?)(?:<|\(|$)") == want
+        check(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True),
+              r"(attn_bwd_\w+?)(?:<|\(|$)", want)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("entry", ["fwd", "lse"])
+def test_prefill_below_d256_runs_the_warpgroup_kernel(dev, D, entry):
+    """By kernel name: a bf16 prefill call (Sq >= 16) below D 256, through
+    either forward entry, launches the one prefill kernel, the warpgroup
+    one, once."""
+    q = rand((1, 8, 300, D), torch.bfloat16, D, dev)
+    k = rand((1, 2, 300, D), torch.bfloat16, D + 1, dev)
+    call = fa.flash_attention_cuda if entry == "fwd" else fa.flash_attention_lse_cuda
+    want = ["attn_prefill_wgmma"]
+    assert kernel_names(lambda: call(q, k, k, causal=True, window=64), PREFILL_NAME, want) == want
 
 
 @pytest.mark.parametrize(
@@ -290,6 +320,79 @@ def test_d256_prefill_edges_match_plain_version(dev, B, H, KV, Sq, Sk, causal, w
     torch.cuda.synchronize()
     want = attention_ref(q, k, v, **opts)
     torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+
+
+# The prefill below D 256 (the same warpgroup kernel, 128-key tiles, one
+# block an SM walking the items; TMA zero-fills the columns past D 16, 32
+# and 80): tile edges of Sq, Sk below and above Sq, GQA groups 1, 5, 7, 12
+# and 24 / 24, windows at a half, a whole and one past a tile, the softcap
+# saturated (q and k scaled by 4), the model's strided layout, rows that
+# admit no key.  B, H, KV, Sq, Sk, causal, window, softcap, scale, strided.
+PREFILL_EDGES = [
+    (1, 4, 2, 16, 16, True, 0, 0.0, 1.0, False),
+    (1, 4, 2, 17, 17, True, 0, 0.0, 1.0, False),
+    (1, 4, 2, 63, 63, True, 0, 0.0, 1.0, False),
+    (2, 4, 2, 64, 64, True, 0, 0.0, 1.0, False),
+    (1, 4, 2, 65, 65, True, 0, 0.0, 1.0, False),
+    (1, 4, 2, 127, 127, True, 0, 0.0, 1.0, False),
+    (1, 4, 2, 128, 128, True, 0, 0.0, 1.0, False),
+    (1, 4, 4, 129, 129, True, 0, 0.0, 1.0, False),
+    (2, 4, 2, 300, 300, True, 0, 0.0, 1.0, False),
+    (1, 4, 2, 100, 300, True, 0, 0.0, 1.0, False),
+    (1, 4, 2, 300, 100, True, 0, 0.0, 1.0, False),
+    (2, 4, 2, 130, 200, False, 0, 0.0, 1.0, False),
+    (1, 10, 2, 200, 200, True, 0, 0.0, 1.0, False),
+    (1, 14, 2, 129, 129, True, 0, 0.0, 1.0, False),
+    (1, 24, 2, 128, 128, True, 0, 0.0, 1.0, False),
+    (1, 24, 24, 150, 150, True, 0, 0.0, 1.0, False),
+    (1, 4, 2, 320, 320, True, 64, 0.0, 1.0, False),
+    (1, 4, 2, 400, 400, True, 128, 0.0, 1.0, False),
+    (1, 4, 2, 300, 300, True, 129, 0.0, 1.0, False),
+    (1, 4, 2, 256, 256, True, 0, 50.0, 4.0, False),
+    (1, 4, 2, 300, 300, True, 64, 50.0, 4.0, False),
+    (2, 8, 4, 300, 300, True, 0, 0.0, 1.0, True),
+    (1, 4, 2, 300, 100, False, 64, 0.0, 1.0, False),
+    (2, 48, 8, 300, 100, False, 64, 0.0, 1.0, False),   # 288 items: a block's later ones admit no key
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window,softcap,scale,strided", PREFILL_EDGES)
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+def test_prefill_edges_match_plain_version_below_d256(dev, D, B, H, KV, Sq, Sk, causal, window,
+                                                      softcap, scale, strided):
+    """The bf16 prefill below D 256 at the edges of its tiles, through both
+    forward entries, against ``attention_ref`` and ``attention_lse_ref``
+    within 2e-2; a row that admits no key gives 0 and an lse of -inf."""
+    if strided:   # (B,S,H,D) views; k and v slices of a longer cache
+        q = rand((B, Sq, H, D), torch.bfloat16, 0, dev).transpose(1, 2)
+        k, v = (rand((B, Sk + 64, KV, D), torch.bfloat16, 1 + i, dev)[:, :Sk].transpose(1, 2)
+                for i in range(2))
+    else:
+        q = rand((B, H, Sq, D), torch.float32, 0, dev).mul(scale).bfloat16()
+        k = rand((B, KV, Sk, D), torch.float32, 1, dev).mul(scale).bfloat16()
+        v = rand((B, KV, Sk, D), torch.bfloat16, 2, dev)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    out = fa.flash_attention_cuda(q, k, v, **opts)
+    out2, lse = fa.flash_attention_lse_cuda(q, k, v, **opts)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, **opts)
+    want2, want_lse = attention_lse_ref(q, k, v, **opts)
+    empty = torch.isneginf(want_lse)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(out2.float(), want2.float(), **TOL[torch.bfloat16])
+    assert torch.equal(torch.isneginf(lse), empty) and not out[empty].any() and not out2[empty].any()
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("H,KV,D", [(32, 32, 80), (32, 8, 128)], ids=["stablelm", "phi3.5"])
+def test_attention_fwd_bf16_prefill_is_deterministic(dev, H, KV, D):
+    """Two bf16 prefill calls at stablelm's and phi3.5's prefill shapes
+    (8,32,512,D) in the model's layout are bitwise equal."""
+    q = rand((8, 512, H, D), torch.bfloat16, 0, dev).transpose(1, 2)
+    k, v = (rand((8, 512, KV, D), torch.bfloat16, 1 + i, dev).transpose(1, 2) for i in range(2))
+    first, second = (fa.flash_attention_cuda(q, k, v, causal=True) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_d256_prefill_in_the_model_layout(dev):
@@ -1087,26 +1190,23 @@ def test_mlstm_grads_bf16_in_the_model_layout(dev):
 
 def test_mlstm_backward_path_follows_dtype(dev):
     """The dtype alone picks the backward's kernels: a bf16 call runs the
-    five tensor-core kernels, an fp32 call the four scalar ones; each call
-    counts once in bwd_launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    ran = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    five tensor-core kernels, an fp32 call the four scalar ones, in launch
+    order; each call counts once in bwd_launches."""
+    kernels = {torch.bfloat16: ["mlstm_bwd_states_bf16", "mlstm_bwd_chunk_bf16",
+                                "mlstm_bwd_dstates_bf16", "mlstm_bwd_out_bf16",
+                                "mlstm_bwd_gates_bf16"],
+               torch.float32: ["mlstm_bwd_states", "mlstm_bwd_main", "mlstm_bwd_reduce_qk",
+                               "mlstm_bwd_reduce_gates"]}
+    for dtype, want in kernels.items():
         args = mlstm_inputs(1, 64, 2, 32, dtype, dev, seed=44)
         dh = rand((1, 64, 2, 32), dtype, 45, dev)
         before = mlstm.bwd_launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=16)
-            torch.cuda.synchronize()
+        mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=16)
+        torch.cuda.synchronize()
         assert mlstm.bwd_launches == before + 1
-        ran[dtype] = sorted({m.group(1) for e in prof.key_averages()
-                             for m in [re.search(r"(mlstm_bwd_\w+)", e.key)] if m})
-    assert ran[torch.bfloat16] == sorted(["mlstm_bwd_states_bf16", "mlstm_bwd_chunk_bf16",
-                                          "mlstm_bwd_dstates_bf16", "mlstm_bwd_out_bf16",
-                                          "mlstm_bwd_gates_bf16"])
-    assert ran[torch.float32] == sorted(["mlstm_bwd_states", "mlstm_bwd_main",
-                                         "mlstm_bwd_reduce_qk", "mlstm_bwd_reduce_gates"])
+        ran = kernel_names(lambda: mlstm.mlstm_scan_bwd_cuda(*args, dh, chunk=16),
+                           r"(mlstm_bwd_\w+?)(?:<|\(|$)", want)
+        assert ran == want
 
 
 def test_mlstm_function_final_state_is_not_differentiable(dev):

@@ -21,7 +21,7 @@ from repro.kernels import flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.ref import attention_ref as jax_attention_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ref import attention_lse_ref, attention_ref  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -139,6 +139,56 @@ def test_strided_views_match_contiguous():
     out = ops.flash_attention(tq, tk, tv, causal=True)
     ref = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+# The bf16 prefill kernel (csrc/flash_attention.cu, attn_prefill_wgmma)
+# reads q, k and v in 64-column slabs: at D 16, 32 and 80 TMA fills the
+# columns past D with zeros, Q K^T sums them (nothing), P V gives zero
+# columns, and the output's stores drop them; the scale is 1/sqrt of the
+# true D.  That argument on the CPU, in fp32: the plain version on the
+# zero-padded inputs, q times sqrt(padded width / D) so that its
+# 1/sqrt(padded width) is the true D's scale, cropped, is the unpadded
+# attention (the port's and the JAX package's), output and log-sum-exp,
+# within the fp32 tolerance; with the padded width's scale it is not.
+PAD_CASES = {  # B, H, KV, Sq, Sk, causal, window, softcap
+    "causal": (1, 2, 2, 40, 40, True, 0, 0.0),
+    "window": (1, 2, 2, 40, 40, True, 16, 0.0),
+    "softcap": (1, 2, 2, 40, 40, True, 0, 20.0),
+    "gqa 4": (1, 8, 2, 40, 56, False, 0, 0.0),
+}
+
+
+def _padded(D, case, seed, *, true_scale=True):
+    B, H, KV, Sq, Sk, causal, window, softcap = PAD_CASES[case]
+    q, k, v = inputs(seed, B, H, KV, Sq, Sk, D, 2.0)
+    width = -(-D // 64) * 64
+    pad = [(0, 0)] * 3 + [(0, width - D)]
+    qs = q * np.float32(math.sqrt(width / D)) if true_scale else q
+    padded = [torch.from_numpy(np.pad(a, pad)) for a in (qs, k, v)]
+    return (q, k, v), padded, dict(causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("case", list(PAD_CASES))
+@pytest.mark.parametrize("D", [16, 32, 80])
+def test_zero_padded_head_dim_with_true_scale_is_the_attention(D, case):
+    (q, k, v), padded, opts = _padded(D, case, 60 + D)
+    out, lse = attention_lse_ref(*padded, **opts)
+    assert out.shape[-1] > D and not out[..., D:].any()   # P V over zero columns
+    out = out[..., :D]
+    plain = [torch.from_numpy(a) for a in (q, k, v)]
+    want, want_lse = attention_lse_ref(*plain, **opts)
+    check(out, want, TOL["float32"])
+    check(attention_ref(*padded, **opts)[..., :D], want, TOL["float32"])
+    check(out, jax_attention_ref(*(jnp.asarray(a) for a in (q, k, v)), **opts), TOL["float32"])
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **TOL["float32"])
+
+
+@pytest.mark.parametrize("D", [16, 32, 80])
+def test_zero_padded_head_dim_with_the_padded_scale_misses(D):
+    (q, k, v), padded, opts = _padded(D, "causal", 60 + D, true_scale=False)
+    wrong = attention_ref(*padded, **opts)[..., :D]     # 1/sqrt(width): the padded width's scale
+    want = jax_attention_ref(*(jnp.asarray(a) for a in (q, k, v)), **opts)
+    assert not np.allclose(f32(wrong), f32(want), **TOL["float32"])
 
 
 def test_both_directions_take_the_same_head_dims():
