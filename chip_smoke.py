@@ -29,8 +29,9 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              the attention backward's dq, dk, dv against autograd of the
              plain attention in fp32 (every head dim, both dtypes, causal,
              window, softcap, GQA, ragged and Sq != Sk, gemma2's head dim
-             256 too, two bf16 calls there bitwise equal; then, at D 80 and
-             128, the edges of its tiles, GQA 8 and q, k scaled by 4), then
+             256 too, two bf16 calls bitwise equal at every head dim; then,
+             at D 80 and 128, the edges of its tiles and items, GQA 8 and
+             q, k scaled by 4), then
              timed at stablelm_3b's train shape beside SDPA's backward, two
              bf16 calls there bitwise equal, and at gemma2_9b's (1,16,8192,
              256) KV 8 softcap 50, its global (causal) and local (window
@@ -44,8 +45,9 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              split decode and the backward; by torch.profiler, a gemma2 decode call and a
              half-cache lse call run the split decode then its merge, a
              D 256 prefill call through either entry the warpgroup prefill
-             (so do D 64, 80 and 128 calls), and a D 256 backward call
-             its two wgmma kernels; the SSD and mLSTM backwards'
+             (so do D 64, 80 and 128 calls), and a D 256, a D 80 and a D
+             128 backward call its two wgmma kernels; the SSD and mLSTM
+             backwards'
              gradients against autograd of their plain versions in fp32
              (ragged S, S shorter than a chunk, strided model-layout
              inputs, the forward tests' widths, SSD with the final state's
@@ -269,14 +271,11 @@ KERNELS = ("flash_attention", "flash_attention_bwd", "ssd", "mlstm", "ssd_bwd", 
 # The launch counters: one a kernel source, and the forward's second entry
 # (its log-sum-exp written too), counted on its own.
 COUNTERS = KERNELS + ("flash_attention_lse",)
-# The attention backward's paths, chosen by dtype alone, and in bf16 by
-# the head dim: D 256 (gemma2) runs the warpgroup kernels.  Kernels in
-# launch order.
+# The attention backward's paths, chosen by dtype alone: bf16 runs the
+# warpgroup kernels at every head dim.  Kernels in launch order.
 BWD_PATHS = {
-    "bfloat16": {"route": "tensor cores (mma.sync bf16)",
-                 "kernels": ["attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16"]},
-    "bfloat16 D 256": {"route": "tensor cores (wgmma bf16; TMA, warp-specialised)",
-                       "kernels": ["attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma"]},
+    "bfloat16": {"route": "tensor cores (wgmma bf16; TMA, warp-specialised)",
+                 "kernels": ["attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma"]},
     "float32": {"route": "scalar fp32 FMA",
                 "kernels": ["attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq"]},
 }
@@ -587,11 +586,6 @@ def bound_ms(torch, q, k, v, *, causal, window, dev) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bwd_path(dtype: str, head_dim: int) -> dict:
-    """The attention backward's path (``BWD_PATHS``) at a dtype and head dim."""
-    return BWD_PATHS["bfloat16 D 256" if dtype == "bfloat16" and head_dim == 256 else dtype]
-
-
 def ptxas_summary(log: str) -> dict[tuple[str, tuple[int, ...]], str]:
     """Registers and spills of each kernel in an ``nvcc -Xptxas=-v`` log, by
     the kernel's own name (the mangled name's first component after its
@@ -644,10 +638,10 @@ def build_phase(torch):
         last = {kernel: props for (kernel, _), props in summary.items()}
         for kernel, props in last.items():
             print(f"[build] {name}: {kernel}: {props}")
-        if name == "flash_attention_bwd":   # stablelm's train head dim (D 256: the wgmma kernels)
+        if name == "flash_attention_bwd":   # every head dim of the wgmma kernels (384 threads)
             for (kernel, args), props in summary.items():
-                if args[:1] == (80,):
-                    print(f"[build] {name}: {kernel} at D 80: {props}")
+                if args and kernel.endswith("_wgmma"):
+                    print(f"[build] {name}: {kernel} at D {args[0]}: {props}")
         if name == "flash_attention":       # gemma2's head dim; the decode split or not
             for (kernel, args), props in summary.items():
                 if args[:1] == (256,) and kernel != PREFILL_KERNEL:
@@ -1416,19 +1410,23 @@ ATTN_BWD_CASES = [
     ("causal window 32 softcap 50", 1, 4, 2, 100, 100, True, 32, 50.0),
     ("window 20 masked rows Sq 100 Sk 77", 1, 4, 4, 100, 77, False, 20, 0.0),
 ]
-# The edges of the bf16 kernels' 64-row / 64-key tiles (32 query rows at
-# D 128 in the dK / dV launch) and of the scalar kernels' 32; GQA 8; and
-# q, k scaled by 4 (a peaked softmax, where dS cancels most): label, B, H,
-# KV, Sq, Sk, causal, q / k scale.
+# The edges of the bf16 kernels' tiles and items (64-key tiles and items
+# of 128 query rows in the dq launch, 64 a consumer; items of 64 keys and
+# steps of 64 rows in the dkdv launch, whose consumers split an item's
+# steps when items are few and walk items of their own when there are 4
+# or more an SM: the MHA case below, 4 x 32 x 5 items) and of the scalar
+# kernels' 32; GQA 8; and q, k scaled by 4 (a peaked softmax, where dS
+# cancels most): label, B, H, KV, Sq, Sk, causal, q / k scale.
 ATTN_BWD_EDGES = [
     ("edge S 63", 1, 4, 4, 63, 63, True, 1.0),
     ("edge S 65", 1, 4, 4, 65, 65, True, 1.0),
     ("edge gqa 2 S 127", 1, 4, 2, 127, 127, True, 1.0),
     ("edge gqa 2 S 129", 1, 4, 2, 129, 129, True, 1.0),
     ("edge non-causal Sq 1 Sk 300", 1, 4, 4, 1, 300, False, 1.0),
-    ("edge non-causal Sq 17 Sk 300", 1, 4, 4, 17, 300, False, 1.0),
+    ("edge gqa 2 S 257", 1, 4, 2, 257, 257, True, 1.0),
     ("gqa 8 S 129", 1, 8, 1, 129, 129, True, 1.0),
     ("large logits (q, k x 4) gqa 4 S 129", 1, 8, 2, 129, 129, True, 4.0),
+    ("mha 32/32 B 4 S 257, dkdv items a consumer", 4, 32, 32, 257, 257, True, 1.0),
 ]
 
 
@@ -1477,7 +1475,7 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
                 dout = randn(torch, (B, H, Sq, D), dtype, seed + 3, dev)
                 err, _ = compare(f"D {D} {label}", q, k, v, dout, dtype, causal=causal,
                                  window=window, softcap=softcap,
-                                 deterministic=D == 256 and dtype == "bfloat16")
+                                 deterministic=dtype == "bfloat16")
                 if D == 256:
                     d256[dtype] = max(d256[dtype], err)
     for i, D in enumerate((80, 128)):
@@ -1514,7 +1512,7 @@ def attention_bwd_phase(torch, dev, failures) -> dict:
         err, _ = compare(shape, q, k, v, dout, dtype, causal=True,
                          deterministic=dtype == "bfloat16")
         t = attention_bwd_timings(torch, q, k, v, dout, dev)
-        path = bwd_path(dtype, D)
+        path = BWD_PATHS[dtype]
         print(f"[time] flash_attention_bwd {shape} {dtype}: kernel {t['ms']:.4f} ms "
               f"({path['route']}: {' + '.join(path['kernels'])}), plain {t['plain_ms']:.4f} ms "
               f"(autograd of attention_ref, backward only), sdpa backward {t['library_ms']:.4f} "
@@ -1535,8 +1533,9 @@ def gemma2_kernel_paths(torch, dev, failures) -> dict:
     either forward entry, the warpgroup prefill (``PREFILL_KERNEL``;
     so do D 64, 80 and 128 calls); a bf16 decode call over a full ring
     and the lse entry over a rank's half cache, the split decode's two
-    (``SPLIT_DECODE_KERNELS``, the rule's split); a bf16 D 256 backward call
-    the wgmma path's two (``BWD_PATHS``).  Each kernel's device ms printed."""
+    (``SPLIT_DECODE_KERNELS``, the rule's split); a bf16 backward call at
+    D 256, 80 and 128 the wgmma path's two (``BWD_PATHS``).  Each kernel's
+    device ms printed."""
     from repro_torch.kernels import flash_attention as fa
 
     q = randn(torch, (2, 16, 1, 256), "bfloat16", 1400, dev)
@@ -1546,6 +1545,7 @@ def gemma2_kernel_paths(torch, dev, failures) -> dict:
     out = fa.flash_attention_cuda(qt, kt, vt, causal=True, softcap=50.0)
     below = {D: tuple(randn(torch, (2, H, 512, D), "bfloat16", 1420 + 10 * D + i, dev)
                       for i, H in enumerate((32, 8, 8))) for D in (64, 80, 128)}
+    outs = {D: fa.flash_attention_cuda(*below[D], causal=True) for D in (80, 128)}
     pattern = r"(attn_decode_bf16|attn_decode_merge|attn_bwd_\w+|attn_prefill_\w+)"
     checks = [
         ("prefill (1,16,1024,256) kv 8 causal window 512 softcap 50", [PREFILL_KERNEL],
@@ -1561,8 +1561,12 @@ def gemma2_kernel_paths(torch, dev, failures) -> dict:
         ("lse entry, half a global cache (2,16,1,256) kv 8 Sk 2592", SPLIT_DECODE_KERNELS,
          lambda: fa.flash_attention_lse_cuda(q, k[:, :, :2592], v[:, :, :2592], causal=False,
                                              softcap=50.0)),
-        ("backward (1,16,1024,256) kv 8 causal softcap 50", BWD_PATHS["bfloat16 D 256"]["kernels"],
+        ("backward (1,16,1024,256) kv 8 causal softcap 50", BWD_PATHS["bfloat16"]["kernels"],
          lambda: fa.flash_attention_bwd_cuda(qt, kt, vt, out, dot, causal=True, softcap=50.0)),
+        *[(f"(not gemma2) backward (2,32,512,{D}) kv 8 causal, below D 256",
+           BWD_PATHS["bfloat16"]["kernels"],
+           lambda D=D: fa.flash_attention_bwd_cuda(*below[D], outs[D], below[D][0], causal=True))
+          for D in (80, 128)],
     ]
     seen = {}
     for label, want, fn in checks:
@@ -1605,7 +1609,7 @@ def gemma2_bwd_timings(torch, dev, compare) -> dict:
         err, rms = compare(shape, q, k, v, dout, "bfloat16", causal=True, window=window,
                            softcap=cap, deterministic=True, regions=regions)
         t = attention_bwd_timings(torch, q, k, v, dout, dev, window=window, softcap=cap)
-        path = bwd_path("bfloat16", D)
+        path = BWD_PATHS["bfloat16"]
         print(f"[time] flash_attention_bwd {shape} bfloat16: kernel {t['ms']:.4f} ms "
               f"({path['route']}: {' + '.join(path['kernels'])}; earlier design "
               f"{EARLIER_GEMMA2[label]}), bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
@@ -3343,7 +3347,7 @@ def family_train(torch, dev, arch, run, bwd_entry, failures, counts):
         failures.append(f"{tag} flash_attention_bwd {shape}: max_abs_err {max(errs):.3e}")
     del got, want, ref_in
     t = attention_bwd_timings(torch, q, k, v, dout, dev)
-    path = bwd_path("bfloat16", D)
+    path = BWD_PATHS["bfloat16"]
     print(f"[time] flash_attention_bwd {arch} {shape}: kernel {t['ms']:.4f} ms ({path['route']}: "
           f"{' + '.join(path['kernels'])}), plain {t['plain_ms']:.4f} ms (autograd of "
           f"attention_ref, backward only), sdpa backward {t['library_ms']:.4f} ms, bound "
@@ -3961,8 +3965,8 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
     phases by host clock (each ended by a device sync), then one under
     torch.profiler: the device's busy share, its kernels by group, and the
     attention, SSD and mLSTM backwards' kernels by name, which must be
-    those of the compute dtype's path (``bwd_path`` at the model's head
-    dim, ``SSD_BWD_PATHS``, ``MLSTM_BWD_PATHS``), or none for a model
+    those of the compute dtype's path (``BWD_PATHS``, ``SSD_BWD_PATHS``,
+    ``MLSTM_BWD_PATHS``), or none for a model
     without attention, Mamba2 or mLSTM layers; the SSD and mLSTM
     backwards' shares of the step."""
     from torch.profiler import ProfilerActivity, profile
@@ -4023,7 +4027,7 @@ def profile_train_step(torch, model, state, step_fn, batch, dtype, failures,
     bwd = by_name(r"(attn_bwd_\w+)")
     print(f"{tag} attention backward kernels in the profiled step: " + ", ".join(
         f"{name} {ms:.2f} ms in {n} launches" for name, (ms, n) in sorted(bwd.items())))
-    want = bwd_path(dtype, model.cfg.hd)["kernels"] if attention else []
+    want = BWD_PATHS[dtype]["kernels"] if attention else []
     if sorted(bwd) != sorted(want):
         failures.append(f"profiled {dtype} train step ran the attention backward kernels "
                         f"{sorted(bwd)}, expected {want}")

@@ -248,7 +248,8 @@ def test_gemma2_kernel_paths_by_profiler(dev):
     """By kernel name, in launch order: a bf16 gemma2 decode call the split
     decode's two kernels, a bf16 D 256 prefill call (Sq >= 16) through
     either forward entry the warpgroup prefill, a bf16 D 256 backward call
-    the wgmma path's two, a D 80 one the mma.sync path's two."""
+    the wgmma path's two (so does every head dim below it:
+    test_backward_runs_the_warpgroup_kernels)."""
     def check(fn, pattern, want):
         assert kernel_names(fn, pattern, want) == want
 
@@ -262,13 +263,26 @@ def test_gemma2_kernel_paths_by_profiler(dev):
           ["attn_prefill_wgmma"])
     check(lambda: fa.flash_attention_lse_cuda(q, k, v, causal=True, window=64), PREFILL_NAME,
           ["attn_prefill_wgmma"])
-    for D, want in ((256, ["attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma"]),
-                    (80, ["attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16"])):
-        q, dout = (rand((1, 16, 200, D), torch.bfloat16, 3 + i, dev) for i in range(2))
-        k, v = (rand((1, 8, 200, D), torch.bfloat16, 5 + i, dev) for i in range(2))
-        out = fa.flash_attention_cuda(q, k, v, causal=True)
-        check(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True),
-              r"(attn_bwd_\w+?)(?:<|\(|$)", want)
+    q, dout = (rand((1, 16, 200, 256), torch.bfloat16, 3 + i, dev) for i in range(2))
+    k, v = (rand((1, 8, 200, 256), torch.bfloat16, 5 + i, dev) for i in range(2))
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    check(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True), BWD_NAME,
+          BWD_KERNELS)
+
+
+BWD_NAME = r"(attn_bwd_\w+?)(?:<|\(|$)"
+BWD_KERNELS = ["attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma"]
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+def test_backward_runs_the_warpgroup_kernels(dev, D):
+    """By kernel name, in launch order: a bf16 backward call below D 256
+    runs the warpgroup kernels, dq then dkdv, as D 256 does."""
+    q, dout = (rand((1, 16, 200, D), torch.bfloat16, 3 + i, dev) for i in range(2))
+    k, v = (rand((1, 8, 200, D), torch.bfloat16, 5 + i, dev) for i in range(2))
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    assert kernel_names(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True),
+                        BWD_NAME, BWD_KERNELS) == BWD_KERNELS
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
@@ -913,8 +927,8 @@ def test_attention_grads_with_large_logits(dev, D, dtype):
 @pytest.mark.parametrize("D,KV,window,softcap", [(80, 8, 0, 0.0), (256, 4, 64, 50.0)])
 def test_attention_bwd_bf16_is_deterministic(dev, D, KV, window, softcap):
     """No atomics: two backward calls on the same bf16 inputs give bitwise
-    equal dq, dk and dv, on the mma.sync path and on the wgmma one (D 256,
-    GQA 2, a window, softcap 50)."""
+    equal dq, dk and dv, on the warpgroup kernels below D 256 (D 80)
+    and at D 256 (GQA 2, a window, softcap 50)."""
     q, out_grad = (rand((2, 8, 256, D), torch.bfloat16, 30 + i, dev) for i in range(2))
     k, v = (rand((2, KV, 256, D), torch.bfloat16, 32 + i, dev) for i in range(2))
     opts = dict(causal=True, window=window, softcap=softcap)

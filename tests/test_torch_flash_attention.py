@@ -235,7 +235,7 @@ def test_plain_version_grads_match_jax(B, H, KV, Sq, Sk, D, causal, window, soft
         np.testing.assert_allclose(f32(g), np.asarray(w), **GRAD_TOL)
 
 
-@pytest.mark.parametrize("D", [16, 256])
+@pytest.mark.parametrize("D", [16, 80, 128, 256])
 def test_autograd_function_wires_forward_and_backward(monkeypatch, D):
     """FlashAttentionFunction saves q, k, v and the forward's output and
     hands them, with the output's gradient and the mask options, to the
@@ -268,6 +268,114 @@ def test_autograd_function_wires_forward_and_backward(monkeypatch, D):
     want = torch.autograd.grad(ops.attention_ref(*r, causal=True, window=5, softcap=3.0), r, dout)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# The bf16 backward's roundings (csrc/flash_attention_bwd.cu, "Rounding"),
+# emulated on the CPU: operands bf16, products exact, sums in fp32.  The
+# kernel forms lse and delta = rowsum(P dP) in fp32 from its own scores,
+# and P and dS enter the accumulations P^T dO, dS K and dS^T Q as bf16 hi
+# + lo; dq, dk and dv are written in bf16.  Held against the gradient in
+# float64 at the bf16 tolerance, with q and k scaled by 4 (a peaked
+# softmax, where dS cancels most), causal, 129 rows (one past a dq item).
+BF16_GRAD_TOL = 2e-2
+
+
+def bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def rounding_inputs(D, KV, seed=0, H=8, S=129):
+    rng = np.random.default_rng(seed)
+    draw = lambda h, scale: bf16(torch.from_numpy(  # noqa: E731
+        rng.standard_normal((1, h, S, D), dtype=np.float32)) * scale)
+    return draw(H, 4.0), draw(KV, 4.0), draw(KV, 1.0), draw(H, 1.0)
+
+
+def exact_bwd(q, k, v, dout):
+    """dq, dk, dv of causal attention written in float64."""
+    group = q.shape[1] // k.shape[1]
+    x = [t.double().requires_grad_() for t in (q, k, v)]
+    kf, vf = (t.repeat_interleave(group, dim=1) for t in x[1:])
+    s = torch.einsum("bhqd,bhkd->bhqk", x[0], kf) / math.sqrt(q.shape[-1])
+    rows, keys = torch.arange(s.shape[2])[:, None], torch.arange(s.shape[3])[None, :]
+    p = torch.softmax(s.masked_fill(keys > rows, float("-inf")), dim=-1)
+    return torch.autograd.grad(torch.einsum("bhqk,bhkd->bhqd", p, vf), x, dout.double())
+
+
+def emulate_bwd(q, k, v, dout, *, split_ds=True, delta_from_out=False):
+    """The kernel's arithmetic on bf16-valued fp32 tensors: scores in log2
+    units, lse and delta in fp32, P and dS as hi + lo (dS rounded once
+    where ``split_ds`` is false; delta = rowsum(dO O) from the output in
+    bf16 where ``delta_from_out``)."""
+    B, H, S, D = q.shape
+    group = H // k.shape[1]
+    kf, vf = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    scale = 1.0 / math.sqrt(D)
+    x = torch.einsum("bhqd,bhkd->bhqk", q, kf) * (scale * 1.4426950408889634)
+    rows, keys = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    x = x.masked_fill(keys > rows, float("-inf"))
+    m = x.amax(-1, keepdim=True)
+    p = torch.exp2(x - (m + torch.log2(torch.exp2(x - m).sum(-1, keepdim=True))))
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout, vf)
+    if delta_from_out:
+        delta = (dout * bf16(torch.einsum("bhqk,bhkd->bhqd", p, vf))).sum(-1, keepdim=True)
+    else:
+        delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+
+    def hi_lo(t):
+        return bf16(t) + bf16(t - bf16(t))
+
+    ds_in = hi_lo(ds) if split_ds else bf16(ds)
+    per_kv = lambda t: t.reshape(B, k.shape[1], group, S, D).sum(2)  # noqa: E731
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_in, kf) * scale
+    dk = per_kv(torch.einsum("bhqk,bhqd->bhkd", ds_in, q) * scale)
+    dv = per_kv(torch.einsum("bhqk,bhqd->bhkd", hi_lo(p), dout))
+    return bf16(dq), bf16(dk), bf16(dv)
+
+
+def tol_ratios(got, exact):
+    """Each gradient's largest |got - exact| / (atol + rtol |exact|) at the
+    bf16 tolerance: at most 1 is within it."""
+    return [float(((g.double() - e).abs() / (BF16_GRAD_TOL * (1 + e.abs()))).max())
+            for g, e in zip(got, exact)]
+
+
+ROUNDING_CASES = [(80, 2), (80, 1), (128, 2), (128, 1)]   # D, KV of 8 heads: GQA 4, MQA
+
+
+@pytest.mark.parametrize("D,KV", ROUNDING_CASES)
+def test_bwd_bf16_rounding_plan_holds_the_tolerance(D, KV):
+    """delta = rowsum(P dP) in fp32, P and dS as hi + lo: dq, dk and dv
+    within the bf16 tolerance of the float64 gradient."""
+    q, k, v, dout = rounding_inputs(D, KV)
+    ratios = tol_ratios(emulate_bwd(q, k, v, dout), exact_bwd(q, k, v, dout))
+    assert max(ratios) < 1, ratios
+
+
+def test_bwd_single_rounding_of_ds_misses():
+    """dS rounded once to bf16 for dS K puts dq several times further from
+    the float64 gradient than hi + lo does, at every case, and past the
+    bf16 tolerance (MQA at D 128): why the kernel splits dS."""
+    worst = 0.0
+    for D, KV in ROUNDING_CASES:
+        q, k, v, dout = rounding_inputs(D, KV)
+        exact = exact_bwd(q, k, v, dout)
+        plan = tol_ratios(emulate_bwd(q, k, v, dout), exact)[0]
+        once = tol_ratios(emulate_bwd(q, k, v, dout, split_ds=False), exact)[0]
+        assert once > 3 * plan, (D, KV, once, plan)
+        worst = max(worst, once)
+    assert worst > 1, worst
+
+
+@pytest.mark.parametrize("D,KV", ROUNDING_CASES)
+def test_bwd_delta_from_the_bf16_output_misses(D, KV):
+    """delta = rowsum(dO O) from the output as the backward receives it
+    (bf16) puts dq and dk past the bf16 tolerance: why the kernel forms
+    delta = rowsum(P dP) from its own scores."""
+    q, k, v, dout = rounding_inputs(D, KV)
+    ratios = tol_ratios(emulate_bwd(q, k, v, dout, delta_from_out=True), exact_bwd(q, k, v, dout))
+    assert min(ratios[:2]) > 1, ratios
 
 
 def test_kernel_wrappers_refuse_grad():
