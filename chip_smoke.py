@@ -14,8 +14,13 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              kernels) and bf16 (the tensor-core kernels), attention at
              gemma2's head dim 256 (softcap 50, window 4096, GQA 16/8, a
              ragged Sq, decode at Sk 4096 and 5184, each timed beside its
-             bound; a bf16 decode call the wrappers split runs the split
-             decode and its merge; the bf16 prefill, the warpgroup kernel,
+             bound; a bf16 decode call at D 256 the wrappers split runs
+             the split decode and its merge; below D 256 every bf16 decode
+             call runs one TMA kernel, held at its edges (``DECODE_EDGES``:
+             Sq 1-15 at every head dim, causal Sq < Sk, window, softcap,
+             Sk 0, below and not a multiple of a tile, a longer cache, rows
+             with no key, 1-8 ranges a cluster; two calls bitwise equal);
+             the bf16 prefill, the warpgroup kernel,
              at the edges of its tiles at every head dim through both
              entries (Sq 16 to 5183, causal Sq != Sk, Sk not a multiple of
              the tile, GQA 1 to 24, windows at tile edges and 4096, q and k
@@ -44,6 +49,8 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              not a multiple of 64) through the forward, its lse entry, the
              split decode and the backward; by torch.profiler, a gemma2 decode call and a
              half-cache lse call run the split decode then its merge, a
+             D 128 GQA decode call (split), a D 80 MHA one and its lse
+             entry one launch of the TMA decode kernel each, a
              D 256 prefill call through either entry the warpgroup prefill
              (so do D 64, 80 and 128 calls), and a D 256, a D 80 and a D
              128 backward call its two wgmma kernels; the SSD and mLSTM
@@ -279,9 +286,13 @@ BWD_PATHS = {
     "float32": {"route": "scalar fp32 FMA",
                 "kernels": ["attn_bwd_prep", "attn_bwd_dkdv", "attn_bwd_dq"]},
 }
-# A bf16 decode call the wrappers split (flash_attention.decode_split):
-# the split kernel, then the merge.
+# A bf16 decode call at D 256 the wrappers split
+# (flash_attention.d256_decode_split): the split kernel, then the merge.
 SPLIT_DECODE_KERNELS = ["attn_decode_bf16", "attn_decode_merge"]
+# Every bf16 decode call below D 256, split or not
+# (flash_attention.decode_split): one launch of the TMA decode kernel,
+# whose ranges of keys merge on chip in a cluster.
+DECODE_KERNEL = "attn_decode_tma"
 # gemma2's times with the earlier D 256 designs, the unsplit decode kernel
 # and the three-launch mma.sync backward (chip_smoke.py on an H100 80GB
 # HBM3 at 700 W; PERF.md holds their sources): the serve decode step, the
@@ -647,6 +658,11 @@ def build_phase(torch):
                 if args[:1] == (256,) and kernel != PREFILL_KERNEL:
                     mode = {(0,): " (unsplit)", (1,): " (split)"}.get(args[1:], "")
                     print(f"[build] {name}: {kernel} at D 256{mode}: {props}")
+            dec = {args[0]: props for (kernel, args), props in summary.items()
+                   if kernel == DECODE_KERNEL and args}
+            for D in (d for d in fa_dims() if d < 256):
+                print(f"[build] {name}: {DECODE_KERNEL} at D {D} (the bf16 decode; 160 "
+                      f"threads): {dec.get(D, 'not in the log')}")
             wg = {args[0]: props for (kernel, args), props in summary.items()
                   if kernel == PREFILL_KERNEL and args}
             for D in fa_dims():
@@ -1089,6 +1105,7 @@ def attention_timings(torch, q, kv_sets, causal, dev, *, window=0, softcap=0.0,
     t["bound_ms"], t["bound_by"] = bound_ms(torch, q, *kv_sets[0], causal=causal,
                                             window=window, dev=dev)
     t["splits"], t["split_keys"] = fa._split_plan(q, kv_sets[0][0])
+    t["head_dim"] = q.shape[-1]
     t["cold"] = n > 1
     return t
 
@@ -1100,8 +1117,9 @@ def print_attention_time(label, t, q=None):
     if "library_note" in t:
         label = f"{label} (sdpa: {t['library_note']})"
     if t.get("splits", 1) > 1:
-        label = (f"{label} (keys split {t['splits']} ways, {t['split_keys']} a split: "
-                 f"{' + '.join(SPLIT_DECODE_KERNELS)})")
+        kernels = (" + ".join(SPLIT_DECODE_KERNELS) if t.get("head_dim") == 256
+                   else f"{DECODE_KERNEL}, one launch, the ranges merged in a cluster")
+        label = f"{label} (keys split {t['splits']} ways, {t['split_keys']} a split: {kernels})"
     cold = (", cold L2 (each call reads the next of several K/V sets that together exceed "
             "the 50 MB L2)") if t.get("cold") else ""
     earlier = EARLIER_PREFILL.get(tuple(q.shape)) if q is not None else None
@@ -1238,6 +1256,81 @@ LSE_TIMED = [("stablelm decode (8,32,1,80), a rank's half of Sk 575", 8, 32, 32,
               2, 16, 8, 2592, 256, 50.0)]
 
 
+# The TMA decode kernel's edges below D 256 (DECODE_KERNEL): label, B, H,
+# KV, Sq, Sk, D, causal, window, softcap, rows allocated for the cache (0:
+# Sk), (splits, keys a split) for the split entry (None: the wrappers'
+# rule).  Sq 1-15 at every head dim (ragged Sk, causal every other one),
+# top-left causal with Sq < Sk, a window and a softcap, Sk not a whole
+# tile, below a tile and 0, a cache allocated longer than Sk, rows that
+# admit no key, and clusters of 1-8 ranges.
+DECODE_EDGES = (
+    [(f"D {D} Sq {Sq}", 2, 8, 2, Sq, 40 * Sq + 17 + i, D, Sq % 2 == 0, 0, 0.0, 0, None)
+     for i, D in enumerate((16, 32, 64, 80, 128)) for Sq in range(1, 16)]
+    + [("causal Sq 5 < Sk 37", 2, 4, 2, 5, 37, 80, True, 0, 0.0, 0, None),
+       ("window 20 Sq 4", 1, 8, 2, 4, 300, 64, False, 20, 0.0, 0, None),
+       ("softcap 30", 2, 16, 4, 1, 500, 128, False, 0, 30.0, 0, None),
+       ("window 40 softcap 20 Sq 3", 2, 12, 4, 3, 333, 32, True, 40, 20.0, 0, None),
+       ("Sk 37, not a whole tile", 2, 8, 8, 1, 37, 64, False, 0, 0.0, 0, None),
+       ("Sk 7, below a tile", 2, 8, 2, 1, 7, 16, False, 0, 0.0, 0, None),
+       ("Sk 0", 2, 8, 2, 1, 0, 128, False, 0, 0.0, 0, None),
+       ("cache of 600 rows, Sk 333", 2, 8, 2, 3, 333, 128, False, 0, 0.0, 600, None),
+       ("cache of 576 rows, Sk 575 (stablelm)", 2, 32, 32, 1, 575, 80, False, 0, 0.0, 576, None),
+       ("rows with no key (window 3)", 1, 4, 2, 12, 5, 64, False, 3, 0.0, 0, None),
+       ("rows with no key, split 4 x 16", 1, 4, 2, 12, 5, 64, False, 3, 0.0, 0, (4, 16))]
+    + [(f"gqa 7 split {n}", 2, 28, 4, 1, 575, 128, False, 0, 0.0, 0,
+        (n, -(-575 // (16 * n)) * 16)) for n in range(1, 9)]
+    + [("causal Sq 8 split 8 x 96", 2, 8, 2, 8, 700, 80, True, 0, 0.0, 0, (8, 96))])
+
+
+def decode_edges(torch, dev, failures) -> float:
+    """The bf16 decode below D 256 at ``DECODE_EDGES``: through both forward
+    entries (or the split entry, called directly) against
+    ``attention_lse_ref`` within 2e-2, the output and the lse (-inf and a
+    zero output for a row that admits no key); two calls bitwise equal, and
+    the lse entry's output bitwise the forward's.  Returns the largest max
+    abs error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    tol, worst = TOL["bfloat16"], 0.0
+    for seed, (label, B, H, KV, Sq, Sk, D, causal, window, cap, alloc, split) in enumerate(
+            DECODE_EDGES):
+        q = randn(torch, (B, H, Sq, D), "bfloat16", 2600 + 3 * seed, dev, 2.0)
+        k, v = (model_layout(torch, B, KV, Sk, D, "bfloat16", 2601 + 3 * seed + i, dev,
+                             max(alloc, Sk, 1)) for i in range(2))
+        opts = dict(causal=causal, window=window, softcap=cap)
+        if split:
+            lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+            outs = [fa.run_split(q, k, v, *split, lse=lse, **opts),
+                    fa.run_split(q, k, v, *split, **opts)]
+        else:
+            out, lse = fa.flash_attention_lse_cuda(q, k, v, **opts)
+            outs = [out, fa.flash_attention_cuda(q, k, v, **opts),
+                    fa.flash_attention_cuda(q, k, v, **opts)]
+        want, want_lse = ref.attention_lse_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        empty = torch.isneginf(want_lse)
+        err = float((outs[0].float() - want.float()).abs().max()) if want.numel() else 0.0
+        lse_err = float((lse[~empty] - want_lse[~empty]).abs().max()) if bool((~empty).any()) \
+            else 0.0
+        repeat = all(torch.equal(outs[0], o) for o in outs[1:])
+        ok = (repeat and bool(torch.isfinite(outs[0]).all())
+              and torch.allclose(outs[0].float(), want.float(), **tol)
+              and torch.equal(torch.isneginf(lse), empty) and not outs[0][empty].any()
+              and torch.allclose(lse[~empty], want_lse[~empty], **tol))
+        plan = split or fa._split_plan(q, k)
+        print(f"[kernel] decode {label} ({B},{H},{Sq},{D}) kv {KV} Sk {Sk}, {plan[0]} range(s) "
+              f"of {plan[1]} keys: max_abs_err={err:.3e}, lse {lse_err:.3e} ({int(empty.sum())} "
+              f"rows with no key); calls bitwise equal {repeat} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"decode {label}: max_abs_err {err:.3e}, lse {lse_err:.3e}, "
+                            f"repeat {repeat}")
+        worst = max(worst, err, lse_err)
+    print(f"[kernel] decode edges: {len(DECODE_EDGES)} cases, {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
 def split_decode_edges(torch, dev, failures) -> float:
     """The split decode's entry called directly (``flash_attention.run_split``)
     where the rule would not cut the keys: more ranges than keys, rows that
@@ -1250,7 +1343,7 @@ def split_decode_edges(torch, dev, failures) -> float:
     cases = [  # label, B, H, KV, Sq, Sk, D, splits, chunk, causal, window, softcap
         ("more ranges than keys", 1, 16, 8, 1, 100, 256, 5, 64, False, 0, 50.0),
         ("rows with no key (window 3)", 1, 4, 2, 12, 5, 256, 4, 64, False, 3, 0.0),
-        ("causal Sq 8, ranges past the rows' keys", 2, 8, 2, 8, 700, 80, 11, 64, True, 0, 0.0),
+        ("causal Sq 8, ranges past the rows' keys", 2, 8, 2, 8, 700, 80, 8, 96, True, 0, 0.0),
         # the five families' head layouts: a 16-row block holding part of
         # a group (GQA 5 at Sq 4, 7 at Sq 3, 12 at Sq 2), keys not a
         # multiple of 64
@@ -1345,6 +1438,7 @@ def lse_kernel_phase(torch, dev, failures) -> dict:
                 failures.append(f"flash_attention_lse {label} {dtype}: max_abs_err {err:.3e}")
             worst = max(worst, err) if dtype == "bfloat16" else worst
     worst = max(worst, split_decode_edges(torch, dev, failures))
+    worst = max(worst, decode_edges(torch, dev, failures))
 
     timed = []
     for seed, (label, B, H, KV, Sk, D, softcap) in enumerate(LSE_TIMED):
@@ -1533,7 +1627,9 @@ def gemma2_kernel_paths(torch, dev, failures) -> dict:
     either forward entry, the warpgroup prefill (``PREFILL_KERNEL``;
     so do D 64, 80 and 128 calls); a bf16 decode call over a full ring
     and the lse entry over a rank's half cache, the split decode's two
-    (``SPLIT_DECODE_KERNELS``, the rule's split); a bf16 backward call at
+    (``SPLIT_DECODE_KERNELS``, the rule's split); a decode call below D
+    256, GQA (qwen2_vl, split) and MHA (stablelm, and its lse entry), one
+    launch of ``DECODE_KERNEL``; a bf16 backward call at
     D 256, 80 and 128 the wgmma path's two (``BWD_PATHS``).  Each kernel's
     device ms printed."""
     from repro_torch.kernels import flash_attention as fa
@@ -1546,7 +1642,14 @@ def gemma2_kernel_paths(torch, dev, failures) -> dict:
     below = {D: tuple(randn(torch, (2, H, 512, D), "bfloat16", 1420 + 10 * D + i, dev)
                       for i, H in enumerate((32, 8, 8))) for D in (64, 80, 128)}
     outs = {D: fa.flash_attention_cuda(*below[D], causal=True) for D in (80, 128)}
-    pattern = r"(attn_decode_bf16|attn_decode_merge|attn_bwd_\w+|attn_prefill_\w+)"
+    pattern = r"(attn_decode_bf16|attn_decode_merge|attn_decode_tma|attn_bwd_\w+|attn_prefill_\w+)"
+    # Below D 256 a decode call is one launch of DECODE_KERNEL, split or
+    # not: qwen2_vl's (GQA 7, D 128; its keys split by the rule) and
+    # stablelm's (MHA, D 80), the lse entry at a rank's half of stablelm's.
+    dec = {name: (randn(torch, (8, H, 1, D), "bfloat16", 1430 + i, dev),
+                  *(model_layout(torch, 8, KV, 575, D, "bfloat16", 1431 + i + j, dev, 576)
+                    for j in (1, 2)))
+           for i, (name, H, KV, D) in enumerate((("qwen2_vl", 28, 4, 128), ("stablelm", 32, 32, 80)))}
     checks = [
         ("prefill (1,16,1024,256) kv 8 causal window 512 softcap 50", [PREFILL_KERNEL],
          lambda: fa.flash_attention_cuda(qt, kt, vt, causal=True, window=512, softcap=50.0)),
@@ -1561,6 +1664,14 @@ def gemma2_kernel_paths(torch, dev, failures) -> dict:
         ("lse entry, half a global cache (2,16,1,256) kv 8 Sk 2592", SPLIT_DECODE_KERNELS,
          lambda: fa.flash_attention_lse_cuda(q, k[:, :, :2592], v[:, :, :2592], causal=False,
                                              softcap=50.0)),
+        ("(not gemma2) qwen2_vl decode (8,28,1,128) kv 4 Sk 575, its keys split "
+         f"{fa._split_plan(dec['qwen2_vl'][0], dec['qwen2_vl'][1])[0]} ways", [DECODE_KERNEL],
+         lambda: fa.flash_attention_cuda(*dec["qwen2_vl"], causal=False)),
+        ("(not gemma2) stablelm decode (8,32,1,80) Sk 575", [DECODE_KERNEL],
+         lambda: fa.flash_attention_cuda(*dec["stablelm"], causal=False)),
+        ("(not gemma2) lse entry, stablelm's half cache (8,32,1,80) Sk 288", [DECODE_KERNEL],
+         lambda: fa.flash_attention_lse_cuda(dec["stablelm"][0], dec["stablelm"][1][:, :, :288],
+                                             dec["stablelm"][2][:, :, :288], causal=False)),
         ("backward (1,16,1024,256) kv 8 causal softcap 50", BWD_PATHS["bfloat16"]["kernels"],
          lambda: fa.flash_attention_bwd_cuda(qt, kt, vt, out, dot, causal=True, softcap=50.0)),
         *[(f"(not gemma2) backward (2,32,512,{D}) kv 8 causal, below D 256",

@@ -9,23 +9,28 @@ Forward: times ``repro_torch.kernels.flash_attention.flash_attention_cuda``
 ``--old`` (another ``csrc/flash_attention.cu``, taken with ``git show
 <commit>:src/repro_torch/kernels/csrc/flash_attention.cu``; it includes
 this tree's ``csrc/mma_bf16.cuh``) in turns (this tree, old, old, this
-tree) at each shape: the decode calls of stablelm, zamba2, phi3.5 and
-gemma2 (ring, global, and the lse entry over a rank's half of the global
-cache) over cold caches as a CUDA graph of calls (``chip_smoke.graph_ms``,
-each call reading the next of K/V sets that together pass the L2), the
+tree) at each shape: the decode calls (Sk 575) of stablelm, zamba2,
+phi3.5, qwen2_vl, yi, command_r, llama4 and musicgen, the lse entry over
+a rank's half of stablelm's cache, and gemma2's (ring, global, and the
+lse entry over a rank's half of the global cache) over cold caches as a
+CUDA graph of calls (``chip_smoke.graph_ms``, each call reading the next
+of K/V sets that together pass the L2), each beside SDPA's graph (the
+lse entry's beside efficient attention with its log-sum-exp) and the
+bound, the
 prefills (8 x 512) of stablelm, zamba2, phi3.5, qwen2_vl, yi, command_r,
 llama4 and musicgen, and gemma2's at its serve shape (2,16,5120,256) and
 its train shape (1,16,8192,256), global and local (window 4096), each as
 a CUDA graph of calls (device time; a prefill's calls launched one by one,
 the wrapper's host time in them, are printed beside).  Prints the split
-this tree's wrapper takes
-(``flash_attention.decode_split``), whether the two outputs are bitwise
-equal, or their largest difference, and at a prefill the bound and
-SDPA's time.  Then calls both on ``chip_smoke.py``'s forward cases at
+this tree's wrapper takes (``flash_attention.decode_split`` below D 256,
+``d256_decode_split`` at D 256; the old source's calls are routed by the
+latter, the rule of every head dim before the TMA decode kernel), whether
+the two outputs are bitwise equal, or their largest difference, the bound
+and SDPA's time.  Then calls both on ``chip_smoke.py``'s forward cases at
 every head dim below 256 in both dtypes and on D 256 cases in both.
-Every decode output, every fp32 output and every D 256 output must be
-bitwise the old kernel's; a bf16 prefill below D 256 (Sq >= 16, where the
-old source may run another design) must lie within 2e-2 of the old
+Every fp32 output and every D 256 output must be bitwise the old
+kernel's; a bf16 output below D 256 (the prefill and the decode, where
+the old source may run another design) must lie within 2e-2 of the old
 kernel's output and of the plain version's.  Exits 1 if any misses.
 
 Backward (``--bwd``, ``--old`` another ``csrc/flash_attention_bwd.cu``):
@@ -64,15 +69,22 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 # label, B, H, KV, Sq, Sk, D, causal, window, softcap, entry ("fwd" or
-# "lse"): stablelm, zamba2 and phi3.5-MoE decode at Sk 575 (prompt 512 + 63
-# tokens); gemma2's decode over a full ring and its global cache (prompt
-# 5120 + 63), and the lse entry over a rank's half of that cache; the
-# prefills (8 x 512) of stablelm, zamba2, phi3.5 and the five families,
-# and gemma2's at its serve and train shapes, global and local
+# "lse"): the decode of stablelm, zamba2, phi3.5-MoE and the five families
+# at Sk 575 (prompt 512 + 63 tokens), the lse entry over a rank's half of
+# stablelm's cache; gemma2's decode over a full ring and its global cache
+# (prompt 5120 + 63), and the lse entry over a rank's half of that cache;
+# the prefills (8 x 512) of stablelm, zamba2, phi3.5 and the five
+# families, and gemma2's at its serve and train shapes, global and local
 SHAPES = [
     ("stablelm decode", 8, 32, 32, 1, 575, 80, False, 0, 0.0, "fwd"),
     ("zamba2 decode", 8, 32, 32, 1, 575, 64, False, 0, 0.0, "fwd"),
     ("phi35 decode", 8, 32, 8, 1, 575, 128, False, 0, 0.0, "fwd"),
+    ("qwen2_vl decode", 8, 28, 4, 1, 575, 128, False, 0, 0.0, "fwd"),
+    ("yi decode", 8, 56, 8, 1, 575, 128, False, 0, 0.0, "fwd"),
+    ("command_r decode", 8, 96, 8, 1, 575, 128, False, 0, 0.0, "fwd"),
+    ("llama4 decode", 8, 40, 8, 1, 575, 128, False, 0, 0.0, "fwd"),
+    ("musicgen decode", 8, 24, 24, 1, 575, 64, False, 0, 0.0, "fwd"),
+    ("stablelm lse, half the cache", 8, 32, 32, 1, 288, 80, False, 0, 0.0, "lse"),
     ("gemma2 decode ring", 2, 16, 8, 1, 4096, 256, False, 0, 50.0, "fwd"),
     ("gemma2 decode global", 2, 16, 8, 1, 5183, 256, False, 0, 50.0, "fwd"),
     ("gemma2 lse, half the global cache", 2, 16, 8, 1, 2592, 256, False, 0, 50.0, "lse"),
@@ -91,16 +103,16 @@ SHAPES = [
 ]
 
 
-def must_match(D: int, Sq: int, dtype) -> bool:
+def must_match(D: int, dtype) -> bool:
     """Whether this tree's forward must give the old kernel's bits: every
-    decode call, every fp32 call, the D 256 prefill (the bf16 prefill below
-    D 256 was redesigned: it is held within 2e-2 instead, ``agrees``)."""
-    return D == 256 or Sq < 16 or dtype == torch.float32
+    fp32 call and every D 256 call (the bf16 prefill and decode below D 256
+    were redesigned: they are held within 2e-2 instead, ``agrees``)."""
+    return D == 256 or dtype == torch.float32
 
 
 def agrees(name, new, old, q, k, v, opts) -> bool:
-    """A bf16 prefill output below D 256 within 2e-2 of the old kernel's
-    and of the plain version's; prints a miss."""
+    """A bf16 output below D 256 within 2e-2 of the old kernel's and of the
+    plain version's; prints a miss."""
     want = ref.attention_ref(q, k, v, **opts)
     tol = cs.TOL["bfloat16"]
     ok = all(torch.allclose(new.float(), w.float(), **tol) for w in (old, want))
@@ -143,7 +155,7 @@ def bitwise_cases(impls, dev) -> int:
                     f"softcap {cap} {dtype}")
             total += 1
             same += torch.equal(*got)
-            if must_match(D, Sq, dtype):
+            if must_match(D, dtype):
                 if not torch.equal(*got):
                     differ += 1
                     print(f"{name}: NOT bitwise equal to the old kernel")
@@ -158,14 +170,19 @@ def forward_ab(old_src: Path, dev, only: str | None = None) -> int:
     """The forward at SHAPES (those whose label holds ``only``, and then not
     the cases of ``bitwise_cases``, where given), in turns; 1 if any output
     that must keep the old kernel's bits (``must_match``) differs, or a bf16
-    prefill below D 256 misses 2e-2 (``agrees``)."""
+    output below D 256 misses 2e-2 (``agrees``)."""
     lib = _build.load_source(old_src, "flash_attention_old")
     old_fwd, old_lse, old_split = fa.bind_fwd(lib), fa.bind_lse(lib), fa.bind_split(lib)
 
     def old_entry(q, k, v, *, lse=False, **opts):
-        """The old source's entries, routed as this tree's wrapper routes a
-        call (a decode call it splits goes to the split entry)."""
-        splits, chunk = fa._split_plan(q, k)
+        """The old source's entries, routed as the old wrapper routed a call
+        (a bf16 decode call ``d256_decode_split`` splits goes to the split
+        entry, at every head dim)."""
+        B, H, Sq, D = q.shape
+        splits, chunk = (1, k.shape[2])
+        if q.dtype == torch.bfloat16 and Sq < fa.DECODE_ROWS and k.shape[2]:
+            splits, chunk = fa.d256_decode_split(B, k.shape[1], H // k.shape[1] * Sq, k.shape[2],
+                                                 fa.sm_count(q.device))
         if splits > 1:
             out = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse else None
             return fa.run_split(q, k, v, splits, chunk, lse=out, fn=old_split, **opts)
@@ -193,34 +210,48 @@ def forward_ab(old_src: Path, dev, only: str | None = None) -> int:
         outs = {name: fn(q, *sets[0]) for name, fn in impls.items()}
         same = torch.equal(outs["this tree"], outs["old"])
         diff = float((outs["this tree"].float() - outs["old"].float()).abs().max())
-        if must_match(D, Sq, q.dtype):
+        if must_match(D, q.dtype):
             differ += not same
         else:
             differ += not agrees(label, outs["this tree"], outs["old"], q, *sets[0], opts)
-        times, n = [], len(sets)
-        calls = 5 if D == 256 else 20
-        for name in ("this tree", "old", "old", "this tree"):
-            fn = impls[name]
-            if Sq > 1:
-                ms = cs.graph_ms(torch, [lambda: fn(q, *sets[0])] * calls)
-            else:
-                ms = cs.graph_ms(torch, [lambda i=i: fn(q, *sets[i % n]) for i in range(8 * n)])
-            times.append(f"{name} {ms:.4f}")
+        n, calls = len(sets), 5 if D == 256 else 20
+        t, by = cs.bound_ms(torch, q, *sets[0], causal=causal, window=window, dev=dev)
+        lib_name = "sdpa"
+        if Sq > 1:
+            lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+                q, *sets[0], is_causal=causal, enable_gqa=H != KV)
+        elif entry == "lse":   # the same (o, lse), K/V given repeated to the query heads
+            lib_name = "efficient attention with its lse"
+            lib_kv = [(a.repeat_interleave(H // KV, 1), b.repeat_interleave(H // KV, 1))
+                      for a, b in sets] if H != KV else sets
+            lib = lambda i: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+                q, *lib_kv[i % n], None, True)
+        else:
+            lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+                q, *sets[i % n], enable_gqa=H != KV)
+        fns = {name: (lambda i, fn=fn: fn(q, *sets[i % n])) for name, fn in impls.items()}
+        fns[lib_name] = lib
+        # in turns: a decode call beside the library call too, a prefill's
+        # library call after them
+        order = ("this tree", "old", lib_name, lib_name, "old", "this tree") if Sq == 1 else \
+            ("this tree", "old", "old", "this tree", lib_name)
+        times = {}
+        for name in order:
+            ms = cs.graph_ms(torch, [lambda i=i, fn=fns[name]: fn(i)
+                                     for i in range(calls if Sq > 1 else 8 * n)])
+            times.setdefault(name, []).append(ms)
         eager = ", ".join(f"{name} {cs.time_ms(torch, lambda: impls[name](q, *sets[0]), iters=calls):.4f}"
                           for name in ("this tree", "old")) if Sq > 1 else ""
         splits, chunk = fa._split_plan(q, sets[0][0])
         plan = f"keys split {splits} ways of {chunk}" if splits > 1 else "unsplit"
-        bound = ""
-        if Sq > 1:
-            t, by = cs.bound_ms(torch, q, *sets[0], causal=causal, window=window, dev=dev)
-            sdpa = cs.graph_ms(torch, [lambda: F.scaled_dot_product_attention(
-                q, *sets[0], is_causal=causal, enable_gqa=H != KV)] * calls)
-            bound = (f"; bound {t:.4f} ms ({by}); sdpa {sdpa:.4f} ms"
-                     + (" (without window and softcap: not the same function)"
-                        if window or cap else ""))
+        bound = (f"; bound {t:.4f} ms ({by})"
+                 + (" (sdpa without window and softcap: not the same function)"
+                    if window or cap else ""))
+        times = ", ".join(f"{name} " + "-".join(f"{x:.4f}" for x in sorted(set(v)))
+                          for name, v in times.items())
         print(f"{label} ({B},{H},{Sq},{D}) kv {KV} Sk {Sk}{' causal' if causal else ''}"
               f"{f' window {window}' if window else ''} ({entry}, {plan}): outputs bitwise "
-              f"equal {same} (max abs difference {diff:.3e}){bound}; ms " + ", ".join(times)
+              f"equal {same} (max abs difference {diff:.3e}){bound}; ms " + times
               + (f" (launched one by one: {eager})" if eager else ""))
         del q, sets, outs
         torch.cuda.empty_cache()

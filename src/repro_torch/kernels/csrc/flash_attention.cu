@@ -16,9 +16,12 @@
 //           decode splits the tiles over 4 warps and merges them (not at
 //           D 256, where four warps' slabs would not fit: see launch_mode);
 //   bf16 -> attn_prefill_wgmma<D> (Sq >= 16, every head dim: one
-//           warpgroup kernel, wgmma fed by TMA) and attn_decode_bf16 (Sq
-//           < 16, mma.sync m16n8k16; with its keys split over blocks,
-//           attn_decode_bf16<D, true> then attn_decode_merge); bf16
+//           warpgroup kernel, wgmma fed by TMA); decode (Sq < 16) below D
+//           256 attn_decode_tma<D> (one launch a call, K and V by TMA,
+//           mma.sync m16n8k16, its ranges of keys merged on chip in a
+//           cluster), at D 256 attn_decode_bf16 (mma.sync on K and V
+//           loaded into registers; with its keys split over blocks,
+//           attn_decode_bf16<256, true> then attn_decode_merge); bf16
 //           operands, fp32 accumulators; helpers in mma_bf16.cuh.
 //
 // What bounds it.  At stablelm_3b's prefill shape (B 8, H 32, S 512, D 80,
@@ -84,61 +87,90 @@
 // 0.0695-0.0698 (0.1809-0.1811; 0.0639; 0.0300): 1.6-2.8x the earlier
 // plan, 0-11% above SDPA, 2.1-2.4x the bound.
 //
-// The bf16 decode design.  A block owns one (b, KV head) and up to 16
-// query rows of its GQA group (head-in-group x position), so the group
-// shares every K/V read; its 4 warps split the keys in steps of 32 (16 at
-// D 128) and read K and V straight from global memory into registers with
-// 16-byte loads, all of a step's loads issued before its products; the
-// inner index of each product is permuted so that a lane's share of a row
-// is contiguous.  The warps merge their (m, l, o) in shared memory.  At
-// D 256 (DcMap::LEAN) O is 128 registers a lane, Q's fragments would be 64
-// more and a step's K and V words 64 each: Q's fragments go to shared
-// memory once for the block (8 KB, read back 16 bytes a lane a k-step) and
-// a step loads V only after its scores are formed, when K's registers are
-// free; 16 keys a step as at D 128.
+// The bf16 decode below D 256, attn_decode_tma<D> (the plan is set out
+// above the kernel).  A decode step reads the cache once: B * KV * Sk * D
+// * 2 * 2 bytes (2.85-14.09 us at 3.35 TB/s for the served calls at Sk
+// 575), ~1 FLOP a byte, bound by memory by far; the rows of a (b, KV
+// head) are at most 16 (GQA groups of 1-12 at Sq 1), so the tensor cores
+// idle either way.  It replaced the earlier per-block plan (each warp loading
+// a step's K and V into registers, then its products: one dependent round
+// trip to HBM after another) and, for split calls, that plan's second
+// launch, attn_decode_merge, with its fp32 partials through HBM.  What
+// its design does about the bound: a producer warp requests every stage
+// of a TMA ring as the block starts (the bytes in flight from the first
+// microsecond), the ranges merge through distributed shared memory in the
+// same launch, and the wrapper's rule (flash_attention.py::decode_split)
+// cuts the keys so that a block streams the fewest 64-key tiles with no
+// more blocks than SMs: a cluster's blocks are placed together, and
+// grids past that (clusters of 4-8 at 128-256 blocks) waited for a
+// second wave on the card (%globaltimer stamps a block, a throwaway copy).
+//   Products by mma.sync, not wgmma: wgmma takes 64 rows, so it would put
+// the keys on M (S^T = K Q^T, then O^T = V^T P^T with P^T through shared
+// memory and each row's softmax across the warpgroup's four warps); with
+// 16 rows the products are a small share of a tile's time and the loop
+// streams at the card's bandwidth (measured below), so mma.sync from
+// ldmatrix keeps P in registers and the softmax inside a warp.
+//   Measured (scripts/attention_fwd_ab.py, in turns beside the earlier plan
+// and SDPA, cold L2, CUDA graphs of calls; H100 80GB HBM3 at 700.00 W),
+// ms at Sk 575 (the earlier plan; SDPA; bound of bytes): qwen2_vl
+// (8,28,1,128) kv 4, 3 ranges of 192, 0.0090 (0.0147; 0.0106; 0.0028),
+// phi3.5 / yi / command_r / llama4 (kv 8, D 128; 2 of 288) 0.0113-0.0133
+// (0.0176-0.0205; 0.0142-0.0146; 0.0057), musicgen (8,24,1,64)
+// unsplit 0.0139 (0.0166-0.0169; 0.0137; 0.0085), zamba2 (8,32,1,64)
+// 0.0173-0.0174 (0.0189-0.0190; 0.0160; 0.0113), stablelm (8,32,1,80)
+// 0.0204 (0.0221-0.0222; 0.0215-0.0217; 0.0141), the lse entry over
+// stablelm's half cache 0.0126 (0.0150; efficient attention with its lse
+// 0.0217; 0.0071).  With the products replaced by a register XOR (a
+// throwaway copy) the GQA calls took 4-9% less.  What holds it back:
+// about 2-3 us before a block's first K lands (the tensor map, HBM's
+// latency under every block's requests at once) and 1-2 us of merge and
+// spread after the median block's last tile; at the MHA shapes (192-256
+// blocks, one row each) that leaves zamba2 and musicgen 8% and 1% above
+// SDPA.
 //
-// The split decode (flash_attention_decode_split).  A decode block owns a
-// (b, KV head), so gemma2's decode (B 2, KV 8) is 16 blocks for 132 SMs:
-// each streams its whole 4-5 MB of cache alone, and the call took 0.1741 /
-// 0.1894 ms (ring Sk 4096 / global Sk 5183) against a bytes bound of 20.04 /
-// 25.36 us.  The wrapper's rule (flash_attention.py::decode_split, a pure
-// function of B, KV, rows, Sk and the SM count) cuts the keys into ranges
-// of a whole number of 64 keys, enough for about two blocks an SM, where
-// the unsplit grid has fewer blocks than SMs.  Each block runs the
-// per-block plan above (DcMap::LEAN at D 256) over its range, the steps a
-// range holds being whole, and writes its unnormalised o with the rows' m
-// (log2 units) and l to fp32 scratch the wrapper allocates; a second
-// launch, attn_decode_merge, a block a row, merges the ranges as the
-// block merges its warps (and as models/layers.py merges ranks) and writes
-// o, and the lse when asked.  It is a programmatic dependent launch: its
-// blocks are scheduled while the split blocks run and wait
-// (griddepcontrol.wait) for their writes.  A range with no admitted key
-// (a causal decode's later ranges, more ranges than keys) has m = -inf and
-// adds nothing; a row with no key anywhere gives 0 and lse -inf.  Grids
-// the rule does not split run the unsplit instantiation, the code of
-// before the split, bit for bit.  Measured (scripts/attention_fwd_ab.py,
-// in turns beside the unsplit kernel, cold L2, CUDA graphs of calls; H100
-// 80GB HBM3 at 700.00 W): gemma2's ring decode 0.0397-0.0399 ms against the
-// unsplit kernel's 0.1412-0.1413 (3.55x; 16 ranges of 256 keys; bound
-// 20.04 us, bytes), the global 0.0457-0.0461 against 0.1732-0.1742 (3.78x;
-// 17 of 320; 25.36 us), the lse entry over half the global cache
-// 0.0312-0.0313 against 0.0936-0.0940 (3.00x; 14 of 192; 12.69 us);
-// phi3.5's 64-block decode 0.0176-0.0177 against 0.0204 (3 of 192);
-// stablelm's and zamba2's decode unsplit and bitwise equal, 0.0223 and
-// 0.0191-0.0192 beside 0.0223 and 0.0192-0.0193.  What is left: each block
-// still waits on its K loads, then its V loads, in turn (at 2.0-2.5x the
-// bound).
+// The D 256 decode, attn_decode_bf16<256, *> (DcMap).  A block owns
+// one (b, KV head) and up to 16 query rows of its GQA group, so the group
+// shares every K/V read; its 4 warps split the keys in steps of 16 and
+// read K and V straight from global memory into registers with 16-byte
+// loads; the inner index of each product is permuted so that a lane's
+// share of a row is contiguous.  The warps merge their (m, l, o) in shared
+// memory.  O is 128 registers a lane, Q's fragments would be 64 more and
+// a step's K and V words 64 each: Q's fragments go to shared memory once
+// for the block (8 KB, read back 16 bytes a lane a k-step) and a step
+// loads V only after its scores are formed, when K's registers are free.
 //
-// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): decode at Sk 575
-// with a cold L2, as a CUDA graph of calls, 0.0229 ms against SDPA's
-// 0.0227 (D 80) and 0.0198 against 0.0165 (D 64).
+// The D 256 split decode (flash_attention_decode_split).  A decode block
+// owns a (b, KV head), so gemma2's decode (B 2, KV 8) is 16 blocks for 132
+// SMs: each streams its whole 4-5 MB of cache alone, and the call took
+// 0.1741 / 0.1894 ms (ring Sk 4096 / global Sk 5183) against a bytes bound
+// of 20.04 / 25.36 us.  The wrapper's rule
+// (flash_attention.py::d256_decode_split, a pure function of B, KV, rows,
+// Sk and the SM count) cuts the keys into ranges of a whole number of 64
+// keys, enough for about two blocks an SM, where the unsplit grid has
+// fewer blocks than SMs.  Each block runs the per-block plan above over
+// its range and writes its unnormalised o with the rows' m (log2 units)
+// and l to fp32 scratch the wrapper allocates; a second launch,
+// attn_decode_merge, a block a row, merges the ranges as the block merges
+// its warps (and as models/layers.py merges ranks) and writes o, and the
+// lse when asked.  It is a programmatic dependent launch: its blocks are
+// scheduled while the split blocks run and wait (griddepcontrol.wait) for
+// their writes.  A range with no admitted key has m = -inf and adds
+// nothing; a row with no key anywhere gives 0 and lse -inf.  Measured
+// (scripts/attention_fwd_ab.py, in turns beside the unsplit kernel, cold
+// L2, CUDA graphs of calls; H100 80GB HBM3 at 700.00 W): gemma2's ring
+// decode 0.0397-0.0399 ms against the unsplit kernel's 0.1412-0.1413
+// (3.55x; 16 ranges of 256 keys; bound 20.04 us, bytes), the global
+// 0.0457-0.0461 against 0.1732-0.1742 (3.78x; 17 of 320; 25.36 us), the
+// lse entry over half the global cache 0.0312-0.0313 against
+// 0.0936-0.0940 (3.00x; 14 of 192; 12.69 us).
 //
 // A second entry, flash_attention_lse, runs the same kernels with the flag
 // Params::lse set: each also writes its rows' fp32 log-sum-exp, so that the
 // partial outputs of keys split over ranks can be merged (decode with the
 // cache's sequence split, repro_torch.models.layers).  A third,
-// flash_attention_decode_split, is the split decode above, with or without
-// the lse; flash_attention_sm_count gives the rule its SM count.
+// flash_attention_decode_split, is the split decode above (either
+// design), with or without the lse; flash_attention_sm_count gives the
+// rules their SM count.
 //
 // Strides are element strides of the (b, head, seq) axes; the last axis
 // must be contiguous, and every pointer and stride 16-byte aligned (the
@@ -971,40 +1003,36 @@ __global__ void __launch_bounds__(PW_THREADS, 1)
   release();  // the last store's reads: shared memory stays until they finish
 }
 
-// Decode (Sq < 16): a block owns one (b, KV head) and up to 16 query rows
-// of its GQA group (rows r = head-in-group * Sq + position), so the group
-// shares every K/V read.  Its 4 warps split the keys in steps of KEYS and
-// read K and V straight from global memory into registers with wide loads,
-// then merge their partial (m, l, o) in shared memory.  The inner index
-// of each product is permuted so that a lane's share of a key row is
-// contiguous (DcMap); both operands of a product use the same permutation.
+// Decode (Sq < 16) at D 256: a block owns one (b, KV head) and up to 16
+// query rows of its GQA group (rows r = head-in-group * Sq + position), so
+// the group shares every K/V read.  Its 4 warps split the keys in steps of
+// KEYS and read K and V straight from global memory into registers with
+// wide loads, then merge their partial (m, l, o) in shared memory.  The
+// inner index of each product is permuted so that a lane's share of a key
+// row is contiguous (DcMap); both operands of a product use the same
+// permutation.
 constexpr int DC_WARPS = 4;
 
 template <int D>
 struct DcMap {
+  static_assert(D % 64 == 0, "whole 16-byte loads a lane");
   // Q K^T, inner index d: a 32-wide chunk c is one 16-byte load of
-  // d = 32 c + 8 t .. + 7 per lane (k-steps 2c and 2c + 1); a 16-wide tail
-  // one 8-byte load of d = 32 C32 + 4 t .. + 3.
+  // d = 32 c + 8 t .. + 7 per lane (k-steps 2c and 2c + 1).
   static constexpr int C32 = D / 32;
-  static constexpr int T16 = (D % 32) / 16;
-  static constexpr int KW = 4 * C32 + 2 * T16;  // words of a key row per lane
+  static constexpr int KW = 4 * C32;  // words of a key row per lane
   // P V, output column: n8 tile nt, column c is d = col(nt, c), so a lane
   // (column g) reads d = 64 i + 8 g .. + 7 of each 64-wide block i (16
-  // bytes) and a tail of R / 8 columns (4 or 8 bytes).
+  // bytes).
   static constexpr int W64 = D / 64;
-  static constexpr int R = D % 64;
   static constexpr int VW = D / 16;  // words of a value row per lane
-  static constexpr int KEYS = D > 80 ? 16 : 32;  // keys a warp takes per step (registers)
+  static constexpr int KEYS = 16;    // keys a warp takes per step (registers)
   static constexpr int NKT = KEYS / 8;
-  // Above D 128 the output alone is D / 2 registers a lane: Q's fragments
-  // move to shared memory (one copy for the block's 4 warps) and a step's
-  // V loads wait until its scores are formed and its K registers free.
-  static constexpr bool LEAN = D > 128;
-  __device__ static int col(int nt, int c) {
-    return nt < 8 * W64 ? 64 * (nt / 8) + 8 * c + nt % 8 : 64 * W64 + (R / 8) * c + nt - 8 * W64;
-  }
+  // The output alone is D / 2 registers a lane: Q's fragments live in
+  // shared memory (one copy for the block's 4 warps) and a step's V loads
+  // wait until its scores are formed and its K registers free.
+  __device__ static int col(int nt, int c) { return 64 * (nt / 8) + 8 * c + nt % 8; }
   // The (word, word + 1) pair of a row's KW words that holds k-step ks.
-  __device__ static int kword(int ks) { return ks < 2 * C32 ? 4 * (ks / 2) + 2 * (ks & 1) : 4 * C32; }
+  __device__ static int kword(int ks) { return 4 * (ks / 2) + 2 * (ks & 1); }
 };
 
 template <int D>
@@ -1020,12 +1048,6 @@ __device__ __forceinline__ void load_krow(uint32_t (&w)[DcMap<D>::KW], const bf1
     w[4 * c + 2] = v.z;
     w[4 * c + 3] = v.w;
   }
-  if constexpr (M::T16) {
-    const uint2 v = ok ? __ldg(reinterpret_cast<const uint2*>(row + 32 * M::C32 + 4 * t))
-                       : make_uint2(0u, 0u);
-    w[4 * M::C32] = v.x;
-    w[4 * M::C32 + 1] = v.y;
-  }
 }
 
 template <int D>
@@ -1040,14 +1062,6 @@ __device__ __forceinline__ void load_vrow(uint32_t (&w)[DcMap<D>::VW], const bf1
     w[4 * i + 1] = v.y;
     w[4 * i + 2] = v.z;
     w[4 * i + 3] = v.w;
-  }
-  if constexpr (M::R == 32) {
-    const uint2 v = ok ? __ldg(reinterpret_cast<const uint2*>(row + 64 * M::W64 + 4 * g))
-                       : make_uint2(0u, 0u);
-    w[4 * M::W64] = v.x;
-    w[4 * M::W64 + 1] = v.y;
-  } else if constexpr (M::R == 16) {
-    w[4 * M::W64] = ok ? __ldg(reinterpret_cast<const uint32_t*>(row + 64 * M::W64 + 2 * g)) : 0u;
   }
 }
 
@@ -1068,11 +1082,11 @@ __device__ __forceinline__ void load_vstep(uint32_t (&w)[DcMap<D>::NKT / 2][4][D
 
 template <int D>
 struct DcSmem {  // in floats: each warp's m and l of 16 rows, then its 16 x D partial o,
-                 // then (LEAN) Q's A fragments, [k-step][lane] as 16 bytes each
+                 // then Q's A fragments, [k-step][lane] as 16 bytes each
   static constexpr int L = DC_WARPS * 16;
   static constexpr int O = 2 * DC_WARPS * 16;
   static constexpr int QF = O + DC_WARPS * 16 * D;
-  static constexpr size_t BYTES = sizeof(float) * (QF + (DcMap<D>::LEAN ? D / 16 * 32 * 4 : 0));
+  static constexpr size_t BYTES = sizeof(float) * (QF + D / 16 * 32 * 4);
 };
 
 // SPLIT: the block takes only keys split * chunk .. + chunk (blockIdx.z =
@@ -1103,10 +1117,9 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ksb + kvh * p.ksh;
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vsb + kvh * p.vsh;
 
-  // This lane's two query rows (g and g + 8) as A fragments of Q K^T: in
-  // registers, or (LEAN) in shared memory, where warp 0 writes them.
+  // This lane's two query rows (g and g + 8) as A fragments of Q K^T, in
+  // shared memory, where warp 0 writes them.
   int qpos[2];
-  uint32_t qf[M::LEAN ? 1 : KS][4];
   uint4* Qs = reinterpret_cast<uint4*>(sm + S::QF);
   {
     uint32_t qw[2][M::KW];
@@ -1123,17 +1136,10 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
     for (int ks = 0; ks < KS; ++ks) {
       const int w = M::kword(ks);
       const uint4 f = make_uint4(qw[0][w], qw[1][w], qw[0][w + 1], qw[1][w + 1]);
-      if constexpr (M::LEAN) {
-        if (warp == 0) Qs[ks * 32 + lane] = f;
-      } else {
-        qf[ks][0] = f.x;
-        qf[ks][1] = f.y;
-        qf[ks][2] = f.z;
-        qf[ks][3] = f.w;
-      }
+      if (warp == 0) Qs[ks * 32 + lane] = f;
     }
   }
-  if constexpr (M::LEAN) __syncthreads();
+  __syncthreads();
 
   const int k_hi = p.causal ? min(p.Sk, p.Sq) : p.Sk;
   // This block's steps: all, or (SPLIT) those of its chunk of keys, which
@@ -1148,8 +1154,7 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
 
   for (int step = s_lo + warp; step < s_hi; step += DC_WARPS) {
     const int kb = step * M::KEYS;
-    // Every load of the step first (LEAN: V after the scores): K for the
-    // scores, V for P V.
+    // K for the scores first, V for P V after them.
     uint32_t kw[NKT][M::KW];
     uint32_t vw[NKT / 2][4][M::VW];
 #pragma unroll
@@ -1157,7 +1162,6 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
       const int key = kb + 8 * j + g;
       load_krow<D>(kw[j], kg + key * p.kss, key < k_hi, t);
     }
-    if constexpr (!M::LEAN) load_vstep<D>(vw, vg, p.vss, kb, k_hi, lane);
 
     float s[NKT][4];
 #pragma unroll
@@ -1166,16 +1170,12 @@ __global__ void __launch_bounds__(DC_WARPS * 32) attn_decode_bf16(const Params p
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         const int w = M::kword(ks);
-        if constexpr (M::LEAN) {
-          const uint4 f = Qs[ks * 32 + lane];
-          const uint32_t a[4] = {f.x, f.y, f.z, f.w};
-          mma::mma_bf16(s[j], a, kw[j][w], kw[j][w + 1]);
-        } else {
-          mma::mma_bf16(s[j], qf[ks], kw[j][w], kw[j][w + 1]);
-        }
+        const uint4 f = Qs[ks * 32 + lane];
+        const uint32_t a[4] = {f.x, f.y, f.z, f.w};
+        mma::mma_bf16(s[j], a, kw[j][w], kw[j][w + 1]);
       }
     }
-    if constexpr (M::LEAN) load_vstep<D>(vw, vg, p.vss, kb, k_hi, lane);
+    load_vstep<D>(vw, vg, p.vss, kb, k_hi, lane);
     const bool need_mask = p.causal || p.window > 0 || kb + M::KEYS > p.Sk;
 #pragma unroll
     for (int j = 0; j < NKT; ++j)
@@ -1291,6 +1291,385 @@ __global__ void attn_decode_merge(const Params p, int D) {
   if (p.lse != nullptr && d == 0) write_lse(p, b, hh, qpos, mx * LN2, lsum);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 decode (Sq < 16) below D 256: attn_decode_tma<D>, one launch a call.
+// A block owns one (b, KV head), 16 rows of its GQA group (rows r = head in
+// group * Sq + position, so the group shares every K / V read) and one
+// range of keys: blockIdx.x = the range (`splits` of `chunk` keys, chunk a
+// multiple of DT_GROUP; one range, all keys, from the unsplit entries),
+// blockIdx.y = KV head * row tiles + row tile, blockIdx.z = b.  The ranges
+// of one (b, KV head, rows) are the CTAs of one thread-block cluster, the
+// range 0 its leader.
+//
+// Warps: DT_CONSUMERS consumer warps and one producer warp.  The
+// producer's lane 0 prefetches the tensor maps, sets up the barriers and
+// requests every stage of a ring of Dt::STAGES stages of DT_TILE_KEYS keys
+// by TMA (64-row boxes; a range's last, partial tile as 16-row boxes), K
+// and V on barriers of their own, before the block's first barrier; then
+// it refills each stage as the consumers release it.  Consumer warp w
+// takes keys 16 w .. 16 w + 15 of every tile: S = Q K^T by mma.sync
+// m16n8k16 (Q's fragments by ldmatrix once, K's by ldmatrix from the
+// swizzled slabs), scale, softcap, masks and online softmax in registers,
+// O += P V (V's fragments by ldmatrix.trans), and keeps its own (m, l, o).
+// After the last tile the ring holds the merge: the warps' partials merge
+// into the block's (m, l, o), each consumer thread a few (row, 4 columns)
+// items, in warp order.  One range: o / l is written there.  Split: the
+// consumer threads of every block but the leader store their items'
+// (m, l, o) into the leader's shared memory (st.shared::cluster) and
+// arrive on its mbarrier, releasing the stores to the cluster (after one
+// cluster barrier, arrived at as the blocks start and waited on after
+// their loops, so the barrier is known set up), and leave; the leader's
+// threads merge their items with the other ranges' in the order of the
+// ranges' index, whatever the order they arrived in (a call's bits
+// repeat), and write o and the lse.  No fp32 partial goes through global
+// memory.
+constexpr int DT_CONSUMERS = 4;
+constexpr int DT_THREADS = 32 * (DT_CONSUMERS + 1);
+constexpr int DT_PRODUCER = 32 * DT_CONSUMERS;  // the producer warp's lane 0
+constexpr int DT_TILE_KEYS = 64;  // keys of a ring stage: one 64-row TMA box a slab
+constexpr int DT_GROUP = 16;      // keys of a consumer warp's share of a tile; a range's grain
+constexpr int DT_MAX_SPLITS = 8;  // CTAs of a cluster (the portable limit)
+constexpr int DT_BAR_CONSUMERS = 1;  // named barrier of the consumer warps
+
+template <int D>
+struct Dt {
+  static constexpr int DP = (D + 63) / 64 * 64;  // columns of a K or V tile in shared memory
+  static constexpr uint32_t SLAB = DT_TILE_KEYS * 128;
+  static constexpr uint32_t TILE = DP / 64 * SLAB;
+  static constexpr int STAGES = DP == 64 ? 3 : 2;  // 48-64 KB of ring: 3-4 blocks an SM
+  static constexpr uint32_t QROW = (D + 8) * 2;    // a padded Q row: ldmatrix without conflicts
+  // A block's partial, in floats: m and l of 16 rows, then o, rows x D
+  // (the rows a block holds, at most 16: part(rows) bytes).
+  static constexpr int PM = 0, PL = 16, PO = 32;
+  __host__ __device__ static constexpr uint32_t part(int rows) { return 4 * (32 + (rows < 16 ? rows : 16) * D); }
+  // Bytes from the 1024-aligned base: K stages, V stages, Q, the barriers
+  // kfull, vfull, empty [STAGES] and recv, then (the leader of a split
+  // call) the other ranges' partials, part(rows) bytes apart.
+  static constexpr uint32_t K = 0, V = STAGES * TILE, Q = 2 * STAGES * TILE;
+  static constexpr uint32_t BARS = Q + 16 * QROW;
+  static constexpr uint32_t RECV = (BARS + 8 * (3 * STAGES + 1) + 15) / 16 * 16;
+  static constexpr size_t bytes(int splits, int rows) {
+    return RECV + (splits - 1) * part(rows) + 1024;
+  }
+  // The warps' merge, in floats over the ring: each warp's m and l of 16
+  // rows and its 16 x D partial o (rows WROW apart).
+  static constexpr int WROW = D + 8;
+  static constexpr int WM = 0, WL = WM + DT_CONSUMERS * 16, WO = WL + DT_CONSUMERS * 16;
+  static_assert(4 * (WO + DT_CONSUMERS * 16 * WROW) <= 2 * STAGES * TILE, "merge area");
+  static_assert(bytes(1, 16) <= 232448 / 2 && bytes(DT_MAX_SPLITS, 16) <= 232448, "shared memory");
+};
+
+struct DtParams {
+  CUtensorMap k, v;      // 64-row boxes: a whole tile
+  CUtensorMap k16, v16;  // 16-row boxes: a range's last, partial tile
+  Params p;
+};
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// The cluster barrier in two halves: every thread of the cluster arrives,
+// then waits.  The arrival is relaxed: it orders nothing but the mbarrier
+// initialisation, which fence_mbar_init has released to the cluster.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// `p` of this CTA's shared memory at the same place in CTA `rank`'s.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(mma::smem_addr(p)), "r"(rank));
+  return a;
+}
+// Stores to another CTA's shared memory (addresses from cluster_addr), and
+// an arrival on its mbarrier that releases them to the cluster.
+__device__ __forceinline__ void st_cluster(uint32_t a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_cluster4(uint32_t a, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// mma::mbar_wait, acquiring at cluster scope what other CTAs released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mma::smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DT_THREADS) attn_decode_tma(const __grid_constant__ DtParams dp) {
+  using S = Dt<D>;
+  constexpr int KS = D / 16, NT = D / 8, STAGES = S::STAGES;
+  const Params& p = dp.p;
+  char* sm = wgmma::aligned_smem();
+  float* f = reinterpret_cast<float*>(sm);
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + S::BARS);
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
+  uint64_t* recv = empty + STAGES;
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
+  const int lane = threadIdx.x & 31;
+  const int splits = p.splits > 1 ? p.splits : 1;
+  const int split = blockIdx.x;
+  const int group = p.H / p.KV;
+  const int rows = group * p.Sq;
+  const int mtiles = (rows + 15) / 16;
+  const int kvh = blockIdx.y / mtiles;
+  const int r0 = (blockIdx.y - kvh * mtiles) * 16;
+  const int b = blockIdx.z;
+  const int nrows = min(16, rows - r0);
+  const uint32_t slot = S::part(rows);  // the leader's stride between received partials
+
+  // The block's keys [lo, hi): its range, cut to what its rows can see
+  // (lo a multiple of DT_GROUP).
+  const bool one_head = r0 / p.Sq == (r0 + nrows - 1) / p.Sq;
+  const int qmin = one_head ? r0 % p.Sq : 0;
+  const int qmax = one_head ? (r0 + nrows - 1) % p.Sq : p.Sq - 1;
+  const int chunk = splits > 1 ? p.chunk : p.Sk;
+  const int k_hi = p.causal ? min(p.Sk, qmax + 1) : p.Sk;
+  const int k_lo = p.window > 0 ? max(0, qmin - p.window + 1) / DT_GROUP * DT_GROUP : 0;
+  const int lo = max(split * chunk, k_lo);
+  const int hi = min(split * chunk + chunk, k_hi);
+  const int ngroups = hi > lo ? (hi - lo + DT_GROUP - 1) / DT_GROUP : 0;
+  const int ntiles = (ngroups + DT_CONSUMERS - 1) / DT_CONSUMERS;
+
+  // Tile t's K and V into its stage (the producer's lane 0).
+  auto load_tile = [&](int t) {
+    const int st = t % STAGES;
+    const int g = min(DT_CONSUMERS, ngroups - DT_CONSUMERS * t);
+    const int key0 = lo + t * DT_TILE_KEYS;
+    for (int kv = 0; kv < 2; ++kv) {
+      uint64_t* bar = (kv ? vfull : kfull) + st;
+      char* dst = sm + (kv ? S::V : S::K) + st * S::TILE;
+      mma::mbar_expect_tx(bar, g * DT_GROUP * 128 * (S::DP / 64));
+#pragma unroll
+      for (int c = 0; c < S::DP / 64; ++c) {
+        if (g == DT_CONSUMERS) {
+          mma::tma_load_4d(dst + c * S::SLAB, kv ? &dp.v : &dp.k, bar, 64 * c, kvh, key0, b);
+        } else {
+          for (int j = 0; j < g; ++j)
+            mma::tma_load_4d(dst + c * S::SLAB + j * DT_GROUP * 128, kv ? &dp.v16 : &dp.k16, bar,
+                             64 * c, kvh, key0 + DT_GROUP * j, b);
+        }
+      }
+    }
+  };
+
+  char* Qs = sm + S::Q;
+  if (threadIdx.x == DT_PRODUCER) {
+    if (ntiles > 0) {
+      prefetch_map(&dp.k);
+      prefetch_map(&dp.v);
+      prefetch_map(&dp.k16);
+      prefetch_map(&dp.v16);
+    }
+    for (int i = 0; i < STAGES; ++i) {
+      mma::mbar_init(&kfull[i], 1);
+      mma::mbar_init(&vfull[i], 1);
+      mma::mbar_init(&empty[i], DT_CONSUMERS);
+    }
+    // the leader's: every consumer thread of the other ranges arrives once
+    mma::mbar_init(recv, splits > 1 && split == 0 ? (splits - 1) * 32 * DT_CONSUMERS : 1);
+    mma::fence_mbar_init();
+    for (int t = 0; t < min(ntiles, STAGES); ++t) load_tile(t);
+  } else if (warp < DT_CONSUMERS) {
+    // Q's 16 rows (zeros past the block's) into shared memory.
+    for (int i = threadIdx.x; i < 16 * (D / 8); i += 32 * DT_CONSUMERS) {
+      const int r = i / (D / 8), c = i - r * (D / 8);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows) {
+        const int row = r0 + r;
+        const int hh = kvh * group + row / p.Sq;
+        v = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.q) + b * p.qsb +
+                                                 hh * p.qsh + (row % p.Sq) * p.qss + 8 * c));
+      }
+      *reinterpret_cast<uint4*>(Qs + r * S::QROW + 16 * c) = v;
+    }
+  }
+  __syncthreads();
+  if (splits > 1) cluster_arrive();
+
+  if (warp == DT_CONSUMERS) {  // the producer: each further stage as it frees
+    if (lane == 0) {
+      for (int t = STAGES; t < ntiles; ++t) {
+        mma::mbar_wait(&empty[t % STAGES], (t / STAGES - 1) & 1);
+        load_tile(t);
+      }
+    }
+    __syncwarp();
+    if (splits > 1) cluster_wait();
+  } else {
+    const int tid = threadIdx.x;  // 0 .. 127
+    const int g = lane >> 2, t4 = lane & 3;
+    uint32_t qf[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      mma::ldmatrix_x4(qf[ks], Qs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * S::QROW +
+                                   (2 * ks + (lane >> 4)) * 16);
+    int qpos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      qpos[r] = row < rows ? row % p.Sq : 0;
+    }
+
+    float o[NT][4];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+    // This lane's rows of the x4 loads: K as (keys 0-7, 0-7, 8-15, 8-15)
+    // x (columns lo, hi) of a k step; V as (keys 0-7, 8-15) x two n8 tiles.
+    const int krow = DT_GROUP * warp + (lane & 7) + 8 * (lane >> 4);
+    const int vrow = DT_GROUP * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % STAGES;
+      const uint32_t par = (t / STAGES) & 1;
+      if (warp < min(DT_CONSUMERS, ngroups - DT_CONSUMERS * t)) {
+        const int kb = lo + t * DT_TILE_KEYS + DT_GROUP * warp;  // this warp's first key
+        const char* Kt = sm + S::K + st * S::TILE;
+        const char* Vt = sm + S::V + st * S::TILE;
+        float s[2][4] = {};
+        mma::mbar_wait(&kfull[st], par);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const int u = 2 * ks + ((lane >> 3) & 1);  // 16-byte unit of the row
+          uint32_t kf[4];
+          mma::ldmatrix_x4(kf, Kt + (u >> 3) * S::SLAB + krow * 128 + (((u & 7) ^ (krow & 7)) << 4));
+          mma::mma_bf16(s[0], qf[ks], kf[0], kf[1]);
+          mma::mma_bf16(s[1], qf[ks], kf[2], kf[3]);
+        }
+        // Keys past the range's end are past Sk or, causal, past every
+        // row's position: the masks below remove them.
+        const bool need_mask = p.causal || p.window > 0 || kb + DT_GROUP > hi;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = score(s[j][e], p, need_mask, kb + 8 * j + mma::acc_col(lane, e), qpos[e >> 1]);
+        online_softmax<2, NT>(s, m, l, o);
+        uint32_t a[4];
+        p_fragment<2>(s, 0, a);
+        mma::mbar_wait(&vfull[st], par);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int u = 2 * np + (lane >> 4);
+          uint32_t vf[4];
+          mma::ldmatrix_x4_trans(vf, Vt + (u >> 3) * S::SLAB + vrow * 128 +
+                                         (((u & 7) ^ (vrow & 7)) << 4));
+          mma::mma_bf16(o[2 * np], a, vf[0], vf[1]);
+          mma::mma_bf16(o[2 * np + 1], a, vf[2], vf[3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mma::mbar_arrive(&empty[st]);
+    }
+
+    // Every consumer past its last tile (warp 0 waited for each tile's
+    // loads): the ring is free.  The warps' partials into it, then each
+    // thread's items (row r, columns 4 c .. 4 c + 3) merged over the warps.
+    if (splits > 1) cluster_wait();  // the leader's recv barrier is set up
+    wgmma::bar_sync(DT_BAR_CONSUMERS, 32 * DT_CONSUMERS);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int row = g + 8 * r;
+      if (t4 == 0) {
+        f[S::WM + warp * 16 + row] = m[r];
+        f[S::WL + warp * 16 + row] = lr;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(f + S::WO + (warp * 16 + row) * S::WROW + 8 * nt + 2 * t4) =
+            make_float2(o[nt][2 * r], o[nt][2 * r + 1]);
+    }
+    wgmma::bar_sync(DT_BAR_CONSUMERS, 32 * DT_CONSUMERS);
+    // A range the leader merges: its slot in the leader's shared memory.
+    const uint32_t to = split > 0 ? cluster_addr(sm + S::RECV + (split - 1) * slot, 0) : 0u;
+    for (int idx = tid; idx < nrows * (D / 4); idx += 32 * DT_CONSUMERS) {
+      const int r = idx / (D / 4), c = idx - r * (D / 4);
+      float mw[DT_CONSUMERS];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < DT_CONSUMERS; ++w) {
+        mw[w] = f[S::WM + w * 16 + r];
+        mx = fmaxf(mx, mw[w]);
+      }
+      float lsum = 0.f;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (mx != -INFINITY) {
+#pragma unroll
+        for (int w = 0; w < DT_CONSUMERS; ++w) {
+          const float a = mma::exp2_approx(mw[w] - mx);
+          const float4 ow = *reinterpret_cast<const float4*>(f + S::WO + (w * 16 + r) * S::WROW + 4 * c);
+          lsum += f[S::WL + w * 16 + r] * a;
+          acc.x += ow.x * a;
+          acc.y += ow.y * a;
+          acc.z += ow.z * a;
+          acc.w += ow.w * a;
+        }
+      }
+      if (split > 0) {  // a range the leader merges: its partial, into the leader
+        st_cluster4(to + 4 * (S::PO + r * D + 4 * c), acc);
+        if (c == 0) {
+          st_cluster(to + 4 * (S::PM + r), mx);
+          st_cluster(to + 4 * (S::PL + r), lsum);
+        }
+        continue;
+      }
+      if (splits > 1) {  // the leader: the other ranges' partials, in order
+        mbar_wait_cluster(recv, 0);
+        float mr = mx;
+        for (int sp = 1; sp < splits; ++sp)
+          mr = fmaxf(mr, reinterpret_cast<const float*>(sm + S::RECV + (sp - 1) * slot)[S::PM + r]);
+        if (mr != -INFINITY) {
+          const float a0 = mma::exp2_approx(mx - mr);
+          lsum *= a0;
+          acc.x *= a0;
+          acc.y *= a0;
+          acc.z *= a0;
+          acc.w *= a0;
+          for (int sp = 1; sp < splits; ++sp) {
+            const float* pr = reinterpret_cast<const float*>(sm + S::RECV + (sp - 1) * slot);
+            const float a = mma::exp2_approx(pr[S::PM + r] - mr);
+            const float4 os = *reinterpret_cast<const float4*>(pr + S::PO + r * D + 4 * c);
+            lsum += pr[S::PL + r] * a;
+            acc.x += os.x * a;
+            acc.y += os.y * a;
+            acc.z += os.z * a;
+            acc.w += os.w * a;
+          }
+        }
+        mx = mr;
+      }
+      const int row = r0 + r;
+      const int hh = kvh * group + row / p.Sq;
+      const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+      bf16* og = static_cast<bf16*>(p.o) + b * p.osb + hh * p.osh + (row % p.Sq) * p.oss + 4 * c;
+      *reinterpret_cast<uint2*>(og) = make_uint2(mma::pack_bf16(acc.x * inv, acc.y * inv),
+                                                 mma::pack_bf16(acc.z * inv, acc.w * inv));
+      // mx is in log2 units (the scores carry log2 e)
+      if (p.lse != nullptr && c == 0) write_lse(p, b, hh, row % p.Sq, mx * LN2, lsum);
+    }
+    if (split > 0) mbar_arrive_cluster(cluster_addr(recv, 0));
+  }
+}
+
 // Launches Kern with `bytes` of dynamic shared memory; the opt-in above
 // 48 KB is set once per kernel.
 template <auto Kern, typename P>
@@ -1349,9 +1728,53 @@ cudaError_t launch_prefill_wgmma(const Params& p, cudaStream_t stream) {
   return launch_with_smem<attn_prefill_wgmma<D>>(dim3(grid), PW_THREADS, S::BYTES, wp, stream);
 }
 
+// The bf16 decode below D 256: the four K / V tensor maps (64-row and
+// 16-row boxes; none with Sk 0, where no tile is loaded), then one launch
+// whose ranges of one (b, KV head, rows) form a cluster.  A map that cannot
+// be encoded, or more ranges than a cluster holds, is an error, never a
+// fallback.
+template <int D>
+cudaError_t launch_decode_tma(const Params& p, cudaStream_t stream) {
+  using S = Dt<D>;
+  DtParams dp{};
+  dp.p = p;
+  const int splits = p.splits > 1 ? p.splits : 1;
+  const int64_t ks[3] = {p.ksb, p.ksh, p.kss}, vs[3] = {p.vsb, p.vsh, p.vss};
+  if (p.Sk > 0 && (!mma::encode_map(&dp.k, p.k, ks, D, p.KV, p.Sk, p.B) ||
+                   !mma::encode_map(&dp.v, p.v, vs, D, p.KV, p.Sk, p.B) ||
+                   !mma::encode_map(&dp.k16, p.k, ks, D, p.KV, p.Sk, p.B, DT_GROUP) ||
+                   !mma::encode_map(&dp.v16, p.v, vs, D, p.KV, p.Sk, p.B, DT_GROUP)))
+    return cudaErrorInvalidValue;
+  const int64_t ytiles = static_cast<int64_t>((p.H / p.KV * p.Sq + 15) / 16) * p.KV;
+  if (splits > DT_MAX_SPLITS || ytiles > 65535 || p.B > 65535) return cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attn_decode_tma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(S::bytes(DT_MAX_SPLITS, 16)));
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = splits;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(splits, static_cast<unsigned>(ytiles), p.B);
+  cfg.blockDim = dim3(DT_THREADS);
+  cfg.dynamicSmemBytes = S::bytes(splits, p.H / p.KV * p.Sq);
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, attn_decode_tma<D>, dp);
+}
+
+// A bf16 call's kernels: the prefill (Sq >= 16) at every head dim; the
+// decode by attn_decode_tma below D 256, and at D 256 by attn_decode_bf16,
+// with `part` (split) followed by attn_decode_merge.
 template <int D>
 cudaError_t launch_bf16_mode(const Params& p, cudaStream_t stream) {
-  if (p.Sq < SPLIT_BELOW_SQ) {
+  if (p.Sq >= SPLIT_BELOW_SQ) return launch_prefill_wgmma<D>(p, stream);
+  if constexpr (D < 256) {
+    return launch_decode_tma<D>(p, stream);
+  } else {
     const int mtiles = (p.H / p.KV * p.Sq + 15) / 16;
     if (p.part != nullptr) {
       const cudaError_t err = launch_with_smem<attn_decode_bf16<D, true>>(
@@ -1375,7 +1798,6 @@ cudaError_t launch_bf16_mode(const Params& p, cudaStream_t stream) {
     return launch_with_smem<attn_decode_bf16<D, false>>(dim3(mtiles, p.KV, p.B), DC_WARPS * 32,
                                                         DcSmem<D>::BYTES, p, stream);
   }
-  return launch_prefill_wgmma<D>(p, stream);
 }
 
 cudaError_t launch_bf16(const Params& p, int D, cudaStream_t stream) {
@@ -1444,12 +1866,16 @@ extern "C" int flash_attention_lse(const void* q, const void* k, const void* v, 
 
 // bf16 decode (Sq < 16) with its keys split over blocks: `splits` blocks
 // per (b, KV head, 16 rows), block s taking keys s * chunk .. + chunk
-// (chunk a multiple of 64, splits * chunk >= Sk), each writing its
-// partial (o, m, l) to `part`, fp32 scratch of B * H * Sq * splits * (D +
-// 2) floats the caller allocates; then attn_decode_merge writes o and, if
-// `lse` is not null, the log-sum-exp as flash_attention_lse does.  The
-// same function as flash_attention_fwd / flash_attention_lse; it fills
-// the card where (B, KV) alone gives too few blocks (the wrapper's rule).
+// (splits * chunk >= Sk), and o written, and if `lse` is not null the
+// log-sum-exp as flash_attention_lse does.  The same function as
+// flash_attention_fwd / flash_attention_lse; it fills the card where (b,
+// KV head, rows) alone gives too few blocks (the wrapper's rule).
+//   Below D 256 (attn_decode_tma): chunk a multiple of 16, at most 8
+// splits, one launch whose ranges merge on chip, in a cluster: `part` is
+// not used (it may be null).  At D 256: chunk a multiple of 64, each
+// block writing its partial (o, m, l) to `part`, fp32 scratch of B * H *
+// Sq * splits * (D + 2) floats the caller allocates, then
+// attn_decode_merge.
 extern "C" int flash_attention_decode_split(const void* q, const void* k, const void* v, void* o,
                                             void* lse, void* part, int splits, int chunk,
                                             int dtype, int B, int H, int KV, int Sq, int Sk,
@@ -1459,9 +1885,11 @@ extern "C" int flash_attention_decode_split(const void* q, const void* k, const 
                                             int64_t osb, int64_t osh, int64_t oss,
                                             int causal, int window, float softcap, float scale,
                                             void* stream) {
-  if (dtype != 1 || Sq >= SPLIT_BELOW_SQ || part == nullptr || splits < 1 || chunk <= 0 ||
-      chunk % 64 != 0 || static_cast<int64_t>(splits) * chunk < Sk ||
-      static_cast<int64_t>(B) * splits > 65535)
+  const bool wide = D == 256;
+  if (dtype != 1 || Sq >= SPLIT_BELOW_SQ || splits < 1 || chunk <= 0 ||
+      chunk % (wide ? 64 : DT_GROUP) != 0 || static_cast<int64_t>(splits) * chunk < Sk ||
+      (wide ? part == nullptr || static_cast<int64_t>(B) * splits > 65535
+            : splits > DT_MAX_SPLITS))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, o, B, H, KV, Sq, Sk,
                  qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,

@@ -218,12 +218,14 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 
 // A (B, heads, seq, D) bf16 tensor at `base` with element strides s[0..2]
 // (batch, head, seq; D contiguous) as a 4-D tensor map (D, heads, seq, B)
-// whose box is 64 columns x 1 head x 64 rows x 1, 128-byte swizzled: the
-// slabs of the warpgroup kernels below.  Rows past `seq` and columns past
-// D (a box is 64 columns wide at D 16, 32 and 80 too) read as zeros and
-// are not written.  False where the map cannot be encoded.
+// whose box is 64 columns x 1 head x `rows` rows x 1 (64 unless given),
+// 128-byte swizzled: the slabs of the warpgroup kernels below (a box of
+// fewer rows lands as those rows of a 64-row slab would, when its shared
+// address is 1024-aligned).  Rows past `seq` and columns past D (a box is
+// 64 columns wide at D 16, 32 and 80 too) read as zeros and are not
+// written.  False where the map cannot be encoded.
 inline bool encode_map(CUtensorMap* map, const void* base, const int64_t* s, int D, int heads,
-                       int seq, int B) {
+                       int seq, int B, unsigned rows = 64) {
   const EncodeTiled fn = tensor_map_encoder();
   if (!fn || seq <= 0) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
@@ -231,7 +233,7 @@ inline bool encode_map(CUtensorMap* map, const void* base, const int64_t* s, int
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[1]) * 2,
                                  static_cast<cuuint64_t>(s[2]) * 2,
                                  static_cast<cuuint64_t>(s[0]) * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t box[4] = {64, 1, rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

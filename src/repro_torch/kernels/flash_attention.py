@@ -23,18 +23,20 @@ log-sum-exp (B,H,Sq), so that attention over keys split across ranks can
 merge the ranks' partial outputs (decode with the cache's sequence split,
 :mod:`repro_torch.models.layers`); it records no gradient either.
 
-A bf16 decode call (Sq < 16) whose (b, KV head) blocks would leave the
-card's SMs idle (:func:`decode_split`: gemma2's 16 blocks on 132 SMs)
-goes, from either wrapper, to a third C entry, ``flash_attention_decode_split``:
-the keys are cut into ranges over more blocks, each writing a partial
-(o, m, l) to fp32 scratch this wrapper allocates, and a second launch
-merges them, as ``models.layers`` merges ranks' partials.  The call
-counts as one launch of the wrapper's counter.
+A bf16 decode call (Sq < 16) whose (b, KV head, 16-row) blocks leave
+SMs idle (:func:`decode_split` below D 256: qwen2_vl's 32 blocks become
+96; :func:`d256_decode_split` at D 256: gemma2's 16 blocks on 132 SMs), goes,
+from either wrapper, to a third C entry, ``flash_attention_decode_split``:
+the keys are cut into ranges over more blocks.  Below D 256 that is one
+launch, whose ranges of one (b, KV head, rows) form a thread-block
+cluster and merge through its distributed shared memory; at D 256 each
+range writes a partial (o, m, l) to fp32 scratch this wrapper allocates
+and a second launch merges them, as ``models.layers`` merges ranks'
+partials.  The call counts as one launch of the wrapper's counter.
 
 ``launches`` counts the forward wrapper's calls that launch a kernel,
 ``lse_launches`` the second entry's and ``bwd_launches`` the backward's
-calls (two kernel launches each in bf16: on the tensor cores by
-``mma.sync`` up to head dim 128, by ``wgmma`` at 256; three in fp32,
+calls (two kernel launches each in bf16, by ``wgmma``; three in fp32,
 scalar); nothing else changes them.  Both directions take the head dims
 ``SUPPORTED_D``.
 
@@ -65,28 +67,57 @@ _split_fn = None
 _bwd_fn = None
 _sms: dict[int, int] = {}
 
-# The split decode (csrc/flash_attention.cu, flash_attention_decode_split):
-# a decode block holds 16 query rows of one (b, KV head); a split's keys
-# are a whole number of SPLIT_STEP (a round of the block's 4 warps at D >
-# 80, two at D <= 80) and at least SPLIT_MIN_KEYS.
+# The split decode (csrc/flash_attention.cu, flash_attention_decode_split).
+# Below D 256 (attn_decode_tma): a block holds 16 query rows of one (b, KV
+# head) and one range of keys, a whole number of SPLIT_KEYS (its TMA
+# boxes), which it streams through its ring in tiles of TILE_KEYS; the
+# ranges of one (b, KV head, rows), at most MAX_SPLITS, are the CTAs of a
+# cluster and merge on chip.
 DECODE_ROWS = 16
-SPLIT_STEP = 64
-SPLIT_MIN_KEYS = 128
-SPLIT_WAVES = 2     # the split aims at this many blocks an SM
+SPLIT_KEYS = 16
+TILE_KEYS = 64
+MAX_SPLITS = 8
+# D 256 (attn_decode_bf16, then attn_decode_merge): ranges of a whole
+# number of D256_SPLIT_STEP keys (a round of the block's 4 warps), at
+# least D256_SPLIT_MIN_KEYS, for about D256_SPLIT_WAVES blocks an SM.
+D256_SPLIT_STEP = 64
+D256_SPLIT_MIN_KEYS = 128
+D256_SPLIT_WAVES = 2
 
 
 def decode_split(B: int, KV: int, rows: int, Sk: int, sms: int) -> tuple[int, int]:
-    """(splits, keys a split) of a decode call with ``rows`` query rows a
-    KV head (GQA group x Sq) over ``Sk`` keys on a card of ``sms`` SMs.
-    One split (all the keys) where the (b, KV head, 16-row) blocks alone
-    reach ``sms``, or where the keys are too few to cut; else enough
-    ranges of keys, each a multiple of SPLIT_STEP, for about SPLIT_WAVES
-    blocks an SM, none shorter than SPLIT_MIN_KEYS."""
+    """(splits, keys a split) of a decode call below D 256 with ``rows``
+    query rows a KV head (GQA group x Sq) over ``Sk`` keys on a card of
+    ``sms`` SMs.  A block's time grows with the tiles it streams: the
+    ranges (each a whole number of SPLIT_KEYS, none empty, at most
+    MAX_SPLITS) are cut so that a block streams the fewest tiles of
+    TILE_KEYS, with no more (b, KV head, 16-row, range) blocks than SMs (a
+    cluster's blocks are placed together, and more of them than that
+    waited for a second wave on an H100), and the fewest ranges among
+    equals.  One split is (1, Sk)."""
+    units = -(-rows // DECODE_ROWS) * KV * B
+    groups = -(-Sk // SPLIT_KEYS)
+    best, best_tiles = (1, Sk), -(-Sk // TILE_KEYS)
+    for want in range(2, min(MAX_SPLITS, groups, sms // units) + 1):
+        chunk = -(-groups // want) * SPLIT_KEYS
+        tiles = -(-chunk // TILE_KEYS)
+        if tiles < best_tiles:
+            best, best_tiles = (-(-Sk // chunk), chunk), tiles
+    return best
+
+
+def d256_decode_split(B: int, KV: int, rows: int, Sk: int, sms: int) -> tuple[int, int]:
+    """(splits, keys a split) of a D 256 decode call, as
+    :func:`decode_split`: one split (all the keys) where the (b, KV head,
+    16-row) blocks alone reach ``sms``, or where the keys are too few to
+    cut; else enough ranges of keys, each a multiple of D256_SPLIT_STEP,
+    for about D256_SPLIT_WAVES blocks an SM, none shorter than
+    D256_SPLIT_MIN_KEYS.  (Every head dim's rule before attn_decode_tma.)"""
     blocks = -(-rows // DECODE_ROWS) * KV * B
-    if blocks >= sms or Sk <= SPLIT_MIN_KEYS:
+    if blocks >= sms or Sk <= D256_SPLIT_MIN_KEYS:
         return 1, Sk
-    want = min(-(-SPLIT_WAVES * sms // blocks), Sk // SPLIT_MIN_KEYS)
-    chunk = -(-Sk // (want * SPLIT_STEP)) * SPLIT_STEP
+    want = min(-(-D256_SPLIT_WAVES * sms // blocks), Sk // D256_SPLIT_MIN_KEYS)
+    chunk = -(-Sk // (want * D256_SPLIT_STEP)) * D256_SPLIT_STEP
     return -(-Sk // chunk), chunk
 
 
@@ -205,13 +236,15 @@ def run_lse(fn, q, k, v, *, causal: bool, window: int, softcap: float):
 
 
 def _split_plan(q, k) -> tuple[int, int]:
-    """(splits, keys a split) of a call: :func:`decode_split` for a bf16
-    decode call (Sq < 16), else (1, Sk)."""
-    B, H, Sq, _ = q.shape
+    """(splits, keys a split) of a call: for a bf16 decode call (Sq < 16)
+    :func:`decode_split` below D 256 and :func:`d256_decode_split` at D
+    256, else (1, Sk)."""
+    B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16 or Sq >= DECODE_ROWS:
         return 1, Sk
-    return decode_split(B, KV, H // KV * Sq, Sk, sm_count(q.device))
+    rule = d256_decode_split if D == 256 else decode_split
+    return rule(B, KV, H // KV * Sq, Sk, sm_count(q.device))
 
 
 def run_split(q, k, v, splits: int, chunk: int, *, causal: bool, window: int, softcap: float,
@@ -221,7 +254,9 @@ def run_split(q, k, v, splits: int, chunk: int, *, causal: bool, window: int, so
     scratch allocated here on the current stream (a kernel allocates
     nothing, and a CUDA graph may capture the call); writes ``lse`` when
     given.  Counts nothing.  Returns the (B,H,Sq,D) view of a (B,Sq,H,D)
-    output."""
+    output.  This tree's kernel below D 256 merges its ranges on chip and
+    leaves the scratch unused (the entry keeps it for D 256, and for an
+    older library's split entry, which needs it at every head dim)."""
     B, H, Sq, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     part = torch.empty(B * H * Sq * splits * (D + 2), dtype=torch.float32, device=q.device)
@@ -389,8 +424,8 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True, window:
                              softcap: float = 0.0):
     """dq, dk, dv of :func:`flash_attention_cuda`'s function at (q, k, v),
     given its output ``out`` and the output's gradient ``dout``, by the
-    backward kernels (bf16: two tensor-core launches, ``wgmma`` ones at D
-    256; fp32: three scalar ones); raises on what it does not take.
+    backward kernels (bf16: two warpgroup launches, ``wgmma``, at every head
+    dim; fp32: three scalar ones); raises on what it does not take.
     ``dout`` may have any strides: it is made contiguous where the kernel
     could not read it in place.  Returns (dq, dk, dv) in q's, k's and v's
     dtypes and layouts."""

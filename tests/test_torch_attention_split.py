@@ -2,13 +2,15 @@
 
 A bf16 decode call whose (b, KV head) blocks would leave the card's SMs
 idle cuts its keys into ranges, forms each range's partial (o, lse) and
-merges them (``flash_attention_decode_split``, two launches on the card).
-Here its plain version (``ref.attention_split_ref``) is held against the
-JAX package's attention on the same numpy inputs, the rule that picks
-the number of ranges (``flash_attention.decode_split``) is held at the
-served models' decode shapes, and the wrappers' routing is checked with
-the C entries replaced by recorders.  The kernels themselves run on the
-card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+merges them (``flash_attention_decode_split``: below D 256 one launch
+whose ranges merge in a cluster, at D 256 two launches).  Here its plain
+version (``ref.attention_split_ref``) is held against the JAX package's
+attention on the same numpy inputs, the rules that pick the number of
+ranges (``flash_attention.decode_split`` below D 256,
+``d256_decode_split`` at D 256) are held at the served models' decode
+shapes, and the wrappers' routing is checked with the C entries replaced
+by recorders.  The kernels themselves run on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import contextlib
 import functools
@@ -138,52 +140,107 @@ def test_split_rows_with_no_key_give_zero_and_minus_inf():
         assert torch.isfinite(lse[:, :, :7]).all()
 
 
-# label, B, H, KV, Sq, Sk: the served models' decode calls
+# label, B, H, KV, Sq, Sk, D: the served models' decode calls (Sk 575:
+# prompt 512 + 63 tokens), the lse entry's over a rank's half cache
 DECODE_CALLS = [
-    ("gemma2 ring", 2, 16, 8, 1, 4096),
-    ("gemma2 global", 2, 16, 8, 1, 5183),
-    ("gemma2 global, the kernel phase's", 2, 16, 8, 1, 5184),
-    ("gemma2 lse, a rank's half cache", 2, 16, 8, 1, 2592),
-    ("stablelm", 8, 32, 32, 1, 575),
-    ("zamba2", 8, 32, 32, 1, 575),
-    ("phi3.5", 8, 32, 8, 1, 575),
+    ("gemma2 ring", 2, 16, 8, 1, 4096, 256),
+    ("gemma2 global", 2, 16, 8, 1, 5183, 256),
+    ("gemma2 global, the kernel phase's", 2, 16, 8, 1, 5184, 256),
+    ("gemma2 lse, a rank's half cache", 2, 16, 8, 1, 2592, 256),
+    ("stablelm", 8, 32, 32, 1, 575, 80),
+    ("zamba2", 8, 32, 32, 1, 575, 64),
+    ("phi3.5", 8, 32, 8, 1, 575, 128),
+    ("qwen2_vl", 8, 28, 4, 1, 575, 128),
+    ("yi", 8, 56, 8, 1, 575, 128),
+    ("command_r", 8, 96, 8, 1, 575, 128),
+    ("llama4", 8, 40, 8, 1, 575, 128),
+    ("musicgen", 8, 24, 24, 1, 575, 64),
+    ("stablelm lse, a rank's half cache", 8, 32, 32, 1, 288, 80),
 ]
+# Below D 256, the (splits, keys a split) that measured fastest on an H100
+# (PERF.md): the fewest tiles a block streams with no more blocks
+# than SMs.
+SERVED_PLANS = {"stablelm": (1, 575), "zamba2": (1, 575), "musicgen": (1, 575),
+                "stablelm lse, a rank's half cache": (1, 288), "qwen2_vl": (3, 192),
+                "phi3.5": (2, 288), "yi": (2, 288), "command_r": (2, 288), "llama4": (2, 288)}
+
+
+def rule(D):
+    return fa.d256_decode_split if D == 256 else fa.decode_split
+
+
+def assert_ranges(splits, chunk, Sk, step):
+    """One range of every key, or ranges of whole ``step`` keys that cover
+    Sk with none empty."""
+    if splits == 1:
+        assert chunk == Sk
+    else:
+        assert chunk % step == 0 and (splits - 1) * chunk < Sk <= splits * chunk
 
 
 @pytest.mark.parametrize("call", DECODE_CALLS, ids=[c[0] for c in DECODE_CALLS])
 def test_split_rule_at_the_served_decode_shapes(call):
-    """gemma2's decode calls (ring, global, the lse entry's half cache) come
-    out at >= 132 blocks on an H100; stablelm's and zamba2's 256-block
-    grids are not split; every split's keys are a whole number of 64 and
-    the ranges cover the keys with none empty."""
-    label, B, H, KV, Sq, Sk = call
+    """Each rule is a pure function whose ranges cover the keys with none
+    empty.  At D 256 gemma2's decode calls (ring, global, the lse entry's
+    half cache) come out at >= 132 blocks on an H100.  Below D 256 the
+    MHA calls stay whole (192-256 blocks: every SM has work), the GQA ones
+    split as measured (``SERVED_PLANS``): qwen2_vl's 32 blocks 3 ways, the
+    KV-8 families' 64 two ways; no grid above the SMs, a block streaming
+    at most 3-5 tiles of 64 keys where it would stream 9."""
+    label, B, H, KV, Sq, Sk, D = call
     rows = H // KV * Sq
-    splits, chunk = fa.decode_split(B, KV, rows, Sk, H100_SMS)
-    assert (splits, chunk) == fa.decode_split(B, KV, rows, Sk, H100_SMS)   # a pure function
+    splits, chunk = rule(D)(B, KV, rows, Sk, H100_SMS)
+    assert (splits, chunk) == rule(D)(B, KV, rows, Sk, H100_SMS)   # a pure function
     blocks = -(-rows // fa.DECODE_ROWS) * KV * B
-    if label.startswith("gemma2"):
+    if D == 256:
         assert splits > 1 and blocks * splits >= H100_SMS
-    if label in ("stablelm", "zamba2"):
-        assert blocks == 256 and splits == 1
-    if splits > 1:
-        assert chunk % fa.SPLIT_STEP == 0 and chunk >= fa.SPLIT_MIN_KEYS
-        assert (splits - 1) * chunk < Sk <= splits * chunk
+        assert_ranges(splits, chunk, Sk, fa.D256_SPLIT_STEP)
+        assert chunk >= fa.D256_SPLIT_MIN_KEYS
+        return
+    assert (splits, chunk) == SERVED_PLANS[label]
+    assert_ranges(splits, chunk, Sk, fa.SPLIT_KEYS)
+    assert splits == 1 or blocks * splits <= H100_SMS
+    if KV == H:
+        assert splits == 1 and blocks >= H100_SMS
+    else:
+        assert splits > 1 and -(-chunk // fa.TILE_KEYS) < -(-Sk // fa.TILE_KEYS)
 
 
 @pytest.mark.parametrize("Sk", [1, 64, 128, 129, 300, 5000, 100_000])
 @pytest.mark.parametrize("blocks", [(1, 1), (2, 8), (4, 32), (8, 16)])
 def test_split_rule_covers_the_keys(Sk, blocks):
-    """For any cache length: one split, or ranges of whole SPLIT_STEPs of
-    at least SPLIT_MIN_KEYS that cover Sk with no empty one, and no split
-    where the blocks already fill the SMs."""
+    """Below D 256, for any cache length: one split, or at most MAX_SPLITS
+    ranges of whole SPLIT_KEYS that cover Sk with no empty one, no more
+    blocks than SMs, and fewer tiles a block than one range would stream
+    (no split where the blocks already fill the SMs)."""
     B, KV = blocks
     splits, chunk = fa.decode_split(B, KV, 2, Sk, H100_SMS)
-    if B * KV >= H100_SMS or Sk <= fa.SPLIT_MIN_KEYS:
+    assert_ranges(splits, chunk, Sk, fa.SPLIT_KEYS)
+    if 2 * B * KV > H100_SMS or Sk <= fa.SPLIT_KEYS:
         assert splits == 1
     if splits > 1:
-        assert chunk % fa.SPLIT_STEP == 0 and chunk >= fa.SPLIT_MIN_KEYS
+        assert splits <= fa.MAX_SPLITS and B * KV * splits <= H100_SMS
+        assert -(-chunk // fa.TILE_KEYS) < -(-Sk // fa.TILE_KEYS)
+        # no fewer ranges stream as few tiles
+        for fewer in range(1, splits):
+            c = -(-Sk // (fa.SPLIT_KEYS * fewer)) * fa.SPLIT_KEYS
+            assert -(-c // fa.TILE_KEYS) > -(-chunk // fa.TILE_KEYS)
+
+
+@pytest.mark.parametrize("Sk", [1, 64, 128, 129, 300, 5000, 100_000])
+@pytest.mark.parametrize("blocks", [(1, 1), (2, 8), (4, 32), (8, 16)])
+def test_d256_split_rule_covers_the_keys(Sk, blocks):
+    """At D 256, for any cache length: one split, or ranges of whole
+    D256_SPLIT_STEPs of at least D256_SPLIT_MIN_KEYS that cover Sk with no
+    empty one, and no split where the blocks already fill the SMs."""
+    B, KV = blocks
+    splits, chunk = fa.d256_decode_split(B, KV, 2, Sk, H100_SMS)
+    if B * KV >= H100_SMS or Sk <= fa.D256_SPLIT_MIN_KEYS:
+        assert splits == 1
+    if splits > 1:
+        assert chunk % fa.D256_SPLIT_STEP == 0 and chunk >= fa.D256_SPLIT_MIN_KEYS
         assert (splits - 1) * chunk < Sk <= splits * chunk
-        assert B * KV * splits <= 2 * fa.SPLIT_WAVES * H100_SMS
+        assert B * KV * splits <= 2 * fa.D256_SPLIT_WAVES * H100_SMS
 
 
 @pytest.fixture
@@ -215,32 +272,38 @@ def recorded(monkeypatch):
     (8, 32, 32, 1, 575, torch.bfloat16, "plain"),    # stablelm: 256 blocks
     (2, 16, 8, 1, 4096, torch.float32, "plain"),     # fp32 never splits
     (2, 16, 8, 16, 4096, torch.bfloat16, "plain"),   # Sq 16: prefill mode
-    (2, 16, 8, 1, 100, torch.bfloat16, "plain"),     # too few keys to cut
+    (2, 16, 8, 1, 100, torch.bfloat16, "plain"),     # too few keys to cut at D 256
 ])
 def test_wrappers_route_decode_calls_by_the_rule(recorded, B, H, KV, Sq, Sk, dtype, want):
     """flash_attention_cuda and flash_attention_lse_cuda send a bf16 decode
     call the rule splits to the split entry, with the rule's (splits,
     chunk) and, from the lse wrapper, the lse pointer; every other call to
-    their own entry; each call counts one launch of its wrapper's counter."""
-    D = 16   # the rule does not read the head dim
-    q = torch.zeros(B, H, Sq, D, dtype=dtype)
-    k = torch.zeros(B, KV, Sk, D, dtype=dtype)
-    splits, chunk = fa.decode_split(B, KV, H // KV * Sq, Sk, H100_SMS)
-    for n, wrapper in enumerate(("fwd", "lse")):
-        if wrapper == "fwd":
-            out = fa.flash_attention_cuda(q, k, k, causal=False, softcap=50.0)
-        else:
-            out, lse = fa.flash_attention_lse_cuda(q, k, k, causal=False, softcap=50.0)
-        name, args = recorded[-1]
-        assert len(recorded) == n + 1 and out.shape == (B, H, Sq, D)
-        if want == "split":
-            assert name == "split" and args[6:8] == (splits, chunk) and splits > 1
-            assert (args[4] is None) == (wrapper == "fwd")
-            if wrapper == "lse":
-                assert args[4] == lse.data_ptr()
-        else:
-            assert name == wrapper
-    assert (fa.launches, fa.lse_launches) == (1, 1)
+    their own entry; each call counts one launch of its wrapper's counter.
+    ``want`` is D 256's route (``d256_decode_split``); below D 256
+    (``decode_split``) a bf16 decode call splits where that rule cuts it."""
+    for D in (256, 16):
+        q = torch.zeros(B, H, Sq, D, dtype=dtype)
+        k = torch.zeros(B, KV, Sk, D, dtype=dtype)
+        splits, chunk = rule(D)(B, KV, H // KV * Sq, Sk, H100_SMS)
+        split = dtype == torch.bfloat16 and Sq < fa.DECODE_ROWS and splits > 1
+        if D == 256:
+            assert split == (want == "split")
+        for wrapper in ("fwd", "lse"):
+            before = len(recorded)
+            if wrapper == "fwd":
+                out = fa.flash_attention_cuda(q, k, k, causal=False, softcap=50.0)
+            else:
+                out, lse = fa.flash_attention_lse_cuda(q, k, k, causal=False, softcap=50.0)
+            name, args = recorded[-1]
+            assert len(recorded) == before + 1 and out.shape == (B, H, Sq, D)
+            if split:
+                assert name == "split" and args[6:8] == (splits, chunk) and splits > 1
+                assert (args[4] is None) == (wrapper == "fwd")
+                if wrapper == "lse":
+                    assert args[4] == lse.data_ptr()
+            else:
+                assert name == wrapper
+    assert (fa.launches, fa.lse_launches) == (2, 2)
 
 
 def test_abstract_decode_records_the_same_flops():

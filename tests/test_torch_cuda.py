@@ -242,6 +242,30 @@ def kernel_names(fn, pattern, want, tries=5):
 
 
 PREFILL_NAME = r"(attn_prefill_\w+?)(?:<|\(|$)"
+DECODE_NAME = r"(attn_decode_\w+?)(?:<|\(|$)"
+
+
+@pytest.mark.parametrize("H,KV,Sk,D,entry", [
+    (28, 4, 575, 128, "fwd"),   # qwen2_vl: GQA 7, its keys split over a cluster
+    (32, 32, 575, 80, "fwd"),   # stablelm: MHA, unsplit
+    (32, 32, 288, 80, "lse"),   # stablelm's lse entry over a rank's half cache
+])
+def test_decode_below_d256_runs_one_tma_launch(dev, H, KV, Sk, D, entry):
+    """By kernel name: a bf16 decode call below D 256, split by the rule or
+    not, through either forward entry, is one launch of attn_decode_tma
+    and nothing else of the decode (no merge launch), and its output holds
+    against attention_lse_ref and repeats bitwise."""
+    q = rand((8, H, 1, D), torch.bfloat16, 0, dev)
+    k, v = rand((8, KV, Sk, D), torch.bfloat16, 1, dev), rand((8, KV, Sk, D), torch.bfloat16, 2, dev)
+    fn = fa.flash_attention_cuda if entry == "fwd" else (
+        lambda *a, **o: fa.flash_attention_lse_cuda(*a, **o)[0])
+    assert kernel_names(lambda: fn(q, k, v, causal=False), DECODE_NAME,
+                        ["attn_decode_tma"]) == ["attn_decode_tma"]
+    out, again = fn(q, k, v, causal=False), fn(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), attention_lse_ref(q, k, v, causal=False)[0].float(),
+                               **TOL[torch.bfloat16])
 
 
 def test_gemma2_kernel_paths_by_profiler(dev):
