@@ -140,7 +140,7 @@ from the checkout's sources itself.  Phases, each of which fails the run:
              attention, 6 attention backward; xlstm: 12 mLSTM, 6 mLSTM
              backward, no attention), a profiled step (the SSD or mLSTM
              backward's share, its bf16 kernels by name, which must be
-             ssd_bwd_bf16 and ssd_bwd_reduce, or the five
+             ssd_bwd_wgmma and ssd_bwd_gsum, or the five
              mlstm_bwd_*_bf16), the same steps with
              the plain versions (printed), and one fp32 step at full width
              and 6 layers (zamba2: its shared block follows layer 5) or 2
@@ -672,19 +672,23 @@ def build_phase(torch):
     from repro_torch.kernels import mlstm, ssd
 
     print(f"[build] ssd: dynamic shared memory a block at the serve shape (chunk 128, "
-          f"N 64, P 64): {ssd.smem_bytes(128, 64, 64)} bytes (bf16, tensor cores), "
-          f"{ssd.smem_bytes(128, 64, 64, torch.float32)} bytes (fp32, scalar)")
+          f"N 64, P 64): {ssd.smem_bytes(128, 64, 64)} bytes (bf16, ssd_fwd_wgmma, 2 "
+          f"warpgroups), {ssd.smem_bytes(128, 64, 64, torch.float32)} bytes (fp32, scalar); "
+          f"bf16 plan (heads a block, chunks a block, blocks a cluster, blocks at once) at the "
+          f"serve shape "
+          f"{ssd.plan(BATCH, PROMPT, 64, 128)}, the backward's at the train shape "
+          f"{ssd.plan(BATCH, TRAIN_SEQ, 64, 128, backward=True)}")
     print(f"[build] mlstm: dynamic shared memory a block at the serve shape (chunk 128, "
           f"D 384): bf16 {mlstm.w_smem_bytes(128, 384)} bytes (W, one block a (b, h, chunk)), "
           f"{mlstm.smem_bytes(128, 384)} bytes (the rest, {mlstm.value_cols(128, 384)} value "
           f"columns a block); fp32 {mlstm.smem_bytes(128, 384, torch.float32)} bytes (scalar, "
           f"{mlstm.value_cols(128, 384, torch.float32)} value columns a block)")
     print(f"[build] ssd_bwd: dynamic shared memory a block at the train shape (chunk 128, N 64, "
-          f"P 64): {ssd.bwd_tc_smem_bytes(128, 64, 64)} bytes (bf16, ssd_bwd_bf16, tensor cores, "
-          f"16 warps), {ssd.bwd_smem_bytes(128, 64, 64)} bytes (fp32, ssd_bwd, scalar, 8 warps); "
-          f"fp32 scratch a call at "
-          f"({BATCH},{TRAIN_SEQ},64,64): {ssd.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 64, 64, 64, 128)}"
-          f" bytes")
+          f"P 64): {ssd.bwd_tc_smem_bytes(128, 64, 64)} bytes (bf16, ssd_bwd_wgmma, 2 "
+          f"warpgroups), {ssd.bwd_smem_bytes(128, 64, 64)} bytes (fp32, ssd_bwd, scalar, 8 warps); "
+          f"fp32 scratch a call at ({BATCH},{TRAIN_SEQ},64,64): bf16 "
+          f"{ssd.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 64, 64, 64, 128, torch.bfloat16)} bytes, "
+          f"fp32 {ssd.bwd_scratch_bytes(BATCH, TRAIN_SEQ, 64, 64, 64, 128)} bytes")
     print(f"[build] mlstm_bwd: dynamic shared memory a block at the train shape (chunk 128, "
           f"D 384): bf16 (tensor cores; the two sweeps 8 warps, two blocks an SM; the rest 16 "
           f"warps) "
@@ -1865,8 +1869,8 @@ BF16_GRAD_REL_RMS = 2e-2   # a backward's gradient in bf16, against autograd of 
 ATTN_D256_TRAIN_REL_RMS = 5e-3
 # The SSD backward's two paths, chosen by dtype alone.
 SSD_BWD_PATHS = {
-    "bfloat16": {"route": "tensor cores (mma.sync bf16)",
-                 "kernels": ["ssd_bwd_bf16", "ssd_bwd_reduce"]},
+    "bfloat16": {"route": "warpgroup wgmma on TMA tiles, chunks over cluster blocks",
+                 "kernels": ["ssd_bwd_gsum", "ssd_bwd_wgmma"]},
     "float32": {"route": "scalar fp32 FMA", "kernels": ["ssd_bwd", "ssd_bwd_reduce"]},
 }
 # The mLSTM backward's two paths, chosen by dtype alone.
@@ -2028,6 +2032,15 @@ def ssd_bwd_phase(torch, dev, failures) -> dict:
             dfinal = randn(torch, (B, H, N, P), "float32", seed + 6, dev) if with_final else None
             compare(label, args, dy, dfinal, chunk, dtype, ref.ssd_ref if oracle else None,
                     c2=label.endswith(" C2"))
+    with phase_wall("kernels ssd backward bf16 edges"):
+        for n, (label, B, S, H, P, N, chunk, with_final, ml, oracle) in enumerate(SSD_EDGES):
+            args = ssd_inputs(torch, B, S, H, P, N, "bfloat16", 1500 + 10 * n, dev,
+                              model_layout=ml)
+            dy = randn(torch, (B, S, H, P), "bfloat16", 1505 + 10 * n, dev)
+            dfinal = (randn(torch, (B, H, N, P), "float32", 1506 + 10 * n, dev)
+                      if with_final else None)
+            compare(label + (" +dfinal" if with_final else ""), args, dy, dfinal, chunk,
+                    "bfloat16", ref.ssd_ref if oracle else None)
     # dt 0.8, A -1: a chunk of 128 spans a log-decay of ~100, past fp32's exp
     # range above the diagonal; autograd of the unmasked where(mask, exp, 0)
     # would be NaN there.  The gradient is finite and equals ssd_ref's.
@@ -2257,6 +2270,48 @@ def ssd_bound_ms(x, dt, A, Bm, Cm, chunk) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The bf16 kernels' plans at their edges (label, B, S, H, P, N, chunk,
+# final-state cotangent (backward), model layout, ragged: ssd_ref): nc > 8
+# with a ragged last chunk (clusters of blocks of several chunks), H 3, 5
+# and 7 (head groups that do not divide H), S < chunk, and a view TMA
+# cannot describe (rows of 24 bytes, loaded by plain loads).
+SSD_EDGES = [
+    ("nc 35 ragged (1,1100,3,16) N 8 chunk 32 vs ssd_ref", 1, 1100, 3, 16, 8, 32, True, False,
+     True),
+    ("H 5 (1,256,5,32) N 16 chunk 64", 1, 256, 5, 32, 16, 64, False, False, False),
+    ("H 7 (2,384,7,64) N 64 chunk 128 model layout", 2, 384, 7, 64, 64, 128, True, True, False),
+    ("H 3 S 5 < chunk 8 vs ssd_ref", 2, 5, 3, 16, 8, 8, True, False, True),
+    ("no TMA view (1,37,3,12) N 20 chunk 12 vs ssd_ref", 1, 37, 3, 12, 20, 12, False, False,
+     True),
+]
+# The kernels a call of each path launches, in order, by profiler name.
+SSD_KERNELS = {("bfloat16", "forward"): ["ssd_fwd_wgmma"],
+               ("bfloat16", "backward"): ["ssd_bwd_wgmma", "ssd_bwd_gsum"],
+               ("float32", "forward"): ["ssd_fwd"],
+               ("float32", "backward"): ["ssd_bwd", "ssd_bwd_reduce"]}
+
+
+def ssd_kernel_paths(torch, dev, failures) -> None:
+    """By profiler name, a call of each dtype's forward and backward at H 7
+    runs only its path's kernels, as many launches as SSD_KERNELS lists."""
+    from repro_torch.kernels import ssd
+
+    for dtype in ("bfloat16", "float32"):
+        args = ssd_inputs(torch, 2, 384, 7, 64, 64, dtype, 480, dev, model_layout=True)
+        dy = randn(torch, (2, 384, 7, 64), dtype, 485, dev)
+        for kind, fn in (("forward", lambda: ssd.ssd_scan_cuda(*args, chunk=128)),
+                         ("backward", lambda: ssd.ssd_scan_bwd_cuda(*args, dy, chunk=128))):
+            want = SSD_KERNELS[(dtype, kind)]
+            split, tries = kernel_split(torch, fn, r"(ssd_\w+?)(?:<|\(|$)", want)
+            names = [name for name, _ in split]
+            ok = names == want
+            print(f"[kernel] ssd {kind} {dtype} call by profiler ({tries} profiled): "
+                  + ", ".join(f"{name} {ms:.4f} ms" for name, ms in split)
+                  + f"; expected {want} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"ssd {kind} {dtype} ran {names}, expected {want}")
+
+
 def ssd_kernel_phase(torch, dev, failures) -> dict:
     from repro_torch.kernels import ref, ssd
 
@@ -2301,6 +2356,20 @@ def ssd_kernel_phase(torch, dev, failures) -> dict:
         local = (torch.einsum("bsn,bsn->bs", Cm.float(), Bm.float())[:, :, None, None] * 0.5
                  * x.float())
         check(f"decay A=-50: y ~ dt (C.B) x {dtype}", y, local, tol)
+
+    with phase_wall("kernels ssd bf16 edges"):
+        for seed, (label, B, S, H, P, N, chunk, fin, ml, oracle) in enumerate(SSD_EDGES):
+            compare(f"{label} bfloat16",
+                    ssd_inputs(torch, B, S, H, P, N, "bfloat16", 420 + 10 * seed, dev,
+                               model_layout=ml), chunk, "bfloat16",
+                    oracle=ref.ssd_ref if oracle else None)
+        args = ssd_inputs(torch, 2, 384, 7, 64, 64, "bfloat16", 470, dev, model_layout=True)
+        a, b = (ssd.ssd_scan_cuda(*args, chunk=128) for _ in range(2))
+        same = all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+        print(f"[kernel] ssd (2,384,7,64) N 64 chunk 128 bf16: two calls bitwise equal: {same}")
+        if not same:
+            failures.append("ssd: two bf16 calls differ")
+        ssd_kernel_paths(torch, dev, failures)
 
     # The serve path's shape, in the model's strided layout.
     shape = f"serve ({BATCH},{PROMPT},64,64) N 64 chunk 128 bf16"

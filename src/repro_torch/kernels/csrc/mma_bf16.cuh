@@ -11,7 +11,8 @@
 // fragment index maps; for the warpgroup kernels (namespace wgmma):
 // shared-memory matrix descriptors of 128-byte-swizzled tiles, the
 // asynchronous warpgroup products `wgmma.mma_async` m64nNk16 with A and B
-// in shared memory (N 64, 128) or A in registers (N 64, 80, 128, 256),
+// in shared memory (N 64, 128; at N 64 also with B MN-major) or A in
+// registers (N 64, 80, 128, 256),
 // their fence / commit / wait, `setmaxnreg`, and named barriers; and on
 // the host the tensor-map encoder and the 4-D map of a (b, head, seq, D)
 // bf16 tensor that the attention kernels' TMA loads and stores read
@@ -405,6 +406,14 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
                ", " B ", p, 1, 1, 0, 0;\n}\n"                                                \
                : __VA_ARGS__                                                                 \
                : "l"(a), "l"(b), "r"(1))
+// ss_mn: as ss, but B (16 x N) MN-major in shared memory (its N index
+// along a slab row), read by a desc_mn descriptor.
+#define WGMMA_SS_MN(N, REGS, A, B, P, ...)                                                  \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, " P ", 0;\n"                              \
+               " wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, " A    \
+               ", " B ", p, 1, 1, 0, 1;\n}\n"                                                \
+               : __VA_ARGS__                                                                 \
+               : "l"(a), "l"(b), "r"(1))
 #define WGMMA_RS(N, REGS, A, B, P, ...)                                                     \
   asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, " P ", 0;\n"                              \
                " wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, {" A   \
@@ -417,6 +426,9 @@ __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b) {
 }
 __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b) {
   WGMMA_SS(128, WGMMA_R64, "%64", "%65", "%66", WGMMA_D32(0), WGMMA_D32(32));
+}
+__device__ __forceinline__ void ss_mn(float (&d)[32], uint64_t a, uint64_t b) {
+  WGMMA_SS_MN(64, WGMMA_R32, "%32", "%33", "%34", WGMMA_D32(0));
 }
 __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   WGMMA_RS(64, WGMMA_R32, "%32, %33, %34, %35", "%36", "%37", WGMMA_D32(0));
@@ -439,6 +451,7 @@ __device__ __forceinline__ void m64n256k16_rs(float (&d)[128], const uint32_t (&
 }
 
 #undef WGMMA_RS
+#undef WGMMA_SS_MN
 #undef WGMMA_SS
 #undef WGMMA_R128
 #undef WGMMA_R64

@@ -16,9 +16,9 @@
 //
 // Two kernels, chosen by dtype alone in ssd_scan_fwd: fp32 -> ssd_fwd,
 // scalar fp32 FMAs (unchanged since it was first written; TF32 products
-// would miss the 1e-4 fp32 tolerance); bf16 -> ssd_fwd_bf16, tensor-core
-// products (mma.sync m16n8k16, bf16 operands, fp32 accumulators; helpers
-// in mma_bf16.cuh).
+// would miss the 1e-4 fp32 tolerance); bf16 -> ssd_fwd_wgmma, warpgroup
+// products (wgmma, bf16 operands, fp32 accumulators) on tiles that TMA
+// loads, in thread-block clusters along the chunk axis.
 //
 // What bounds it.  At zamba2_1p2b's shape (B 8, S 512, H 64, P 64, N 64,
 // Q 128, bf16) the call must read x (33.5 MB) and write y (33.5 MB), read
@@ -40,50 +40,94 @@
 // exp only where j <= i, so the masked upper triangle (where cum_i - cum_j
 // > 0 can overflow) is never evaluated.
 //
-// The bf16 design.  Still one block (8 warps) per (b, h) looping over the
-// chunks, but every product is an mma on bf16 operands in shared memory:
-// x, B and C as loaded (rows padded to 16-wide tiles with zeros; 64-wide
-// rows XOR-swizzled, narrower ones padded by 16 bytes, so ldmatrix hits
-// distinct banks), the next chunk's x/B/C landing by cp.async in a second
-// buffer while this chunk computes.  cum is formed in log2 units (exp2 on
-// the special-function unit).  For y, warps take pairs of 16-row tiles
-// (it, QT - 1 - it), balancing the triangle, and a slice of P:
-//   C B^T over N on the tiles on or below the diagonal only; w_ij =
-//   (C_i . B_j) 2^(cum_i - cum_j) dt_j in fp32 only where j <= i; w x with
-//   w straight from the accumulators as the A operand; C S_prev from a
-//   bf16 copy of the state; y = 2^cum_i (C S_prev) + w x, stored as bf16.
-// The state stays fp32 as mma accumulators spread over the 8 warps
-// (16 rows of N x up to 4 n8 tiles of P each), decays by 2^total each
-// chunk, gains B^T (coef x) with coef_j = 2^(total - cum_j) dt_j, and is
-// written out in fp32.  Rounding w, the state copy and coef x to one bf16
-// each would miss the 3e-2 tolerance at the serve shape: y reaches ~250
-// there and single outputs come from terms of ~100 that cancel, so an
-// emulation of the kernel's rounding put y up to 3x past the tolerance.
-// Each of the three is therefore split into hi = bf16(v) and lo =
-// bf16(v - hi) and enters its product twice (two mma, one accumulator),
-// carrying it to ~2^-16 of itself; the emulation then stays within 0.25
-// of the tolerance.  That doubles three of the four products, which are
-// cheap beside the memory bound.  C B^T is recomputed per head, as the
-// TPU kernel does: sharing it across the heads of a (b, chunk) would need
-// those heads in one block or a second launch, and was not tried.
-// Shared memory: 115,712 bytes at Q 128, N = P = 64 (two blocks an SM);
-// 128 registers, ptxas spills 112 bytes.
-//
-// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.1821 ms at the
-// serve shape against the scalar kernel's 0.78 and a 23 us bound.
+// The bf16 design (ssd_fwd_wgmma).  The design it replaces ran one block
+// per (b, h) walking the chunks in order (512 chains of 4 chunks at
+// zamba2's shape, each chunk a chain of dependent mma.sync products
+// between block barriers), formed C B^T once per head although B and C
+// are shared by the heads, and read B and C once per head: 0.18 ms, 8x
+// its bound.  This one:
+//   1. Parallel over chunks.  The scan is linear in the state: S after a
+//      run of chunks is 2^(sum of tot) S_in + L, L the run's local state
+//      (the same recurrence from zero).  The nc chunks of a (b, head
+//      group) go to the blocks of one thread-block cluster
+//      (cudaLaunchAttributeClusterDimension), at most 8, each taking k =
+//      ceil(nc / 8) consecutive chunks (zamba2: 4 blocks of one chunk;
+//      the long serve mode's 4,096 steps: 8 blocks of 4).  Pass A: each
+//      block forms its heads' L; block r waits on its inbox mbarrier for
+//      S_in from block r - 1 (zero in block 0), stores S_out = 2^(sum
+//      tot) S_in + L into block r + 1's shared memory (mapa,
+//      cp.async.bulk) as fp32 in fragment order, one 16 KB bulk copy
+//      that completes on that block's inbox mbarrier as transaction
+//      bytes (per-thread st.shared::cluster stores and release arrivals
+//      made the call 1.03x slower); the last block writes S_out, the
+//      final state.  Pass B: y of each chunk from the state before it.
+//      The hand-off is one fixed order of copies: no atomics, and a
+//      call's bits repeat.
+//   2. A block holds G heads of one (b, chunk range).  B and C are loaded
+//      once for them; C B^T (Q x Q over N) is formed once a chunk, kept in
+//      fp32 in shared memory, and each head applies its own decay and dt
+//      to it.  G is ssd_wgmma.cuh's group_size: of G <= 4 the one that
+//      minimises the waves of the grid over the blocks that run at once
+//      (whole clusters, from the occupancy query: 120 on an H100 in
+//      clusters of 4 or 8) times a block's time (a fixed part and a unit
+//      a pair of heads), ties to the larger G: zamba2's 8 x 16 groups x 4
+//      blocks = 512 blocks of 4 heads; a (2, 2) mesh rank's 32 heads 256
+//      blocks of 2 and the long serve mode's 256 blocks of 2, 1.15x and
+//      1.22x faster than G 4's 128 blocks in two waves.  H need not
+//      divide by G: the last group is smaller.
+//   3. Products on wgmma, operands by TMA.  Two warpgroups; warpgroup w
+//      takes heads w, w + 2 of the group.  A chunk's tiles (B, C, each
+//      head's x: 128 rows x 64 columns, 128-byte swizzled) land by
+//      cp.async.bulk.tensor on one mbarrier from 4-D tensor maps over the
+//      strided views (mma::encode_map), rows past S zero-filled; a view
+//      TMA cannot describe (a base or row stride not in whole 16 bytes) is
+//      loaded by plain loads in the same kernel.  Chunk rows go on M as
+//      m64n64k16 products: rows past the chunk (Q < 128, a ragged last
+//      chunk) and columns past N and P (padded to the slab's 64) carry
+//      zero weights and are not stored.  C B^T: A = C, B = B, both
+//      K-major.  L^T = (coef x)^T B with (coef x)^T from registers
+//      (ldmatrix.trans of x, scaled) and B MN-major.  y: w x with w from
+//      registers (the C B^T block scaled by 2^(cum_i - cum_j) dt_j only
+//      where j <= i) and x MN-major; C S with S^T as the K-major B
+//      operand, scaled by 2^cum_i in a second accumulator.  Building w is
+//      the element-wise work that holds a block (8 warps an SM hide
+//      little latency): off the 16-row diagonal bands its decay is a row
+//      factor times a column one (ssd_wgmma.cuh's chunk_cum: coef and
+//      kend formed once a chunk), so exp2 runs an element only on those
+//      bands, and bands above them are zeros without loads.  y leaves in
+//      8-byte stores: neighbour threads swap one bf16 pair (quad_pair).
+//      With 4-byte stores a row tile's stores took 1,676 cycles, and the
+//      8-byte ones made the call 1.12x faster (H100 80GB HBM3, 700 W).
+//   4. Rounding.  At the serve shape y reaches ~250 and single outputs
+//      come from terms of ~100 that cancel: an emulation of one bf16
+//      rounding each of w, the state copy and coef x put y up to 3x past
+//      the 3e-2 tolerance.  So each of the three is split into hi =
+//      bf16(v) and lo = bf16(v - hi) and enters its product twice,
+//      carrying it to ~2^-16 of itself.  The states stay fp32 where they
+//      are accumulated, and the hand-off carries them in fp32.
+// Shared memory: B, C 32 KB; x of 4 heads 64 KB; 4 states as hi + lo
+// slabs 64 KB; C B^T 54 KB; 4 row vectors a head 8 KB; barriers: ~225 KB,
+// one block an SM.  At zamba2's shape the call takes 0.114 ms on an H100
+// 80GB HBM3 at 700 W, 4.9x its bound: what holds it is the element-wise
+// build of w on 8 warps an SM, ~1.3 us a cluster hop, and 5 waves of the
+// 120 blocks that clusters of 4 place at once.
+// A group of fewer than 2 heads a pair leaves warpgroup 1 repeating
+// warpgroup 0's head and keeping nothing: products stay unconditional.
 //
 // Sizes are runtime values: N and P multiples of 4 in [4, 64], Q a
 // multiple of 4 in [4, 128] (the Python wrapper checks; so does the C
-// entry).  x, B and C may be strided views (element strides of their
-// leading axes, last axis contiguous); y is written through its strides.
-// The bf16 kernel copies x, B and C with 16-byte cp.async where every
-// row starts 16-byte aligned in whole units, and element by element
-// otherwise.  Launch errors are returned, never swallowed.
+// entry), any S >= 1.  x, B and C may be strided views (element strides of
+// their leading axes, last axis contiguous); y is written through its
+// strides, which (in bf16) must be whole 4 elements, as the wrapper's
+// allocation gives.  Launch errors are returned, never swallowed: a tensor
+// map that cannot be encoded or a cluster that cannot be placed fails the
+// call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "ssd_wgmma.cuh"
 
 namespace {
 
@@ -362,373 +406,430 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel (mma.sync m16n8k16, fp32 accumulators).
+// bf16: ssd_fwd_wgmma (see the note at the top).
 
-using bf16 = __nv_bfloat16;
-constexpr int TC_WARPS = 8;
-constexpr int TC_THREADS = TC_WARPS * 32;
+using ssdw::bf16;
+using ssdw::ROWS;
+using ssdw::SLAB_BYTES;
+using ssdw::TILE_BYTES;
+constexpr int FW_MAX_G = 4;
+constexpr int FW_NV = ssdw::NV;  // row vectors a head (ssdw::Vec)
 
-__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
-
-// A bf16 tile of rows of `units` 16-byte units (a width rounded up to 16,
-// so units is 2, 4, 6 or 8).  Rows of 8 units are XOR-swizzled (unit
-// u of row r at u ^ (r & 7)); narrower rows are padded by one unit.
-// Either way the 8 row addresses of an ldmatrix fall in distinct banks.
-struct Tile {
-  int units, stride;  // stride in elements
-  __host__ __device__ constexpr Tile(int width)
-      : units(round16(width) / 8), stride(round16(width) == 64 ? 64 : round16(width) + 8) {}
-  __device__ int off(int row, int unit) const {
-    return row * stride + (units == 8 ? unit ^ (row & 7) : unit) * 8;
-  }
+// Shared-memory plan, bytes from the 1024-aligned base: the chunk's B and
+// C tiles; x of the group's heads; each head's state S^T (rows p, columns
+// n) as bf16 hi and lo slabs (the inbox the cluster's previous block
+// writes); C B^T in fp32 (blocks (0,0), (1,0), (1,1)); each head's row
+// vectors; the load barrier and one inbox barrier a head.
+struct Fw {
+  static constexpr int B = 0;
+  static constexpr int C = TILE_BYTES;
+  static constexpr int X = 2 * TILE_BYTES;
+  static constexpr int ST = X + FW_MAX_G * TILE_BYTES;
+  static constexpr int CB = ST + FW_MAX_G * 2 * SLAB_BYTES;
+  static constexpr int VEC = CB + ssdw::CB_BYTES;
+  static constexpr int BAR = VEC + FW_MAX_G * FW_NV * ROWS * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + FW_MAX_G) + 1024;
 };
+static_assert(Fw::BYTES <= 232448, "shared memory plan exceeds 227 KB");
 
-// Shared-memory plan, in bytes: x, B and C of a chunk in two buffers (the
-// next chunk's lands while this one computes), the hi and lo bf16 halves
-// of the state before the chunk, then dt and cum of the chunk in fp32.
-struct TcLayout {
-  int QP, NP, PP;
-  Tile xt, nt, st;
-  int x, bm, cm, shi, slo, dt, cum, bytes;
-  __host__ __device__ constexpr TcLayout(int Q, int N, int P)
-      : QP(round16(Q)), NP(round16(N)), PP(round16(P)), xt(P), nt(N), st(P),
-        x(0),
-        bm(2 * QP * xt.stride),
-        cm(2 * QP * xt.stride + 2 * QP * nt.stride),
-        shi(2 * QP * xt.stride + 4 * QP * nt.stride),
-        slo(shi + round16(N) * st.stride),
-        dt(2 * (slo + round16(N) * st.stride)),
-        cum(dt + 4 * round16(Q)),
-        bytes(cum + 4 * round16(Q)) {}
-  // Element offsets of x / B / C of buffer `b`.
-  __device__ int xo(int b) const { return x + b * QP * xt.stride; }
-  __device__ int bo(int b) const { return bm + b * QP * nt.stride; }
-  __device__ int co(int b) const { return cm + b * QP * nt.stride; }
-};
-
-constexpr int TC_MAX_BYTES = TcLayout(MAX_Q, MAX_NP, MAX_NP).bytes;
-// Two blocks an SM: 2 x (bytes + 1 KB reserved) within the SM's 228 KB.
-static_assert(2 * (TC_MAX_BYTES + 1024) <= 233472, "two blocks must fit an SM");
-
-struct TcParams {
+struct FwParams {
   Params p;
-  int vec16;  // x, B, C rows 16-byte aligned in whole units: cp.async
+  CUtensorMap mx, mb, mc;
+  int tma;  // 1: tiles by TMA; 0: by plain loads (a view TMA cannot describe)
+  int G, cs, k, nc;
 };
 
-__global__ void __launch_bounds__(TC_THREADS, 2) ssd_fwd_bf16(const TcParams tp) {
-  const Params& p = tp.p;
-  extern __shared__ float4 smem4[];
-  bf16* sm = reinterpret_cast<bf16*>(smem4);
-  const int Q = p.Q, N = p.N, P = p.P;
-  const TcLayout L(Q, N, P);
-  const int QP = L.QP, NP = L.NP, PP = L.PP;
-  float* dts = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + L.dt);
-  float* cum = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + L.cum);
-  bf16* Shi = sm + L.shi;
-  bf16* Slo = sm + L.slo;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const bf16* xg = static_cast<const bf16*>(p.x) + b * p.xsb + h * p.xsh;
-  const float* dg = p.dt + b * p.dsb + h * p.dsh;
+__global__ void __launch_bounds__(ssdw::THREADS, 1)
+    ssd_fwd_wgmma(const __grid_constant__ FwParams fp) {
+  const Params& p = fp.p;
+  char* sm = wgmma::aligned_smem();
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int cs = fp.cs, r = blockIdx.x % cs, b = blockIdx.y;
+  const int h0 = (blockIdx.x / cs) * fp.G, Gv = min(fp.G, p.H - h0);
+  const int c0 = r * fp.k, c1 = min(fp.nc, c0 + fp.k);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Fw::BAR);  // [0] loads, [1 + hh] inboxes
+  float* vecs = reinterpret_cast<float*>(sm + Fw::VEC);  // [head][FW_NV][ROWS]
+  auto vec = [&](int hh, int k) { return vecs + (hh * FW_NV + k) * ROWS; };
+  float* cbs = reinterpret_cast<float*>(sm + Fw::CB);
+  const bf16* xg = static_cast<const bf16*>(p.x) + b * p.xsb;
   const bf16* bg = static_cast<const bf16*>(p.b) + b * p.bsb;
   const bf16* cg = static_cast<const bf16*>(p.c) + b * p.csb;
-  bf16* yg = static_cast<bf16*>(p.y) + b * p.ysb + h * p.ysh;
-  const float a2 = p.A[h] * 1.4426950408889634f;  // A log2 e: cum in log2 units, exp2 below
-  const int nchunks = (p.S + Q - 1) / Q;
 
-  // x, B, C of chunk ch into buffer bi; rows past the sequence and columns
-  // past P or N are zeros.  cp.async where the rows allow, else plain loads.
-  auto stage = [&](const bf16* src, int64_t rstride, int width, const Tile& tl, bf16* dst,
-                   int t0, int qv) {
-    if (tp.vec16) {
-      for (int idx = tid; idx < QP * tl.units; idx += TC_THREADS) {
-        const int j = idx / tl.units;
-        const int u = idx - j * tl.units;
-        const bool ok = j < qv && u * 8 < width;
-        mma::cp_async16(dst + tl.off(j, u), ok ? src + (t0 + j) * rstride + u * 8 : src, ok);
+  if (tid == 0) {
+    mma::mbar_init(&bars[0], 1);
+    // An inbox's barrier completes when the previous block's bulk copy of
+    // S_in (16 KB) has landed.
+    for (int hh = 0; hh < Gv; ++hh) {
+      mma::mbar_init(&bars[1 + hh], 1);
+      if (r > 0) mma::mbar_expect_tx(&bars[1 + hh], ssdw::STATE_BYTES);
+    }
+    mma::fence_mbar_init();
+  }
+  __syncthreads();
+  ssdw::cluster_arrive();
+  ssdw::cluster_wait();
+
+  // Chunk c's B, C and the group's x into shared memory, each head's row
+  // vectors; nothing when chunk c is already there.
+  int loaded = -1;
+  uint32_t phase = 0;
+  auto load_chunk = [&](int c) {
+    if (c == loaded) return;
+    __syncthreads();  // every read of the tiles there is done
+    const int t0 = c * p.Q, qv = min(p.Q, p.S - t0);
+    if (fp.tma) {
+      if (tid == 0) {
+        mma::fence_proxy_async();
+        mma::mbar_expect_tx(&bars[0], (2 + Gv) * TILE_BYTES);
+        ssdw::tma_rows(sm + Fw::B, &fp.mb, &bars[0], 0, t0, b);
+        ssdw::tma_rows(sm + Fw::C, &fp.mc, &bars[0], 0, t0, b);
+        for (int hh = 0; hh < Gv; ++hh)
+          ssdw::tma_rows(sm + Fw::X + hh * TILE_BYTES, &fp.mx, &bars[0], h0 + hh, t0, b);
       }
     } else {
-      for (int idx = tid; idx < QP * tl.units * 8; idx += TC_THREADS) {
-        const int j = idx / (tl.units * 8);
-        const int c = idx - j * tl.units * 8;
-        dst[tl.off(j, c >> 3) + (c & 7)] =
-            j < qv && c < width ? src[(t0 + j) * rstride + c] : __float2bfloat16_rn(0.f);
-      }
+      ssdw::plain_rows(sm + Fw::B, bg + t0 * p.bss, p.bss, p.N, qv);
+      ssdw::plain_rows(sm + Fw::C, cg + t0 * p.css, p.css, p.N, qv);
+      for (int hh = 0; hh < Gv; ++hh)
+        ssdw::plain_rows(sm + Fw::X + hh * TILE_BYTES, xg + (h0 + hh) * p.xsh + t0 * p.xss, p.xss,
+                         p.P, qv);
+      mma::fence_proxy_async();
     }
-  };
-  auto stage_chunk = [&](int ch, int bi) {
-    const int t0 = ch * Q;
-    const int qv = min(Q, p.S - t0);
-    stage(xg, p.xss, P, L.xt, sm + L.xo(bi), t0, qv);
-    stage(bg, p.bss, N, L.nt, sm + L.bo(bi), t0, qv);
-    stage(cg, p.css, N, L.nt, sm + L.co(bi), t0, qv);
-  };
-  auto dt_of = [&](int ch, int j) -> float {
-    const int t0 = ch * Q;
-    return j < min(Q, p.S - t0) ? __ldg(dg + (t0 + j) * p.dss) : 0.f;
-  };
-
-  // The state lives in mma accumulators: warp w owns m-tile w % MT (16
-  // rows of N) and a run of n8 tiles of P.
-  const int MT = NP / 16;
-  const int groups = TC_WARPS / MT;
-  const int PT8 = PP / 8;
-  const int per = (PT8 + groups - 1) / groups;  // <= 4
-  const int s_m = warp % MT;
-  const int s_n0 = (warp / MT) * per;
-  const int s_cnt = warp / MT < groups ? max(0, min(per, PT8 - s_n0)) : 0;
-  float st[4][4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) st[c][0] = st[c][1] = st[c][2] = st[c][3] = 0.f;
-
-  // y work: pairs of 16-row tiles (it, QT - 1 - it) balance the triangle;
-  // NS warps share a pair, each a slice of <= 4 n8 tiles of P.
-  const int QT = QP / 16;
-  const int npair = (QT + 1) / 2;
-  const int NS = TC_WARPS / npair;
-  const int SW = (PT8 + NS - 1) / NS;
-  const int y_pair = warp / NS;
-  const int y_n0 = (warp % NS) * SW;
-  const int y_cnt = y_pair < npair ? max(0, min(SW, PT8 - y_n0)) : 0;
-
-  {
-    uint32_t* s32 = reinterpret_cast<uint32_t*>(Shi);
-    for (int i = tid; i < NP * L.st.stride; i += TC_THREADS) s32[i] = 0u;  // hi and lo
-  }
-  if (tid < QP) dts[tid] = dt_of(0, tid);
-  stage_chunk(0, 0);
-  mma::cp_async_commit();
-
-  for (int ch = 0; ch < nchunks; ++ch) {
-    const int bi = ch & 1;
-    const int t0 = ch * Q;
-    const int qv = min(Q, p.S - t0);
-    mma::cp_async_wait<0>();
+    const int hw = tid >> 5;
+    if (hw < Gv)
+      ssdw::chunk_cum<true>(p.dt + b * p.dsb + (h0 + hw) * p.dsh + t0 * p.dss, p.dss, qv,
+                            p.A[h0 + hw] * ssdw::LOG2E, vec(hw, 0));
     __syncthreads();
-    float dt_next = 0.f;
-    if (ch + 1 < nchunks) {
-      stage_chunk(ch + 1, bi ^ 1);
-      mma::cp_async_commit();
-      if (tid < QP) dt_next = dt_of(ch + 1, tid);
+    if (fp.tma) {
+      mma::mbar_wait(&bars[0], phase);
+      phase ^= 1;
     }
-    // cum = cumsum(dt A) log2 e over the chunk: warp 0, up to 4 rows a lane.
-    if (warp == 0) {
-      const int E = (QP + 31) / 32;
-      const int j0 = lane * E;
-      float loc[4];
-      float run = 0.f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + e;
-        if (e < E && j < QP) run += dts[j] * a2;
-        loc[e] = run;
-      }
-      float incl = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += v;
-      }
-      const float excl = incl - run;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + e;
-        if (e < E && j < QP) cum[j] = excl + loc[e];
-      }
-    }
-    __syncthreads();
-    const float total = cum[QP - 1];
-    const bf16* Xs = sm + L.xo(bi);
-    const bf16* Bs = sm + L.bo(bi);
-    const bf16* Cs = sm + L.co(bi);
+    loaded = c;
+  };
 
-    // y = 2^cum_i (C S) + w x for this warp's row tiles and P slice.
-    for (int pi = 0; pi < 2 && y_cnt > 0; ++pi) {
-      const int it = pi == 0 ? y_pair : QT - 1 - y_pair;
-      if ((pi == 1 && it == y_pair) || it * 16 >= qv) continue;
-      const int i0 = it * 16;
-      uint32_t cf[4][4];
+  // L (S^T: rows p, columns n) <- 2^tot L + sum_j (coef_j x_j)^T B_j with
+  // coef_j = 2^(tot - cum_j) dt_j, for head hh of the loaded chunk; coef x
+  // enters as bf16 hi + lo.  This warpgroup's products.
+  auto local_state = [&](float(&L)[32], int hh) {
+    const char* xt = sm + Fw::X + hh * TILE_BYTES;
+    const float* cf = vec(hh, ssdw::V_COEF);
+    const float decay = mma::exp2_approx(vec(hh, ssdw::V_CUM)[ROWS - 1]);
 #pragma unroll
-      for (int kn = 0; kn < 4; ++kn)
-        if (kn < NP / 16)
-          mma::ldmatrix_x4(cf[kn], Cs + L.nt.off(i0 + (lane & 15), 2 * kn + (lane >> 4)));
-      float y[4][4];
+    for (int e = 0; e < 32; ++e) L[e] *= decay;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) y[c][0] = y[c][1] = y[c][2] = y[c][3] = 0.f;
-      if (ch > 0) {
+    for (int half = 0; half < 2; ++half) {
+      uint32_t hi[4][4], lo[4][4];
 #pragma unroll
-        for (int kn = 0; kn < 4; ++kn) {
-          if (kn >= NP / 16) break;
-          const int srow = kn * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      for (int q = 0; q < 4; ++q) ssdw::xt_frag(xt, 4 * half + q, warp, cf, hi[q], lo[q]);
+      wgmma::fence_regs(hi);
+      wgmma::fence_regs(lo);
+      wgmma::fence_regs(L);
+      wgmma::fence();
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (c >= y_cnt) break;
-            uint32_t sh[2], sl[2];
-            mma::ldmatrix_x2_trans(sh, Shi + L.st.off(srow, y_n0 + c));
-            mma::ldmatrix_x2_trans(sl, Slo + L.st.off(srow, y_n0 + c));
-            mma::mma_bf16(y[c], cf[kn], sh[0], sh[1]);
-            mma::mma_bf16(y[c], cf[kn], sl[0], sl[1]);
-          }
-        }
-        const float e0 = mma::exp2_approx(cum[i0 + g]);
-        const float e1 = mma::exp2_approx(cum[i0 + g + 8]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          y[c][0] *= e0;
-          y[c][1] *= e0;
-          y[c][2] *= e1;
-          y[c][3] *= e1;
-        }
+      for (int q = 0; q < 4; ++q) {
+        const uint64_t bd = wgmma::desc_mn(sm + Fw::B, 4 * half + q, TILE_BYTES);
+        wgmma::rs(L, hi[q], bd);
+        wgmma::rs(L, lo[q], bd);
       }
-      const float ci[2] = {cum[i0 + g], cum[i0 + g + 8]};
-      for (int jt = 0; jt <= it && jt * 16 < qv; ++jt) {
-        const int j0 = jt * 16;
-        // C_i . B_j over N, then w_ij = (C_i . B_j) 2^(cum_i - cum_j) dt_j for j <= i.
-        float cb[2][4] = {};
-#pragma unroll
-        for (int kn = 0; kn < 4; ++kn) {
-          if (kn >= NP / 16) break;
-          uint32_t bb[4];
-          mma::ldmatrix_x4(bb, Bs + L.nt.off(j0 + (lane & 7) + ((lane >> 4) << 3),
-                                             2 * kn + ((lane >> 3) & 1)));
-          mma::mma_bf16(cb[0], cf[kn], bb[0], bb[1]);
-          mma::mma_bf16(cb[1], cf[kn], bb[2], bb[3]);
-        }
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = i0 + mma::acc_row(lane, e);
-            const int j = j0 + 8 * jj + mma::acc_col(lane, e);
-            cb[jj][e] = j <= i ? cb[jj][e] * mma::exp2_approx(ci[e >> 1] - cum[j]) * dts[j] : 0.f;
-          }
-        uint32_t wh[4], wl[4];
-        mma::split_bf16(cb[0][0], cb[0][1], wh[0], wl[0]);
-        mma::split_bf16(cb[0][2], cb[0][3], wh[1], wl[1]);
-        mma::split_bf16(cb[1][0], cb[1][1], wh[2], wl[2]);
-        mma::split_bf16(cb[1][2], cb[1][3], wh[3], wl[3]);
-        const int xrow = j0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (c >= y_cnt) break;
-          uint32_t xb[2];
-          mma::ldmatrix_x2_trans(xb, Xs + L.xt.off(xrow, y_n0 + c));
-          mma::mma_bf16(y[c], wh, xb[0], xb[1]);
-          mma::mma_bf16(y[c], wl, xb[0], xb[1]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = (y_n0 + c) * 8 + 2 * t;
-        if (c >= y_cnt || col >= P) break;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = i0 + g + 8 * r;
-          if (i < qv)
-            *reinterpret_cast<__nv_bfloat162*>(yg + (t0 + i) * p.yss + col) =
-                __floats2bfloat162_rn(y[c][2 * r], y[c][2 * r + 1]);
-        }
-      }
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_regs(L);
     }
+  };
 
-    // S <- 2^total S + sum_j B_j (coef_j x_j)^T, coef_j = 2^(total - cum_j) dt_j;
-    // coef x is split into bf16 hi + lo in registers.
-    if (s_cnt > 0) {
-      const float decay = mma::exp2_approx(total);
+  // A thread's places in a 64 x 64 accumulator: rows 16 warp + g + 8 hf,
+  // columns 8 jn + 2 t and + 1 (element 4 jn + 2 hf and + 1).  A head pair
+  // pr is heads 2 pr (warpgroup 0) and 2 pr + 1 (warpgroup 1); where the
+  // second is past the group, warpgroup 1 repeats the first's products and
+  // keeps none of them (products stay unconditional).
+  const int npairs = (Gv + 1) / 2;
+
+  // ---- Pass A: each head's local state over the block's chunks, then the
+  // hand-off S_out = 2^(sum of tot) S_in + L, S_in from the previous
+  // block's write into this inbox (zero in the first block), S_out into
+  // the next block's inbox (the final state in the last block).
+  for (int pr = 0; pr < npairs; ++pr) {
+    const bool live = 2 * pr + wg < Gv;
+    const int hh = live ? 2 * pr + wg : Gv - 1;
+    float L[32];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+    for (int e = 0; e < 32; ++e) L[e] = 0.f;
+    float dl = 0.f;  // sum of tot, log2 units
+    for (int c = c0; c < c1; ++c) {
+      load_chunk(c);
+      local_state(L, hh);
+      dl += vec(hh, ssdw::V_CUM)[ROWS - 1];
+    }
+    if (!live) continue;
+    // The inbox holds S_in in fp32 (fragment order) until this warpgroup
+    // has read it, then S_in as the bf16 hi and lo slabs of pass B's C S.
+    char* ib = sm + Fw::ST + hh * 2 * SLAB_BYTES;
+    float S[32];
+    if (r > 0) {
+      ssdw::mbar_wait_cluster(&bars[1 + hh], 0);
+      ssdw::recv_frag(S, ib, tid & 127);
+    } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[c][e] *= decay;
-      for (int j0 = 0; j0 < qv; j0 += 16) {
-        uint32_t ab[4];
-        mma::ldmatrix_x4_trans(ab, Bs + L.nt.off(j0 + (lane & 7) + ((lane >> 4) << 3),
-                                                 2 * s_m + ((lane >> 3) & 1)));
-        float cf[4];
+      for (int e = 0; e < 32; ++e) S[e] = 0.f;
+    }
+    const float D = mma::exp2_approx(dl);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) L[e] = fmaf(D, S[e], L[e]);
+    if (r + 1 < cs) {
+      // S_out into this inbox (S_in is in registers), then one bulk copy
+      // into the next block's; the slabs below overwrite it once read.
+      ssdw::wg_sync(wg);
+      ssdw::put_frag(L, ib, tid & 127);
+      mma::fence_proxy_async();
+      ssdw::wg_sync(wg);
+      if ((tid & 127) == 0)
+        ssdw::bulk_to_cluster(ssdw::cluster_addr(ib, r + 1), ib, ssdw::STATE_BYTES,
+                              ssdw::cluster_addr(&bars[1 + hh], r + 1));
+    } else {
+      float* sg = p.state + (static_cast<int64_t>(b) * p.H + h0 + hh) * p.N * p.P;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = j0 + 2 * t + (e & 1) + 8 * (e >> 1);
-          cf[e] = mma::exp2_approx(total - cum[j]) * dts[j];
+          const int pp = 16 * warp + g + 8 * (e >> 1), n = 8 * jn + 2 * t + (e & 1);
+          if (pp < p.P && n < p.N) sg[n * p.P + pp] = L[4 * jn + e];
         }
-        const int xrow = j0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (c >= s_cnt) break;
-          uint32_t xb[2];
-          mma::ldmatrix_x2_trans(xb, Xs + L.xt.off(xrow, s_n0 + c));
-          const float2 x0 = mma::unpack_bf16(xb[0]);
-          const float2 x1 = mma::unpack_bf16(xb[1]);
-          uint32_t bh0, bl0, bh1, bl1;
-          mma::split_bf16(x0.x * cf[0], x0.y * cf[1], bh0, bl0);
-          mma::split_bf16(x1.x * cf[2], x1.y * cf[3], bh1, bl1);
-          mma::mma_bf16(st[c], ab, bh0, bh1);
-          mma::mma_bf16(st[c], ab, bl0, bl1);
-        }
-      }
     }
-    __syncthreads();
-    // The state for the next chunk's C S, as bf16 hi + lo; and its dt.
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (c >= s_cnt) break;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int o = L.st.off(s_m * 16 + g + 8 * r, s_n0 + c) + 2 * t;
-        uint32_t hi, lo;
-        mma::split_bf16(st[c][2 * r], st[c][2 * r + 1], hi, lo);
-        *reinterpret_cast<uint32_t*>(Shi + o) = hi;
-        *reinterpret_cast<uint32_t*>(Slo + o) = lo;
-      }
-    }
-    if (tid < QP) dts[tid] = dt_next;
+    ssdw::wg_sync(wg);
+    ssdw::put_slabs(S, ib, ib + SLAB_BYTES);
+    mma::fence_proxy_async();
   }
 
-  float* sg = p.state + (static_cast<int64_t>(b) * p.H + h) * N * P;
+  // ---- Pass B: per chunk, C B^T once for the group (fp32, in shared
+  // memory), then per head y = w x + 2^cum (C S) from the state before the
+  // chunk; then, for a chunk before the block's last, the state after it.
+  for (int c = c0; c < c1; ++c) {
+    load_chunk(c);
+    const int t0 = c * p.Q, qv = min(p.Q, p.S - t0);
+    // Blocks (0,0) and (1,1) on warpgroup 0, (1,0) on warpgroup 1.
+    for (int q = wg; q < 3; q += 2) {
+      const int it = q == 0 ? 0 : 1, jt = q == 2 ? 1 : 0;
+      float d[32];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = (s_n0 + c) * 8 + 2 * t;
-    if (c >= s_cnt || col >= P) break;
+      for (int e = 0; e < 32; ++e) d[e] = 0.f;
+      wgmma::fence_regs(d);
+      wgmma::fence();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int n = s_m * 16 + g + 8 * r;
-      if (n < N) *reinterpret_cast<float2*>(sg + n * P + col) = make_float2(st[c][2 * r], st[c][2 * r + 1]);
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma::ss(d, wgmma::desc_k(sm + Fw::C + it * 8192, ks, TILE_BYTES),
+                  wgmma::desc_k(sm + Fw::B + jt * 8192, ks, TILE_BYTES));
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_regs(d);
+      float* blk = cbs + q * 64 * ssdw::CB_LD;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(blk + (16 * warp + g + 8 * hf) * ssdw::CB_LD + 8 * jn +
+                                     2 * t) = make_float2(d[4 * jn + 2 * hf], d[4 * jn + 2 * hf + 1]);
+    }
+    __syncthreads();
+
+    for (int pr = 0; pr < npairs; ++pr) {
+      const bool live = 2 * pr + wg < Gv;
+      const int hh = live ? 2 * pr + wg : Gv - 1;
+      const char* xt = sm + Fw::X + hh * TILE_BYTES;
+      const char* shi = sm + Fw::ST + hh * 2 * SLAB_BYTES;
+      const float* cm = vec(hh, ssdw::V_CUM);
+      const float* dv = vec(hh, ssdw::V_DT);
+      const float* ke = vec(hh, ssdw::V_KEND);
+      bf16* yg = static_cast<bf16*>(p.y) + b * p.ysb + (h0 + hh) * p.ysh + t0 * p.yss;
+#pragma unroll
+      for (int it = 0; it < 2; ++it) {
+        float y[32], cy[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) y[e] = cy[e] = 0.f;
+        wgmma::fence_regs(y);
+        wgmma::fence_regs(cy);
+        wgmma::fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t ad = wgmma::desc_k(sm + Fw::C + it * 8192, ks, TILE_BYTES);
+          wgmma::ss(cy, ad, wgmma::desc_k(shi, ks, SLAB_BYTES));
+          wgmma::ss(cy, ad, wgmma::desc_k(shi + SLAB_BYTES, ks, SLAB_BYTES));
+        }
+        wgmma::commit();
+        const int i0 = 64 * it + 16 * warp + g;
+        const float ci[2] = {cm[i0], cm[i0 + 8]};
+        // The tiles' w fragments, each set built while the products of the
+        // one before run (one wait for all).  w_ij = (C_i . B_j) 2^(cum_i -
+        // cum_j) dt_j where j <= i: by 16-column band J against this warp's
+        // row band I, 2^(cum_i - cum_e) kend_j below the diagonal band (e
+        // the band's last row), exp2 an element on it, zero above.
+        uint32_t wh[2][4][4], wl[2][4][4];
+#pragma unroll
+        for (int jt = 0; jt <= it; ++jt) {
+          const float* blk = cbs + (it == 0 ? 0 : jt == 0 ? 1 : 2) * 64 * ssdw::CB_LD;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int band = 16 * (4 * jt + kk);
+            const bool below = jt < it || kk < warp, diag = jt == it && kk == warp;
+            float rf[2] = {0.f, 0.f};
+            if (below) {
+              const float ce = cm[band + 15];
+              rf[0] = mma::exp2_approx(ci[0] - ce);
+              rf[1] = mma::exp2_approx(ci[1] - ce);
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int hf = q & 1;
+              const int i = i0 + 8 * hf;
+              const int jl = 16 * kk + 8 * (q >> 1) + 2 * t;
+              const int j = 64 * jt + jl;
+              float w0 = 0.f, w1 = 0.f;
+              if (below || diag) {
+                const float2 v = *reinterpret_cast<const float2*>(
+                    blk + (16 * warp + g + 8 * hf) * ssdw::CB_LD + jl);
+                if (below) {
+                  const float2 k = *reinterpret_cast<const float2*>(ke + j);
+                  w0 = v.x * rf[hf] * k.x;
+                  w1 = v.y * rf[hf] * k.y;
+                } else {
+                  w0 = j <= i ? v.x * mma::exp2_approx(ci[hf] - cm[j]) * dv[j] : 0.f;
+                  w1 = j + 1 <= i ? v.y * mma::exp2_approx(ci[hf] - cm[j + 1]) * dv[j + 1] : 0.f;
+                }
+              }
+              mma::split_bf16(w0, w1, wh[jt][kk][q], wl[jt][kk][q]);
+            }
+          }
+          wgmma::fence_regs(wh[jt]);
+          wgmma::fence_regs(wl[jt]);
+          wgmma::fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t bd = wgmma::desc_mn(xt + jt * 8192, kk, TILE_BYTES);
+            wgmma::rs(y, wh[jt][kk], bd);
+            wgmma::rs(y, wl[jt][kk], bd);
+          }
+          wgmma::commit();
+        }
+        wgmma::wait<0>();
+        wgmma::fence_regs(y);
+        wgmma::fence_regs(cy);
+#pragma unroll
+        for (int jt = 0; jt <= it; ++jt) {
+          wgmma::fence_regs(wh[jt]);
+          wgmma::fence_regs(wl[jt]);
+        }
+        if (!live) continue;
+        // y = w x + 2^cum_i (C S) as bf16, 8 bytes a store
+        // (ssdw::quad_pair).
+        const float e0 = mma::exp2_approx(ci[0]), e1 = mma::exp2_approx(ci[1]);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int i = i0 + 8 * hf, a = 8 * m + 2 * hf, c = a + 4;
+            const float e = hf ? e1 : e0;
+            const uint2 v = ssdw::quad_pair(
+                mma::pack_bf16(fmaf(e, cy[a], y[a]), fmaf(e, cy[a + 1], y[a + 1])),
+                mma::pack_bf16(fmaf(e, cy[c], y[c]), fmaf(e, cy[c + 1], y[c + 1])), t);
+            const int col = 16 * m + ssdw::quad_col(t);
+            if (i < qv && col < p.P) *reinterpret_cast<uint2*>(yg + i * p.yss + col) = v;
+          }
+      }
+      if (c + 1 == c1) continue;
+      // The state after this chunk (not the block's last): S <- 2^tot S + L_c.
+      float L[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) L[e] = 0.f;
+      local_state(L, hh);
+      if (!live) continue;
+      const float decay = mma::exp2_approx(cm[ROWS - 1]);
+      char* sb = sm + Fw::ST + hh * 2 * SLAB_BYTES;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int off = ssdw::sw(16 * warp + g + 8 * hf, 8 * jn + 2 * t);
+          uint32_t* ph = reinterpret_cast<uint32_t*>(sb + off);
+          uint32_t* pl = reinterpret_cast<uint32_t*>(sb + SLAB_BYTES + off);
+          const float2 a = mma::unpack_bf16(*ph), l = mma::unpack_bf16(*pl);
+          uint32_t nh, nl;
+          mma::split_bf16(fmaf(decay, a.x + l.x, L[4 * jn + 2 * hf]),
+                          fmaf(decay, a.y + l.y, L[4 * jn + 2 * hf + 1]), nh, nl);
+          *ph = nh;
+          *pl = nl;
+        }
+      mma::fence_proxy_async();
     }
   }
 }
 
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(ssd_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         TC_MAX_BYTES);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(ssd_fwd_bf16, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    return e;
-  }();
+// The plan of a bf16 call: heads a block (G), chunks a block (k), blocks a
+// cluster (cs), on the current device.
+cudaError_t fw_plan(int B, int S, int H, int Q, int& G, int& k, int& cs) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ssd_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, Fw::BYTES);
   if (attr != cudaSuccess) return attr;
-  auto al16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
-  const bool vec16 = al16(p.x) && al16(p.b) && al16(p.c) && p.P % 8 == 0 && p.N % 8 == 0 &&
-                     p.xsb % 8 == 0 && p.xss % 8 == 0 && p.xsh % 8 == 0 && p.bsb % 8 == 0 &&
-                     p.bss % 8 == 0 && p.csb % 8 == 0 && p.css % 8 == 0;
-  const TcParams tp{p, vec16 ? 1 : 0};
-  ssd_fwd_bf16<<<dim3(p.H, p.B), TC_THREADS, TcLayout(p.Q, p.N, p.P).bytes, stream>>>(tp);
-  return cudaGetLastError();
+  ssdw::chunk_plan((S + Q - 1) / Q, k, cs);
+  int slots = 0;
+  const cudaError_t err = ssdw::cluster_slots(ssd_fwd_wgmma, cs, Fw::BYTES, slots);
+  if (err != cudaSuccess) return err;
+  G = ssdw::group_size(B, cs, H, FW_MAX_G, slots);
+  return cudaSuccess;
+}
+
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  FwParams fp{};
+  fp.p = p;
+  fp.nc = (p.S + p.Q - 1) / p.Q;
+  const cudaError_t err = fw_plan(p.B, p.S, p.H, p.Q, fp.G, fp.k, fp.cs);
+  if (err != cudaSuccess) return err;
+  const int64_t xs[3] = {p.xsb, p.xsh, p.xss}, bs[3] = {p.bsb, p.bss, p.bss},
+                cs[3] = {p.csb, p.css, p.css};
+  fp.tma = ssdw::describable(p.x, xs) && ssdw::describable(p.b, bs) && ssdw::describable(p.c, cs);
+  // y takes 8-byte stores: its base and strides in whole 4 elements (as
+  // the wrapper allocates it).
+  if (reinterpret_cast<uintptr_t>(p.y) % 8 != 0 || p.ysb % 4 != 0 || p.yss % 4 != 0 ||
+      p.ysh % 4 != 0)
+    return cudaErrorInvalidValue;
+  if (fp.tma && !(mma::encode_map(&fp.mx, p.x, xs, p.P, p.H, p.S, p.B) &&
+                  mma::encode_map(&fp.mb, p.b, bs, p.N, 1, p.S, p.B) &&
+                  mma::encode_map(&fp.mc, p.c, cs, p.N, 1, p.S, p.B)))
+    return cudaErrorInvalidValue;
+  const int64_t blocks = static_cast<int64_t>(fp.cs) * ((p.H + fp.G - 1) / fp.G);
+  if (blocks > 2147483647) return cudaErrorInvalidValue;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = fp.cs;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), p.B);
+  cfg.blockDim = dim3(ssdw::THREADS);
+  cfg.dynamicSmemBytes = Fw::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, ssd_fwd_wgmma, fp);
 }
 
 bool supported(int v, int hi) { return v >= 4 && v <= hi && v % 4 == 0; }
 
 }  // namespace
 
-// Bytes of dynamic shared memory a block takes at these sizes.
-// dtype: 0 = float32 (the scalar kernel), 1 = bfloat16 (the tensor-core one).
+// Bytes of dynamic shared memory a block takes at these sizes.  dtype:
+// 0 = float32 (the scalar kernel), 1 = bfloat16 (ssd_fwd_wgmma, whose plan
+// is fixed: 128-row chunk tiles, 64-column slabs, up to 4 heads).
 extern "C" int ssd_scan_smem_bytes(int Q, int N, int P, int dtype) {
-  if (dtype == 1) return TcLayout(Q, N, P).bytes;
+  if (dtype == 1) return Fw::BYTES;
   return static_cast<int>(sizeof(float) * Layout(Q, N, P).total);
+}
+
+// The bf16 kernel's plan on the current device: through G, k and cs the
+// heads a block holds, the chunks a block takes and the blocks a cluster,
+// and through slots the blocks that run at once.  Returns a cudaError_t.
+extern "C" int ssd_scan_plan(int B, int S, int H, int Q, int* G, int* k, int* cs, int* slots) {
+  cudaError_t err = fw_plan(B, S, H, Q, *G, *k, *cs);
+  if (err == cudaSuccess) err = ssdw::cluster_slots(ssd_fwd_wgmma, *cs, Fw::BYTES, *slots);
+  return static_cast<int>(err);
 }
 
 // dtype (of x, B, C and y): 0 = float32, 1 = bfloat16.  dt and A are

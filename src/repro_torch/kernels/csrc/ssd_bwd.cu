@@ -28,20 +28,21 @@
 // whose log-decay spans more than ~88.7).
 //
 // Two paths, chosen by dtype alone, each two launches on the caller's
-// stream sharing one scratch that the wrapper allocates:
-//   bf16: ssd_bwd_bf16 (tensor cores), then ssd_bwd_reduce;
+// stream sharing one scratch that the wrapper allocates
+// (ssd_scan_bwd_scratch_bytes_of):
+//   bf16: ssd_bwd_wgmma (warpgroup products on TMA tiles, the chunks over
+//         the blocks of thread-block clusters), then ssd_bwd_gsum;
 //   fp32: ssd_bwd (scalar fp32 FMAs, which hold the fp32 tolerances), then
 //         ssd_bwd_reduce.
-// The main kernel runs one block per (b, h).  Sweep 1 walks the chunks
-// forward and writes the state before each, S_{c-1}, to the scratch (B,
-// nc, H, N, P): fp32 on the scalar path (33.5 MB at zamba2_1p2b's shape),
-// bf16 on the tensor-core path (16.8 MB); the forward kernel and its C
-// interface stay as they are.  Sweep 2 walks the chunks backward carrying
-// dS (N, P) and writes dx and ddt, and per-head fp32 partials of dB and dC
-// (B, H, S, N; 2 x 67 MB there) and of dA (B, H), since B and C are shared
-// by the heads and A by the batch.  ssd_bwd_reduce sums the partials over
-// heads (dB, dC) and over the batch (dA) in a fixed order, in fp64.  No
-// atomics anywhere, so two calls give the same bits.
+// The fp32 main kernel runs one block per (b, h).  Sweep 1 walks the
+// chunks forward and writes the state before each, S_{c-1}, to the
+// scratch (B, nc, H, N, P) in fp32 (33.5 MB at zamba2_1p2b's shape).
+// Sweep 2 walks the chunks backward carrying dS (N, P) and writes dx and
+// ddt, and per-head fp32 partials of dB and dC (B, H, S, N; 2 x 67 MB
+// there) and of dA (B, H), since B and C are shared by the heads and A by
+// the batch.  ssd_bwd_reduce sums the partials over heads (dB, dC) and
+// over the batch (dA) in a fixed order, in fp64.  No atomics anywhere, so
+// two calls give the same bits.
 //
 // What bounds it.  At zamba2_1p2b's train shape (B 8, S 512, H 64, P 64,
 // N 64, Q 128, bf16) the call must read x, dy (33.5 MB each), dt, B, C and
@@ -80,59 +81,70 @@
 // 67,584; dS 16,384; partial sums and vectors 15,360): one block an SM.
 // Scalar FMAs cap it at 67 TFLOP/s.
 //
-// The bf16 design (ssd_bwd_bf16).  Still one block per (b, h) looping over
-// the chunks, now of 16 warps, and every product an mma.sync m16n8k16 on
-// bf16 operands with fp32 accumulators.  x, dy, B and C stay in shared
-// memory as bf16 as loaded, in two sets: the next chunk's lands by
-// cp.async while this one computes (element by element where rows are not
-// whole 16-byte units; 64- and 128-wide rows XOR-swizzled, narrower ones
-// padded by 16 bytes, so each ldmatrix hits distinct banks).  cum is in
-// log2 units and every decay an exp2 on the special-function unit.  Per
-// chunk:
-//   phase T, one warp per 16 x 16 tile of the lower triangle: C B^T over N
-//     and dy x^T over P, each formed once; with L_ij = 2^(cum_i - cum_j),
-//     taken only where j <= i, W = (C B^T) L dt_j and E = L dt_j (dy x^T)
-//     go to shared memory as bf16 [Q][Q] each, and V = (C B^T) L (dy x^T)
-//     is summed straight from the accumulators, by rows (times dt_j) and
-//     by columns, with warp shuffles in a fixed order into per-tile partial
-//     sums;
-//   phase P, one warp per 16 x 16 output tile: dx = W^T dy + u (B dS), dB =
-//     E^T C + u (x dS^T) and dC = E B + 2^cum (dy S_{c-1}^T), the A operand
-//     W^T or E^T read by ldmatrix.trans, with the row dots x_j . (B_j dS)
-//     and C_i . (S_{c-1} dy_i) that dcum and ddt need; the output tiles of
-//     rows j and of rows Q - 1 - j go together, so a warp's triangle sums
-//     are as long as another's;
-//   the dS update, 2^tot dS + C^T (2^cum dy), on dS held in fp32
-//     accumulators spread over the warps (a bf16 copy in shared memory is
-//     the operand of B dS and x dS^T), beside one thread a row summing the
-//     partials into dcum in fp64; then warp 0 runs dtot, the reverse scan,
-//     ddt and dA in fp64 as the scalar kernel does.
-// Sweep 1 is the forward's state update on the tensor cores, its state in
-// accumulators, written out as bf16, its x and B double-buffered too.
-// Rounding: a CPU emulation of the kernel's roundings put every gradient
-// within a relative rms of 2.5e-3 of autograd of the fp32 plain version at
-// the train shape and the card tests' shapes, with W, E, dS, S_{c-1}, coef
-// x and 2^cum dy each rounded to one bf16 (the outputs' own bf16 rounding
-// is 1.7e-3 of that), except dA where a chunk ends raggedly under the
-// final state's cotangent: 1.6e-2 on the card (chip_smoke's "ragged S 100
-// chunk 32 +dfinal"; the emulation on the same inputs gave the same
-// digits).  Splitting coef x into hi + lo (two mma, one accumulator), as
-// the forward does, took that to 3.2e-3; nothing else is split.  Shared
-// memory: 230,464 bytes at Q 128, N = P = 64 (two sets of x, dy, B, C
-// 131,072; W, E 65,536; dS and S_{c-1} 16,384; vectors and partial sums
-// 17,472): one block of 16 warps an SM.  Two blocks of 8 warps would need
-// <= ~113 KB each, and one set of x, dy, B, C with one Q x Q matrix
-// already takes 96 KB, so the chunk's loads are hidden by the double
-// buffer rather than by a second block.  125 registers, no spills.  C B^T
-// is recomputed per head, as in the forward.
-//
-// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W), at the train shape in
-// bf16: 0.51 ms a call (in a profiled zamba2 step ssd_bwd_bf16 takes 0.45
-// ms and ssd_bwd_reduce 0.05), against the scalar kernel's 4.15, autograd
-// of the plain version's 3.8 and a 31 us bound; fp32 (scalar) 4.2 ms.
-// What holds the bf16 kernel at 16x its bound: one block an SM and each
-// chunk's serial steps (five block barriers, the reverse scan), not bytes
-// or the tensor cores.
+// The bf16 design (ssd_bwd_wgmma).  The kernel it replaces (mma.sync from
+// ldmatrix, cp.async) ran one 16-warp block per (b, h): a forward sweep
+// writing every S_{c-1} to a bf16 scratch, then the chunks backward, five
+// block barriers and an fp64 scan a chunk, C B^T formed per head, and
+// per-head fp32 partials of dB and dC (2 x 67 MB written and read back):
+// 0.52 ms at the train shape, 17x its bound.  This one follows the
+// forward's four rules (ssd.cu):
+//   1. Parallel over chunks.  A (b, head group)'s chunks go to the blocks
+//      of a cluster (at most 8, k = ceil(nc / 8) consecutive chunks each).
+//      Pass A: each block forms, per head, the local S over its chunks
+//      (sum of 2^(tot - cum_j) dt_j B_j x_j^T, from zero) and, walking them
+//      backward, the local dS (sum of 2^cum_i C_i dy_i^T).  Two hand-offs
+//      through distributed shared memory: S forward (S_out = 2^(sum of
+//      tot) S_in + L into block r + 1's inbox), dS backward (from the final
+//      state's cotangent in the last block, dS_out into block r - 1's).
+//      Each hand-off is the fp32 state in fragment order, one 16 KB
+//      cp.async.bulk into the neighbour's inbox that completes on its
+//      mbarrier; a block takes first the hand-off that reaches it first (S
+//      in the first half of the cluster), so the two chains run at once.
+//      Pass B: the block's chunks backward with S_{c-1} and dS_c: with one
+//      chunk a block both are the hand-offs' inputs, and no state leaves
+//      the chip; with more, the local S before each later chunk goes to
+//      the scratch in pass A and S_{c-1} = 2^(sum of tot before c) S_in +
+//      that (the long mode, nc > 8).  Fixed order, no atomics: a call's
+//      bits repeat.
+//   2. A block holds G <= 2 heads of one (b, chunk range), one a
+//      warpgroup (shared memory holds two heads' x, dy and states beside
+//      C B^T).  B and C are loaded once for them and C B^T is formed once a
+//      chunk in fp32 shared memory; each head applies its own decay and
+//      dt.  dB and dC are summed over the group's heads on chip (warpgroup
+//      0's tile through shared memory, warpgroup 1 adds its own) before
+//      they leave the block: per-group fp32 partials (B, H / G, S, N),
+//      which ssd_bwd_gsum sums in fp64 in a fixed order with the
+//      per-(b, block) partials of dA.  G is ssd_wgmma.cuh's group_size
+//      (G <= 2, a head a warpgroup: 2): zamba2's train call 1,024 blocks
+//      of 2 heads.
+//   3. Products on wgmma, operands by TMA: x, dy, B and C tiles (128 rows
+//      x 64 columns, 128-byte swizzled) by cp.async.bulk.tensor on one
+//      mbarrier from 4-D maps over the strided views, rows past S zero;
+//      a view TMA cannot describe by plain loads.  Per 64-row tile: P1
+//      (rows i) dC = 2^cum_i (dy S_{c-1}^T) + E B with E = L dt_j (dy x^T)
+//      from registers, and the row sums of V = (C B^T) L (dy x^T) dt_j
+//      and C_i . 2^cum_i (S_{c-1} dy_i); P2 (rows j) dx = u_j (B dS) + W^T
+//      dy and dB = u_j (x dS^T) + E^T C, W^T and E^T built from x dy^T and
+//      C B^T read transposed, with V's column sums and x_j . (B_j dS).
+//      Then dcum, the reverse scan, ddt and dA in fp64 by one warp of the
+//      warpgroup, and dS_{c-1} = 2^tot dS_c + the local term for the chunk
+//      before.  Rows past the chunk and columns past N and P carry zero
+//      weights and are not stored.  dx leaves in 8-byte stores and the
+//      group sums in 16-byte ones (quad_pair).  The decays stay exp2 an
+//      element: the forward's row x column factors off the diagonal bands
+//      made this kernel 1.05-1.10x slower on an H100 80GB HBM3.
+//   4. Rounding as the design before it: coef x as bf16 hi + lo in the
+//      local S; W, E, 2^cum dy, S_{c-1} and dS one bf16 each; the states
+//      and dS fp32 where they are accumulated (the hand-offs carry fp32);
+//      dcum, dtot, the reverse scan, ddt and dA in fp64.  Within a relative
+//      rms of 2.4e-3 of autograd of the fp32 plain version on the card
+//      (gate 2e-2), as before.
+// Shared memory ~225 KB (x, dy of 2 heads 64 KB; B, C 32 KB; the two
+// states of 2 heads 64 KB; C B^T 54 KB; vectors): one block an SM, 255
+// registers.  At the train shape the call takes 0.342 ms on an H100 80GB
+// HBM3 at 700 W, 10.9x its bound: E, W^T and E^T built element by element
+// on 8 warps an SM, ~10k cycles a block waiting for the two hand-offs,
+// and 9 waves of 120 blocks.
 //
 // Sizes are runtime values: N and P multiples of 4 in [4, 64], Q a
 // multiple of 4 in [4, 128], any S >= 1; a ragged last chunk is zero-filled
@@ -140,16 +152,16 @@
 // and only valid rows are written.  x, B, C and dy may be strided views
 // (element strides of their leading axes, last axis contiguous); dt is
 // read through its strides.  dx (B,S,H,P) and dB, dC (B,S,N) are written
-// contiguous in x's type, ddt (B,S,H) and dA (H,) contiguous in fp32.  On
-// the bf16 path a chunk is padded to whole 16-row tiles with zero rows (Q
-// 4 and 12 are one tile), and N and P to multiples of 16 with zero columns.
-// Launch errors are returned, never swallowed.
+// contiguous in x's type, ddt (B,S,H) and dA (H,) contiguous in fp32.
+// Launch errors are returned, never swallowed: a tensor map that cannot
+// be encoded or a cluster that cannot be placed fails the call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "ssd_wgmma.cuh"
 
 namespace {
 
@@ -184,10 +196,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Shared-memory plan, in floats.  Every offset is a multiple of 4 floats
 // (Q, N, P are), so float4 and double accesses stay aligned.
@@ -797,633 +805,666 @@ cudaError_t launch_fp32(Params p, void* db, void* dc, float* dA, cudaStream_t st
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel (mma.sync m16n8k16, bf16 operands, fp32
-// accumulators; helpers in mma_bf16.cuh).
+// bf16: ssd_bwd_wgmma, then ssd_bwd_gsum (see the note at the top).
 
-using bf16 = __nv_bfloat16;
-constexpr int TC_WARPS = 16;
-constexpr int TC_THREADS = TC_WARPS * 32;
+using ssdw::bf16;
+using ssdw::ROWS;
+using ssdw::SLAB_BYTES;
+using ssdw::TILE_BYTES;
+constexpr int BW_MAX_G = 2;
+constexpr int BW_NV = ssdw::NV;  // row vectors a head (ssdw::Vec)
 
-__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
+// Shared-memory plan, bytes from the 1024-aligned base: the chunk's B and
+// C tiles; x and dy of the group's heads; the states S^T and dS^T (rows p,
+// columns n) of each head as bf16 slabs, hi halves then lo halves (the
+// inboxes of the two hand-offs; in pass B the hi halves hold the operands
+// S_{c-1} and dS_c, and the lo halves of S the group sums of dB and dC);
+// C B^T in fp32 (blocks (0,0), (1,0), (1,1)); each head's row vectors
+// (ssdw::Vec); per head the fp32 row sums rowt, colv, du, cpart that the
+// fp64 scan reads; per head the warps' partial <dS, S_{c-1}>; the load
+// barrier and the inbox barriers.
+struct Bw {
+  static constexpr int B = 0;
+  static constexpr int C = TILE_BYTES;
+  static constexpr int X = 2 * TILE_BYTES;
+  static constexpr int DY = X + BW_MAX_G * TILE_BYTES;
+  static constexpr int ST = DY + BW_MAX_G * TILE_BYTES;        // [hi 0, lo 0, hi 1, lo 1]
+  static constexpr int DS = ST + 2 * BW_MAX_G * SLAB_BYTES;    // [hi 0, lo 0, hi 1, lo 1]
+  static constexpr int CB = DS + 2 * BW_MAX_G * SLAB_BYTES;
+  static constexpr int ROWV = CB + ssdw::CB_BYTES;             // float [G][BW_NV][128]
+  static constexpr int VEC = ROWV + BW_MAX_G * BW_NV * ROWS * 4;  // float [G][4][128]
+  static constexpr int RED = VEC + BW_MAX_G * 4 * ROWS * 4;    // float [G][4]
+  static constexpr int BAR = RED + BW_MAX_G * 4 * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * BW_MAX_G) + 1024;
+};
+// The group sums' 64 x 64 fp32 tile in pass B: rows 0-31 in head 0's S lo
+// slab, 32-63 in head 1's.
+__device__ __forceinline__ float* gsum_row(char* sm, int row) {
+  return reinterpret_cast<float*>(sm + Bw::ST + (2 * (row >> 5) + 1) * SLAB_BYTES) +
+         (row & 31) * 64;
+}
+static_assert(Bw::BYTES <= 232448, "shared memory plan exceeds 227 KB");
 
-// A bf16 tile of rows of `units` 16-byte units (a width rounded up to 16).
-// Rows of a multiple of 8 units are XOR-swizzled (unit u of row r at
-// u ^ (r & 7)); other rows are padded by one unit.  Either way the 8 row
-// addresses of an ldmatrix fall in distinct banks.
-struct Tile {
-  int units, stride;  // stride in elements
-  __host__ __device__ constexpr Tile(int width)
-      : units(round16(width) / 8),
-        stride(round16(width) % 64 == 0 ? round16(width) : round16(width) + 8) {}
-  __device__ int off(int row, int unit) const {
-    return row * stride + (units % 8 == 0 ? unit ^ (row & 7) : unit) * 8;
+struct BwParams {
+  Params p;
+  CUtensorMap mx, mdy, mb, mc;
+  float* dbp;   // (B, groups, S, N) partial sums of dB over a group's heads
+  float* dcp;   // (B, groups, S, N) of dC
+  float* dap;   // (B, cs, H) partial sums of dA
+  float* lpre;  // (B, nc, H, 32 x 128) a block's local state before each chunk (k > 1)
+  int tma;
+  int G, cs, k, nc, groups;
+};
+
+// Scratch of the bf16 path at a plan (G heads a block, k chunks a block,
+// cs blocks a cluster), offsets in floats.
+struct BwScratch {
+  int64_t dbp, dcp, dap, lpre, total;
+  BwScratch(int B, int S, int H, int N, int Q, int G, int k, int cs) {
+    const int nc = (S + Q - 1) / Q;
+    const int64_t groups = (H + G - 1) / G;
+    dbp = 0;
+    dcp = dbp + static_cast<int64_t>(B) * groups * S * N;
+    dap = dcp + static_cast<int64_t>(B) * groups * S * N;
+    lpre = dap + static_cast<int64_t>(B) * cs * H;
+    total = lpre + (k > 1 ? static_cast<int64_t>(B) * nc * H * 4096 : 0);
   }
 };
 
-// Shared-memory plan: two sets (the next chunk's lands while this one
-// computes) of bf16 tiles x, dy [QP][P] and B, C [QP][N]; W, E [QP][QP]
-// (row i, column j); dS and S_{c-1} [N][P] (element offsets); then fp32 and
-// fp64 vectors and partial sums (byte offsets).
-struct TcLayout {
-  int QP, NP, PP, QT;
-  Tile xt, nt, qt;
-  int set, xs, ys, bs, cs, ws, es, dsb, spb;                                  // bf16 elements
-  int dt, cum, ecum, uu, rowp, colp, dup, cpp, dotp, dcum, cvd, dud, bytes;  // bytes
-  __host__ __device__ constexpr TcLayout(int Q, int N, int P)
-      : QP(round16(Q)), NP(round16(N)), PP(round16(P)), QT(round16(Q) / 16),
-        xt(P), nt(N), qt(round16(Q)),
-        set(2 * QP * (xt.stride + nt.stride)),
-        xs(0),
-        ys(QP * xt.stride),
-        bs(2 * QP * xt.stride),
-        cs(2 * QP * xt.stride + QP * nt.stride),
-        ws(2 * set),
-        es(ws + QP * qt.stride),
-        dsb(es + QP * qt.stride),
-        spb(dsb + NP * xt.stride),
-        dt(2 * (spb + NP * xt.stride)),
-        cum(dt + 4 * QP),
-        ecum(cum + 4 * QP),
-        uu(ecum + 4 * QP),
-        rowp(uu + 4 * QP),                      // [QT][QP] by column tile
-        colp(rowp + 4 * QT * QP),               // [QT][QP] by row tile
-        dup(colp + 4 * QT * QP),                // [PP/16][QP]
-        cpp(dup + 4 * (PP / 16) * QP),          // [NP/16][QP]
-        dotp(cpp + 4 * (NP / 16) * QP),         // [TC_WARPS]
-        dcum(dotp + 4 * TC_WARPS),              // double[QP] each: dcum,
-        cvd(dcum + 8 * QP),                     // colv, ddt's direct part,
-        dud(cvd + 8 * QP),                      // x_j . (B_j dS)
-        bytes(dud + 8 * QP) {}
-};
-
-constexpr int TC_MAX_BYTES = TcLayout(MAX_Q, MAX_NP, MAX_NP).bytes;
-static_assert(TC_MAX_BYTES <= 232448, "tensor-core shared memory plan exceeds 227 KB");
-
-struct TcParams {
-  Params p;
-  int vec16;  // x, dy, B, C rows 16-byte aligned in whole units: cp.async
-};
-
-__global__ void __launch_bounds__(TC_THREADS, 1) ssd_bwd_bf16(const TcParams tp) {
-  const Params& p = tp.p;
-  extern __shared__ float4 smem4[];
-  char* base = reinterpret_cast<char*>(smem4);
-  bf16* sm = reinterpret_cast<bf16*>(smem4);
-  const int Q = p.Q, N = p.N, P = p.P;
-  const TcLayout L(Q, N, P);
-  const int QP = L.QP, QT = L.QT, NT = L.NP / 16, PT = L.PP / 16;
-  bf16* Ws = sm + L.ws;
-  bf16* Es = sm + L.es;
-  bf16* dSb = sm + L.dsb;
-  bf16* Spb = sm + L.spb;
-  float* dts = reinterpret_cast<float*>(base + L.dt);
-  float* cum = reinterpret_cast<float*>(base + L.cum);    // log2 units
-  float* ecum = reinterpret_cast<float*>(base + L.ecum);  // 2^cum_i
-  float* uu = reinterpret_cast<float*>(base + L.uu);      // u_j = 2^(tot - cum_j) dt_j
-  float* rowp = reinterpret_cast<float*>(base + L.rowp);
-  float* colp = reinterpret_cast<float*>(base + L.colp);
-  float* dup = reinterpret_cast<float*>(base + L.dup);
-  float* cpp = reinterpret_cast<float*>(base + L.cpp);
-  float* dotp = reinterpret_cast<float*>(base + L.dotp);
-  double* dcum = reinterpret_cast<double*>(base + L.dcum);
-  double* cvd = reinterpret_cast<double*>(base + L.cvd);
-  double* dud = reinterpret_cast<double*>(base + L.dud);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const bf16* xg = static_cast<const bf16*>(p.x) + b * p.xsb + h * p.xsh;
-  const float* dg = p.dt + b * p.dsb + h * p.dsh;
+__global__ void __launch_bounds__(ssdw::THREADS, 1)
+    ssd_bwd_wgmma(const __grid_constant__ BwParams bp) {
+  const Params& p = bp.p;
+  char* sm = wgmma::aligned_smem();
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wt = tid & 127, g = lane >> 2, t = lane & 3;
+  const int cs = bp.cs, r = blockIdx.x % cs, grp = blockIdx.x / cs, b = blockIdx.y;
+  const int h0 = grp * bp.G, Gv = min(bp.G, p.H - h0);
+  const int c0 = r * bp.k, c1 = min(bp.nc, c0 + bp.k);
+  // Warpgroup w takes head w of the group; with one head, warpgroup 1
+  // repeats head 0's products and keeps nothing (products unconditional).
+  const bool live = wg < Gv;
+  const int hh = live ? wg : 0;
+  const int h = h0 + hh;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Bw::BAR);  // [0] loads, [1 + hh] S, [3 + hh] dS
+  float* rowv = reinterpret_cast<float*>(sm + Bw::ROWV);
+  const float* cbs = reinterpret_cast<const float*>(sm + Bw::CB);
+  float* vec = reinterpret_cast<float*>(sm + Bw::VEC) + hh * 4 * ROWS;
+  float* rowt = vec;              // sum_j V_ij dt_j
+  float* colv = vec + ROWS;       // sum_i V_ij
+  float* du = vec + 2 * ROWS;     // x_j . (B_j dS)
+  float* cpart = vec + 3 * ROWS;  // C_i . 2^cum_i (S_{c-1} dy_i)
+  float* red = reinterpret_cast<float*>(sm + Bw::RED) + hh * 4;
+  const char* xt = sm + Bw::X + hh * TILE_BYTES;
+  const char* yt = sm + Bw::DY + hh * TILE_BYTES;
+  char* s_hi = sm + Bw::ST + 2 * hh * SLAB_BYTES;  // the S inbox: fp32, then S_{c-1}'s hi
+  char* d_hi = sm + Bw::DS + 2 * hh * SLAB_BYTES;  // the dS inbox
+  char* d_lo = d_hi + SLAB_BYTES;
+  const float* hv = rowv + hh * BW_NV * ROWS;  // this head's row vectors
+  const float* dv = hv + ssdw::V_DT * ROWS;
+  const float* cm = hv + ssdw::V_CUM * ROWS;
+  const float* cf = hv + ssdw::V_COEF * ROWS;
+  const float* ec = hv + ssdw::V_ECUM * ROWS;
+  const bf16* xg = static_cast<const bf16*>(p.x) + b * p.xsb;
+  const bf16* yg = static_cast<const bf16*>(p.dy) + b * p.ysb;
   const bf16* bg = static_cast<const bf16*>(p.b) + b * p.bsb;
   const bf16* cg = static_cast<const bf16*>(p.c) + b * p.csb;
-  const bf16* yg = static_cast<const bf16*>(p.dy) + b * p.ysb + h * p.ysh;
-  bf16* dxg = static_cast<bf16*>(p.dx) + (static_cast<int64_t>(b) * p.S * p.H + h) * P;
-  float* ddtg = p.ddt + static_cast<int64_t>(b) * p.S * p.H + h;
-  float* dbg = p.dbh + (static_cast<int64_t>(b) * p.H + h) * p.S * N;
-  float* dcg = p.dch + (static_cast<int64_t>(b) * p.H + h) * p.S * N;
   const float a = p.A[h];
-  const float a2 = a * 1.4426950408889634f;  // A log2 e: cum in log2 units, exp2 below
-  const int64_t NPs = static_cast<int64_t>(N) * P;
-  // S_{c-1} of each chunk, bf16, in the scratch's states region.
-  bf16* states = reinterpret_cast<bf16*>(p.states);
-  auto state_at = [&](int ch) {
-    return states + ((static_cast<int64_t>(b) * p.nc + ch) * p.H + h) * NPs;
-  };
+  const int64_t NP = static_cast<int64_t>(p.N) * p.P;
 
-  // Rows of a chunk into a tile; rows past the sequence and columns past
-  // `width` are zeros.  cp.async where the rows allow, else plain loads.
-  auto stage = [&](const bf16* src, int64_t rstride, int width, const Tile tl, bf16* dst,
-                   int t0, int qv) {
-    if (tp.vec16) {
-      for (int idx = tid; idx < QP * tl.units; idx += TC_THREADS) {
-        const int j = idx / tl.units;
-        const int u = idx - j * tl.units;
-        const bool ok = j < qv && u * 8 < width;
-        mma::cp_async16(dst + tl.off(j, u), ok ? src + (t0 + j) * rstride + u * 8 : src, ok);
+  if (tid == 0) {
+    mma::mbar_init(&bars[0], 1);
+    // An inbox's barrier completes when the neighbour's bulk copy of the
+    // state (16 KB) has landed: S from block r - 1, dS from block r + 1.
+    for (int q = 0; q < BW_MAX_G; ++q) {
+      mma::mbar_init(&bars[1 + q], 1);
+      mma::mbar_init(&bars[3 + q], 1);
+      if (q < Gv && r > 0) mma::mbar_expect_tx(&bars[1 + q], ssdw::STATE_BYTES);
+      if (q < Gv && r + 1 < cs) mma::mbar_expect_tx(&bars[3 + q], ssdw::STATE_BYTES);
+    }
+    mma::fence_mbar_init();
+  }
+  __syncthreads();
+  ssdw::cluster_arrive();
+  ssdw::cluster_wait();
+
+  int loaded = -1;
+  uint32_t phase = 0;
+  auto load_chunk = [&](int c) {
+    if (c == loaded) return;
+    __syncthreads();
+    const int t0 = c * p.Q, qv = min(p.Q, p.S - t0);
+    if (bp.tma) {
+      if (tid == 0) {
+        mma::fence_proxy_async();
+        mma::mbar_expect_tx(&bars[0], (2 + 2 * Gv) * TILE_BYTES);
+        ssdw::tma_rows(sm + Bw::B, &bp.mb, &bars[0], 0, t0, b);
+        ssdw::tma_rows(sm + Bw::C, &bp.mc, &bars[0], 0, t0, b);
+        for (int q = 0; q < Gv; ++q) {
+          ssdw::tma_rows(sm + Bw::X + q * TILE_BYTES, &bp.mx, &bars[0], h0 + q, t0, b);
+          ssdw::tma_rows(sm + Bw::DY + q * TILE_BYTES, &bp.mdy, &bars[0], h0 + q, t0, b);
+        }
       }
     } else {
-      for (int idx = tid; idx < QP * tl.units * 8; idx += TC_THREADS) {
-        const int j = idx / (tl.units * 8);
-        const int c = idx - j * tl.units * 8;
-        dst[tl.off(j, c >> 3) + (c & 7)] =
-            j < qv && c < width ? src[(t0 + j) * rstride + c] : __float2bfloat16_rn(0.f);
+      ssdw::plain_rows(sm + Bw::B, bg + t0 * p.bss, p.bss, p.N, qv);
+      ssdw::plain_rows(sm + Bw::C, cg + t0 * p.css, p.css, p.N, qv);
+      for (int q = 0; q < Gv; ++q) {
+        ssdw::plain_rows(sm + Bw::X + q * TILE_BYTES, xg + (h0 + q) * p.xsh + t0 * p.xss, p.xss,
+                         p.P, qv);
+        ssdw::plain_rows(sm + Bw::DY + q * TILE_BYTES, yg + (h0 + q) * p.ysh + t0 * p.yss, p.yss,
+                         p.P, qv);
       }
+      mma::fence_proxy_async();
     }
-  };
-  // dt of row tid of chunk ch (0 past the sequence); threads tid < QP.
-  auto dt_at = [&](int ch) -> float {
-    const int t0 = ch * Q;
-    return tid < min(Q, p.S - t0) ? __ldg(dg + (t0 + tid) * p.dss) : 0.f;
-  };
-  // Chunk ch's x and B (sweep 1), or x, dy, B and C (sweep 2), into input
-  // set ch & 1, as one cp.async group.
-  auto stage_chunk = [&](int ch, bool with_dy_c) {
-    const int t0 = ch * Q;
-    const int qv = min(Q, p.S - t0);
-    bf16* in = sm + (ch & 1) * L.set;
-    stage(xg, p.xss, P, L.xt, in + L.xs, t0, qv);
-    stage(bg, p.bss, N, L.nt, in + L.bs, t0, qv);
-    if (with_dy_c) {
-      stage(yg, p.yss, P, L.xt, in + L.ys, t0, qv);
-      stage(cg, p.css, N, L.nt, in + L.cs, t0, qv);
+    const int hw = tid >> 5;
+    if (hw < Gv)
+      ssdw::chunk_cum<false>(p.dt + b * p.dsb + (h0 + hw) * p.dsh + t0 * p.dss, p.dss, qv,
+                             p.A[h0 + hw] * ssdw::LOG2E, rowv + hw * BW_NV * ROWS);
+    __syncthreads();
+    if (bp.tma) {
+      mma::mbar_wait(&bars[0], phase);
+      phase ^= 1;
     }
-    mma::cp_async_commit();
-  };
-  // cum = cumsum(dt A) log2 e over the chunk: warp 0, up to 4 rows a lane,
-  // in fp32 as the bf16 forward does; fp64 (the scalar kernel's C2 repair)
-  // would lengthen warp 0's serial step for no gain at the bf16 gate.
-  auto chunk_cum = [&]() {
-    if (warp == 0) {
-      const int E = (QP + 31) / 32;
-      const int j0 = lane * E;
-      float loc[4];
-      float run = 0.f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + e;
-        if (e < E && j < QP) run += dts[j] * a2;
-        loc[e] = run;
-      }
-      float incl = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += v;
-      }
-      const float excl = incl - run;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + e;
-        if (e < E && j < QP) cum[j] = excl + loc[e];
-      }
-    }
+    loaded = c;
   };
 
-  // The state S (sweep 1) and its cotangent dS (sweep 2) live in mma
-  // accumulators: warp w owns m-tile w % MT (16 rows of N) and a run of up
-  // to 2 n8 tiles of P.
-  const int MT = NT;
-  const int groups = TC_WARPS / MT;
-  const int PT8 = L.PP / 8;
-  const int per = (PT8 + groups - 1) / groups;  // <= 2
-  const int s_m = warp % MT;
-  const int s_n0 = (warp / MT) * per;
-  const int s_cnt = max(0, min(per, PT8 - s_n0));
-  float st[2][4];
+  auto zero32 = [](float(&d)[32]) {
 #pragma unroll
-  for (int c = 0; c < 2; ++c) st[c][0] = st[c][1] = st[c][2] = st[c][3] = 0.f;
-
-  // ---- Sweep 1: the state before each chunk, as bf16, into the scratch. --
-  // The chunks' x and B alternate between the two input sets, the next
-  // chunk's landing while this one computes; the last chunk is not loaded
-  // (the state after it is not needed).
-  if (p.nc > 1) {
-    stage_chunk(0, false);
-    if (tid < QP) dts[tid] = dt_at(0);
-  }
-  for (int ch = 0; ch < p.nc; ++ch) {
-    const int t0 = ch * Q;
-    const int qv = min(Q, p.S - t0);
-    bf16* sg = state_at(ch);
+    for (int e = 0; e < 32; ++e) d[e] = 0.f;
+  };
+  // d (rows p, columns n) <- decay d + sum_j (f_j v_j)^T W_j for a 128-row
+  // tile v (x or dy), f a row vector, W (B or C) MN-major; f v as bf16 hi +
+  // lo, or hi alone (split false).
+  auto state_product = [&](float(&d)[32], float decay, const char* v, const char* w,
+                           const float* f, bool split) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = (s_n0 + c) * 8 + 2 * t;
-      if (c >= s_cnt || col >= P) break;
+    for (int e = 0; e < 32; ++e) d[e] *= decay;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int n = s_m * 16 + g + 8 * r;
-        if (n < N)
-          *reinterpret_cast<uint32_t*>(sg + n * P + col) =
-              mma::pack_bf16(st[c][2 * r], st[c][2 * r + 1]);
+    for (int half = 0; half < 2; ++half) {
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ssdw::xt_frag(v, 4 * half + q, warp, f, hi[q], lo[q]);
+      wgmma::fence_regs(hi);
+      wgmma::fence_regs(lo);
+      wgmma::fence_regs(d);
+      wgmma::fence();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint64_t bd = wgmma::desc_mn(w, 4 * half + q, TILE_BYTES);
+        wgmma::rs(d, hi[q], bd);
+        if (split) wgmma::rs(d, lo[q], bd);
       }
-    }
-    if (ch + 1 == p.nc) break;
-    mma::cp_async_wait<0>();
-    __syncthreads();
-    float dt_next = 0.f;
-    if (ch + 2 < p.nc) {
-      stage_chunk(ch + 1, false);
-      if (tid < QP) dt_next = dt_at(ch + 1);
-    }
-    const bf16* Xs = sm + (ch & 1) * L.set + L.xs;
-    const bf16* Bs = sm + (ch & 1) * L.set + L.bs;
-    chunk_cum();
-    __syncthreads();
-    // S <- 2^tot S + sum_j B_j (coef_j x_j)^T, coef_j = 2^(tot - cum_j) dt_j;
-    // coef x is split into bf16 hi + lo (see the note at the top).
-    if (s_cnt > 0) {
-      const float tot = cum[QP - 1];
-      const float decay = mma::exp2_approx(tot);
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[c][e] *= decay;
-      for (int j0 = 0; j0 < qv; j0 += 16) {
-        uint32_t ab[4];
-        mma::ldmatrix_x4_trans(ab, Bs + L.nt.off(j0 + (lane & 7) + ((lane >> 4) << 3),
-                                                 2 * s_m + ((lane >> 3) & 1)));
-        float cf[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = j0 + 2 * t + (e & 1) + 8 * (e >> 1);
-          cf[e] = mma::exp2_approx(tot - cum[j]) * dts[j];
-        }
-        const int xrow = j0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (c >= s_cnt) break;
-          uint32_t xb[2];
-          mma::ldmatrix_x2_trans(xb, Xs + L.xt.off(xrow, s_n0 + c));
-          const float2 x0 = mma::unpack_bf16(xb[0]);
-          const float2 x1 = mma::unpack_bf16(xb[1]);
-          uint32_t bh0, bl0, bh1, bl1;
-          mma::split_bf16(x0.x * cf[0], x0.y * cf[1], bh0, bl0);
-          mma::split_bf16(x1.x * cf[2], x1.y * cf[3], bh1, bl1);
-          mma::mma_bf16(st[c], ab, bh0, bh1);
-          mma::mma_bf16(st[c], ab, bl0, bl1);
-        }
-      }
-    }
-    __syncthreads();
-    if (tid < QP) dts[tid] = dt_next;
-  }
-  __syncthreads();  // the last chunk's S_{c-1}, read back below
-
-  // ---- Sweep 2: backward over the chunks, carrying dS. --------------------
-  const float* dfg =
-      p.dfinal ? p.dfinal + (static_cast<int64_t>(b) * p.H + h) * NPs : nullptr;
-  float ds[2][4];
-#pragma unroll
-  for (int c = 0; c < 2; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int n = s_m * 16 + g + 8 * (e >> 1);
-      const int col = (s_n0 + c) * 8 + 2 * t + (e & 1);
-      ds[c][e] = dfg && c < s_cnt && n < N && col < P ? dfg[n * P + col] : 0.f;
-    }
-  // dS as a bf16 operand, [N][P] (every tile written, padding zero).
-  auto write_dsb = [&]() {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      if (c >= s_cnt) break;
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<uint32_t*>(dSb + L.xt.off(s_m * 16 + g + 8 * r, s_n0 + c) + 2 * t) =
-            mma::pack_bf16(ds[c][2 * r], ds[c][2 * r + 1]);
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_regs(d);
     }
   };
-  write_dsb();
-  double dA_acc = 0.0;  // warp 0, lane 0
-  const int ntri = QT * (QT + 1) / 2;
-  const int per_row = PT + 2 * NT;  // product tasks per 16-row tile: dx, dB, dC
-  // S_{c-1} of chunk ch (zero before the first chunk), written by sweep 1,
-  // via L2: cp.async where its rows are whole 16-byte units (one group).
-  auto load_prev = [&](int ch) {
-    const bf16* sg = state_at(ch);
-    if (P % 8 == 0) {
-      for (int idx = tid; idx < L.NP * L.xt.units; idx += TC_THREADS) {
-        const int n = idx / L.xt.units;
-        const int u = idx - n * L.xt.units;
-        const bool ok = n < N && u * 8 < P;
-        mma::cp_async16(Spb + L.xt.off(n, u), ok ? sg + n * P + u * 8 : sg, ok);
-      }
-      mma::cp_async_commit();
-    } else {
-      const int half = L.PP / 2;
-      for (int idx = tid; idx < L.NP * half; idx += TC_THREADS) {
-        const int n = idx / half;
-        const int c2 = (idx - n * half) * 2;
-        const uint32_t v =
-            n < N && c2 < P ? __ldcg(reinterpret_cast<const uint32_t*>(sg + n * P + c2)) : 0u;
-        *reinterpret_cast<uint32_t*>(Spb + L.xt.off(n, c2 >> 3) + (c2 & 7)) = v;
-      }
-    }
+  // S's local term of the loaded chunk: L <- 2^tot L + sum_j (coef_j x_j)^T B_j.
+  auto local_s = [&](float(&L)[32]) {
+    state_product(L, mma::exp2_approx(cm[ROWS - 1]), xt, sm + Bw::B, cf, true);
   };
-  stage_chunk(p.nc - 1, true);
-  if (tid < QP) dts[tid] = dt_at(p.nc - 1);
-  if (p.nc > 1) load_prev(p.nc - 1);
-  for (int ch = p.nc - 1; ch >= 0; --ch) {
-    const int t0 = ch * Q;
-    const int qv = min(Q, p.S - t0);
-    mma::cp_async_wait<0>();
-    __syncthreads();
-    // The next chunk (ch - 1) lands in the other input set while this one
-    // computes; its S_{c-1} after phase P, the last read of this one's.
-    float dt_next = 0.f;
-    if (ch > 0) {
-      stage_chunk(ch - 1, true);
-      if (tid < QP) dt_next = dt_at(ch - 1);
-    }
-    const bf16* Xs = sm + (ch & 1) * L.set + L.xs;
-    const bf16* Ys = sm + (ch & 1) * L.set + L.ys;
-    const bf16* Bs = sm + (ch & 1) * L.set + L.bs;
-    const bf16* Cs = sm + (ch & 1) * L.set + L.cs;
-    chunk_cum();
-    // <dS, S_{c-1}> over this warp's tiles, for dtot (dS not yet updated).
-    {
-      float s = 0.f;
-      if (ch > 0) {
+  // dS's local term: M <- 2^tot M + sum_i (2^cum_i dy_i)^T C_i.
+  auto local_ds = [&](float(&M)[32]) {
+    state_product(M, mma::exp2_approx(cm[ROWS - 1]), yt, sm + Bw::C, ec, false);
+  };
+  // A thread's places in a 64 x 64 accumulator: element 4 jn + 2 hf (+ 1)
+  // at row 16 warp + g + 8 hf, columns 8 jn + 2 t (+ 1).
+  auto slab_off = [&](int jn, int hf) { return ssdw::sw(16 * warp + g + 8 * hf, 8 * jn + 2 * t); };
+  // A state from its bf16 hi and lo slabs.
+  auto get_state = [&](float(&s)[32], const char* hi, const char* lo) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (c >= s_cnt) break;
+    for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const float2 sp = mma::unpack_bf16(*reinterpret_cast<const uint32_t*>(
-                Spb + L.xt.off(s_m * 16 + g + 8 * r, s_n0 + c) + 2 * t));
-            s = fmaf(ds[c][2 * r], sp.x, fmaf(ds[c][2 * r + 1], sp.y, s));
-          }
-        }
+      for (int hf = 0; hf < 2; ++hf) {
+        const float2 u = mma::unpack_bf16(*reinterpret_cast<const uint32_t*>(hi + slab_off(jn, hf)));
+        const float2 l = mma::unpack_bf16(*reinterpret_cast<const uint32_t*>(lo + slab_off(jn, hf)));
+        s[4 * jn + 2 * hf] = u.x + l.x;
+        s[4 * jn + 2 * hf + 1] = u.y + l.y;
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) dotp[warp] = s;
-    }
-    __syncthreads();
-    const float tot = cum[QP - 1];
-    if (tid < QP) {
-      ecum[tid] = mma::exp2_approx(cum[tid]);
-      uu[tid] = mma::exp2_approx(tot - cum[tid]) * dts[tid];
-    }
+  };
+  float* lpre_at = bp.lpre;  // this block's slot of chunk c: lpre_at + lpre_slot(c)
+  auto lpre_slot = [&](int c) {
+    return ((static_cast<int64_t>(b) * bp.nc + c) * p.H + h) * 4096 + wt;
+  };
 
-    // Phase T: per 16 x 16 tile of the lower triangle, C B^T over N and
-    // dy x^T over P, once; then with L_ij = 2^(cum_i - cum_j) (j <= i only)
-    // W = (C B^T) L dt_j and E = L dt_j (dy x^T) into shared memory as bf16,
-    // and V = (C B^T) L (dy x^T) summed by row (times dt_j) and by column.
-    for (int k = warp; k < ntri; k += TC_WARPS) {
-      int it = static_cast<int>((sqrtf(8.f * k + 1.f) - 1.f) * 0.5f);
-      while ((it + 1) * (it + 2) / 2 <= k) ++it;
-      while (it * (it + 1) / 2 > k) --it;
-      const int jt = k - it * (it + 1) / 2;
-      const int i0 = it * 16, j0 = jt * 16;
-      if (i0 >= qv) continue;
-      float cb[2][4] = {}, dd[2][4] = {};
-      for (int kn = 0; kn < NT; ++kn) {
-        uint32_t af[4], bb[4];
-        mma::ldmatrix_x4(af, Cs + L.nt.off(i0 + (lane & 15), 2 * kn + (lane >> 4)));
-        mma::ldmatrix_x4(bb, Bs + L.nt.off(j0 + (lane & 7) + ((lane >> 4) << 3),
-                                           2 * kn + ((lane >> 3) & 1)));
-        mma::mma_bf16(cb[0], af, bb[0], bb[1]);
-        mma::mma_bf16(cb[1], af, bb[2], bb[3]);
-      }
-      for (int kp = 0; kp < PT; ++kp) {
-        uint32_t af[4], bb[4];
-        mma::ldmatrix_x4(af, Ys + L.xt.off(i0 + (lane & 15), 2 * kp + (lane >> 4)));
-        mma::ldmatrix_x4(bb, Xs + L.xt.off(j0 + (lane & 7) + ((lane >> 4) << 3),
-                                           2 * kp + ((lane >> 3) & 1)));
-        mma::mma_bf16(dd[0], af, bb[0], bb[1]);
-        mma::mma_bf16(dd[1], af, bb[2], bb[3]);
-      }
-      const float ci[2] = {cum[i0 + g], cum[i0 + g + 8]};
-      float rsum[2] = {0.f, 0.f}, csum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  // ---- Pass A: the head's local S over the block's chunks (forward) and
+  // local dS (backward); then the hand-offs, S forward through the
+  // cluster, dS backward.  (k > 1: the local S before each later chunk
+  // goes to the scratch for pass B.)
+  float Sin[32], dSin[32];
+  zero32(Sin);
+  float dl = 0.f;  // sum of tot over the block's chunks, log2 units
+  {
+    float L[32];
+    zero32(L);
+    for (int c = c0; c < c1; ++c) {
+      load_chunk(c);
+      if (c > c0 && live)
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = i0 + mma::acc_row(lane, e);
-          const int j = j0 + 8 * jj + mma::acc_col(lane, e);
-          const float l = j <= i ? mma::exp2_approx(ci[e >> 1] - cum[j]) : 0.f;
-          const float gl = cb[jj][e] * l;
-          const float v = gl * dd[jj][e];
-          rsum[e >> 1] = fmaf(v, dts[j], rsum[e >> 1]);
-          csum[jj][e & 1] += v;
-          cb[jj][e] = gl * dts[j];
-          dd[jj][e] = l * dts[j] * dd[jj][e];
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
-        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
-      }
-      if (t == 0) {
-        rowp[jt * QP + i0 + g] = rsum[0];
-        rowp[jt * QP + i0 + g + 8] = rsum[1];
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float v = csum[jj][c];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if (g == 0) colp[it * QP + j0 + 8 * jj + 2 * t + c] = v;
-        }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int o = L.qt.off(i0 + g + 8 * r, 2 * jt + jj) + 2 * t;
-          *reinterpret_cast<uint32_t*>(Ws + o) = mma::pack_bf16(cb[jj][2 * r], cb[jj][2 * r + 1]);
-          *reinterpret_cast<uint32_t*>(Es + o) = mma::pack_bf16(dd[jj][2 * r], dd[jj][2 * r + 1]);
-        }
+        for (int e = 0; e < 32; ++e) lpre_at[lpre_slot(c) + e * 128] = L[e];
+      local_s(L);
+      dl += cm[ROWS - 1];
     }
-    __syncthreads();
-
-    // Phase P: 16 x 16 output tiles.  Per 16-row tile rt, its dx and dB
-    // tiles (rows j = rt) and the dC tiles of rows i = QT - 1 - rt, whose
-    // triangle sums are as long; the longest first.
-    //   dx_j = sum_{i>=j} W_ij dy_i + u_j (B_j dS)     (W^T dy, B dS)
-    //   dB_j = sum_{i>=j} E_ij C_i + u_j (dS x_j)      (E^T C, x dS^T)
-    //   dC_i = sum_{j<=i} E_ij B_j + 2^cum_i (S_{c-1} dy_i)  (E B, dy S^T)
-    // with the row dots x_j . (B_j dS) and C_i . 2^cum_i (S_{c-1} dy_i)
-    // that dcum and ddt take.
-    for (int task = warp; task < QT * per_row; task += TC_WARPS) {
-      const int rt = task / per_row;
-      int col = task - rt * per_row;
-      const int kind = col < PT ? 0 : col < PT + NT ? 1 : 2;
-      col -= kind == 0 ? 0 : kind == 1 ? PT : PT + NT;
-      const int r0 = (kind == 2 ? QT - 1 - rt : rt) * 16;  // output rows
-      if (r0 >= qv) continue;
-      float a1[2][4] = {}, a2v[2][4] = {};
-      if (kind == 2) {
-        for (int jt = 0; jt * 16 <= r0; ++jt) {
-          uint32_t af[4], bb[4];
-          mma::ldmatrix_x4(af, Es + L.qt.off(r0 + (lane & 15), 2 * jt + (lane >> 4)));
-          mma::ldmatrix_x4_trans(bb, Bs + L.nt.off(jt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                                   2 * col + (lane >> 4)));
-          mma::mma_bf16(a1[0], af, bb[0], bb[1]);
-          mma::mma_bf16(a1[1], af, bb[2], bb[3]);
+    zero32(dSin);  // dSin holds M, the local dS, until the hand-off
+    for (int c = c1 - 1; c >= c0; --c) {
+      load_chunk(c);
+      local_ds(dSin);
+    }
+    const float D = mma::exp2_approx(dl);
+    if (live) {
+      // The two hand-offs, S forward and dS backward, each from its inbox
+      // (fp32, fragment order) to the neighbour's; a block takes first the
+      // one that reaches it first (S in the first half of the cluster), so
+      // both chains run at once: cs - 1 hops, not 2 (cs - 1).
+      float in[32];
+      // A state into this block's inbox ib (its own input is in
+      // registers by now), then one bulk copy into block dst's inbox,
+      // completing on that block's barrier q.
+      auto send = [&](const float(&s)[32], char* ib, int q, int dst) {
+        ssdw::wg_sync(wg);
+        ssdw::put_frag(s, ib, wt);
+        mma::fence_proxy_async();
+        ssdw::wg_sync(wg);
+        if (wt == 0)
+          ssdw::bulk_to_cluster(ssdw::cluster_addr(ib, dst), ib, ssdw::STATE_BYTES,
+                                ssdw::cluster_addr(&bars[q], dst));
+      };
+      auto s_step = [&]() {
+        if (r > 0) {
+          ssdw::mbar_wait_cluster(&bars[1 + hh], 0);
+          ssdw::recv_frag(Sin, s_hi, wt);
         }
-        if (ch > 0)
-          for (int kp = 0; kp < PT; ++kp) {
-            uint32_t af[4], bb[4];
-            mma::ldmatrix_x4(af, Ys + L.xt.off(r0 + (lane & 15), 2 * kp + (lane >> 4)));
-            mma::ldmatrix_x4(bb, Spb + L.xt.off(col * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                                2 * kp + ((lane >> 3) & 1)));
-            mma::mma_bf16(a2v[0], af, bb[0], bb[1]);
-            mma::mma_bf16(a2v[1], af, bb[2], bb[3]);
-          }
-      } else {
-        const bf16* Mt = kind == 0 ? Ws : Es;    // W^T or E^T as the A operand
-        const bf16* Ri = kind == 0 ? Ys : Cs;    // dy_i or C_i as the B operand
-        const Tile rt_tile = kind == 0 ? L.xt : L.nt;
-        for (int i0 = r0; i0 < qv; i0 += 16) {
-          uint32_t af[4], bb[4];
-          mma::ldmatrix_x4_trans(af, Mt + L.qt.off(i0 + (lane & 7) + ((lane >> 4) << 3),
-                                                   r0 / 8 + ((lane >> 3) & 1)));
-          mma::ldmatrix_x4_trans(bb, Ri + rt_tile.off(i0 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                                      2 * col + (lane >> 4)));
-          mma::mma_bf16(a1[0], af, bb[0], bb[1]);
-          mma::mma_bf16(a1[1], af, bb[2], bb[3]);
+        if (r + 1 < cs) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) L[e] = fmaf(D, Sin[e], L[e]);
+          send(L, s_hi, 1 + hh, r + 1);
         }
-        if (kind == 0) {
-          for (int kn = 0; kn < NT; ++kn) {
-            uint32_t af[4], bb[4];
-            mma::ldmatrix_x4(af, Bs + L.nt.off(r0 + (lane & 15), 2 * kn + (lane >> 4)));
-            mma::ldmatrix_x4_trans(bb, dSb + L.xt.off(kn * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                                      2 * col + (lane >> 4)));
-            mma::mma_bf16(a2v[0], af, bb[0], bb[1]);
-            mma::mma_bf16(a2v[1], af, bb[2], bb[3]);
-          }
+      };
+      auto ds_step = [&]() {
+        if (r + 1 < cs) {
+          ssdw::mbar_wait_cluster(&bars[3 + hh], 0);
+          ssdw::recv_frag(in, d_hi, wt);
         } else {
-          for (int kp = 0; kp < PT; ++kp) {
-            uint32_t af[4], bb[4];
-            mma::ldmatrix_x4(af, Xs + L.xt.off(r0 + (lane & 15), 2 * kp + (lane >> 4)));
-            mma::ldmatrix_x4(bb, dSb + L.xt.off(col * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                                2 * kp + ((lane >> 3) & 1)));
-            mma::mma_bf16(a2v[0], af, bb[0], bb[1]);
-            mma::mma_bf16(a2v[1], af, bb[2], bb[3]);
-          }
-        }
-      }
-      // Epilogue: rows r0 + g + 8r, columns col * 16 + 8 nn + 2t (+1).
-      const int width = kind == 0 ? P : N;
-      float dot[2] = {0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = r0 + g + 8 * r;
-        const float sc = kind == 2 ? ecum[row] : uu[row];
+          for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
-        for (int nn = 0; nn < 2; ++nn) {
-          const int c = col * 16 + 8 * nn + 2 * t;
-          const float v0 = a2v[nn][2 * r], v1 = a2v[nn][2 * r + 1];
-          if (kind != 1) {  // x_j . (B_j dS), or C_i . (S_{c-1} dy_i)
-            const float2 o = mma::unpack_bf16(*reinterpret_cast<const uint32_t*>(
-                kind == 0 ? Xs + L.xt.off(row, 2 * col + nn) + 2 * t
-                          : Cs + L.nt.off(row, 2 * col + nn) + 2 * t));
-            dot[r] = fmaf(o.x, v0, fmaf(o.y, v1, dot[r]));
-          }
-          if (row >= qv || c >= width) continue;
-          const float o0 = fmaf(sc, v0, a1[nn][2 * r]);
-          const float o1 = fmaf(sc, v1, a1[nn][2 * r + 1]);
-          const int64_t tr = t0 + row;
-          if (kind == 0)
-            *reinterpret_cast<__nv_bfloat162*>(dxg + tr * p.H * P + c) =
-                __floats2bfloat162_rn(o0, o1);
-          else
-            *reinterpret_cast<float2*>((kind == 1 ? dbg : dcg) + tr * N + c) = make_float2(o0, o1);
+            for (int e = 0; e < 4; ++e) {
+              const int pp = 16 * warp + g + 8 * (e >> 1), n = 8 * jn + 2 * t + (e & 1);
+              in[4 * jn + e] =
+                  p.dfinal && pp < p.P && n < p.N
+                      ? p.dfinal[(static_cast<int64_t>(b) * p.H + h) * NP + n * p.P + pp]
+                      : 0.f;
+            }
         }
-      }
-      if (kind != 1) {
+        if (r > 0) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
-          dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
+          for (int e = 0; e < 32; ++e) dSin[e] = fmaf(D, in[e], dSin[e]);
+          send(dSin, d_hi, 3 + hh, r - 1);
         }
-        if (t == 0) {
-          float* dst = kind == 0 ? dup : cpp;
-          dst[col * QP + r0 + g] = dot[0] * (kind == 2 ? ecum[r0 + g] : 1.f);
-          dst[col * QP + r0 + g + 8] = dot[1] * (kind == 2 ? ecum[r0 + g + 8] : 1.f);
-        }
+      };
+      if (2 * r < cs - 1) {
+        s_step();
+        ds_step();
+      } else {
+        ds_step();
+        s_step();
       }
+      ssdw::wg_sync(wg);  // every read of the two inboxes is done
+      // dS of the block's last chunk stays in its slabs (hi + lo) through
+      // pass B.  One chunk: its S_{c-1} is S_in, and <dS, S_{c-1}> is
+      // taken here; more: S_in goes to the scratch's slot of chunk c0.
+      ssdw::put_slabs(in, d_hi, d_lo);
+      if (bp.k == 1) {
+        ssdw::put_slabs(Sin, s_hi, nullptr);
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dot = fmaf(Sin[e], in[e], dot);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (lane == 0) red[warp] = dot;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) lpre_at[lpre_slot(c0) + e * 128] = Sin[e];
+      }
+      mma::fence_proxy_async();
     }
-    __syncthreads();
+  }
 
-    if (ch > 1) load_prev(ch - 1);
-    // Per row, one thread a row, in fp64 (these sums cancel): the partial
-    // sums of V, x_j . (B_j dS) and C_i . (S_{c-1} dy_i) summed in a fixed
-    // order, and dcum; rows past the chunk's end are zero.
-    if (tid < QP) {
-      const int j = tid;
-      double colv = 0.0, du = 0.0, d = 0.0;
-      if (j < qv) {
-        double rowt = 0.0, part = 0.0;
-        for (int it = j / 16; it * 16 < qv; ++it) colv += colp[it * QP + j];
-        for (int jt = 0; jt <= j / 16; ++jt) rowt += rowp[jt * QP + j];
-        for (int c = 0; c < PT; ++c) du += dup[c * QP + j];
-        if (ch > 0)
-          for (int c = 0; c < NT; ++c) part += cpp[c * QP + j];
-        d = part + rowt - static_cast<double>(dts[j]) * colv - static_cast<double>(uu[j]) * du;
-      }
-      dcum[j] = d;
-      cvd[j] = colv;
-      dud[j] = du;
+  // ---- Pass B: the chunks backward, dS_c carried from dS_in, S_{c-1} from
+  // S_in (and the scratch).
+  double dA_acc = 0.0;  // warp 0 lane 0 of the warpgroup
+  float dlc = dl;       // sum of tot over the block's chunks up to this one
+  for (int c = c1 - 1; c >= c0; --c) {
+    load_chunk(c);
+    const int t0 = c * p.Q, qv = min(p.Q, p.S - t0);
+    const float tot = cm[ROWS - 1];
+    dlc -= tot;  // now the sum over the chunks before c
+    // More than one chunk a block: S_{c-1} = 2^(sum of tot before c) S_in +
+    // the local state before c, as the bf16 operand; <dS_c, S_{c-1}>.
+    if (bp.k > 1 && live) {
+      float sp[32], ds[32];
+      const float dpre = mma::exp2_approx(dlc);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        sp[e] = dpre * lpre_at[lpre_slot(c0) + e * 128] +
+                (c > c0 ? lpre_at[lpre_slot(c) + e * 128] : 0.f);
+      get_state(ds, d_hi, d_lo);
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dot = fmaf(sp[e], ds[e], dot);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) red[warp] = dot;
+      ssdw::put_slabs(sp, s_hi, nullptr);
+      mma::fence_proxy_async();
     }
-    // dS <- 2^tot dS + sum_i C_i (2^cum_i dy_i)^T (every read of dSb is done).
-    if (s_cnt > 0) {
-      const float decay = mma::exp2_approx(tot);
+    // C B^T of the chunk: blocks (0,0) and (1,1) on warpgroup 0, (1,0) on 1.
+    for (int q = wg; q < 3; q += 2) {
+      const int it = q == 0 ? 0 : 1, jt = q == 2 ? 1 : 0;
+      float d[32];
+      zero32(d);
+      wgmma::fence_regs(d);
+      wgmma::fence();
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma::ss(d, wgmma::desc_k(sm + Bw::C + it * 8192, ks, TILE_BYTES),
+                  wgmma::desc_k(sm + Bw::B + jt * 8192, ks, TILE_BYTES));
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_regs(d);
+      float* blk = reinterpret_cast<float*>(sm + Bw::CB) + q * 64 * ssdw::CB_LD;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) ds[c][e] *= decay;
-      for (int i0 = 0; i0 < qv; i0 += 16) {
-        uint32_t ab[4];
-        mma::ldmatrix_x4_trans(ab, Cs + L.nt.off(i0 + (lane & 7) + ((lane >> 4) << 3),
-                                                 2 * s_m + ((lane >> 3) & 1)));
-        float ef[4];
+      for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) ef[e] = ecum[i0 + 2 * t + (e & 1) + 8 * (e >> 1)];
-        const int yrow = i0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (c >= s_cnt) break;
-          uint32_t yb[2];
-          mma::ldmatrix_x2_trans(yb, Ys + L.xt.off(yrow, s_n0 + c));
-          const float2 y0 = mma::unpack_bf16(yb[0]);
-          const float2 y1 = mma::unpack_bf16(yb[1]);
-          mma::mma_bf16(ds[c], ab, mma::pack_bf16(y0.x * ef[0], y0.y * ef[1]),
-                        mma::pack_bf16(y1.x * ef[2], y1.y * ef[3]));
-        }
-      }
-      write_dsb();
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(blk + (16 * warp + g + 8 * hf) * ssdw::CB_LD + 8 * jn +
+                                     2 * t) = make_float2(d[4 * jn + 2 * hf], d[4 * jn + 2 * hf + 1]);
     }
     __syncthreads();
-    // Warp 0: dtot, the reverse scan (d(dt a)_t = sum_{k>=t} dcum_k), ddt
-    // and this chunk's share of dA, in fp64.
-    if (warp == 0) {
-      const int E = (QP + 31) / 32;
-      const int j0 = lane * E;
-      double s = 0.0;
+    // The group's sum of an fp32 output tile (rows r0.., 64 x 64) into the
+    // partials: warpgroup 0's through shared memory, then warpgroup 1 adds
+    // its own and stores (one head: warpgroup 0 stores).  Whole-block
+    // barriers, so both warpgroups call it in step.
+    auto group_store = [&](const float(&d)[32], float* dst, int r0) {
+      const bool direct = Gv == 1;
+      if (wg == 0 && !direct)
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            *reinterpret_cast<float2*>(gsum_row(sm, 16 * warp + g + 8 * hf) + 8 * jn + 2 * t) =
+                make_float2(d[4 * jn + 2 * hf], d[4 * jn + 2 * hf + 1]);
+      __syncthreads();
+      if (wg == (direct ? 0 : 1))
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int rl = 16 * warp + g + 8 * hf, row = r0 + rl;
+            float2 v[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int jn = 2 * m + u;
+              v[u] = make_float2(d[4 * jn + 2 * hf], d[4 * jn + 2 * hf + 1]);
+              if (!direct) {
+                const float2 o =
+                    *reinterpret_cast<const float2*>(gsum_row(sm, rl) + 8 * jn + 2 * t);
+                v[u].x = o.x + v[u].x;
+                v[u].y = o.y + v[u].y;
+              }
+            }
+            const float4 w = ssdw::quad_pair(v[0], v[1], t);  // 16-byte stores
+            const int n = 16 * m + ssdw::quad_col(t);
+            if (row < qv && n < p.N)
+              *reinterpret_cast<float4*>(dst + static_cast<int64_t>(t0 + row) * p.N + n) = w;
+          }
+      __syncthreads();
+    };
+    float* dcg = bp.dcp + (static_cast<int64_t>(b) * bp.groups + grp) * p.S * p.N;
+    float* dbg = bp.dbp + (static_cast<int64_t>(b) * bp.groups + grp) * p.S * p.N;
+
+    // P1, rows i of tile it: dC_i = 2^cum_i (dy_i S_{c-1}^T) + sum_j E_ij B_j,
+    // E = L dt_j (dy x^T); row sums of V = (C B^T) L (dy x^T) times dt_j,
+    // and C_i . 2^cum_i (S_{c-1} dy_i).
+#pragma unroll 1
+    for (int it = 0; it < 2; ++it) {
+      float dc[32];
+      zero32(dc);
+      wgmma::fence_regs(dc);
+      wgmma::fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma::ss_mn(dc, wgmma::desc_k(yt + it * 8192, ks, TILE_BYTES),
+                     wgmma::desc_mn(s_hi, ks, SLAB_BYTES));
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_regs(dc);
+      const int i0 = 64 * it + 16 * warp + g;
+      const float ci[2] = {cm[i0], cm[i0 + 8]};
+      float cdot[2] = {0.f, 0.f}, rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float e = ec[i0 + 8 * hf];
+          const float2 cv = mma::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              sm + Bw::C + ssdw::sw(i0 + 8 * hf, 8 * jn + 2 * t)));
+          float& d0 = dc[4 * jn + 2 * hf];
+          float& d1 = dc[4 * jn + 2 * hf + 1];
+          d0 *= e;
+          d1 *= e;
+          cdot[hf] = fmaf(cv.x, d0, fmaf(cv.y, d1, cdot[hf]));
+        }
+#pragma unroll 1
+      for (int jt = 0; jt <= it; ++jt) {
+        float dd[32];
+        zero32(dd);
+        wgmma::fence_regs(dd);
+        wgmma::fence_regs(dc);
+        wgmma::fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma::ss(dd, wgmma::desc_k(yt + it * 8192, ks, TILE_BYTES),
+                    wgmma::desc_k(xt + jt * 8192, ks, TILE_BYTES));
+        wgmma::commit();
+        wgmma::wait<0>();
+        wgmma::fence_regs(dd);
+        const float* blk = cbs + (it == 0 ? 0 : jt == 0 ? 1 : 2) * 64 * ssdw::CB_LD;
+        uint32_t ef[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int hf = q & 1, jn = 2 * kk + (q >> 1);
+            const int i = i0 + 8 * hf;
+            const int jl = 8 * jn + 2 * t, j = 64 * jt + jl;
+            const float2 cb = *reinterpret_cast<const float2*>(
+                blk + (16 * warp + g + 8 * hf) * ssdw::CB_LD + jl);
+            float ev[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int jj = j + u;
+              const float l = jj <= i && i < qv && jj < qv ? mma::exp2_approx(ci[hf] - cm[jj]) : 0.f;
+              const float dval = dd[4 * jn + 2 * hf + u];
+              const float cbv = u ? cb.y : cb.x;
+              rsum[hf] = fmaf(cbv * l * dval, dv[jj], rsum[hf]);
+              ev[u] = l * dv[jj] * dval;
+            }
+            ef[kk][q] = mma::pack_bf16(ev[0], ev[1]);
+          }
+        wgmma::fence_regs(ef);
+        wgmma::fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma::rs(dc, ef[kk], wgmma::desc_mn(sm + Bw::B + jt * 8192, kk, TILE_BYTES));
+        wgmma::commit();
+        wgmma::wait<0>();
+        wgmma::fence_regs(dc);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float cd = cdot[hf], rs = rsum[hf];
+        cd += __shfl_xor_sync(0xffffffffu, cd, 1);
+        cd += __shfl_xor_sync(0xffffffffu, cd, 2);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        if (t == 0 && live) {
+          cpart[i0 + 8 * hf] = cd;
+          rowt[i0 + 8 * hf] = rs;
+        }
+      }
+      group_store(dc, dcg, 64 * it);
+    }
+
+    // P2, rows j of tile jt: dx_j = u_j (B_j dS) + sum_i W_ij dy_i and dB_j =
+    // u_j (dS x_j) + sum_i E_ij C_i with W = (C B^T) L dt_j, u_j = 2^(tot -
+    // cum_j) dt_j; column sums of V; x_j . (B_j dS).
+#pragma unroll 1
+    for (int jt = 0; jt < 2; ++jt) {
+      float dx[32], db[32];
+      zero32(dx);
+      zero32(db);
+      wgmma::fence_regs(dx);
+      wgmma::fence_regs(db);
+      wgmma::fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wgmma::ss(dx, wgmma::desc_k(sm + Bw::B + jt * 8192, ks, TILE_BYTES),
+                  wgmma::desc_k(d_hi, ks, SLAB_BYTES));
+        wgmma::ss_mn(db, wgmma::desc_k(xt + jt * 8192, ks, TILE_BYTES),
+                     wgmma::desc_mn(d_hi, ks, SLAB_BYTES));
+      }
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_regs(dx);
+      wgmma::fence_regs(db);
+      const int j0 = 64 * jt + 16 * warp + g;
+      float udot[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f};
+      float uj[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = j0 + 8 * hf;
+        uj[hf] = cf[j];
+      }
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float2 xv = mma::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              xt + ssdw::sw(j0 + 8 * hf, 8 * jn + 2 * t)));
+          float& d0 = dx[4 * jn + 2 * hf];
+          float& d1 = dx[4 * jn + 2 * hf + 1];
+          udot[hf] = fmaf(xv.x, d0, fmaf(xv.y, d1, udot[hf]));
+          d0 *= uj[hf];
+          d1 *= uj[hf];
+          db[4 * jn + 2 * hf] *= uj[hf];
+          db[4 * jn + 2 * hf + 1] *= uj[hf];
+        }
+#pragma unroll 1
+      for (int it = jt; it < 2; ++it) {
+        float ddt[32];
+        zero32(ddt);
+        wgmma::fence_regs(ddt);
+        wgmma::fence_regs(dx);
+        wgmma::fence_regs(db);
+        wgmma::fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma::ss(ddt, wgmma::desc_k(xt + jt * 8192, ks, TILE_BYTES),
+                    wgmma::desc_k(yt + it * 8192, ks, TILE_BYTES));
+        wgmma::commit();
+        wgmma::wait<0>();
+        wgmma::fence_regs(ddt);
+        const float* blk = cbs + (it == 0 ? 0 : jt == 0 ? 1 : 2) * 64 * ssdw::CB_LD;
+        uint32_t wf[4][4], ef[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int hf = q & 1, jn = 2 * kk + (q >> 1);
+            const int j = j0 + 8 * hf;
+            const int il = 8 * jn + 2 * t, i = 64 * it + il;
+            float wv[2], ev[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int ii = i + u;
+              const float l = j <= ii && ii < qv && j < qv ? mma::exp2_approx(cm[ii] - cm[j]) : 0.f;
+              const float cbv = blk[(il + u) * ssdw::CB_LD + 16 * warp + g + 8 * hf];
+              const float dval = ddt[4 * jn + 2 * hf + u];
+              csum[hf] = fmaf(cbv * l, dval, csum[hf]);
+              wv[u] = cbv * l * dv[j];
+              ev[u] = l * dv[j] * dval;
+            }
+            wf[kk][q] = mma::pack_bf16(wv[0], wv[1]);
+            ef[kk][q] = mma::pack_bf16(ev[0], ev[1]);
+          }
+        wgmma::fence_regs(wf);
+        wgmma::fence_regs(ef);
+        wgmma::fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma::rs(dx, wf[kk], wgmma::desc_mn(yt + it * 8192, kk, TILE_BYTES));
+          wgmma::rs(db, ef[kk], wgmma::desc_mn(sm + Bw::C + it * 8192, kk, TILE_BYTES));
+        }
+        wgmma::commit();
+        wgmma::wait<0>();
+        wgmma::fence_regs(dx);
+        wgmma::fence_regs(db);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float ud = udot[hf], cv = csum[hf];
+        ud += __shfl_xor_sync(0xffffffffu, ud, 1);
+        ud += __shfl_xor_sync(0xffffffffu, ud, 2);
+        cv += __shfl_xor_sync(0xffffffffu, cv, 1);
+        cv += __shfl_xor_sync(0xffffffffu, cv, 2);
+        if (t == 0 && live) {
+          du[j0 + 8 * hf] = ud;
+          colv[j0 + 8 * hf] = cv;
+        }
+      }
+      if (live) {
+        bf16* dxg = static_cast<bf16*>(p.dx) + ((static_cast<int64_t>(b) * p.S + t0) * p.H + h) * p.P;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {  // 8-byte stores
+            const int j = j0 + 8 * hf, a = 8 * m + 2 * hf, c = a + 4;
+            const uint2 v = ssdw::quad_pair(mma::pack_bf16(dx[a], dx[a + 1]),
+                                            mma::pack_bf16(dx[c], dx[c + 1]), t);
+            const int col = 16 * m + ssdw::quad_col(t);
+            if (j < qv && col < p.P)
+              *reinterpret_cast<uint2*>(dxg + static_cast<int64_t>(j) * p.H * p.P + col) = v;
+          }
+      }
+      group_store(db, dbg, 64 * jt);
+    }
+
+    // dcum, the reverse scan, ddt and this chunk's share of dA, in fp64, by
+    // warp 0 of the warpgroup (the row vectors are the warpgroup's).
+    if (wg == 0)
+      wgmma::bar_sync(1, 128);
+    else
+      wgmma::bar_sync(2, 128);
+    if (warp == 0 && live) {
+      double dc4[4], s = 0.0;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int j = j0 + e;
-        if (e < E && j < qv) s += static_cast<double>(uu[j]) * dud[j];
+        const int j = 4 * lane + e;
+        const double uu = j < qv ? static_cast<double>(mma::exp2_approx(tot - cm[j])) * dv[j] : 0.0;
+        dc4[e] = j < qv ? static_cast<double>(cpart[j]) + rowt[j] -
+                              static_cast<double>(dv[j]) * colv[j] - uu * du[j]
+                        : 0.0;
+        s += j < qv ? uu * du[j] : 0.0;
       }
-      double dot = 0.0;
-      for (int w = 0; w < TC_WARPS; ++w) dot += dotp[w];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      const double dot = static_cast<double>(red[0]) + red[1] + red[2] + red[3];
       const double dtot = static_cast<double>(mma::exp2_approx(tot)) * dot + s;
-      double loc[4];
-      double run = 0.0;
+      double loc[4], run = 0.0;
 #pragma unroll
       for (int e = 3; e >= 0; --e) {
-        const int j = j0 + e;
-        if (e < E && j < QP) run += dcum[j] + (j == QP - 1 ? dtot : 0.0);
+        const int j = 4 * lane + e;
+        run += dc4[e] + (j == ROWS - 1 ? dtot : 0.0);
         loc[e] = run;
       }
       double incl = run;
@@ -1436,39 +1477,122 @@ __global__ void __launch_bounds__(TC_THREADS, 1) ssd_bwd_bf16(const TcParams tp)
       double da_sum = 0.0;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int j = j0 + e;
-        if (e < E && j < qv) {
+        const int j = 4 * lane + e;
+        if (j < qv) {
           const double da = loc[e] + excl;
-          const double erem = mma::exp2_approx(tot - cum[j]);
-          ddtg[static_cast<int64_t>(t0 + j) * p.H] =
-              static_cast<float>(a * da + cvd[j] + erem * dud[j]);
-          da_sum += dts[j] * da;
+          const double erem = mma::exp2_approx(tot - cm[j]);
+          p.ddt[(static_cast<int64_t>(b) * p.S + t0 + j) * p.H + h] =
+              static_cast<float>(a * da + colv[j] + erem * du[j]);
+          da_sum += dv[j] * da;
         }
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) da_sum += __shfl_xor_sync(0xffffffffu, da_sum, off);
-      if (lane == 0) dA_acc += da_sum;
+      dA_acc += da_sum;
     }
-    __syncthreads();
-    if (tid < QP) dts[tid] = dt_next;
+    // dS_{c-1} = 2^tot dS_c + sum_i (2^cum_i dy_i)^T C_i, for the chunk before.
+    if (c > c0) {
+      float m[32];
+      zero32(m);
+      local_ds(m);
+      if (live) {
+        float ds[32];
+        get_state(ds, d_hi, d_lo);
+        const float decay = mma::exp2_approx(tot);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) ds[e] = fmaf(decay, ds[e], m[e]);
+        ssdw::put_slabs(ds, d_hi, d_lo);
+        mma::fence_proxy_async();
+      }
+    }
   }
-  if (tid == 0) p.dah[static_cast<int64_t>(b) * p.H + h] = static_cast<float>(dA_acc);
+  if (live && warp == 0 && lane == 0)
+    bp.dap[(static_cast<int64_t>(b) * cs + r) * p.H + h] = static_cast<float>(dA_acc);
 }
 
-cudaError_t launch_bf16(Params p, void* db, void* dc, float* dA, cudaStream_t stream) {
+// dB and dC: the group partials summed; dA: the (b, block) partials; fp64,
+// in a fixed order.
+__global__ void __launch_bounds__(RED_THREADS)
+    ssd_bwd_gsum(const float* dbp, const float* dcp, const float* dap, bf16* db, bf16* dc,
+                 float* dA, int B, int S, int N, int groups, int H, int cs) {
+  const int64_t SN = static_cast<int64_t>(S) * N;
+  const int64_t BSN = B * SN;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * RED_THREADS + threadIdx.x;
+  if (idx < 2 * BSN) {
+    const bool is_c = idx >= BSN;
+    const int64_t e = is_c ? idx - BSN : idx;
+    const int64_t bb = e / SN;
+    const float* src = (is_c ? dcp : dbp) + bb * groups * SN + (e - bb * SN);
+    double s = 0.0;
+    for (int q = 0; q < groups; ++q) s += src[q * SN];
+    (is_c ? dc : db)[e] = __float2bfloat16(static_cast<float>(s));
+  } else if (idx < 2 * BSN + H) {
+    const int hh = static_cast<int>(idx - 2 * BSN);
+    double s = 0.0;
+    for (int q = 0; q < B * cs; ++q) s += dap[static_cast<int64_t>(q) * H + hh];
+    dA[hh] = static_cast<float>(s);
+  }
+}
+
+// The plan of a bf16 call: heads a block (G), chunks a block (k), blocks a
+// cluster (cs), on the current device (ssd_wgmma.cuh's rule).
+cudaError_t bw_plan(int B, int S, int H, int Q, int& G, int& k, int& cs) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      ssd_bwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_MAX_BYTES);
+      ssd_bwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, Bw::BYTES);
   if (attr != cudaSuccess) return attr;
-  auto al16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
-  const bool vec16 = al16(p.x) && al16(p.b) && al16(p.c) && al16(p.dy) && p.P % 8 == 0 &&
-                     p.N % 8 == 0 && p.xsb % 8 == 0 && p.xss % 8 == 0 && p.xsh % 8 == 0 &&
-                     p.bsb % 8 == 0 && p.bss % 8 == 0 && p.csb % 8 == 0 && p.css % 8 == 0 &&
-                     p.ysb % 8 == 0 && p.yss % 8 == 0 && p.ysh % 8 == 0;
-  const TcParams tp{p, vec16 ? 1 : 0};
-  ssd_bwd_bf16<<<dim3(p.H, p.B), TC_THREADS, TcLayout(p.Q, p.N, p.P).bytes, stream>>>(tp);
-  cudaError_t err = cudaGetLastError();
+  ssdw::chunk_plan((S + Q - 1) / Q, k, cs);
+  int slots = 0;
+  const cudaError_t err = ssdw::cluster_slots(ssd_bwd_wgmma, cs, Bw::BYTES, slots);
   if (err != cudaSuccess) return err;
-  return launch_reduce<bf16>(p, db, dc, dA, stream);
+  G = ssdw::group_size(B, cs, H, BW_MAX_G, slots);
+  return cudaSuccess;
+}
+
+cudaError_t launch_bf16(const Params& p, void* db, void* dc, float* dA, float* scratch,
+                        cudaStream_t stream) {
+  BwParams bp{};
+  bp.p = p;
+  bp.nc = p.nc;
+  const cudaError_t perr = bw_plan(p.B, p.S, p.H, p.Q, bp.G, bp.k, bp.cs);
+  if (perr != cudaSuccess) return perr;
+  bp.groups = (p.H + bp.G - 1) / bp.G;
+  const BwScratch sc(p.B, p.S, p.H, p.N, p.Q, bp.G, bp.k, bp.cs);
+  bp.dbp = scratch + sc.dbp;
+  bp.dcp = scratch + sc.dcp;
+  bp.dap = scratch + sc.dap;
+  bp.lpre = scratch + sc.lpre;
+  const int64_t xs[3] = {p.xsb, p.xsh, p.xss}, ys[3] = {p.ysb, p.ysh, p.yss},
+                bs[3] = {p.bsb, p.bss, p.bss}, cs[3] = {p.csb, p.css, p.css};
+  bp.tma = ssdw::describable(p.x, xs) && ssdw::describable(p.dy, ys) &&
+           ssdw::describable(p.b, bs) && ssdw::describable(p.c, cs);
+  if (bp.tma && !(mma::encode_map(&bp.mx, p.x, xs, p.P, p.H, p.S, p.B) &&
+                  mma::encode_map(&bp.mdy, p.dy, ys, p.P, p.H, p.S, p.B) &&
+                  mma::encode_map(&bp.mb, p.b, bs, p.N, 1, p.S, p.B) &&
+                  mma::encode_map(&bp.mc, p.c, cs, p.N, 1, p.S, p.B)))
+    return cudaErrorInvalidValue;
+  const int64_t blocks = static_cast<int64_t>(bp.cs) * bp.groups;
+  if (blocks > 2147483647) return cudaErrorInvalidValue;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = bp.cs;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), p.B);
+  cfg.blockDim = dim3(ssdw::THREADS);
+  cfg.dynamicSmemBytes = Bw::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, ssd_bwd_wgmma, bp);
+  if (err != cudaSuccess) return err;
+  const int64_t n = 2 * static_cast<int64_t>(p.B) * p.S * p.N + p.H;
+  const int64_t rblocks = (n + RED_THREADS - 1) / RED_THREADS;
+  if (rblocks > 2147483647) return cudaErrorInvalidValue;
+  ssd_bwd_gsum<<<static_cast<unsigned>(rblocks), RED_THREADS, 0, stream>>>(
+      bp.dbp, bp.dcp, bp.dap, static_cast<bf16*>(db), static_cast<bf16*>(dc), dA, p.B, p.S, p.N,
+      bp.groups, p.H, bp.cs);
+  return cudaGetLastError();
 }
 
 bool supported(int v, int hi) { return v >= 4 && v <= hi && v % 4 == 0; }
@@ -1480,15 +1604,40 @@ extern "C" int ssd_scan_bwd_smem_bytes(int Q, int N, int P) {
   return static_cast<int>(sizeof(float) * Layout(Q, N, P).total);
 }
 
-// Bytes of dynamic shared memory a block of the bf16 (tensor-core) kernel takes.
-extern "C" int ssd_scan_bwd_tc_smem_bytes(int Q, int N, int P) {
-  return TcLayout(Q, N, P).bytes;
+// Bytes of dynamic shared memory a block of the bf16 kernel (ssd_bwd_wgmma,
+// whose plan is fixed: 128-row chunk tiles, 64-column slabs, up to 2
+// heads) takes.
+extern "C" int ssd_scan_bwd_tc_smem_bytes(int Q, int N, int P) { return Bw::BYTES; }
+
+// Bytes of fp32 device scratch a call of this dtype takes (0 = float32:
+// the states before each chunk and the per-head partials of dB, dC and
+// dA; 1 = bfloat16: the per-group partials of dB and dC, the per-(b,
+// block) partials of dA and, where a block takes more than one chunk, its
+// local states before each; its plan is the device's).  -1 if the plan
+// cannot be made (no cluster fits).
+extern "C" int64_t ssd_scan_bwd_scratch_bytes_of(int B, int S, int H, int P, int N, int Q,
+                                                 int dtype) {
+  if (dtype != 1) return static_cast<int64_t>(sizeof(float)) * Scratch(B, S, H, P, N, Q).total;
+  int G, k, cs;
+  if (bw_plan(B, S, H, Q, G, k, cs) != cudaSuccess) return -1;
+  return static_cast<int64_t>(sizeof(float)) * BwScratch(B, S, H, N, Q, G, k, cs).total;
 }
 
-// Bytes of fp32 device scratch a call takes: the states before each chunk
-// and the per-head partials of dB, dC and dA.
+// The larger of the two, enough for a call of either dtype (-1 as above).
 extern "C" int64_t ssd_scan_bwd_scratch_bytes(int B, int S, int H, int P, int N, int Q) {
-  return static_cast<int64_t>(sizeof(float)) * Scratch(B, S, H, P, N, Q).total;
+  const int64_t f = ssd_scan_bwd_scratch_bytes_of(B, S, H, P, N, Q, 0);
+  const int64_t h = ssd_scan_bwd_scratch_bytes_of(B, S, H, P, N, Q, 1);
+  return h < 0 ? h : f > h ? f : h;
+}
+
+// The bf16 kernel's plan on the current device: through G, k and cs the
+// heads a block holds, the chunks a block takes and the blocks a cluster,
+// and through slots the blocks that run at once.  Returns a cudaError_t.
+extern "C" int ssd_scan_bwd_plan(int B, int S, int H, int Q, int* G, int* k, int* cs,
+                                 int* slots) {
+  cudaError_t err = bw_plan(B, S, H, Q, *G, *k, *cs);
+  if (err == cudaSuccess) err = ssdw::cluster_slots(ssd_bwd_wgmma, *cs, Bw::BYTES, *slots);
+  return static_cast<int>(err);
 }
 
 // dtype (of x, B, C, dy, dx, dB, dC): 0 = float32, 1 = bfloat16.  dt, A,
@@ -1518,7 +1667,7 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const 
   cudaError_t err;
   switch (dtype) {
     case 0: err = launch_fp32(p, db, dc, static_cast<float*>(dA), s); break;
-    case 1: err = launch_bf16(p, db, dc, static_cast<float*>(dA), s); break;
+    case 1: err = launch_bf16(p, db, dc, static_cast<float*>(dA), base, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

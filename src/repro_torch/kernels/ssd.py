@@ -11,9 +11,14 @@ allocated as a contiguous (B,S,H,P) tensor, the state as (B,H,N,P) fp32.
 The backward (``csrc/ssd_bwd.cu``, its own library) is
 :func:`ssd_scan_bwd_cuda`, which :class:`SsdScanFunction` calls; the
 differentiable entry on the card is :func:`repro_torch.kernels.ops.ssd_scan`.
-Like the forward it chooses its kernel by dtype alone: bf16 runs on the
-tensor cores (``ssd_bwd_bf16``), fp32 on scalar FMAs (``ssd_bwd``); either
-is followed by ``ssd_bwd_reduce``, which sums the per-head partials.
+Like the forward it chooses its kernel by dtype alone: bf16 runs the
+warpgroup kernel ``ssd_bwd_wgmma`` and then ``ssd_bwd_gsum``, which sums
+its per-group partials; fp32 runs the scalar ``ssd_bwd`` and then
+``ssd_bwd_reduce``, which sums its per-head partials.  The bf16 forward is
+``ssd_fwd_wgmma``, the fp32 forward ``ssd_fwd``.  Both bf16 kernels split
+a call's chunks over the blocks of thread-block clusters and give a block
+a group of heads: :func:`group_size` is the rule, which the library
+applies (:func:`plan` asks it).
 :func:`ssd_scan_cuda` alone refuses inputs that require a gradient under
 grad mode, since its output would carry none.  ``launches`` counts the
 forward kernel's launches and ``bwd_launches`` the backward's calls (two
@@ -36,6 +41,8 @@ from . import _build, abstract
 
 MAX_NP = 64      # N and P: multiples of 4 in [4, 64]
 MAX_CHUNK = 128  # chunk: a multiple of 4 in [4, 128]
+MAX_CLUSTER = 8  # blocks of a thread-block cluster (the portable limit)
+MAX_GROUP = {False: 4, True: 2}  # heads a block holds: forward, backward
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 NO_BACKWARD = ("ssd_scan_cuda records no gradient; call repro_torch.kernels.ops.ssd_scan, "
@@ -48,25 +55,35 @@ _bwd_fn = None
 _queries: dict = {}
 
 
+def bind_fwd(lib: ctypes.CDLL):
+    """The forward C entry ``ssd_scan_fwd`` of a built library, typed."""
+    fn = lib.ssd_scan_fwd
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [P] * 7 + [I] * 7 + [L] * 13 + [P]
+    fn.restype = I
+    return fn
+
+
+def bind_bwd(lib: ctypes.CDLL):
+    """The backward C entry ``ssd_scan_bwd`` of a built library, typed."""
+    fn = lib.ssd_scan_bwd
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [P] * 13 + [I] * 7 + [L] * 13 + [P]
+    fn.restype = I
+    return fn
+
+
 def _kernel():
     global _fn
     if _fn is None:
-        fn = _build.load("ssd").ssd_scan_fwd
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [P] * 7 + [I] * 7 + [L] * 13 + [P]
-        fn.restype = I
-        _fn = fn
+        _fn = bind_fwd(_build.load("ssd"))
     return _fn
 
 
 def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
-        fn = _build.load("ssd_bwd").ssd_scan_bwd
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [P] * 13 + [I] * 7 + [L] * 13 + [P]
-        fn.restype = I
-        _bwd_fn = fn
+        _bwd_fn = bind_bwd(_build.load("ssd_bwd"))
     return _bwd_fn
 
 
@@ -87,15 +104,61 @@ def bwd_smem_bytes(chunk: int, N: int, P: int) -> int:
 
 
 def bwd_tc_smem_bytes(chunk: int, N: int, P: int) -> int:
-    """Dynamic shared memory a block of the backward's bf16 (tensor-core)
-    kernel takes."""
+    """Dynamic shared memory a block of the backward's bf16 kernel
+    (``ssd_bwd_wgmma``) takes."""
     return _bwd_query("ssd_scan_bwd_tc_smem_bytes", chunk, N, P)
 
 
-def bwd_scratch_bytes(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:
-    """Bytes of fp32 device scratch a backward call takes."""
-    return _bwd_query("ssd_scan_bwd_scratch_bytes", B, S, H, P, N, chunk,
-                      restype=ctypes.c_int64)
+def bwd_scratch_bytes(B: int, S: int, H: int, P: int, N: int, chunk: int,
+                      dtype: torch.dtype = torch.float32) -> int:
+    """Bytes of fp32 device scratch a backward call in ``dtype`` takes."""
+    n = _bwd_query("ssd_scan_bwd_scratch_bytes_of", B, S, H, P, N, chunk, _DTYPE_CODE[dtype],
+                   restype=ctypes.c_int64)
+    if n < 0:
+        raise RuntimeError("ssd_scan_bwd: no plan for the bf16 kernel on this device")
+    return n
+
+
+def chunk_plan(nc: int) -> tuple[int, int]:
+    """(chunks a block takes, blocks a cluster) for ``nc`` chunks: at most
+    MAX_CLUSTER blocks, each ceil(nc / MAX_CLUSTER) consecutive chunks, the
+    last fewer."""
+    k = -(-nc // MAX_CLUSTER)
+    return k, -(-nc // k)
+
+
+def group_size(B: int, S: int, H: int, chunk: int, slots: int, *,
+               backward: bool = False) -> int:
+    """Heads a block of the bf16 kernels holds (``csrc/ssd_wgmma.cuh``'s
+    rule, which the library applies with the ``slots`` it measures): of G
+    in [1, MAX_GROUP], the one that minimises ceil(B cs ceil(H / G) / slots)
+    (F + ceil(G / 2)), the waves of the grid over the blocks that run at
+    once times a block's time (a fixed part F = 11/25 of a pair of heads,
+    and a unit a pair: the two warpgroups walk a pair at once), the largest
+    G on a tie."""
+    _, cs = chunk_plan(-(-S // chunk))
+    best, best_cost = 1, None
+    for g in range(1, MAX_GROUP[backward] + 1):
+        cost = -(-(B * cs * -(-H // g)) // slots) * (11 + 25 * -(-g // 2))
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = g, cost
+    return best
+
+
+def plan(B: int, S: int, H: int, chunk: int, *,
+         backward: bool = False) -> tuple[int, int, int, int]:
+    """(heads a block holds, chunks a block takes, blocks a cluster, blocks
+    that run at once) of a bf16 call on the current device, as the built
+    library plans it."""
+    lib = _build.load("ssd_bwd" if backward else "ssd")
+    fn = lib.ssd_scan_bwd_plan if backward else lib.ssd_scan_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = fn(B, S, H, chunk, *(ctypes.byref(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"ssd plan failed: CUDA error {rc}")
+    return tuple(v.value for v in out)
 
 
 def smem_bytes(chunk: int, N: int, P: int, dtype: torch.dtype = torch.bfloat16) -> int:
@@ -154,14 +217,25 @@ def ssd_scan_cuda(x, dt, A, Bmat, Cmat, *, chunk: int) -> tuple[torch.Tensor, to
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bmat, Cmat)):
         raise RuntimeError(NO_BACKWARD)
     B, S, H, P, N = _check_inputs(x, dt, A, Bmat, Cmat, chunk)
-    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
-    state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     if abstract.is_abstract(x):
         abstract.record("ssd", abstract.ssd_flops(B, S, H, P, N, chunk))
-        return y, state
+        return (torch.empty((B, S, H, P), dtype=x.dtype, device=x.device),
+                torch.empty((B, H, N, P), dtype=torch.float32, device=x.device))
+    y, state = run_fwd(_kernel(), x, dt, A, Bmat, Cmat, chunk)
+    launches += 1
+    return y, state
+
+
+def run_fwd(fn, x, dt, A, Bmat, Cmat, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One call of a forward C entry ``fn`` (:func:`bind_fwd`) on checked
+    CUDA inputs: y and the final state, allocated here."""
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _kernel()(
+        rc = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
             y.data_ptr(), state.data_ptr(),
             _DTYPE_CODE[x.dtype], B, S, H, P, N, chunk,
@@ -170,7 +244,6 @@ def ssd_scan_cuda(x, dt, A, Bmat, Cmat, *, chunk: int) -> tuple[torch.Tensor, to
         )
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
-    launches += 1
     return y, state
 
 
@@ -194,19 +267,34 @@ def ssd_scan_bwd_cuda(x, dt, A, Bmat, Cmat, dy, dfinal=None, *, chunk: int):
             raise ValueError(f"ssd_scan_bwd: dfinal is {tuple(dfinal.shape)} on "
                              f"{dfinal.device}, expected {(B, H, N, P)} on {x.device}")
         dfinal = dfinal.float().contiguous()
+    if abstract.is_abstract(x):   # the scratch's size is the built library's: not allocated
+        abstract.record("ssd_bwd", 2 * abstract.ssd_flops(B, S, H, P, N, chunk))
+        return (torch.empty((B, S, H, P), dtype=x.dtype, device=x.device),
+                torch.empty((B, S, H), dtype=torch.float32, device=x.device),
+                torch.empty((H,), dtype=torch.float32, device=x.device),
+                torch.empty((B, S, N), dtype=x.dtype, device=x.device),
+                torch.empty((B, S, N), dtype=x.dtype, device=x.device))
+    out = run_bwd(_bwd_kernel(), bwd_scratch_bytes(B, S, H, P, N, chunk, x.dtype),
+                  x, dt, A, Bmat, Cmat, dy, dfinal, chunk)
+    bwd_launches += 1
+    return out
+
+
+def run_bwd(fn, scratch_bytes: int, x, dt, A, Bmat, Cmat, dy, dfinal, chunk: int):
+    """One call of a backward C entry ``fn`` (:func:`bind_bwd`) on checked
+    CUDA inputs with ``scratch_bytes`` of scratch: (dx, ddt, dA, dB, dC),
+    allocated here."""
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
     dx = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     ddt = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
     dA = torch.empty((H,), dtype=torch.float32, device=x.device)
     dB = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
     dC = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
-    if abstract.is_abstract(x):   # the scratch's size is the built library's: not allocated
-        abstract.record("ssd_bwd", 2 * abstract.ssd_flops(B, S, H, P, N, chunk))
-        return dx, ddt, dA, dB, dC
-    scratch = torch.empty((bwd_scratch_bytes(B, S, H, P, N, chunk) // 4,), dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty((scratch_bytes // 4,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _bwd_kernel()(
+        rc = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
             dy.data_ptr(), None if dfinal is None else dfinal.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
@@ -216,7 +304,6 @@ def ssd_scan_bwd_cuda(x, dt, A, Bmat, Cmat, dy, dfinal=None, *, chunk: int):
         )
     if rc != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: CUDA error {rc}")
-    bwd_launches += 1
     return dx, ddt, dA, dB, dC
 
 

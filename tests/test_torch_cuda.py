@@ -1247,6 +1247,38 @@ def test_mlstm_backward_path_follows_dtype(dev):
         assert ran == want
 
 
+SSD_NAME = r"(ssd_\w+?)(?:<|\(|$)"
+
+
+def test_ssd_path_follows_dtype(dev):
+    """The dtype alone picks the SSD's kernels, in launch order by profiler
+    name: a bf16 forward call is one ssd_fwd_wgmma launch and a bf16
+    backward call ssd_bwd_wgmma then ssd_bwd_gsum (H 7: groups that do not
+    divide the heads); fp32 runs ssd_fwd, and ssd_bwd then ssd_bwd_reduce."""
+    kernels = {torch.bfloat16: (["ssd_fwd_wgmma"], ["ssd_bwd_wgmma", "ssd_bwd_gsum"]),
+               torch.float32: (["ssd_fwd"], ["ssd_bwd", "ssd_bwd_reduce"])}
+    for dtype, (fwd, bwd) in kernels.items():
+        args = ssd_inputs(2, 384, 7, 64, 64, dtype, dev, seed=46)
+        dy = rand((2, 384, 7, 64), dtype, 47, dev)
+        assert kernel_names(lambda: ssd.ssd_scan_cuda(*args, chunk=128), SSD_NAME, fwd) == fwd
+        assert kernel_names(lambda: ssd.ssd_scan_bwd_cuda(*args, dy, chunk=128), SSD_NAME,
+                            bwd) == bwd
+
+
+def test_ssd_plan_follows_the_group_rule(dev):
+    """The bf16 kernels' plan on the card (heads a block, chunks a block,
+    blocks a cluster, blocks that run at once) is the Python mirror of the
+    rule at the slots the library measures, at zamba2's serve / train
+    shape, a (2, 2) mesh rank's, the long serve mode's and an H 3 edge."""
+    for B, S, H, chunk in [(8, 512, 64, 128), (4, 512, 32, 128), (1, 4096, 64, 128),
+                           (1, 1100, 3, 32)]:
+        for backward in (False, True):
+            G, k, cs, slots = ssd.plan(B, S, H, chunk, backward=backward)
+            assert (k, cs) == ssd.chunk_plan(-(-S // chunk))
+            assert slots >= cs and slots % cs == 0
+            assert G == ssd.group_size(B, S, H, chunk, slots, backward=backward)
+
+
 def test_mlstm_function_final_state_is_not_differentiable(dev):
     args = [a.requires_grad_() for a in mlstm_inputs(1, 32, 2, 16, torch.float32, dev)]
     h, (S_f, n_f, m_f) = ops.mlstm_scan(*args, chunk=16)
